@@ -1,0 +1,130 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use into ``build/repro_torch/`` under the checkout, named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  :func:`build_all` starts one ``nvcc`` per
+source together.  A missing ``nvcc`` or a failed build raises.
+
+Every kernel wrapper adds one to its entry of the launch counts where it
+launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("stencil_direct", "stencil_banded")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNTS: collections.Counter = collections.Counter()
+
+#: nvcc's diagnostics (ptxas register and shared-memory report) of the
+#: builds this process ran, by kernel name.
+build_logs: Dict[str, str] = {}
+
+
+def count_launch(name: str) -> None:
+    _COUNTS[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: _COUNTS[name] for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    _COUNTS.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built from "
+        "src/repro_torch/kernels/csrc at first use and need the CUDA "
+        "toolkit on PATH (or under /usr/local/cuda)")
+
+
+def _target(name: str) -> pathlib.Path:
+    """The library path of ``name``, keyed by its source, the shared
+    headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, out: pathlib.Path) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: pathlib.Path, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    build_logs[name] = log
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=KERNELS) -> None:
+    """Build every kernel not yet built, one ``nvcc`` per source started
+    together, and load them."""
+    with _LOCK:
+        pending = {n: _target(n) for n in names if n not in _LIBS}
+        procs = {n: _start(n, out) for n, out in pending.items()
+                 if not out.exists()}
+        errors = []
+        for n, proc in procs.items():
+            try:
+                _finish(n, pending[n], proc)
+            except RuntimeError as e:   # finish the others, then report
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        for n, out in pending.items():
+            lib = ctypes.CDLL(str(out))
+            lib.error_string.restype = ctypes.c_char_p
+            lib.error_string.argtypes = [ctypes.c_int]
+            _LIBS[n] = lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib: Optional[ctypes.CDLL] = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _LIBS[name]
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch of kernel ``name`` returned a CUDA error."""
+    if err != 0:
+        lib = library(name)
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

@@ -1,0 +1,340 @@
+"""Tile geometry of the port's Hopper kernels, and the sizing subset of
+``repro.kernels.common`` the selector prices with.
+
+The JAX package stages halos through a BlockSpec ring because TPU blocks
+cannot overlap (``repro/kernels/common.py:3-8``).  Hopper blocks can, so
+the port's launch geometry is its own:
+
+  * one CTA computes a (TM x TN) output tile and reads its
+    (TM + 2h) x (TN + 2h) region straight from global memory, with
+    periodic modulo indices on both axes (h = t*r for the fused regimes);
+  * intermediate steps stay in shared memory and CARRY the x-halo,
+    shrinking both axes by r per step -- the ``wrap_x=False`` form of the
+    JAX kernels, which computes the same function as the full-width
+    re-wrap;
+  * ragged edge tiles are masked on store, so any H and W run.
+
+The plan prices this tile as ``SubstrateGeom(strip_m=TM, h_block=h,
+w_tile=TN, w_block=h)``, so the priced read amplification
+(1 + 2h/TM)(1 + 2h/TN) is that of the region the kernel really loads.
+Tiles are sized under a shared-memory budget (227 KB per block) in place
+of the JAX package's 8 MB VMEM budget.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterator, Optional, Tuple
+
+#: Whole-strip foil loads (kept for ``substrate_read_amp``'s h_block=0 case).
+STRIP_NEIGHBOR_LOADS = 3
+
+#: Shared memory one H100 block may use (232,448 bytes = 227 KB).
+SMEM_BUDGET_BYTES = 232448
+
+#: Output tile edge the sizing prefers: at h = 4 the region read is
+#: (1 + 8/64)^2 = 1.27x the tile, and two 64x64 CTAs fit on one SM.
+PREFERRED_TILE = 64
+
+#: wmma fragment edge (M = N = 16); tile edges are multiples of it.
+MMA_TILE = 16
+
+#: Output columns of one banded chunk: the band operand is
+#: (BAND_N + 2R, BAND_N), one wmma N wide.
+BAND_N = 16
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Sizing subset of repro.kernels.common, copied so the selector prices the
+# same way (pricing_geom, SubstrateGeom, substrate_read_amp, ...).
+# ---------------------------------------------------------------------------
+def choose_hblock(strip_m: int, halo: int) -> int:
+    """Halo-block height: smallest divisor of strip_m >= max(halo, strip/16)
+    (the JAX rule; the selector's grid-free pricing resolves with it)."""
+    if strip_m <= 0:
+        raise ValueError(f"strip height must be positive, got {strip_m}")
+    floor = max(halo, -(-strip_m // 16))      # integer ceil division
+    cands = [d for d in range(1, strip_m + 1)
+             if strip_m % d == 0 and d >= floor]
+    return min(cands) if cands else strip_m
+
+
+def substrate_read_amp(strip_m: int, h_block: int) -> float:
+    """Analytic grid-read amplification along one axis: 1 + 2*h_block/strip_m
+    for a tile of ``strip_m`` reading ``h_block`` halo cells per side;
+    3.0 for the JAX whole-strip foil (``h_block=0``)."""
+    if h_block is None:
+        raise ValueError("h_block=None is 'auto' in the kernel API; resolve "
+                         "it via choose_hblock first, or pass 0 for the "
+                         "whole-strip substrate")
+    if h_block == 0:
+        return float(STRIP_NEIGHBOR_LOADS)
+    return 1.0 + 2.0 * h_block / strip_m
+
+
+@dataclasses.dataclass(frozen=True)
+class SubstrateGeom:
+    """Resolved tile geometry of one launch (the JAX dataclass, so reason
+    strings and read amplifications match it verbatim).  The port's 2D
+    tiles are ``SubstrateGeom(2, strip_m=TM, h_block=h, w_tile=TN,
+    w_block=h)``."""
+
+    dim: int
+    strip_m: int
+    h_block: int                 # 0 = whole-strip/whole-slab foil
+    z_slab: int = 1              # 3D only; 1 otherwise
+    z_block: int = 0             # 3D only
+    w_tile: int = 0              # 0 = full width
+    w_block: int = 0             # column halo block; 0 iff w_tile == 0
+
+    @property
+    def read_amp(self) -> float:
+        if self.dim == 1:
+            return 1.0
+        amp = substrate_read_amp(self.strip_m, self.h_block)
+        if self.dim == 3:
+            amp *= substrate_read_amp(self.z_slab, self.z_block)
+        if self.w_tile:
+            amp *= substrate_read_amp(self.w_tile, self.w_block)
+        return amp
+
+    def describe(self) -> str:
+        """The substrate clause of decision reason strings."""
+        if self.dim == 3:
+            geo = (f"z_slab={self.z_slab}, z_block={self.z_block}, "
+                   f"strip_m={self.strip_m}, h_block={self.h_block}")
+        elif self.dim == 1:
+            geo = f"1D lifted, strip_m={self.strip_m}"
+        else:
+            geo = f"strip_m={self.strip_m}, h_block={self.h_block}"
+        if self.dim >= 2:
+            if self.w_tile:
+                geo += f", w_tile={self.w_tile}, w_block={self.w_block}"
+            else:
+                geo += ", w_tile=full"
+        return f"substrate read_amp={self.read_amp:.3f}x ({geo})"
+
+
+def _resolve_z_block(h_block: int, z_block: int, z_slab: int,
+                     halo: int) -> int:
+    if h_block == 0:
+        return 0
+    if z_block == 0:
+        raise ValueError(
+            "z_block=0 (whole-slab) is only valid together with "
+            "h_block=0 (the whole-slab foil substrate)")
+    return z_block if z_block is not None else choose_hblock(z_slab, halo)
+
+
+def _resolve_w_block(w_tile: int, w_block: int, h_block: int,
+                     x_halo: int) -> tuple:
+    if not w_tile:
+        if w_block:
+            raise ValueError(
+                f"w_block={w_block} without a w_tile names no substrate; "
+                "pin w_tile too (or drop both for full width)")
+        return 0, 0
+    if h_block == 0:
+        raise ValueError(
+            "the whole-strip/whole-slab foil substrate (h_block=0) spans "
+            "the full width; column tiling (w_tile > 0) requires the "
+            "sub-blocked substrate")
+    if w_block is None or w_block == 0:
+        return w_tile, choose_hblock(w_tile, max(x_halo, 1))
+    return w_tile, w_block
+
+
+def pricing_geom(dim: int, halo: int, strip_m: int = 128,
+                 h_block: int = None, z_slab: int = None,
+                 z_block: int = None, w_tile: int = None,
+                 w_block: int = None) -> SubstrateGeom:
+    """Grid-free geometry resolution for pricing (the JAX rule verbatim)."""
+    if dim == 1:
+        return SubstrateGeom(dim=1, strip_m=1, h_block=1)
+    hb = choose_hblock(strip_m, halo) if h_block is None else h_block
+    wt, wb = _resolve_w_block(w_tile, w_block, hb, halo)
+    if dim == 2:
+        return SubstrateGeom(dim=2, strip_m=strip_m, h_block=hb,
+                             w_tile=wt, w_block=wb)
+    if dim != 3:
+        raise ValueError(f"substrate supports 1D/2D/3D grids, got dim {dim}")
+    zs = strip_m if z_slab is None else z_slab
+    zb = _resolve_z_block(hb, z_block, zs, halo)
+    return SubstrateGeom(dim=3, strip_m=strip_m, h_block=hb,
+                         z_slab=zs, z_block=zb, w_tile=wt, w_block=wb)
+
+
+def _check_wrap_radius(w: int, r: int, mode: str = "periodic") -> None:
+    """The per-axis radius guard of the JAX package, kept so both packages
+    reject the same grids."""
+    if mode == "periodic":
+        if w < r:
+            raise ValueError(
+                f"wrap radius {r} exceeds grid width {w}; lower the radius")
+        return
+    if r >= w:
+        raise ValueError(
+            f"stencil radius {r} spans the whole {mode!r} axis "
+            f"(extent {w}); a non-periodic axis needs extent > radius "
+            "-- enlarge the grid or use a narrower stencil")
+
+
+def hbm_read_bytes_per_step(shape, strip_m: int, dtype_bytes: int,
+                            bands_shape=None, h_block: int = 0,
+                            w_tile: int = 0, w_block: int = 0) -> int:
+    """Analytic HBM read traffic of one JAX strip-substrate launch (the
+    JAX model, copied for the traffic comparison; the port's own tiles
+    read ``read_amp`` times the grid, see :func:`tile_read_bytes`)."""
+    import numpy as np
+
+    h, w = shape
+    gm = h // strip_m
+    rows_per_strip = round(strip_m * substrate_read_amp(strip_m, h_block))
+    if w_tile:
+        gw = -(-w // w_tile)
+        cols_per_tile = round(w_tile * substrate_read_amp(w_tile, w_block))
+        cells = gm * gw
+        total = cells * rows_per_strip * cols_per_tile * dtype_bytes
+    else:
+        cells = gm
+        total = gm * rows_per_strip * w * dtype_bytes
+    if bands_shape is not None:
+        total += cells * int(np.prod(bands_shape)) * dtype_bytes
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The port's own tiles
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SmemLayout:
+    """Shared-memory layout of one kernel launch (element counts, bytes).
+
+    ``rows`` x ``ld`` f32 elements per region buffer; ``kpad`` the banded
+    contraction depth BAND_N + 2R rounded up to the MMA K step; ``chunks``
+    x ``a_rows`` x ``kpad`` the banded kernel's chunked operand array (all
+    three 0 for the tap-sum); ``smem_bytes`` the dynamic shared memory the
+    launch asks for.
+    """
+
+    rows: int
+    ld: int
+    smem_bytes: int
+    kpad: int = 0
+    a_rows: int = 0
+    chunks: int = 0
+
+
+def mma_k_step(compute_bytes: int) -> int:
+    """wmma K step: 8 for TF32 (m16n16k8), 16 for bf16 (m16n16k16)."""
+    return 8 if compute_bytes == 4 else 16
+
+
+def direct_layout(tm: int, tn: int, halo: int) -> SmemLayout:
+    """Tap-sum kernel: two f32 buffers holding the (TM+2h) x (TN+2h) region."""
+    rows, ld = tm + 2 * halo, tn + 2 * halo
+    return SmemLayout(rows, ld, 2 * rows * ld * 4)
+
+
+def _align(nbytes: int) -> int:
+    return _round_up(nbytes, 128)
+
+
+def banded_layout(tm: int, tn: int, radius: int, t: int,
+                  compute_bytes: int) -> SmemLayout:
+    """Banded kernel: one f32 region buffer and the chunked operand array
+    A[c][row][k] (compute dtype) the MMAs read.
+
+    Step s computes its (TM + 2(t-1-s)r)-square output in whole 16x16 MMA
+    tiles, so the region holds the rounded-up extent as well as the
+    step-0 region, and A holds the rows those tiles read (rounded-up
+    extent + 2r) for every 16-column chunk of the step-0 output.  The
+    region's row stride avoids multiples of 32 floats, which would put
+    every row of a fragment store in the same bank.
+    """
+    halo = t * radius
+    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
+    lead_out = 2 * (t - 1) * radius
+    rows = max(tm + 2 * halo, _round_up(tm + lead_out, MMA_TILE))
+    ld = _round_up(max(tn + 2 * halo, _round_up(tn + lead_out, MMA_TILE)), 8)
+    if ld % 32 == 0:
+        ld += 8
+    a_rows = _round_up(tm + lead_out, MMA_TILE) + 2 * radius
+    chunks = -(-(tn + lead_out) // BAND_N)
+    smem = _align(rows * ld * 4) + chunks * a_rows * kpad * compute_bytes
+    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks)
+
+
+def tile_smem_bound(tm: int, tn: int, halo: int) -> int:
+    """Upper bound on either kernel's shared memory at total halo ``halo``:
+    the banded kernel at R = halo (monolithic fusion, the deepest K) with
+    the row rounding of the reuse regime, in f32."""
+    rows = tm + 2 * halo + MMA_TILE
+    ld = tn + 2 * halo + MMA_TILE + 8
+    chunks = -(-(tn + 2 * halo) // BAND_N)
+    return (_align(rows * ld * 4)
+            + chunks * rows * _round_up(BAND_N + 2 * halo, 16) * 4)
+
+
+def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:
+    cap = _round_up(extent, MMA_TILE)
+    if pin is not None:
+        if pin <= 0 or pin % MMA_TILE:
+            raise ValueError(
+                f"{axis}={pin} must be a positive multiple of {MMA_TILE} "
+                "(the wmma tile edge)")
+        return [min(pin, cap)]
+    return [min(c, cap) for c in (PREFERRED_TILE, 32, MMA_TILE)]
+
+
+def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
+                      w_tile: Optional[int] = None) -> SubstrateGeom:
+    """THE port's tile rule: the largest output tile, at most
+    PREFERRED_TILE on each axis and a multiple of 16, whose shared memory
+    (``tile_smem_bound``) fits the 227 KB budget.  ``tile_m`` / ``w_tile``
+    pin TM / TN (multiples of 16; clamped to the grid rounded up to 16).
+    """
+    if len(grid_shape) != 2:
+        raise NotImplementedError(
+            f"the port tiles 2D grids only, got rank {len(grid_shape)}; "
+            "3D slabs and the 1D lift are ROADMAP queue 1, item 8")
+    if halo < 1:
+        raise ValueError(f"halo must be >= 1, got {halo}")
+    h, w = grid_shape
+    tms = _tile_candidates(h, tile_m, "tile_m")
+    tns = _tile_candidates(w, w_tile, "w_tile")
+    for k in range(max(len(tms), len(tns))):
+        tm, tn = tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)]
+        if tile_smem_bound(tm, tn, halo) <= SMEM_BUDGET_BYTES:
+            return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
+                                 w_tile=tn, w_block=halo)
+    raise ValueError(
+        f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
+        f"{SMEM_BUDGET_BYTES} bytes of shared memory; lower the fusion "
+        "depth")
+
+
+def launch_grid(grid_shape, geom: SubstrateGeom) -> Tuple[int, int]:
+    """CUDA grid (tiles along x = columns, tiles along y = rows)."""
+    h, w = grid_shape
+    return math.ceil(w / geom.w_tile), math.ceil(h / geom.strip_m)
+
+
+def tile_windows(grid_shape, geom: SubstrateGeom) -> Iterator[tuple]:
+    """Every CTA's output rows/cols (clipped to the grid) and the unwrapped
+    rows/cols it reads, exactly as the kernels index them:
+    ``((out_r0, out_r1), (out_c0, out_c1), (rd_r0, rd_r1), (rd_c0, rd_c1))``
+    with reads taken modulo the grid."""
+    h, w = grid_shape
+    gx, gy = launch_grid(grid_shape, geom)
+    tm, tn, hh = geom.strip_m, geom.w_tile, geom.h_block
+    for by in range(gy):
+        for bx in range(gx):
+            i0, j0 = by * tm, bx * tn
+            yield ((i0, min(i0 + tm, h)), (j0, min(j0 + tn, w)),
+                   (i0 - hh, i0 + tm + hh), (j0 - hh, j0 + tn + hh))
+

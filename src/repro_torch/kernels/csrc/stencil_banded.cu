@@ -1,0 +1,215 @@
+// Banded (Toeplitz) stencil contraction on the tensor cores for Hopper
+// (sm_90a): t steps of a 2D periodic stencil, one (TM x TN) output tile per
+// CTA, every product a wmma MMA (TF32 m16n16k8 for f32 operands, bf16
+// m16n16k16 for bf16 operands) with f32 accumulators.
+//
+// Replaces repro/kernels/stencil_matmul.py::stencil_matmul / _banded_step /
+// _banded_steps together with the halo staging that
+// repro/kernels/common.py::_launch (kinds subblocked / flat) does for it on
+// the TPU.  The host builds the operands with build_bands_nd, as the JAX
+// package does: for every structurally nonzero kernel row dy a band
+// B_dy of (BAND_N + 2R, BAND_N) with B_dy[j + dx, j] = w[dy, dx], here
+// padded with zero rows to KPAD (the MMA K step) and stored in the compute
+// dtype.  An output chunk of 16 columns is  sum_dy  A_dy @ B_dy,  A_dy the
+// dy-shifted (16, KPAD) slab of the input region.
+//
+// What bounds it on an H100: for the stencils of this repository, bytes.
+// The band form spends KPAD * 16 MACs per 16 outputs per kernel row,
+// KPAD / (2R + 1) times the useful work, and still stays under the
+// 495 TFLOP/s TF32 roof next to 3.35 TB/s of HBM for small t*R.  So, as in
+// the tap-sum kernel, each tile's (TM+2h) x (TN+2h) region is read from
+// global memory once (h = t*R, periodic modulo indices on both axes), all
+// t steps run in shared memory (intermediates stay f32 and round to the
+// compute dtype only as MMA operands, as stencil_matmul.py:175 does), the
+// x-halo is carried and both axes shrink by R per step, and the tile is
+// written once, masked at the ragged edge.
+//
+// Each step first copies the f32 region into a chunked operand array
+// A[c][row][k] = region[row][16c + k] in the compute dtype, with zeros
+// for k >= BAND_N + 2R (the K padding) and past the region's valid extent,
+// so NaN * 0 never reaches a valid output and every A_dy is a plain
+// aligned fragment load.  Then each warp takes one kernel row's band at a
+// time into registers (B fragments loaded from global memory, where it is
+// L1/L2-resident; never the whole stack: a monolithically fused r=3, t=4
+// stencil has 25 bands) and runs it against two 16x16 output tiles per
+// pass, whose accumulators stay in registers across the rows; the sums land
+// back in the (single) f32 region buffer.  Measured on the card, these
+// copies and the global load, not the MMAs, took most of the time: both
+// keep several loads in flight per thread, and the largest shared-memory
+// carveout lets three CTAs share an SM.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+#define MAX_ROWS 64
+#define MMA_TILE 16
+#define BAND_N 16
+#define MAX_TILES_PER_WARP 2
+#define MAX_KPAD 64
+
+struct BandRows {
+    int n;
+    int dy[MAX_ROWS];
+};
+
+template <typename TC> struct Mma;
+
+template <> struct Mma<float> {  // TF32 operands
+    static constexpr int K = 8;
+    static constexpr int MAX_KS = MAX_KPAD / 8;
+    using A = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
+    using B = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major>;
+    using C = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
+    __device__ static __forceinline__ float cvt(float v) { return wmma::__float_to_tf32(v); }
+    __device__ static __forceinline__ void round_b(B& b) {
+#pragma unroll
+        for (int i = 0; i < b.num_elements; ++i) b.x[i] = wmma::__float_to_tf32(b.x[i]);
+    }
+};
+
+template <> struct Mma<__nv_bfloat16> {
+    static constexpr int K = 16;
+    static constexpr int MAX_KS = MAX_KPAD / 16;
+    using A = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+    using B = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+    using C = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+    __device__ static __forceinline__ __nv_bfloat16 cvt(float v) { return __float2bfloat16_rn(v); }
+    __device__ static __forceinline__ void round_b(B&) {}  // host stored bf16
+};
+
+__host__ __device__ __forceinline__ size_t align128(size_t n) { return (n + 127) & ~(size_t)127; }
+
+// Shared memory: the f32 region (rows x ld), then the chunked operand array
+// (chunks x a_rows x kpad, compute dtype), 128-byte aligned.  The host sizes
+// all of these (repro_torch/kernels/common.py::banded_layout) and passes
+// the byte count at launch.
+template <typename TIn, typename TC>
+__global__ void __launch_bounds__(CTA_THREADS)
+stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
+                      const TC* __restrict__ bands, int H, int W, int TM, int TN, int t,
+                      int R, int rows, int ld, int a_rows, int kpad, BandRows br) {
+    using M = Mma<TC>;
+    extern __shared__ __align__(128) unsigned char smem[];
+    float* const region = reinterpret_cast<float*>(smem);
+    TC* const achunks = reinterpret_cast<TC*>(smem + align128((size_t)rows * ld * sizeof(float)));
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int halo = t * R;
+    const int h0 = TM + 2 * halo, w0 = TN + 2 * halo;
+    const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
+    const int band_k = BAND_N + 2 * R;  // valid rows of one band
+    const int nks = kpad / M::K;
+
+    load_region(region, ld, x, H, W, i0 - halo, j0 - halo, h0, w0);
+    __syncthreads();
+
+    int hin = h0, win = w0;
+    for (int s = 0; s < t; ++s) {
+        const int ho = hin - 2 * R, wo = win - 2 * R;
+        const int nch = (wo + BAND_N - 1) / BAND_N;
+        const int ntiles = ((ho + MMA_TILE - 1) / MMA_TILE) * nch;
+
+        // Chunked, rounded, zero-padded copy of the step's input.
+        // Four rows per warp at a time, so four loads are in flight.
+        for (int c = 0; c < nch; ++c) {
+            const int c0 = c * BAND_N;
+            const int kv = min(band_k, win - c0);
+            TC* dst = achunks + (size_t)c * a_rows * kpad;
+            for (int rb = warp * 4; rb < a_rows; rb += CTA_WARPS * 4)
+                for (int k = lane; k < kpad; k += 32) {
+                    float v[4];
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+                        v[u] = (rb + u < hin && k < kv) ? region[(rb + u) * ld + c0 + k] : 0.f;
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+                        if (rb + u < a_rows) dst[(rb + u) * kpad + k] = M::cvt(v[u]);
+                }
+        }
+        __syncthreads();
+
+        for (int base = 0; base < ntiles; base += CTA_WARPS * MAX_TILES_PER_WARP) {
+            typename M::C acc[MAX_TILES_PER_WARP];
+#pragma unroll
+            for (int q = 0; q < MAX_TILES_PER_WARP; ++q) wmma::fill_fragment(acc[q], 0.f);
+
+            // Tiles past the last are clamped onto it (computed, not
+            // stored), so the loops carry no branches and the warp's
+            // MAX_TILES_PER_WARP products of one k-step issue back to back.
+            int a_off[MAX_TILES_PER_WARP];
+#pragma unroll
+            for (int q = 0; q < MAX_TILES_PER_WARP; ++q) {
+                const int tile = min(base + q * CTA_WARPS + warp, ntiles - 1);
+                const int mt = tile / nch, nt = tile - mt * nch;
+                a_off[q] = (nt * a_rows + mt * MMA_TILE) * kpad;
+            }
+            for (int p = 0; p < br.n; ++p) {
+                const TC* bp = bands + (size_t)p * kpad * BAND_N;
+                const int dy_off = br.dy[p] * kpad;
+#pragma unroll
+                for (int ks = 0; ks < M::MAX_KS; ++ks)
+                    if (ks < nks) {
+                        typename M::B b;
+                        wmma::load_matrix_sync(b, bp + ks * M::K * BAND_N, BAND_N);
+                        M::round_b(b);
+                        typename M::A a[MAX_TILES_PER_WARP];
+#pragma unroll
+                        for (int q = 0; q < MAX_TILES_PER_WARP; ++q)
+                            wmma::load_matrix_sync(a[q], achunks + a_off[q] + dy_off + ks * M::K, kpad);
+#pragma unroll
+                        for (int q = 0; q < MAX_TILES_PER_WARP; ++q)
+                            wmma::mma_sync(acc[q], a[q], b, acc[q]);
+                    }
+            }
+            // The operands live in achunks, so the sums may overwrite the region.
+#pragma unroll
+            for (int q = 0; q < MAX_TILES_PER_WARP; ++q) {
+                const int tile = base + q * CTA_WARPS + warp;
+                if (tile < ntiles) {
+                    const int mt = tile / nch, nt = tile - mt * nch;
+                    wmma::store_matrix_sync(region + (size_t)mt * MMA_TILE * ld + nt * BAND_N, acc[q],
+                                            ld, wmma::mem_row_major);
+                }
+            }
+        }
+        __syncthreads();
+        hin = ho;
+        win = wo;
+    }
+
+    store_tile(y, H, W, i0, j0, TM, TN, region, ld);
+}
+
+template <typename TIn, typename TC>
+static int launch(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
+                  int t, int R, int rows, int ld, int a_rows, int kpad, const BandRows* br,
+                  int smem_bytes, cudaStream_t stream) {
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_launch(stencil_banded_kernel<TIn, TC>, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
+    stencil_banded_kernel<TIn, TC><<<grid, CTA_THREADS, smem_bytes, stream>>>(
+        static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(bands), H, W,
+        TM, TN, t, R, rows, ld, a_rows, kpad, *br);
+    return (int)cudaGetLastError();
+}
+
+// dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands are
+// (n, kpad, 16) in the compute dtype.  Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int stencil_banded_launch(const void* x, void* y, const void* bands, int H, int W,
+                                     int TM, int TN, int t, int R, int rows, int ld, int a_rows,
+                                     int kpad, int dtype, int compute, const BandRows* br,
+                                     int smem_bytes, void* stream) {
+    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, br, smem_bytes, s
+    if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
+    if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
+    if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);
+    if (dtype == 1 && compute == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
+#undef ARGS
+    return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,131 @@
+// Tap-sum stencil kernel for Hopper (sm_90a): t fused steps of a 2D
+// periodic stencil, one (TM x TN) output tile per CTA.
+//
+// Replaces repro/kernels/stencil_direct.py::stencil_direct / _stencil_steps
+// together with the halo staging that repro/kernels/common.py::_launch
+// (kinds subblocked / flat) does for it on the TPU.
+//
+// What bounds it on an H100: bytes.  A step costs 2K flops per point
+// (K <= 49 taps) against 8 bytes moved for an f32 grid, far below the
+// 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of the CUDA cores until
+// t*K is large.  The design therefore reads each tile's
+// (TM+2h) x (TN+2h) region from global memory once (h = t*r, periodic
+// modulo indices on both axes; Hopper blocks may read overlapping
+// regions, so there is no halo ring), runs all t steps out of two
+// ping-pong f32 buffers in shared memory, carrying the x-halo and
+// shrinking both axes by r per step, and writes the tile once, masked at
+// the ragged grid edge.  Between those, what costs is latency and
+// instruction issue: the region load keeps 32 loads in flight per thread,
+// and each thread computes V rows of one column from a (V+2r) x (2r+1)
+// register window, so an output costs (2r+1)(V+2r)/V shared-memory loads
+// instead of K.  The taps come in as a by-value argument in row-major
+// order with the zero taps left out, as the JAX kernel skips them at
+// trace time; the kernel is specialised on r <= 3.
+#include "common.cuh"
+
+#define MAX_TAPS 49
+#define ROWS_PER_THREAD 8
+
+struct Taps {
+    int n;
+    int dy[MAX_TAPS];
+    int dx[MAX_TAPS];
+    float w[MAX_TAPS];
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(CTA_THREADS)
+stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
+                      int TM, int TN, int t, Taps taps) {
+    constexpr int KW = 2 * R + 1;
+    constexpr int V = ROWS_PER_THREAD;
+    extern __shared__ float smem[];
+    __shared__ float wsh[KW * KW];  // dense taps; zero where skipped
+
+    const int halo = t * R;
+    const int rows0 = TM + 2 * halo;
+    const int ld = TN + 2 * halo;
+    float* const b0 = smem;
+    float* const b1 = smem + rows0 * ld;
+    const int i0 = blockIdx.y * TM;
+    const int j0 = blockIdx.x * TN;
+
+    if (threadIdx.x < KW * KW) wsh[threadIdx.x] = 0.f;
+    __syncthreads();
+    if (threadIdx.x < taps.n) wsh[taps.dy[threadIdx.x] * KW + taps.dx[threadIdx.x]] = taps.w[threadIdx.x];
+    load_region(b0, ld, x, H, W, i0 - halo, j0 - halo, rows0, ld);
+    __syncthreads();
+
+    int hin = rows0, win = ld;
+    for (int s = 0; s < t; ++s) {
+        const float* in = (s & 1) ? b1 : b0;
+        float* out = (s & 1) ? b0 : b1;
+        const int ho = hin - 2 * R, wo = win - 2 * R;
+        const int strips = ((ho + V - 1) / V) * wo;
+        for (int sid = threadIdx.x; sid < strips; sid += blockDim.x) {
+            const int rb = sid / wo;
+            const int j = sid - rb * wo;
+            const int r0 = rb * V;
+            float win_[V + 2 * R][KW];
+#pragma unroll
+            for (int q = 0; q < V + 2 * R; ++q)
+#pragma unroll
+                for (int dx = 0; dx < KW; ++dx)
+                    win_[q][dx] = (r0 + q < hin) ? in[(r0 + q) * ld + j + dx] : 0.f;
+            float acc[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[v] = 0.f;
+            // Row-major tap order per output; zero taps are skipped.
+#pragma unroll
+            for (int dy = 0; dy < KW; ++dy)
+#pragma unroll
+                for (int dx = 0; dx < KW; ++dx) {
+                    const float wv = wsh[dy * KW + dx];
+                    if (wv != 0.f) {
+#pragma unroll
+                        for (int v = 0; v < V; ++v) acc[v] = fmaf(wv, win_[v + dy][dx], acc[v]);
+                    }
+                }
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+                if (r0 + v < ho) out[(r0 + v) * ld + j] = acc[v];
+        }
+        __syncthreads();
+        hin = ho;
+        win = wo;
+    }
+    store_tile(y, H, W, i0, j0, TM, TN, (t & 1) ? b1 : b0, ld);
+}
+
+template <typename T, int R>
+static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t,
+                  const Taps* taps, int smem_bytes, cudaStream_t stream) {
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_launch(stencil_direct_kernel<T, R>, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
+    stencil_direct_kernel<T, R><<<grid, CTA_THREADS, smem_bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), H, W, TM, TN, t, *taps);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r,
+                    const Taps* taps, int smem_bytes, cudaStream_t s) {
+    if (r == 1) return launch<T, 1>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
+    if (r == 2) return launch<T, 2>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
+    if (r == 3) return launch<T, 3>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3.  Returns
+// the cudaError_t of the launch (0 on success).
+extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int TM, int TN,
+                                     int t, int r, int dtype, const Taps* taps,
+                                     int smem_bytes, void* stream) {
+    if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return launch_r<float>(x, y, H, W, TM, TN, t, r, taps, smem_bytes, s);
+    if (dtype == 1) return launch_r<__nv_bfloat16>(x, y, H, W, TM, TN, t, r, taps, smem_bytes, s);
+    return (int)cudaErrorInvalidValue;
+}

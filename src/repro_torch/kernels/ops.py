@@ -1,0 +1,88 @@
+"""One-shot entry points over the plan API (the counterpart of
+``repro.kernels.ops``).
+
+``stencil_apply(x, weights, t, backend="auto")`` builds-or-fetches the
+:class:`~repro_torch.kernels.plan.StencilPlan` of the call's signature on
+``x``'s device and runs it.  Backends: ``direct``, ``fused_direct``,
+``matmul``, ``fused_matmul``, ``fused_matmul_reuse``, ``reference``, and
+``auto`` (the selector decides among the priced ones).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import perfmodel as pm
+from repro_torch.core.selector import Decision
+from repro_torch.stencil.boundary import resolve_boundary
+from . import registry
+from .common import BAND_N, resolve_tile_geom
+from .plan import _later_slice, decide, spec_from_weights, stencil_plan
+
+
+def __getattr__(name):
+    # Computed on access so late-registered backends are visible.
+    if name == "BACKENDS":
+        return registry.registered_backends() + ("auto",)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def stencil_apply(
+    x: torch.Tensor,
+    weights,
+    t: int = 1,
+    backend: str = "auto",
+    hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+    tile_m: Optional[int] = None,
+    w_tile: Optional[int] = None,
+    compute_dtype=None,
+    use_sparse_unit: bool = False,
+    guard: bool = False,
+    boundary=None,
+) -> torch.Tensor:
+    """Advance the grid ``t`` time steps with the selected backend, on
+    ``x``'s device: equivalent to ``stencil_plan(weights, x.shape,
+    x.dtype, t, device=x.device, ...)(x)``.  ``guard=True`` (the guarded
+    execution layer) is a later slice and raises."""
+    if guard:
+        raise _later_slice("guarded execution (guard=True)", "item 12")
+    plan = stencil_plan(
+        weights, x.shape, x.dtype, t, hw=hw,
+        backend=None if backend == "auto" else backend,
+        tile_m=tile_m, w_tile=w_tile,
+        compute_dtype=compute_dtype, use_sparse_unit=use_sparse_unit,
+        boundary=boundary, device=x.device)
+    return plan(x)
+
+
+def explain(
+    weights, t: int, dtype_bytes: int = 4,
+    hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+    tile_n: Optional[int] = None,
+    strip_m: int = 128, h_block: Optional[int] = None,
+    w_tile: Optional[int] = None, w_block: Optional[int] = None,
+    grid_shape=None, tile_m: Optional[int] = None,
+    use_sparse_unit: bool = False,
+    boundary=None,
+) -> Decision:
+    """The dispatch decision (scenario, predicted speedup, reason) through
+    ``plan.decide``, the one decision path plans use.  With ``grid_shape``
+    (and the ``tile_m`` / ``w_tile`` pins a plan would get) the CTA tile
+    resolves exactly as in ``stencil_plan``, so the result equals that
+    plan's ``decision``; without it the decision is priced at the given
+    ``strip_m`` / ``h_block`` / ``w_tile`` / ``w_block``.  ``tile_n``
+    defaults to the banded kernel's chunk width BAND_N."""
+    spec = spec_from_weights(weights)
+    if grid_shape is not None:
+        geom = resolve_tile_geom(tuple(int(n) for n in grid_shape),
+                                 t * spec.radius, tile_m, w_tile)
+        strip_m, h_block = geom.strip_m, geom.h_block
+        w_tile, w_block = geom.w_tile, geom.w_block
+    if boundary is not None:
+        boundary = resolve_boundary(boundary, spec.dim)
+    return decide(spec, t, dtype_bytes, hw,
+                  tile_n=BAND_N if tile_n is None else tile_n,
+                  strip_m=strip_m, h_block=h_block,
+                  w_tile=w_tile, w_block=w_block,
+                  use_sparse_unit=use_sparse_unit, boundary=boundary)

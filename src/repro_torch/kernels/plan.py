@@ -1,0 +1,368 @@
+"""StencilPlan: build-once execution plans (the counterpart of
+``repro.kernels.plan``).
+
+``stencil_plan(weights, grid_shape, dtype, t)`` runs the paper's decision
+procedure once -- spec inference, backend selection under the H100 model,
+tile sizing and weight preprocessing inside the chosen backend's ``build``
+-- and returns a :class:`StencilPlan` whose ``plan(x)`` / ``plan.step(x)`` /
+``plan.run(x, n)`` execute with zero re-analysis.  PyTorch runs eagerly,
+so the executable is the builder's runner itself (no ``jit``).
+
+Plans run on the card unless the caller asks for the CPU: ``device=None``
+means ``"cuda"`` and raises when no GPU is present.  On ``device="cpu"``
+the kernel wrappers run their plain versions.  Plans are cached
+process-wide in a bounded LRU keyed on the full execution signature,
+device included, with hit/miss counters (:func:`plan_cache_stats`).
+"""
+from __future__ import annotations
+
+import hashlib
+import threading
+import time
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import perfmodel as pm
+from repro_torch.core.envutil import env_int
+from repro_torch.core.selector import Decision, select_backend
+from repro_torch.stencil.boundary import (BoundaryLike, boundary_label,
+                                          is_periodic, resolve_boundary)
+from repro_torch.stencil.spec import StencilSpec
+from repro_torch.stencil.weights import jacobi_weights
+from . import registry
+from .common import BAND_N, resolve_tile_geom
+
+#: Grid dtypes the port accepts, by numpy/torch name.
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
+
+
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or scalar type
+    (``np.float32``, ``jnp.bfloat16``) or a name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "name", None) or np.dtype(dtype).name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise TypeError(f"unsupported grid dtype {dtype!r}; the port runs "
+                        f"{tuple(_DTYPES)}") from None
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card.  Never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "stencil_plan runs on the GPU by default and no CUDA device is "
+            "available; pass device='cpu' to run the kernels' plain "
+            "versions on the CPU")
+    return dev
+
+
+def spec_from_weights(weights) -> StencilSpec:
+    """Infer (shape, d, r) from a dense kernel's support."""
+    w = np.asarray(weights)
+    radius = (w.shape[0] - 1) // 2
+    dim = w.ndim
+    box_points = np.count_nonzero(w)
+    star_points = 2 * dim * radius + 1
+    shape = "star" if box_points <= star_points else "box"
+    return StencilSpec(shape, dim, radius)
+
+
+def decide(
+    spec: StencilSpec, t: int, dtype_bytes: int,
+    hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+    tile_n: int = 128, strip_m: int = 128,
+    h_block: Optional[int] = None,
+    z_slab: Optional[int] = None,
+    z_block: Optional[int] = None,
+    w_tile: Optional[int] = None,
+    w_block: Optional[int] = None,
+    use_sparse_unit: bool = False,
+    boundary: BoundaryLike = None,
+) -> Decision:
+    """THE decision path: plan building and ``ops.explain`` both consult
+    this one function, so they never disagree about the priced
+    ``Decision``.  Same arguments as the JAX ``decide``; the default
+    ``hw`` is the H100 data-sheet spec."""
+    return select_backend(spec, t, dtype_bytes=dtype_bytes, hw=hw,
+                          tile_n=tile_n, strip_m=strip_m, h_block=h_block,
+                          z_slab=z_slab, z_block=z_block,
+                          w_tile=w_tile, w_block=w_block,
+                          use_sparse_unit=use_sparse_unit,
+                          boundary=boundary)
+
+
+class StencilPlan:
+    """A built, reusable stencil execution plan; calling it advances the
+    grid ``t`` time steps.  ``decision`` is the priced :class:`Decision`
+    (always populated, even under a backend override), ``backend`` the
+    backend that executes, ``device`` where it runs, ``geom`` the CTA tile
+    the decision priced, ``fn`` the runner."""
+
+    def __init__(self, *, spec, weights, grid_shape, dtype, t, hw, backend,
+                 decision, fn, device, geom, key=None, build_time_s=0.0,
+                 ctx=None, boundary=None):
+        self.spec = spec
+        self.weights = weights
+        self.grid_shape = grid_shape
+        self.dtype = dtype
+        self.t = t
+        self.hw = hw
+        self.backend = backend
+        self.decision = decision
+        self.fn = fn
+        self.device = device
+        self.geom = geom
+        self.key = key
+        self.build_time_s = build_time_s
+        self.ctx = ctx
+        self.boundary = boundary
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.grid_shape:
+            raise ValueError(
+                f"plan was built for grid {self.grid_shape}, got "
+                f"{tuple(x.shape)}; build a new plan for a new geometry")
+        if x.device.type != self.device.type or x.dtype != self.dtype:
+            raise ValueError(
+                f"plan was built for {self.dtype} on {self.device}, got "
+                f"{x.dtype} on {x.device}")
+        return self.fn(x)
+
+    def step(self, x: torch.Tensor) -> torch.Tensor:
+        """Alias for ``plan(x)``: one invocation = ``t`` time steps."""
+        return self(x)
+
+    def run(self, x: torch.Tensor, n_steps: int) -> torch.Tensor:
+        """``n_steps`` plan invocations (``n_steps * t`` time steps)."""
+        if n_steps < 0:
+            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+        for _ in range(n_steps):
+            x = self(x)
+        return x
+
+    def explain(self) -> str:
+        """Human-readable account of what the plan does and why."""
+        d = self.decision
+        lines = [
+            f"StencilPlan {self.spec.name} t={self.t} grid={self.grid_shape} "
+            f"dtype={self.dtype} on {self.device} priced as {self.hw.name}",
+            f"  executes : {self.backend}"
+            + ("" if self.backend == d.backend
+               else f" (override; auto would pick {d.backend})"),
+            f"  scenario : {d.scenario}",
+            f"  speedup  : {d.predicted_speedup:.2f}x (best matrix vs vector)",
+            f"  reason   : {d.reason}",
+            "  candidates (effective FLOP/s): "
+            + ", ".join(f"{k}={v:.3g}" for k, v in d.candidates.items()),
+        ]
+        if self.boundary is not None and not is_periodic(self.boundary):
+            lines.insert(2, f"  boundary : {boundary_label(self.boundary)}")
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:
+        return (f"StencilPlan({self.spec.name}, t={self.t}, "
+                f"grid={self.grid_shape}, backend={self.backend!r}, "
+                f"device={self.device})")
+
+
+# ---------------------------------------------------------------------------
+# Plan cache: bounded LRU, one lock around every cache/counter mutation.
+# Building stays outside the lock; two threads racing on one signature both
+# build and the second insert wins.
+# ---------------------------------------------------------------------------
+_LOCK = threading.RLock()
+
+#: Default maximum cached plans; REPRO_PLAN_CACHE_SIZE overrides it.
+PLAN_CACHE_MAX = 512
+
+_CACHE: "OrderedDict" = OrderedDict()
+_STATS = {"hits": 0, "misses": 0}
+
+
+def plan_cache_max() -> int:
+    """The effective LRU bound: ``REPRO_PLAN_CACHE_SIZE`` if set (must be a
+    positive integer), else :data:`PLAN_CACHE_MAX`."""
+    return env_int("REPRO_PLAN_CACHE_SIZE", PLAN_CACHE_MAX, minimum=1)
+
+
+def plan_cache_stats() -> dict:
+    """Hit/miss counters and the cache size, snapshotted under the lock."""
+    with _LOCK:
+        out = dict(_STATS)
+        out["size"] = len(_CACHE)
+    return out
+
+
+def clear_plan_cache() -> None:
+    with _LOCK:
+        _CACHE.clear()
+        for k in _STATS:
+            _STATS[k] = 0
+
+
+def _weights_key(w: np.ndarray) -> Tuple:
+    digest = hashlib.sha1(np.ascontiguousarray(w).tobytes()).hexdigest()
+    return (w.shape, w.dtype.name, digest)
+
+
+def _later_slice(name: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
+
+
+def plan_signature(
+    spec_or_weights: Union[StencilSpec, np.ndarray],
+    grid_shape: Sequence[int],
+    dtype,
+    t: int = 1,
+    *,
+    hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+    backend: Optional[str] = None,
+    tile_m: Optional[int] = None,
+    w_tile: Optional[int] = None,
+    compute_dtype=None,
+    boundary: BoundaryLike = None,
+    device=None,
+    mesh=None,
+    batch: Optional[int] = None,
+    audit: Optional[bool] = None,
+    use_sparse_unit: bool = False,
+) -> Tuple:
+    """Validate plan arguments and return ``(key, weights, grid_shape,
+    dtype, device)`` -- the deterministic cache signature WITHOUT
+    building.  Arguments of later slices raise ``NotImplementedError``."""
+    if mesh is not None:
+        raise _later_slice("the distributed stepper (mesh=)", "item 15")
+    if batch is not None:
+        raise _later_slice("batched plans (batch=)", "item 13")
+    if audit:
+        raise _later_slice("the static auditor (audit=True)", "item 14")
+    if use_sparse_unit:
+        raise _later_slice("the sparse backends (use_sparse_unit=True)",
+                           "item 10")
+    if t < 1:
+        raise ValueError(f"fusion depth must be >= 1, got {t}")
+    if backend is not None:
+        registry.get_backend(backend)          # fail fast on unknown names
+    if isinstance(spec_or_weights, StencilSpec):
+        weights = jacobi_weights(spec_or_weights)
+    else:
+        weights = np.asarray(spec_or_weights)
+    grid_shape = tuple(int(n) for n in grid_shape)
+    if len(grid_shape) != weights.ndim:
+        raise ValueError(
+            f"grid rank {len(grid_shape)} != kernel rank {weights.ndim}; "
+            "the plan's grid_shape must match the stencil dimensionality")
+    if len(grid_shape) != 2:
+        raise _later_slice(f"a {len(grid_shape)}D grid (3D slabs and the "
+                           "1D lift)", "item 8")
+    boundary_key = resolve_boundary(boundary, len(grid_shape))
+    if backend != "reference" and not is_periodic(boundary_key):
+        raise _later_slice(f"boundary={boundary!r} on the kernel backends "
+                           "(per-axis boundaries, K6)", "item 9")
+    dtype = as_torch_dtype(dtype)
+    cdt = None if compute_dtype is None else as_torch_dtype(compute_dtype)
+    dev = resolve_device(device)
+    key = (_weights_key(weights), grid_shape, str(dtype), t, hw, backend,
+           tile_m, w_tile, str(cdt), boundary_key, str(dev),
+           registry.generation())
+    return key, weights, grid_shape, dtype, dev
+
+
+def stencil_plan(
+    spec_or_weights: Union[StencilSpec, np.ndarray],
+    grid_shape: Sequence[int],
+    dtype,
+    t: int = 1,
+    *,
+    hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+    backend: Optional[str] = None,
+    tile_m: Optional[int] = None,
+    w_tile: Optional[int] = None,
+    compute_dtype=None,
+    boundary: BoundaryLike = None,
+    device=None,
+    use_cache: bool = True,
+    mesh=None,
+    batch: Optional[int] = None,
+    audit: Optional[bool] = None,
+    use_sparse_unit: bool = False,
+) -> StencilPlan:
+    """Build (or fetch from cache) a stencil execution plan.
+
+    Args:
+      spec_or_weights: a dense ``(2r+1)^2`` kernel (numpy), or a
+        ``StencilSpec`` (then its deterministic Jacobi weights are used).
+      grid_shape: the 2D grid shape the plan is specialised to.
+      dtype: grid dtype (``torch.float32`` / ``torch.bfloat16``, or the
+        numpy equivalents).
+      t: fusion depth -- time steps advanced per plan invocation.
+      hw: hardware model consulted by the selector (default: the H100
+        data sheet).
+      backend: override the selector's choice with a registered backend.
+      tile_m / w_tile: pin the CTA output tile (multiples of 16; ``None``
+        = ``resolve_tile_geom``).  The banded regimes contract
+        BAND_N-column chunks (one wmma N), on the card and the CPU alike.
+      compute_dtype: MMA operand dtype of the banded regimes (default the
+        grid dtype).
+      boundary: per-axis boundary modes; non-periodic ones run only on
+        ``backend="reference"`` in this slice.
+      device: where the plan runs; ``None`` = ``"cuda"``, which raises
+        when there is no GPU.  ``"cpu"`` runs the plain versions.
+      use_cache: bypass the process-wide plan cache when ``False``.
+      mesh / batch / audit / use_sparse_unit: later slices; they raise
+        ``NotImplementedError`` naming their ROADMAP item.
+    """
+    key, weights, grid_shape, dtype, dev = plan_signature(
+        spec_or_weights, grid_shape, dtype, t, hw=hw, backend=backend,
+        tile_m=tile_m, w_tile=w_tile,
+        compute_dtype=compute_dtype, boundary=boundary, device=device,
+        mesh=mesh, batch=batch, audit=audit,
+        use_sparse_unit=use_sparse_unit)
+    modes = resolve_boundary(boundary, len(grid_shape))
+    with _LOCK:
+        if use_cache and key in _CACHE:
+            _STATS["hits"] += 1
+            _CACHE.move_to_end(key)
+            return _CACHE[key]
+        _STATS["misses"] += 1
+
+    t0 = time.perf_counter()
+    spec = spec_from_weights(weights)
+    # Selection prices the CTA tile the fused regimes launch with (halo
+    # t*r): its read amplification (1+2h/TM)(1+2h/TN) is the region the
+    # kernels really load, and the banded chunk width prices S.
+    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile)
+    ctx = registry.PlanContext(
+        spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
+        t=t, tile_m=tile_m, w_tile=w_tile,
+        compute_dtype=None if compute_dtype is None
+        else as_torch_dtype(compute_dtype),
+        boundary=modes)
+    decision = decide(
+        spec, t, dtype_bytes=dtype.itemsize, hw=hw,
+        tile_n=BAND_N, strip_m=geom.strip_m,
+        h_block=geom.h_block, w_tile=geom.w_tile, w_block=geom.w_block,
+        boundary=modes)
+    exec_backend = backend if backend is not None else decision.backend
+    fn = registry.get_backend(exec_backend).build(ctx)
+    plan = StencilPlan(
+        spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
+        t=t, hw=hw, backend=exec_backend, decision=decision, fn=fn,
+        device=dev, geom=geom, key=key,
+        build_time_s=time.perf_counter() - t0, ctx=ctx, boundary=modes)
+    if use_cache:
+        with _LOCK:
+            bound = plan_cache_max()
+            _CACHE[key] = plan
+            while len(_CACHE) > bound:
+                _CACHE.popitem(last=False)
+    return plan

@@ -1,0 +1,276 @@
+"""Backend registry: every execution regime registers through one interface
+(the counterpart of ``repro.kernels.registry``).
+
+A *backend* is one way to advance the grid ``t`` time steps.  This slice
+registers the five priced regimes -- tap-sum unfused/fused, banded
+sequential / monolithic / intermediate-reuse -- and the plain ``reference``
+oracle.  Each :class:`BackendDef` carries ``build(ctx) -> run(x)``, which
+does all host-side work (tile sizing, weight composition, validation) once
+per plan, and an optional ``price(pctx)`` that makes it an auto-selection
+candidate.  ``fallback_rank`` orders the guard layer's degradation ladder
+(ROADMAP queue 1, item 12); it is carried as data until that layer lands.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import perfmodel as pm
+from repro_torch.stencil.spec import StencilSpec
+from repro_torch.stencil.weights import fuse_weights
+from . import ref as _ref
+from .common import SubstrateGeom, resolve_tile_geom
+from .stencil_direct import stencil_direct
+from .stencil_matmul import stencil_matmul
+
+
+@dataclasses.dataclass
+class PlanContext:
+    """Everything a backend builder may consume, resolved once per plan."""
+
+    spec: StencilSpec
+    weights: np.ndarray          # dense (2r+1)^d base kernel, host-side
+    grid_shape: Tuple[int, ...]
+    dtype: torch.dtype
+    t: int
+    tile_m: Optional[int]        # CTA output tile rows; None = auto
+    w_tile: Optional[int]        # CTA output tile columns; None = auto
+    compute_dtype: Optional[torch.dtype] = None
+    #: Per-axis boundary modes, resolved by the plan layer.
+    boundary: Optional[Tuple[str, ...]] = None
+
+    @property
+    def radius(self) -> int:
+        return (self.weights.shape[0] - 1) // 2
+
+    def fused_weights(self) -> np.ndarray:
+        """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
+        return fuse_weights(self.weights, self.t)
+
+    def resolve_geom(self, halo: int) -> SubstrateGeom:
+        """The CTA tile the kernels launch with at total halo ``halo``."""
+        return resolve_tile_geom(self.grid_shape, halo, self.tile_m,
+                                 self.w_tile)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendDef:
+    name: str
+    build: Callable[[PlanContext], Callable]
+    price: Optional[Callable] = None   # price(PricingContext) -> float | None
+    description: str = ""
+    unit: Optional[str] = None         # "vector" | "matrix" | None (other)
+    #: Position on the degradation ladder (lower = more aggressive); the
+    #: reference oracle carries the largest rank.
+    fallback_rank: Optional[int] = None
+
+
+_REGISTRY: Dict[str, BackendDef] = {}
+#: Bumped on every (un)registration; folded into plan-cache keys.
+_generation = 0
+
+
+def generation() -> int:
+    return _generation
+
+
+def register_backend(name: str, build: Callable, price: Callable = None,
+                     description: str = "", unit: str = None,
+                     overwrite: bool = False,
+                     fallback_rank: Optional[int] = None) -> BackendDef:
+    """Register an execution backend under ``name`` (see the JAX registry);
+    re-registering an existing name raises unless ``overwrite``."""
+    global _generation
+    if name == "auto":
+        raise ValueError("'auto' is the selection policy, not a backend")
+    if name in _REGISTRY and not overwrite:
+        raise ValueError(f"backend {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    bd = BackendDef(name=name, build=build, price=price,
+                    description=description, unit=unit,
+                    fallback_rank=fallback_rank)
+    _REGISTRY[name] = bd
+    _generation += 1
+    return bd
+
+
+def unregister_backend(name: str) -> None:
+    """Remove a registered backend (primarily for tests/plug-in teardown)."""
+    global _generation
+    if _REGISTRY.pop(name, None) is not None:
+        _generation += 1
+
+
+def get_backend(name: str) -> BackendDef:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: "
+            f"{tuple(_REGISTRY)} (or 'auto')") from None
+
+
+def registered_backends() -> Tuple[str, ...]:
+    """Names of all registered backends, in registration order."""
+    return tuple(_REGISTRY)
+
+
+def priced_candidates(pctx) -> Dict[str, float]:
+    """Evaluate every priced backend under ``pctx``; skip non-candidates."""
+    out: Dict[str, float] = {}
+    for bd in _REGISTRY.values():
+        if bd.price is None:
+            continue
+        v = bd.price(pctx)
+        if v is not None:
+            out[bd.name] = v
+    return out
+
+
+def candidate_units() -> Dict[str, Optional[str]]:
+    """Registered name -> unit classification ("vector"/"matrix"/None)."""
+    return {name: bd.unit for name, bd in _REGISTRY.items()}
+
+
+def fallback_ladder(after: Optional[str] = None) -> Tuple[str, ...]:
+    """Ranked backends in degradation order (most aggressive first);
+    ``after=name`` keeps only the rungs more conservative than ``name``."""
+    ranked = sorted((bd for bd in _REGISTRY.values()
+                     if bd.fallback_rank is not None),
+                    key=lambda bd: bd.fallback_rank)
+    names = tuple(bd.name for bd in ranked)
+    if after is None:
+        return names
+    cut = _REGISTRY.get(after)
+    if cut is None or cut.fallback_rank is None:
+        return names
+    return tuple(bd.name for bd in ranked
+                 if bd.fallback_rank > cut.fallback_rank)
+
+
+# ---------------------------------------------------------------------------
+# Builders: the five priced regimes + the reference oracle.  Each resolves
+# its tiling/operands at build time and closes over them.
+# ---------------------------------------------------------------------------
+def _build_reference(ctx: PlanContext) -> Callable:
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+
+    def run(x):
+        return _ref.stencil_direct_ref(x, w, t, boundary=b)
+    return run
+
+
+def _build_direct(ctx: PlanContext) -> Callable:
+    """t launches of the tap-sum kernel at t=1, halo r each; the grid
+    rounds to its dtype between steps, as in the JAX regime."""
+    w, t, r = ctx.weights, ctx.t, ctx.radius
+    geom = ctx.resolve_geom(r)
+
+    def run(x):
+        for _ in range(t):
+            x = stencil_direct(x, w, t=1, tile_m=geom.strip_m,
+                               w_tile=geom.w_tile)
+        return x
+    return run
+
+
+def _build_fused_direct(ctx: PlanContext) -> Callable:
+    """One tap-sum launch, t steps in shared memory (halo t*r)."""
+    w, t, r = ctx.weights, ctx.t, ctx.radius
+    geom = ctx.resolve_geom(t * r)
+
+    def run(x):
+        return stencil_direct(x, w, t=t, tile_m=geom.strip_m,
+                              w_tile=geom.w_tile)
+    return run
+
+
+def _build_matmul(ctx: PlanContext) -> Callable:
+    """t launches of the banded kernel at t=1, halo r each."""
+    w, t, r = ctx.weights, ctx.t, ctx.radius
+    geom, cdt = ctx.resolve_geom(r), ctx.compute_dtype
+
+    def run(x):
+        for _ in range(t):
+            x = stencil_matmul(x, w, t=1, tile_m=geom.strip_m,
+                               w_tile=geom.w_tile, compute_dtype=cdt)
+        return x
+    return run
+
+
+def _build_fused_matmul(ctx: PlanContext) -> Callable:
+    """Monolithic fusion: ONE contraction of the composed radius-t*r kernel."""
+    wf = ctx.fused_weights()
+    R = (wf.shape[0] - 1) // 2
+    geom, cdt = ctx.resolve_geom(R), ctx.compute_dtype
+
+    def run(x):
+        return stencil_matmul(x, wf, t=1, tile_m=geom.strip_m,
+                              w_tile=geom.w_tile, compute_dtype=cdt)
+    return run
+
+
+def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
+    """Intermediate reuse: t radius-r contractions in one launch, f32
+    intermediates in shared memory."""
+    w, t, r = ctx.weights, ctx.t, ctx.radius
+    geom, cdt = ctx.resolve_geom(t * r), ctx.compute_dtype
+
+    def run(x):
+        return stencil_matmul(x, w, t=t, tile_m=geom.strip_m,
+                              w_tile=geom.w_tile, compute_dtype=cdt)
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Pricers (the JAX package's, verbatim): unfused/fused pairs share a
+# throughput model and partition on fusion depth.
+# ---------------------------------------------------------------------------
+def _price_direct(p):
+    return p.comparison.vector.actual_flops if p.workload.t == 1 else None
+
+
+def _price_fused_direct(p):
+    return p.comparison.vector.actual_flops if p.workload.t > 1 else None
+
+
+def _price_matmul(p):
+    return p.comparison.matrix.actual_flops if p.workload.t == 1 else None
+
+
+def _price_fused_matmul(p):
+    return p.comparison.matrix.actual_flops if p.workload.t > 1 else None
+
+
+def _price_fused_matmul_reuse(p):
+    # t=1 reuse degenerates to "matmul"; only offered at depth.
+    if p.workload.t == 1:
+        return None
+    return pm.perf_matrix_reuse(p.workload, p.hw, p.s_reuse,
+                                p.strip_m, p.z_slab,
+                                p.w_tile or None).actual_flops
+
+
+# Fallback ranks as in the JAX registry (registry.py:620-650).
+register_backend("direct", _build_direct, _price_direct,
+                 "t sequential tap-sum kernel launches (halo r per step)",
+                 unit="vector", fallback_rank=50)
+register_backend("fused_direct", _build_fused_direct, _price_fused_direct,
+                 "one tap-sum launch, t steps in shared memory",
+                 unit="vector", fallback_rank=40)
+register_backend("matmul", _build_matmul, _price_matmul,
+                 "t sequential banded tensor-core contractions",
+                 unit="matrix", fallback_rank=30)
+register_backend("fused_matmul", _build_fused_matmul, _price_fused_matmul,
+                 "monolithic fusion: one radius-t*r banded contraction",
+                 unit="matrix", fallback_rank=20)
+register_backend("fused_matmul_reuse", _build_fused_matmul_reuse,
+                 _price_fused_matmul_reuse,
+                 "one banded launch, t radius-r contractions, shared-memory "
+                 "intermediates", unit="matrix", fallback_rank=10)
+register_backend("reference", _build_reference,
+                 description="plain PyTorch oracle (debug)",
+                 fallback_rank=1000)
