@@ -4,23 +4,30 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases, any failure exits non-zero:
-  1. the card's name and power limit (nvidia-smi), then the build of both
-     CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per source,
-     started together) and its time;
-  2. each kernel against its plain PyTorch version on the card, at 1024^2
-     and a ragged 1000x1030 grid, box/star, r in {1, 3}, t in {1, 4},
-     float32 and bfloat16 grids, the banded kernel with either operand
-     dtype, each limit built from the plain version's step-by-step maxima
-     and shown to reject the plain version one step short;
-  3. the main path: ``stencil_plan(...)(x)`` on 8192^2 float32 grids
-     (256 MiB per field, five times the 50 MB L2) for Box-2D1R and
-     Star-2D1R at t=4, each of the five regimes and ``auto`` against the
-     ``reference`` backend, with every kernel's launches counted;
-  4. times from CUDA events (median of 15 after 3 warm-ups): each regime's
-     microseconds per step beside the model's choice, its read
-     amplification and its bound, each kernel beside its plain version
-     and an F.conv2d yardstick the port never calls, and each wrapper's
-     host time per launch.
+  1. the card's name and power limit (nvidia-smi), then the build of all
+     four CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
+     source, started together) and each one's build time;
+  2. each kernel against its plain PyTorch version on the card, each limit
+     built from the plain version's step-by-step maxima and shown to reject
+     the plain version one step short: the 2D kernels at 1024^2 and a
+     ragged 1000x1030 grid (box/star, r in {1, 3}, t in {1, 4}); the 3D
+     kernels at 128^3 and a ragged 60x70x130 grid (box/star, (r, t) in
+     {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the 1D lift at
+     2^20 and 2^20+3 points (r in {1, 3}, t in {1, 4}); float32 and
+     bfloat16 grids, the banded kernels with either operand dtype and on
+     the composed kernel;
+  3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
+     and ``auto`` against the ``reference`` backend, with every kernel's
+     launches counted from 0 just before each path and read just after:
+     2D, 8192^2 float32 (256 MiB per field), Box-2D1R and Star-2D1R; 3D,
+     512^3 float32 (512 MiB per field), Box-3D1R and Star-3D1R; 1D, 2^26
+     float32 points, Box-1D1R; all at t=4;
+  4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
+     slow plain versions and yardsticks): each regime's milliseconds per
+     call and microseconds per step beside the model's choice, its read
+     amplification and its bound, each kernel beside its plain version and
+     an F.conv2d / F.conv3d yardstick the port never calls, and each
+     wrapper's host time per launch.
 The line before the last is the JSON kernel report, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,9 +53,14 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 
-MAIN_SHAPE = (8192, 8192)
 MAIN_T = 4
-HOST_SHAPE = (256, 256)
+#: The main paths: grid shape and the stencils each drives.
+PATHS = {
+    "2D": ((8192, 8192), (("box", 1), ("star", 1))),
+    "3D": ((512, 512, 512), (("box", 1), ("star", 1))),
+    "1D": ((2**26,), (("box", 1),)),
+}
+HOST_SHAPES = {2: (256, 256), 3: (32, 32, 32)}
 HOST_CALLS = 500
 REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
            "fused_matmul_reuse", None)          # None = auto
@@ -57,6 +69,10 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/stencil_direct.py:102"),
     "stencil_banded": ("src/repro_torch/kernels/csrc/stencil_banded.cu",
                        "src/repro/kernels/stencil_matmul.py:202"),
+    "stencil_direct3d": ("src/repro_torch/kernels/csrc/stencil_direct3d.cu",
+                         "src/repro/kernels/common.py:1525"),
+    "stencil_banded3d": ("src/repro_torch/kernels/csrc/stencil_banded3d.cu",
+                         "src/repro/kernels/common.py:1525"),
 }
 
 
@@ -110,14 +126,16 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def conv_yardstick(x: torch.Tensor, w: np.ndarray, tf32: bool):
-    """One F.conv2d of ``w`` on the circularly padded grid (pad included)."""
+    """One F.conv2d / F.conv3d of ``w`` on the circularly padded grid (pad
+    included)."""
     r = (w.shape[0] - 1) // 2
     wt = torch.from_numpy(np.ascontiguousarray(w)).to(x.device, x.dtype)
+    conv = F.conv3d if x.ndim == 3 else F.conv2d
 
     def run():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
-            xp = F.pad(x[None, None], (r, r, r, r), mode="circular")
-            return F.conv2d(xp, wt[None, None])[0, 0]
+            xp = F.pad(x[None, None], (r,) * (2 * x.ndim), mode="circular")
+            return conv(xp, wt[None, None])[0, 0]
     return run
 
 
@@ -129,8 +147,10 @@ def phase_build(kernels) -> str:
     print(f"card: {card}")
     t0 = time.perf_counter()
     kernels.build_all()
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels import _build
+    print(f"build: all {len(_build.KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s; each "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()))
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -171,170 +191,179 @@ def kernel_limit(operands: str, sw: float, n_taps: int, maxima, out_bf16: bool) 
     return tol + (2**-7 * maxima[-1] if out_bf16 else 0.0)
 
 
-def phase_kernels_vs_plain(mods) -> None:
-    """Every kernel against its plain version at phase-2 shapes, the banded
-    kernel also with the other operand dtype (f32 grid, bf16 operands and
-    the reverse).  Each limit must also reject the plain version one step
-    short, so a kernel that skipped a step could not pass."""
-    kernels, sm, sd, weights = mods
-    worst, margin = {}, {}
-    for shape in ((1024, 1024), (1000, 1030)):
-        for kind in ("box", "star"):
-            for r in (1, 3):
-                w = weights.make_weights(weights_spec(kind, r), seed=1)
-                for t in (1, 4):
-                    wf = weights.fuse_weights(w, t)
-                    for dtype in (torch.float32, torch.bfloat16):
-                        x = grid(shape, dtype, seed=2)
-                        bf = dtype == torch.bfloat16
-                        other = torch.float32 if bf else torch.bfloat16
+def kernel_name(base: str, dim: int) -> str:
+    """The kernel a wrapper launches for a grid of rank ``dim``: the 3D
+    kernels for 3D grids, the 2D kernels for 2D grids and the 1D lift."""
+    return base + ("3d" if dim == 3 else "")
 
-                        def banded(wk, tk, cdt, short=None):
-                            ops = "bf16" if cdt == torch.bfloat16 else "tf32"
-                            return (f"stencil_banded[{str(cdt)[6:]} operands]",
-                                    lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt),
-                                    lambda: sm.stencil_matmul_plain(x, wk, tk, compute_dtype=cdt),
-                                    lambda v: sm.stencil_matmul_plain(v, wk, 1, compute_dtype=cdt),
-                                    tk, ops, wk, short)
-                        cases = [
-                            ("stencil_direct", lambda: sd.stencil_direct(x, w, t),
-                             lambda: sd.stencil_direct_plain(x, w, t),
-                             lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None),
-                            banded(w, t, dtype), banded(w, t, other)]
-                        if t > 1:
-                            # One step short of the composed kernel: depth t-1.
-                            cases.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
-                                x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype)))
-                        for name, kern, plain, step, tk, ops, wk, short in cases:
-                            y = kern()
-                            torch.cuda.synchronize()
-                            ref = plain()
-                            err = max_err(y, ref)
-                            maxima, prev = plain_chain(step, x, tk)
-                            if name == "stencil_direct" and not bf:
-                                tol = 1e-5 * maxima[0]
-                            else:
-                                tol = kernel_limit(ops, float(np.abs(wk).sum()),
-                                                   int(np.count_nonzero(wk)), maxima, bf)
-                            short = prev if short is None else short()
-                            wrong = max_err(y, short)
-                            tag = (f"{name} {kind} r={r} t={t} {shape} "
-                                   f"{str(dtype)[6:]}" + ("" if tk == t else " composed"))
-                            check(y.shape == x.shape and y.dtype == dtype,
-                                  f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
-                            check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
-                            check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
-                            check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
-                                               f"plain version one step short ({wrong:.3e})")
-                            worst[name] = max(worst.get(name, 0.0), err / tol)
-                            margin[name] = max(margin.get(name, 0.0), tol / wrong)
+
+def check_kernels(mods, shapes, cases, worst, margin) -> None:
+    """Every kernel against its plain version on ``shapes``, for each
+    ``(kind, r, t)`` of ``cases``, the banded kernel also with the other
+    operand dtype (f32 grid, bf16 operands and the reverse) and, at t > 1,
+    on the composed kernel.  Each limit must also reject the plain version
+    one step short, so a kernel that skipped a step could not pass."""
+    _, sm, sd, weights = mods
+    from repro_torch.stencil import StencilSpec
+    for shape in shapes:
+        dim = len(shape)
+        for kind, r, t in cases:
+            w = weights.make_weights(StencilSpec(kind, dim, r), seed=1)
+            wf = weights.fuse_weights(w, t)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = grid(shape, dtype, seed=2)
+                bf = dtype == torch.bfloat16
+                other = torch.float32 if bf else torch.bfloat16
+
+                def banded(wk, tk, cdt, short=None):
+                    ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+                    return (f"{kernel_name('stencil_banded', dim)}[{str(cdt)[6:]} operands]",
+                            lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt),
+                            lambda: sm.stencil_matmul_plain(x, wk, tk, compute_dtype=cdt),
+                            lambda v: sm.stencil_matmul_plain(v, wk, 1, compute_dtype=cdt),
+                            tk, ops, wk, short)
+                cases_ = [
+                    (kernel_name("stencil_direct", dim), lambda: sd.stencil_direct(x, w, t),
+                     lambda: sd.stencil_direct_plain(x, w, t),
+                     lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None),
+                    banded(w, t, dtype), banded(w, t, other)]
+                if t > 1:
+                    # One step short of the composed kernel: depth t-1.
+                    cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
+                        x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype)))
+                for name, kern, plain, step, tk, ops, wk, short in cases_:
+                    y = kern()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    err = max_err(y, ref)
+                    maxima, prev = plain_chain(step, x, tk)
+                    if name.startswith("stencil_direct") and not bf:
+                        tol = 1e-5 * maxima[0]
+                    else:
+                        tol = kernel_limit(ops, float(np.abs(wk).sum()),
+                                           int(np.count_nonzero(wk)), maxima, bf)
+                    short = prev if short is None else short()
+                    wrong = max_err(y, short)
+                    tag = (f"{name} {kind} r={r} t={t} {shape} "
+                           f"{str(dtype)[6:]}" + ("" if tk == t else " composed"))
+                    check(y.shape == x.shape and y.dtype == dtype,
+                          f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
+                    check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+                    check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
+                    check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
+                                       f"plain version one step short ({wrong:.3e})")
+                    key = name.split("[")[0] + (" (1D lift)" if dim == 1 else "")
+                    worst[key] = max(worst.get(key, 0.0), err / tol)
+                    margin[key] = max(margin.get(key, 0.0), tol / wrong)
+
+
+def phase_kernels_vs_plain(mods) -> None:
+    worst, margin = {}, {}
+    check_kernels(mods, ((1024, 1024), (1000, 1030)),
+                  [(k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4)],
+                  worst, margin)
+    check_kernels(mods, ((128, 128, 128), (60, 70, 130)),
+                  [(k, r, t) for k in ("box", "star")
+                   for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))] + [("box", 2, 4)],
+                  worst, margin)
+    check_kernels(mods, ((2**20,), (2**20 + 3,)),
+                  [("box", r, t) for r in (1, 3) for t in (1, 4)], worst, margin)
     print("kernels vs plain: all configurations within tolerance; worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst "
           "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
 
 
-def weights_spec(kind: str, r: int):
-    from repro_torch.stencil import StencilSpec
-    return StencilSpec(kind, 2, r)
+def expected_launches(backend: str, t: int, dim: int):
+    base, n = {"direct": ("stencil_direct", t), "fused_direct": ("stencil_direct", 1),
+               "matmul": ("stencil_banded", t), "fused_matmul": ("stencil_banded", 1),
+               "fused_matmul_reuse": ("stencil_banded", 1)}[backend]
+    return kernel_name(base, dim), n
 
 
-def expected_launches(backend: str, t: int):
-    return {"direct": ("stencil_direct", t), "fused_direct": ("stencil_direct", 1),
-            "matmul": ("stencil_banded", t), "fused_matmul": ("stencil_banded", 1),
-            "fused_matmul_reuse": ("stencil_banded", 1)}[backend]
-
-
-def phase_main_path(mods, x, ws):
-    """Drive every regime and auto through stencil_plan; returns the plans,
-    the outputs' errors and the launch counts of this run."""
-    kernels, _, _, _ = mods
+def phase_main_path(mods, label, x, ws):
+    """Drive every regime and auto through stencil_plan on one path, the
+    launch counts set to 0 just before and read just after; returns the
+    plans, the outputs' errors and the counts."""
+    kernels = mods[0]
     from repro_torch.kernels import stencil_plan
+    shape, dim = tuple(x.shape), x.ndim
     mx = float(x.abs().max())
     results = {}
     kernels.reset_launch_counts()
     for name, w in ws.items():
-        ref = stencil_plan(w, MAIN_SHAPE, torch.float32, MAIN_T,
-                           backend="reference")(x)
+        ref = stencil_plan(w, shape, torch.float32, MAIN_T, backend="reference")(x)
         sw = float(np.abs(w).sum())
         for backend in REGIMES:
-            plan = stencil_plan(w, MAIN_SHAPE, torch.float32, MAIN_T,
-                                backend=backend)
+            plan = stencil_plan(w, shape, torch.float32, MAIN_T, backend=backend)
             before = kernels.launch_counts()
             y = plan(x)
             torch.cuda.synchronize()
             after = kernels.launch_counts()
-            kname, n = expected_launches(plan.backend, MAIN_T)
+            kname, n = expected_launches(plan.backend, MAIN_T, dim)
             delta = {k: after[k] - before[k] for k in after}
             check(delta[kname] == n and sum(delta.values()) == n,
                   f"{name} {plan.backend}: launches {delta}, expected {n} "
                   f"of {kname}")
-            check(tuple(y.shape) == MAIN_SHAPE and y.dtype == torch.float32,
+            check(tuple(y.shape) == shape and y.dtype == torch.float32,
                   f"{name} {plan.backend}: shape/dtype")
             check(bool(torch.isfinite(y).all()), f"{name} {plan.backend}: non-finite")
             err = max_err(y, ref)
-            tol = (MAIN_T * 2**-10 * sw * mx if kname == "stencil_banded"
+            tol = (MAIN_T * 2**-10 * sw * mx if kname.startswith("stencil_banded")
                    else 1e-5 * MAIN_T * mx)
             check(err <= tol, f"{name} {plan.backend}: max|err| vs reference "
                               f"{err:.3e} > tol {tol:.3e}")
             results[(name, backend or "auto")] = (plan, err, tol)
+            del y
         del ref
     counts = kernels.launch_counts()
-    for k, n in counts.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
-    print(f"main path: 5 regimes + auto x {list(ws)} on {MAIN_SHAPE} float32 "
+    for k in (kernel_name("stencil_direct", dim), kernel_name("stencil_banded", dim)):
+        check(counts[k] > 0, f"kernel {k} was not launched on the {label} path")
+    print(f"main path {label}: 5 regimes + auto x {list(ws)} on {shape} float32 "
           f"t={MAIN_T} match the reference; launches {counts}")
     return results, counts
 
 
-def phase_times(mods, x, ws, results, counts, card):
-    kernels, sm, sd, weights = mods
-    common = kernels.common
+def phase_regime_times(label, x, ws, results, card):
     n = x.numel()
-    print(f"times on {card} ({MAIN_SHAPE} float32, t={MAIN_T}; bound = "
-          "max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
+    print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T}; "
+          "bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
     print("  stencil    regime              predicted           read_amp  "
           "ms/call    us/step    bound_ms   max|err|")
     for (name, regime), (plan, err, _) in results.items():
         ms = cuda_ms(lambda: plan(x))
-        kname, launches = expected_launches(plan.backend, MAIN_T)
+        kname, launches = expected_launches(plan.backend, MAIN_T, x.ndim)
         k_taps = int(np.count_nonzero(ws[name]))
-        peak = FP32_FLOPS if kname == "stencil_direct" else TF32_FLOPS
+        peak = FP32_FLOPS if kname.startswith("stencil_direct") else TF32_FLOPS
         bound = max(launches * 2 * n * 4 / HBM_BPS,
                     MAIN_T * 2 * k_taps * n / peak) * 1e3
         print(f"  {name:10s} {regime:19s} {plan.decision.backend:19s} "
               f"{plan.geom.read_amp:8.4f}  {ms:9.4f}  {ms * 1e3 / MAIN_T:9.2f}  "
               f"{bound:9.4f}  {err:.3e}")
-    for name, w in ws.items():
-        for tf32 in (False, True):
-            ms = cuda_ms(conv_yardstick(x, w, tf32))
-            print(f"  {name:10s} F.conv2d one step (tf32={tf32}): {ms:.4f} ms")
-        # Structural S of the band operands, and S over the K the MMAs run
-        # (BAND_N + 2R padded to the TF32 / bf16 K step).
-        for label, wop in (("base", w), (f"fused t={MAIN_T}", weights.fuse_weights(w, MAIN_T))):
-            r_op = (wop.shape[0] - 1) // 2
-            s = sm.band_sparsity(wop, 16)
-            padded = [s * (16 + 2 * r_op) / common.banded_layout(64, 64, r_op, 1, cb).kpad
-                      for cb in (4, 2)]
-            print(f"  {name:10s} band S ({label}, R={r_op}): {s:.4f}; over padded K: "
-                  f"TF32 {padded[0]:.4f}, bf16 {padded[1]:.4f}")
 
-    # The kernel report: each kernel at its fused main-path call on Box-2D1R,
-    # held against its plain version with the phase-3 limit.
-    w = ws["Box-2D1R"]
+
+def kernel_report(mods, x, w, counts, reps_slow):
+    """Each kernel at its fused main-path call on ``w`` (``stencil_direct(x,
+    w, t)`` and the reuse form ``stencil_matmul(x, w, t)``), held against
+    its plain version with the phase-3 limit, beside one F.conv of the
+    composed kernel."""
+    _, sm, sd, weights = mods
+    n, dim = x.numel(), x.ndim
     wf = weights.fuse_weights(w, MAIN_T)
-    n_rows = int(np.count_nonzero(np.abs(w).sum(axis=1)))
+    n_rows = len(sm.build_bands_nd(w.astype(np.float32), 16)[0])
+    radius = (w.shape[0] - 1) // 2
     mx, sw = float(x.abs().max()), float(np.abs(w).sum())
     report = []
-    for kname, kern, plain, ops, peak, tf32, tol in (
+    for base, kern, plain, ops, peak, tf32, tol in (
             ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T),
              lambda: sd.stencil_direct_plain(x, w, MAIN_T),
              MAIN_T * 2 * int(np.count_nonzero(w)) * n, FP32_FLOPS, False,
              1e-5 * MAIN_T * mx),
             ("stencil_banded", lambda: sm.stencil_matmul(x, w, MAIN_T),
              lambda: sm.stencil_matmul_plain(x, w, MAIN_T),
-             MAIN_T * n_rows * (16 + 2) * 2 * n, TF32_FLOPS, True,
+             MAIN_T * n_rows * (16 + 2 * radius) * 2 * n, TF32_FLOPS, True,
              MAIN_T * 2**-10 * sw * mx)):
+        kname = kernel_name(base, dim)
         y = kern()
         err = max_err(y, plain())
         del y
@@ -346,25 +375,45 @@ def phase_times(mods, x, ws, results, counts, card):
         report.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
-            "max_abs_err": err, "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+            "max_abs_err": err, "ms": cuda_ms(kern),
+            "plain_ms": cuda_ms(plain, reps=reps_slow),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": cuda_ms(conv_yardstick(x, wf, tf32))})
+            "library_ms": cuda_ms(conv_yardstick(x, wf, tf32), reps=reps_slow)})
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
-              f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, F.conv2d "
-              f"of the composed kernel {k['library_ms']:.4f} ms, max|err| vs "
-              f"plain {k['max_abs_err']:.3e}")
-
-    # Host cost of one wrapper call (argument checks, operand cache,
-    # ctypes, launch) on a grid small enough that the card keeps up.
-    xs = grid(HOST_SHAPE, torch.float32, seed=3)
-    for kname, kern in (("stencil_direct", lambda: sd.stencil_direct(xs, w, 1)),
-                        ("stencil_banded", lambda: sm.stencil_matmul(xs, w, 1))):
-        print(f"  kernel {kname}: host {host_us(kern):.2f} us per launch "
-              f"({HOST_SHAPE[0]}x{HOST_SHAPE[1]} float32, t=1, wall clock over "
-              f"{HOST_CALLS} calls)")
+              f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
+              f"F.conv{dim}d of the composed kernel {k['library_ms']:.4f} ms, "
+              f"max|err| vs plain {k['max_abs_err']:.3e}")
     return report
+
+
+def phase_host(mods, w2, w3):
+    """Host cost of one wrapper call (argument checks, operand caches,
+    ctypes, launch) on a grid small enough that the card keeps up."""
+    _, sm, sd, _ = mods
+    for dim, w in ((2, w2), (3, w3)):
+        xs = grid(HOST_SHAPES[dim], torch.float32, seed=3)
+        for base, kern in (("stencil_direct", lambda: sd.stencil_direct(xs, w, 1)),
+                           ("stencil_banded", lambda: sm.stencil_matmul(xs, w, 1))):
+            print(f"  kernel {kernel_name(base, dim)}: host {host_us(kern):.2f} us per "
+                  f"launch ({'x'.join(map(str, xs.shape))} float32, t=1, wall clock "
+                  f"over {HOST_CALLS} calls)")
+
+
+def band_sparsity_lines(mods, ws):
+    """Structural S of the band operands, and S over the K the MMAs run
+    (BAND_N + 2R padded to the TF32 / bf16 K step)."""
+    _, sm, _, weights = mods
+    common = mods[0].common
+    for name, w in ws.items():
+        for label, wop in (("base", w), (f"fused t={MAIN_T}", weights.fuse_weights(w, MAIN_T))):
+            r_op = (wop.shape[0] - 1) // 2
+            s = sm.band_sparsity(wop, 16)
+            padded = [s * (16 + 2 * r_op) / common.banded_layout(64, 64, r_op, 1, cb).kpad
+                      for cb in (4, 2)]
+            print(f"  {name:10s} band S ({label}, R={r_op}): {s:.4f}; over padded K: "
+                  f"TF32 {padded[0]:.4f}, bf16 {padded[1]:.4f}")
 
 
 def main() -> int:
@@ -391,11 +440,32 @@ def main() -> int:
     try:
         card = phase_build(kernels)
         phase_kernels_vs_plain(mods)
-        x = grid(MAIN_SHAPE, torch.float32, seed=0)
-        ws = {s.name: make_weights(s, seed=0)
-              for s in (StencilSpec("box", 2, 1), StencilSpec("star", 2, 1))}
-        results, counts = phase_main_path(mods, x, ws)
-        report = phase_times(mods, x, ws, results, counts, card)
+        report, launches = [], {}
+        for label, (shape, specs) in PATHS.items():
+            x = grid(shape, torch.float32, seed=0)
+            ws = {s.name: make_weights(s, seed=0)
+                  for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
+            results, counts = phase_main_path(mods, label, x, ws)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            phase_regime_times(label, x, ws, results, card)
+            if label in ("2D", "3D"):
+                # 2D: 15 repetitions of everything, as before; 3D: the
+                # plain versions and yardsticks are slow, 5.
+                reps = 15 if label == "2D" else 5
+                for name, wk in ws.items():
+                    for tf32 in (False, True):
+                        ms = cuda_ms(conv_yardstick(x, wk, tf32), reps=reps)
+                        print(f"  {name:10s} F.conv{x.ndim}d one step (tf32={tf32}): "
+                              f"{ms:.4f} ms")
+                band_sparsity_lines(mods, ws)
+                w = ws[StencilSpec("box", len(shape), 1).name]
+                report += kernel_report(mods, x, w, counts, reps)
+            del x, results
+        for k in report:       # launches over all three main-path runs
+            k["launches"] = launches[k["name"]]
+        phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
+                   make_weights(StencilSpec("box", 3, 1), seed=0))
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)

@@ -20,13 +20,15 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("stencil_direct", "stencil_banded")
+KERNELS = ("stencil_direct", "stencil_banded", "stencil_direct3d",
+           "stencil_banded3d")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -35,6 +37,9 @@ _COUNTS: collections.Counter = collections.Counter()
 #: nvcc's diagnostics (ptxas register and shared-memory report) of the
 #: builds this process ran, by kernel name.
 build_logs: Dict[str, str] = {}
+
+#: Wall seconds from the start of each build this process ran to its end.
+build_seconds: Dict[str, float] = {}
 
 
 def count_launch(name: str) -> None:
@@ -73,15 +78,20 @@ def _target(name: str) -> pathlib.Path:
 
 
 def _start(name: str, out: pathlib.Path) -> subprocess.Popen:
+    """Start nvcc on ``name``; its diagnostics go to a log file beside the
+    library (a pipe nobody reads while the others build could fill)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    with open(out.with_suffix(f".{os.getpid()}.log"), "w") as log:
+        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
 
 
 def _finish(name: str, out: pathlib.Path, proc: subprocess.Popen) -> None:
-    log, _ = proc.communicate()
+    proc.wait()
+    log_path = out.with_suffix(f".{os.getpid()}.log")
+    log = log_path.read_text()
+    log_path.unlink()
     build_logs[name] = log
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
@@ -96,14 +106,20 @@ def build_all(names=KERNELS) -> None:
     together, and load them."""
     with _LOCK:
         pending = {n: _target(n) for n in names if n not in _LIBS}
+        t0 = time.perf_counter()
         procs = {n: _start(n, out) for n, out in pending.items()
                  if not out.exists()}
         errors = []
-        for n, proc in procs.items():
-            try:
-                _finish(n, pending[n], proc)
-            except RuntimeError as e:   # finish the others, then report
-                errors.append(str(e))
+        while procs:                    # finish each as it ends, timed
+            done = [n for n, proc in procs.items() if proc.poll() is not None]
+            for n in done:
+                build_seconds[n] = time.perf_counter() - t0
+                try:
+                    _finish(n, pending[n], procs.pop(n))
+                except RuntimeError as e:   # finish the others, then report
+                    errors.append(str(e))
+            if not done:
+                time.sleep(0.05)
         if errors:
             raise RuntimeError("\n".join(errors))
         for n, out in pending.items():

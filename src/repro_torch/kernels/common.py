@@ -19,12 +19,24 @@ w_tile=TN, w_block=h)``, so the priced read amplification
 (1 + 2h/TM)(1 + 2h/TN) is that of the region the kernel really loads.
 Tiles are sized under a shared-memory budget (227 KB per block) in place
 of the JAX package's 8 MB VMEM budget.
+
+3D grids (the counterpart of the JAX slab substrate, ``slab_launch_geometry``
+and ``choose_slab_blocks``) take the same design one rank up: a CTA
+computes a (TZ x TM x TN) tile from its (TZ+2h)(TM+2h)(TN+2h) region and
+is priced as ``SubstrateGeom(3, z_slab=TZ, z_block=h, strip_m=TM,
+h_block=h, w_tile=TN, w_block=h)``.  1D grids run the 2D kernels on the
+lifted (1, N) view and are priced as the JAX lift is, with read
+amplification 1 (``SubstrateGeom(1, strip_m=1, h_block=1)``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional
+
+from repro_torch.stencil.boundary import is_periodic
 
 #: Whole-strip foil loads (kept for ``substrate_read_amp``'s h_block=0 case).
 STRIP_NEIGHBOR_LOADS = 3
@@ -183,6 +195,40 @@ def _check_wrap_radius(w: int, r: int, mode: str = "periodic") -> None:
             "-- enlarge the grid or use a narrower stencil")
 
 
+def check_periodic_grid(shape, w, boundary, kernel: str) -> int:
+    """The kernels' argument rule: a 1D, 2D or 3D grid, a (2r+1)^d kernel
+    of the same rank, periodic boundaries, and the radius guard on every
+    axis of the grid (the 1D lift's row axis is not one), so both
+    packages reject the same grids.  Returns r."""
+    if len(shape) not in (1, 2, 3) or w.ndim != len(shape):
+        raise ValueError(
+            f"{kernel} runs 1D, 2D and 3D grids with a kernel of the same "
+            f"rank, got grid rank {len(shape)} and kernel rank {w.ndim}")
+    if len(set(w.shape)) != 1 or w.shape[0] % 2 == 0:
+        raise ValueError(f"weights must be a (2r+1)^d kernel, got {w.shape}")
+    if not is_periodic(boundary):
+        raise NotImplementedError(
+            f"boundary={boundary!r}: the port's kernels are periodic only; "
+            "per-axis boundaries are ROADMAP queue 1, item 9 (K6)")
+    r = (w.shape[0] - 1) // 2
+    for extent in shape:
+        _check_wrap_radius(extent, r)
+    return r
+
+
+def lift_weights(w):
+    """The (2r+1)^2 kernel of the 1D lift: the 1D kernel ``w`` as its
+    middle row, so the 2D kernels on the (1, N) view compute the 1D
+    stencil (the tap-sum skips the zero rows; ``build_bands_nd`` drops
+    them, leaving one band)."""
+    import numpy as np
+
+    r = (w.shape[0] - 1) // 2
+    out = np.zeros((w.shape[0],) * 2, dtype=w.dtype)
+    out[r] = w
+    return out
+
+
 def hbm_read_bytes_per_step(shape, strip_m: int, dtype_bytes: int,
                             bands_shape=None, h_block: int = 0,
                             w_tile: int = 0, w_block: int = 0) -> int:
@@ -207,6 +253,33 @@ def hbm_read_bytes_per_step(shape, strip_m: int, dtype_bytes: int,
     return total
 
 
+def hbm_read_bytes_per_step_3d(shape, geom: SubstrateGeom, dtype_bytes: int,
+                               bands_shape=None) -> int:
+    """Analytic HBM read traffic of one JAX slab-substrate launch (the JAX
+    model, copied for the traffic comparison)."""
+    import numpy as np
+
+    z, h, w = shape
+    if geom.dim != 3:
+        raise ValueError(f"3D traffic model needs a 3D geometry, got {geom}")
+    cells = (z // geom.z_slab) * (h // geom.strip_m)
+    planes = round(geom.z_slab
+                   * substrate_read_amp(geom.z_slab, geom.z_block))
+    rows = round(geom.strip_m
+                 * substrate_read_amp(geom.strip_m, geom.h_block))
+    if geom.w_tile:
+        gw = -(-w // geom.w_tile)
+        cols = round(geom.w_tile
+                     * substrate_read_amp(geom.w_tile, geom.w_block))
+        cells *= gw
+        total = cells * planes * rows * cols * dtype_bytes
+    else:
+        total = cells * planes * rows * w * dtype_bytes
+    if bands_shape is not None:
+        total += cells * int(np.prod(bands_shape)) * dtype_bytes
+    return total
+
+
 # ---------------------------------------------------------------------------
 # The port's own tiles
 # ---------------------------------------------------------------------------
@@ -214,11 +287,13 @@ def hbm_read_bytes_per_step(shape, strip_m: int, dtype_bytes: int,
 class SmemLayout:
     """Shared-memory layout of one kernel launch (element counts, bytes).
 
-    ``rows`` x ``ld`` f32 elements per region buffer; ``kpad`` the banded
-    contraction depth BAND_N + 2R rounded up to the MMA K step; ``chunks``
-    x ``a_rows`` x ``kpad`` the banded kernel's chunked operand array (all
-    three 0 for the tap-sum); ``smem_bytes`` the dynamic shared memory the
-    launch asks for.
+    ``planes`` x ``rows`` x ``ld`` f32 elements per region buffer
+    (``planes`` is 1 in 2D); ``kpad`` the banded contraction depth
+    BAND_N + 2R rounded up to the MMA K step; ``chunks`` x ``a_rows`` x
+    ``kpad`` the banded kernel's chunked operand array (all three 0 for
+    the tap-sum; the 3D banded kernel holds one chunk of ``planes`` x
+    ``a_rows`` x ``kpad`` at a time); ``smem_bytes`` the dynamic shared
+    memory the launch asks for.
     """
 
     rows: int
@@ -227,6 +302,7 @@ class SmemLayout:
     kpad: int = 0
     a_rows: int = 0
     chunks: int = 0
+    planes: int = 1
 
 
 def mma_k_step(compute_bytes: int) -> int:
@@ -240,8 +316,38 @@ def direct_layout(tm: int, tn: int, halo: int) -> SmemLayout:
     return SmemLayout(rows, ld, 2 * rows * ld * 4)
 
 
+#: Dense taps the 3D tap-sum keeps in shared memory: a (2*3+1)^3 box,
+#: rounded up to whole 16-byte words; must match csrc/stencil_direct3d.cu.
+TAPS3D_SLOTS = 344
+
+
+def direct3d_layout(tz: int, tm: int, tn: int, halo: int) -> SmemLayout:
+    """3D tap-sum kernel: the dense taps, then two f32 buffers holding the
+    (TZ+2h) x (TM+2h) x (TN+2h) region."""
+    planes, rows, ld = tz + 2 * halo, tm + 2 * halo, tn + 2 * halo
+    return SmemLayout(rows, ld, TAPS3D_SLOTS * 4 + 2 * planes * rows * ld * 4,
+                      planes=planes)
+
+
 def _align(nbytes: int) -> int:
     return _round_up(nbytes, 128)
+
+
+def _banded_extents(tm: int, tn: int, radius: int, t: int,
+                    compute_bytes: int) -> tuple:
+    """``(kpad, rows, ld, a_rows, chunks)`` of the banded kernels' region
+    and operand array for one (TM x TN) cross-section (see
+    :func:`banded_layout`)."""
+    halo = t * radius
+    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
+    lead_out = 2 * (t - 1) * radius
+    rows = max(tm + 2 * halo, _round_up(tm + lead_out, MMA_TILE))
+    ld = _round_up(max(tn + 2 * halo, _round_up(tn + lead_out, MMA_TILE)), 8)
+    if ld % 32 == 0:
+        ld += 8
+    a_rows = _round_up(tm + lead_out, MMA_TILE) + 2 * radius
+    chunks = -(-(tn + lead_out) // BAND_N)
+    return kpad, rows, ld, a_rows, chunks
 
 
 def banded_layout(tm: int, tn: int, radius: int, t: int,
@@ -256,28 +362,51 @@ def banded_layout(tm: int, tn: int, radius: int, t: int,
     region's row stride avoids multiples of 32 floats, which would put
     every row of a fragment store in the same bank.
     """
-    halo = t * radius
-    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
-    lead_out = 2 * (t - 1) * radius
-    rows = max(tm + 2 * halo, _round_up(tm + lead_out, MMA_TILE))
-    ld = _round_up(max(tn + 2 * halo, _round_up(tn + lead_out, MMA_TILE)), 8)
-    if ld % 32 == 0:
-        ld += 8
-    a_rows = _round_up(tm + lead_out, MMA_TILE) + 2 * radius
-    chunks = -(-(tn + lead_out) // BAND_N)
+    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
+                                                     compute_bytes)
     smem = _align(rows * ld * 4) + chunks * a_rows * kpad * compute_bytes
     return SmemLayout(rows, ld, smem, kpad, a_rows, chunks)
 
 
-def tile_smem_bound(tm: int, tn: int, halo: int) -> int:
-    """Upper bound on either kernel's shared memory at total halo ``halo``:
-    the banded kernel at R = halo (monolithic fusion, the deepest K) with
-    the row rounding of the reuse regime, in f32."""
-    rows = tm + 2 * halo + MMA_TILE
-    ld = tn + 2 * halo + MMA_TILE + 8
-    chunks = -(-(tn + 2 * halo) // BAND_N)
-    return (_align(rows * ld * 4)
-            + chunks * rows * _round_up(BAND_N + 2 * halo, 16) * 4)
+def banded3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
+                    compute_bytes: int) -> SmemLayout:
+    """3D banded kernel: one f32 region buffer of (TZ + 2h) planes, each
+    laid out as the 2D kernel's region, and the operand array of ONE
+    16-column chunk over every plane, A[plane][row][k].  Chunks run in
+    order and write their sums back into the region in place: chunk c
+    writes columns [16c, 16c + 16) and every later chunk reads columns
+    from 16(c + 1) on, so one chunk's operands suffice."""
+    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
+                                                     compute_bytes)
+    planes = tz + 2 * t * radius
+    smem = (_align(planes * rows * ld * 4)
+            + planes * a_rows * kpad * compute_bytes)
+    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes)
+
+
+def _divisors(n: int) -> list:
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_smem_bound(tm: int, tn: int, halo: int,
+                    tz: Optional[int] = None) -> int:
+    """Upper bound on either kernel's shared memory at total halo ``halo``.
+
+    2D (``tz=None``): the banded kernel at R = halo (monolithic fusion, the
+    deepest K) with the row rounding of the reuse regime, in f32.  3D: the
+    largest layout either 3D kernel launches with at that halo -- the
+    tap-sum, and the banded kernel at every (R, t) with t*R = halo and
+    either operand dtype."""
+    if tz is None:
+        rows = tm + 2 * halo + MMA_TILE
+        ld = tn + 2 * halo + MMA_TILE + 8
+        chunks = -(-(tn + 2 * halo) // BAND_N)
+        return (_align(rows * ld * 4)
+                + chunks * rows * _round_up(BAND_N + 2 * halo, 16) * 4)
+    return max([direct3d_layout(tz, tm, tn, halo).smem_bytes]
+               + [banded3d_layout(tz, tm, tn, halo // t, t, cb).smem_bytes
+                  for t in _divisors(halo) for cb in (4, 2)])
 
 
 def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:
@@ -291,50 +420,111 @@ def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:
     return [min(c, cap) for c in (PREFERRED_TILE, 32, MMA_TILE)]
 
 
-def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
-                      w_tile: Optional[int] = None) -> SubstrateGeom:
-    """THE port's tile rule: the largest output tile, at most
-    PREFERRED_TILE on each axis and a multiple of 16, whose shared memory
-    (``tile_smem_bound``) fits the 227 KB budget.  ``tile_m`` / ``w_tile``
-    pin TM / TN (multiples of 16; clamped to the grid rounded up to 16).
-    """
-    if len(grid_shape) != 2:
-        raise NotImplementedError(
-            f"the port tiles 2D grids only, got rank {len(grid_shape)}; "
-            "3D slabs and the 1D lift are ROADMAP queue 1, item 8")
-    if halo < 1:
-        raise ValueError(f"halo must be >= 1, got {halo}")
-    h, w = grid_shape
-    tms = _tile_candidates(h, tile_m, "tile_m")
-    tns = _tile_candidates(w, w_tile, "w_tile")
-    for k in range(max(len(tms), len(tns))):
-        tm, tn = tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)]
-        if tile_smem_bound(tm, tn, halo) <= SMEM_BUDGET_BYTES:
-            return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
-                                 w_tile=tn, w_block=halo)
-    raise ValueError(
+#: Tile depths the 3D rule tries (TZ is free of the wmma edge).
+Z_SLAB_CANDIDATES = (16, 8, 4, 2, 1)
+
+
+def _z_candidates(extent: int) -> list:
+    return sorted({min(c, extent) for c in Z_SLAB_CANDIDATES}, reverse=True)
+
+
+def _too_deep(halo: int) -> ValueError:
+    return ValueError(
         f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
         f"{SMEM_BUDGET_BYTES} bytes of shared memory; lower the fusion "
         "depth")
 
 
-def launch_grid(grid_shape, geom: SubstrateGeom) -> Tuple[int, int]:
-    """CUDA grid (tiles along x = columns, tiles along y = rows)."""
-    h, w = grid_shape
-    return math.ceil(w / geom.w_tile), math.ceil(h / geom.strip_m)
+def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
+                      w_tile: Optional[int] = None) -> SubstrateGeom:
+    """THE port's tile rule, by grid rank.
+
+    2D: the largest output tile, at most PREFERRED_TILE on each axis and a
+    multiple of 16, whose shared memory (``tile_smem_bound``) fits the
+    227 KB budget.  3D: among the (TZ, TM, TN) with TZ in
+    ``Z_SLAB_CANDIDATES`` and TM, TN in {64, 32, 16} whose 3D
+    ``tile_smem_bound`` fits, the one of least read amplification
+    (1 + 2h/TZ)(1 + 2h/TM)(1 + 2h/TN), ties to the larger tile -- the
+    JAX ``choose_slab_blocks`` criterion.  1D: the pricing geometry of
+    the lift (the kernels launch :func:`lifted_tile_geom`).  ``tile_m`` /
+    ``w_tile`` pin TM / TN (multiples of 16; clamped to the grid rounded
+    up to 16); TZ is always the rule's.  A halo no tile fits raises the
+    "too deep" ``ValueError``.
+    """
+    return _resolve_tile_geom(tuple(int(n) for n in grid_shape), halo,
+                              tile_m, w_tile)
+
+
+@functools.lru_cache(maxsize=256)
+def _resolve_tile_geom(grid_shape: tuple, halo: int, tile_m,
+                       w_tile) -> SubstrateGeom:
+    """:func:`resolve_tile_geom`, once per argument tuple: the 3D search
+    prices tens of candidate tiles, and the wrappers resolve their tile on
+    every launch."""
+    dim = len(grid_shape)
+    if dim == 1:
+        return SubstrateGeom(dim=1, strip_m=1, h_block=1)
+    if dim not in (2, 3):
+        raise ValueError(f"the port tiles 1D/2D/3D grids, got rank {dim}")
+    if halo < 1:
+        raise ValueError(f"halo must be >= 1, got {halo}")
+    tms = _tile_candidates(grid_shape[-2], tile_m, "tile_m")
+    tns = _tile_candidates(grid_shape[-1], w_tile, "w_tile")
+    if dim == 2:
+        for k in range(max(len(tms), len(tns))):
+            tm, tn = tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)]
+            if tile_smem_bound(tm, tn, halo) <= SMEM_BUDGET_BYTES:
+                return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
+                                     w_tile=tn, w_block=halo)
+        raise _too_deep(halo)
+    fitting = [(tz, tm, tn) for tz in _z_candidates(grid_shape[0])
+               for tm in dict.fromkeys(tms) for tn in dict.fromkeys(tns)
+               if tile_smem_bound(tm, tn, halo, tz) <= SMEM_BUDGET_BYTES]
+    if not fitting:
+        raise _too_deep(halo)
+    tz, tm, tn = min(fitting, key=lambda c: (
+        (1 + 2 * halo / c[0]) * (1 + 2 * halo / c[1]) * (1 + 2 * halo / c[2]),
+        -c[0] * c[1] * c[2]))
+    return SubstrateGeom(dim=3, strip_m=tm, h_block=halo, z_slab=tz,
+                         z_block=halo, w_tile=tn, w_block=halo)
+
+
+def lifted_tile_geom(n: int, halo: int,
+                     w_tile: Optional[int] = None) -> SubstrateGeom:
+    """The 2D tile the 1D lift launches on the (1, N) view: 16-row tiles of
+    which one row is the grid (every wrapped row is row 0)."""
+    return resolve_tile_geom((1, n), halo, None, w_tile)
+
+
+def launch_grid(grid_shape, geom: SubstrateGeom) -> tuple:
+    """CUDA grid: (tiles along x = columns, tiles along y = rows), and in
+    3D tiles along z third.  The 3D kernels launch the product as a
+    one-dimensional grid, x fastest."""
+    gx = math.ceil(grid_shape[-1] / geom.w_tile)
+    gy = math.ceil(grid_shape[-2] / geom.strip_m)
+    if len(grid_shape) == 3:
+        return gx, gy, math.ceil(grid_shape[0] / geom.z_slab)
+    return gx, gy
 
 
 def tile_windows(grid_shape, geom: SubstrateGeom) -> Iterator[tuple]:
-    """Every CTA's output rows/cols (clipped to the grid) and the unwrapped
-    rows/cols it reads, exactly as the kernels index them:
-    ``((out_r0, out_r1), (out_c0, out_c1), (rd_r0, rd_r1), (rd_c0, rd_c1))``
-    with reads taken modulo the grid."""
-    h, w = grid_shape
-    gx, gy = launch_grid(grid_shape, geom)
-    tm, tn, hh = geom.strip_m, geom.w_tile, geom.h_block
-    for by in range(gy):
-        for bx in range(gx):
-            i0, j0 = by * tm, bx * tn
-            yield ((i0, min(i0 + tm, h)), (j0, min(j0 + tn, w)),
-                   (i0 - hh, i0 + tm + hh), (j0 - hh, j0 + tn + hh))
-
+    """Every CTA's output range and the unwrapped range it reads, per axis
+    and exactly as the kernels index them: 2D yields ``((out_r0, out_r1),
+    (out_c0, out_c1), (rd_r0, rd_r1), (rd_c0, rd_c1))``; 3D yields the
+    z, row and column output ranges, then the z, row and column read
+    ranges.  Outputs are clipped to the grid; reads are taken modulo the
+    grid."""
+    g = launch_grid(grid_shape, geom)
+    tiles = [geom.w_tile, geom.strip_m] + ([geom.z_slab] if len(g) == 3
+                                           else [])
+    halos = [geom.w_block, geom.h_block] + ([geom.z_block] if len(g) == 3
+                                            else [])
+    extents = list(grid_shape)[::-1]
+    for idx in itertools.product(*(range(n) for n in g[::-1])):
+        idx = idx[::-1]                              # x, y[, z]
+        outs, reads = [], []
+        for i, tsz, hh, n in zip(idx, tiles, halos, extents):
+            a = i * tsz
+            outs.append((a, min(a + tsz, n)))
+            reads.append((a - hh, a + tsz + hh))
+        yield tuple(outs[::-1]) + tuple(reads[::-1])

@@ -1,0 +1,139 @@
+// Tap-sum stencil kernel for Hopper (sm_90a): t fused steps of a 3D
+// periodic stencil, one (TZ x TM x TN) output tile per CTA.
+//
+// Replaces repro/kernels/stencil_direct.py::stencil_direct / _stencil_steps
+// on 3D grids, together with the slab substrate that
+// repro/kernels/common.py::slab_substrate_call (kinds slab_subblocked /
+// slab_coltiled, geometry slab_launch_geometry) builds for it on the TPU.
+//
+// What bounds it on an H100: bytes.  A step costs 2K flops per point
+// (K <= 343 taps, 27 for Box-3D1R) against 8 bytes moved for an f32 grid,
+// below the 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of the CUDA cores
+// for the paper's stencils until t*K is large.  The design is the 2D
+// kernel's one rank up: each tile's (TZ+2h)(TM+2h)(TN+2h) region is read
+// from global memory once (h = t*r, periodic modulo indices on all three
+// axes, 64-bit offsets), all t steps run out of two ping-pong f32 buffers
+// in shared memory, carrying the halo and shrinking every axis by r per
+// step, and the tile is written once, masked at every ragged edge.  Its
+// cost is the region's read amplification, (1+2h/TZ)(1+2h/TM)(1+2h/TN):
+// 2.81x for a 16x16x32 tile at h = 4, which the plan prices.  A CTA reads
+// the dense (2r+1)^3 taps from global memory into shared memory (a 3D r=3
+// box has 343 taps, too many to pass by value); every output is
+// accumulated in f32 in row-major (dz, dy, dx) order, zero taps skipped,
+// and each thread computes V rows of one column of one plane from a
+// (V+2r) x (2r+1) register window per dz, as in the 2D kernel.  The
+// kernel is specialised on r <= 3.
+#include "common.cuh"
+
+#define TAPS3D_SLOTS 344  // (2*3+1)^3 = 343, rounded to 16 bytes
+#define ROWS_PER_THREAD 8
+
+template <typename T, int R>
+__global__ void __launch_bounds__(CTA_THREADS)
+stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
+                        const float* __restrict__ taps, int Z, int H, int W, int TZ, int TM,
+                        int TN, int t, int gx, int gy) {
+    constexpr int KW = 2 * R + 1;
+    constexpr int V = ROWS_PER_THREAD;
+    extern __shared__ float smem[];
+    float* const wsh = smem;  // dense taps; zero where skipped
+
+    const int halo = t * R;
+    const int planes0 = TZ + 2 * halo, rows = TM + 2 * halo, ld = TN + 2 * halo;
+    const int plane_ld = rows * ld;
+    float* const b0 = smem + TAPS3D_SLOTS;
+    float* const b1 = b0 + planes0 * plane_ld;
+    const Tile3 tl = tile3(blockIdx.x, gx, gy);
+    const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
+
+    for (int i = threadIdx.x; i < KW * KW * KW; i += blockDim.x) wsh[i] = taps[i];
+    load_region3d(b0, ld, plane_ld, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, planes0, rows,
+                  ld);
+    __syncthreads();
+
+    int pin = planes0, hin = rows, win = ld;
+    for (int s = 0; s < t; ++s) {
+        const float* in = (s & 1) ? b1 : b0;
+        float* out = (s & 1) ? b0 : b1;
+        const int po = pin - 2 * R, ho = hin - 2 * R, wo = win - 2 * R;
+        const int nrb = (ho + V - 1) / V;
+        const int strips = po * nrb * wo;
+        for (int sid = threadIdx.x; sid < strips; sid += blockDim.x) {
+            const int j = sid % wo;
+            const int rest = sid / wo;
+            const int rb = rest % nrb;
+            const int p = rest / nrb;
+            const int r0 = rb * V;
+            float acc[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[v] = 0.f;
+            // Row-major (dz, dy, dx) tap order per output; zero taps skipped.
+#pragma unroll
+            for (int dz = 0; dz < KW; ++dz) {
+                const float* pl = in + (p + dz) * plane_ld;
+                float win_[V + 2 * R][KW];
+#pragma unroll
+                for (int q = 0; q < V + 2 * R; ++q)
+#pragma unroll
+                    for (int dx = 0; dx < KW; ++dx)
+                        win_[q][dx] = (r0 + q < hin) ? pl[(r0 + q) * ld + j + dx] : 0.f;
+#pragma unroll
+                for (int dy = 0; dy < KW; ++dy)
+#pragma unroll
+                    for (int dx = 0; dx < KW; ++dx) {
+                        const float wv = wsh[(dz * KW + dy) * KW + dx];
+                        if (wv != 0.f) {
+#pragma unroll
+                            for (int v = 0; v < V; ++v) acc[v] = fmaf(wv, win_[v + dy][dx], acc[v]);
+                        }
+                    }
+            }
+            float* o = out + p * plane_ld + j;
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+                if (r0 + v < ho) o[(r0 + v) * ld] = acc[v];
+        }
+        __syncthreads();
+        pin = po;
+        hin = ho;
+        win = wo;
+    }
+    store_tile3d(y, Z, H, W, k0, i0, j0, TZ, TM, TN, (t & 1) ? b1 : b0, plane_ld, ld);
+}
+
+template <typename T, int R>
+static int launch(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ, int TM,
+                  int TN, int t, int smem_bytes, cudaStream_t stream) {
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_launch(stencil_direct3d_kernel<T, R>, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
+    if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
+    const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
+    stencil_direct3d_kernel<T, R><<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), taps, Z, H, W, TZ, TM, TN, t, gx, gy);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_r(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ,
+                    int TM, int TN, int t, int r, int smem_bytes, cudaStream_t s) {
+    if (r == 1) return launch<T, 1>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
+    if (r == 2) return launch<T, 2>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
+    if (r == 3) return launch<T, 3>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// taps: the dense (2r+1)^3 float32 weights on the device.  dtype: 0 =
+// float32, 1 = bfloat16 (input and output); r in 1..3.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int stencil_direct3d_launch(const void* x, void* y, const void* taps, int Z, int H,
+                                       int W, int TZ, int TM, int TN, int t, int r, int dtype,
+                                       int smem_bytes, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* w = static_cast<const float*>(taps);
+    if (dtype == 0) return launch_r<float>(x, y, w, Z, H, W, TZ, TM, TN, t, r, smem_bytes, s);
+    if (dtype == 1)
+        return launch_r<__nv_bfloat16>(x, y, w, Z, H, W, TZ, TM, TN, t, r, smem_bytes, s);
+    return (int)cudaErrorInvalidValue;
+}

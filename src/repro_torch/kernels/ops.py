@@ -18,7 +18,8 @@ from repro_torch.core.selector import Decision
 from repro_torch.stencil.boundary import resolve_boundary
 from . import registry
 from .common import BAND_N, resolve_tile_geom
-from .plan import _later_slice, decide, spec_from_weights, stencil_plan
+from .plan import (_later_slice, decide, geom_pricing, spec_from_weights,
+                   stencil_plan)
 
 
 def __getattr__(name):
@@ -68,21 +69,21 @@ def explain(
 ) -> Decision:
     """The dispatch decision (scenario, predicted speedup, reason) through
     ``plan.decide``, the one decision path plans use.  With ``grid_shape``
-    (and the ``tile_m`` / ``w_tile`` pins a plan would get) the CTA tile
-    resolves exactly as in ``stencil_plan``, so the result equals that
-    plan's ``decision``; without it the decision is priced at the given
-    ``strip_m`` / ``h_block`` / ``w_tile`` / ``w_block``.  ``tile_n``
-    defaults to the banded kernel's chunk width BAND_N."""
+    (1D, 2D or 3D, and the ``tile_m`` / ``w_tile`` pins a plan would get)
+    the CTA tile resolves exactly as in ``stencil_plan``, so the result
+    equals that plan's ``decision``; without it the decision is priced at
+    the given ``strip_m`` / ``h_block`` / ``w_tile`` / ``w_block``.
+    ``tile_n`` defaults to the banded kernel's chunk width BAND_N."""
     spec = spec_from_weights(weights)
+    geom_args = dict(strip_m=strip_m, h_block=h_block, w_tile=w_tile,
+                     w_block=w_block)
     if grid_shape is not None:
-        geom = resolve_tile_geom(tuple(int(n) for n in grid_shape),
-                                 t * spec.radius, tile_m, w_tile)
-        strip_m, h_block = geom.strip_m, geom.h_block
-        w_tile, w_block = geom.w_tile, geom.w_block
+        geom_args = geom_pricing(resolve_tile_geom(
+            tuple(int(n) for n in grid_shape), t * spec.radius, tile_m,
+            w_tile))
     if boundary is not None:
         boundary = resolve_boundary(boundary, spec.dim)
     return decide(spec, t, dtype_bytes, hw,
                   tile_n=BAND_N if tile_n is None else tile_n,
-                  strip_m=strip_m, h_block=h_block,
-                  w_tile=w_tile, w_block=w_block,
-                  use_sparse_unit=use_sparse_unit, boundary=boundary)
+                  use_sparse_unit=use_sparse_unit, boundary=boundary,
+                  **geom_args)

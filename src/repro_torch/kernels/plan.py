@@ -99,6 +99,19 @@ def decide(
                           boundary=boundary)
 
 
+def geom_pricing(geom) -> dict:
+    """The geometry arguments of :func:`decide` that price ``geom``, the
+    CTA tile ``resolve_tile_geom`` resolved (1D: the lift's pricing
+    geometry, which ``decide`` resolves itself)."""
+    if geom.dim == 1:
+        return {}
+    out = dict(strip_m=geom.strip_m, h_block=geom.h_block,
+               w_tile=geom.w_tile, w_block=geom.w_block)
+    if geom.dim == 3:
+        out.update(z_slab=geom.z_slab, z_block=geom.z_block)
+    return out
+
+
 class StencilPlan:
     """A built, reusable stencil execution plan; calling it advances the
     grid ``t`` time steps.  ``decision`` is the priced :class:`Decision`
@@ -261,9 +274,9 @@ def plan_signature(
         raise ValueError(
             f"grid rank {len(grid_shape)} != kernel rank {weights.ndim}; "
             "the plan's grid_shape must match the stencil dimensionality")
-    if len(grid_shape) != 2:
-        raise _later_slice(f"a {len(grid_shape)}D grid (3D slabs and the "
-                           "1D lift)", "item 8")
+    if len(grid_shape) not in (1, 2, 3):
+        raise ValueError(f"the port runs 1D, 2D and 3D grids, got rank "
+                         f"{len(grid_shape)}")
     boundary_key = resolve_boundary(boundary, len(grid_shape))
     if backend != "reference" and not is_periodic(boundary_key):
         raise _later_slice(f"boundary={boundary!r} on the kernel backends "
@@ -299,9 +312,10 @@ def stencil_plan(
     """Build (or fetch from cache) a stencil execution plan.
 
     Args:
-      spec_or_weights: a dense ``(2r+1)^2`` kernel (numpy), or a
+      spec_or_weights: a dense ``(2r+1)^d`` kernel (numpy), or a
         ``StencilSpec`` (then its deterministic Jacobi weights are used).
-      grid_shape: the 2D grid shape the plan is specialised to.
+      grid_shape: the 1D, 2D or 3D grid shape the plan is specialised to
+        (its rank is the kernel's).
       dtype: grid dtype (``torch.float32`` / ``torch.bfloat16``, or the
         numpy equivalents).
       t: fusion depth -- time steps advanced per plan invocation.
@@ -309,7 +323,9 @@ def stencil_plan(
         data sheet).
       backend: override the selector's choice with a registered backend.
       tile_m / w_tile: pin the CTA output tile (multiples of 16; ``None``
-        = ``resolve_tile_geom``).  The banded regimes contract
+        = ``resolve_tile_geom``; the 3D tile's depth is always sized by
+        the rule, and a 1D plan takes only ``w_tile``, for its lifted
+        tile).  The banded regimes contract
         BAND_N-column chunks (one wmma N), on the card and the CPU alike.
       compute_dtype: MMA operand dtype of the banded regimes (default the
         grid dtype).
@@ -338,8 +354,9 @@ def stencil_plan(
     t0 = time.perf_counter()
     spec = spec_from_weights(weights)
     # Selection prices the CTA tile the fused regimes launch with (halo
-    # t*r): its read amplification (1+2h/TM)(1+2h/TN) is the region the
-    # kernels really load, and the banded chunk width prices S.
+    # t*r): its read amplification (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in
+    # 3D, is the region the kernels really load, and the banded chunk
+    # width prices S.
     geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile)
     ctx = registry.PlanContext(
         spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
@@ -347,11 +364,8 @@ def stencil_plan(
         compute_dtype=None if compute_dtype is None
         else as_torch_dtype(compute_dtype),
         boundary=modes)
-    decision = decide(
-        spec, t, dtype_bytes=dtype.itemsize, hw=hw,
-        tile_n=BAND_N, strip_m=geom.strip_m,
-        h_block=geom.h_block, w_tile=geom.w_tile, w_block=geom.w_block,
-        boundary=modes)
+    decision = decide(spec, t, dtype_bytes=dtype.itemsize, hw=hw,
+                      tile_n=BAND_N, boundary=modes, **geom_pricing(geom))
     exec_backend = backend if backend is not None else decision.backend
     fn = registry.get_backend(exec_backend).build(ctx)
     plan = StencilPlan(

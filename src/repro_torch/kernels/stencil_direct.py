@@ -1,12 +1,15 @@
 """Tap-sum stencil (the paper's "CUDA core" baseline): the counterpart of
 ``repro.kernels.stencil_direct``.
 
-``stencil_direct(x, weights, t)`` advances a 2D periodic grid ``t`` fused
-steps.  A tensor on the CPU runs :func:`stencil_direct_plain`; a CUDA tensor
-launches the hand-written kernel ``csrc/stencil_direct.cu`` or raises.
-The kernel accumulates in f32 in the row-major tap order of the JAX kernel
-(``stencil_direct.py:91-97``), skips zero taps, and rounds to ``x.dtype``
-once, on store.
+``stencil_direct(x, weights, t)`` advances a 1D, 2D or 3D periodic grid
+``t`` fused steps.  A tensor on the CPU runs :func:`stencil_direct_plain`;
+a CUDA tensor launches a hand-written kernel or raises: 2D grids
+``csrc/stencil_direct.cu``, 3D grids ``csrc/stencil_direct3d.cu``, and 1D
+grids the 2D kernel on the lifted (1, N) view with the kernel as the
+middle row of a square one (every wrapped row is row 0, and the zero rows
+are skipped), as the JAX lift does.  The kernels accumulate in f32 in the
+row-major tap order of the JAX kernel (``stencil_direct.py:88-98``), skip
+zero taps, and round to ``x.dtype`` once, on store.
 """
 from __future__ import annotations
 
@@ -16,13 +19,14 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.stencil.boundary import is_periodic
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, _check_wrap_radius, direct_layout,
+from .common import (SMEM_BUDGET_BYTES, check_periodic_grid, direct3d_layout,
+                     direct_layout, lift_weights, lifted_tile_geom,
                      resolve_tile_geom)
 
-#: Radii the kernel is specialised on (1..3), and so the most taps it
-#: takes (a dense r=3 box); must match csrc/stencil_direct.cu.
+#: Radii the kernels are specialised on (1..3), and so the most taps the
+#: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
+#: (the 3D kernel's dense taps fill common.TAPS3D_SLOTS).
 MAX_RADIUS = 3
 MAX_TAPS = (2 * MAX_RADIUS + 1) ** 2
 
@@ -36,44 +40,29 @@ class _Taps(ctypes.Structure):
 
 
 def nonzero_taps(weights: np.ndarray):
-    """``(dy, dx, w)`` of every nonzero tap in row-major order, ``w`` as
-    float32 -- the kernel's tap list."""
+    """``(*offset, w)`` of every nonzero tap in row-major order, ``w`` as
+    float32 -- the kernels' tap order (2D: ``(dy, dx, w)``)."""
     w = np.asarray(weights, dtype=np.float32)
-    return [(dy, dx, float(w[dy, dx])) for dy, dx in np.ndindex(*w.shape)
-            if w[dy, dx] != 0.0]
+    return [idx + (float(w[idx]),) for idx in np.ndindex(*w.shape)
+            if w[idx] != 0.0]
 
 
 def stencil_direct_plain(x: torch.Tensor, weights, t: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``t`` tap-sum steps of the whole
-    periodic grid by ``torch.roll``, accumulated in f32 in row-major tap
-    order with zero taps skipped, rounded to ``x.dtype`` at the end."""
+    """Plain PyTorch version of the kernels: ``t`` tap-sum steps of the
+    whole periodic grid (any rank) by ``torch.roll`` over every axis,
+    accumulated in f32 in row-major tap order with zero taps skipped,
+    rounded to ``x.dtype`` at the end."""
     w = np.asarray(weights, dtype=np.float32)
     r = (w.shape[0] - 1) // 2
+    dims = tuple(range(w.ndim))
     cur = x.float()
     for _ in range(t):
         acc = torch.zeros_like(cur)
-        for dy, dx, wv in nonzero_taps(w):
-            acc = acc + wv * torch.roll(cur, shifts=(r - dy, r - dx),
-                                        dims=(0, 1))
+        for *off, wv in nonzero_taps(w):
+            acc = acc + wv * torch.roll(cur, shifts=tuple(r - o for o in off),
+                                        dims=dims)
         cur = acc
     return cur.to(x.dtype)
-
-
-def _check_args(x: torch.Tensor, w: np.ndarray, boundary) -> int:
-    if x.ndim != 2 or w.ndim != 2:
-        raise NotImplementedError(
-            f"the port's tap-sum runs 2D grids, got grid rank {x.ndim} and "
-            f"kernel rank {w.ndim}; 1D and 3D are ROADMAP queue 1, item 8")
-    if w.shape[0] != w.shape[1] or w.shape[0] % 2 == 0:
-        raise ValueError(f"weights must be a square (2r+1)^2 kernel, "
-                         f"got {w.shape}")
-    if not is_periodic(boundary):
-        raise NotImplementedError(
-            f"boundary={boundary!r}: the port's kernels are periodic only; "
-            "per-axis boundaries are ROADMAP queue 1, item 9 (K6)")
-    r = (w.shape[0] - 1) // 2
-    _check_wrap_radius(x.shape[-1], r)
-    return r
 
 
 @functools.lru_cache(maxsize=32)
@@ -91,7 +80,7 @@ def _tap_arg(w_bytes: bytes, shape: tuple) -> _Taps:
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    """The kernel's C entry point, built on first use, its ctypes
+    """The 2D kernel's C entry point, built on first use, its ctypes
     signature set once."""
     fn = _build.library("stencil_direct").stencil_direct_launch
     fn.restype = ctypes.c_int
@@ -100,17 +89,38 @@ def _launcher():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher3d():
+    """The 3D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_direct3d").stencil_direct3d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=32)
+def _device_taps(w_bytes: bytes, shape: tuple, device: str) -> torch.Tensor:
+    """The dense float32 (2r+1)^3 weights on the device, where the 3D
+    kernel reads them (once per CTA, into shared memory), built once per
+    weights and device."""
+    w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
+    return torch.from_numpy(w.copy()).to(device)
+
+
 def stencil_direct(x: torch.Tensor, weights, t: int = 1,
                    tile_m: int = None, w_tile: int = None,
                    boundary=None) -> torch.Tensor:
-    """``t`` fused tap-sum steps of a 2D periodic grid.
+    """``t`` fused tap-sum steps of a 1D, 2D or 3D periodic grid.
 
-    ``weights``: host-side (2r+1)^2 ndarray (zeros outside support).
-    ``tile_m`` / ``w_tile`` pin the CTA's output tile (multiples of 16;
-    ``None`` = ``resolve_tile_geom``).  Only periodic boundaries run here.
+    ``weights``: host-side (2r+1)^d ndarray (zeros outside support), d the
+    grid rank.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
+    (multiples of 16; ``None`` = ``resolve_tile_geom``; 1D:
+    :func:`lifted_tile_geom`, where only ``w_tile`` applies).  Only
+    periodic boundaries run here.
     """
     w = np.asarray(weights)
-    r = _check_args(x, w, boundary)
+    r = check_periodic_grid(x.shape, w, boundary, "the tap-sum")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     if x.device.type == "cpu":
@@ -123,17 +133,27 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
     if r > MAX_RADIUS:
         raise ValueError(f"the tap-sum kernel is specialised on radius <= "
                          f"{MAX_RADIUS}, got {r}")
+    if not x.is_contiguous():
+        raise ValueError("stencil_direct kernel takes a contiguous grid")
     w32 = np.ascontiguousarray(w, dtype=np.float32)
-    arg = _tap_arg(w32.tobytes(), w32.shape)
-    if arg.n == 0:
+    if not w32.any():
         return torch.zeros_like(x)
-    geom = resolve_tile_geom(x.shape, t * r, tile_m, w_tile)
+    if x.ndim == 3:
+        return _launch3d(x, w32, t, r, tile_m, w_tile)
+    if x.ndim == 1:
+        return _launch2d(x.view(1, -1), lift_weights(w32), t, r,
+                         lifted_tile_geom(x.shape[0], t * r, w_tile)).view(-1)
+    return _launch2d(x, w32, t, r,
+                     resolve_tile_geom(x.shape, t * r, tile_m, w_tile))
+
+
+def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
+              geom) -> torch.Tensor:
+    arg = _tap_arg(w32.tobytes(), w32.shape)
     layout = direct_layout(geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"tap-sum tile needs {layout.smem_bytes} bytes of "
                          "shared memory, over the 227 KB budget")
-    if not x.is_contiguous():
-        raise ValueError("stencil_direct kernel takes a contiguous grid")
     y = torch.empty_like(x)
     fn = _launcher()
     h, wd = x.shape
@@ -146,3 +166,23 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
     _build.count_launch("stencil_direct")
     return y
 
+
+def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
+              tile_m, w_tile) -> torch.Tensor:
+    geom = resolve_tile_geom(x.shape, t * r, tile_m, w_tile)
+    layout = direct3d_layout(geom.z_slab, geom.strip_m, geom.w_tile, t * r)
+    if layout.smem_bytes > SMEM_BUDGET_BYTES:
+        raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
+                         "of shared memory, over the 227 KB budget")
+    taps = _device_taps(w32.tobytes(), w32.shape, str(x.device))
+    y = torch.empty_like(x)
+    fn = _launcher3d()
+    z, h, wd = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), z, h, wd,
+                 geom.z_slab, geom.strip_m, geom.w_tile, t, r,
+                 _DTYPE_CODES[x.dtype], layout.smem_bytes, stream)
+    _build.check(err, "stencil_direct3d")
+    _build.count_launch("stencil_direct3d")
+    return y

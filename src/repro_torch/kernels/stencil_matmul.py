@@ -1,21 +1,24 @@
 """Banded (Toeplitz) stencil contraction on the tensor cores (the paper's
 "Tensor Core" adaptation): the counterpart of ``repro.kernels.stencil_matmul``.
 
-Transformation (DESIGN.md §2): each nonzero kernel row w[dy, :] becomes a
-banded matrix B_dy of shape (tile_n + 2R, tile_n) with B_dy[j+dx, j] =
-w[dy, dx] (``build_bands_nd``, host-side, copied from the JAX package so
-the operands match bit for bit), and every chunk of ``tile_n`` output
-columns is  sum_dy  A_dy @ B_dy,  A_dy the dy-shifted (rows, tile_n + 2R)
-slab of the periodically extended input, accumulated in f32 with the
-operands in the compute dtype.
+Transformation (DESIGN.md §2): each structurally nonzero x-row of the
+kernel -- w[dy, :] in 2D, w[dz, dy, :] in 3D -- becomes a banded matrix B
+of shape (tile_n + 2R, tile_n) with B[j+dx, j] = w[..., dx]
+(``build_bands_nd``, host-side, copied from the JAX package so the
+operands match bit for bit), and every chunk of ``tile_n`` output columns
+is  sum over rows of  A_row @ B_row,  A_row the (dz, dy)-shifted slab of
+the periodically extended input, accumulated in f32 with the operands in
+the compute dtype.
 
 ``stencil_matmul(x, weights, t)``: ``t=1`` is one contraction of
 ``weights`` (which may be a composed radius-t*r kernel: monolithic
 fusion); ``t>1`` runs t radius-r contractions with f32 intermediates (the
 intermediate-reuse regime).  A tensor on the CPU runs
-:func:`stencil_matmul_plain`; a CUDA tensor launches the hand-written wmma
-kernel ``csrc/stencil_banded.cu`` (TF32 operands for f32, bf16 for bf16,
-16-column chunks: BAND_N) or raises.
+:func:`stencil_matmul_plain`; a CUDA tensor launches a hand-written wmma
+kernel (TF32 operands for f32, bf16 for bf16, 16-column chunks: BAND_N)
+or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
+``csrc/stencil_banded3d.cu``, 1D grids the 2D kernel on the lifted
+(1, N) view, where the kernel's single row is one band.
 """
 from __future__ import annotations
 
@@ -26,17 +29,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.stencil.boundary import is_periodic
 from . import _build
-from .common import (BAND_N, SMEM_BUDGET_BYTES, _check_wrap_radius,
-                     banded_layout, resolve_tile_geom)
+from .common import (BAND_N, SMEM_BUDGET_BYTES, banded3d_layout,
+                     banded_layout, check_periodic_grid, lift_weights,
+                     lifted_tile_geom, resolve_tile_geom)
 
-#: Most band rows (kernel rows) one launch takes; must match MAX_ROWS in
-#: csrc/stencil_banded.cu.
+#: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
+#: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
+#: device memory and takes any number.
 MAX_ROWS = 64
 
-#: Deepest padded contraction the kernel holds in registers (BAND_N + 2R
-#: <= 64, so R <= 24); must match MAX_KPAD in csrc/stencil_banded.cu.
+#: Deepest padded contraction the kernels take (BAND_N + 2R <= 64, so
+#: R <= 24); must match MAX_KPAD in csrc/stencil_banded{,3d}.cu.
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,51 +108,60 @@ def band_sparsity(weights: np.ndarray, tile_n: int) -> float:
 def stencil_matmul_plain(x: torch.Tensor, weights, t: int = 1,
                          tile_n: int = BAND_N,
                          compute_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on the whole periodic grid: per
-    step, pad the columns periodically by R (and with zeros up to whole
-    chunks), cut each dy-shifted row slab into (tile_n + 2R)-wide chunks
-    at stride ``tile_n`` and contract it with its ``build_bands_nd`` band
-    by ``torch.matmul``.  Operands are rounded to the compute dtype and
-    multiplied in f32 (exact for bf16), accumulated in f32; the result
+    """Plain PyTorch version of the kernels on the whole periodic grid (any
+    rank): per step, pad every axis periodically by R (and the columns
+    with zeros up to whole chunks), cut each row-shifted slab of
+    ``build_bands_nd`` into (tile_n + 2R)-wide chunks at stride ``tile_n``
+    and contract it with its band by one ``torch.matmul`` over all
+    chunks.  Operands are rounded to the compute dtype and multiplied in
+    f32 (exact for bf16), accumulated in f32 in row order; the result
     rounds to ``x.dtype`` at the end."""
     w = np.asarray(weights, dtype=np.float32)
     cdt = x.dtype if compute_dtype is None else compute_dtype
     radius = (w.shape[-1] - 1) // 2
     offsets, bands_np = build_bands_nd(w, tile_n)
     bands = torch.from_numpy(bands_np).to(x.device).to(cdt).float()
-    h, wd = x.shape
+    shape = tuple(x.shape)
+    lead, wd = shape[:-1], shape[-1]
     nc = -(-wd // tile_n)
-    rows = (torch.arange(-radius, h + radius, device=x.device) % h)
-    cols = (torch.arange(-radius, wd + radius, device=x.device) % wd)
+    wraps = [torch.arange(-radius, n + radius, device=x.device) % n
+             for n in shape]
     cur = x.float()
     for _ in range(t):
-        xp = cur.index_select(0, rows).index_select(1, cols)
+        xp = cur
+        for d, idx in enumerate(wraps):
+            xp = xp.index_select(d, idx)
         xp = F.pad(xp, (0, nc * tile_n - wd)).to(cdt).float()
-        acc = torch.zeros(h, nc, tile_n, device=x.device)
-        for p, (dy,) in enumerate(offsets):
-            a = xp[dy:dy + h].unfold(1, tile_n + 2 * radius, tile_n)
+        acc = torch.zeros(lead + (nc, tile_n), device=x.device)
+        for p, off in enumerate(offsets):
+            sl = tuple(slice(o, o + n) for o, n in zip(off, lead))
+            a = xp[sl].unfold(-1, tile_n + 2 * radius, tile_n)
             acc = acc + torch.matmul(a, bands[p])
-        cur = acc.reshape(h, nc * tile_n)[:, :wd]
+        cur = acc.reshape(lead + (nc * tile_n,))[..., :wd]
     return cur.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=32)
 def _device_bands(w_bytes: bytes, shape: tuple, kpad: int,
                   cdt: torch.dtype, device: str):
-    """``(dy offsets, bands)`` of one weight array as the kernel reads them:
-    the ``build_bands_nd`` operands padded with zero rows to ``kpad`` and
-    stored in the compute dtype on the device, built once per weights,
-    dtype and device (plans call the wrapper every step)."""
+    """``(row offsets, bands, offsets on the device)`` of one weight array
+    as the kernels read them: the ``build_bands_nd`` operands padded with
+    zero rows to ``kpad`` and stored in the compute dtype on the device,
+    and the leading-axis offset of every band row as int32 (the 3D kernel
+    reads its (dz, dy) pairs there), built once per weights, dtype and
+    device (plans call the wrapper every step)."""
     w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
     offsets, bands = build_bands_nd(w, BAND_N)
     bands = np.pad(bands, ((0, 0), (0, kpad - bands.shape[1]), (0, 0)))
-    return (tuple(dy for (dy,) in offsets),
-            torch.from_numpy(bands).to(device=device, dtype=cdt))
+    offs = np.asarray(offsets, dtype=np.int32).reshape(len(offsets), -1)
+    return (tuple(offsets),
+            torch.from_numpy(bands).to(device=device, dtype=cdt),
+            torch.from_numpy(offs).to(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    """The kernel's C entry point, built on first use, its ctypes
+    """The 2D kernel's C entry point, built on first use, its ctypes
     signature set once."""
     fn = _build.library("stencil_banded").stencil_banded_launch
     fn.restype = ctypes.c_int
@@ -157,35 +170,34 @@ def _launcher():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher3d():
+    """The 3D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_banded3d").stencil_banded3d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
+        ctypes.c_void_p]
+    return fn
+
+
 def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
                    tile_m: int = None, w_tile: int = None,
                    compute_dtype=None, boundary=None) -> torch.Tensor:
-    """``t`` steps of a 2D periodic grid via banded contractions.
+    """``t`` steps of a 1D, 2D or 3D periodic grid via banded contractions.
 
     ``t=1``: one contraction of ``weights`` (possibly a fused radius-t*r
     kernel).  ``t>1``: t radius-r contractions with f32 intermediates kept
-    on chip.  ``tile_m`` / ``w_tile`` pin the CTA's output tile;
+    on chip.  ``tile_m`` / ``w_tile`` pin the CTA's output tile (1D: only
+    ``w_tile``, on the lifted tile);
     ``compute_dtype`` is the MMA operand dtype (default ``x.dtype``).
     Columns go in BAND_N-wide chunks on both devices.  Only periodic
     boundaries run here.
     """
     w = np.asarray(weights, dtype=np.float32)
-    if x.ndim != 2 or w.ndim != 2:
-        raise NotImplementedError(
-            f"the port's banded contraction runs 2D grids, got grid rank "
-            f"{x.ndim} and kernel rank {w.ndim}; 1D and 3D are ROADMAP "
-            "queue 1, item 8")
-    if w.shape[0] != w.shape[1] or w.shape[0] % 2 == 0:
-        raise ValueError(f"weights must be a square (2R+1)^2 kernel, "
-                         f"got {w.shape}")
-    if not is_periodic(boundary):
-        raise NotImplementedError(
-            f"boundary={boundary!r}: the port's kernels are periodic only; "
-            "per-axis boundaries are ROADMAP queue 1, item 9 (K6)")
+    radius = check_periodic_grid(x.shape, w, boundary,
+                                 "the banded contraction")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
-    radius = (w.shape[0] - 1) // 2
-    _check_wrap_radius(x.shape[-1], radius)
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
         return stencil_matmul_plain(x, w, t, BAND_N, cdt)
@@ -196,23 +208,37 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
                         f"grids and operands, got {x.dtype} / {cdt}")
     if not x.is_contiguous():
         raise ValueError("stencil_matmul kernel takes a contiguous grid")
+    if x.ndim == 1:
+        geom = lifted_tile_geom(x.shape[0], t * radius, w_tile)
+        return _launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
+                         geom).view(-1)
     geom = resolve_tile_geom(x.shape, t * radius, tile_m, w_tile)
-    layout = banded_layout(geom.strip_m, geom.w_tile, radius, t,
-                           cdt.itemsize)
+    if x.ndim == 3:
+        return _launch3d(x, w, t, radius, cdt, geom)
+    return _launch2d(x, w, t, radius, cdt, geom)
+
+
+def _checked(layout, what: str):
     if layout.kpad > MAX_KPAD:
-        raise ValueError(f"radius {radius} needs a contraction depth of "
+        raise ValueError(f"{what} needs a contraction depth of "
                          f"{layout.kpad}, over the kernel's {MAX_KPAD} "
                          "(radius <= 24)")
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
-        raise ValueError(f"banded tile needs {layout.smem_bytes} bytes of "
+        raise ValueError(f"{what} tile needs {layout.smem_bytes} bytes of "
                          "shared memory, over the 227 KB budget")
-    dys, bands = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
-                               str(x.device))
-    if len(dys) > MAX_ROWS:
-        raise ValueError(f"{len(dys)} band rows exceed the kernel's "
+    return layout
+
+
+def _launch2d(x, w, t, radius, cdt, geom) -> torch.Tensor:
+    layout = _checked(banded_layout(geom.strip_m, geom.w_tile, radius, t,
+                                    cdt.itemsize), "banded")
+    offsets, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
+                                      str(x.device))
+    if len(offsets) > MAX_ROWS:
+        raise ValueError(f"{len(offsets)} band rows exceed the kernel's "
                          f"{MAX_ROWS}")
-    arg = _BandRows(len(dys))
-    for k, dy in enumerate(dys):
+    arg = _BandRows(len(offsets))
+    for k, (dy,) in enumerate(offsets):
         arg.dy[k] = dy
     y = torch.empty_like(x)
     fn = _launcher()
@@ -226,4 +252,25 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
                  stream)
     _build.check(err, "stencil_banded")
     _build.count_launch("stencil_banded")
+    return y
+
+
+def _launch3d(x, w, t, radius, cdt, geom) -> torch.Tensor:
+    layout = _checked(banded3d_layout(geom.z_slab, geom.strip_m, geom.w_tile,
+                                      radius, t, cdt.itemsize), "3D banded")
+    offsets, bands, offs = _device_bands(w.tobytes(), w.shape, layout.kpad,
+                                         cdt, str(x.device))
+    y = torch.empty_like(x)
+    fn = _launcher3d()
+    z, h, wd = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(),
+                 offs.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
+                 geom.w_tile, t, radius, layout.rows, layout.ld,
+                 layout.a_rows, layout.kpad, len(offsets),
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], layout.smem_bytes,
+                 stream)
+    _build.check(err, "stencil_banded3d")
+    _build.count_launch("stencil_banded3d")
     return y

@@ -140,8 +140,10 @@ def test_tile_pins_and_limits():
         common.resolve_tile_geom((64, 64), 1, tile_m=24)
     with pytest.raises(ValueError, match="too deep"):
         common.resolve_tile_geom((4096, 4096), 200)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        common.resolve_tile_geom((8, 8, 8), 1)
+    # 3D grids tile too (item 8): the depth clamps to the grid
+    g3 = common.resolve_tile_geom((8, 8, 8), 1)
+    assert (g3.dim, g3.z_slab, g3.strip_m, g3.w_tile) == (3, 8, 16, 16)
+    assert (g3.z_block, g3.h_block, g3.w_block) == (1, 1, 1)
     # deep halos shrink the tile before giving up
     assert common.resolve_tile_geom((4096, 4096), 24).strip_m == 32
 
@@ -164,7 +166,9 @@ def test_cpu_tensors_never_count_a_launch():
     t_matmul.stencil_matmul(x, w, 2)
     tk.stencil_plan(w, x.shape, torch.float32, 2, device="cpu",
                     backend="fused_matmul")(x)
-    assert tk.launch_counts() == {"stencil_direct": 0, "stencil_banded": 0}
+    assert tk.launch_counts() == {"stencil_direct": 0, "stencil_banded": 0,
+                                  "stencil_direct3d": 0,
+                                  "stencil_banded3d": 0}
 
 
 def test_other_devices_raise():
@@ -200,8 +204,12 @@ def test_later_slices_raise(kwargs, item):
 def test_later_slices_raise_elsewhere():
     w2 = make_weights(StencilSpec("box", 2, 1), seed=0)
     w3 = make_weights(StencilSpec("box", 3, 1), seed=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tk.stencil_plan(w3, (8, 8, 8), torch.float32, 1, device="cpu")
+    # 3D grids run (item 8), against the reference backend
+    x3 = torch.randn(8, 8, 8, generator=torch.Generator().manual_seed(0))
+    y3 = tk.stencil_plan(w3, (8, 8, 8), torch.float32, 1, device="cpu")(x3)
+    torch.testing.assert_close(y3, tk.stencil_plan(
+        w3, (8, 8, 8), torch.float32, 1, device="cpu",
+        backend="reference")(x3), rtol=0, atol=1e-5 * float(x3.abs().max()))
     with pytest.raises(NotImplementedError, match="item 12"):
         tk.stencil_apply(torch.zeros(16, 16), w2, guard=True)
     with pytest.raises(NotImplementedError, match="item 9"):

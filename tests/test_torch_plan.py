@@ -199,3 +199,23 @@ def test_stencil_apply_matches_plan():
     assert tk.fallback_ladder() == ("fused_matmul_reuse", "fused_matmul",
                                     "matmul", "fused_direct", "direct",
                                     "reference")
+
+
+@pytest.mark.parametrize("backend", ["fused_direct", "fused_matmul_reuse"])
+@pytest.mark.parametrize("width", [37, 257])
+def test_column_tiled_plan_matches_jax(backend, width):
+    # K4: the port's 2D tile carries the x-halo and masks ragged widths;
+    # held against the JAX plan on its column-tiled substrate (w_tile=32,
+    # interpret mode), which extends the columns on the host instead
+    shape, t = (32, width), 2
+    w = make_weights(JSpec("box", 2, 1), seed=1)
+    x = np.random.default_rng(t).normal(size=shape).astype(np.float32)
+    plan = tk.stencil_plan(w, shape, torch.float32, t, backend=backend,
+                           w_tile=32, device="cpu")
+    assert plan.geom.w_tile == 32 and -(-width // 32) > 1
+    port = plan(torch.from_numpy(x)).numpy()
+    jp = jplan.stencil_plan(w, shape, jnp.float32, t, backend=backend,
+                            w_tile=32)
+    assert "w_tile=32" in jp.decision.reason
+    np.testing.assert_allclose(port, np.asarray(jp(jnp.asarray(x))), rtol=0,
+                               atol=tolerance(x, torch.float32, t, 1))

@@ -1,0 +1,153 @@
+"""The slice on 3D and 1D grids against the JAX package: the port's
+``stencil_plan(..., device="cpu")(x)`` for every regime, ``auto`` and
+``reference`` against the JAX oracle (and, on a few cases, against the JAX
+plan itself in interpret mode), the port's decisions against the JAX
+``decide`` on the same workloads and geometry, and ``explain``."""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import plan as jplan  # noqa: E402
+from repro.kernels.ref import stencil_direct_ref as j_ref  # noqa: E402
+from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
+from repro_torch import kernels as tk  # noqa: E402
+
+from test_torch_plan import J_H100, tolerance  # noqa: E402
+
+BACKENDS = ["direct", "fused_direct", "matmul", "fused_matmul",
+            "fused_matmul_reuse", None, "reference"]     # None = auto
+SHAPES_3D = [(8, 16, 32), (6, 20, 37)]
+
+
+def _inputs(kind, dim, r, t, shape):
+    w = make_weights(JSpec(kind, dim, r), seed=r + t)
+    x = np.random.default_rng(t).normal(size=shape).astype(np.float32)
+    return w, x
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle(kind, dim, r, t, shape):
+    """The JAX oracle of one case, computed once for all backends."""
+    w, x = _inputs(kind, dim, r, t, shape)
+    return np.asarray(j_ref(jnp.asarray(x), w, t))
+
+
+def check_decision(plan, t, dtype_bytes):
+    """The port's decision equals the JAX ``decide`` asked the same
+    question: the H100 data-sheet spec and the port's tile as the JAX
+    geometry arguments."""
+    g, dim = plan.geom, plan.spec.dim
+    geo = {}
+    if dim >= 2:
+        geo = dict(strip_m=g.strip_m, h_block=g.h_block, w_tile=g.w_tile,
+                   w_block=g.w_block)
+        assert (g.h_block, g.w_block) == (t * plan.spec.radius,) * 2
+    if dim == 3:
+        geo.update(z_slab=g.z_slab, z_block=g.z_block)
+        assert g.z_block == t * plan.spec.radius
+    jd = jplan.decide(JSpec(plan.spec.shape, dim, plan.spec.radius), t,
+                      dtype_bytes, hw=J_H100, tile_n=16, **geo)
+    d = plan.decision
+    assert (d.backend, d.scenario.name, d.reason) == \
+        (jd.backend, jd.scenario.name, jd.reason)
+    assert d.candidates.keys() == jd.candidates.keys()
+    for k in d.candidates:
+        assert d.candidates[k] == pytest.approx(jd.candidates[k], rel=1e-12)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("kind", ["box", "star"])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("t", [1, 2])
+def test_3d_plan_matches_jax(backend, shape, kind, r, t):
+    w, x = _inputs(kind, 3, r, t, shape)
+    plan = tk.stencil_plan(w, shape, torch.float32, t, backend=backend,
+                           device="cpu")
+    port = plan(torch.from_numpy(x))
+    assert port.dtype == torch.float32 and tuple(port.shape) == shape
+    np.testing.assert_allclose(port.numpy(), _oracle(kind, 3, r, t, shape),
+                               rtol=0, atol=tolerance(x, torch.float32, t, 1))
+    assert plan.geom.dim == 3
+    check_decision(plan, t, 4)
+
+
+@pytest.mark.parametrize("backend", ["direct", "fused_direct", "matmul",
+                                     "fused_matmul", "fused_matmul_reuse"])
+def test_3d_plan_matches_the_jax_plan(backend):
+    # the JAX plan itself, on its slab substrate in interpret mode, on a
+    # grid no tile divides
+    shape, t = (6, 20, 37), 2
+    w, x = _inputs("box", 3, 1, t, shape)
+    port = tk.stencil_plan(w, shape, torch.float32, t, backend=backend,
+                           device="cpu")(torch.from_numpy(x))
+    jp = jplan.stencil_plan(w, shape, jnp.float32, t, backend=backend)
+    np.testing.assert_allclose(port.numpy(), np.asarray(jp(jnp.asarray(x))),
+                               rtol=0, atol=tolerance(x, torch.float32, t, 1))
+
+
+def test_3d_plan_bf16_matches_jax():
+    shape, t = (6, 20, 37), 2
+    w, x = _inputs("star", 3, 1, t, shape)
+    ref = _oracle("star", 3, 1, t, shape)
+    for backend in ("fused_direct", "fused_matmul_reuse"):
+        plan = tk.stencil_plan(w, shape, torch.bfloat16, t, backend=backend,
+                               device="cpu")
+        port = plan(torch.from_numpy(x).to(torch.bfloat16))
+        assert port.dtype == torch.bfloat16
+        # bf16 input rounding, then one rounding per step and the output
+        np.testing.assert_allclose(
+            port.float().numpy(), ref, rtol=0,
+            atol=tolerance(x, torch.bfloat16, t, t + 2))
+        check_decision(plan, t, 2)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("n", [64, 67])
+@pytest.mark.parametrize("kind,r", [("box", 1), ("star", 3)])
+def test_1d_plan_matches_the_jax_plan(backend, n, kind, r):
+    t = 2
+    w, x = _inputs(kind, 1, r, t, (n,))
+    plan = tk.stencil_plan(w, (n,), torch.float32, t, backend=backend,
+                           device="cpu")
+    port = plan(torch.from_numpy(x))
+    assert tuple(port.shape) == (n,)
+    jp = jplan.stencil_plan(w, (n,), jnp.float32, t, backend=backend)
+    np.testing.assert_allclose(port.numpy(), np.asarray(jp(jnp.asarray(x))),
+                               rtol=0, atol=tolerance(x, torch.float32, t, 1))
+    assert plan.geom.dim == 1 and "1D lifted" in plan.decision.reason
+    check_decision(plan, t, 4)
+
+
+#: 3D tiles fit up to h = t*r = 9 (deeper plans raise "too deep").
+DECISION_CASES = [(dim, shape, kind, r, t)
+                  for dim, shape in ((3, (512, 512, 512)), (3, (60, 70, 130)),
+                                     (1, (2**26,)), (1, (67,)))
+                  for kind in ("box", "star") for r in (1, 2, 3)
+                  for t in (1, 2, 4) if dim == 1 or r * t <= 9]
+
+
+@pytest.mark.parametrize("dim,shape,kind,r,t", DECISION_CASES)
+def test_decision_parity(dim, shape, kind, r, t):
+    w = make_weights(JSpec(kind, dim, r), seed=0)
+    for dtype, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        plan = tk.stencil_plan(w, shape, dtype, t, device="cpu",
+                               use_cache=False)
+        check_decision(plan, t, nbytes)
+        assert tk.explain(w, t, nbytes, grid_shape=shape) == plan.decision
+
+
+def test_main_path_decisions():
+    # Box/Star-3D1R at t=4 on 512^3: the tile the plan prices
+    for kind in ("box", "star"):
+        w = make_weights(JSpec(kind, 3, 1), seed=0)
+        plan = tk.stencil_plan(w, (512, 512, 512), torch.float32, 4,
+                               device="cpu", use_cache=False)
+        assert "read_amp=2.812x (z_slab=16, z_block=4, strip_m=16" \
+            in plan.decision.reason
+        assert plan.backend == plan.decision.backend
