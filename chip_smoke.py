@@ -23,12 +23,14 @@ Phases, any failure exits non-zero:
      512^3 float32 (512 MiB per field), Box-3D1R and Star-3D1R; 1D, 2^26
      float32 points, Box-1D1R; all at t=4;
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
-     slow plain versions and yardsticks): each regime's milliseconds per
-     call and microseconds per step beside the model's choice, its read
-     amplification and its bound, each kernel beside its plain version and
-     an F.conv2d / F.conv3d yardstick the port never calls, and each
-     wrapper's host time per launch.
-The line before the last is the JSON kernel report, the last line
+     slow 3D plain versions and yardsticks): each regime's milliseconds
+     per call and microseconds per step beside the model's choice, its
+     read amplification and its bound, each kernel on each path beside its
+     plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
+     port never calls, and each wrapper's host time per launch.
+The line before the last is the JSON kernel report, one entry per kernel
+and path (the 2D kernels on the 1D path as "... (1D lift)"), each with
+the launches of its own path's run; the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -73,6 +75,11 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/common.py:1525"),
     "stencil_banded3d": ("src/repro_torch/kernels/csrc/stencil_banded3d.cu",
                          "src/repro/kernels/common.py:1525"),
+    # The 1D lift: the 2D kernels on the (1, N) view, as the JAX lift.
+    "stencil_direct (1D lift)": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
+                                 "src/repro/kernels/stencil_direct.py:139"),
+    "stencil_banded (1D lift)": ("src/repro_torch/kernels/csrc/stencil_banded.cu",
+                                 "src/repro/kernels/stencil_matmul.py:248"),
 }
 
 
@@ -126,11 +133,11 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def conv_yardstick(x: torch.Tensor, w: np.ndarray, tf32: bool):
-    """One F.conv2d / F.conv3d of ``w`` on the circularly padded grid (pad
-    included)."""
+    """One F.conv1d / F.conv2d / F.conv3d of ``w`` on the circularly padded
+    grid (pad included)."""
     r = (w.shape[0] - 1) // 2
     wt = torch.from_numpy(np.ascontiguousarray(w)).to(x.device, x.dtype)
-    conv = F.conv3d if x.ndim == 3 else F.conv2d
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[x.ndim]
 
     def run():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
@@ -346,34 +353,34 @@ def kernel_report(mods, x, w, counts, reps_slow):
     """Each kernel at its fused main-path call on ``w`` (``stencil_direct(x,
     w, t)`` and the reuse form ``stencil_matmul(x, w, t)``), held against
     its plain version with the phase-3 limit, beside one F.conv of the
-    composed kernel."""
+    composed kernel; ``launches`` is the count of this path's run.  The
+    bound counts the FLOPs the stencil needs (2 per nonzero tap, point and
+    step), not the band MACs the banded kernel does."""
     _, sm, sd, weights = mods
     n, dim = x.numel(), x.ndim
     wf = weights.fuse_weights(w, MAIN_T)
-    n_rows = len(sm.build_bands_nd(w.astype(np.float32), 16)[0])
-    radius = (w.shape[0] - 1) // 2
+    ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
     mx, sw = float(x.abs().max()), float(np.abs(w).sum())
     report = []
-    for base, kern, plain, ops, peak, tf32, tol in (
+    for base, kern, plain, peak, tf32, tol in (
             ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T),
-             lambda: sd.stencil_direct_plain(x, w, MAIN_T),
-             MAIN_T * 2 * int(np.count_nonzero(w)) * n, FP32_FLOPS, False,
-             1e-5 * MAIN_T * mx),
+             lambda: sd.stencil_direct_plain(x, w, MAIN_T), FP32_FLOPS,
+             False, 1e-5 * MAIN_T * mx),
             ("stencil_banded", lambda: sm.stencil_matmul(x, w, MAIN_T),
-             lambda: sm.stencil_matmul_plain(x, w, MAIN_T),
-             MAIN_T * n_rows * (16 + 2 * radius) * 2 * n, TF32_FLOPS, True,
-             MAIN_T * 2**-10 * sw * mx)):
+             lambda: sm.stencil_matmul_plain(x, w, MAIN_T), TF32_FLOPS,
+             True, MAIN_T * 2**-10 * sw * mx)):
         kname = kernel_name(base, dim)
+        entry = kname + (" (1D lift)" if dim == 1 else "")
         y = kern()
         err = max_err(y, plain())
         del y
-        check(err <= tol, f"kernel report {kname}: max|err| vs plain {err:.3e} "
+        check(err <= tol, f"kernel report {entry}: max|err| vs plain {err:.3e} "
                           f"> tol {tol:.3e}")
         bytes_ms = 2 * n * 4 / HBM_BPS * 1e3
         ops_ms = ops / peak * 1e3
-        src, replaces = KERNEL_SOURCES[kname]
+        src, replaces = KERNEL_SOURCES[entry]
         report.append({
-            "name": kname, "route": "cuda", "source": src,
+            "name": entry, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
             "max_abs_err": err, "ms": cuda_ms(kern),
             "plain_ms": cuda_ms(plain, reps=reps_slow),
@@ -390,15 +397,23 @@ def kernel_report(mods, x, w, counts, reps_slow):
 
 def phase_host(mods, w2, w3):
     """Host cost of one wrapper call (argument checks, operand caches,
-    ctypes, launch) on a grid small enough that the card keeps up."""
-    _, sm, sd, _ = mods
+    ctypes, launch) on a grid small enough that the card keeps up: on the
+    tile a plan resolved when built (what each of a plan's launches costs),
+    and through the public wrapper, which resolves the tile on every
+    call."""
+    kernels, sm, sd, _ = mods
     for dim, w in ((2, w2), (3, w3)):
         xs = grid(HOST_SHAPES[dim], torch.float32, seed=3)
-        for base, kern in (("stencil_direct", lambda: sd.stencil_direct(xs, w, 1)),
-                           ("stencil_banded", lambda: sm.stencil_matmul(xs, w, 1))):
-            print(f"  kernel {kernel_name(base, dim)}: host {host_us(kern):.2f} us per "
-                  f"launch ({'x'.join(map(str, xs.shape))} float32, t=1, wall clock "
-                  f"over {HOST_CALLS} calls)")
+        geom = kernels.common.launch_geom(xs.shape, 1)
+        for base, at, public in (
+                ("stencil_direct", lambda: sd.stencil_direct_at(xs, w, 1, geom),
+                 lambda: sd.stencil_direct(xs, w, 1)),
+                ("stencil_banded", lambda: sm.stencil_matmul_at(xs, w, 1, geom),
+                 lambda: sm.stencil_matmul(xs, w, 1))):
+            print(f"  kernel {kernel_name(base, dim)}: host {host_us(at):.2f} us per "
+                  f"launch on a plan's resolved tile, {host_us(public):.2f} us through "
+                  f"the public wrapper ({'x'.join(map(str, xs.shape))} float32, t=1, "
+                  f"wall clock over {HOST_CALLS} calls)")
 
 
 def band_sparsity_lines(mods, ws):
@@ -440,30 +455,25 @@ def main() -> int:
     try:
         card = phase_build(kernels)
         phase_kernels_vs_plain(mods)
-        report, launches = [], {}
+        report = []
         for label, (shape, specs) in PATHS.items():
             x = grid(shape, torch.float32, seed=0)
             ws = {s.name: make_weights(s, seed=0)
                   for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
             results, counts = phase_main_path(mods, label, x, ws)
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
             phase_regime_times(label, x, ws, results, card)
-            if label in ("2D", "3D"):
-                # 2D: 15 repetitions of everything, as before; 3D: the
-                # plain versions and yardsticks are slow, 5.
-                reps = 15 if label == "2D" else 5
-                for name, wk in ws.items():
-                    for tf32 in (False, True):
-                        ms = cuda_ms(conv_yardstick(x, wk, tf32), reps=reps)
-                        print(f"  {name:10s} F.conv{x.ndim}d one step (tf32={tf32}): "
-                              f"{ms:.4f} ms")
-                band_sparsity_lines(mods, ws)
-                w = ws[StencilSpec("box", len(shape), 1).name]
-                report += kernel_report(mods, x, w, counts, reps)
+            # 15 repetitions of everything; in 3D the plain versions and
+            # yardsticks are slow, 5.
+            reps = 5 if label == "3D" else 15
+            for name, wk in ws.items():
+                for tf32 in (False, True):
+                    ms = cuda_ms(conv_yardstick(x, wk, tf32), reps=reps)
+                    print(f"  {name:10s} F.conv{x.ndim}d one step (tf32={tf32}): "
+                          f"{ms:.4f} ms")
+            band_sparsity_lines(mods, ws)
+            w = ws[StencilSpec("box", len(shape), 1).name]
+            report += kernel_report(mods, x, w, counts, reps)
             del x, results
-        for k in report:       # launches over all three main-path runs
-            k["launches"] = launches[k["name"]]
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))
     except (SmokeFailure, RuntimeError, ValueError, TypeError,

@@ -31,7 +31,6 @@ amplification 1 (``SubstrateGeom(1, strip_m=1, h_block=1)``).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import itertools
 import math
 from typing import Iterator, Optional
@@ -388,7 +387,6 @@ def _divisors(n: int) -> list:
     return [d for d in range(1, n + 1) if n % d == 0]
 
 
-@functools.lru_cache(maxsize=4096)
 def tile_smem_bound(tm: int, tn: int, halo: int,
                     tz: Optional[int] = None) -> int:
     """Upper bound on either kernel's shared memory at total halo ``halo``.
@@ -451,16 +449,7 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     up to 16); TZ is always the rule's.  A halo no tile fits raises the
     "too deep" ``ValueError``.
     """
-    return _resolve_tile_geom(tuple(int(n) for n in grid_shape), halo,
-                              tile_m, w_tile)
-
-
-@functools.lru_cache(maxsize=256)
-def _resolve_tile_geom(grid_shape: tuple, halo: int, tile_m,
-                       w_tile) -> SubstrateGeom:
-    """:func:`resolve_tile_geom`, once per argument tuple: the 3D search
-    prices tens of candidate tiles, and the wrappers resolve their tile on
-    every launch."""
+    grid_shape = tuple(int(n) for n in grid_shape)
     dim = len(grid_shape)
     if dim == 1:
         return SubstrateGeom(dim=1, strip_m=1, h_block=1)
@@ -494,6 +483,24 @@ def lifted_tile_geom(n: int, halo: int,
     """The 2D tile the 1D lift launches on the (1, N) view: 16-row tiles of
     which one row is the grid (every wrapped row is row 0)."""
     return resolve_tile_geom((1, n), halo, None, w_tile)
+
+
+def launch_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
+                w_tile: Optional[int] = None) -> SubstrateGeom:
+    """The tile the kernels launch on a grid of this shape at total halo
+    ``halo``: :func:`resolve_tile_geom` in 2D and 3D, the lift's
+    :func:`lifted_tile_geom` in 1D (where only ``w_tile`` applies).  Plans
+    resolve it once when built; the wrappers take it as given."""
+    if len(grid_shape) == 1:
+        return lifted_tile_geom(int(grid_shape[0]), halo, w_tile)
+    return resolve_tile_geom(grid_shape, halo, tile_m, w_tile)
+
+
+def check_tile_halo(geom: SubstrateGeom, halo: int) -> None:
+    """Raise unless ``geom`` carries the halo ``halo`` a launch needs."""
+    if geom.w_block != halo:
+        raise ValueError(f"the tile carries a halo of {geom.w_block}, the "
+                         f"launch needs {halo}")
 
 
 def launch_grid(grid_shape, geom: SubstrateGeom) -> tuple:

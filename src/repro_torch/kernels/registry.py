@@ -22,9 +22,9 @@ from repro_torch.core import perfmodel as pm
 from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import fuse_weights
 from . import ref as _ref
-from .common import SubstrateGeom, lifted_tile_geom, resolve_tile_geom
-from .stencil_direct import stencil_direct
-from .stencil_matmul import stencil_matmul
+from .common import SubstrateGeom, launch_geom
+from .stencil_direct import stencil_direct_at
+from .stencil_matmul import stencil_matmul_at
 
 
 @dataclasses.dataclass
@@ -50,22 +50,11 @@ class PlanContext:
         """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
         return fuse_weights(self.weights, self.t)
 
-    def resolve_geom(self, halo: int) -> SubstrateGeom:
+    def launch_geom(self, halo: int) -> SubstrateGeom:
         """The CTA tile the kernels launch with at total halo ``halo`` (1D:
-        the lift's pricing geometry)."""
-        return resolve_tile_geom(self.grid_shape, halo, self.tile_m,
-                                 self.w_tile)
-
-    def tile_pins(self, halo: int) -> dict:
-        """The wrapper arguments that launch exactly that tile: TM and TN
-        (in 3D the rule gives the same TZ for them); in 1D the TN of the
-        lift's (1, N) tile.  Resolving it here raises the tile rule's
-        errors when the plan is built."""
-        g = self.resolve_geom(halo)
-        if g.dim == 1:
-            return dict(w_tile=lifted_tile_geom(self.grid_shape[0], halo,
-                                                self.w_tile).w_tile)
-        return dict(tile_m=g.strip_m, w_tile=g.w_tile)
+        the lift's (1, N) tile).  Builders resolve it here, once, so the
+        tile rule's errors are raised when the plan is built."""
+        return launch_geom(self.grid_shape, halo, self.tile_m, self.w_tile)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,11 +168,11 @@ def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
     w, t, r = ctx.weights, ctx.t, ctx.radius
-    pins = ctx.tile_pins(r)
+    geom = ctx.launch_geom(r)
 
     def run(x):
         for _ in range(t):
-            x = stencil_direct(x, w, t=1, **pins)
+            x = stencil_direct_at(x, w, 1, geom)
         return x
     return run
 
@@ -191,21 +180,21 @@ def _build_direct(ctx: PlanContext) -> Callable:
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
     w, t, r = ctx.weights, ctx.t, ctx.radius
-    pins = ctx.tile_pins(t * r)
+    geom = ctx.launch_geom(t * r)
 
     def run(x):
-        return stencil_direct(x, w, t=t, **pins)
+        return stencil_direct_at(x, w, t, geom)
     return run
 
 
 def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
     w, t, r = ctx.weights, ctx.t, ctx.radius
-    pins, cdt = ctx.tile_pins(r), ctx.compute_dtype
+    geom, cdt = ctx.launch_geom(r), ctx.compute_dtype
 
     def run(x):
         for _ in range(t):
-            x = stencil_matmul(x, w, t=1, compute_dtype=cdt, **pins)
+            x = stencil_matmul_at(x, w, 1, geom, cdt)
         return x
     return run
 
@@ -214,10 +203,10 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
     """Monolithic fusion: ONE contraction of the composed radius-t*r kernel."""
     wf = ctx.fused_weights()
     R = (wf.shape[0] - 1) // 2
-    pins, cdt = ctx.tile_pins(R), ctx.compute_dtype
+    geom, cdt = ctx.launch_geom(R), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul(x, wf, t=1, compute_dtype=cdt, **pins)
+        return stencil_matmul_at(x, wf, 1, geom, cdt)
     return run
 
 
@@ -225,10 +214,10 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     """Intermediate reuse: t radius-r contractions in one launch, f32
     intermediates in shared memory."""
     w, t, r = ctx.weights, ctx.t, ctx.radius
-    pins, cdt = ctx.tile_pins(t * r), ctx.compute_dtype
+    geom, cdt = ctx.launch_geom(t * r), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul(x, w, t=t, compute_dtype=cdt, **pins)
+        return stencil_matmul_at(x, w, t, geom, cdt)
     return run
 
 

@@ -20,9 +20,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, check_periodic_grid, direct3d_layout,
-                     direct_layout, lift_weights, lifted_tile_geom,
-                     resolve_tile_geom)
+from .common import (SMEM_BUDGET_BYTES, SubstrateGeom, check_periodic_grid,
+                     check_tile_halo, direct3d_layout, direct_layout,
+                     launch_geom, lift_weights)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
 #: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
@@ -115,9 +115,9 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
 
     ``weights``: host-side (2r+1)^d ndarray (zeros outside support), d the
     grid rank.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
-    (multiples of 16; ``None`` = ``resolve_tile_geom``; 1D:
-    :func:`lifted_tile_geom`, where only ``w_tile`` applies).  Only
-    periodic boundaries run here.
+    (multiples of 16; ``None`` = ``launch_geom``, which in 1D is the
+    lift's tile, where only ``w_tile`` applies).  Only periodic
+    boundaries run here.
     """
     w = np.asarray(weights)
     r = check_periodic_grid(x.shape, w, boundary, "the tap-sum")
@@ -125,6 +125,27 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     if x.device.type == "cpu":
         return stencil_direct_plain(x, w, t)
+    return _run(x, w, t, r, launch_geom(x.shape, t * r, tile_m, w_tile))
+
+
+def stencil_direct_at(x: torch.Tensor, weights, t: int,
+                      geom: SubstrateGeom) -> torch.Tensor:
+    """:func:`stencil_direct` on a tile the caller resolved with
+    ``launch_geom(x.shape, t * r, ...)``: a plan resolves it once, when it
+    is built, and launches every step on it."""
+    w = np.asarray(weights)
+    r = check_periodic_grid(x.shape, w, None, "the tap-sum")
+    if t < 1:
+        raise ValueError(f"fusion depth must be >= 1, got {t}")
+    check_tile_halo(geom, t * r)
+    if x.device.type == "cpu":
+        return stencil_direct_plain(x, w, t)
+    return _run(x, w, t, r, geom)
+
+
+def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
+         geom: SubstrateGeom) -> torch.Tensor:
+    """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_direct runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -139,12 +160,11 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
     if not w32.any():
         return torch.zeros_like(x)
     if x.ndim == 3:
-        return _launch3d(x, w32, t, r, tile_m, w_tile)
+        return _launch3d(x, w32, t, r, geom)
     if x.ndim == 1:
         return _launch2d(x.view(1, -1), lift_weights(w32), t, r,
-                         lifted_tile_geom(x.shape[0], t * r, w_tile)).view(-1)
-    return _launch2d(x, w32, t, r,
-                     resolve_tile_geom(x.shape, t * r, tile_m, w_tile))
+                         geom).view(-1)
+    return _launch2d(x, w32, t, r, geom)
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
@@ -168,8 +188,7 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              tile_m, w_tile) -> torch.Tensor:
-    geom = resolve_tile_geom(x.shape, t * r, tile_m, w_tile)
+              geom) -> torch.Tensor:
     layout = direct3d_layout(geom.z_slab, geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "

@@ -30,9 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .common import (BAND_N, SMEM_BUDGET_BYTES, banded3d_layout,
-                     banded_layout, check_periodic_grid, lift_weights,
-                     lifted_tile_geom, resolve_tile_geom)
+from .common import (BAND_N, SMEM_BUDGET_BYTES, SubstrateGeom,
+                     banded3d_layout, banded_layout, check_periodic_grid,
+                     check_tile_halo, launch_geom, lift_weights)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
 #: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
@@ -187,8 +187,8 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
 
     ``t=1``: one contraction of ``weights`` (possibly a fused radius-t*r
     kernel).  ``t>1``: t radius-r contractions with f32 intermediates kept
-    on chip.  ``tile_m`` / ``w_tile`` pin the CTA's output tile (1D: only
-    ``w_tile``, on the lifted tile);
+    on chip.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
+    (``None`` = ``launch_geom``; 1D: only ``w_tile``, on the lifted tile);
     ``compute_dtype`` is the MMA operand dtype (default ``x.dtype``).
     Columns go in BAND_N-wide chunks on both devices.  Only periodic
     boundaries run here.
@@ -201,6 +201,28 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
         return stencil_matmul_plain(x, w, t, BAND_N, cdt)
+    return _run(x, w, t, radius, cdt,
+                launch_geom(x.shape, t * radius, tile_m, w_tile))
+
+
+def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
+                      compute_dtype=None) -> torch.Tensor:
+    """:func:`stencil_matmul` on a tile the caller resolved with
+    ``launch_geom(x.shape, t * R, ...)``: a plan resolves it once, when it
+    is built, and launches every step on it."""
+    w = np.asarray(weights, dtype=np.float32)
+    radius = check_periodic_grid(x.shape, w, None, "the banded contraction")
+    if t < 1:
+        raise ValueError(f"fusion depth must be >= 1, got {t}")
+    cdt = x.dtype if compute_dtype is None else compute_dtype
+    check_tile_halo(geom, t * radius)
+    if x.device.type == "cpu":
+        return stencil_matmul_plain(x, w, t, BAND_N, cdt)
+    return _run(x, w, t, radius, cdt, geom)
+
+
+def _run(x, w, t, radius, cdt, geom) -> torch.Tensor:
+    """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_matmul runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
@@ -209,10 +231,8 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
     if not x.is_contiguous():
         raise ValueError("stencil_matmul kernel takes a contiguous grid")
     if x.ndim == 1:
-        geom = lifted_tile_geom(x.shape[0], t * radius, w_tile)
         return _launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
                          geom).view(-1)
-    geom = resolve_tile_geom(x.shape, t * radius, tile_m, w_tile)
     if x.ndim == 3:
         return _launch3d(x, w, t, radius, cdt, geom)
     return _launch2d(x, w, t, radius, cdt, geom)

@@ -239,8 +239,7 @@ def test_3d_pins_and_too_deep():
     g = common.resolve_tile_geom((64, 64, 64), 2, tile_m=16, w_tile=16)
     assert (g.z_slab, g.strip_m, g.w_tile) == (16, 16, 16)
     assert common.resolve_tile_geom((3, 64, 64), 1).z_slab == 3
-    # pinning the auto tile's TM and TN gives back its TZ (what the
-    # registry passes the wrappers)
+    # a tile pinned to the auto tile's TM and TN is that tile
     auto = common.resolve_tile_geom((60, 70, 130), 4)
     assert common.resolve_tile_geom((60, 70, 130), 4, auto.strip_m,
                                     auto.w_tile) == auto
@@ -325,3 +324,66 @@ def test_cpu_3d_and_1d_never_count_a_launch():
         t_direct.stencil_direct(x, w, 2)
         t_matmul.stencil_matmul(x, w, 2)
     assert set(tk.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# Plans resolve the launch tile once, when built, and launch on it
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("grid_shape,halo", [((67,), 3), ((40, 37), 2),
+                                             ((6, 20, 37), 4)])
+def test_launch_geom_by_rank(grid_shape, halo):
+    g = common.launch_geom(grid_shape, halo, w_tile=32)
+    if len(grid_shape) == 1:
+        assert g == common.lifted_tile_geom(grid_shape[0], halo, 32)
+    else:
+        assert g == common.resolve_tile_geom(grid_shape, halo, None, 32)
+    assert (g.w_tile, g.w_block) == (32, halo)
+
+
+@pytest.mark.parametrize("grid_shape", [(67,), (40, 37), (6, 20, 37)])
+@pytest.mark.parametrize("backend", ["direct", "fused_direct", "matmul",
+                                     "fused_matmul", "fused_matmul_reuse"])
+def test_plan_launches_on_the_tile_it_resolved(monkeypatch, grid_shape,
+                                               backend):
+    registry = importlib.import_module("repro_torch.kernels.registry")
+    seen = []
+
+    def spy(real):
+        def at(x, w, t, geom, *rest):
+            seen.append((t * ((np.asarray(w).shape[0] - 1) // 2), geom))
+            return real(x, w, t, geom, *rest)
+        return at
+    monkeypatch.setattr(registry, "stencil_direct_at",
+                        spy(t_direct.stencil_direct_at))
+    monkeypatch.setattr(registry, "stencil_matmul_at",
+                        spy(t_matmul.stencil_matmul_at))
+    w = make_weights(StencilSpec("box", len(grid_shape), 1), seed=0)
+    plan = tk.stencil_plan(w, grid_shape, torch.float32, 2, device="cpu",
+                           backend=backend, w_tile=32, use_cache=False)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=grid_shape).astype(np.float32))
+    y = plan(x)
+    assert len(seen) == (2 if backend in ("direct", "matmul") else 1)
+    for halo, geom in seen:
+        assert geom == common.launch_geom(grid_shape, halo, None, 32)
+    ref = tk.stencil_plan(w, grid_shape, torch.float32, 2, device="cpu",
+                          backend="reference", use_cache=False)(x)
+    torch.testing.assert_close(y, ref, rtol=0,
+                               atol=tolerance(x.numpy(), torch.float32, 2))
+
+
+def test_resolved_tile_entries_check_the_halo():
+    w = make_weights(StencilSpec("box", 3, 1), seed=0)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(6, 20, 37)).astype(np.float32))
+    g = common.launch_geom(x.shape, 2)
+    torch.testing.assert_close(t_direct.stencil_direct_at(x, w, 2, g),
+                               t_direct.stencil_direct(x, w, 2),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(t_matmul.stencil_matmul_at(x, w, 2, g),
+                               t_matmul.stencil_matmul(x, w, 2),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="carries a halo of 2"):
+        t_direct.stencil_direct_at(x, w, 1, g)
+    with pytest.raises(ValueError, match="carries a halo of 2"):
+        t_matmul.stencil_matmul_at(x, w, 3, g)
