@@ -15,27 +15,41 @@ Phases, any failure exits non-zero:
      {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the 1D lift at
      2^20 and 2^20+3 points (r in {1, 3}, t in {1, 4}); float32 and
      bfloat16 grids, the banded kernels with either operand dtype and on
-     the composed kernel;
+     the composed kernel; then every kernel under non-periodic boundaries
+     (zero, reflect, replicate, and the mixed specs ("reflect",
+     "periodic") and ("periodic", "zero") in 2D, ("replicate", "reflect",
+     "periodic") in 3D) on the ragged 1000x1030 and 40x72x100 grids and the
+     1D lift at 2^20+3 points, box/star, r in {1, 2}, t in {1, 4} (r=2,
+     t=4 runs the 3D kernels on their 8-deep tile at h = 8), each against
+     its plain version under the same boundary;
   3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
      and ``auto`` against the ``reference`` backend, with every kernel's
      launches counted from 0 just before each path and read just after:
      2D, 8192^2 float32 (256 MiB per field), Box-2D1R and Star-2D1R; 3D,
      512^3 float32 (512 MiB per field), Box-3D1R and Star-3D1R; 1D, 2^26
-     float32 points, Box-1D1R; all at t=4;
+     float32 points, Box-1D1R; all at t=4; then the boundary paths, the
+     same grids and stencils under "zero" (2D, a Dirichlet-zero smoother),
+     ("replicate", "reflect", "periodic") (3D) and "reflect" (1D), with
+     every regime but fused_matmul at t=4, fused_matmul at t=1, and the
+     check that a fused_matmul plan at t=4 refuses;
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
      slow 3D plain versions and yardsticks): each regime's milliseconds
      per call and microseconds per step beside the model's choice, its
      read amplification and its bound, each kernel on each path beside its
      plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
-     port never calls, and each wrapper's host time per launch.
+     port never calls (on a boundary path: t x (F.pad in the boundary's
+     modes, axis by axis, + one F.conv of the base kernel)), and each
+     wrapper's host time per launch.
 The line before the last is the JSON kernel report, one entry per kernel
-and path (the 2D kernels on the 1D path as "... (1D lift)"), each with
-the launches of its own path's run; the last line
+and path (the 2D kernels on the 1D path as "... (1D lift)", the boundary
+paths' as "stencil_direct (zero)" and so on), each with the launches of
+its own path's run; the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import importlib
+import itertools
 import json
 import os
 import statistics
@@ -62,6 +76,18 @@ PATHS = {
     "3D": ((512, 512, 512), (("box", 1), ("star", 1))),
     "1D": ((2**26,), (("box", 1),)),
 }
+#: The boundary paths: the same grids and stencils under non-periodic
+#: boundaries (a Dirichlet-zero smoother, JAX's test_3d_mixed_modes layout
+#: at full size, the 1D lift under reflect).
+BOUNDARY_PATHS = {
+    "2D": ((8192, 8192), (("box", 1), ("star", 1)), "zero"),
+    "3D": ((512, 512, 512), (("box", 1), ("star", 1)),
+           ("replicate", "reflect", "periodic")),
+    "1D": ((2**26,), (("box", 1),), "reflect"),
+}
+#: F.pad's name for each boundary mode.
+PAD_MODES = {"periodic": "circular", "zero": "constant", "reflect": "reflect",
+             "replicate": "replicate"}
 HOST_SHAPES = {2: (256, 256), 3: (32, 32, 32)}
 HOST_CALLS = 500
 REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
@@ -81,6 +107,8 @@ KERNEL_SOURCES = {
     "stencil_banded (1D lift)": ("src/repro_torch/kernels/csrc/stencil_banded.cu",
                                  "src/repro/kernels/stencil_matmul.py:248"),
 }
+#: What the kernels replace on a boundary path: the per-step fills (K6).
+FILL_REPLACES = "src/repro/kernels/common.py:309"
 
 
 class SmokeFailure(Exception):
@@ -132,18 +160,34 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def conv_yardstick(x: torch.Tensor, w: np.ndarray, tf32: bool):
-    """One F.conv1d / F.conv2d / F.conv3d of ``w`` on the circularly padded
-    grid (pad included)."""
+def conv_yardstick(x: torch.Tensor, w: np.ndarray, tf32: bool, modes=None,
+                   t: int = 1):
+    """``t`` times: pad the grid by r in each axis's mode (F.pad, axis by
+    axis in ascending order; circular by default), then one F.conv1d /
+    F.conv2d / F.conv3d of ``w``."""
     r = (w.shape[0] - 1) // 2
     wt = torch.from_numpy(np.ascontiguousarray(w)).to(x.device, x.dtype)
     conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[x.ndim]
 
     def run():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
-            xp = F.pad(x[None, None], (r,) * (2 * x.ndim), mode="circular")
-            return conv(xp, wt[None, None])[0, 0]
+            y = x[None, None]
+            for _ in range(t):
+                if modes is None:
+                    y = F.pad(y, (r,) * (2 * x.ndim), mode="circular")
+                else:
+                    for ax, m in enumerate(modes):
+                        pad = [0] * (2 * x.ndim)
+                        k = 2 * (x.ndim - 1 - ax)  # F.pad lists the last axis first
+                        pad[k] = pad[k + 1] = r
+                        y = F.pad(y, pad, mode=PAD_MODES[m])
+                y = conv(y, wt[None, None])
+            return y[0, 0]
     return run
+
+
+def boundary_label(b) -> str:
+    return b if isinstance(b, str) else "×".join(b)
 
 
 def phase_build(kernels) -> str:
@@ -204,64 +248,70 @@ def kernel_name(base: str, dim: int) -> str:
     return base + ("3d" if dim == 3 else "")
 
 
-def check_kernels(mods, shapes, cases, worst, margin) -> None:
+def check_kernels(mods, shapes, cases, worst, margin, boundaries=(None,)) -> None:
     """Every kernel against its plain version on ``shapes``, for each
-    ``(kind, r, t)`` of ``cases``, the banded kernel also with the other
-    operand dtype (f32 grid, bf16 operands and the reverse) and, at t > 1,
-    on the composed kernel.  Each limit must also reject the plain version
-    one step short, so a kernel that skipped a step could not pass."""
+    ``(kind, r, t)`` of ``cases`` and each boundary of ``boundaries`` (both
+    sides under the same one), the banded kernel also with the other
+    operand dtype (f32 grid, bf16 operands and the reverse) and, at t > 1
+    on a periodic grid, on the composed kernel.  Each limit must also
+    reject the plain version one step short, so a kernel that skipped a
+    step (or a fill) could not pass."""
     _, sm, sd, weights = mods
     from repro_torch.stencil import StencilSpec
-    for shape in shapes:
+    for shape, (kind, r, t), bc in itertools.product(shapes, cases, boundaries):
         dim = len(shape)
-        for kind, r, t in cases:
-            w = weights.make_weights(StencilSpec(kind, dim, r), seed=1)
-            wf = weights.fuse_weights(w, t)
-            for dtype in (torch.float32, torch.bfloat16):
-                x = grid(shape, dtype, seed=2)
-                bf = dtype == torch.bfloat16
-                other = torch.float32 if bf else torch.bfloat16
+        w = weights.make_weights(StencilSpec(kind, dim, r), seed=1)
+        wf = weights.fuse_weights(w, t)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = grid(shape, dtype, seed=2)
+            bf = dtype == torch.bfloat16
+            other = torch.float32 if bf else torch.bfloat16
 
-                def banded(wk, tk, cdt, short=None):
-                    ops = "bf16" if cdt == torch.bfloat16 else "tf32"
-                    return (f"{kernel_name('stencil_banded', dim)}[{str(cdt)[6:]} operands]",
-                            lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt),
-                            lambda: sm.stencil_matmul_plain(x, wk, tk, compute_dtype=cdt),
-                            lambda v: sm.stencil_matmul_plain(v, wk, 1, compute_dtype=cdt),
-                            tk, ops, wk, short)
-                cases_ = [
-                    (kernel_name("stencil_direct", dim), lambda: sd.stencil_direct(x, w, t),
-                     lambda: sd.stencil_direct_plain(x, w, t),
-                     lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None),
-                    banded(w, t, dtype), banded(w, t, other)]
-                if t > 1:
-                    # One step short of the composed kernel: depth t-1.
-                    cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
-                        x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype)))
-                for name, kern, plain, step, tk, ops, wk, short in cases_:
-                    y = kern()
-                    torch.cuda.synchronize()
-                    ref = plain()
-                    err = max_err(y, ref)
-                    maxima, prev = plain_chain(step, x, tk)
-                    if name.startswith("stencil_direct") and not bf:
-                        tol = 1e-5 * maxima[0]
-                    else:
-                        tol = kernel_limit(ops, float(np.abs(wk).sum()),
-                                           int(np.count_nonzero(wk)), maxima, bf)
-                    short = prev if short is None else short()
-                    wrong = max_err(y, short)
-                    tag = (f"{name} {kind} r={r} t={t} {shape} "
-                           f"{str(dtype)[6:]}" + ("" if tk == t else " composed"))
-                    check(y.shape == x.shape and y.dtype == dtype,
-                          f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
-                    check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
-                    check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
-                    check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
-                                       f"plain version one step short ({wrong:.3e})")
-                    key = name.split("[")[0] + (" (1D lift)" if dim == 1 else "")
-                    worst[key] = max(worst.get(key, 0.0), err / tol)
-                    margin[key] = max(margin.get(key, 0.0), tol / wrong)
+            def banded(wk, tk, cdt, short=None):
+                ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+                return (f"{kernel_name('stencil_banded', dim)}[{str(cdt)[6:]} operands]",
+                        lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt, boundary=bc),
+                        lambda: sm.stencil_matmul_plain(x, wk, tk, compute_dtype=cdt,
+                                                        boundary=bc),
+                        lambda v: sm.stencil_matmul_plain(v, wk, 1, compute_dtype=cdt,
+                                                          boundary=bc),
+                        tk, ops, wk, short)
+            cases_ = [
+                (kernel_name("stencil_direct", dim),
+                 lambda: sd.stencil_direct(x, w, t, boundary=bc),
+                 lambda: sd.stencil_direct_plain(x, w, t, bc),
+                 lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None),
+                banded(w, t, dtype), banded(w, t, other)]
+            if t > 1 and bc is None:
+                # One step short of the composed kernel: depth t-1.
+                cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
+                    x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype)))
+            for name, kern, plain, step, tk, ops, wk, short in cases_:
+                y = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = max_err(y, ref)
+                maxima, prev = plain_chain(step, x, tk)
+                if name.startswith("stencil_direct") and not bf:
+                    tol = 1e-5 * maxima[0]
+                else:
+                    tol = kernel_limit(ops, float(np.abs(wk).sum()),
+                                       int(np.count_nonzero(wk)), maxima, bf)
+                short = prev if short is None else short()
+                wrong = max_err(y, short)
+                tag = (f"{name} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
+                       + ("" if tk == t else " composed")
+                       + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+                check(y.shape == x.shape and y.dtype == dtype,
+                      f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
+                check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+                check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
+                check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
+                                   f"plain version one step short ({wrong:.3e})")
+                key = (name.split("[")[0] + (" (1D lift)" if dim == 1 else "")
+                       + ("" if bc is None else " (boundaries)"))
+                worst[key] = max(worst.get(key, 0.0), err / tol)
+                margin[key] = max(margin.get(key, 0.0), tol / wrong)
 
 
 def phase_kernels_vs_plain(mods) -> None:
@@ -275,6 +325,16 @@ def phase_kernels_vs_plain(mods) -> None:
                   worst, margin)
     check_kernels(mods, ((2**20,), (2**20 + 3,)),
                   [("box", r, t) for r in (1, 3) for t in (1, 4)], worst, margin)
+    # Non-periodic boundaries: every uniform mode and one mixed spec per
+    # rank, on ragged grids; r = 2, t = 4 runs the 3D kernels on their
+    # 8-deep tile at h = 8, and the 1D lift fills its column axis only.
+    uniform = ("zero", "reflect", "replicate")
+    bc_cases = [(k, r, t) for k in ("box", "star") for r in (1, 2) for t in (1, 4)]
+    check_kernels(mods, ((1000, 1030),), bc_cases, worst, margin,
+                  uniform + (("reflect", "periodic"), ("periodic", "zero")))
+    check_kernels(mods, ((40, 72, 100),), bc_cases, worst, margin,
+                  uniform + (("replicate", "reflect", "periodic"),))
+    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, uniform)
     print("kernels vs plain: all configurations within tolerance; worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst "
@@ -288,26 +348,36 @@ def expected_launches(backend: str, t: int, dim: int):
     return kernel_name(base, dim), n
 
 
-def phase_main_path(mods, label, x, ws):
+def phase_main_path(mods, label, x, ws, boundary=None):
     """Drive every regime and auto through stencil_plan on one path, the
     launch counts set to 0 just before and read just after; returns the
-    plans, the outputs' errors and the counts."""
+    plans, the outputs' errors and the counts.  Under a non-periodic
+    ``boundary``, fused_matmul runs at t=1 (its plan at t=MAIN_T must
+    refuse) and every other regime and auto at t=MAIN_T."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
     shape, dim = tuple(x.shape), x.ndim
     mx = float(x.abs().max())
+    periodic = boundary is None
+    runs = [(b, MAIN_T) for b in REGIMES if periodic or b != "fused_matmul"]
+    if not periodic:
+        runs.append(("fused_matmul", 1))
     results = {}
     kernels.reset_launch_counts()
     for name, w in ws.items():
-        ref = stencil_plan(w, shape, torch.float32, MAIN_T, backend="reference")(x)
+        refs = {}
         sw = float(np.abs(w).sum())
-        for backend in REGIMES:
-            plan = stencil_plan(w, shape, torch.float32, MAIN_T, backend=backend)
+        for backend, t in runs:
+            if t not in refs:
+                refs[t] = stencil_plan(w, shape, torch.float32, t, backend="reference",
+                                       boundary=boundary)(x)
+            plan = stencil_plan(w, shape, torch.float32, t, backend=backend,
+                                boundary=boundary)
             before = kernels.launch_counts()
             y = plan(x)
             torch.cuda.synchronize()
             after = kernels.launch_counts()
-            kname, n = expected_launches(plan.backend, MAIN_T, dim)
+            kname, n = expected_launches(plan.backend, t, dim)
             delta = {k: after[k] - before[k] for k in after}
             check(delta[kname] == n and sum(delta.values()) == n,
                   f"{name} {plan.backend}: launches {delta}, expected {n} "
@@ -315,62 +385,90 @@ def phase_main_path(mods, label, x, ws):
             check(tuple(y.shape) == shape and y.dtype == torch.float32,
                   f"{name} {plan.backend}: shape/dtype")
             check(bool(torch.isfinite(y).all()), f"{name} {plan.backend}: non-finite")
-            err = max_err(y, ref)
-            tol = (MAIN_T * 2**-10 * sw * mx if kname.startswith("stencil_banded")
-                   else 1e-5 * MAIN_T * mx)
-            check(err <= tol, f"{name} {plan.backend}: max|err| vs reference "
+            err = max_err(y, refs[t])
+            tol = (t * 2**-10 * sw * mx if kname.startswith("stencil_banded")
+                   else 1e-5 * t * mx)
+            check(err <= tol, f"{name} {plan.backend} t={t}: max|err| vs reference "
                               f"{err:.3e} > tol {tol:.3e}")
-            results[(name, backend or "auto")] = (plan, err, tol)
+            regime = (backend or "auto") + ("" if t == MAIN_T else f" (t={t})")
+            results[(name, regime)] = (plan, err, tol)
             del y
-        del ref
+        del refs
+        if not periodic:
+            try:
+                stencil_plan(w, shape, torch.float32, MAIN_T, backend="fused_matmul",
+                             boundary=boundary)
+            except ValueError as e:
+                check("monolithic fusion" in str(e), f"{name} fused_matmul: {e}")
+            else:
+                raise SmokeFailure(f"{name}: a fused_matmul plan at t={MAIN_T} "
+                                   f"under boundary={boundary!r} did not refuse")
     counts = kernels.launch_counts()
     for k in (kernel_name("stencil_direct", dim), kernel_name("stencil_banded", dim)):
         check(counts[k] > 0, f"kernel {k} was not launched on the {label} path")
-    print(f"main path {label}: 5 regimes + auto x {list(ws)} on {shape} float32 "
-          f"t={MAIN_T} match the reference; launches {counts}")
+    print(f"main path {label}: {', '.join(dict.fromkeys(r for _, r in results))} x "
+          f"{list(ws)} on {shape} float32 match the reference"
+          + ("" if periodic else f", fused_matmul at t={MAIN_T} refuses")
+          + f"; launches {counts}")
     return results, counts
 
 
 def phase_regime_times(label, x, ws, results, card):
     n = x.numel()
-    print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T}; "
-          "bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
+    print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T} unless "
+          "named; bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
     print("  stencil    regime              predicted           read_amp  "
           "ms/call    us/step    bound_ms   max|err|")
     for (name, regime), (plan, err, _) in results.items():
         ms = cuda_ms(lambda: plan(x))
-        kname, launches = expected_launches(plan.backend, MAIN_T, x.ndim)
+        kname, launches = expected_launches(plan.backend, plan.t, x.ndim)
         k_taps = int(np.count_nonzero(ws[name]))
         peak = FP32_FLOPS if kname.startswith("stencil_direct") else TF32_FLOPS
         bound = max(launches * 2 * n * 4 / HBM_BPS,
-                    MAIN_T * 2 * k_taps * n / peak) * 1e3
+                    plan.t * 2 * k_taps * n / peak) * 1e3
         print(f"  {name:10s} {regime:19s} {plan.decision.backend:19s} "
-              f"{plan.geom.read_amp:8.4f}  {ms:9.4f}  {ms * 1e3 / MAIN_T:9.2f}  "
+              f"{plan.geom.read_amp:8.4f}  {ms:9.4f}  {ms * 1e3 / plan.t:9.2f}  "
               f"{bound:9.4f}  {err:.3e}")
 
 
-def kernel_report(mods, x, w, counts, reps_slow):
+def kernel_report(mods, x, w, counts, reps_slow, boundary=None):
     """Each kernel at its fused main-path call on ``w`` (``stencil_direct(x,
-    w, t)`` and the reuse form ``stencil_matmul(x, w, t)``), held against
-    its plain version with the phase-3 limit, beside one F.conv of the
-    composed kernel; ``launches`` is the count of this path's run.  The
-    bound counts the FLOPs the stencil needs (2 per nonzero tap, point and
-    step), not the band MACs the banded kernel does."""
+    w, t)`` and the reuse form ``stencil_matmul(x, w, t)``, under the
+    path's boundary), held against its plain version with the phase-3
+    limit, beside a yardstick: one F.conv of the composed kernel on a
+    periodic path, t x (F.pad in the boundary's modes + one F.conv of the
+    base kernel) on a boundary path; ``launches`` is the count of this
+    path's run.  The bound counts the FLOPs the stencil needs (2 per
+    nonzero tap, point and step), not the band MACs the banded kernel
+    does; the fill moves no HBM bytes."""
     _, sm, sd, weights = mods
     n, dim = x.numel(), x.ndim
-    wf = weights.fuse_weights(w, MAIN_T)
     ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
     mx, sw = float(x.abs().max()), float(np.abs(w).sum())
+    if boundary is None:
+        wf = weights.fuse_weights(w, MAIN_T)
+        yardstick = lambda tf32: conv_yardstick(x, wf, tf32)  # noqa: E731
+        what = f"F.conv{dim}d of the composed kernel"
+    else:
+        from repro_torch.stencil import resolve_boundary
+        modes = resolve_boundary(boundary, dim)
+        yardstick = lambda tf32: conv_yardstick(x, w, tf32, modes, MAIN_T)  # noqa: E731
+        what = f"{MAIN_T} x (F.pad + F.conv{dim}d)"
     report = []
     for base, kern, plain, peak, tf32, tol in (
-            ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T),
-             lambda: sd.stencil_direct_plain(x, w, MAIN_T), FP32_FLOPS,
+            ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T, boundary=boundary),
+             lambda: sd.stencil_direct_plain(x, w, MAIN_T, boundary), FP32_FLOPS,
              False, 1e-5 * MAIN_T * mx),
-            ("stencil_banded", lambda: sm.stencil_matmul(x, w, MAIN_T),
-             lambda: sm.stencil_matmul_plain(x, w, MAIN_T), TF32_FLOPS,
+            ("stencil_banded", lambda: sm.stencil_matmul(x, w, MAIN_T, boundary=boundary),
+             lambda: sm.stencil_matmul_plain(x, w, MAIN_T, boundary=boundary), TF32_FLOPS,
              True, MAIN_T * 2**-10 * sw * mx)):
         kname = kernel_name(base, dim)
-        entry = kname + (" (1D lift)" if dim == 1 else "")
+        if boundary is None:
+            entry = kname + (" (1D lift)" if dim == 1 else "")
+            src, replaces = KERNEL_SOURCES[entry]
+        else:
+            entry = f"{kname} ({'1D lift, ' if dim == 1 else ''}{boundary_label(boundary)})"
+            src, replaces = KERNEL_SOURCES[kname][0], FILL_REPLACES
         y = kern()
         err = max_err(y, plain())
         del y
@@ -378,7 +476,6 @@ def kernel_report(mods, x, w, counts, reps_slow):
                           f"> tol {tol:.3e}")
         bytes_ms = 2 * n * 4 / HBM_BPS * 1e3
         ops_ms = ops / peak * 1e3
-        src, replaces = KERNEL_SOURCES[entry]
         report.append({
             "name": entry, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[kname],
@@ -386,11 +483,11 @@ def kernel_report(mods, x, w, counts, reps_slow):
             "plain_ms": cuda_ms(plain, reps=reps_slow),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": cuda_ms(conv_yardstick(x, wf, tf32), reps=reps_slow)})
+            "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow)})
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
-              f"F.conv{dim}d of the composed kernel {k['library_ms']:.4f} ms, "
+              f"{what} {k['library_ms']:.4f} ms, "
               f"max|err| vs plain {k['max_abs_err']:.3e}")
     return report
 
@@ -473,6 +570,17 @@ def main() -> int:
             band_sparsity_lines(mods, ws)
             w = ws[StencilSpec("box", len(shape), 1).name]
             report += kernel_report(mods, x, w, counts, reps)
+            del x, results
+        for label, (shape, specs, boundary) in BOUNDARY_PATHS.items():
+            x = grid(shape, torch.float32, seed=0)
+            ws = {s.name: make_weights(s, seed=0)
+                  for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
+            tag = f"{label} boundary={boundary_label(boundary)}"
+            results, counts = phase_main_path(mods, tag, x, ws, boundary)
+            phase_regime_times(tag, x, ws, results, card)
+            w = ws[StencilSpec("box", len(shape), 1).name]
+            report += kernel_report(mods, x, w, counts, 5 if label == "3D" else 15,
+                                    boundary)
             del x, results
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))

@@ -7,7 +7,10 @@ the port's launch geometry is its own:
 
   * one CTA computes a (TM x TN) output tile and reads its
     (TM + 2h) x (TN + 2h) region straight from global memory, with
-    periodic modulo indices on both axes (h = t*r for the fused regimes);
+    modulo indices on both axes (h = t*r for the fused regimes);
+  * before every step the kernel rebuilds each non-periodic axis's
+    out-of-domain cells in shared memory (the in-kernel fill, K6), by
+    global index, from the mode codes :func:`kernel_mode_codes` hands it;
   * intermediate steps stay in shared memory and CARRY the x-halo,
     shrinking both axes by r per step -- the ``wrap_x=False`` form of the
     JAX kernels, which computes the same function as the full-width
@@ -35,7 +38,7 @@ import itertools
 import math
 from typing import Iterator, Optional
 
-from repro_torch.stencil.boundary import is_periodic
+from repro_torch.stencil.boundary import resolve_boundary
 
 #: Whole-strip foil loads (kept for ``substrate_read_amp``'s h_block=0 case).
 STRIP_NEIGHBOR_LOADS = 3
@@ -194,25 +197,63 @@ def _check_wrap_radius(w: int, r: int, mode: str = "periodic") -> None:
             "-- enlarge the grid or use a narrower stencil")
 
 
-def check_periodic_grid(shape, w, boundary, kernel: str) -> int:
+def _check_reflect_extent(extent: int, halo: int, axis: str,
+                          mode: str) -> None:
+    """Reflect needs ``halo`` in-domain mirror cells beyond the edge cell
+    (the JAX guard, message unchanged): cell ``-k`` reads cell ``+k``, so
+    the axis extent must exceed the total (fused) halo depth."""
+    if mode == "reflect" and extent < halo + 1:
+        raise ValueError(
+            f"reflect boundary on the {axis} axis needs extent >= "
+            f"halo+1 = {halo + 1}, got {extent}; mirror cells would "
+            "fall outside the domain")
+
+
+def check_grid(shape, w, t: int, boundary, kernel: str) -> tuple:
     """The kernels' argument rule: a 1D, 2D or 3D grid, a (2r+1)^d kernel
-    of the same rank, periodic boundaries, and the radius guard on every
-    axis of the grid (the 1D lift's row axis is not one), so both
-    packages reject the same grids.  Returns r."""
+    of the same rank, and the boundary guards of the JAX
+    ``validate_tiling`` on every axis for a launch of ``t`` fused steps
+    (halo t*r), so both packages reject the same grids: the radius guard
+    (a periodic axis shorter than r, a non-periodic one no longer than r:
+    "whole 'zero' axis") and reflect's mirror depth ("mirror cells").
+    The x axis is checked first, as in the JAX rule; the 1D lift's row
+    axis is not an axis of the grid.  Returns ``(r, modes)``, the modes
+    resolved per axis."""
     if len(shape) not in (1, 2, 3) or w.ndim != len(shape):
         raise ValueError(
             f"{kernel} runs 1D, 2D and 3D grids with a kernel of the same "
             f"rank, got grid rank {len(shape)} and kernel rank {w.ndim}")
     if len(set(w.shape)) != 1 or w.shape[0] % 2 == 0:
         raise ValueError(f"weights must be a (2r+1)^d kernel, got {w.shape}")
-    if not is_periodic(boundary):
-        raise NotImplementedError(
-            f"boundary={boundary!r}: the port's kernels are periodic only; "
-            "per-axis boundaries are ROADMAP queue 1, item 9 (K6)")
+    modes = resolve_boundary(boundary, len(shape))
     r = (w.shape[0] - 1) // 2
-    for extent in shape:
-        _check_wrap_radius(extent, r)
-    return r
+    names = ("z", "y", "x")[-len(shape):]
+    for ax in (len(shape) - 1,) + tuple(range(len(shape) - 1)):
+        _check_wrap_radius(shape[ax], r, modes[ax])
+        _check_reflect_extent(shape[ax], t * r, names[ax], modes[ax])
+    return r, modes
+
+
+#: Boundary mode codes of the kernels' launch interface; must match the
+#: MODE_* codes in csrc/common.cuh.
+BOUNDARY_CODES = {"periodic": 0, "zero": 1, "reflect": 2, "replicate": 3}
+
+
+def lift_boundary_1d(boundary) -> tuple:
+    """The (rows, cols) boundary of a 1D grid lifted to the (1, N) view:
+    the lift's row axis is periodic (every wrapped row is row 0), the real
+    axis keeps its mode (the JAX ``lift_boundary_1d``)."""
+    (bx,) = resolve_boundary(boundary, 1)
+    return ("periodic", bx)
+
+
+def kernel_mode_codes(modes) -> tuple:
+    """The mode code of every axis of the kernel a grid launches, from the
+    grid's resolved modes: one per axis in 2D and 3D, and in 1D those of
+    the lifted (1, N) view."""
+    if len(modes) == 1:
+        modes = lift_boundary_1d(modes)
+    return tuple(BOUNDARY_CODES[m] for m in modes)
 
 
 def lift_weights(w):

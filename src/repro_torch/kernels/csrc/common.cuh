@@ -1,6 +1,6 @@
-// Pieces both stencil kernels share: the periodic index wrap, dtype
-// conversion, the halo-region load, the tile store and the launch
-// attributes.
+// Pieces the stencil kernels share: the periodic index wrap, dtype
+// conversion, the halo-region load, the boundary fill, the tile store and
+// the launch attributes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +99,100 @@ __device__ __forceinline__ void load_region3d(float* dst, int ld, size_t plane_l
                 for (int c = 0; c < 4; ++c)
                     if (rb + u < nrows && cb + lane + 32 * c < cols) dst[doff[u] + 32 * c] = v[u][c];
         }
+    }
+}
+
+// Boundary mode codes of the launch interface, one per grid axis; must
+// match repro_torch/kernels/common.py::BOUNDARY_CODES.
+#define MODE_PERIODIC 0
+#define MODE_ZERO 1
+#define MODE_REFLECT 2
+#define MODE_REPLICATE 3
+
+// One axis of the boundary fill.  The region's cell q along the axis
+// (stride s_ax, extent n_ax) is global cell g0 + q of an axis of extent
+// N; a and b are the other two axes, walked over their whole extents.
+// Every cell below the domain (g < 0; the region never starts deeper
+// than o) and every cell above it within depth o (N <= g <= N-1+o) is
+// rewritten from the same line's in-domain cells: 0 for zero, cell 0 or
+// N-1 for replicate, cell -g or 2(N-1)-g for reflect (np.pad "reflect",
+// the edge cell excluded).  Sources are in-domain and targets are not,
+// so no thread reads a cell another writes.  Cells deeper than o (past
+// the domain edge inside a ragged tile) are left as they are: they feed
+// only outputs the store masks, and their mirror could leave the region.
+// The wrapper guarantees N >= o + 1 on reflect axes, so every mirror is
+// in-domain and inside the region.  Zero writes 0, so a NaN or Inf the
+// modulo load brought in never survives.
+__device__ __noinline__ void fill_axis(float* buf, size_t s_ax, size_t s_a, size_t s_b,
+                                       int n_ax, int n_a, int n_b, int g0, int N, int o,
+                                       int mode) {
+    const int lo = min(n_ax, max(0, -g0));         // region cells [0, lo) lie below
+    const int hb = N - g0;                          // ... and [hb, he) above
+    const int he = min(n_ax, N + o - g0);
+    const int nf = lo + max(0, he - hb);
+    const int total = nf * n_a * n_b;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+        const int ib = idx % n_b;
+        const int rest = idx / n_b;
+        const int ia = rest % n_a;
+        const int f = rest / n_a;
+        const int q = f < lo ? f : hb + (f - lo);
+        const int g = g0 + q;
+        const size_t line = ia * s_a + ib * s_b;
+        float v = 0.f;
+        if (mode != MODE_ZERO) {
+            const int gs = mode == MODE_REPLICATE ? (g < 0 ? 0 : N - 1)
+                                                  : (g < 0 ? -g : 2 * (N - 1) - g);
+            v = buf[line + (size_t)(gs - g0) * s_ax];
+        }
+        buf[line + (size_t)q * s_ax] = v;
+    }
+}
+
+// Whether a region of n cells from global cell g0 leaves an axis of extent
+// N whose mode is non-periodic: the fill has work on that axis.
+__device__ __forceinline__ bool leaves_domain(int mode, int g0, int n, int N) {
+    return mode != MODE_PERIODIC && (g0 < 0 || g0 + n > N);
+}
+
+// The in-kernel boundary fill (K6, the port of repro/kernels/common.py::
+// apply_boundary_fills), run on a kernel's f32 region before each fused
+// step.  The region holds p x h x w cells (strides plane_ld, ld, 1) whose
+// first cell is global (gz, gy, gx) of a Z x H x W grid; at step s of t,
+// o = (t - s) * R and (gz, gy, gx) = (k0, i0, j0) - o in every kernel,
+// because each step writes its output at the region's origin.  Each
+// non-periodic axis fills in ascending order over the full current extent
+// of the others, halos included, with a barrier after it: np.pad's
+// sequential corner values, which the oracle shares.  The JAX kernels
+// gate the fill on the first and last block of the grid (_edge_flags);
+// here it is gated by global index, since a tile may be shallower than
+// its halo, the 1D lift's tiles hold one row, and a ragged tile holds the
+// domain edge inside it.  Periodic axes keep what the modulo load (or the
+// previous step) put there.  The kernels compile the fill only into the
+// instantiation they launch when some axis is non-periodic (a FILL
+// template flag), so a periodic launch runs the periodic code.  Within a
+// fill launch every branch is uniform over the CTA: a CTA whose step-0
+// region stays inside the domain never calls the fill (its region only
+// shrinks), and one that does skips each axis, and its barrier, that its
+// region does not leave, so only edge CTAs pay.  Non-periodic axes are loaded
+// with the same modulo index as periodic ones (the JAX package's
+// _reflect_block only keeps Pallas's block-fetch dedup, and the port has
+// no block ring): the step-0 fill overwrites every out-of-domain cell a
+// step reads.  2D kernels pass p = 1, plane_ld = 0, Z = 1, mz = 0.
+__device__ __forceinline__ void fill_boundary(float* buf, size_t plane_ld, int ld, int p, int h,
+                                              int w, int gz, int gy, int gx, int Z, int H, int W,
+                                              int o, int mz, int my, int mx) {
+    if (leaves_domain(mz, gz, p, Z)) {
+        fill_axis(buf, plane_ld, ld, 1, p, h, w, gz, Z, o, mz);
+        __syncthreads();
+    }
+    if (leaves_domain(my, gy, h, H)) {
+        fill_axis(buf, ld, plane_ld, 1, h, p, w, gy, H, o, my);
+        __syncthreads();
+    }
+    if (leaves_domain(mx, gx, w, W)) {
+        fill_axis(buf, 1, plane_ld, ld, w, p, h, gx, W, o, mx);
+        __syncthreads();
     }
 }
 

@@ -1,7 +1,8 @@
 // Banded (Toeplitz) stencil contraction on the tensor cores for Hopper
-// (sm_90a): t steps of a 2D periodic stencil, one (TM x TN) output tile per
-// CTA, every product a wmma MMA (TF32 m16n16k8 for f32 operands, bf16
-// m16n16k16 for bf16 operands) with f32 accumulators.
+// (sm_90a): t steps of a 2D stencil with per-axis boundaries (periodic,
+// zero, reflect, replicate), one (TM x TN) output tile per CTA, every
+// product a wmma MMA (TF32 m16n16k8 for f32 operands, bf16 m16n16k16 for
+// bf16 operands) with f32 accumulators.
 //
 // Replaces repro/kernels/stencil_matmul.py::stencil_matmul / _banded_step /
 // _banded_steps together with the halo staging that
@@ -18,13 +19,18 @@
 // KPAD / (2R + 1) times the useful work, and still stays under the
 // 495 TFLOP/s TF32 roof next to 3.35 TB/s of HBM for small t*R.  So, as in
 // the tap-sum kernel, each tile's (TM+2h) x (TN+2h) region is read from
-// global memory once (h = t*R, periodic modulo indices on both axes), all
+// global memory once (h = t*R, modulo indices on both axes), all
 // t steps run in shared memory (intermediates stay f32 and round to the
 // compute dtype only as MMA operands, as stencil_matmul.py:175 does), the
 // x-halo is carried and both axes shrink by R per step, and the tile is
 // written once, masked at the ragged edge.
 //
-// Each step first copies the f32 region into a chunked operand array
+// Each step first rebuilds the non-periodic axes' halo in the f32 region
+// (fill_boundary, common.cuh; compiled only into the FILL instantiation,
+// which launches with a non-periodic axis) and waits for it: the sums of the previous
+// step sit in the same buffer, and a reflect on x must read its mirror
+// column before any chunk of this step overwrites it.  Then it copies the
+// f32 region into a chunked operand array
 // A[c][row][k] = region[row][16c + k] in the compute dtype, with zeros
 // for k >= BAND_N + 2R (the K padding) and past the region's valid extent,
 // so NaN * 0 never reaches a valid output and every A_dy is a plain
@@ -50,11 +56,12 @@ struct BandRows {
 // (chunks x a_rows x kpad, compute dtype), 128-byte aligned.  The host sizes
 // all of these (repro_torch/kernels/common.py::banded_layout) and passes
 // the byte count at launch.
-template <typename TIn, typename TC>
+template <typename TIn, typename TC, bool FILL>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                       const TC* __restrict__ bands, int H, int W, int TM, int TN, int t,
-                      int R, int rows, int ld, int a_rows, int kpad, BandRows br) {
+                      int R, int rows, int ld, int a_rows, int kpad, int my, int mx,
+                      BandRows br) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     float* const region = reinterpret_cast<float*>(smem);
@@ -69,12 +76,19 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 
     load_region(region, ld, x, H, W, i0 - halo, j0 - halo, h0, w0);
     __syncthreads();
+    const bool fill =
+        FILL && (leaves_domain(my, i0 - halo, h0, H) || leaves_domain(mx, j0 - halo, w0, W));
 
     int hin = h0, win = w0;
     for (int s = 0; s < t; ++s) {
         const int ho = hin - 2 * R, wo = win - 2 * R;
         const int nch = (wo + BAND_N - 1) / BAND_N;
         const int ntiles = ((ho + MMA_TILE - 1) / MMA_TILE) * nch;
+        if (fill) {
+            const int depth = (t - s) * R;
+            fill_boundary(region, 0, ld, 1, hin, win, 0, i0 - depth, j0 - depth, 1, H, W, depth,
+                          MODE_PERIODIC, my, mx);
+        }
 
         // Chunked, rounded, zero-padded copy of the step's input.
         // Four rows per warp at a time, so four loads are in flight.
@@ -149,28 +163,33 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 
 template <typename TIn, typename TC>
 static int launch(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
-                  int t, int R, int rows, int ld, int a_rows, int kpad, const BandRows* br,
-                  int smem_bytes, cudaStream_t stream) {
-    static std::atomic<bool> attributes_set[MAX_DEVICES];
-    cudaError_t err = prepare_launch(stencil_banded_kernel<TIn, TC>, attributes_set);
+                  int t, int R, int rows, int ld, int a_rows, int kpad, int my, int mx,
+                  const BandRows* br, int smem_bytes, cudaStream_t stream) {
+    const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
+    auto* kernel =
+        fill ? stencil_banded_kernel<TIn, TC, true> : stencil_banded_kernel<TIn, TC, false>;
+    static std::atomic<bool> attributes_set[2][MAX_DEVICES];
+    cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
-    stencil_banded_kernel<TIn, TC><<<grid, CTA_THREADS, smem_bytes, stream>>>(
+    kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
         static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(bands), H, W,
-        TM, TN, t, R, rows, ld, a_rows, kpad, *br);
+        TM, TN, t, R, rows, ld, a_rows, kpad, my, mx, *br);
     return (int)cudaGetLastError();
 }
 
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands are
-// (n, kpad, 16) in the compute dtype.  Returns the cudaError_t of the
-// launch (0 on success).
+// (n, kpad, 16) in the compute dtype; mode_y, mode_x: the rows' and the
+// columns' boundary codes (MODE_*).  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int stencil_banded_launch(const void* x, void* y, const void* bands, int H, int W,
                                      int TM, int TN, int t, int R, int rows, int ld, int a_rows,
-                                     int kpad, int dtype, int compute, const BandRows* br,
-                                     int smem_bytes, void* stream) {
+                                     int kpad, int dtype, int compute, int mode_y, int mode_x,
+                                     const BandRows* br, int smem_bytes, void* stream) {
     if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, br, smem_bytes, s
+#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, mode_y, mode_x, br, \
+             smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);

@@ -1,6 +1,7 @@
 // Banded (Toeplitz) stencil contraction on the tensor cores for Hopper
-// (sm_90a): t steps of a 3D periodic stencil, one (TZ x TM x TN) output
-// tile per CTA, every product a wmma MMA (TF32 m16n16k8 for f32 operands,
+// (sm_90a): t steps of a 3D stencil with per-axis boundaries (periodic,
+// zero, reflect, replicate), one (TZ x TM x TN) output tile per CTA, every
+// product a wmma MMA (TF32 m16n16k8 for f32 operands,
 // bf16 m16n16k16 for bf16 operands) with f32 accumulators.
 //
 // Replaces repro/kernels/stencil_matmul.py::stencil_matmul / _banded_step /
@@ -22,7 +23,7 @@
 // (the band form's KPAD * 16 MACs per 16 outputs per row stay under the
 // 495 TFLOP/s TF32 roof next to 3.35 TB/s of HBM for small t*R).  So, as
 // in the 2D kernel, each tile's (TZ+2h)(TM+2h)(TN+2h) region is read from
-// global memory once (h = t*R, periodic modulo indices on all three axes,
+// global memory once (h = t*R, modulo indices on all three axes,
 // 64-bit offsets), all t steps run in shared memory (intermediates stay
 // f32 and round to the compute dtype only as MMA operands, as
 // stencil_matmul.py:175 does), the halo is carried and every axis shrinks
@@ -30,9 +31,15 @@
 // edge.  Its cost is the region's read amplification, 2.81x the grid for
 // a 16x16x32 tile at h = 4, which the plan prices.
 //
-// Each step walks the 16-column chunks of its output in order.  For chunk
-// c it copies the region's columns [16c, 16c + KPAD) of every plane into
-// the operand array A[plane][row][k] in the compute dtype, with zeros for
+// Each step first rebuilds the non-periodic axes' halo in the f32 region
+// (fill_boundary, common.cuh; compiled only into the FILL instantiation,
+// which launches with a non-periodic axis) and waits for it, before chunk
+// 0 copies its operands: the chunks store their sums back into the region
+// in place, so a fill after any chunk had run would mirror a column
+// already overwritten.  Then the step walks the 16-column chunks of its
+// output in order.  For chunk c it copies the region's columns
+// [16c, 16c + KPAD) of every plane into the operand array
+// A[plane][row][k] in the compute dtype, with zeros for
 // k >= BAND_N + 2R (the K padding) and past the region's valid extent, so
 // NaN * 0 never reaches a valid output; then each warp takes two output
 // tiles, runs every band row against them with one row's band fragments
@@ -47,12 +54,13 @@
 // The host sizes all of these (repro_torch/kernels/common.py::
 // banded3d_layout) and passes the byte count at launch.  offs holds the
 // (dz, dy) pair of each of the n_rows bands.
-template <typename TIn, typename TC>
+template <typename TIn, typename TC, bool FILL>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                         const TC* __restrict__ bands, const int* __restrict__ offs, int Z,
                         int H, int W, int TZ, int TM, int TN, int t, int R, int rows, int ld,
-                        int a_rows, int kpad, int n_rows, int gx, int gy) {
+                        int a_rows, int kpad, int n_rows, int gx, int gy, int mz, int my,
+                        int mx) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     const int halo = t * R;
@@ -70,6 +78,9 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 
     load_region3d(region, ld, rplane, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, p0, h0, w0);
     __syncthreads();
+    const bool fill = FILL && (leaves_domain(mz, k0 - halo, p0, Z) ||
+                               leaves_domain(my, i0 - halo, h0, H) ||
+                               leaves_domain(mx, j0 - halo, w0, W));
 
     int pin = p0, hin = h0, win = w0;
     for (int s = 0; s < t; ++s) {
@@ -78,6 +89,11 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
         const int mtiles = (ho + MMA_TILE - 1) / MMA_TILE;
         const int ntiles = po * mtiles;
         const int arows = pin * a_rows;  // (plane, row) pairs of A
+        if (fill) {
+            const int depth = (t - s) * R;
+            fill_boundary(region, rplane, ld, pin, hin, win, k0 - depth, i0 - depth, j0 - depth,
+                          Z, H, W, depth, mz, my, mx);
+        }
         for (int c = 0; c < nch; ++c) {
             const int c0 = c * BAND_N;
             const int kv = min(band_k, win - c0);
@@ -158,30 +174,39 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 template <typename TIn, typename TC>
 static int launch(const void* x, void* y, const void* bands, const int* offs, int Z, int H, int W,
                   int TZ, int TM, int TN, int t, int R, int rows, int ld, int a_rows, int kpad,
-                  int n_rows, int smem_bytes, cudaStream_t stream) {
-    static std::atomic<bool> attributes_set[MAX_DEVICES];
-    cudaError_t err = prepare_launch(stencil_banded3d_kernel<TIn, TC>, attributes_set);
+                  int n_rows, const int* modes, int smem_bytes, cudaStream_t stream) {
+    const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
+                      modes[2] != MODE_PERIODIC;
+    auto* kernel =
+        fill ? stencil_banded3d_kernel<TIn, TC, true> : stencil_banded3d_kernel<TIn, TC, false>;
+    static std::atomic<bool> attributes_set[2][MAX_DEVICES];
+    cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
-    stencil_banded3d_kernel<TIn, TC><<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
+    kernel<<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
         static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(bands), offs, Z,
-        H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, gx, gy);
+        H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, gx, gy, modes[0], modes[1],
+        modes[2]);
     return (int)cudaGetLastError();
 }
 
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands
 // are (n_rows, kpad, 16) in the compute dtype, offs (n_rows, 2) int32
-// (dz, dy).  Returns the cudaError_t of the launch (0 on success).
+// (dz, dy); mode_z, mode_y, mode_x: each axis's boundary code (MODE_*).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int stencil_banded3d_launch(const void* x, void* y, const void* bands, const void* offs,
                                        int Z, int H, int W, int TZ, int TM, int TN, int t, int R,
                                        int rows, int ld, int a_rows, int kpad, int n_rows,
-                                       int dtype, int compute, int smem_bytes, void* stream) {
+                                       int dtype, int compute, int mode_z, int mode_y, int mode_x,
+                                       int smem_bytes, void* stream) {
     if (n_rows < 1 || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int* o = static_cast<const int*>(offs);
-#define ARGS x, y, bands, o, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, smem_bytes, s
+    const int modes[3] = {mode_z, mode_y, mode_x};
+#define ARGS x, y, bands, o, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, modes, \
+             smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);

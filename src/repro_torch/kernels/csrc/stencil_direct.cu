@@ -1,5 +1,6 @@
 // Tap-sum stencil kernel for Hopper (sm_90a): t fused steps of a 2D
-// periodic stencil, one (TM x TN) output tile per CTA.
+// stencil with per-axis boundaries (periodic, zero, reflect, replicate),
+// one (TM x TN) output tile per CTA.
 //
 // Replaces repro/kernels/stencil_direct.py::stencil_direct / _stencil_steps
 // together with the halo staging that repro/kernels/common.py::_launch
@@ -9,7 +10,7 @@
 // (K <= 49 taps) against 8 bytes moved for an f32 grid, far below the
 // 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of the CUDA cores until
 // t*K is large.  The design therefore reads each tile's
-// (TM+2h) x (TN+2h) region from global memory once (h = t*r, periodic
+// (TM+2h) x (TN+2h) region from global memory once (h = t*r,
 // modulo indices on both axes; Hopper blocks may read overlapping
 // regions, so there is no halo ring), runs all t steps out of two
 // ping-pong f32 buffers in shared memory, carrying the x-halo and
@@ -20,7 +21,11 @@
 // register window, so an output costs (2r+1)(V+2r)/V shared-memory loads
 // instead of K.  The taps come in as a by-value argument in row-major
 // order with the zero taps left out, as the JAX kernel skips them at
-// trace time; the kernel is specialised on r <= 3.
+// trace time; the kernel is specialised on r <= 3.  Non-periodic axes
+// are rebuilt in the input buffer before every step by fill_boundary
+// (common.cuh), as the JAX kernel's apply_boundary_fills does per step;
+// the fill is compiled only into the FILL instantiation, which launches
+// with a non-periodic axis, so a periodic launch runs the periodic code.
 #include "common.cuh"
 
 #define MAX_TAPS 49
@@ -33,10 +38,10 @@ struct Taps {
     float w[MAX_TAPS];
 };
 
-template <typename T, int R>
+template <typename T, int R, bool FILL>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
-                      int TM, int TN, int t, Taps taps) {
+                      int TM, int TN, int t, int my, int mx, Taps taps) {
     constexpr int KW = 2 * R + 1;
     constexpr int V = ROWS_PER_THREAD;
     extern __shared__ float smem[];
@@ -55,11 +60,18 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
     if (threadIdx.x < taps.n) wsh[taps.dy[threadIdx.x] * KW + taps.dx[threadIdx.x]] = taps.w[threadIdx.x];
     load_region(b0, ld, x, H, W, i0 - halo, j0 - halo, rows0, ld);
     __syncthreads();
+    const bool fill = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
+                               leaves_domain(mx, j0 - halo, ld, W));
 
     int hin = rows0, win = ld;
     for (int s = 0; s < t; ++s) {
-        const float* in = (s & 1) ? b1 : b0;
+        float* in = (s & 1) ? b1 : b0;
         float* out = (s & 1) ? b0 : b1;
+        if (fill) {
+            const int depth = (t - s) * R;
+            fill_boundary(in, 0, ld, 1, hin, win, 0, i0 - depth, j0 - depth, 1, H, W, depth,
+                          MODE_PERIODIC, my, mx);
+        }
         const int ho = hin - 2 * R, wo = win - 2 * R;
         const int strips = ((ho + V - 1) / V) * wo;
         for (int sid = threadIdx.x; sid < strips; sid += blockDim.x) {
@@ -98,34 +110,39 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
 }
 
 template <typename T, int R>
-static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t,
-                  const Taps* taps, int smem_bytes, cudaStream_t stream) {
-    static std::atomic<bool> attributes_set[MAX_DEVICES];
-    cudaError_t err = prepare_launch(stencil_direct_kernel<T, R>, attributes_set);
+static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int my,
+                  int mx, const Taps* taps, int smem_bytes, cudaStream_t stream) {
+    const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
+    auto* kernel = fill ? stencil_direct_kernel<T, R, true> : stencil_direct_kernel<T, R, false>;
+    static std::atomic<bool> attributes_set[2][MAX_DEVICES];
+    cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
-    stencil_direct_kernel<T, R><<<grid, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), H, W, TM, TN, t, *taps);
+    kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), H, W, TM, TN, t, my, mx, *taps);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r,
-                    const Taps* taps, int smem_bytes, cudaStream_t s) {
-    if (r == 1) return launch<T, 1>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
-    if (r == 2) return launch<T, 2>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
-    if (r == 3) return launch<T, 3>(x, y, H, W, TM, TN, t, taps, smem_bytes, s);
+                    int my, int mx, const Taps* taps, int smem_bytes, cudaStream_t s) {
+    if (r == 1) return launch<T, 1>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+    if (r == 2) return launch<T, 2>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+    if (r == 3) return launch<T, 3>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
     return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3.  Returns
+// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; mode_y,
+// mode_x: the rows' and the columns' boundary codes (MODE_*).  Returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int TM, int TN,
-                                     int t, int r, int dtype, const Taps* taps,
-                                     int smem_bytes, void* stream) {
+                                     int t, int r, int dtype, int mode_y, int mode_x,
+                                     const Taps* taps, int smem_bytes, void* stream) {
     if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch_r<float>(x, y, H, W, TM, TN, t, r, taps, smem_bytes, s);
-    if (dtype == 1) return launch_r<__nv_bfloat16>(x, y, H, W, TM, TN, t, r, taps, smem_bytes, s);
+#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, smem_bytes, s
+    if (dtype == 0) return launch_r<float>(ARGS);
+    if (dtype == 1) return launch_r<__nv_bfloat16>(ARGS);
+#undef ARGS
     return (int)cudaErrorInvalidValue;
 }

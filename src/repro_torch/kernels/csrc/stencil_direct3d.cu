@@ -1,5 +1,6 @@
 // Tap-sum stencil kernel for Hopper (sm_90a): t fused steps of a 3D
-// periodic stencil, one (TZ x TM x TN) output tile per CTA.
+// stencil with per-axis boundaries (periodic, zero, reflect, replicate),
+// one (TZ x TM x TN) output tile per CTA.
 //
 // Replaces repro/kernels/stencil_direct.py::stencil_direct / _stencil_steps
 // on 3D grids, together with the slab substrate that
@@ -11,7 +12,7 @@
 // below the 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of the CUDA cores
 // for the paper's stencils until t*K is large.  The design is the 2D
 // kernel's one rank up: each tile's (TZ+2h)(TM+2h)(TN+2h) region is read
-// from global memory once (h = t*r, periodic modulo indices on all three
+// from global memory once (h = t*r, modulo indices on all three
 // axes, 64-bit offsets), all t steps run out of two ping-pong f32 buffers
 // in shared memory, carrying the halo and shrinking every axis by r per
 // step, and the tile is written once, masked at every ragged edge.  Its
@@ -22,17 +23,21 @@
 // accumulated in f32 in row-major (dz, dy, dx) order, zero taps skipped,
 // and each thread computes V rows of one column of one plane from a
 // (V+2r) x (2r+1) register window per dz, as in the 2D kernel.  The
-// kernel is specialised on r <= 3.
+// kernel is specialised on r <= 3.  Non-periodic axes are rebuilt in the
+// input buffer before every step by fill_boundary (common.cuh); a tile
+// may be shallower than its halo (8 deep at h = 8), so the fill goes by
+// global index on every axis.  The fill is compiled only into the FILL
+// instantiation, which launches with a non-periodic axis.
 #include "common.cuh"
 
 #define TAPS3D_SLOTS 344  // (2*3+1)^3 = 343, rounded to 16 bytes
 #define ROWS_PER_THREAD 8
 
-template <typename T, int R>
+template <typename T, int R, bool FILL>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
                         const float* __restrict__ taps, int Z, int H, int W, int TZ, int TM,
-                        int TN, int t, int gx, int gy) {
+                        int TN, int t, int gx, int gy, int mz, int my, int mx) {
     constexpr int KW = 2 * R + 1;
     constexpr int V = ROWS_PER_THREAD;
     extern __shared__ float smem[];
@@ -50,11 +55,19 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
     load_region3d(b0, ld, plane_ld, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, planes0, rows,
                   ld);
     __syncthreads();
+    const bool fill = FILL && (leaves_domain(mz, k0 - halo, planes0, Z) ||
+                               leaves_domain(my, i0 - halo, rows, H) ||
+                               leaves_domain(mx, j0 - halo, ld, W));
 
     int pin = planes0, hin = rows, win = ld;
     for (int s = 0; s < t; ++s) {
-        const float* in = (s & 1) ? b1 : b0;
+        float* in = (s & 1) ? b1 : b0;
         float* out = (s & 1) ? b0 : b1;
+        if (fill) {
+            const int depth = (t - s) * R;
+            fill_boundary(in, plane_ld, ld, pin, hin, win, k0 - depth, i0 - depth, j0 - depth, Z,
+                          H, W, depth, mz, my, mx);
+        }
         const int po = pin - 2 * R, ho = hin - 2 * R, wo = win - 2 * R;
         const int nrb = (ho + V - 1) / V;
         const int strips = po * nrb * wo;
@@ -103,37 +116,47 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T, int R>
 static int launch(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ, int TM,
-                  int TN, int t, int smem_bytes, cudaStream_t stream) {
-    static std::atomic<bool> attributes_set[MAX_DEVICES];
-    cudaError_t err = prepare_launch(stencil_direct3d_kernel<T, R>, attributes_set);
+                  int TN, int t, const int* modes, int smem_bytes, cudaStream_t stream) {
+    const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
+                      modes[2] != MODE_PERIODIC;
+    auto* kernel =
+        fill ? stencil_direct3d_kernel<T, R, true> : stencil_direct3d_kernel<T, R, false>;
+    static std::atomic<bool> attributes_set[2][MAX_DEVICES];
+    cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
-    stencil_direct3d_kernel<T, R><<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), taps, Z, H, W, TZ, TM, TN, t, gx, gy);
+    kernel<<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), taps, Z, H, W, TZ, TM, TN, t, gx, gy,
+        modes[0], modes[1], modes[2]);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_r(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ,
-                    int TM, int TN, int t, int r, int smem_bytes, cudaStream_t s) {
-    if (r == 1) return launch<T, 1>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
-    if (r == 2) return launch<T, 2>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
-    if (r == 3) return launch<T, 3>(x, y, taps, Z, H, W, TZ, TM, TN, t, smem_bytes, s);
+                    int TM, int TN, int t, int r, const int* modes, int smem_bytes,
+                    cudaStream_t s) {
+    if (r == 1) return launch<T, 1>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
+    if (r == 2) return launch<T, 2>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
+    if (r == 3) return launch<T, 3>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // taps: the dense (2r+1)^3 float32 weights on the device.  dtype: 0 =
-// float32, 1 = bfloat16 (input and output); r in 1..3.  Returns the
-// cudaError_t of the launch (0 on success).
+// float32, 1 = bfloat16 (input and output); r in 1..3; mode_z, mode_y,
+// mode_x: each axis's boundary code (MODE_*).  Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int stencil_direct3d_launch(const void* x, void* y, const void* taps, int Z, int H,
                                        int W, int TZ, int TM, int TN, int t, int r, int dtype,
-                                       int smem_bytes, void* stream) {
+                                       int mode_z, int mode_y, int mode_x, int smem_bytes,
+                                       void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* w = static_cast<const float*>(taps);
-    if (dtype == 0) return launch_r<float>(x, y, w, Z, H, W, TZ, TM, TN, t, r, smem_bytes, s);
-    if (dtype == 1)
-        return launch_r<__nv_bfloat16>(x, y, w, Z, H, W, TZ, TM, TN, t, r, smem_bytes, s);
+    const int modes[3] = {mode_z, mode_y, mode_x};
+#define ARGS x, y, w, Z, H, W, TZ, TM, TN, t, r, modes, smem_bytes, s
+    if (dtype == 0) return launch_r<float>(ARGS);
+    if (dtype == 1) return launch_r<__nv_bfloat16>(ARGS);
+#undef ARGS
     return (int)cudaErrorInvalidValue;
 }

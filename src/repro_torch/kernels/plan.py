@@ -278,9 +278,6 @@ def plan_signature(
         raise ValueError(f"the port runs 1D, 2D and 3D grids, got rank "
                          f"{len(grid_shape)}")
     boundary_key = resolve_boundary(boundary, len(grid_shape))
-    if backend != "reference" and not is_periodic(boundary_key):
-        raise _later_slice(f"boundary={boundary!r} on the kernel backends "
-                           "(per-axis boundaries, K6)", "item 9")
     dtype = as_torch_dtype(dtype)
     cdt = None if compute_dtype is None else as_torch_dtype(compute_dtype)
     dev = resolve_device(device)
@@ -329,8 +326,13 @@ def stencil_plan(
         BAND_N-column chunks (one wmma N), on the card and the CPU alike.
       compute_dtype: MMA operand dtype of the banded regimes (default the
         grid dtype).
-      boundary: per-axis boundary modes; non-periodic ones run only on
-        ``backend="reference"`` in this slice.
+      boundary: per-axis boundary modes -- one of ``periodic`` (the
+        default), ``zero``, ``reflect`` and ``replicate`` for every axis,
+        or a per-axis tuple (``None`` entries periodic), e.g.
+        ``boundary=("reflect", "periodic")``.  The kernels fill each
+        non-periodic axis before every step; ``fused_matmul`` refuses
+        them at t > 1 and ``auto`` never picks it there.  Part of the
+        cache key.
       device: where the plan runs; ``None`` = ``"cuda"``, which raises
         when there is no GPU.  ``"cpu"`` runs the plain versions.
       use_cache: bypass the process-wide plan cache when ``False``.

@@ -19,10 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import perfmodel as pm
+from repro_torch.stencil.boundary import is_periodic
 from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import fuse_weights
 from . import ref as _ref
-from .common import SubstrateGeom, launch_geom
+from .common import SubstrateGeom, check_grid, launch_geom
 from .stencil_direct import stencil_direct_at
 from .stencil_matmul import stencil_matmul_at
 
@@ -42,19 +43,21 @@ class PlanContext:
     #: Per-axis boundary modes, resolved by the plan layer.
     boundary: Optional[Tuple[str, ...]] = None
 
-    @property
-    def radius(self) -> int:
-        return (self.weights.shape[0] - 1) // 2
-
     def fused_weights(self) -> np.ndarray:
         """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
         return fuse_weights(self.weights, self.t)
 
-    def launch_geom(self, halo: int) -> SubstrateGeom:
-        """The CTA tile the kernels launch with at total halo ``halo`` (1D:
-        the lift's (1, N) tile).  Builders resolve it here, once, so the
-        tile rule's errors are raised when the plan is built."""
-        return launch_geom(self.grid_shape, halo, self.tile_m, self.w_tile)
+    def launch_geom(self, weights: np.ndarray, t_inner: int) -> SubstrateGeom:
+        """The CTA tile the kernels launch ``weights`` with at ``t_inner``
+        fused steps, halo t_inner * R (1D: the lift's (1, N) tile), after
+        the kernels' argument rule under the plan's boundary.  Builders
+        resolve it here, once, so the tile rule's and the argument rule's
+        errors are raised when the plan is built (the JAX builders'
+        ``validate``)."""
+        r, _ = check_grid(self.grid_shape, np.asarray(weights), t_inner,
+                          self.boundary, "the plan")
+        return launch_geom(self.grid_shape, t_inner * r, self.tile_m,
+                           self.w_tile)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,57 +170,65 @@ def _build_reference(ctx: PlanContext) -> Callable:
 def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
-    w, t, r = ctx.weights, ctx.t, ctx.radius
-    geom = ctx.launch_geom(r)
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom = ctx.launch_geom(w, 1)
 
     def run(x):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom)
+            x = stencil_direct_at(x, w, 1, geom, b)
         return x
     return run
 
 
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
-    w, t, r = ctx.weights, ctx.t, ctx.radius
-    geom = ctx.launch_geom(t * r)
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom = ctx.launch_geom(w, t)
 
     def run(x):
-        return stencil_direct_at(x, w, t, geom)
+        return stencil_direct_at(x, w, t, geom, b)
     return run
 
 
 def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
-    w, t, r = ctx.weights, ctx.t, ctx.radius
-    geom, cdt = ctx.launch_geom(r), ctx.compute_dtype
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom, cdt = ctx.launch_geom(w, 1), ctx.compute_dtype
 
     def run(x):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b)
         return x
     return run
 
 
 def _build_fused_matmul(ctx: PlanContext) -> Callable:
     """Monolithic fusion: ONE contraction of the composed radius-t*r kernel."""
-    wf = ctx.fused_weights()
-    R = (wf.shape[0] - 1) // 2
-    geom, cdt = ctx.launch_geom(R), ctx.compute_dtype
+    if ctx.t > 1 and not is_periodic(ctx.boundary):
+        # One application of the composed kernel sees ONE boundary
+        # extension at depth t*r, but every non-periodic mode re-applies
+        # per step -- the regime cannot represent that (the JAX message).
+        raise ValueError(
+            "fused_matmul (monolithic fusion) cannot honor non-periodic "
+            f"boundaries at t={ctx.t}: the composed radius-t*r kernel "
+            "bakes a single boundary extension into all t steps; use "
+            "fused_matmul_reuse (per-step fills) or t=1")
+    wf, b = ctx.fused_weights(), ctx.boundary
+    geom, cdt = ctx.launch_geom(wf, 1), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul_at(x, wf, 1, geom, cdt)
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b)
     return run
 
 
 def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     """Intermediate reuse: t radius-r contractions in one launch, f32
-    intermediates in shared memory."""
-    w, t, r = ctx.weights, ctx.t, ctx.radius
-    geom, cdt = ctx.launch_geom(t * r), ctx.compute_dtype
+    intermediates in shared memory, the boundary filled before each."""
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom, cdt = ctx.launch_geom(w, t), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul_at(x, w, t, geom, cdt)
+        return stencil_matmul_at(x, w, t, geom, cdt, b)
     return run
 
 

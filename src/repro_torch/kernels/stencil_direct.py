@@ -1,15 +1,18 @@
 """Tap-sum stencil (the paper's "CUDA core" baseline): the counterpart of
 ``repro.kernels.stencil_direct``.
 
-``stencil_direct(x, weights, t)`` advances a 1D, 2D or 3D periodic grid
-``t`` fused steps.  A tensor on the CPU runs :func:`stencil_direct_plain`;
+``stencil_direct(x, weights, t, boundary=...)`` advances a 1D, 2D or 3D
+grid ``t`` fused steps under per-axis boundaries (periodic, zero,
+reflect, replicate).  A tensor on the CPU runs :func:`stencil_direct_plain`;
 a CUDA tensor launches a hand-written kernel or raises: 2D grids
 ``csrc/stencil_direct.cu``, 3D grids ``csrc/stencil_direct3d.cu``, and 1D
 grids the 2D kernel on the lifted (1, N) view with the kernel as the
 middle row of a square one (every wrapped row is row 0, and the zero rows
-are skipped), as the JAX lift does.  The kernels accumulate in f32 in the
+are skipped), as the JAX lift does, its row axis periodic and its
+column axis in the grid's mode.  The kernels accumulate in f32 in the
 row-major tap order of the JAX kernel (``stencil_direct.py:88-98``), skip
-zero taps, and round to ``x.dtype`` once, on store.
+zero taps, rebuild every non-periodic axis's halo before each step (the
+in-kernel fill), and round to ``x.dtype`` once, on store.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.stencil.boundary import resolve_boundary
+from repro_torch.stencil.reference import pad_boundary
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, SubstrateGeom, check_periodic_grid,
+from .common import (SMEM_BUDGET_BYTES, SubstrateGeom, check_grid,
                      check_tile_halo, direct3d_layout, direct_layout,
-                     launch_geom, lift_weights)
+                     kernel_mode_codes, launch_geom, lift_weights)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
 #: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
@@ -47,20 +52,24 @@ def nonzero_taps(weights: np.ndarray):
             if w[idx] != 0.0]
 
 
-def stencil_direct_plain(x: torch.Tensor, weights, t: int = 1) -> torch.Tensor:
+def stencil_direct_plain(x: torch.Tensor, weights, t: int = 1,
+                         boundary=None) -> torch.Tensor:
     """Plain PyTorch version of the kernels: ``t`` tap-sum steps of the
-    whole periodic grid (any rank) by ``torch.roll`` over every axis,
-    accumulated in f32 in row-major tap order with zero taps skipped,
-    rounded to ``x.dtype`` at the end."""
+    whole grid (any rank), accumulated in f32 in row-major tap order with
+    zero taps skipped, rounded to ``x.dtype`` at the end.  Every step pads
+    each axis by r in its mode (``pad_boundary``, ascending axes; periodic
+    wraps, so the shifts are ``torch.roll``'s values) and slices each
+    tap's shift out of the padded grid."""
     w = np.asarray(weights, dtype=np.float32)
     r = (w.shape[0] - 1) // 2
-    dims = tuple(range(w.ndim))
+    modes = resolve_boundary(boundary, w.ndim)
     cur = x.float()
     for _ in range(t):
+        xp = pad_boundary(cur, r, modes)
         acc = torch.zeros_like(cur)
         for *off, wv in nonzero_taps(w):
-            acc = acc + wv * torch.roll(cur, shifts=tuple(r - o for o in off),
-                                        dims=dims)
+            acc = acc + wv * xp[tuple(slice(o, o + n)
+                                      for o, n in zip(off, cur.shape))]
         cur = acc
     return cur.to(x.dtype)
 
@@ -84,7 +93,7 @@ def _launcher():
     signature set once."""
     fn = _build.library("stencil_direct").stencil_direct_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
         ctypes.POINTER(_Taps), ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -94,7 +103,7 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d").stencil_direct3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [
         ctypes.c_void_p]
     return fn
 
@@ -111,40 +120,42 @@ def _device_taps(w_bytes: bytes, shape: tuple, device: str) -> torch.Tensor:
 def stencil_direct(x: torch.Tensor, weights, t: int = 1,
                    tile_m: int = None, w_tile: int = None,
                    boundary=None) -> torch.Tensor:
-    """``t`` fused tap-sum steps of a 1D, 2D or 3D periodic grid.
+    """``t`` fused tap-sum steps of a 1D, 2D or 3D grid.
 
     ``weights``: host-side (2r+1)^d ndarray (zeros outside support), d the
     grid rank.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
     (multiples of 16; ``None`` = ``launch_geom``, which in 1D is the
-    lift's tile, where only ``w_tile`` applies).  Only periodic
-    boundaries run here.
+    lift's tile, where only ``w_tile`` applies).  ``boundary``: one mode
+    for every axis, a per-axis tuple (``None`` entries periodic) or
+    ``None`` (periodic).
     """
-    w = np.asarray(weights)
-    r = check_periodic_grid(x.shape, w, boundary, "the tap-sum")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights)
+    r, modes = check_grid(x.shape, w, t, boundary, "the tap-sum")
     if x.device.type == "cpu":
-        return stencil_direct_plain(x, w, t)
-    return _run(x, w, t, r, launch_geom(x.shape, t * r, tile_m, w_tile))
+        return stencil_direct_plain(x, w, t, modes)
+    return _run(x, w, t, r, launch_geom(x.shape, t * r, tile_m, w_tile),
+                modes)
 
 
 def stencil_direct_at(x: torch.Tensor, weights, t: int,
-                      geom: SubstrateGeom) -> torch.Tensor:
+                      geom: SubstrateGeom, boundary=None) -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
     ``launch_geom(x.shape, t * r, ...)``: a plan resolves it once, when it
     is built, and launches every step on it."""
-    w = np.asarray(weights)
-    r = check_periodic_grid(x.shape, w, None, "the tap-sum")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights)
+    r, modes = check_grid(x.shape, w, t, boundary, "the tap-sum")
     check_tile_halo(geom, t * r)
     if x.device.type == "cpu":
-        return stencil_direct_plain(x, w, t)
-    return _run(x, w, t, r, geom)
+        return stencil_direct_plain(x, w, t, modes)
+    return _run(x, w, t, r, geom, modes)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
-         geom: SubstrateGeom) -> torch.Tensor:
+         geom: SubstrateGeom, modes: tuple) -> torch.Tensor:
     """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_direct runs on cpu or cuda, got {x.device}")
@@ -159,16 +170,17 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     w32 = np.ascontiguousarray(w, dtype=np.float32)
     if not w32.any():
         return torch.zeros_like(x)
+    codes = kernel_mode_codes(modes)
     if x.ndim == 3:
-        return _launch3d(x, w32, t, r, geom)
+        return _launch3d(x, w32, t, r, geom, codes)
     if x.ndim == 1:
-        return _launch2d(x.view(1, -1), lift_weights(w32), t, r,
-                         geom).view(-1)
-    return _launch2d(x, w32, t, r, geom)
+        return _launch2d(x.view(1, -1), lift_weights(w32), t, r, geom,
+                         codes).view(-1)
+    return _launch2d(x, w32, t, r, geom, codes)
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom) -> torch.Tensor:
+              geom, codes: tuple) -> torch.Tensor:
     arg = _tap_arg(w32.tobytes(), w32.shape)
     layout = direct_layout(geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
@@ -180,15 +192,15 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
-                 geom.w_tile, t, r, _DTYPE_CODES[x.dtype], ctypes.byref(arg),
-                 layout.smem_bytes, stream)
+                 geom.w_tile, t, r, _DTYPE_CODES[x.dtype], *codes,
+                 ctypes.byref(arg), layout.smem_bytes, stream)
     _build.check(err, "stencil_direct")
     _build.count_launch("stencil_direct")
     return y
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom) -> torch.Tensor:
+              geom, codes: tuple) -> torch.Tensor:
     layout = direct3d_layout(geom.z_slab, geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
@@ -201,7 +213,7 @@ def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), z, h, wd,
                  geom.z_slab, geom.strip_m, geom.w_tile, t, r,
-                 _DTYPE_CODES[x.dtype], layout.smem_bytes, stream)
+                 _DTYPE_CODES[x.dtype], *codes, layout.smem_bytes, stream)
     _build.check(err, "stencil_direct3d")
     _build.count_launch("stencil_direct3d")
     return y

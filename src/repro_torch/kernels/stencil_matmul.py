@@ -7,8 +7,10 @@ of shape (tile_n + 2R, tile_n) with B[j+dx, j] = w[..., dx]
 (``build_bands_nd``, host-side, copied from the JAX package so the
 operands match bit for bit), and every chunk of ``tile_n`` output columns
 is  sum over rows of  A_row @ B_row,  A_row the (dz, dy)-shifted slab of
-the periodically extended input, accumulated in f32 with the operands in
-the compute dtype.
+the input extended by r per axis in that axis's boundary mode (periodic,
+zero, reflect, replicate; rebuilt in shared memory before every step by
+the in-kernel fill), accumulated in f32 with the operands in the compute
+dtype.
 
 ``stencil_matmul(x, weights, t)``: ``t=1`` is one contraction of
 ``weights`` (which may be a composed radius-t*r kernel: monolithic
@@ -18,7 +20,8 @@ intermediate-reuse regime).  A tensor on the CPU runs
 kernel (TF32 operands for f32, bf16 for bf16, 16-column chunks: BAND_N)
 or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
 ``csrc/stencil_banded3d.cu``, 1D grids the 2D kernel on the lifted
-(1, N) view, where the kernel's single row is one band.
+(1, N) view, where the kernel's single row is one band (the lift's row
+axis periodic, its column axis in the grid's mode).
 """
 from __future__ import annotations
 
@@ -29,10 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.stencil.boundary import resolve_boundary
+from repro_torch.stencil.reference import pad_boundary
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, SubstrateGeom,
-                     banded3d_layout, banded_layout, check_periodic_grid,
-                     check_tile_halo, launch_geom, lift_weights)
+                     banded3d_layout, banded_layout, check_grid,
+                     check_tile_halo, kernel_mode_codes, launch_geom,
+                     lift_weights)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
 #: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
@@ -106,11 +112,12 @@ def band_sparsity(weights: np.ndarray, tile_n: int) -> float:
 
 
 def stencil_matmul_plain(x: torch.Tensor, weights, t: int = 1,
-                         tile_n: int = BAND_N,
-                         compute_dtype=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernels on the whole periodic grid (any
-    rank): per step, pad every axis periodically by R (and the columns
-    with zeros up to whole chunks), cut each row-shifted slab of
+                         tile_n: int = BAND_N, compute_dtype=None,
+                         boundary=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels on the whole grid (any rank):
+    per step, pad every axis by R in its boundary mode (``pad_boundary``,
+    ascending axes; periodic is the ``% n`` index) and the columns with
+    zeros up to whole chunks, cut each row-shifted slab of
     ``build_bands_nd`` into (tile_n + 2R)-wide chunks at stride ``tile_n``
     and contract it with its band by one ``torch.matmul`` over all
     chunks.  Operands are rounded to the compute dtype and multiplied in
@@ -124,13 +131,10 @@ def stencil_matmul_plain(x: torch.Tensor, weights, t: int = 1,
     shape = tuple(x.shape)
     lead, wd = shape[:-1], shape[-1]
     nc = -(-wd // tile_n)
-    wraps = [torch.arange(-radius, n + radius, device=x.device) % n
-             for n in shape]
+    modes = resolve_boundary(boundary, len(shape))
     cur = x.float()
     for _ in range(t):
-        xp = cur
-        for d, idx in enumerate(wraps):
-            xp = xp.index_select(d, idx)
+        xp = pad_boundary(cur, radius, modes)
         xp = F.pad(xp, (0, nc * tile_n - wd)).to(cdt).float()
         acc = torch.zeros(lead + (nc, tile_n), device=x.device)
         for p, off in enumerate(offsets):
@@ -165,7 +169,7 @@ def _launcher():
     signature set once."""
     fn = _build.library("stencil_banded").stencil_banded_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
         ctypes.POINTER(_BandRows), ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -175,7 +179,7 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_banded3d").stencil_banded3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
         ctypes.c_void_p]
     return fn
 
@@ -183,45 +187,47 @@ def _launcher3d():
 def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
                    tile_m: int = None, w_tile: int = None,
                    compute_dtype=None, boundary=None) -> torch.Tensor:
-    """``t`` steps of a 1D, 2D or 3D periodic grid via banded contractions.
+    """``t`` steps of a 1D, 2D or 3D grid via banded contractions.
 
     ``t=1``: one contraction of ``weights`` (possibly a fused radius-t*r
     kernel).  ``t>1``: t radius-r contractions with f32 intermediates kept
     on chip.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
     (``None`` = ``launch_geom``; 1D: only ``w_tile``, on the lifted tile);
     ``compute_dtype`` is the MMA operand dtype (default ``x.dtype``).
-    Columns go in BAND_N-wide chunks on both devices.  Only periodic
-    boundaries run here.
+    Columns go in BAND_N-wide chunks on both devices.  ``boundary``: one
+    mode for every axis, a per-axis tuple or ``None`` (periodic), applied
+    before each of the t contractions.
     """
-    w = np.asarray(weights, dtype=np.float32)
-    radius = check_periodic_grid(x.shape, w, boundary,
-                                 "the banded contraction")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights, dtype=np.float32)
+    radius, modes = check_grid(x.shape, w, t, boundary,
+                               "the banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
-        return stencil_matmul_plain(x, w, t, BAND_N, cdt)
+        return stencil_matmul_plain(x, w, t, BAND_N, cdt, modes)
     return _run(x, w, t, radius, cdt,
-                launch_geom(x.shape, t * radius, tile_m, w_tile))
+                launch_geom(x.shape, t * radius, tile_m, w_tile), modes)
 
 
 def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
-                      compute_dtype=None) -> torch.Tensor:
+                      compute_dtype=None, boundary=None) -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
     ``launch_geom(x.shape, t * R, ...)``: a plan resolves it once, when it
     is built, and launches every step on it."""
-    w = np.asarray(weights, dtype=np.float32)
-    radius = check_periodic_grid(x.shape, w, None, "the banded contraction")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights, dtype=np.float32)
+    radius, modes = check_grid(x.shape, w, t, boundary,
+                               "the banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
     if x.device.type == "cpu":
-        return stencil_matmul_plain(x, w, t, BAND_N, cdt)
-    return _run(x, w, t, radius, cdt, geom)
+        return stencil_matmul_plain(x, w, t, BAND_N, cdt, modes)
+    return _run(x, w, t, radius, cdt, geom, modes)
 
 
-def _run(x, w, t, radius, cdt, geom) -> torch.Tensor:
+def _run(x, w, t, radius, cdt, geom, modes) -> torch.Tensor:
     """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_matmul runs on cpu or cuda, got {x.device}")
@@ -230,12 +236,13 @@ def _run(x, w, t, radius, cdt, geom) -> torch.Tensor:
                         f"grids and operands, got {x.dtype} / {cdt}")
     if not x.is_contiguous():
         raise ValueError("stencil_matmul kernel takes a contiguous grid")
+    codes = kernel_mode_codes(modes)
     if x.ndim == 1:
         return _launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
-                         geom).view(-1)
+                         geom, codes).view(-1)
     if x.ndim == 3:
-        return _launch3d(x, w, t, radius, cdt, geom)
-    return _launch2d(x, w, t, radius, cdt, geom)
+        return _launch3d(x, w, t, radius, cdt, geom, codes)
+    return _launch2d(x, w, t, radius, cdt, geom, codes)
 
 
 def _checked(layout, what: str):
@@ -249,7 +256,7 @@ def _checked(layout, what: str):
     return layout
 
 
-def _launch2d(x, w, t, radius, cdt, geom) -> torch.Tensor:
+def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     layout = _checked(banded_layout(geom.strip_m, geom.w_tile, radius, t,
                                     cdt.itemsize), "banded")
     offsets, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
@@ -268,14 +275,14 @@ def _launch2d(x, w, t, radius, cdt, geom) -> torch.Tensor:
         err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(), h, wd,
                  geom.strip_m, geom.w_tile, t, radius, layout.rows,
                  layout.ld, layout.a_rows, layout.kpad, _DTYPE_CODES[x.dtype],
-                 _DTYPE_CODES[cdt], ctypes.byref(arg), layout.smem_bytes,
-                 stream)
+                 _DTYPE_CODES[cdt], *codes, ctypes.byref(arg),
+                 layout.smem_bytes, stream)
     _build.check(err, "stencil_banded")
     _build.count_launch("stencil_banded")
     return y
 
 
-def _launch3d(x, w, t, radius, cdt, geom) -> torch.Tensor:
+def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     layout = _checked(banded3d_layout(geom.z_slab, geom.strip_m, geom.w_tile,
                                       radius, t, cdt.itemsize), "3D banded")
     offsets, bands, offs = _device_bands(w.tobytes(), w.shape, layout.kpad,
@@ -289,8 +296,8 @@ def _launch3d(x, w, t, radius, cdt, geom) -> torch.Tensor:
                  offs.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
                  geom.w_tile, t, radius, layout.rows, layout.ld,
                  layout.a_rows, layout.kpad, len(offsets),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], layout.smem_bytes,
-                 stream)
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
+                 layout.smem_bytes, stream)
     _build.check(err, "stencil_banded3d")
     _build.count_launch("stencil_banded3d")
     return y

@@ -191,14 +191,27 @@ def test_plan_without_device_needs_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 15"), (dict(batch=4), "item 13"),
-    (dict(audit=True), "item 14"), (dict(use_sparse_unit=True), "item 10"),
-    (dict(boundary="zero"), "item 9"),
-    (dict(boundary=("reflect", "periodic"), backend="fused_direct"),
-     "item 9")])
+    (dict(audit=True), "item 14"), (dict(use_sparse_unit=True), "item 10")])
 def test_later_slices_raise(kwargs, item):
     w = make_weights(StencilSpec("box", 2, 1), seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(boundary="zero"),
+    dict(boundary=("reflect", "periodic"), backend="fused_direct")])
+def test_boundaries_run_on_the_kernel_backends(kwargs):
+    # Per-axis boundaries (item 9) run on every kernel backend, within
+    # the tap-sum tolerance of this file (1e-5 * max|x| per step).
+    w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    _, x, _ = _grid((32, 32), torch.float32)
+    y = tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                        **kwargs)(x)
+    ref = tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                          backend="reference", boundary=kwargs["boundary"])(x)
+    torch.testing.assert_close(y, ref, rtol=0,
+                               atol=tolerance(x.numpy(), torch.float32, 2))
 
 
 def test_later_slices_raise_elsewhere():
@@ -212,10 +225,14 @@ def test_later_slices_raise_elsewhere():
         backend="reference")(x3), rtol=0, atol=1e-5 * float(x3.abs().max()))
     with pytest.raises(NotImplementedError, match="item 12"):
         tk.stencil_apply(torch.zeros(16, 16), w2, guard=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_direct.stencil_direct(torch.zeros(16, 16), w2, boundary="zero")
-    # the reference backend honours every boundary already
-    x = torch.randn(16, 16)
+    # per-axis boundaries run in the kernel wrappers (item 9), and the
+    # reference backend honours every boundary
+    x = torch.randn(16, 16, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        t_direct.stencil_direct(x, w2, 2, boundary="zero"),
+        tk.stencil_plan(w2, (16, 16), torch.float32, 2, device="cpu",
+                        backend="reference", boundary="zero")(x),
+        rtol=0, atol=tolerance(x.numpy(), torch.float32, 2))
     y = tk.stencil_plan(w2, (16, 16), torch.float32, 2, device="cpu",
                         backend="reference", boundary="reflect")(x)
     assert torch.isfinite(y).all()
