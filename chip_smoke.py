@@ -5,7 +5,7 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
-     four CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
+     six CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
      source, started together) and each one's build time;
   2. each kernel against its plain PyTorch version on the card, each limit
      built from the plain version's step-by-step maxima and shown to reject
@@ -21,7 +21,10 @@ Phases, any failure exits non-zero:
      "periodic") in 3D) on the ragged 1000x1030 and 40x72x100 grids and the
      1D lift at 2^20+3 points, box/star, r in {1, 2}, t in {1, 4} (r=2,
      t=4 runs the 3D kernels on their 8-deep tile at h = 8), each against
-     its plain version under the same boundary;
+     its plain version under the same boundary; the compacted (sparse)
+     kernels on every one of these configurations beside the banded ones,
+     and on base weights each against the dense banded kernel of the same
+     call (the largest difference printed; equal sums expected);
   3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
      and ``auto`` against the ``reference`` backend, with every kernel's
      launches counted from 0 just before each path and read just after:
@@ -31,19 +34,27 @@ Phases, any failure exits non-zero:
      same grids and stencils under "zero" (2D, a Dirichlet-zero smoother),
      ("replicate", "reflect", "periodic") (3D) and "reflect" (1D), with
      every regime but fused_matmul at t=4, fused_matmul at t=1, and the
-     check that a fused_matmul plan at t=4 refuses;
+     check that a fused_matmul plan at t=4 refuses; then on each grid the
+     sparse path, ``stencil_plan(..., use_sparse_unit=True)`` with
+     sparse_matmul and fused_sparse_matmul at t=4 (and auto at t=4 and
+     t=1 on the periodic 2D and 3D grids, beside direct and matmul at t=1:
+     Star-2D1R at t=1 is the model's tie that picks sparse_matmul), its
+     own launches counted;
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
      slow 3D plain versions and yardsticks): each regime's milliseconds
      per call and microseconds per step beside the model's choice, its
      read amplification and its bound, each kernel on each path beside its
      plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
      port never calls (on a boundary path: t x (F.pad in the boundary's
-     modes, axis by axis, + one F.conv of the base kernel)), and each
-     wrapper's host time per launch.
+     modes, axis by axis, + one F.conv of the base kernel)), the compacted
+     kernel on the Star stencil (1D: Box) beside the dense banded kernel of
+     the same call, the kept-row fraction S and the MMA k-steps of both,
+     and each wrapper's host time per launch.
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the 2D kernels on the 1D path as "... (1D lift)", the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
-its own path's run; the last line
+its own path's run (the compacted kernels' from the sparse path, with the
+dense banded kernel's time as "dense_ms"); the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -92,6 +103,12 @@ HOST_SHAPES = {2: (256, 256), 3: (32, 32, 32)}
 HOST_CALLS = 500
 REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
            "fused_matmul_reuse", None)          # None = auto
+#: The sparse path on each grid: (backend, t), run with use_sparse_unit.
+SPARSE_RUNS = [("sparse_matmul", MAIN_T), ("fused_sparse_matmul", MAIN_T)]
+#: ... and on the periodic 2D and 3D grids auto at t=MAIN_T and t=1, with
+#: the t=1 regimes auto weighs against sparse_matmul (the model prices
+#: Star-2D1R at t=1 as a tie), timed in the same run.
+SPARSE_AUTO = [(None, MAIN_T), (None, 1), ("direct", 1), ("matmul", 1)]
 KERNEL_SOURCES = {
     "stencil_direct": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
                        "src/repro/kernels/stencil_direct.py:102"),
@@ -106,9 +123,17 @@ KERNEL_SOURCES = {
                                  "src/repro/kernels/stencil_direct.py:139"),
     "stencil_banded (1D lift)": ("src/repro_torch/kernels/csrc/stencil_banded.cu",
                                  "src/repro/kernels/stencil_matmul.py:248"),
+    "stencil_sparse": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
+                       "src/repro/kernels/stencil_sparse.py:201"),
+    "stencil_sparse3d": ("src/repro_torch/kernels/csrc/stencil_sparse3d.cu",
+                         "src/repro/kernels/stencil_sparse.py:201"),
+    "stencil_sparse (1D lift)": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
+                                 "src/repro/kernels/stencil_sparse.py:229"),
 }
-#: What the kernels replace on a boundary path: the per-step fills (K6).
+#: What the kernels replace on a boundary path: the per-step fills (K6);
+#: for the compacted kernels, the JAX compacted steps with their fills.
 FILL_REPLACES = "src/repro/kernels/common.py:309"
+SPARSE_FILL_REPLACES = "src/repro/kernels/stencil_sparse.py:181"
 
 
 class SmokeFailure(Exception):
@@ -248,15 +273,18 @@ def kernel_name(base: str, dim: int) -> str:
     return base + ("3d" if dim == 3 else "")
 
 
-def check_kernels(mods, shapes, cases, worst, margin, boundaries=(None,)) -> None:
+def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
+                  boundaries=(None,)) -> None:
     """Every kernel against its plain version on ``shapes``, for each
     ``(kind, r, t)`` of ``cases`` and each boundary of ``boundaries`` (both
-    sides under the same one), the banded kernel also with the other
-    operand dtype (f32 grid, bf16 operands and the reverse) and, at t > 1
-    on a periodic grid, on the composed kernel.  Each limit must also
-    reject the plain version one step short, so a kernel that skipped a
-    step (or a fill) could not pass."""
-    _, sm, sd, weights = mods
+    sides under the same one), the banded and compacted kernels also with
+    the other operand dtype (f32 grid, bf16 operands and the reverse) and,
+    at t > 1 on a periodic grid, on the composed kernel.  Each limit must
+    also reject the plain version one step short, so a kernel that skipped
+    a step (or a fill) could not pass.  On base weights each compacted
+    kernel is also held against the dense banded kernel of the same call:
+    ``vs_dense`` gets the largest difference."""
+    _, sm, sd, weights, ss = mods
     from repro_torch.stencil import StencilSpec
     for shape, (kind, r, t), bc in itertools.product(shapes, cases, boundaries):
         dim = len(shape)
@@ -267,26 +295,32 @@ def check_kernels(mods, shapes, cases, worst, margin, boundaries=(None,)) -> Non
             bf = dtype == torch.bfloat16
             other = torch.float32 if bf else torch.bfloat16
 
-            def banded(wk, tk, cdt, short=None):
+            def banded(wk, tk, cdt, short=None, sparse=False):
                 ops = "bf16" if cdt == torch.bfloat16 else "tf32"
-                return (f"{kernel_name('stencil_banded', dim)}[{str(cdt)[6:]} operands]",
-                        lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt, boundary=bc),
-                        lambda: sm.stencil_matmul_plain(x, wk, tk, compute_dtype=cdt,
-                                                        boundary=bc),
-                        lambda v: sm.stencil_matmul_plain(v, wk, 1, compute_dtype=cdt,
-                                                          boundary=bc),
-                        tk, ops, wk, short)
+                base, run, pv = (
+                    ("stencil_sparse", ss.stencil_sparse_matmul, ss.stencil_sparse_matmul_plain)
+                    if sparse else
+                    ("stencil_banded", sm.stencil_matmul, sm.stencil_matmul_plain))
+                dense = (lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt, boundary=bc)
+                         ) if sparse and wk is w else None
+                return (f"{kernel_name(base, dim)}[{str(cdt)[6:]} operands]",
+                        lambda: run(x, wk, tk, compute_dtype=cdt, boundary=bc),
+                        lambda: pv(x, wk, tk, compute_dtype=cdt, boundary=bc),
+                        lambda v: pv(v, wk, 1, compute_dtype=cdt, boundary=bc),
+                        tk, ops, wk, short, dense)
             cases_ = [
                 (kernel_name("stencil_direct", dim),
                  lambda: sd.stencil_direct(x, w, t, boundary=bc),
                  lambda: sd.stencil_direct_plain(x, w, t, bc),
-                 lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None),
-                banded(w, t, dtype), banded(w, t, other)]
-            if t > 1 and bc is None:
-                # One step short of the composed kernel: depth t-1.
-                cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
-                    x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype)))
-            for name, kern, plain, step, tk, ops, wk, short in cases_:
+                 lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None, None)]
+            for sparse in (False, True):
+                cases_ += [banded(w, t, dtype, sparse=sparse), banded(w, t, other, sparse=sparse)]
+                if t > 1 and bc is None:
+                    # One step short of the composed kernel: depth t-1.
+                    cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
+                        x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype),
+                        sparse=sparse))
+            for name, kern, plain, step, tk, ops, wk, short, dense in cases_:
                 y = kern()
                 torch.cuda.synchronize()
                 ref = plain()
@@ -312,57 +346,68 @@ def check_kernels(mods, shapes, cases, worst, margin, boundaries=(None,)) -> Non
                        + ("" if bc is None else " (boundaries)"))
                 worst[key] = max(worst.get(key, 0.0), err / tol)
                 margin[key] = max(margin.get(key, 0.0), tol / wrong)
+                if dense is not None:
+                    vs_dense[key] = max(vs_dense.get(key, 0.0), max_err(y, dense()))
 
 
 def phase_kernels_vs_plain(mods) -> None:
-    worst, margin = {}, {}
+    worst, margin, vs_dense = {}, {}, {}
     check_kernels(mods, ((1024, 1024), (1000, 1030)),
                   [(k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4)],
-                  worst, margin)
+                  worst, margin, vs_dense)
     check_kernels(mods, ((128, 128, 128), (60, 70, 130)),
                   [(k, r, t) for k in ("box", "star")
                    for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))] + [("box", 2, 4)],
-                  worst, margin)
+                  worst, margin, vs_dense)
     check_kernels(mods, ((2**20,), (2**20 + 3,)),
-                  [("box", r, t) for r in (1, 3) for t in (1, 4)], worst, margin)
+                  [("box", r, t) for r in (1, 3) for t in (1, 4)], worst, margin, vs_dense)
     # Non-periodic boundaries: every uniform mode and one mixed spec per
     # rank, on ragged grids; r = 2, t = 4 runs the 3D kernels on their
     # 8-deep tile at h = 8, and the 1D lift fills its column axis only.
     uniform = ("zero", "reflect", "replicate")
     bc_cases = [(k, r, t) for k in ("box", "star") for r in (1, 2) for t in (1, 4)]
-    check_kernels(mods, ((1000, 1030),), bc_cases, worst, margin,
+    check_kernels(mods, ((1000, 1030),), bc_cases, worst, margin, vs_dense,
                   uniform + (("reflect", "periodic"), ("periodic", "zero")))
-    check_kernels(mods, ((40, 72, 100),), bc_cases, worst, margin,
+    check_kernels(mods, ((40, 72, 100),), bc_cases, worst, margin, vs_dense,
                   uniform + (("replicate", "reflect", "periodic"),))
-    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, uniform)
+    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, vs_dense, uniform)
     print("kernels vs plain: all configurations within tolerance; worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst "
           "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
+    print("  compacted vs dense banded kernel, same call, base weights: max|diff| "
+          + ", ".join(f"{k}={v:.3e}" for k, v in vs_dense.items()))
 
 
 def expected_launches(backend: str, t: int, dim: int):
     base, n = {"direct": ("stencil_direct", t), "fused_direct": ("stencil_direct", 1),
                "matmul": ("stencil_banded", t), "fused_matmul": ("stencil_banded", 1),
-               "fused_matmul_reuse": ("stencil_banded", 1)}[backend]
+               "fused_matmul_reuse": ("stencil_banded", 1),
+               "sparse_matmul": ("stencil_sparse", t),
+               "fused_sparse_matmul": ("stencil_sparse", 1)}[backend]
     return kernel_name(base, dim), n
 
 
-def phase_main_path(mods, label, x, ws, boundary=None):
+def phase_main_path(mods, label, x, ws, boundary=None, runs=None):
     """Drive every regime and auto through stencil_plan on one path, the
     launch counts set to 0 just before and read just after; returns the
     plans, the outputs' errors and the counts.  Under a non-periodic
     ``boundary``, fused_matmul runs at t=1 (its plan at t=MAIN_T must
-    refuse) and every other regime and auto at t=MAIN_T."""
+    refuse) and every other regime and auto at t=MAIN_T.  With ``runs``,
+    a list of (backend, t), the sparse path: those plans, built with
+    ``use_sparse_unit=True``.  Every kernel a plan of the path runs must
+    have launched."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
     shape, dim = tuple(x.shape), x.ndim
     mx = float(x.abs().max())
     periodic = boundary is None
-    runs = [(b, MAIN_T) for b in REGIMES if periodic or b != "fused_matmul"]
-    if not periodic:
-        runs.append(("fused_matmul", 1))
-    results = {}
+    sparse = runs is not None
+    if not sparse:
+        runs = [(b, MAIN_T) for b in REGIMES if periodic or b != "fused_matmul"]
+        if not periodic:
+            runs.append(("fused_matmul", 1))
+    results, launched = {}, set()
     kernels.reset_launch_counts()
     for name, w in ws.items():
         refs = {}
@@ -372,12 +417,13 @@ def phase_main_path(mods, label, x, ws, boundary=None):
                 refs[t] = stencil_plan(w, shape, torch.float32, t, backend="reference",
                                        boundary=boundary)(x)
             plan = stencil_plan(w, shape, torch.float32, t, backend=backend,
-                                boundary=boundary)
+                                boundary=boundary, use_sparse_unit=sparse)
             before = kernels.launch_counts()
             y = plan(x)
             torch.cuda.synchronize()
             after = kernels.launch_counts()
             kname, n = expected_launches(plan.backend, t, dim)
+            launched.add(kname)
             delta = {k: after[k] - before[k] for k in after}
             check(delta[kname] == n and sum(delta.values()) == n,
                   f"{name} {plan.backend}: launches {delta}, expected {n} "
@@ -386,15 +432,15 @@ def phase_main_path(mods, label, x, ws, boundary=None):
                   f"{name} {plan.backend}: shape/dtype")
             check(bool(torch.isfinite(y).all()), f"{name} {plan.backend}: non-finite")
             err = max_err(y, refs[t])
-            tol = (t * 2**-10 * sw * mx if kname.startswith("stencil_banded")
-                   else 1e-5 * t * mx)
+            tol = (1e-5 * t * mx if kname.startswith("stencil_direct")
+                   else t * 2**-10 * sw * mx)
             check(err <= tol, f"{name} {plan.backend} t={t}: max|err| vs reference "
                               f"{err:.3e} > tol {tol:.3e}")
             regime = (backend or "auto") + ("" if t == MAIN_T else f" (t={t})")
             results[(name, regime)] = (plan, err, tol)
             del y
         del refs
-        if not periodic:
+        if not periodic and not sparse:
             try:
                 stencil_plan(w, shape, torch.float32, MAIN_T, backend="fused_matmul",
                              boundary=boundary)
@@ -404,11 +450,11 @@ def phase_main_path(mods, label, x, ws, boundary=None):
                 raise SmokeFailure(f"{name}: a fused_matmul plan at t={MAIN_T} "
                                    f"under boundary={boundary!r} did not refuse")
     counts = kernels.launch_counts()
-    for k in (kernel_name("stencil_direct", dim), kernel_name("stencil_banded", dim)):
+    for k in sorted(launched):
         check(counts[k] > 0, f"kernel {k} was not launched on the {label} path")
     print(f"main path {label}: {', '.join(dict.fromkeys(r for _, r in results))} x "
           f"{list(ws)} on {shape} float32 match the reference"
-          + ("" if periodic else f", fused_matmul at t={MAIN_T} refuses")
+          + ("" if periodic or sparse else f", fused_matmul at t={MAIN_T} refuses")
           + f"; launches {counts}")
     return results, counts
 
@@ -431,7 +477,7 @@ def phase_regime_times(label, x, ws, results, card):
               f"{bound:9.4f}  {err:.3e}")
 
 
-def kernel_report(mods, x, w, counts, reps_slow, boundary=None):
+def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     """Each kernel at its fused main-path call on ``w`` (``stencil_direct(x,
     w, t)`` and the reuse form ``stencil_matmul(x, w, t)``, under the
     path's boundary), held against its plain version with the phase-3
@@ -440,8 +486,12 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None):
     base kernel) on a boundary path; ``launches`` is the count of this
     path's run.  The bound counts the FLOPs the stencil needs (2 per
     nonzero tap, point and step), not the band MACs the banded kernel
-    does; the fill moves no HBM bytes."""
-    _, sm, sd, weights = mods
+    does (nor the compacted kernel's; both run dense MMAs, so the peak is
+    TF32's); the fill moves no HBM bytes.  ``sparse``: the compacted
+    kernel's reuse form ``stencil_sparse_matmul(x, w, t)`` only, its
+    ``launches`` from the sparse path and the dense banded kernel's time
+    on the same call beside it as ``dense_ms``."""
+    _, sm, sd, weights, ss = mods
     n, dim = x.numel(), x.ndim
     ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
     mx, sw = float(x.abs().max()), float(np.abs(w).sum())
@@ -455,20 +505,28 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None):
         yardstick = lambda tf32: conv_yardstick(x, w, tf32, modes, MAIN_T)  # noqa: E731
         what = f"{MAIN_T} x (F.pad + F.conv{dim}d)"
     report = []
-    for base, kern, plain, peak, tf32, tol in (
-            ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T, boundary=boundary),
-             lambda: sd.stencil_direct_plain(x, w, MAIN_T, boundary), FP32_FLOPS,
-             False, 1e-5 * MAIN_T * mx),
-            ("stencil_banded", lambda: sm.stencil_matmul(x, w, MAIN_T, boundary=boundary),
-             lambda: sm.stencil_matmul_plain(x, w, MAIN_T, boundary=boundary), TF32_FLOPS,
-             True, MAIN_T * 2**-10 * sw * mx)):
+    dense = lambda: sm.stencil_matmul(x, w, MAIN_T, boundary=boundary)  # noqa: E731
+    kernels_ = (
+        ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T, boundary=boundary),
+         lambda: sd.stencil_direct_plain(x, w, MAIN_T, boundary), FP32_FLOPS,
+         False, 1e-5 * MAIN_T * mx),
+        ("stencil_banded", dense,
+         lambda: sm.stencil_matmul_plain(x, w, MAIN_T, boundary=boundary), TF32_FLOPS,
+         True, MAIN_T * 2**-10 * sw * mx))
+    if sparse:
+        kernels_ = (
+            ("stencil_sparse", lambda: ss.stencil_sparse_matmul(x, w, MAIN_T, boundary=boundary),
+             lambda: ss.stencil_sparse_matmul_plain(x, w, MAIN_T, boundary=boundary),
+             TF32_FLOPS, True, MAIN_T * 2**-10 * sw * mx),)
+    for base, kern, plain, peak, tf32, tol in kernels_:
         kname = kernel_name(base, dim)
         if boundary is None:
             entry = kname + (" (1D lift)" if dim == 1 else "")
             src, replaces = KERNEL_SOURCES[entry]
         else:
             entry = f"{kname} ({'1D lift, ' if dim == 1 else ''}{boundary_label(boundary)})"
-            src, replaces = KERNEL_SOURCES[kname][0], FILL_REPLACES
+            src = KERNEL_SOURCES[kname][0]
+            replaces = SPARSE_FILL_REPLACES if sparse else FILL_REPLACES
         y = kern()
         err = max_err(y, plain())
         del y
@@ -484,11 +542,15 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow)})
+        if sparse:
+            report[-1]["dense_ms"] = cuda_ms(dense)
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
               f"{what} {k['library_ms']:.4f} ms, "
-              f"max|err| vs plain {k['max_abs_err']:.3e}")
+              f"max|err| vs plain {k['max_abs_err']:.3e}"
+              + (f"; dense banded kernel, same call, {k['dense_ms']:.4f} ms"
+                 if "dense_ms" in k else ""))
     return report
 
 
@@ -498,7 +560,7 @@ def phase_host(mods, w2, w3):
     tile a plan resolved when built (what each of a plan's launches costs),
     and through the public wrapper, which resolves the tile on every
     call."""
-    kernels, sm, sd, _ = mods
+    kernels, sm, sd, _, ss = mods
     for dim, w in ((2, w2), (3, w3)):
         xs = grid(HOST_SHAPES[dim], torch.float32, seed=3)
         geom = kernels.common.launch_geom(xs.shape, 1)
@@ -506,7 +568,9 @@ def phase_host(mods, w2, w3):
                 ("stencil_direct", lambda: sd.stencil_direct_at(xs, w, 1, geom),
                  lambda: sd.stencil_direct(xs, w, 1)),
                 ("stencil_banded", lambda: sm.stencil_matmul_at(xs, w, 1, geom),
-                 lambda: sm.stencil_matmul(xs, w, 1))):
+                 lambda: sm.stencil_matmul(xs, w, 1)),
+                ("stencil_sparse", lambda: ss.stencil_sparse_matmul_at(xs, w, 1, geom),
+                 lambda: ss.stencil_sparse_matmul(xs, w, 1))):
             print(f"  kernel {kernel_name(base, dim)}: host {host_us(at):.2f} us per "
                   f"launch on a plan's resolved tile, {host_us(public):.2f} us through "
                   f"the public wrapper ({'x'.join(map(str, xs.shape))} float32, t=1, "
@@ -514,11 +578,24 @@ def phase_host(mods, w2, w3):
 
 
 def band_sparsity_lines(mods, ws):
-    """Structural S of the band operands, and S over the K the MMAs run
-    (BAND_N + 2R padded to the TF32 / bf16 K step)."""
-    _, sm, _, weights = mods
+    """Structural S of the band operands, S over the K the MMAs run
+    (BAND_N + 2R padded to the TF32 / bf16 K step), and the compacted
+    operand's kept-row fraction S with the MMA k-steps per 16x16 output
+    tile and step of the base kernel, dense against compacted."""
+    _, sm, _, weights, ss = mods
     common = mods[0].common
     for name, w in ws.items():
+        r = (w.shape[0] - 1) // 2
+        wk = common.lift_weights(w) if w.ndim == 1 else w
+        steps = []
+        for cdt in (torch.float32, torch.bfloat16):
+            rows = ss.band_meta(wk, cdt).rows
+            k = common.mma_k_step(cdt.itemsize)
+            dense = common.banded_layout(64, 64, r, 1, cdt.itemsize).kpad // k
+            steps.append(f"{len(rows) * dense} -> {sum(row[-1] for row in rows)}")
+        print(f"  {name:10s} compacted operand (base): kept-row S "
+              f"{ss.kept_row_fraction(w, 16):.4f}; MMA k-steps per 16x16 tile and step, "
+              f"dense -> compacted: TF32 {steps[0]}, bf16 {steps[1]}")
         for label, wop in (("base", w), (f"fused t={MAIN_T}", weights.fuse_weights(w, MAIN_T))):
             r_op = (wop.shape[0] - 1) // 2
             s = sm.band_sparsity(wop, 16)
@@ -526,6 +603,22 @@ def band_sparsity_lines(mods, ws):
                       for cb in (4, 2)]
             print(f"  {name:10s} band S ({label}, R={r_op}): {s:.4f}; over padded K: "
                   f"TF32 {padded[0]:.4f}, bf16 {padded[1]:.4f}")
+
+
+def phase_sparse_path(mods, label, x, ws, card, reps_slow, boundary=None):
+    """The sparse path on one grid, its launches counted from 0: both
+    compacted regimes at t=MAIN_T (and on a periodic 2D or 3D grid auto at
+    t=MAIN_T and t=1, direct and matmul at t=1) with
+    ``use_sparse_unit=True``, against the
+    reference; their times; and the compacted kernel's report entry on the
+    Star stencil (1D: Box)."""
+    from repro_torch.stencil import StencilSpec
+    runs = SPARSE_RUNS + (SPARSE_AUTO if boundary is None and x.ndim > 1 else [])
+    tag = f"{label} sparse" + ("" if boundary is None else f" boundary={boundary_label(boundary)}")
+    results, counts = phase_main_path(mods, tag, x, ws, boundary, runs=runs)
+    phase_regime_times(tag, x, ws, results, card)
+    w = ws[StencilSpec("star" if x.ndim > 1 else "box", x.ndim, 1).name]
+    return kernel_report(mods, x, w, counts, reps_slow, boundary, sparse=True)
 
 
 def main() -> int:
@@ -541,6 +634,7 @@ def main() -> int:
         # names, so the modules come from importlib.
         sd = importlib.import_module("repro_torch.kernels.stencil_direct")
         sm = importlib.import_module("repro_torch.kernels.stencil_matmul")
+        ss = importlib.import_module("repro_torch.kernels.stencil_sparse")
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "repository root", file=sys.stderr)
@@ -548,7 +642,7 @@ def main() -> int:
     # The plain versions are the f32 references: no TF32 anywhere in them.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mods = (kernels, sm, sd, weights)
+    mods = (kernels, sm, sd, weights, ss)
     try:
         card = phase_build(kernels)
         phase_kernels_vs_plain(mods)
@@ -570,6 +664,7 @@ def main() -> int:
             band_sparsity_lines(mods, ws)
             w = ws[StencilSpec("box", len(shape), 1).name]
             report += kernel_report(mods, x, w, counts, reps)
+            report += phase_sparse_path(mods, label, x, ws, card, reps)
             del x, results
         for label, (shape, specs, boundary) in BOUNDARY_PATHS.items():
             x = grid(shape, torch.float32, seed=0)
@@ -581,6 +676,9 @@ def main() -> int:
             w = ws[StencilSpec("box", len(shape), 1).name]
             report += kernel_report(mods, x, w, counts, 5 if label == "3D" else 15,
                                     boundary)
+            if x.ndim > 1:
+                report += phase_sparse_path(mods, label, x, ws, card, 5 if label == "3D" else 15,
+                                            boundary)
             del x, results
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))

@@ -9,8 +9,8 @@ module, making the paper's analytical criteria (§4.1) -- extended with the
 intermediate-reuse regime of DESIGN.md §4 -- a first-class deployable
 feature rather than a post-hoc analysis.
 
-A copy of ``repro.core.selector`` without the sparse-compacted candidates
-(ROADMAP queue 1, item 10): ``use_sparse_unit=True`` raises.
+A copy of ``repro.core.selector``; ``use_sparse_unit=True`` admits the
+sparse-compacted candidates (``sparse_matmul`` / ``fused_sparse_matmul``).
 """
 from __future__ import annotations
 
@@ -51,6 +51,12 @@ class PricingContext:
     #: for plug-in pricers: its read amplification is already folded into
     #: ``workload.read_amp``, which is the canonical channel.
     h_block: Optional[int] = None
+    use_sparse_unit: bool = False
+    #: Kept-row fractions of the sparse-compacted operands at the fused
+    #: radius t*r (monolithic) and the base radius r (reuse); 1.0 unless
+    #: ``use_sparse_unit`` (the sparse pricers gate on the flag first).
+    kept_mono: float = 1.0
+    kept_reuse: float = 1.0
     tile_n: int = 128
     #: 3D workloads: resolved slab depth / halo-plane block (None for 2D).
     #: ``z_slab`` also feeds the reuse regime's dim-aware beta.
@@ -124,10 +130,6 @@ def select_backend(
     reason string so explain() shows what the plan will honor.
     """
     global _invocations
-    if use_sparse_unit:
-        raise NotImplementedError(
-            "use_sparse_unit=True prices the sparse-compacted backends, "
-            "which the port does not have yet (ROADMAP queue 1, item 10)")
     _invocations += 1
     # Deferred: the registry imports this module.
     from repro_torch.kernels.common import pricing_geom
@@ -144,12 +146,29 @@ def select_backend(
         pm.sparsity_banded(spec.radius * t, tile_n)
     s_reuse = sparsity if sparsity is not None else \
         pm.sparsity_banded(spec.radius, tile_n)
-    cmp_ = pm.compare(w, hw, s_mono)
+    # The scenario comparison prices the card's sparse unit only when it
+    # has one; the compacted kernels compete through their own pricers.
+    cmp_ = pm.compare(w, hw, s_mono,
+                      use_sparse_unit=use_sparse_unit
+                      and hw.p_sparse is not None)
+
+    kept_mono = kept_reuse = 1.0
+    if use_sparse_unit:
+        # Structural kept-row fractions of the compacted operands: the
+        # zero pattern is the spec's, so its Jacobi kernel prices every
+        # weight set on that support.
+        from repro_torch.kernels.stencil_sparse import kept_row_fraction
+        from repro_torch.stencil.weights import fuse_weights, jacobi_weights
+        wj = jacobi_weights(spec)
+        kept_reuse = kept_row_fraction(wj, tile_n)
+        kept_mono = kept_row_fraction(fuse_weights(wj, t), tile_n) \
+            if t > 1 else kept_reuse
 
     candidates = priced_candidates(PricingContext(
         workload=w, hw=hw, comparison=cmp_, s_mono=s_mono, s_reuse=s_reuse,
         strip_m=geom.strip_m, h_block=geom.h_block,
-        tile_n=tile_n,
+        use_sparse_unit=use_sparse_unit,
+        kept_mono=kept_mono, kept_reuse=kept_reuse, tile_n=tile_n,
         z_slab=geom.z_slab if spec.dim == 3 else None,
         z_block=geom.z_block if spec.dim == 3 else None,
         w_tile=geom.w_tile if spec.dim >= 2 else 0,
@@ -182,6 +201,18 @@ def select_backend(
             f"alpha={w.alpha:.3f}), S_r={s_reuse:.3f} at base radius (vs "
             f"S_rt={s_mono:.3f} fused), halo-recompute beta={beta:.3f} "
             f"(DESIGN.md §4)"
+        )
+    elif backend in ("sparse_matmul", "fused_sparse_matmul"):
+        kept = kept_reuse if backend == "fused_sparse_matmul" else kept_mono
+        ov = pm.compaction_overhead(tile_n)
+        cost = kept * (1.0 + ov)
+        side = "inside" if cost < 1.0 else "outside"
+        reason = (
+            f"sparse-compacted regime wins: kept-row fraction S={kept:.4f} "
+            f"* (1 + gather overhead {ov:.4f}) = {cost:.4f} vs 1 dense -- "
+            f"{spec.shape} kernel {side} the sparse sweet spot (star "
+            f"stencils keep only their tap rows, box compacts to S=1; "
+            f"DESIGN.md §14)"
         )
     elif backend in ("direct", "fused_direct", "matmul", "fused_matmul"):
         reason = _explain(cmp_)

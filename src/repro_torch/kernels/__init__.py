@@ -13,6 +13,8 @@ from .registry import (register_backend, unregister_backend,
 from .stencil_direct import stencil_direct
 from .stencil_matmul import (stencil_matmul, build_bands, build_bands_nd,
                              band_sparsity)
+from .stencil_sparse import (stencil_sparse_matmul, compact_bands,
+                             kept_row_fraction)
 from .common import (SubstrateGeom, choose_hblock, pricing_geom,
                      resolve_tile_geom, substrate_read_amp)
 from ._build import build_all, launch_counts, reset_launch_counts

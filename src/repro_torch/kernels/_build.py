@@ -28,7 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("stencil_direct", "stencil_banded", "stencil_direct3d",
-           "stencil_banded3d")
+           "stencil_banded3d", "stencil_sparse", "stencil_sparse3d")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -332,8 +332,10 @@ class SmemLayout:
     BAND_N + 2R rounded up to the MMA K step; ``chunks`` x ``a_rows`` x
     ``kpad`` the banded kernel's chunked operand array (all three 0 for
     the tap-sum; the 3D banded kernel holds one chunk of ``planes`` x
-    ``a_rows`` x ``kpad`` at a time); ``smem_bytes`` the dynamic shared
-    memory the launch asks for.
+    ``a_rows`` x ``kpad`` at a time); ``a_cols`` the row width of the
+    compacted kernels' operand copy (0 for the others, whose rows are
+    ``kpad`` wide); ``smem_bytes`` the dynamic shared memory the launch
+    asks for.
     """
 
     rows: int
@@ -343,6 +345,7 @@ class SmemLayout:
     a_rows: int = 0
     chunks: int = 0
     planes: int = 1
+    a_cols: int = 0
 
 
 def mma_k_step(compute_bytes: int) -> int:
@@ -422,6 +425,33 @@ def banded3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
     smem = (_align(planes * rows * ld * 4)
             + planes * a_rows * kpad * compute_bytes)
     return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes)
+
+
+def sparse_layout(tm: int, tn: int, radius: int, t: int, compute_bytes: int,
+                  a_cols: int) -> SmemLayout:
+    """Compacted banded kernel (2D and the 1D lift): the region of
+    :func:`banded_layout` and its chunked operand array, each operand row
+    ``a_cols`` wide instead of ``kpad``.  Band p reads columns
+    [lo_p, lo_p + kpad_p) of a chunk (its kept rows padded to the MMA K
+    step), so ``a_cols = max_p(lo_p + kpad_p)``, which may pass the dense
+    ``kpad`` by up to K - 1 on an irregular or composed kernel."""
+    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
+                                                     compute_bytes)
+    smem = _align(rows * ld * 4) + chunks * a_rows * a_cols * compute_bytes
+    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, a_cols=a_cols)
+
+
+def sparse3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
+                    compute_bytes: int, a_cols: int) -> SmemLayout:
+    """Compacted 3D banded kernel: the region of :func:`banded3d_layout`
+    and one chunk's operand array over every plane, each operand row
+    ``a_cols`` wide (see :func:`sparse_layout`)."""
+    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
+                                                     compute_bytes)
+    planes = tz + 2 * t * radius
+    smem = (_align(planes * rows * ld * 4)
+            + planes * a_rows * a_cols * compute_bytes)
+    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes, a_cols)
 
 
 def _divisors(n: int) -> list:

@@ -4,7 +4,9 @@
 ``stencil_apply(x, weights, t, backend="auto")`` builds-or-fetches the
 :class:`~repro_torch.kernels.plan.StencilPlan` of the call's signature on
 ``x``'s device and runs it.  Backends: ``direct``, ``fused_direct``,
-``matmul``, ``fused_matmul``, ``fused_matmul_reuse``, ``reference``, and
+``matmul``, ``fused_matmul``, ``fused_matmul_reuse``, ``sparse_matmul``
+and ``fused_sparse_matmul`` (the banded operand compacted to its nonzero
+band rows; priced only under ``use_sparse_unit``), ``reference``, and
 ``auto`` (the selector decides among the priced ones).
 """
 from __future__ import annotations

@@ -258,9 +258,6 @@ def plan_signature(
         raise _later_slice("batched plans (batch=)", "item 13")
     if audit:
         raise _later_slice("the static auditor (audit=True)", "item 14")
-    if use_sparse_unit:
-        raise _later_slice("the sparse backends (use_sparse_unit=True)",
-                           "item 10")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     if backend is not None:
@@ -282,8 +279,8 @@ def plan_signature(
     cdt = None if compute_dtype is None else as_torch_dtype(compute_dtype)
     dev = resolve_device(device)
     key = (_weights_key(weights), grid_shape, str(dtype), t, hw, backend,
-           tile_m, w_tile, str(cdt), boundary_key, str(dev),
-           registry.generation())
+           tile_m, w_tile, str(cdt), bool(use_sparse_unit), boundary_key,
+           str(dev), registry.generation())
     return key, weights, grid_shape, dtype, dev
 
 
@@ -336,7 +333,10 @@ def stencil_plan(
       device: where the plan runs; ``None`` = ``"cuda"``, which raises
         when there is no GPU.  ``"cpu"`` runs the plain versions.
       use_cache: bypass the process-wide plan cache when ``False``.
-      mesh / batch / audit / use_sparse_unit: later slices; they raise
+      use_sparse_unit: admit the sparse-compacted backends
+        (``sparse_matmul`` / ``fused_sparse_matmul``) as priced
+        candidates.  Part of the cache key.
+      mesh / batch / audit: later slices; they raise
         ``NotImplementedError`` naming their ROADMAP item.
     """
     key, weights, grid_shape, dtype, dev = plan_signature(
@@ -367,7 +367,8 @@ def stencil_plan(
         else as_torch_dtype(compute_dtype),
         boundary=modes)
     decision = decide(spec, t, dtype_bytes=dtype.itemsize, hw=hw,
-                      tile_n=BAND_N, boundary=modes, **geom_pricing(geom))
+                      tile_n=BAND_N, use_sparse_unit=use_sparse_unit,
+                      boundary=modes, **geom_pricing(geom))
     exec_backend = backend if backend is not None else decision.backend
     fn = registry.get_backend(exec_backend).build(ctx)
     plan = StencilPlan(

@@ -1,12 +1,14 @@
 """Backend registry: every execution regime registers through one interface
 (the counterpart of ``repro.kernels.registry``).
 
-A *backend* is one way to advance the grid ``t`` time steps.  This slice
+A *backend* is one way to advance the grid ``t`` time steps.  The port
 registers the five priced regimes -- tap-sum unfused/fused, banded
-sequential / monolithic / intermediate-reuse -- and the plain ``reference``
-oracle.  Each :class:`BackendDef` carries ``build(ctx) -> run(x)``, which
-does all host-side work (tile sizing, weight composition, validation) once
-per plan, and an optional ``price(pctx)`` that makes it an auto-selection
+sequential / monolithic / intermediate-reuse --, the sparse-compacted pair
+(``sparse_matmul`` / ``fused_sparse_matmul``, priced only under
+``use_sparse_unit``) and the plain ``reference`` oracle.  Each
+:class:`BackendDef` carries ``build(ctx) -> run(x)``, which does all
+host-side work (tile sizing, weight composition, validation) once per
+plan, and an optional ``price(pctx)`` that makes it an auto-selection
 candidate.  ``fallback_rank`` orders the guard layer's degradation ladder
 (ROADMAP queue 1, item 12); it is carried as data until that layer lands.
 """
@@ -26,6 +28,7 @@ from . import ref as _ref
 from .common import SubstrateGeom, check_grid, launch_geom
 from .stencil_direct import stencil_direct_at
 from .stencil_matmul import stencil_matmul_at
+from .stencil_sparse import sparse_tile_layout, stencil_sparse_matmul_at
 
 
 @dataclasses.dataclass
@@ -232,6 +235,39 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     return run
 
 
+def _sparse_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
+    """:meth:`PlanContext.launch_geom` of the base kernel, with the
+    compacted kernel's shared memory on that tile checked."""
+    geom = ctx.launch_geom(ctx.weights, t_inner)
+    sparse_tile_layout(ctx.grid_shape, ctx.weights, t_inner, geom,
+                       ctx.compute_dtype or ctx.dtype)
+    return geom
+
+
+def _build_sparse_matmul(ctx: PlanContext) -> Callable:
+    """t launches of the compacted banded kernel at t=1, halo r each."""
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom, cdt = _sparse_geom(ctx, 1), ctx.compute_dtype
+
+    def run(x):
+        for _ in range(t):
+            x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b)
+        return x
+    return run
+
+
+def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
+    """Intermediate reuse on the compacted operand: t radius-r compacted
+    contractions in one launch, f32 intermediates in shared memory, the
+    boundary filled before each."""
+    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    geom, cdt = _sparse_geom(ctx, t), ctx.compute_dtype
+
+    def run(x):
+        return stencil_sparse_matmul_at(x, w, t, geom, cdt, b)
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Pricers (the JAX package's, verbatim): unfused/fused pairs share a
 # throughput model and partition on fusion depth.
@@ -261,6 +297,26 @@ def _price_fused_matmul_reuse(p):
                                 p.w_tile or None).actual_flops
 
 
+def _price_sparse_matmul(p):
+    # Candidates only when the caller opts into the sparse unit; priced
+    # from the compacted operand: kept-row fraction * (1 + gather
+    # overhead) scales the dense matrix FLOPs.
+    if not p.use_sparse_unit or p.workload.t != 1:
+        return None
+    return pm.perf_sparse_banded(
+        p.workload, p.hw, p.s_mono, p.kept_mono,
+        pm.compaction_overhead(p.tile_n)).actual_flops
+
+
+def _price_fused_sparse_matmul(p):
+    if not p.use_sparse_unit or p.workload.t == 1:
+        return None
+    return pm.perf_sparse_banded_reuse(
+        p.workload, p.hw, p.s_reuse, p.kept_reuse,
+        pm.compaction_overhead(p.tile_n), p.strip_m, p.z_slab,
+        p.w_tile or None).actual_flops
+
+
 # Fallback ranks as in the JAX registry (registry.py:620-650).
 register_backend("direct", _build_direct, _price_direct,
                  "t sequential tap-sum kernel launches (halo r per step)",
@@ -278,6 +334,17 @@ register_backend("fused_matmul_reuse", _build_fused_matmul_reuse,
                  _price_fused_matmul_reuse,
                  "one banded launch, t radius-r contractions, shared-memory "
                  "intermediates", unit="matrix", fallback_rank=10)
+# The sparse-compacted pair, registered in the JAX order (ties in the
+# selector break by registration order): ladder rungs between the reuse
+# regime and monolithic fusion.
+register_backend("fused_sparse_matmul", _build_fused_sparse_matmul,
+                 _price_fused_sparse_matmul,
+                 "one compacted banded launch, t radius-r contractions, "
+                 "shared-memory intermediates", unit="matrix",
+                 fallback_rank=12)
+register_backend("sparse_matmul", _build_sparse_matmul, _price_sparse_matmul,
+                 "t sequential compacted banded tensor-core contractions",
+                 unit="matrix", fallback_rank=16)
 register_backend("reference", _build_reference,
                  description="plain PyTorch oracle (debug)",
                  fallback_rank=1000)

@@ -228,21 +228,29 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
 
 
 def _run(x, w, t, radius, cdt, geom, modes) -> torch.Tensor:
-    """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
+    return run_kernel("stencil_matmul", _launch2d, _launch3d, x, w, t, radius,
+                      cdt, geom, modes)
+
+
+def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
+               modes) -> torch.Tensor:
+    """Launch the banded-family kernel of ``x``'s rank on ``geom``
+    (``launch2d`` also for the 1D lift, on the (1, N) view with the lifted
+    kernel), or raise; ``name`` is the wrapper's, for the messages."""
     if x.device.type != "cuda":
-        raise ValueError(f"stencil_matmul runs on cpu or cuda, got {x.device}")
+        raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
-        raise TypeError(f"stencil_matmul kernel takes float32 or bfloat16 "
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 "
                         f"grids and operands, got {x.dtype} / {cdt}")
     if not x.is_contiguous():
-        raise ValueError("stencil_matmul kernel takes a contiguous grid")
+        raise ValueError(f"{name} kernel takes a contiguous grid")
     codes = kernel_mode_codes(modes)
     if x.ndim == 1:
-        return _launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
-                         geom, codes).view(-1)
+        return launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
+                        geom, codes).view(-1)
     if x.ndim == 3:
-        return _launch3d(x, w, t, radius, cdt, geom, codes)
-    return _launch2d(x, w, t, radius, cdt, geom, codes)
+        return launch3d(x, w, t, radius, cdt, geom, codes)
+    return launch2d(x, w, t, radius, cdt, geom, codes)
 
 
 def _checked(layout, what: str):

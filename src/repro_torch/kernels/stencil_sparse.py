@@ -1,0 +1,315 @@
+"""Sparse-compacted banded contraction on the tensor cores: the counterpart
+of ``repro.kernels.stencil_sparse`` (the paper's Sparse-Tensor-Core
+regime, ``sparse_matmul`` / ``fused_sparse_matmul``).
+
+The banded operands of ``build_bands_nd`` are mostly structural zeros on
+star stencils: a single-tap x-row keeps ``BAND_N`` nonzero band rows of
+``BAND_N + 2R``.  :func:`compact_bands` (copied from the JAX package, so
+the operands match bit for bit) keeps each band's contiguous nonzero row
+hull [lo_p, lo_p + BAND_N + span_p); the contraction of band p then reads
+the input slab at offset ``lo_p`` and runs only over those rows.  Dropped
+rows are exact zeros, so the result is the dense banded contraction's.
+
+``stencil_sparse_matmul(x, weights, t)`` has the fusion regimes of
+``stencil_matmul``: ``t=1`` one contraction, ``t>1`` t radius-r
+contractions with f32 intermediates on chip.  A tensor on the CPU runs
+:func:`stencil_sparse_matmul_plain`; a CUDA tensor launches a hand-written
+kernel (``mma.sync``: TF32 m16n8k4 pairs for f32 operands, bf16 m16n8k16
+for bf16 operands, f32 accumulators) or raises: 2D grids
+``csrc/stencil_sparse.cu``, 3D grids ``csrc/stencil_sparse3d.cu``, 1D
+grids the 2D kernel on the lifted (1, N) view.  The kernels run dense
+MMAs over fewer k-steps (no 2:4 ``mma.sp``): band p takes
+``kpad_p / K`` steps, kpad_p = BAND_N + span_p rounded up to the K step.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.stencil.reference import pad_boundary
+from repro_torch.stencil.boundary import resolve_boundary
+from . import _build
+from .common import (BAND_N, SubstrateGeom, check_grid, check_tile_halo,
+                     launch_geom, lift_weights, mma_k_step, sparse3d_layout,
+                     sparse_layout)
+from .stencil_matmul import (_DTYPE_CODES, MAX_ROWS, _checked, build_bands_nd,
+                             run_kernel)
+
+
+def compact_bands(offsets, bands: np.ndarray):
+    """Compact banded operands to their structurally-nonzero band rows
+    (the JAX ``compact_bands``).
+
+    ``offsets``/``bands`` as returned by ``build_bands_nd``.  Returns
+    ``(row_index, packed_bands)``: per band the np.arange of kept
+    contraction rows, the contiguous hull [dx_min, dx_max + tile_n) of
+    its nonzero rows, and the kept rows of all bands stacked along axis
+    0 into one (sum_p(tile_n + span_p), tile_n) array.
+    """
+    bands = np.asarray(bands)
+    if len(offsets) != bands.shape[0]:
+        raise ValueError(f"{len(offsets)} offsets != {bands.shape[0]} bands")
+    row_index = []
+    packed = []
+    for p in range(bands.shape[0]):
+        nz = np.flatnonzero(np.any(bands[p] != 0, axis=1))
+        if nz.size == 0:
+            raise ValueError(f"band {p} is all-zero (offset {offsets[p]}); "
+                             "build_bands_nd should have dropped it")
+        lo, hi = int(nz[0]), int(nz[-1]) + 1
+        row_index.append(np.arange(lo, hi))
+        packed.append(bands[p, lo:hi])
+    return tuple(row_index), np.concatenate(packed, axis=0)
+
+
+def band_row_meta(row_index, tile_n: int):
+    """Per band ``(lo, span, row_start)`` from ``compact_bands`` row
+    indices: the input offset, the tap span (kept rows = tile_n + span)
+    and the band's first row in the packed operand (the JAX
+    ``band_row_meta``)."""
+    meta = []
+    start = 0
+    for idx in row_index:
+        lo = int(idx[0])
+        span = int(idx.size) - tile_n
+        if span < 0:
+            raise ValueError(f"band keeps {idx.size} rows < tile_n {tile_n}")
+        meta.append((lo, span, start))
+        start += int(idx.size)
+    return tuple(meta)
+
+
+def kept_row_fraction(weights, tile_n: int) -> float:
+    """Kept-row fraction S = sum_p(tile_n + span_p) / (n_rows * (tile_n +
+    2r)) of the compacted operand (<= 1; 1 for box; the JAX
+    ``kept_row_fraction``)."""
+    w = np.asarray(weights, dtype=np.float32)
+    if w.ndim == 1:
+        w = w[None, :]
+    offsets, bands = build_bands_nd(w, tile_n)
+    row_index, packed = compact_bands(offsets, bands)
+    radius = (bands.shape[1] - bands.shape[2]) // 2
+    return packed.shape[0] / (len(offsets) * (tile_n + 2 * radius))
+
+
+def stencil_sparse_matmul_plain(x: torch.Tensor, weights, t: int = 1,
+                                tile_n: int = BAND_N, compute_dtype=None,
+                                boundary=None) -> torch.Tensor:
+    """Plain PyTorch version of the compacted kernels on the whole grid (any
+    rank): per step, pad every axis by R in its boundary mode
+    (``pad_boundary``) and the columns with zeros up to whole chunks, then
+    for every band cut its row-shifted slab into (tile_n + span_p)-wide
+    chunks at offset ``lo_p`` and stride ``tile_n`` and contract them with
+    the band's kept rows by one ``torch.matmul``.  Operands round to the
+    compute dtype and multiply in f32, accumulated in f32 in band order;
+    the result rounds to ``x.dtype`` at the end."""
+    w = np.asarray(weights, dtype=np.float32)
+    cdt = x.dtype if compute_dtype is None else compute_dtype
+    radius = (w.shape[-1] - 1) // 2
+    offsets, bands_np = build_bands_nd(w, tile_n)
+    row_index, packed_np = compact_bands(offsets, bands_np)
+    meta = band_row_meta(row_index, tile_n)
+    packed = torch.from_numpy(packed_np).to(x.device).to(cdt).float()
+    shape = tuple(x.shape)
+    lead, wd = shape[:-1], shape[-1]
+    nc = -(-wd // tile_n)
+    modes = resolve_boundary(boundary, len(shape))
+    cur = x.float()
+    for _ in range(t):
+        xp = pad_boundary(cur, radius, modes)
+        xp = F.pad(xp, (0, nc * tile_n - wd)).to(cdt).float()
+        acc = torch.zeros(lead + (nc, tile_n), device=x.device)
+        for off, (lo, span, rs) in zip(offsets, meta):
+            sl = tuple(slice(o, o + n) for o, n in zip(off, lead))
+            a = xp[sl][..., lo:].unfold(-1, tile_n + span, tile_n)[..., :nc, :]
+            acc = acc + torch.matmul(a, packed[rs:rs + tile_n + span])
+        cur = acc.reshape(lead + (nc * tile_n,))[..., :wd]
+    return cur.to(x.dtype)
+
+
+class BandMeta(NamedTuple):
+    """The compacted operand as the kernels read it, for one weight array
+    and MMA K step: per band its leading-axis offset, ``lo`` and k-step
+    count ``nk`` (``rows``: offset + (lo, nk)), the kept rows of every band
+    padded with zero rows to ``nk * K`` and stacked (``packed``, f32), and
+    the operand copy width ``a_cols = max_p(lo_p + nk_p * K)``."""
+
+    rows: Tuple[tuple, ...]
+    packed: np.ndarray
+    a_cols: int
+
+
+@functools.lru_cache(maxsize=64)
+def _band_meta(w_bytes: bytes, shape: tuple, k_step: int) -> BandMeta:
+    w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
+    offsets, bands = build_bands_nd(w, BAND_N)
+    row_index, packed = compact_bands(offsets, bands)
+    rows, blocks = [], []
+    for off, (lo, span, rs) in zip(offsets, band_row_meta(row_index, BAND_N)):
+        nk = -(-(BAND_N + span) // k_step)
+        blocks.append(np.pad(packed[rs:rs + BAND_N + span],
+                             ((0, nk * k_step - BAND_N - span), (0, 0))))
+        rows.append(tuple(off) + (lo, nk))
+    a_cols = max(r[-2] + r[-1] * k_step for r in rows)
+    return BandMeta(tuple(rows), np.concatenate(blocks), a_cols)
+
+
+def band_meta(weights, compute_dtype: torch.dtype) -> BandMeta:
+    """:class:`BandMeta` of ``weights`` (2D or 3D; a 1D grid passes its
+    lifted kernel) for MMA operands in ``compute_dtype``."""
+    w = np.ascontiguousarray(weights, dtype=np.float32)
+    return _band_meta(w.tobytes(), w.shape,
+                      mma_k_step(compute_dtype.itemsize))
+
+
+@functools.lru_cache(maxsize=32)
+def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
+                    device: str):
+    """``(meta, packed, rows)`` of one weight array on the device: the
+    :class:`BandMeta`, its packed operand in the compute dtype, and its
+    per-band ``rows`` as int32, built once per weights, dtype and device
+    (plans call the wrapper every step)."""
+    meta = _band_meta(w_bytes, shape, mma_k_step(cdt.itemsize))
+    rows = np.asarray(meta.rows, dtype=np.int32)
+    return (meta,
+            torch.from_numpy(meta.packed).to(device=device, dtype=cdt),
+            torch.from_numpy(rows).to(device))
+
+
+def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
+                       compute_dtype: torch.dtype):
+    """The shared-memory layout the compacted kernel of a grid of this
+    rank launches ``weights`` with at ``t`` fused steps on ``geom``;
+    raises when it passes the 227 KB budget (or the deepest contraction
+    the kernels take).  Plans call it when they are built, the launches
+    at every call (the 1D lift's with the lifted (1, N) grid and kernel,
+    which give the same layout)."""
+    w = np.asarray(weights, dtype=np.float32)
+    radius = (w.shape[-1] - 1) // 2
+    cb = compute_dtype.itemsize
+    if len(grid_shape) == 3:
+        meta = band_meta(w, compute_dtype)
+        return _checked(sparse3d_layout(geom.z_slab, geom.strip_m,
+                                        geom.w_tile, radius, t, cb,
+                                        meta.a_cols), "3D compacted banded")
+    meta = band_meta(lift_weights(w) if w.ndim == 1 else w, compute_dtype)
+    return _checked(sparse_layout(geom.strip_m, geom.w_tile, radius, t, cb,
+                                  meta.a_cols), "compacted banded")
+
+
+class _SparseRows(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("dy", ctypes.c_int * MAX_ROWS),
+                ("lo", ctypes.c_int * MAX_ROWS), ("nk", ctypes.c_int * MAX_ROWS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The 2D kernel's C entry point, built on first use, its ctypes
+    signature set once."""
+    fn = _build.library("stencil_sparse").stencil_sparse_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
+        ctypes.POINTER(_SparseRows), ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher3d():
+    """The 3D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_sparse3d").stencil_sparse3d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def stencil_sparse_matmul(x: torch.Tensor, weights, t: int = 1,
+                          tile_m: int = None, w_tile: int = None,
+                          compute_dtype=None, boundary=None) -> torch.Tensor:
+    """``t`` steps of a 1D, 2D or 3D grid via compacted banded
+    contractions: the function of ``stencil_matmul`` with the same
+    arguments (``tile_m`` / ``w_tile`` pin the CTA tile, ``None`` =
+    ``launch_geom``; ``compute_dtype`` the MMA operand dtype; ``boundary``
+    applied before each of the t contractions)."""
+    if t < 1:
+        raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights, dtype=np.float32)
+    radius, modes = check_grid(x.shape, w, t, boundary,
+                               "the compacted banded contraction")
+    cdt = x.dtype if compute_dtype is None else compute_dtype
+    if x.device.type == "cpu":
+        return stencil_sparse_matmul_plain(x, w, t, BAND_N, cdt, modes)
+    return _run(x, w, t, radius, cdt,
+                launch_geom(x.shape, t * radius, tile_m, w_tile), modes)
+
+
+def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
+                             geom: SubstrateGeom, compute_dtype=None,
+                             boundary=None) -> torch.Tensor:
+    """:func:`stencil_sparse_matmul` on a tile the caller resolved with
+    ``launch_geom(x.shape, t * R, ...)``, as plans do when built."""
+    if t < 1:
+        raise ValueError(f"fusion depth must be >= 1, got {t}")
+    w = np.asarray(weights, dtype=np.float32)
+    radius, modes = check_grid(x.shape, w, t, boundary,
+                               "the compacted banded contraction")
+    cdt = x.dtype if compute_dtype is None else compute_dtype
+    check_tile_halo(geom, t * radius)
+    if x.device.type == "cpu":
+        return stencil_sparse_matmul_plain(x, w, t, BAND_N, cdt, modes)
+    return _run(x, w, t, radius, cdt, geom, modes)
+
+
+def _run(x, w, t, radius, cdt, geom, modes) -> torch.Tensor:
+    return run_kernel("stencil_sparse_matmul", _launch2d, _launch3d, x, w, t,
+                      radius, cdt, geom, modes)
+
+
+def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
+    meta, packed, _ = _device_operand(w.tobytes(), w.shape, cdt,
+                                      str(x.device))
+    layout = sparse_tile_layout(x.shape, w, t, geom, cdt)
+    if len(meta.rows) > MAX_ROWS:
+        raise ValueError(f"{len(meta.rows)} band rows exceed the kernel's "
+                         f"{MAX_ROWS}")
+    arg = _SparseRows(len(meta.rows))
+    for k, (dy, lo, nk) in enumerate(meta.rows):
+        arg.dy[k], arg.lo[k], arg.nk[k] = dy, lo, nk
+    y = torch.empty_like(x)
+    fn = _launcher()
+    h, wd = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(), h, wd,
+                 geom.strip_m, geom.w_tile, t, radius, layout.rows,
+                 layout.ld, layout.a_rows, layout.a_cols,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
+                 ctypes.byref(arg), layout.smem_bytes, stream)
+    _build.check(err, "stencil_sparse")
+    _build.count_launch("stencil_sparse")
+    return y
+
+
+def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
+    meta, packed, rows = _device_operand(w.tobytes(), w.shape, cdt,
+                                         str(x.device))
+    layout = sparse_tile_layout(x.shape, w, t, geom, cdt)
+    y = torch.empty_like(x)
+    fn = _launcher3d()
+    z, h, wd = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(),
+                 rows.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
+                 geom.w_tile, t, radius, layout.rows, layout.ld,
+                 layout.a_rows, layout.a_cols, len(meta.rows),
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
+                 layout.smem_bytes, stream)
+    _build.check(err, "stencil_sparse3d")
+    _build.count_launch("stencil_sparse3d")
+    return y

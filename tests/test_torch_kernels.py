@@ -166,9 +166,14 @@ def test_cpu_tensors_never_count_a_launch():
     t_matmul.stencil_matmul(x, w, 2)
     tk.stencil_plan(w, x.shape, torch.float32, 2, device="cpu",
                     backend="fused_matmul")(x)
+    tk.stencil_sparse_matmul(x, w, 2)
+    tk.stencil_plan(w, x.shape, torch.float32, 2, device="cpu",
+                    backend="fused_sparse_matmul")(x)
     assert tk.launch_counts() == {"stencil_direct": 0, "stencil_banded": 0,
                                   "stencil_direct3d": 0,
-                                  "stencil_banded3d": 0}
+                                  "stencil_banded3d": 0,
+                                  "stencil_sparse": 0,
+                                  "stencil_sparse3d": 0}
 
 
 def test_other_devices_raise():
@@ -191,11 +196,38 @@ def test_plan_without_device_needs_a_gpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 15"), (dict(batch=4), "item 13"),
-    (dict(audit=True), "item 14"), (dict(use_sparse_unit=True), "item 10")])
+    (dict(audit=True), "item 14")])
 def test_later_slices_raise(kwargs, item):
     w = make_weights(StencilSpec("box", 2, 1), seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu", **kwargs)
+
+
+def test_sparse_unit_runs_and_matches_jax():
+    # use_sparse_unit=True (item 10) runs: the auto plan of a box kernel
+    # at t=2 (the JAX decision under the same tile) matches the JAX plan
+    # within the tap-sum tolerance of this file.
+    from repro.core import perfmodel as jpm
+    from repro.kernels import plan as jplan
+    from repro_torch.core import perfmodel as tpm
+    w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    x, xt, xj = _grid((32, 32), torch.float32)
+    plan = tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                           use_sparse_unit=True)
+    hw = jpm.HardwareSpec(**{f: getattr(tpm.H100_SXM_DATASHEET, f) for f in
+                             ("name", "p_vector", "p_matrix", "bandwidth",
+                              "p_sparse")})
+    g = plan.geom
+    jd = jplan.decide(StencilSpec("box", 2, 1), 2, 4, hw=hw, tile_n=16,
+                      strip_m=g.strip_m, h_block=g.h_block, w_tile=g.w_tile,
+                      w_block=g.w_block, use_sparse_unit=True)
+    assert (plan.decision.backend, plan.decision.reason) == \
+        (jd.backend, jd.reason)
+    assert "fused_sparse_matmul" in plan.decision.candidates
+    ref = jplan.stencil_plan(w, (32, 32), jnp.float32, 2,
+                             backend=plan.backend, use_sparse_unit=True)(xj)
+    np.testing.assert_allclose(plan(xt).numpy(), np.asarray(ref), rtol=0,
+                               atol=tolerance(x, torch.float32, 2))
 
 
 @pytest.mark.parametrize("kwargs", [

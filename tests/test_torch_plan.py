@@ -195,10 +195,12 @@ def test_stencil_apply_matches_plan():
         assert torch.equal(y, plan(x))
     assert set(tk.BACKENDS) == {"direct", "fused_direct", "matmul",
                                 "fused_matmul", "fused_matmul_reuse",
+                                "sparse_matmul", "fused_sparse_matmul",
                                 "reference", "auto"}
-    assert tk.fallback_ladder() == ("fused_matmul_reuse", "fused_matmul",
-                                    "matmul", "fused_direct", "direct",
-                                    "reference")
+    assert tk.fallback_ladder() == ("fused_matmul_reuse",
+                                    "fused_sparse_matmul", "sparse_matmul",
+                                    "fused_matmul", "matmul", "fused_direct",
+                                    "direct", "reference")
 
 
 @pytest.mark.parametrize("backend", ["fused_direct", "fused_matmul_reuse"])

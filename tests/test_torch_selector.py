@@ -96,6 +96,16 @@ def test_h100_datasheet_spec_is_the_default():
         assert inspect.signature(fn).parameters["hw"].default is hw
 
 
-def test_sparse_unit_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsel.select_backend(TSpec("star", 2, 1), 2, 4, use_sparse_unit=True)
+@pytest.mark.parametrize("hw", HW)
+def test_sparse_unit_matches_jax(hw):
+    # use_sparse_unit=True (item 10) prices the compacted candidates as the
+    # JAX selector does, on every spec both packages carry (the TPU specs
+    # have no sparse unit: the compacted pair still competes).
+    for kind, dim, r, t, tile_n in (("star", 2, 1, 1, 16), ("star", 2, 1, 4, 32),
+                                    ("box", 3, 1, 2, 16), ("star", 3, 2, 1, 16)):
+        a = jsel.select_backend(JSpec(kind, dim, r), t, 4, getattr(jpm, hw),
+                                tile_n=tile_n, use_sparse_unit=True)
+        b = tsel.select_backend(TSpec(kind, dim, r), t, 4, getattr(tpm, hw),
+                                tile_n=tile_n, use_sparse_unit=True)
+        assert_same_decision(a, b)
+        assert {"sparse_matmul", "fused_sparse_matmul"} & set(b.candidates)
