@@ -5,8 +5,17 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
-     six CUDA kernels from src/repro_torch/kernels/csrc (one nvcc per
-     source, started together) and each one's build time;
+     ten CUDA libraries from src/repro_torch/kernels/csrc (the six kernels
+     and the traffic foils' second build of the four main ones; one nvcc
+     per library, started together), each one's build time, and the
+     global load instructions of every foil instantiation in its SASS
+     (cuobjdump, which must be there), which must not fall below its
+     default twin's; then it starts this script with --count-loads in a
+     child process, which builds the foils' libraries once more with
+     REPRO_COUNT_LOADS=1, launches every foil kernel on the foil paths'
+     grids and two ragged grids, and requires every CTA of each launch to
+     have loaded exactly the analytic count of cells (its output is
+     printed, and its exit checked, after phase 2);
   2. each kernel against its plain PyTorch version on the card, each limit
      built from the plain version's step-by-step maxima and shown to reject
      the plain version one step short: the 2D kernels at 1024^2 and a
@@ -24,7 +33,12 @@ Phases, any failure exits non-zero:
      its plain version under the same boundary; the compacted (sparse)
      kernels on every one of these configurations beside the banded ones,
      and on base weights each against the dense banded kernel of the same
-     call (the largest difference printed; equal sums expected);
+     call (the largest difference printed; equal sums expected); then the
+     traffic foils (K8 whole-strip / whole-slab on the tap-sum and banded
+     kernels, 1000x1030 and 60x70x130, periodic and under one boundary
+     spec; K9 / K10, the seed 9-tile kernels, on 1024^2 with 128x128
+     tiles) with the same limits, and each against the default kernel of
+     the same call and tile, which it must equal;
   3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
      and ``auto`` against the ``reference`` backend, with every kernel's
      launches counted from 0 just before each path and read just after:
@@ -39,7 +53,14 @@ Phases, any failure exits non-zero:
      sparse_matmul and fused_sparse_matmul at t=4 (and auto at t=4 and
      t=1 on the periodic 2D and 3D grids, beside direct and matmul at t=1:
      Star-2D1R at t=1 is the model's tie that picks sparse_matmul), its
-     own launches counted;
+     own launches counted; then the foil paths (FOIL_PATHS: the 9-tile,
+     whole-strip / whole-slab foils and the regimes they mirror on
+     8192^2 and 512^3) with their own launch counts, and the guarded
+     path: ``guarded_stencil_plan`` under REPRO_FAULTS=compile:3 must land
+     on fused_direct_wholestrip with the expected events and launches,
+     a clean guarded call must return the cached plan object, and under
+     REPRO_FAULTS=compile:inf the ladder must raise after its last kernel
+     rung (no plain rung on the card);
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
      slow 3D plain versions and yardsticks): each regime's milliseconds
      per call and microseconds per step beside the model's choice, its
@@ -49,12 +70,17 @@ Phases, any failure exits non-zero:
      modes, axis by axis, + one F.conv of the base kernel)), the compacted
      kernel on the Star stencil (1D: Box) beside the dense banded kernel of
      the same call, the kept-row fraction S and the MMA k-steps of both,
-     and each wrapper's host time per launch.
+     the traffic table of each foil path (bytes requested per launch, ms,
+     requested GB/s, for the 9-tile, whole-strip / whole-slab and default
+     stagings), and each wrapper's host time per launch.
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the 2D kernels on the 1D path as "... (1D lift)", the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
 its own path's run (the compacted kernels' from the sparse path, with the
-dense banded kernel's time as "dense_ms"); the last line
+dense banded kernel's time as "dense_ms"; the foils' from the foil path,
+as "stencil_direct (wholestrip)", "legacy_direct (9-tile)" and so on, with
+the default kernel's time as "default_ms" and the bytes one launch
+requests as "read_bytes"); the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -130,6 +156,54 @@ KERNEL_SOURCES = {
     "stencil_sparse (1D lift)": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
                                  "src/repro/kernels/stencil_sparse.py:229"),
 }
+#: The foil paths (K8-K10), at t=MAIN_T against the reference backend, each
+#: with its own launch counts: the seed 9-tile foils, the whole-strip /
+#: whole-slab foils and the regimes they mirror.
+FOIL_PATHS = {
+    "2D": ((8192, 8192), (("box", 1), ("star", 1)),
+           ("legacy_direct", "fused_direct_wholestrip", "fused_direct",
+            "legacy_matmul", "fused_matmul_reuse_wholestrip",
+            "fused_matmul_reuse", "direct_wholestrip", "matmul_wholestrip",
+            "fused_matmul_wholestrip", "fused_matmul")),
+    "3D": ((512, 512, 512), (("box", 1),),
+           ("fused_direct_wholestrip", "fused_direct",
+            "fused_matmul_reuse_wholestrip", "fused_matmul_reuse",
+            "direct_wholestrip", "matmul_wholestrip",
+            "fused_matmul_wholestrip", "fused_matmul")),
+}
+#: The traffic table's rows on each foil path: (group, what reads, backend
+#: or "default@9tile" for the default kernel launched on the 9-tile foil's
+#: tile, so the seed's bytes compare at one tile).
+TRAFFIC_ROWS = {
+    2: (("tap-sum", "9-tile", "legacy_direct"),
+        ("tap-sum", "region, 9-tile's tile", "default@9tile:direct"),
+        ("tap-sum", "whole-strip", "fused_direct_wholestrip"),
+        ("tap-sum", "region", "fused_direct"),
+        ("banded, composed", "9-tile", "legacy_matmul"),
+        ("banded, composed", "region, 9-tile's tile", "default@9tile:matmul"),
+        ("banded, composed", "whole-strip", "fused_matmul_wholestrip"),
+        ("banded, composed", "region", "fused_matmul"),
+        ("banded, reuse", "whole-strip", "fused_matmul_reuse_wholestrip"),
+        ("banded, reuse", "region", "fused_matmul_reuse")),
+    3: (("tap-sum", "whole-slab", "fused_direct_wholestrip"),
+        ("tap-sum", "region", "fused_direct"),
+        ("banded, composed", "whole-slab", "fused_matmul_wholestrip"),
+        ("banded, composed", "region", "fused_matmul"),
+        ("banded, reuse", "whole-slab", "fused_matmul_reuse_wholestrip"),
+        ("banded, reuse", "region", "fused_matmul_reuse")),
+}
+#: The guarded path: auto at t=MAIN_T on 8192^2 under a fault spec that
+#: fails every rung above rank 55 (auto, auto+degraded and direct), so the
+#: ladder lands on fused_direct_wholestrip.
+GUARD_FAULTS = "compile:3"
+GUARD_LANDS = "fused_direct_wholestrip"
+#: The TPU kernels the foils replace: K8 the whole-strip / whole-slab
+#: launch kinds (_assemble_foil), K9 and K10 the seed 9-tile kernels.
+FOIL_REPLACES = {"wholestrip": "src/repro/kernels/common.py:1333",
+                 "9tile_direct": "src/repro/kernels/legacy.py:102",
+                 "9tile_matmul": "src/repro/kernels/legacy.py:155"}
+#: The seed 9-tile foils' tile (the JAX default).
+LEGACY_TILE = 128
 #: What the kernels replace on a boundary path: the per-step fills (K6);
 #: for the compacted kernels, the JAX compacted steps with their fills.
 FILL_REPLACES = "src/repro/kernels/common.py:309"
@@ -231,7 +305,37 @@ def phase_build(kernels) -> str:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    sass_loads(_build)
     return card
+
+
+def sass_loads(_build) -> None:
+    """Global load instructions in the SASS of every kernel instantiation
+    (cuobjdump, ``repro_torch.kernels.sass``): each foil instantiation must
+    keep at least the load instructions of the default instantiation of
+    the same kernel, types, radius and fill -- its load loop issues one
+    predicated load per window cell and lane, and the volatile sink store
+    keeps every load whose value the foil drops.  This counts
+    instructions in the binary, not the loads a CTA issues at run time
+    (no profiler counter is available)."""
+    from repro_torch.kernels import sass
+    loads = {}
+    for name in _build.KERNELS:
+        for fn, instrs in sass.functions(_build._target(name)).items():
+            loads[fn] = sum("LDG" in i for i in instrs)
+    # mangled template arguments end in the staging code: ...Li0EEv...
+    pairs = {}
+    for fn, n in loads.items():
+        for code, st in ((1, "wholestrip"), (2, "9tile")):
+            tail = f"Li{code}EE"
+            if tail in fn:
+                base = fn.replace(tail, "Li0EE")
+                check(base in loads, f"sass: no default twin of {fn}")
+                check(n >= loads[base], f"sass: {fn} has {n} global loads, "
+                                        f"its default twin {loads[base]}")
+                pairs.setdefault(st, set()).add((n, loads[base]))
+    print("  sass global loads per instantiation, foil vs default twin: "
+          + "; ".join(f"{st} {sorted(v)}" for st, v in pairs.items()))
 
 
 def plain_chain(step, x: torch.Tensor, t: int):
@@ -265,6 +369,33 @@ def kernel_limit(operands: str, sw: float, n_taps: int, maxima, out_bf16: bool) 
             e += 2**-7
         tol = sw * (tol + e * maxima[s])
     return tol + (2**-7 * maxima[-1] if out_bf16 else 0.0)
+
+
+def hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short, worst,
+                  margin) -> None:
+    """Hold a kernel's output ``y`` on ``x`` against its plain version with
+    the step-wise limit (``kernel_limit``; the f32 tap-sum 1e-5·max|x|),
+    and show that the limit rejects the plain version one step short
+    (``short``, or the plain chain's step t-1); ``worst`` and ``margin``
+    collect err/tol and tol/err(t-1) under ``key``."""
+    torch.cuda.synchronize()
+    bf = x.dtype == torch.bfloat16
+    err = max_err(y, plain())
+    maxima, prev = plain_chain(step, x, tk)
+    if tag.startswith(("stencil_direct", "legacy_direct")) and not bf:
+        tol = 1e-5 * maxima[0]
+    else:
+        tol = kernel_limit(ops, float(np.abs(wk).sum()),
+                           int(np.count_nonzero(wk)), maxima, bf)
+    wrong = max_err(y, prev if short is None else short())
+    check(y.shape == x.shape and y.dtype == x.dtype,
+          f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
+    check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+    check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
+    check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
+                       f"plain version one step short ({wrong:.3e})")
+    worst[key] = max(worst.get(key, 0.0), err / tol)
+    margin[key] = max(margin.get(key, 0.0), tol / wrong)
 
 
 def kernel_name(base: str, dim: int) -> str:
@@ -322,30 +453,13 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                         sparse=sparse))
             for name, kern, plain, step, tk, ops, wk, short, dense in cases_:
                 y = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-                err = max_err(y, ref)
-                maxima, prev = plain_chain(step, x, tk)
-                if name.startswith("stencil_direct") and not bf:
-                    tol = 1e-5 * maxima[0]
-                else:
-                    tol = kernel_limit(ops, float(np.abs(wk).sum()),
-                                       int(np.count_nonzero(wk)), maxima, bf)
-                short = prev if short is None else short()
-                wrong = max_err(y, short)
                 tag = (f"{name} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
                        + ("" if tk == t else " composed")
                        + ("" if bc is None else f" boundary={boundary_label(bc)}"))
-                check(y.shape == x.shape and y.dtype == dtype,
-                      f"{tag}: shape/dtype {tuple(y.shape)} {y.dtype}")
-                check(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
-                check(err <= tol, f"{tag}: max|err| {err:.3e} > tol {tol:.3e}")
-                check(wrong > tol, f"{tag}: the limit {tol:.3e} also passes the "
-                                   f"plain version one step short ({wrong:.3e})")
                 key = (name.split("[")[0] + (" (1D lift)" if dim == 1 else "")
                        + ("" if bc is None else " (boundaries)"))
-                worst[key] = max(worst.get(key, 0.0), err / tol)
-                margin[key] = max(margin.get(key, 0.0), tol / wrong)
+                hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short,
+                              worst, margin)
                 if dense is not None:
                     vs_dense[key] = max(vs_dense.get(key, 0.0), max_err(y, dense()))
 
@@ -379,31 +493,229 @@ def phase_kernels_vs_plain(mods) -> None:
           + ", ".join(f"{k}={v:.3e}" for k, v in vs_dense.items()))
 
 
+def check_foils(mods, shapes, cases, boundaries, worst, margin, vs_default):
+    """Each whole-strip / whole-slab foil kernel (the tap-sum and banded
+    kernels with the foils' staging) against its plain version with the
+    phase-2 limit, rejecting the plain version one step short, and against
+    the default kernel of the same call: same tile, same body, only the
+    bytes read differ, so the sums must be equal (``vs_default`` gets the
+    largest difference)."""
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import common
+    from repro_torch.stencil import StencilSpec
+    for shape, (kind, r, t), bc in itertools.product(shapes, cases, boundaries):
+        dim = len(shape)
+        w = weights.make_weights(StencilSpec(kind, dim, r), seed=1)
+        geom = common.launch_geom(shape, t * r)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = grid(shape, dtype, seed=2)
+            ops = "bf16" if dtype == torch.bfloat16 else "tf32"
+            for base, run, plain, step, kops in (
+                    ("stencil_direct",
+                     lambda st: sd.stencil_direct_at(x, w, t, geom, boundary=bc, staging=st),
+                     lambda: sd.stencil_direct_plain(x, w, t, bc),
+                     lambda v: sd.stencil_direct_plain(v, w, 1, bc), "f32"),
+                    ("stencil_banded",
+                     lambda st: sm.stencil_matmul_at(x, w, t, geom, boundary=bc,
+                                                  staging=st),
+                     lambda: sm.stencil_matmul_plain(x, w, t, boundary=bc),
+                     lambda v: sm.stencil_matmul_plain(v, w, 1, compute_dtype=dtype,
+                                                       boundary=bc), ops)):
+                name = (f"{kernel_name(base, dim)} "
+                        f"({'wholeslab' if dim == 3 else 'wholestrip'})")
+                y = run("wholestrip")
+                tag = (f"{name} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
+                       + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+                key = name + ("" if bc is None else " (boundaries)")
+                hold_to_plain(tag, key, y, x, plain, step, t, kops, w, None,
+                              worst, margin)
+                diff = max_err(y, run("region"))
+                check(diff == 0.0, f"{tag}: differs from the default kernel "
+                                   f"of the same call by {diff:.3e}")
+                vs_default[key] = max(vs_default.get(key, 0.0), diff)
+
+
+def check_9tile(mods, shape, cases, worst, margin, vs_default):
+    """The seed 9-tile foils (K9 ``stencil_direct_9pt``, K10
+    ``stencil_matmul_9pt`` on the composed kernel, 128 x 128 tiles) against
+    their regimes' plain versions with the phase-2 limit, and against the
+    default kernels launched on the same tile (equal sums required)."""
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import legacy
+    from repro_torch.stencil import StencilSpec
+    for kind, r, t in cases:
+        w = weights.make_weights(StencilSpec(kind, 2, r), seed=1)
+        wf = weights.fuse_weights(w, t)
+        geom = legacy.tile_geom(shape, LEGACY_TILE, LEGACY_TILE, t * r)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = grid(shape, dtype, seed=2)
+            for name, run, default, plain, step, tk, kops, wk, short in (
+                    ("legacy_direct (9-tile)",
+                     lambda: legacy.stencil_direct_9pt(x, w, t),
+                     lambda: sd.stencil_direct_at(x, w, t, geom),
+                     lambda: sd.stencil_direct_plain(x, w, t),
+                     lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None),
+                    ("legacy_matmul (9-tile)",
+                     lambda: legacy.stencil_matmul_9pt(x, wf),
+                     lambda: sm.stencil_matmul_at(x, wf, 1, geom),
+                     lambda: sm.stencil_matmul_plain(x, wf, 1),
+                     lambda v: sm.stencil_matmul_plain(v, wf, 1, compute_dtype=dtype),
+                     1, "bf16" if dtype == torch.bfloat16 else "tf32", wf,
+                     (lambda: sm.stencil_matmul_plain(
+                         x, weights.fuse_weights(w, t - 1), 1)) if t > 1 else None)):
+                y = run()
+                tag = f"{name} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
+                hold_to_plain(tag, name, y, x, plain, step, tk, kops, wk, short,
+                              worst, margin)
+                diff = max_err(y, default())
+                check(diff == 0.0, f"{tag}: differs from the default kernel on "
+                                   f"its tile by {diff:.3e}")
+                vs_default[name] = max(vs_default.get(name, 0.0), diff)
+
+
+#: The argument that runs only the load count (COUNT_LOADS), in the child
+#: process phase 1 starts.
+COUNT_FLAG = "--count-loads"
+#: The load count's grids: the foil paths' and the ragged phase-2 grids
+#: under a boundary spec (Box at t=MAIN_T; the 9-tile foils on the
+#: periodic 8192^2 only, where their tile divides the grid).
+COUNT_SHAPES = (((8192, 8192), None), ((1000, 1030), "zero"),
+                ((512, 512, 512), None),
+                ((60, 70, 130), ("replicate", "reflect", "periodic")))
+
+
+def start_count_loads() -> subprocess.Popen:
+    """Start this script with COUNT_FLAG in a child process whose foil
+    libraries count loads (REPRO_COUNT_LOADS=1: they build anew, beside
+    the uncounted ones); it runs while phase 2 checks the kernels."""
+    env = dict(os.environ, REPRO_COUNT_LOADS="1")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), COUNT_FLAG],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_count_loads(child: subprocess.Popen) -> None:
+    out, _ = child.communicate(timeout=600)
+    for line in out.splitlines():
+        print(f"  {line}")
+    check(child.returncode == 0,
+          f"load count: the counting process exited {child.returncode}")
+
+
+def phase_count_loads(mods) -> None:
+    """Loads per CTA of every foil kernel, counted at run time by the
+    counting build of the foil libraries (REPRO_COUNT_LOADS=1): the least
+    and the most cells a CTA of the launch loaded must both equal the
+    analytic count, ``common.staged_read_bytes`` over the CTAs of the
+    launch, on COUNT_SHAPES."""
+    import ctypes
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import _build, common, legacy
+    from repro_torch.stencil import StencilSpec
+    check(os.environ.get("REPRO_COUNT_LOADS") == "1",
+          "load count: REPRO_COUNT_LOADS=1 is not set")
+    foils = [k for k in _build.KERNELS if k.endswith("_foil")]
+    t0 = time.perf_counter()
+    _build.build_all(foils)
+    print(f"load count: the counting builds of {len(foils)} foil libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def counts(lib):
+        fn = _build.library(lib).repro_load_counts
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_uint)], ctypes.c_int
+        out = (ctypes.c_uint * 2)()
+        _build.check(fn(out), lib)
+        return out[0], out[1]
+
+    for shape, bc in COUNT_SHAPES:
+        dim = len(shape)
+        w = weights.make_weights(StencilSpec("box", dim, 1), seed=0)
+        x = grid(shape, torch.float32, seed=0)
+        geom = common.launch_geom(shape, MAIN_T)
+        runs = [(kernel_name("stencil_direct", dim), "wholestrip", geom,
+                 lambda: sd.stencil_direct_at(x, w, MAIN_T, geom, boundary=bc,
+                                              staging="wholestrip")),
+                (kernel_name("stencil_banded", dim), "wholestrip", geom,
+                 lambda: sm.stencil_matmul_at(x, w, MAIN_T, geom, boundary=bc,
+                                              staging="wholestrip"))]
+        if dim == 2 and bc is None:
+            lgeom = legacy.tile_geom(shape, LEGACY_TILE, LEGACY_TILE, MAIN_T)
+            wf = weights.fuse_weights(w, MAIN_T)
+            runs += [("stencil_direct", "9tile", lgeom,
+                      lambda: legacy.stencil_direct_9pt(x, w, MAIN_T)),
+                     ("stencil_banded", "9tile", lgeom,
+                      lambda: legacy.stencil_matmul_9pt(x, wf))]
+        for kern, st, g, run in runs:
+            lib = f"{kern}_foil"
+            torch.cuda.synchronize()
+            counts(lib)                               # start afresh
+            run()
+            torch.cuda.synchronize()
+            lo, hi = counts(lib)
+            ctas = int(np.prod(common.launch_grid(shape, g)))
+            want = common.staged_read_bytes(shape, g, st, 1) // ctas
+            tile = "x".join(str(n) for n in ((g.z_slab,) if dim == 3 else ())
+                            + (g.strip_m, g.w_tile))
+            what = "wholeslab" if dim == 3 else st
+            tag = (f"{kern} ({what}) {shape} tile {tile}"
+                   + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+            check(lo == hi == want, f"load count {tag}: a CTA loaded {lo}..{hi} "
+                                    f"cells, the analytic count is {want}")
+            print(f"load count {tag}: every one of {ctas} CTAs loaded {want} cells "
+                  f"(least {lo}, most {hi}; analytic {want})")
+        del x
+
+
+def phase_foils_vs_plain(mods) -> None:
+    worst, margin, vs_default = {}, {}, {}
+    cases = [(k, r, t) for k in ("box", "star") for r in (1, 2) for t in (1, 4)]
+    check_foils(mods, ((1000, 1030),), cases, (None, "zero"), worst, margin,
+                vs_default)
+    check_foils(mods, ((60, 70, 130),),
+                [(k, r, t) for k in ("box", "star") for r, t in ((1, 1), (1, 4), (2, 2))],
+                (None, ("replicate", "reflect", "periodic")), worst, margin, vs_default)
+    check_9tile(mods, (1024, 1024), cases, worst, margin, vs_default)
+    print("foil kernels vs plain: all configurations within tolerance; worst err/tol "
+          + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
+    print("  and every limit rejects the plain version one step short; worst "
+          "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
+    print("  foil vs the default kernel of the same call and tile: max|diff| "
+          + ", ".join(f"{k}={v:.3e}" for k, v in vs_default.items()))
+
+
 def expected_launches(backend: str, t: int, dim: int):
+    """The counter a plan of ``backend`` launches and how often per call:
+    a foil counts under ``<kernel> (<staging>)`` (1D: the lift's own)."""
+    if backend.startswith("legacy_"):
+        return f"stencil_{'direct' if backend == 'legacy_direct' else 'banded'} (9tile)", 1
+    regime = backend[:-len("_wholestrip")] if backend.endswith("_wholestrip") else backend
     base, n = {"direct": ("stencil_direct", t), "fused_direct": ("stencil_direct", 1),
                "matmul": ("stencil_banded", t), "fused_matmul": ("stencil_banded", 1),
                "fused_matmul_reuse": ("stencil_banded", 1),
                "sparse_matmul": ("stencil_sparse", t),
-               "fused_sparse_matmul": ("stencil_sparse", 1)}[backend]
-    return kernel_name(base, dim), n
+               "fused_sparse_matmul": ("stencil_sparse", 1)}[regime]
+    name = kernel_name(base, dim)
+    if regime != backend and dim > 1:
+        name += " (wholeslab)" if dim == 3 else " (wholestrip)"
+    return name, n
 
 
-def phase_main_path(mods, label, x, ws, boundary=None, runs=None):
+def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False):
     """Drive every regime and auto through stencil_plan on one path, the
     launch counts set to 0 just before and read just after; returns the
     plans, the outputs' errors and the counts.  Under a non-periodic
     ``boundary``, fused_matmul runs at t=1 (its plan at t=MAIN_T must
     refuse) and every other regime and auto at t=MAIN_T.  With ``runs``,
-    a list of (backend, t), the sparse path: those plans, built with
-    ``use_sparse_unit=True``.  Every kernel a plan of the path runs must
-    have launched."""
+    a list of (backend, t), those plans only (``sparse``: built with
+    ``use_sparse_unit=True``, the sparse path).  Every kernel a plan of the
+    path runs must have launched."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
     shape, dim = tuple(x.shape), x.ndim
     mx = float(x.abs().max())
     periodic = boundary is None
-    sparse = runs is not None
-    if not sparse:
+    listed = runs is not None
+    if not listed:
         runs = [(b, MAIN_T) for b in REGIMES if periodic or b != "fused_matmul"]
         if not periodic:
             runs.append(("fused_matmul", 1))
@@ -440,7 +752,7 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None):
             results[(name, regime)] = (plan, err, tol)
             del y
         del refs
-        if not periodic and not sparse:
+        if not periodic and not listed:
             try:
                 stencil_plan(w, shape, torch.float32, MAIN_T, backend="fused_matmul",
                              boundary=boundary)
@@ -454,7 +766,7 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None):
         check(counts[k] > 0, f"kernel {k} was not launched on the {label} path")
     print(f"main path {label}: {', '.join(dict.fromkeys(r for _, r in results))} x "
           f"{list(ws)} on {shape} float32 match the reference"
-          + ("" if periodic or sparse else f", fused_matmul at t={MAIN_T} refuses")
+          + ("" if periodic or listed else f", fused_matmul at t={MAIN_T} refuses")
           + f"; launches {counts}")
     return results, counts
 
@@ -554,6 +866,221 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     return report
 
 
+def phase_traffic(mods, label, x, ws, results, card, reps):
+    """The three-way traffic comparison on one foil path: for each stencil
+    and row of TRAFFIC_ROWS, the bytes one launch requests (every CTA reads
+    its staging's cells once, ``common.staged_read_bytes``; the L2 may serve
+    part of them, which no counter here can see), the ms per call and the
+    requested rate, bytes / time.  A foil and the default kernel of the
+    same row group compute the same function on the same tile but for the
+    9-tile rows, whose default twin runs on the 9-tile foil's tile."""
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import common, legacy
+    shape, dim = tuple(x.shape), x.ndim
+    print(f"traffic on {card}, {label} foil path ({shape} float32, t={MAIN_T}, one "
+          "launch per call): bytes requested per launch, ms per call, requested GB/s:")
+    for name, w in ws.items():
+        r = (w.shape[0] - 1) // 2
+        lgeom = (legacy.tile_geom(shape, LEGACY_TILE, LEGACY_TILE, MAIN_T * r)
+                 if dim == 2 else None)
+        wf = weights.fuse_weights(w, MAIN_T)
+        base = {}
+        for group, what, backend in TRAFFIC_ROWS[dim]:
+            if backend.startswith("default@9tile"):
+                geom, staging = lgeom, "region"
+                fn = ((lambda: sd.stencil_direct_at(x, w, MAIN_T, lgeom))
+                      if backend.endswith("direct") else
+                      (lambda: sm.stencil_matmul_at(x, wf, 1, lgeom)))
+            else:
+                plan = results[(name, backend)][0]
+                staging = ("9tile" if backend.startswith("legacy_") else
+                           "wholestrip" if backend.endswith("_wholestrip") else "region")
+                geom = lgeom if staging == "9tile" else plan.geom
+                fn = (lambda p=plan: p(x))
+            nbytes = common.staged_read_bytes(shape, geom, staging, 4)
+            ms = cuda_ms(fn, reps=reps)
+            base.setdefault(group, ms)
+            tile = "x".join(map(str, ((geom.z_slab,) if dim == 3 else ())
+                                + (geom.strip_m, geom.w_tile)))
+            print(f"  {name:10s} {group:16s} {what:22s} tile {tile:9s} "
+                  f"{nbytes / 1e6:10.1f} MB ({common.staged_read_amp(geom, staging):6.3f}x) "
+                  f"{ms:9.4f} ms  {nbytes / ms / 1e6:8.1f} GB/s  "
+                  f"{ms / base[group]:.3f}x the group's first row")
+
+
+def foil_report(mods, x, w, counts, reps_slow):
+    """The foil kernels' JSON entries at the foil path's call on ``w``
+    (t=MAIN_T, float32): 2D the whole-strip tap-sum and banded (reuse form)
+    kernels and the 9-tile K9 / K10 (on the composed kernel), 3D the
+    whole-slab tap-sum and banded kernels; each held against its plain
+    version with the phase-3 limit, beside the default kernel of the same
+    call (``default_ms``, on the 9-tile foil's own tile for K9 / K10) and
+    the F.conv yardstick of kernel_report; ``launches`` is the count of the
+    foil path's run, ``read_bytes`` what one launch requests.  A foil does
+    the default kernel's useful work, so its bound is the default's."""
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import common, legacy
+    n, dim, shape = x.numel(), x.ndim, tuple(x.shape)
+    r = (w.shape[0] - 1) // 2
+    mx, sw = float(x.abs().max()), float(np.abs(w).sum())
+    wf = weights.fuse_weights(w, MAIN_T)
+    ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
+    geom = common.launch_geom(shape, MAIN_T * r)
+    st = "wholeslab" if dim == 3 else "wholestrip"
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [
+        (f"{kernel_name('stencil_direct', dim)} ({st})",
+         f"{kernel_name('stencil_direct', dim)} ({st})",
+         src + kernel_name("stencil_direct", dim) + ".cu", FOIL_REPLACES["wholestrip"],
+         lambda: sd.stencil_direct_at(x, w, MAIN_T, geom, staging="wholestrip"),
+         lambda: sd.stencil_direct_at(x, w, MAIN_T, geom),
+         lambda: sd.stencil_direct_plain(x, w, MAIN_T), FP32_FLOPS,
+         1e-5 * MAIN_T * mx, geom, "wholestrip"),
+        (f"{kernel_name('stencil_banded', dim)} ({st})",
+         f"{kernel_name('stencil_banded', dim)} ({st})",
+         src + kernel_name("stencil_banded", dim) + ".cu", FOIL_REPLACES["wholestrip"],
+         lambda: sm.stencil_matmul_at(x, w, MAIN_T, geom, staging="wholestrip"),
+         lambda: sm.stencil_matmul_at(x, w, MAIN_T, geom),
+         lambda: sm.stencil_matmul_plain(x, w, MAIN_T), TF32_FLOPS,
+         MAIN_T * 2**-10 * sw * mx, geom, "wholestrip")]
+    if dim == 2:
+        lgeom = legacy.tile_geom(shape, LEGACY_TILE, LEGACY_TILE, MAIN_T * r)
+        rows += [
+            ("legacy_direct (9-tile)", "stencil_direct (9tile)",
+             src + "stencil_direct.cu", FOIL_REPLACES["9tile_direct"],
+             lambda: legacy.stencil_direct_9pt(x, w, MAIN_T),
+             lambda: sd.stencil_direct_at(x, w, MAIN_T, lgeom),
+             lambda: sd.stencil_direct_plain(x, w, MAIN_T), FP32_FLOPS,
+             1e-5 * MAIN_T * mx, lgeom, "9tile"),
+            ("legacy_matmul (9-tile)", "stencil_banded (9tile)",
+             src + "stencil_banded.cu", FOIL_REPLACES["9tile_matmul"],
+             lambda: legacy.stencil_matmul_9pt(x, wf),
+             lambda: sm.stencil_matmul_at(x, wf, 1, lgeom),
+             lambda: sm.stencil_matmul_plain(x, wf, 1), TF32_FLOPS,
+             MAIN_T * 2**-10 * sw * mx, lgeom, "9tile")]
+    # one F.conv of the composed kernel, in f32 beside the tap-sum kernels
+    # and in TF32 beside the banded ones, as in kernel_report
+    library_ms = {tf32: cuda_ms(conv_yardstick(x, wf, tf32), reps=reps_slow)
+                  for tf32 in (False, True)}
+    report = []
+    for entry, counter, source, replaces, kern, default, plain, peak, tol, g, stg in rows:
+        y = kern()
+        err = max_err(y, plain())
+        del y
+        check(err <= tol, f"kernel report {entry}: max|err| vs plain {err:.3e} "
+                          f"> tol {tol:.3e}")
+        bytes_ms = 2 * n * 4 / HBM_BPS * 1e3
+        ops_ms = ops / peak * 1e3
+        report.append({
+            "name": entry, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[counter],
+            "max_abs_err": err, "ms": cuda_ms(kern, reps=reps_slow),
+            "plain_ms": cuda_ms(plain, reps=reps_slow),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms[peak == TF32_FLOPS],
+            "default_ms": cuda_ms(default, reps=reps_slow),
+            "read_bytes": common.staged_read_bytes(shape, g, stg, 4)})
+    for k in report:
+        print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
+              f"by {k['bound_by']}; the default kernel of the same call "
+              f"{k['default_ms']:.4f} ms), plain {k['plain_ms']:.4f} ms, F.conv{dim}d "
+              f"of the composed kernel {k['library_ms']:.4f} ms, max|err| vs plain "
+              f"{k['max_abs_err']:.3e}, {k['read_bytes'] / 1e6:.1f} MB requested "
+              f"per launch, {k['launches']} launches on the foil path")
+    return report
+
+
+def phase_guarded(mods, x, w) -> None:
+    """``guarded_stencil_plan`` (auto at t=MAIN_T) on the foil path's grid
+    under REPRO_FAULTS=GUARD_FAULTS: every rung above rank 55 fails at its
+    first launch (auto, auto+degraded, direct), the ladder lands on
+    GUARD_LANDS, which must match the reference with one launch of the
+    whole-strip kernel and the expected events; then, the plan cache
+    cleared, a clean guarded call must return the cached plan object and
+    record nothing."""
+    kernels = mods[0]
+    from repro_torch.core import events
+    from repro_torch.kernels import (clear_plan_cache, guarded_stencil_plan,
+                                     plan_cache_stats, stencil_plan)
+    from repro_torch.testing import faults
+    shape = tuple(x.shape)
+    ref = stencil_plan(w, shape, torch.float32, MAIN_T, backend="reference")(x)
+    tol = 1e-5 * MAIN_T * float(x.abs().max())
+    clear_plan_cache()
+    events.clear()
+    os.environ["REPRO_FAULTS"] = GUARD_FAULTS
+    faults.reset_faults()
+    try:
+        kernels.reset_launch_counts()
+        g = guarded_stencil_plan(w, shape, torch.float32, MAIN_T)
+        y = g(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        faults.reset_faults()
+    kinds = [e["kind"] for e in events.events()]
+    stats = plan_cache_stats()
+    check(g.rung == GUARD_LANDS and g.backend == GUARD_LANDS,
+          f"guarded path: landed on {g.rung!r}, expected {GUARD_LANDS!r}")
+    check([h["cause"] for h in g.history] == ["compile"] * 3,
+          f"guarded path: history {g.history}")
+    check(kinds == ["guard_failure", "guard_fallback"] * 3,
+          f"guarded path: events {kinds}")
+    check((stats["exec_failures"], stats["fallbacks"], stats["negative_size"])
+          == (3, 3, 3), f"guarded path: counters {stats}")
+    check(counts == {"stencil_direct (wholestrip)": 1},
+          f"guarded path: launches {counts}")
+    err = max_err(y, ref)
+    check(err <= tol, f"guarded path: max|err| vs reference {err:.3e} > {tol:.3e}")
+    print(f"guarded path {shape}: REPRO_FAULTS={GUARD_FAULTS} fails "
+          f"{', '.join(h['rung'] for h in g.history)}; lands on {g.rung} "
+          f"(events {kinds}; launches {counts}; max|err| vs reference {err:.3e})")
+    clear_plan_cache()
+    events.clear()
+    p0 = stencil_plan(w, shape, torch.float32, MAIN_T)
+    kernels.reset_launch_counts()
+    g2 = guarded_stencil_plan(w, shape, torch.float32, MAIN_T)
+    y2 = g2(x)
+    torch.cuda.synchronize()
+    counts2 = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(g2.plan is p0 and not g2.degraded and events.events() == [],
+          "guarded path: a clean guarded call did not return the cached plan")
+    check(counts2 == {"stencil_direct": 1}, f"guarded path: clean launches {counts2}")
+    err2 = max_err(y2, ref)
+    check(err2 <= tol, f"guarded path: clean max|err| {err2:.3e} > {tol:.3e}")
+    print(f"  then a clean guarded call returns the cached plan object "
+          f"({p0.backend}, launches {counts2}, no events, max|err| {err2:.3e})")
+    # Under compile:inf every kernel rung fails; on the card the ladder
+    # ends at the last kernel rung and raises: no plain rung runs.
+    from repro_torch.kernels.guard import GuardedExecutionError
+    clear_plan_cache()
+    events.clear()
+    os.environ["REPRO_FAULTS"] = "compile:inf"
+    faults.reset_faults()
+    raised = None
+    try:
+        kernels.reset_launch_counts()
+        g3 = guarded_stencil_plan(w, shape, torch.float32, MAIN_T)
+        g3(x)
+        torch.cuda.synchronize()
+    except GuardedExecutionError as e:
+        raised = e
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        faults.reset_faults()
+        clear_plan_cache()
+    counts3 = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(raised is not None, "guarded path: compile:inf did not raise on the card")
+    rungs = [h["rung"] for h in raised.history]
+    check(rungs[-1] == "direct_wholestrip" and "reference" not in rungs
+          and counts3 == {}, f"guarded path: compile:inf walked {rungs}, "
+                             f"launches {counts3}")
+    print(f"  and under REPRO_FAULTS=compile:inf the ladder fails {len(rungs)} "
+          f"kernel rungs down to {rungs[-1]} and raises {type(raised).__name__}")
+
+
 def phase_host(mods, w2, w3):
     """Host cost of one wrapper call (argument checks, operand caches,
     ctypes, launch) on a grid small enough that the card keeps up: on the
@@ -615,7 +1142,7 @@ def phase_sparse_path(mods, label, x, ws, card, reps_slow, boundary=None):
     from repro_torch.stencil import StencilSpec
     runs = SPARSE_RUNS + (SPARSE_AUTO if boundary is None and x.ndim > 1 else [])
     tag = f"{label} sparse" + ("" if boundary is None else f" boundary={boundary_label(boundary)}")
-    results, counts = phase_main_path(mods, tag, x, ws, boundary, runs=runs)
+    results, counts = phase_main_path(mods, tag, x, ws, boundary, runs=runs, sparse=True)
     phase_regime_times(tag, x, ws, results, card)
     w = ws[StencilSpec("star" if x.ndim > 1 else "box", x.ndim, 1).name]
     return kernel_report(mods, x, w, counts, reps_slow, boundary, sparse=True)
@@ -643,9 +1170,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mods = (kernels, sm, sd, weights, ss)
+    if sys.argv[1:] == [COUNT_FLAG]:
+        try:
+            phase_count_loads(mods)
+        except (SmokeFailure, RuntimeError, ValueError, TypeError) as e:
+            print(f"load count: FAIL: {type(e).__name__}: {e}")
+            return 1
+        return 0
+    child = None
     try:
         card = phase_build(kernels)
+        child = start_count_loads()
         phase_kernels_vs_plain(mods)
+        phase_foils_vs_plain(mods)
+        finish_count_loads(child)
         report = []
         for label, (shape, specs) in PATHS.items():
             x = grid(shape, torch.float32, seed=0)
@@ -680,12 +1218,30 @@ def main() -> int:
                 report += phase_sparse_path(mods, label, x, ws, card, 5 if label == "3D" else 15,
                                             boundary)
             del x, results
+        for label, (shape, specs, backends) in FOIL_PATHS.items():
+            x = grid(shape, torch.float32, seed=0)
+            ws = {s.name: make_weights(s, seed=0)
+                  for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
+            results, counts = phase_main_path(mods, f"{label} foil", x, ws,
+                                              runs=[(b, MAIN_T) for b in backends])
+            reps = 5 if label == "3D" else 15
+            phase_traffic(mods, label, x, ws, results, card, reps)
+            w = ws[StencilSpec("box", len(shape), 1).name]
+            report += foil_report(mods, x, w, counts, reps)
+            if label == "2D":
+                phase_guarded(mods, x, w)
+            del x, results
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
-            NotImplementedError, subprocess.CalledProcessError) as e:
+            NotImplementedError, subprocess.CalledProcessError,
+            subprocess.TimeoutExpired) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Shared environment-variable parsing for the runtime's tuning knobs.
 
-A copy of ``repro.core.envutil``; the port reads REPRO_PLAN_CACHE_SIZE.
+A copy of ``repro.core.envutil``; the port reads REPRO_PLAN_CACHE_SIZE,
+REPRO_VMEM_BUDGET (its tile rule's shared-memory budget), REPRO_FAULTS,
+REPRO_NAN_WATCHDOG and REPRO_COUNT_LOADS (the foils' load-counting
+build).
 
 Every ``REPRO_*`` knob (``REPRO_VMEM_BUDGET``, ``REPRO_PLAN_CACHE_SIZE``,
 ``REPRO_FAULTS``, ``REPRO_BENCH_BUDGET_S``, ``REPRO_NAN_WATCHDOG``, the

@@ -1,14 +1,23 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs
-at first use into ``build/repro_torch/`` under the checkout, named by a
-hash of the source and the flags, so an edited source rebuilds and an
+library with a plain C interface, loaded with ``ctypes``; the four main
+kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
+libraries of the traffic foils (``<name>_foil``), so instantiating the
+foils' staging costs the main path's build nothing.  With
+``REPRO_COUNT_LOADS=1`` the foils' libraries build with
+``-DREPRO_COUNT_LOADS`` instead: each CTA then counts the cells its
+staging loads, and ``repro_load_counts`` returns the least and the most
+count over a launch's CTAs (``csrc/common.cuh``; ``chip_smoke.py``
+checks them against the analytic count).  The build runs at
+first use into ``build/repro_torch/`` under the checkout, named by a hash
+of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  :func:`build_all` starts one ``nvcc`` per
-source together.  A missing ``nvcc`` or a failed build raises.
+library together.  A missing ``nvcc`` or a failed build raises.
 
 Every kernel wrapper adds one to its entry of the launch counts where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else; a foil launch counts under
+``<kernel> (<staging>)``.
 """
 from __future__ import annotations
 
@@ -23,12 +32,23 @@ import threading
 import time
 from typing import Dict, Optional
 
+from repro_torch.core.envutil import env_flag
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("stencil_direct", "stencil_banded", "stencil_direct3d",
-           "stencil_banded3d", "stencil_sparse", "stencil_sparse3d")
+_MAIN = ("stencil_direct", "stencil_banded", "stencil_direct3d",
+         "stencil_banded3d", "stencil_sparse", "stencil_sparse3d")
+_FOILED = _MAIN[:4]
+#: Every library: the main kernels and the foils' builds of their sources.
+KERNELS = _MAIN + tuple(f"{k}_foil" for k in _FOILED)
+#: Launch counters: one per main kernel, and one per foil kernel and
+#: staging (the 9-tile foil is 2D only).
+COUNTERS = _MAIN + tuple(
+    f"{k} ({st})" for k in _FOILED
+    for st in (("wholestrip", "9tile") if not k.endswith("3d")
+               else ("wholeslab",)))
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +68,7 @@ def count_launch(name: str) -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: _COUNTS[name] for name in KERNELS}
+    return {name: _COUNTS[name] for name in COUNTERS}
 
 
 def reset_launch_counts() -> None:
@@ -68,11 +88,24 @@ def _nvcc() -> str:
         "toolkit on PATH (or under /usr/local/cuda)")
 
 
+def source(name: str) -> str:
+    """The source library ``name`` builds from (``csrc/<source>.cu``)."""
+    return name[:-len("_foil")] if name.endswith("_foil") else name
+
+
+def _flags(name: str) -> tuple:
+    if not name.endswith("_foil"):
+        return NVCC_FLAGS
+    count = env_flag("REPRO_COUNT_LOADS", False)
+    return NVCC_FLAGS + ("-DREPRO_FOIL",) + (
+        ("-DREPRO_COUNT_LOADS",) if count else ())
+
+
 def _target(name: str) -> pathlib.Path:
     """The library path of ``name``, keyed by its source, the shared
     headers and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for path in [CSRC / f"{source(name)}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -82,7 +115,8 @@ def _start(name: str, out: pathlib.Path) -> subprocess.Popen:
     library (a pipe nobody reads while the others build could fill)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+           str(CSRC / f"{source(name)}.cu")]
     with open(out.with_suffix(f".{os.getpid()}.log"), "w") as log:
         return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
 
@@ -96,7 +130,7 @@ def _finish(name: str, out: pathlib.Path, proc: subprocess.Popen) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
+        raise RuntimeError(f"nvcc failed to build {source(name)}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
 

@@ -23,6 +23,11 @@ w_tile=TN, w_block=h)``, so the priced read amplification
 Tiles are sized under a shared-memory budget (227 KB per block) in place
 of the JAX package's 8 MB VMEM budget.
 
+The traffic foils (the JAX ``wholestrip`` / ``wholeslab`` launch kinds
+and the seed 9-tile scheme of ``repro.kernels.legacy``) keep this tile and
+change only what a CTA reads (:data:`STAGE_CODES`, :func:`foil_windows`):
+whole neighbour tiles, of which the kernels keep the region's cells.
+
 3D grids (the counterpart of the JAX slab substrate, ``slab_launch_geometry``
 and ``choose_slab_blocks``) take the same design one rank up: a CTA
 computes a (TZ x TM x TN) tile from its (TZ+2h)(TM+2h)(TN+2h) region and
@@ -38,13 +43,28 @@ import itertools
 import math
 from typing import Iterator, Optional
 
+from repro_torch.core.envutil import env_int
 from repro_torch.stencil.boundary import resolve_boundary
 
-#: Whole-strip foil loads (kept for ``substrate_read_amp``'s h_block=0 case).
-STRIP_NEIGHBOR_LOADS = 3
+#: Vertical neighbour offsets of the whole-strip foil (up, centre, down).
+NEIGHBOR_OFFSETS_STRIP = (-1, 0, 1)
+
+#: Whole-strip foil loads (``substrate_read_amp``'s h_block=0 case).
+STRIP_NEIGHBOR_LOADS = len(NEIGHBOR_OFFSETS_STRIP)
 
 #: Shared memory one H100 block may use (232,448 bytes = 227 KB).
 SMEM_BUDGET_BYTES = 232448
+
+
+def smem_budget_bytes() -> int:
+    """The tile rule's shared-memory budget: ``REPRO_VMEM_BUDGET`` (the
+    JAX package's sizing knob, read through envutil at every resolution)
+    capped at :data:`SMEM_BUDGET_BYTES`, which is also the default.  The
+    guard's degraded rung halves it, so the rule picks a smaller tile as
+    the JAX rule picks a shorter strip; the kernels' own checks stay at
+    the card's 227 KB."""
+    return min(env_int("REPRO_VMEM_BUDGET", SMEM_BUDGET_BYTES, minimum=1),
+               SMEM_BUDGET_BYTES)
 
 #: Output tile edge the sizing prefers: at h = 4 the region read is
 #: (1 + 8/64)^2 = 1.27x the tile, and two 64x64 CTAs fit on one SM.
@@ -497,11 +517,10 @@ def _z_candidates(extent: int) -> list:
     return sorted({min(c, extent) for c in Z_SLAB_CANDIDATES}, reverse=True)
 
 
-def _too_deep(halo: int) -> ValueError:
+def _too_deep(halo: int, budget: int) -> ValueError:
     return ValueError(
         f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
-        f"{SMEM_BUDGET_BYTES} bytes of shared memory; lower the fusion "
-        "depth")
+        f"{budget} bytes of shared memory; lower the fusion depth")
 
 
 def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
@@ -510,7 +529,8 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
 
     2D: the largest output tile, at most PREFERRED_TILE on each axis and a
     multiple of 16, whose shared memory (``tile_smem_bound``) fits the
-    227 KB budget.  3D: among the (TZ, TM, TN) with TZ in
+    budget (:func:`smem_budget_bytes`, 227 KB by default).  3D: among
+    the (TZ, TM, TN) with TZ in
     ``Z_SLAB_CANDIDATES`` and TM, TN in {64, 32, 16} whose 3D
     ``tile_smem_bound`` fits, the one of least read amplification
     (1 + 2h/TZ)(1 + 2h/TM)(1 + 2h/TN), ties to the larger tile -- the
@@ -530,18 +550,19 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
         raise ValueError(f"halo must be >= 1, got {halo}")
     tms = _tile_candidates(grid_shape[-2], tile_m, "tile_m")
     tns = _tile_candidates(grid_shape[-1], w_tile, "w_tile")
+    budget = smem_budget_bytes()
     if dim == 2:
         for k in range(max(len(tms), len(tns))):
             tm, tn = tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)]
-            if tile_smem_bound(tm, tn, halo) <= SMEM_BUDGET_BYTES:
+            if tile_smem_bound(tm, tn, halo) <= budget:
                 return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
                                      w_tile=tn, w_block=halo)
-        raise _too_deep(halo)
+        raise _too_deep(halo, budget)
     fitting = [(tz, tm, tn) for tz in _z_candidates(grid_shape[0])
                for tm in dict.fromkeys(tms) for tn in dict.fromkeys(tns)
-               if tile_smem_bound(tm, tn, halo, tz) <= SMEM_BUDGET_BYTES]
+               if tile_smem_bound(tm, tn, halo, tz) <= budget]
     if not fitting:
-        raise _too_deep(halo)
+        raise _too_deep(halo, budget)
     tz, tm, tn = min(fitting, key=lambda c: (
         (1 + 2 * halo / c[0]) * (1 + 2 * halo / c[1]) * (1 + 2 * halo / c[2]),
         -c[0] * c[1] * c[2]))
@@ -606,3 +627,164 @@ def tile_windows(grid_shape, geom: SubstrateGeom) -> Iterator[tuple]:
             outs.append((a, min(a + tsz, n)))
             reads.append((a - hh, a + tsz + hh))
         yield tuple(outs[::-1]) + tuple(reads[::-1])
+
+
+# ---------------------------------------------------------------------------
+# Staging: what a CTA reads to build its region.  The traffic foils read
+# whole neighbour tiles and keep the region's cells of them, so they
+# compute what the default kernel computes, bit for bit, from more bytes.
+# ---------------------------------------------------------------------------
+#: Staging codes of the kernels' launch interface (STAGE_* in
+#: csrc/common.cuh): the region alone; the whole-strip foil (2D: the whole
+#: tiles above, at and below the CTA's own, with the x-halo; 3D: the 3 x 3
+#: whole (z, y) tiles, the whole-slab foil), K8; the seed 9-tile foil, K9
+#: and K10 (2D, periodic).
+STAGE_CODES = {"region": 0, "wholestrip": 1, "9tile": 2}
+
+
+def check_staging(grid_shape, geom: SubstrateGeom, halo: int,
+                  staging: str) -> None:
+    """Raise unless a launch on ``geom`` at total halo ``halo`` can stage
+    ``staging``: the foils' whole neighbour tiles must cover the halo, so
+    every staged leading axis's tile is at least ``halo`` deep (the JAX
+    ``validate_tiling`` messages), and the 9-tile foil is 2D only.  A 1D
+    grid has one staging, the lift's: the 1D foil is the default lift,
+    read amplification 1, as JAX's halo-0 ``flat`` kind."""
+    if staging not in STAGE_CODES:
+        raise ValueError(f"unknown staging {staging!r}; expected one of "
+                         f"{tuple(STAGE_CODES)}")
+    if staging == "region" or len(grid_shape) == 1:
+        return
+    if staging == "9tile" and len(grid_shape) != 2:
+        raise ValueError(f"the 9-tile foil stages 2D grids only, got rank "
+                         f"{len(grid_shape)}")
+    if len(grid_shape) == 3 and geom.z_slab < halo:
+        raise ValueError(f"halo {halo} exceeds z_slab {geom.z_slab}; "
+                         "lower fusion depth or enlarge slabs")
+    if geom.strip_m < halo:
+        raise ValueError(f"halo {halo} exceeds strip height {geom.strip_m}; "
+                         "lower fusion depth or enlarge strips")
+    if staging == "9tile" and geom.w_tile < halo:
+        raise ValueError(f"halo {halo} exceeds tile ({geom.strip_m},"
+                         f"{geom.w_tile}); lower fusion depth or enlarge "
+                         "tiles")
+
+
+def foil_windows(grid_shape, geom: SubstrateGeom,
+                 staging: str = "region") -> Iterator[tuple]:
+    """Every CTA's output ranges and the windows its staging reads, exactly
+    as ``csrc/common.cuh::load_region`` / ``load_region3d`` walk them:
+    yields ``(outs, windows)``, ``outs`` the output ranges of
+    :func:`tile_windows` and ``windows`` a tuple of windows, each one
+    unwrapped ``(lo, hi)`` range per axis (read modulo the grid).  The
+    region's cells of a window are kept and the others read and dropped.
+
+      * ``"region"``: the one region of :func:`tile_windows`;
+      * ``"wholestrip"``: 2D, the whole TM-row tiles above, at and below
+        the CTA's own, each with the x-halo (rows ``i0 + d*TM`` to
+        ``i0 + (d+1)*TM`` for d in :data:`NEIGHBOR_OFFSETS_STRIP`);
+        3D, the 3 x 3 whole (z, y) tiles, the whole-slab foil;
+      * ``"9tile"``: the 9 whole TM x TN tiles around and at the CTA's
+        own, in the JAX ``NEIGHBOR_OFFSETS_2D`` order.
+
+    2D and 3D grids (a 1D grid stages its lifted (1, N) view's region)."""
+    dim = len(grid_shape)
+    if dim not in (2, 3):
+        raise ValueError(f"foil_windows takes 2D and 3D grids, got rank {dim}")
+    check_staging(grid_shape, geom, geom.h_block, staging)
+    h = geom.h_block
+    sizes = ((geom.z_slab,) if dim == 3 else ()) + (geom.strip_m,
+                                                    geom.w_tile)
+    offs = NEIGHBOR_OFFSETS_STRIP
+    for win in tile_windows(grid_shape, geom):
+        outs, reads = win[:dim], win[dim:]
+        if staging == "region":
+            yield outs, (reads,)
+            continue
+        starts = [lo + h for lo, _ in reads]      # the CTA's own tile
+        lead = range(dim - 1)
+        if staging == "wholestrip":
+            shifts = itertools.product(offs, repeat=dim - 1)
+            windows = tuple(
+                tuple((starts[a] + d[a] * sizes[a],
+                       starts[a] + (d[a] + 1) * sizes[a]) for a in lead)
+                + (reads[-1],) for d in shifts)
+        else:
+            windows = tuple(
+                tuple((starts[a] + d[a] * sizes[a],
+                       starts[a] + (d[a] + 1) * sizes[a]) for a in range(2))
+                for d in itertools.product(offs, repeat=2))
+        yield outs, windows
+
+
+def staged_read_amp(geom: SubstrateGeom, staging: str) -> float:
+    """Cells a launch reads per cell of the grid (aligned tiles): the
+    tile's ``read_amp`` for the region; the foils' whole tiles count
+    :data:`STRIP_NEIGHBOR_LOADS` per staged leading axis
+    (``substrate_read_amp(tile, 0)``): 3(1 + 2h/TN) whole-strip, 9(1 +
+    2h/TN) whole-slab, 9 for the 9-tile foil, whose x axis is staged
+    too.  1D: the lift's 1."""
+    if staging == "region" or geom.dim == 1:
+        return geom.read_amp
+    amp = substrate_read_amp(geom.strip_m, 0)
+    if geom.dim == 3:
+        amp *= substrate_read_amp(geom.z_slab, 0)
+    if staging == "9tile":
+        return amp * substrate_read_amp(geom.w_tile, 0)
+    return amp * substrate_read_amp(geom.w_tile, geom.w_block)
+
+
+def staged_read_bytes(grid_shape, geom: SubstrateGeom, staging: str,
+                      dtype_bytes: int) -> int:
+    """Bytes one launch requests from global memory: every CTA reads each
+    cell of its staging's windows once (:func:`foil_windows`), ragged
+    tiles whole, whatever the L2 cache then serves.  2D and 3D grids."""
+    h = geom.h_block
+    tiles = ((geom.z_slab,) if geom.dim == 3 else ()) + (geom.strip_m,
+                                                         geom.w_tile)
+    if staging == "region":
+        cells = math.prod(n + 2 * h for n in tiles)
+    elif staging == "wholestrip":
+        cells = (STRIP_NEIGHBOR_LOADS ** (len(tiles) - 1)
+                 * math.prod(tiles[:-1]) * (tiles[-1] + 2 * h))
+    else:
+        cells = 9 * math.prod(tiles)
+    return math.prod(launch_grid(grid_shape, geom)) * cells * dtype_bytes
+
+
+def staging_clause(geom: SubstrateGeom, staging: str) -> str:
+    """What a foil's launches read, for ``explain``."""
+    if geom.dim == 1:
+        return ("the 1D lift (no vertical halo to stage), read_amp="
+                f"{geom.read_amp:.3f}x")
+    tile = "x".join(str(n) for n in (((geom.z_slab,) if geom.dim == 3
+                                      else ()) + (geom.strip_m, geom.w_tile)))
+    what = {"wholestrip": ("whole-strip foil: 3 whole tiles per CTA, with "
+                           "the x-halo" if geom.dim == 2 else
+                           "whole-slab foil: 3x3 whole (z, y) tiles per "
+                           "CTA, with the x-halo"),
+            "9tile": "9-tile foil: 9 whole tiles per CTA"}[staging]
+    return (f"{what}, tile {tile}, halo {geom.h_block}, read_amp="
+            f"{staged_read_amp(geom, staging):.3f}x (the region alone "
+            f"{geom.read_amp:.3f}x)")
+
+
+def assemble_strip(top, mid, bot, halo: int):
+    """The whole-strip foil's region from its three whole tiles (the JAX
+    ``assemble_strip``): the bottom ``halo`` rows of the tile above, the
+    CTA's own tile, the top ``halo`` rows of the tile below."""
+    import torch
+
+    return torch.cat([top[-halo:], mid, bot[:halo]], dim=0)
+
+
+def assemble_foil(tiles, halo: int):
+    """The whole-slab foil's region from its 3 x 3 whole (z, y) tiles in
+    (dz, dy) row-major order (the 3D branch of the JAX ``_assemble_foil``):
+    each z row of tiles joined along y as :func:`assemble_strip` does,
+    then the halo planes of the outer two along z."""
+    import torch
+
+    rows = [torch.cat([up[:, -halo:], mid, dn[:, :halo]], dim=1)
+            for up, mid, dn in (tiles[3 * i:3 * i + 3] for i in range(3))]
+    return torch.cat([rows[0][-halo:], rows[1], rows[2][:halo]], dim=0)

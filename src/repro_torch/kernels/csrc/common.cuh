@@ -32,13 +32,34 @@ __device__ __forceinline__ int wrap(int v, int n) {
     return v;
 }
 
+// Staging of a kernel's input region, a template parameter of every
+// kernel (codes of repro_torch/kernels/common.py::STAGE_CODES).  A CTA
+// computes its tile from the (TM+2h) x (TN+2h) region [x (TZ+2h)] around
+// it.  STAGE_REGION reads that region once (load_rect / load_rect3d):
+// every main-path launch.  The traffic foils read whole neighbour tiles
+// and keep the region's cells of them (load_window / load_window3d), so
+// they compute what STAGE_REGION computes, bit for bit, from more bytes
+// (the JAX package's foils: repro/kernels/common.py::_assemble_foil,
+// kinds wholestrip / wholeslab, and repro/kernels/legacy.py):
+//   STAGE_STRIP, K8: 2D, the whole TM-row tiles above, at and below the
+//     CTA's own, each with the x-halo: 3 TM (TN + 2h) cells; 3D, the 3 x 3
+//     whole (z, y) tiles, each with the x-halo: 9 TZ TM (TN + 2h) cells;
+//   STAGE_NINE, K9 / K10: 2D, the 9 whole TM x TN tiles around and at the
+//     CTA's own: 9 TM TN cells.
+// A foil's tiles are at least the halo deep on every staged axis (the
+// wrappers check), so the windows cover the region.  The region's layout
+// in shared memory is the same for every staging.
+#define STAGE_REGION 0
+#define STAGE_STRIP 1
+#define STAGE_NINE 2
+
 // Loads the rows x cols region whose first cell is global (r0, c0), taken
 // modulo (H, W), into dst (row stride ld) as f32.  A global load waits
 // ~1 us, so each warp issues 8 rows x 4 column chunks of 32 before storing
 // any: a thread keeps 32 loads in flight.
 template <typename T>
-__device__ __forceinline__ void load_region(float* dst, int ld, const T* __restrict__ x, int H,
-                                            int W, int r0, int c0, int rows, int cols) {
+__device__ __forceinline__ void load_rect(float* dst, int ld, const T* __restrict__ x, int H,
+                                          int W, int r0, int c0, int rows, int cols) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int cb = 0; cb < cols; cb += 128) {
         int gj[4];
@@ -63,17 +84,17 @@ __device__ __forceinline__ void load_region(float* dst, int ld, const T* __restr
     }
 }
 
-// The 3D form of load_region: the planes x rows x cols region whose first
+// The 3D form of load_rect: the planes x rows x cols region whose first
 // cell is global (p0, r0, c0), taken modulo (Z, H, W), into dst (plane
 // stride plane_ld, row stride ld) as f32.  The (plane, row) pairs are
 // walked as one flattened row index, 8 per warp at a time as in
-// load_region, and every global offset is 64-bit ((z*H + y)*W + x passes
+// load_rect, and every global offset is 64-bit ((z*H + y)*W + x passes
 // 2^31 at 2048 x 1024 x 1024).
 template <typename T>
-__device__ __forceinline__ void load_region3d(float* dst, int ld, size_t plane_ld,
-                                              const T* __restrict__ x, int Z, int H, int W,
-                                              int p0, int r0, int c0, int planes, int rows,
-                                              int cols) {
+__device__ __forceinline__ void load_rect3d(float* dst, int ld, size_t plane_ld,
+                                            const T* __restrict__ x, int Z, int H, int W,
+                                            int p0, int r0, int c0, int planes, int rows,
+                                            int cols) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int nrows = planes * rows;
     for (int cb = 0; cb < cols; cb += 128) {
@@ -100,6 +121,196 @@ __device__ __forceinline__ void load_region3d(float* dst, int ld, size_t plane_l
                     if (rb + u < nrows && cb + lane + 32 * c < cols) dst[doff[u] + 32 * c] = v[u][c];
         }
     }
+}
+
+#ifdef REPRO_COUNT_LOADS
+// The load-counting build of the foils (REPRO_COUNT_LOADS=1 at build
+// time; chip_smoke.py): every CTA counts the grid cells its staging loads,
+// and a launch keeps the least and the most count over its CTAs.
+__device__ unsigned int repro_cta_loads[2] = {0xffffffffu, 0u};
+
+// Copies the least and the most count since the last call to out[0..1],
+// and starts them afresh.
+extern "C" int repro_load_counts(unsigned int* out) {
+    const unsigned int fresh[2] = {0xffffffffu, 0u};
+    cudaError_t err = cudaMemcpyFromSymbol(out, repro_cta_loads, sizeof(fresh));
+    if (err == cudaSuccess) err = cudaMemcpyToSymbol(repro_cta_loads, fresh, sizeof(fresh));
+    return (int)err;
+}
+#endif
+
+// Adds this thread's n loaded cells to its CTA's count, and the CTA's
+// count to the launch's least and most: the counting build only.
+__device__ __forceinline__ void count_cta_loads(int n) {
+#ifdef REPRO_COUNT_LOADS
+    __shared__ unsigned int cta;
+    if (threadIdx.x == 0) cta = 0;
+    __syncthreads();
+    atomicAdd(&cta, (unsigned int)n);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        atomicMin(&repro_cta_loads[0], cta);
+        atomicMax(&repro_cta_loads[1], cta);
+    }
+#endif
+}
+
+// A foil's window: loads the wrows x wcols window whose first cell is
+// region cell (wr, wc), global (r0 + wr, c0 + wc), taken modulo (H, W),
+// as f32, 8 rows x 4 column chunks of 32 per warp in flight as in
+// load_rect.  A cell inside the rows x cols region goes to dst (row stride
+// ld); a cell outside it goes to this thread's sink slot by a volatile
+// shared-memory store, so the compiler keeps every load the foil
+// requests: each loaded value is stored to shared memory once, as in the
+// region load, and only the bytes differ.  Returns the cells this thread
+// loaded.
+template <typename T>
+__device__ __forceinline__ int load_window(float* dst, int ld, volatile float* sink,
+                                           const T* __restrict__ x, int H, int W, int r0, int c0,
+                                           int rows, int cols, int wr, int wc, int wrows,
+                                           int wcols) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int n = 0;
+    for (int cb = 0; cb < wcols; cb += 128) {
+        int gj[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gj[c] = wrap(c0 + wc + cb + lane + 32 * c, W);
+        for (int rb = warp * 8; rb < wrows; rb += CTA_WARPS * 8) {
+            float v[8][4];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const T* src = x + (size_t)wrap(r0 + wr + min(rb + u, wrows - 1), H) * W;
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    v[u][c] = (rb + u < wrows && cb + lane + 32 * c < wcols) ? to_f32(src[gj[c]]) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    if (rb + u < wrows && cb + lane + 32 * c < wcols) {
+                        const int q = wr + rb + u, k = wc + cb + lane + 32 * c;
+                        if ((unsigned)q < (unsigned)rows && (unsigned)k < (unsigned)cols)
+                            dst[q * ld + k] = v[u][c];
+                        else
+                            *sink = v[u][c];
+                        ++n;
+                    }
+        }
+    }
+    return n;
+}
+
+// Loads the rows x cols region whose first cell is global (r0, c0), taken
+// modulo (H, W), into dst (row stride ld) as f32, by the staging STAGE;
+// the region is the TM x TN tile with its halo.  sink: the foils' slot.
+template <int STAGE, typename T>
+__device__ __forceinline__ void load_region(float* dst, int ld, volatile float* sink,
+                                            const T* __restrict__ x, int H, int W, int r0,
+                                            int c0, int rows, int cols, int TM, int TN) {
+    if constexpr (STAGE == STAGE_REGION) {
+        load_rect(dst, ld, x, H, W, r0, c0, rows, cols);
+    } else {
+        const int hy = (rows - TM) / 2, hx = (cols - TN) / 2;  // the halo
+        int n = 0;
+#pragma unroll 1
+        for (int d = -1; d <= 1; ++d) {
+            if constexpr (STAGE == STAGE_STRIP) {
+                n += load_window(dst, ld, sink, x, H, W, r0, c0, rows, cols, hy + d * TM, 0, TM,
+                                 cols);
+            } else {
+#pragma unroll 1
+                for (int e = -1; e <= 1; ++e)
+                    n += load_window(dst, ld, sink, x, H, W, r0, c0, rows, cols, hy + d * TM,
+                                     hx + e * TN, TM, TN);
+            }
+        }
+        count_cta_loads(n);
+    }
+}
+
+// The 3D form of load_window: the wplanes x wrows x cols window whose first
+// cell is region cell (wp, wr, 0), global (p0 + wp, r0 + wr, c0), taken
+// modulo (Z, H, W), spanning the region's columns, walked as load_rect3d
+// walks its region.  Cells inside the planes x rows x cols region go to
+// dst (plane stride plane_ld, row stride ld), the others to the sink
+// slot.  Returns the cells this thread loaded.
+template <typename T>
+__device__ __forceinline__ int load_window3d(float* dst, int ld, size_t plane_ld,
+                                             volatile float* sink, const T* __restrict__ x, int Z,
+                                             int H, int W, int p0, int r0, int c0, int planes,
+                                             int rows, int cols, int wp, int wr, int wplanes,
+                                             int wrows) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nrows = wplanes * wrows;
+    int n = 0;
+    for (int cb = 0; cb < cols; cb += 128) {
+        int gj[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gj[c] = wrap(c0 + cb + lane + 32 * c, W);
+        for (int rb = warp * 8; rb < nrows; rb += CTA_WARPS * 8) {
+            float v[8][4];
+            size_t doff[8];
+            bool keep[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const int fr = min(rb + u, nrows - 1);
+                const int qp = fr / wrows;
+                const int q = wp + qp, rr = wr + fr - qp * wrows;  // region plane, row
+                keep[u] = (unsigned)q < (unsigned)planes && (unsigned)rr < (unsigned)rows;
+                doff[u] = q * plane_ld + (size_t)rr * ld + cb + lane;
+                const T* src = x + ((size_t)wrap(p0 + q, Z) * H + wrap(r0 + rr, H)) * (size_t)W;
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    v[u][c] = (rb + u < nrows && cb + lane + 32 * c < cols) ? to_f32(src[gj[c]]) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    if (rb + u < nrows && cb + lane + 32 * c < cols) {
+                        if (keep[u])
+                            dst[doff[u] + 32 * c] = v[u][c];
+                        else
+                            *sink = v[u][c];
+                        ++n;
+                    }
+        }
+    }
+    return n;
+}
+
+// The 3D form of load_region: the planes x rows x cols region whose first
+// cell is global (p0, r0, c0), the TZ x TM x TN tile with its halo, by the
+// staging STAGE (STAGE_STRIP: the whole-slab foil).
+template <int STAGE, typename T>
+__device__ __forceinline__ void load_region3d(float* dst, int ld, size_t plane_ld,
+                                              volatile float* sink, const T* __restrict__ x,
+                                              int Z, int H, int W, int p0, int r0, int c0,
+                                              int planes, int rows, int cols, int TZ, int TM) {
+    static_assert(STAGE != STAGE_NINE, "the 9-tile foil stages 2D grids only");
+    if constexpr (STAGE == STAGE_REGION) {
+        load_rect3d(dst, ld, plane_ld, x, Z, H, W, p0, r0, c0, planes, rows, cols);
+    } else {
+        const int hz = (planes - TZ) / 2, hy = (rows - TM) / 2;  // the halo
+        int n = 0;
+#pragma unroll 1
+        for (int dz = -1; dz <= 1; ++dz)
+#pragma unroll 1
+            for (int dy = -1; dy <= 1; ++dy)
+                n += load_window3d(dst, ld, plane_ld, sink, x, Z, H, W, p0, r0, c0, planes, rows,
+                                   cols, hz + dz * TZ, hy + dy * TM, TZ, TM);
+        count_cta_loads(n);
+    }
+}
+
+// A foil's sink slot for this thread: one float of a shared-memory buffer
+// of n floats that nothing reads while the region loads.  The region
+// staging gets none.
+template <int STAGE>
+__device__ __forceinline__ volatile float* sink_slot(float* buf, int n) {
+    if constexpr (STAGE == STAGE_REGION) return nullptr;
+    else return buf + (int)threadIdx.x % n;
 }
 
 // Boundary mode codes of the launch interface, one per grid axis; must

@@ -43,6 +43,15 @@
 // copies and the global load, not the MMAs, took most of the time: both
 // keep several loads in flight per thread, and the largest shared-memory
 // carveout lets three CTAs share an SM.
+//
+// The same source built with -DREPRO_FOIL is the library of the traffic
+// foils (K8 whole-strip, replacing repro/kernels/common.py::_launch kind
+// wholestrip via _assemble_foil; K10 the seed 9-tile kernel,
+// repro/kernels/legacy.py::stencil_matmul_9pt, one contraction of the
+// composed kernel): this kernel with the STAGE_STRIP or STAGE_NINE staging
+// of common.cuh, which reads 3 (TN+2h)/TN or 9 times the grid for the same
+// compute.  A foil's sink slots lie in the operand array, which nothing
+// reads before the first copy.
 #include "banded_mma.cuh"
 
 #define MAX_ROWS 64
@@ -56,7 +65,7 @@ struct BandRows {
 // (chunks x a_rows x kpad, compute dtype), 128-byte aligned.  The host sizes
 // all of these (repro_torch/kernels/common.py::banded_layout) and passes
 // the byte count at launch.
-template <typename TIn, typename TC, bool FILL>
+template <typename TIn, typename TC, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                       const TC* __restrict__ bands, int H, int W, int TM, int TN, int t,
@@ -74,7 +83,10 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int band_k = BAND_N + 2 * R;  // valid rows of one band
     const int nks = kpad / M::K;
 
-    load_region(region, ld, x, H, W, i0 - halo, j0 - halo, h0, w0);
+    load_region<STAGE>(region, ld,
+                       sink_slot<STAGE>(reinterpret_cast<float*>(achunks),
+                                        a_rows * kpad * (int)sizeof(TC) / 4),
+                       x, H, W, i0 - halo, j0 - halo, h0, w0, TM, TN);
     __syncthreads();
     const bool fill =
         FILL && (leaves_domain(my, i0 - halo, h0, H) || leaves_domain(mx, j0 - halo, w0, W));
@@ -161,13 +173,15 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     store_tile(y, H, W, i0, j0, TM, TN, region, ld);
 }
 
-template <typename TIn, typename TC>
+template <typename TIn, typename TC, int STAGE>
 static int launch(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
                   int t, int R, int rows, int ld, int a_rows, int kpad, int my, int mx,
                   const BandRows* br, int smem_bytes, cudaStream_t stream) {
     const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
-    auto* kernel =
-        fill ? stencil_banded_kernel<TIn, TC, true> : stencil_banded_kernel<TIn, TC, false>;
+    if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
+    constexpr bool kFill = STAGE != STAGE_NINE;
+    auto* kernel = fill ? stencil_banded_kernel<TIn, TC, kFill, STAGE>
+                        : stencil_banded_kernel<TIn, TC, false, STAGE>;
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
@@ -178,6 +192,24 @@ static int launch(const void* x, void* y, const void* bands, int H, int W, int T
     return (int)cudaGetLastError();
 }
 
+template <int STAGE>
+static int launch_types(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
+                        int t, int R, int rows, int ld, int a_rows, int kpad, int dtype,
+                        int compute, int mode_y, int mode_x, const BandRows* br, int smem_bytes,
+                        cudaStream_t s) {
+#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, mode_y, mode_x, br, \
+             smem_bytes, s
+    if (dtype == 0 && compute == 0) return launch<float, float, STAGE>(ARGS);
+    if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16, STAGE>(ARGS);
+    if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float, STAGE>(ARGS);
+    if (dtype == 1 && compute == 1) return launch<__nv_bfloat16, __nv_bfloat16, STAGE>(ARGS);
+#undef ARGS
+    return (int)cudaErrorInvalidValue;
+}
+
+#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, dtype, compute, mode_y, \
+             mode_x, br, smem_bytes, static_cast<cudaStream_t>(stream)
+#ifndef REPRO_FOIL
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands are
 // (n, kpad, 16) in the compute dtype; mode_y, mode_x: the rows' and the
 // columns' boundary codes (MODE_*).  Returns the cudaError_t of the launch
@@ -187,13 +219,20 @@ extern "C" int stencil_banded_launch(const void* x, void* y, const void* bands, 
                                      int kpad, int dtype, int compute, int mode_y, int mode_x,
                                      const BandRows* br, int smem_bytes, void* stream) {
     if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, mode_y, mode_x, br, \
-             smem_bytes, s
-    if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
-    if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
-    if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);
-    if (dtype == 1 && compute == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
-#undef ARGS
+    return launch_types<STAGE_REGION>(ARGS);
+}
+#else
+// The foils: stencil_banded_launch's arguments and the staging, stage =
+// STAGE_STRIP (any boundary) or STAGE_NINE (periodic only).
+extern "C" int stencil_banded_foil_launch(const void* x, void* y, const void* bands, int H,
+                                          int W, int TM, int TN, int t, int R, int rows, int ld,
+                                          int a_rows, int kpad, int dtype, int compute, int stage,
+                                          int mode_y, int mode_x, const BandRows* br,
+                                          int smem_bytes, void* stream) {
+    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+    if (stage == STAGE_STRIP) return launch_types<STAGE_STRIP>(ARGS);
+    if (stage == STAGE_NINE) return launch_types<STAGE_NINE>(ARGS);
     return (int)cudaErrorInvalidValue;
 }
+#endif
+#undef ARGS

@@ -47,6 +47,13 @@
 // into the region at columns [16c, 16c + 16), which no later chunk reads:
 // so A holds one chunk, not all of them, and a 16x16x32 tile at h = 4
 // fits the 227 KB of one SM.
+//
+// The same source built with -DREPRO_FOIL is the library of the
+// whole-slab traffic foil (K8, replacing repro/kernels/common.py::_launch
+// kind wholeslab via _assemble_foil): this kernel with the STAGE_STRIP
+// staging of common.cuh, the 3 x 3 whole (z, y) neighbour tiles, which
+// reads 9 (TN+2h)/TN times the grid for the same compute; its sink slots
+// lie in the operand array, which nothing reads before the first copy.
 #include "banded_mma.cuh"
 
 // Shared memory: the f32 region (planes x rows x ld), then one chunk's
@@ -54,7 +61,7 @@
 // The host sizes all of these (repro_torch/kernels/common.py::
 // banded3d_layout) and passes the byte count at launch.  offs holds the
 // (dz, dy) pair of each of the n_rows bands.
-template <typename TIn, typename TC, bool FILL>
+template <typename TIn, typename TC, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                         const TC* __restrict__ bands, const int* __restrict__ offs, int Z,
@@ -76,7 +83,10 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int band_k = BAND_N + 2 * R;  // valid rows of one band
     const int nks = kpad / M::K;
 
-    load_region3d(region, ld, rplane, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, p0, h0, w0);
+    load_region3d<STAGE>(region, ld, rplane,
+                         sink_slot<STAGE>(reinterpret_cast<float*>(achunk),
+                                          a_rows * kpad * (int)sizeof(TC) / 4),
+                         x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, p0, h0, w0, TZ, TM);
     __syncthreads();
     const bool fill = FILL && (leaves_domain(mz, k0 - halo, p0, Z) ||
                                leaves_domain(my, i0 - halo, h0, H) ||
@@ -171,14 +181,14 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     store_tile3d(y, Z, H, W, k0, i0, j0, TZ, TM, TN, region, rplane, ld);
 }
 
-template <typename TIn, typename TC>
+template <typename TIn, typename TC, int STAGE>
 static int launch(const void* x, void* y, const void* bands, const int* offs, int Z, int H, int W,
                   int TZ, int TM, int TN, int t, int R, int rows, int ld, int a_rows, int kpad,
                   int n_rows, const int* modes, int smem_bytes, cudaStream_t stream) {
     const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
                       modes[2] != MODE_PERIODIC;
-    auto* kernel =
-        fill ? stencil_banded3d_kernel<TIn, TC, true> : stencil_banded3d_kernel<TIn, TC, false>;
+    auto* kernel = fill ? stencil_banded3d_kernel<TIn, TC, true, STAGE>
+                        : stencil_banded3d_kernel<TIn, TC, false, STAGE>;
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
@@ -192,6 +202,25 @@ static int launch(const void* x, void* y, const void* bands, const int* offs, in
     return (int)cudaGetLastError();
 }
 
+template <int STAGE>
+static int launch_types(const void* x, void* y, const void* bands, const int* o, int Z, int H,
+                        int W, int TZ, int TM, int TN, int t, int R, int rows, int ld,
+                        int a_rows, int kpad, int n_rows, int dtype, int compute,
+                        const int* modes, int smem_bytes, cudaStream_t s) {
+#define ARGS x, y, bands, o, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, modes, \
+             smem_bytes, s
+    if (dtype == 0 && compute == 0) return launch<float, float, STAGE>(ARGS);
+    if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16, STAGE>(ARGS);
+    if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float, STAGE>(ARGS);
+    if (dtype == 1 && compute == 1) return launch<__nv_bfloat16, __nv_bfloat16, STAGE>(ARGS);
+#undef ARGS
+    return (int)cudaErrorInvalidValue;
+}
+
+#define ARGS x, y, bands, static_cast<const int*>(offs), Z, H, W, TZ, TM, TN, t, R, rows, ld, \
+             a_rows, kpad, n_rows, dtype, compute, modes, smem_bytes, \
+             static_cast<cudaStream_t>(stream)
+#ifndef REPRO_FOIL
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands
 // are (n_rows, kpad, 16) in the compute dtype, offs (n_rows, 2) int32
 // (dz, dy); mode_z, mode_y, mode_x: each axis's boundary code (MODE_*).
@@ -202,15 +231,22 @@ extern "C" int stencil_banded3d_launch(const void* x, void* y, const void* bands
                                        int dtype, int compute, int mode_z, int mode_y, int mode_x,
                                        int smem_bytes, void* stream) {
     if (n_rows < 1 || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int* o = static_cast<const int*>(offs);
     const int modes[3] = {mode_z, mode_y, mode_x};
-#define ARGS x, y, bands, o, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, modes, \
-             smem_bytes, s
-    if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
-    if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
-    if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);
-    if (dtype == 1 && compute == 1) return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
-#undef ARGS
+    return launch_types<STAGE_REGION>(ARGS);
+}
+#else
+// The whole-slab foil: stencil_banded3d_launch's arguments and the
+// staging, stage = STAGE_STRIP (any boundary).
+extern "C" int stencil_banded3d_foil_launch(const void* x, void* y, const void* bands,
+                                            const void* offs, int Z, int H, int W, int TZ, int TM,
+                                            int TN, int t, int R, int rows, int ld, int a_rows,
+                                            int kpad, int n_rows, int dtype, int compute,
+                                            int stage, int mode_z, int mode_y, int mode_x,
+                                            int smem_bytes, void* stream) {
+    if (n_rows < 1 || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+    const int modes[3] = {mode_z, mode_y, mode_x};
+    if (stage == STAGE_STRIP) return launch_types<STAGE_STRIP>(ARGS);
     return (int)cudaErrorInvalidValue;
 }
+#endif
+#undef ARGS

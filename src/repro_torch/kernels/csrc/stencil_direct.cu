@@ -26,6 +26,16 @@
 // (common.cuh), as the JAX kernel's apply_boundary_fills does per step;
 // the fill is compiled only into the FILL instantiation, which launches
 // with a non-periodic axis, so a periodic launch runs the periodic code.
+//
+// The same source built with -DREPRO_FOIL is the library of the traffic
+// foils (K8 whole-strip, replacing repro/kernels/common.py::_launch kind
+// wholestrip via _assemble_foil; K9 the seed 9-tile kernel,
+// repro/kernels/legacy.py::stencil_direct_9pt): this kernel with the
+// STAGE_STRIP or STAGE_NINE staging of common.cuh, which reads 3 (TN+2h)/TN
+// or 9 times the grid where the region reads (1+2h/TM)(1+2h/TN), for the
+// same compute.  What bounds a foil is the bytes it requests; its point
+// is to measure what they cost.  The foils build into a library of their
+// own, so the main path's build does not grow.
 #include "common.cuh"
 
 #define MAX_TAPS 49
@@ -38,7 +48,7 @@ struct Taps {
     float w[MAX_TAPS];
 };
 
-template <typename T, int R, bool FILL>
+template <typename T, int R, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
                       int TM, int TN, int t, int my, int mx, Taps taps) {
@@ -58,7 +68,8 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
     if (threadIdx.x < KW * KW) wsh[threadIdx.x] = 0.f;
     __syncthreads();
     if (threadIdx.x < taps.n) wsh[taps.dy[threadIdx.x] * KW + taps.dx[threadIdx.x]] = taps.w[threadIdx.x];
-    load_region(b0, ld, x, H, W, i0 - halo, j0 - halo, rows0, ld);
+    load_region<STAGE>(b0, ld, sink_slot<STAGE>(b1, rows0 * ld), x, H, W, i0 - halo, j0 - halo,
+                       rows0, ld, TM, TN);
     __syncthreads();
     const bool fill = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
                                leaves_domain(mx, j0 - halo, ld, W));
@@ -109,11 +120,14 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
     store_tile(y, H, W, i0, j0, TM, TN, (t & 1) ? b1 : b0, ld);
 }
 
-template <typename T, int R>
+template <typename T, int R, int STAGE>
 static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int my,
                   int mx, const Taps* taps, int smem_bytes, cudaStream_t stream) {
     const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
-    auto* kernel = fill ? stencil_direct_kernel<T, R, true> : stencil_direct_kernel<T, R, false>;
+    if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
+    constexpr bool kFill = STAGE != STAGE_NINE;
+    auto* kernel = fill ? stencil_direct_kernel<T, R, kFill, STAGE>
+                        : stencil_direct_kernel<T, R, false, STAGE>;
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
@@ -123,15 +137,17 @@ static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, i
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int STAGE>
 static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r,
                     int my, int mx, const Taps* taps, int smem_bytes, cudaStream_t s) {
-    if (r == 1) return launch<T, 1>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
-    if (r == 2) return launch<T, 2>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
-    if (r == 3) return launch<T, 3>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+    if (r == 1) return launch<T, 1, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+    if (r == 2) return launch<T, 2, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+    if (r == 3) return launch<T, 3, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
     return (int)cudaErrorInvalidValue;
 }
 
+#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, smem_bytes, s
+#ifndef REPRO_FOIL
 // dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; mode_y,
 // mode_x: the rows' and the columns' boundary codes (MODE_*).  Returns
 // the cudaError_t of the launch (0 on success).
@@ -140,9 +156,24 @@ extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int T
                                      const Taps* taps, int smem_bytes, void* stream) {
     if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, smem_bytes, s
-    if (dtype == 0) return launch_r<float>(ARGS);
-    if (dtype == 1) return launch_r<__nv_bfloat16>(ARGS);
-#undef ARGS
+    if (dtype == 0) return launch_r<float, STAGE_REGION>(ARGS);
+    if (dtype == 1) return launch_r<__nv_bfloat16, STAGE_REGION>(ARGS);
     return (int)cudaErrorInvalidValue;
 }
+#else
+// The foils: stencil_direct_launch's arguments and the staging, stage =
+// STAGE_STRIP (any boundary) or STAGE_NINE (periodic only).
+extern "C" int stencil_direct_foil_launch(const void* x, void* y, int H, int W, int TM, int TN,
+                                          int t, int r, int dtype, int stage, int mode_y,
+                                          int mode_x, const Taps* taps, int smem_bytes,
+                                          void* stream) {
+    if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (stage == STAGE_STRIP && dtype == 0) return launch_r<float, STAGE_STRIP>(ARGS);
+    if (stage == STAGE_STRIP && dtype == 1) return launch_r<__nv_bfloat16, STAGE_STRIP>(ARGS);
+    if (stage == STAGE_NINE && dtype == 0) return launch_r<float, STAGE_NINE>(ARGS);
+    if (stage == STAGE_NINE && dtype == 1) return launch_r<__nv_bfloat16, STAGE_NINE>(ARGS);
+    return (int)cudaErrorInvalidValue;
+}
+#endif
+#undef ARGS

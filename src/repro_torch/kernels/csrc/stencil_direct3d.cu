@@ -28,12 +28,18 @@
 // may be shallower than its halo (8 deep at h = 8), so the fill goes by
 // global index on every axis.  The fill is compiled only into the FILL
 // instantiation, which launches with a non-periodic axis.
+//
+// The same source built with -DREPRO_FOIL is the library of the
+// whole-slab traffic foil (K8, replacing repro/kernels/common.py::_launch
+// kind wholeslab via _assemble_foil): this kernel with the STAGE_STRIP
+// staging of common.cuh, the 3 x 3 whole (z, y) neighbour tiles, which
+// reads 9 (TN+2h)/TN times the grid for the same compute.
 #include "common.cuh"
 
 #define TAPS3D_SLOTS 344  // (2*3+1)^3 = 343, rounded to 16 bytes
 #define ROWS_PER_THREAD 8
 
-template <typename T, int R, bool FILL>
+template <typename T, int R, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
                         const float* __restrict__ taps, int Z, int H, int W, int TZ, int TM,
@@ -52,8 +58,8 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
 
     for (int i = threadIdx.x; i < KW * KW * KW; i += blockDim.x) wsh[i] = taps[i];
-    load_region3d(b0, ld, plane_ld, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, planes0, rows,
-                  ld);
+    load_region3d<STAGE>(b0, ld, plane_ld, sink_slot<STAGE>(b1, planes0 * plane_ld), x, Z, H, W,
+                         k0 - halo, i0 - halo, j0 - halo, planes0, rows, ld, TZ, TM);
     __syncthreads();
     const bool fill = FILL && (leaves_domain(mz, k0 - halo, planes0, Z) ||
                                leaves_domain(my, i0 - halo, rows, H) ||
@@ -114,13 +120,13 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
     store_tile3d(y, Z, H, W, k0, i0, j0, TZ, TM, TN, (t & 1) ? b1 : b0, plane_ld, ld);
 }
 
-template <typename T, int R>
+template <typename T, int R, int STAGE>
 static int launch(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ, int TM,
                   int TN, int t, const int* modes, int smem_bytes, cudaStream_t stream) {
     const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
                       modes[2] != MODE_PERIODIC;
-    auto* kernel =
-        fill ? stencil_direct3d_kernel<T, R, true> : stencil_direct3d_kernel<T, R, false>;
+    auto* kernel = fill ? stencil_direct3d_kernel<T, R, true, STAGE>
+                        : stencil_direct3d_kernel<T, R, false, STAGE>;
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
@@ -133,16 +139,21 @@ static int launch(const void* x, void* y, const float* taps, int Z, int H, int W
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int STAGE>
 static int launch_r(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ,
                     int TM, int TN, int t, int r, const int* modes, int smem_bytes,
                     cudaStream_t s) {
-    if (r == 1) return launch<T, 1>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
-    if (r == 2) return launch<T, 2>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
-    if (r == 3) return launch<T, 3>(x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s);
+#define ARGS x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s
+    if (r == 1) return launch<T, 1, STAGE>(ARGS);
+    if (r == 2) return launch<T, 2, STAGE>(ARGS);
+    if (r == 3) return launch<T, 3, STAGE>(ARGS);
+#undef ARGS
     return (int)cudaErrorInvalidValue;
 }
 
+#define ARGS x, y, static_cast<const float*>(taps), Z, H, W, TZ, TM, TN, t, r, modes, smem_bytes, \
+             static_cast<cudaStream_t>(stream)
+#ifndef REPRO_FOIL
 // taps: the dense (2r+1)^3 float32 weights on the device.  dtype: 0 =
 // float32, 1 = bfloat16 (input and output); r in 1..3; mode_z, mode_y,
 // mode_x: each axis's boundary code (MODE_*).  Returns the cudaError_t of
@@ -151,12 +162,22 @@ extern "C" int stencil_direct3d_launch(const void* x, void* y, const void* taps,
                                        int W, int TZ, int TM, int TN, int t, int r, int dtype,
                                        int mode_z, int mode_y, int mode_x, int smem_bytes,
                                        void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* w = static_cast<const float*>(taps);
     const int modes[3] = {mode_z, mode_y, mode_x};
-#define ARGS x, y, w, Z, H, W, TZ, TM, TN, t, r, modes, smem_bytes, s
-    if (dtype == 0) return launch_r<float>(ARGS);
-    if (dtype == 1) return launch_r<__nv_bfloat16>(ARGS);
-#undef ARGS
+    if (dtype == 0) return launch_r<float, STAGE_REGION>(ARGS);
+    if (dtype == 1) return launch_r<__nv_bfloat16, STAGE_REGION>(ARGS);
     return (int)cudaErrorInvalidValue;
 }
+#else
+// The whole-slab foil: stencil_direct3d_launch's arguments and the
+// staging, stage = STAGE_STRIP (any boundary).
+extern "C" int stencil_direct3d_foil_launch(const void* x, void* y, const void* taps, int Z,
+                                            int H, int W, int TZ, int TM, int TN, int t, int r,
+                                            int dtype, int stage, int mode_z, int mode_y,
+                                            int mode_x, int smem_bytes, void* stream) {
+    const int modes[3] = {mode_z, mode_y, mode_x};
+    if (stage == STAGE_STRIP && dtype == 0) return launch_r<float, STAGE_STRIP>(ARGS);
+    if (stage == STAGE_STRIP && dtype == 1) return launch_r<__nv_bfloat16, STAGE_STRIP>(ARGS);
+    return (int)cudaErrorInvalidValue;
+}
+#endif
+#undef ARGS

@@ -75,7 +75,8 @@ stencil_sparse_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
     const int band_k = BAND_N + 2 * R;  // rows of one dense band
 
-    load_region(region, ld, x, H, W, i0 - halo, j0 - halo, h0, w0);
+    load_region<STAGE_REGION>(region, ld, nullptr, x, H, W, i0 - halo, j0 - halo, h0, w0, TM,
+                              TN);
     __syncthreads();
     const bool fill =
         FILL && (leaves_domain(my, i0 - halo, h0, H) || leaves_domain(mx, j0 - halo, w0, W));

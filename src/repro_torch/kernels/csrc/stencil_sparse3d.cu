@@ -64,7 +64,8 @@ stencil_sparse3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
     const int band_k = BAND_N + 2 * R;  // rows of one dense band
 
-    load_region3d(region, ld, rplane, x, Z, H, W, k0 - halo, i0 - halo, j0 - halo, p0, h0, w0);
+    load_region3d<STAGE_REGION>(region, ld, rplane, nullptr, x, Z, H, W, k0 - halo, i0 - halo,
+                                j0 - halo, p0, h0, w0, TZ, TM);
     __syncthreads();
     const bool fill = FILL && (leaves_domain(mz, k0 - halo, p0, Z) ||
                                leaves_domain(my, i0 - halo, h0, H) ||

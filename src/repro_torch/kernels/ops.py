@@ -6,8 +6,10 @@
 ``x``'s device and runs it.  Backends: ``direct``, ``fused_direct``,
 ``matmul``, ``fused_matmul``, ``fused_matmul_reuse``, ``sparse_matmul``
 and ``fused_sparse_matmul`` (the banded operand compacted to its nonzero
-band rows; priced only under ``use_sparse_unit``), ``reference``, and
-``auto`` (the selector decides among the priced ones).
+band rows; priced only under ``use_sparse_unit``), ``reference``, the
+unpriced traffic foils (``legacy_direct``, ``legacy_matmul`` and the
+``*_wholestrip`` regimes), and ``auto`` (the selector decides among the
+priced ones).
 """
 from __future__ import annotations
 
@@ -20,8 +22,7 @@ from repro_torch.core.selector import Decision
 from repro_torch.stencil.boundary import resolve_boundary
 from . import registry
 from .common import BAND_N, resolve_tile_geom
-from .plan import (_later_slice, decide, geom_pricing, spec_from_weights,
-                   stencil_plan)
+from .plan import decide, geom_pricing, spec_from_weights, stencil_plan
 
 
 def __getattr__(name):
@@ -42,20 +43,27 @@ def stencil_apply(
     compute_dtype=None,
     use_sparse_unit: bool = False,
     guard: bool = False,
+    watchdog: Optional[bool] = None,
     boundary=None,
 ) -> torch.Tensor:
     """Advance the grid ``t`` time steps with the selected backend, on
     ``x``'s device: equivalent to ``stencil_plan(weights, x.shape,
-    x.dtype, t, device=x.device, ...)(x)``.  ``guard=True`` (the guarded
-    execution layer) is a later slice and raises."""
+    x.dtype, t, device=x.device, ...)(x)``.  ``guard=True`` routes through
+    the guarded execution layer (``repro_torch.kernels.guard``): kernel
+    failures degrade down the fallback ladder instead of raising, and
+    ``watchdog`` (None = the ``REPRO_NAN_WATCHDOG`` env flag) arms the
+    NaN/Inf check with a checked re-run.  On a clean run both paths run
+    the identical cached plan."""
+    kw = dict(hw=hw, backend=None if backend == "auto" else backend,
+              tile_m=tile_m, w_tile=w_tile, compute_dtype=compute_dtype,
+              use_sparse_unit=use_sparse_unit, boundary=boundary,
+              device=x.device)
     if guard:
-        raise _later_slice("guarded execution (guard=True)", "item 12")
-    plan = stencil_plan(
-        weights, x.shape, x.dtype, t, hw=hw,
-        backend=None if backend == "auto" else backend,
-        tile_m=tile_m, w_tile=w_tile,
-        compute_dtype=compute_dtype, use_sparse_unit=use_sparse_unit,
-        boundary=boundary, device=x.device)
+        from .guard import guarded_stencil_plan
+        plan = guarded_stencil_plan(weights, x.shape, x.dtype, t,
+                                    watchdog=watchdog, **kw)
+    else:
+        plan = stencil_plan(weights, x.shape, x.dtype, t, **kw)
     return plan(x)
 
 

@@ -12,7 +12,10 @@ Plans run on the card unless the caller asks for the CPU: ``device=None``
 means ``"cuda"`` and raises when no GPU is present.  On ``device="cpu"``
 the kernel wrappers run their plain versions.  Plans are cached
 process-wide in a bounded LRU keyed on the full execution signature,
-device included, with hit/miss counters (:func:`plan_cache_stats`).
+device and the tile rule's budget included, with hit/miss counters and
+the guard layer's counters (:func:`plan_cache_stats`) and a
+negative-result registry of failed signatures (:func:`note_plan_failure`,
+:func:`failed_plan`), which ``repro_torch.kernels.guard`` keeps.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from repro_torch.stencil.boundary import (BoundaryLike, boundary_label,
                                           is_periodic, resolve_boundary)
 from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import jacobi_weights
+from repro_torch.testing import faults as _faults
 from . import registry
-from .common import BAND_N, resolve_tile_geom
+from .common import BAND_N, resolve_tile_geom, smem_budget_bytes
 
 #: Grid dtypes the port accepts, by numpy/torch name.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -137,6 +141,9 @@ class StencilPlan:
         self.build_time_s = build_time_s
         self.ctx = ctx
         self.boundary = boundary
+        #: Whether a call has run to its end (the first call is where a
+        #: plan first reaches its kernels: repro_torch.testing.faults).
+        self._reached = False
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.grid_shape:
@@ -147,7 +154,12 @@ class StencilPlan:
             raise ValueError(
                 f"plan was built for {self.dtype} on {self.device}, got "
                 f"{x.dtype} on {x.device}")
-        return self.fn(x)
+        if self._reached:
+            return self.fn(x)
+        with _faults.first_call():
+            y = self.fn(x)
+        self._reached = True
+        return y
 
     def step(self, x: torch.Tensor) -> torch.Tensor:
         """Alias for ``plan(x)``: one invocation = ``t`` time steps."""
@@ -178,6 +190,9 @@ class StencilPlan:
         ]
         if self.boundary is not None and not is_periodic(self.boundary):
             lines.insert(2, f"  boundary : {boundary_label(self.boundary)}")
+        staging = getattr(self.fn, "staging", None)
+        if staging is not None:
+            lines.insert(2, f"  staging  : {staging}")
         return "\n".join(lines)
 
     def __repr__(self) -> str:
@@ -187,9 +202,10 @@ class StencilPlan:
 
 
 # ---------------------------------------------------------------------------
-# Plan cache: bounded LRU, one lock around every cache/counter mutation.
-# Building stays outside the lock; two threads racing on one signature both
-# build and the second insert wins.
+# Plan cache: bounded LRU, one lock around every cache/counter mutation
+# (the guard ladder mutates the negative registry from whichever thread hit
+# the failure).  Building stays outside the lock; two threads racing on one
+# signature both build and the second insert wins.
 # ---------------------------------------------------------------------------
 _LOCK = threading.RLock()
 
@@ -197,7 +213,21 @@ _LOCK = threading.RLock()
 PLAN_CACHE_MAX = 512
 
 _CACHE: "OrderedDict" = OrderedDict()
-_STATS = {"hits": 0, "misses": 0}
+_STATS = {"hits": 0, "misses": 0,
+          # guard-layer counters (repro_torch.kernels.guard): plan builds
+          # that raised, plan executions that raised, degradation-ladder
+          # moves, and negative-cache short-circuits.  All zero unless
+          # something actually failed.
+          "build_failures": 0, "exec_failures": 0,
+          "fallbacks": 0, "negative_hits": 0}
+
+#: Negative-result registry: signature key -> {"cause", "backend", "stamp"}.
+#: A signature lands here when its build or execution failed, so the guard
+#: ladder skips a known-bad rung without re-attempting it.  Entries expire
+#: after ``plan_cache_max()`` cache churn: a transient failure must not
+#: blacklist a signature forever.
+_NEGATIVE: "OrderedDict" = OrderedDict()
+_churn = 0  # total successful + negative insertions, the expiry clock
 
 
 def plan_cache_max() -> int:
@@ -207,18 +237,71 @@ def plan_cache_max() -> int:
 
 
 def plan_cache_stats() -> dict:
-    """Hit/miss counters and the cache size, snapshotted under the lock."""
+    """Cache and guard counters: hits/misses/size plus ``build_failures``,
+    ``exec_failures``, ``fallbacks``, ``negative_hits`` and
+    ``negative_size``, snapshotted under the lock."""
     with _LOCK:
         out = dict(_STATS)
         out["size"] = len(_CACHE)
+        out["negative_size"] = len(_NEGATIVE)
     return out
 
 
 def clear_plan_cache() -> None:
+    global _churn
     with _LOCK:
         _CACHE.clear()
+        _NEGATIVE.clear()
+        _churn = 0
         for k in _STATS:
             _STATS[k] = 0
+
+
+def _tick_churn() -> None:
+    """Advance the expiry clock and drop negative entries older than one
+    full cache turnover (``plan_cache_max()`` insertions).  Callers hold
+    ``_LOCK``."""
+    global _churn
+    _churn += 1
+    bound = plan_cache_max()
+    while _NEGATIVE:
+        stamp = next(iter(_NEGATIVE.values()))["stamp"]
+        if _churn - stamp <= bound:
+            break
+        _NEGATIVE.popitem(last=False)
+
+
+def note_plan_failure(key, cause: str, backend: str,
+                      stage: str = "build") -> None:
+    """Record a failed signature in the negative registry (guard layer);
+    the failed plan leaves the LRU, so it is never served again."""
+    with _LOCK:
+        _CACHE.pop(key, None)
+        _STATS["build_failures" if stage == "build" else "exec_failures"] += 1
+        _NEGATIVE[key] = {"cause": cause, "backend": backend, "stamp": _churn}
+        _NEGATIVE.move_to_end(key)
+        _tick_churn()
+
+
+def failed_plan(key):
+    """The negative entry for ``key`` if present and unexpired, else None;
+    a hit counts toward ``negative_hits`` (the guard skipped a known-bad
+    rung)."""
+    with _LOCK:
+        entry = _NEGATIVE.get(key)
+        if entry is None:
+            return None
+        if _churn - entry["stamp"] > plan_cache_max():
+            del _NEGATIVE[key]
+            return None
+        _STATS["negative_hits"] += 1
+        return dict(entry)
+
+
+def record_fallback() -> None:
+    """One degradation-ladder move (guard layer bookkeeping)."""
+    with _LOCK:
+        _STATS["fallbacks"] += 1
 
 
 def _weights_key(w: np.ndarray) -> Tuple:
@@ -229,6 +312,26 @@ def _weights_key(w: np.ndarray) -> Tuple:
 def _later_slice(name: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
+
+
+def auto_decision(spec: StencilSpec, grid_shape: Sequence[int], dtype, t: int,
+                  *, hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
+                  tile_m: Optional[int] = None, w_tile: Optional[int] = None,
+                  use_sparse_unit: bool = False,
+                  boundary: BoundaryLike = None):
+    """``(geom, decision)``: the CTA tile a plan of this signature resolves
+    and the selector's :class:`Decision` on it -- the ``auto`` choice, for
+    ``stencil_plan`` and the guard's ladder alike.  Selection prices the
+    tile the fused regimes launch with (halo t*r): its read amplification
+    (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in 3D, is the region the kernels
+    really load, and the banded chunk width prices S."""
+    grid_shape = tuple(int(n) for n in grid_shape)
+    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile)
+    decision = decide(spec, t, dtype_bytes=as_torch_dtype(dtype).itemsize,
+                      hw=hw, tile_n=BAND_N, use_sparse_unit=use_sparse_unit,
+                      boundary=resolve_boundary(boundary, len(grid_shape)),
+                      **geom_pricing(geom))
+    return geom, decision
 
 
 def plan_signature(
@@ -278,9 +381,11 @@ def plan_signature(
     dtype = as_torch_dtype(dtype)
     cdt = None if compute_dtype is None else as_torch_dtype(compute_dtype)
     dev = resolve_device(device)
+    # The tile rule's budget is part of the key: it decides the tile, and
+    # the guard's degraded rung halves it, so those plans never alias.
     key = (_weights_key(weights), grid_shape, str(dtype), t, hw, backend,
            tile_m, w_tile, str(cdt), bool(use_sparse_unit), boundary_key,
-           str(dev), registry.generation())
+           str(dev), smem_budget_bytes(), registry.generation())
     return key, weights, grid_shape, dtype, dev
 
 
@@ -355,20 +460,16 @@ def stencil_plan(
 
     t0 = time.perf_counter()
     spec = spec_from_weights(weights)
-    # Selection prices the CTA tile the fused regimes launch with (halo
-    # t*r): its read amplification (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in
-    # 3D, is the region the kernels really load, and the banded chunk
-    # width prices S.
-    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile)
+    geom, decision = auto_decision(spec, grid_shape, dtype, t, hw=hw,
+                                   tile_m=tile_m, w_tile=w_tile,
+                                   use_sparse_unit=use_sparse_unit,
+                                   boundary=modes)
     ctx = registry.PlanContext(
         spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
         t=t, tile_m=tile_m, w_tile=w_tile,
         compute_dtype=None if compute_dtype is None
         else as_torch_dtype(compute_dtype),
         boundary=modes)
-    decision = decide(spec, t, dtype_bytes=dtype.itemsize, hw=hw,
-                      tile_n=BAND_N, use_sparse_unit=use_sparse_unit,
-                      boundary=modes, **geom_pricing(geom))
     exec_backend = backend if backend is not None else decision.backend
     fn = registry.get_backend(exec_backend).build(ctx)
     plan = StencilPlan(
@@ -382,4 +483,5 @@ def stencil_plan(
             _CACHE[key] = plan
             while len(_CACHE) > bound:
                 _CACHE.popitem(last=False)
+            _tick_churn()
     return plan

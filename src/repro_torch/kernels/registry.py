@@ -2,15 +2,19 @@
 (the counterpart of ``repro.kernels.registry``).
 
 A *backend* is one way to advance the grid ``t`` time steps.  The port
-registers the five priced regimes -- tap-sum unfused/fused, banded
-sequential / monolithic / intermediate-reuse --, the sparse-compacted pair
-(``sparse_matmul`` / ``fused_sparse_matmul``, priced only under
-``use_sparse_unit``) and the plain ``reference`` oracle.  Each
+registers every name the JAX registry has: the five priced regimes --
+tap-sum unfused/fused, banded sequential / monolithic /
+intermediate-reuse --, the sparse-compacted pair (``sparse_matmul`` /
+``fused_sparse_matmul``, priced only under ``use_sparse_unit``), the plain
+``reference`` oracle, and the unpriced traffic foils: the seed 9-tile
+scheme (``legacy_direct`` / ``legacy_matmul``, 2D periodic) and the five
+regimes on the whole-strip staging (``<regime>_wholestrip``), which read
+whole neighbour tiles and compute what their regime computes.  Each
 :class:`BackendDef` carries ``build(ctx) -> run(x)``, which does all
 host-side work (tile sizing, weight composition, validation) once per
 plan, and an optional ``price(pctx)`` that makes it an auto-selection
 candidate.  ``fallback_rank`` orders the guard layer's degradation ladder
-(ROADMAP queue 1, item 12); it is carried as data until that layer lands.
+(``repro_torch.kernels.guard``), the JAX ranks.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ from repro_torch.core import perfmodel as pm
 from repro_torch.stencil.boundary import is_periodic
 from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import fuse_weights
+from . import legacy as _legacy
 from . import ref as _ref
-from .common import SubstrateGeom, check_grid, launch_geom
+from .common import (SubstrateGeom, check_grid, check_staging, launch_geom,
+                     staging_clause)
 from .stencil_direct import stencil_direct_at
 from .stencil_matmul import stencil_matmul_at
 from .stencil_sparse import sparse_tile_layout, stencil_sparse_matmul_at
@@ -45,6 +51,9 @@ class PlanContext:
     compute_dtype: Optional[torch.dtype] = None
     #: Per-axis boundary modes, resolved by the plan layer.
     boundary: Optional[Tuple[str, ...]] = None
+    #: What each CTA reads (``common.STAGE_CODES``): "region", or
+    #: "wholestrip" for the whole-strip foils (the JAX ``h_block=0``).
+    staging: str = "region"
 
     def fused_weights(self) -> np.ndarray:
         """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
@@ -59,8 +68,10 @@ class PlanContext:
         ``validate``)."""
         r, _ = check_grid(self.grid_shape, np.asarray(weights), t_inner,
                           self.boundary, "the plan")
-        return launch_geom(self.grid_shape, t_inner * r, self.tile_m,
+        geom = launch_geom(self.grid_shape, t_inner * r, self.tile_m,
                            self.w_tile)
+        check_staging(self.grid_shape, geom, t_inner * r, self.staging)
+        return geom
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,39 +181,48 @@ def _build_reference(ctx: PlanContext) -> Callable:
     return run
 
 
+def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
+    """Mark a foil's runner with what its launches read (``explain``)."""
+    if ctx.staging != "region":
+        if len(ctx.grid_shape) == 1:        # the lift's staging
+            geom = SubstrateGeom(dim=1, strip_m=1, h_block=1)
+        run.staging = staging_clause(geom, ctx.staging)
+    return run
+
+
 def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
-    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, 1)
 
     def run(x):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom, b)
+            x = stencil_direct_at(x, w, 1, geom, b, st)
         return x
-    return run
+    return _staged(run, ctx, geom)
 
 
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
-    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, t)
 
     def run(x):
-        return stencil_direct_at(x, w, t, geom, b)
-    return run
+        return stencil_direct_at(x, w, t, geom, b, st)
+    return _staged(run, ctx, geom)
 
 
 def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
-    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, 1), ctx.compute_dtype
 
     def run(x):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt, b)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st)
         return x
-    return run
+    return _staged(run, ctx, geom)
 
 
 def _build_fused_matmul(ctx: PlanContext) -> Callable:
@@ -216,23 +236,23 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
             f"boundaries at t={ctx.t}: the composed radius-t*r kernel "
             "bakes a single boundary extension into all t steps; use "
             "fused_matmul_reuse (per-step fills) or t=1")
-    wf, b = ctx.fused_weights(), ctx.boundary
+    wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(wf, 1), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul_at(x, wf, 1, geom, cdt, b)
-    return run
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st)
+    return _staged(run, ctx, geom)
 
 
 def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     """Intermediate reuse: t radius-r contractions in one launch, f32
     intermediates in shared memory, the boundary filled before each."""
-    w, t, b = ctx.weights, ctx.t, ctx.boundary
+    w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, t), ctx.compute_dtype
 
     def run(x):
-        return stencil_matmul_at(x, w, t, geom, cdt, b)
-    return run
+        return stencil_matmul_at(x, w, t, geom, cdt, b, st)
+    return _staged(run, ctx, geom)
 
 
 def _sparse_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
@@ -266,6 +286,59 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     def run(x):
         return stencil_sparse_matmul_at(x, w, t, geom, cdt, b)
     return run
+
+
+def _wholestrip(build: Callable) -> Callable:
+    """The same regime on the whole-strip staging (the JAX ``h_block=0``):
+    each launch reads the whole tiles above, at and below its own (3D: the
+    3 x 3 whole-slab tiles) on the regime's own tile."""
+    def build_ws(ctx: PlanContext) -> Callable:
+        return build(dataclasses.replace(ctx, staging="wholestrip"))
+    return build_ws
+
+
+def _require_2d(ctx: PlanContext, name: str) -> None:
+    if len(ctx.grid_shape) != 2:
+        raise ValueError(
+            f"backend {name!r} is the seed 2D 9-tile foil and supports only "
+            f"2D grids, got rank {len(ctx.grid_shape)}; use the halo-plane "
+            "substrate regimes (direct/matmul families) for 1D/3D")
+    if not is_periodic(ctx.boundary):
+        raise ValueError(
+            f"backend {name!r} is the seed periodic-only foil and does not "
+            f"support boundary={ctx.boundary!r}; use the halo-plane "
+            "substrate regimes (direct/matmul families) for non-periodic "
+            "boundaries (DESIGN.md §15)")
+
+
+def _legacy_tiles(ctx: PlanContext) -> Tuple[int, int]:
+    """The 9-tile foils' tile: 128 x 128 as in JAX, or the plan's pins."""
+    return (128 if ctx.tile_m is None else ctx.tile_m,
+            128 if ctx.w_tile is None else ctx.w_tile)
+
+
+def _build_legacy_direct(ctx: PlanContext) -> Callable:
+    """Seed 9-tile tap-sum scheme (traffic foil): t fused steps."""
+    _require_2d(ctx, "legacy_direct")
+    w, t = ctx.weights, ctx.t
+    tm, tn = _legacy_tiles(ctx)
+    geom = _legacy.tile_geom(ctx.grid_shape, tm, tn, t * ctx.spec.radius)
+
+    def run(x):
+        return _legacy.stencil_direct_9pt(x, w, t, tm, tn)
+    return _staged(run, dataclasses.replace(ctx, staging="9tile"), geom)
+
+
+def _build_legacy_matmul(ctx: PlanContext) -> Callable:
+    """Seed 9-tile monolithic banded scheme on the composed kernel."""
+    _require_2d(ctx, "legacy_matmul")
+    wf, cdt = ctx.fused_weights(), ctx.compute_dtype
+    tm, tn = _legacy_tiles(ctx)
+    geom = _legacy.tile_geom(ctx.grid_shape, tm, tn, (wf.shape[0] - 1) // 2)
+
+    def run(x):
+        return _legacy.stencil_matmul_9pt(x, wf, tm, tn, cdt)
+    return _staged(run, dataclasses.replace(ctx, staging="9tile"), geom)
 
 
 # ---------------------------------------------------------------------------
@@ -348,3 +421,25 @@ register_backend("sparse_matmul", _build_sparse_matmul, _price_sparse_matmul,
 register_backend("reference", _build_reference,
                  description="plain PyTorch oracle (debug)",
                  fallback_rank=1000)
+register_backend("legacy_direct", _build_legacy_direct,
+                 description="seed 9-tile tap-sum scheme (traffic foil)",
+                 unit="vector")
+register_backend("legacy_matmul", _build_legacy_matmul,
+                 description="seed 9-tile monolithic banded scheme (foil)",
+                 unit="matrix")
+
+# The whole-strip traffic foils: the five regimes on the whole-strip
+# staging, unpriced so they never win selection.  The tap-sum pair are
+# the ladder's last kernel rungs (ranks 60 and 55, as in JAX): after every
+# regime on its region has failed, the foil's different staging, then the
+# reference oracle.
+for _name, _build, _unit, _rank in (
+        ("direct", _build_direct, "vector", 60),
+        ("fused_direct", _build_fused_direct, "vector", 55),
+        ("matmul", _build_matmul, "matrix", None),
+        ("fused_matmul", _build_fused_matmul, "matrix", None),
+        ("fused_matmul_reuse", _build_fused_matmul_reuse, "matrix", None)):
+    register_backend(f"{_name}_wholestrip", _wholestrip(_build),
+                     description=f"{_name} on the whole-strip staging "
+                                 "(traffic foil)",
+                     unit=_unit, fallback_rank=_rank)

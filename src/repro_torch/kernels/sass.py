@@ -1,0 +1,133 @@
+"""The SASS of the port's CUDA libraries, read with ``cuobjdump``.
+
+:func:`functions` gives each kernel instantiation's instructions,
+:func:`registers` its register count.  Run as a script, the module
+compares the main kernels of this checkout with those of another
+checkout of the repository, both built here with this checkout's
+``nvcc`` flags, instantiation by instantiation::
+
+    python -m repro_torch.kernels.sass OTHER_CHECKOUT [DIFF_FILE]
+
+For each instantiation it prints whether the instructions are identical
+and, where not, how many differ and the registers of each, and writes
+the differing instructions as a unified diff to DIFF_FILE; an
+instantiation of this checkout whose last template argument is the
+staging code 0 (``STAGE_REGION``, ``csrc/common.cuh``) is matched to the
+other checkout's instantiation without that argument.  Needs ``nvcc`` and
+``cuobjdump``, not a card.
+"""
+from __future__ import annotations
+
+import difflib
+import os
+import pathlib
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
+
+from . import _build
+
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def cuobjdump() -> str:
+    """The ``cuobjdump`` beside ``nvcc``; raises if there is none."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"no cuobjdump beside nvcc ({tool})")
+    return tool
+
+
+def functions(lib: os.PathLike) -> Dict[str, List[str]]:
+    """Mangled name -> instruction texts (no addresses, no encodings) of
+    every kernel in the library ``lib``."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    fns: Dict[str, List[str]] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fns[fn] = []
+        elif fn is not None:
+            m = _INSTR.search(line)
+            if m:
+                fns[fn].append(m.group(1))
+    return fns
+
+
+def registers(lib: os.PathLike) -> Dict[str, int]:
+    """Mangled name -> registers per thread of every kernel in ``lib``."""
+    out = subprocess.run([cuobjdump(), "-res-usage", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    regs, fn = {}, None
+    for line in out.splitlines():
+        if "Function " in line:
+            fn = line.split("Function ")[1].strip().rstrip(":")
+        m = re.search(r"REG:(\d+)", line)
+        if fn is not None and m:
+            regs[fn] = int(m.group(1))
+            fn = None
+    return regs
+
+
+def _build_lib(src: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    return out
+
+
+def _twin(name: str, others: Dict[str, List[str]]) -> str:
+    """The other checkout's name of this checkout's instantiation."""
+    if name in others:
+        return name
+    return name.replace("Li0EEv", "Ev") if "Li0EEv" in name else name
+
+
+def main(argv: List[str]) -> int:
+    if len(argv) not in (1, 2):
+        print(__doc__)
+        return 2
+    other = pathlib.Path(argv[0]).resolve() / "src/repro_torch/kernels/csrc"
+    out = _build.BUILD_DIR / "sass"
+    out.mkdir(parents=True, exist_ok=True)
+    diffs: List[str] = []
+    jobs = {(side, k): (root / f"{k}.cu", out / f"{side}-{k}.so")
+            for side, root in (("this", _build.CSRC), ("other", other))
+            for k in _build._MAIN}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda j: _build_lib(*j),
+                                       jobs.values())))
+    same = total = 0
+    for k in _build._MAIN:
+        ours, theirs = functions(libs["this", k]), functions(libs["other", k])
+        r_ours, r_theirs = registers(libs["this", k]), registers(libs["other", k])
+        for name in sorted(ours):           # the main builds: STAGE_REGION
+            twin = _twin(name, theirs)
+            total += 1
+            if twin not in theirs:
+                print(f"{k}: {name}: no twin in the other checkout")
+                continue
+            a, b = theirs[twin], ours[name]
+            if a == b:
+                same += 1
+                print(f"{k}: {name}: identical, {len(b)} instructions, "
+                      f"{r_ours.get(name)} registers")
+                continue
+            diffs += difflib.unified_diff(a, b, twin, name, n=2, lineterm="")
+            changed = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in
+                          difflib.SequenceMatcher(None, a, b, autojunk=False)
+                          .get_opcodes() if tag != "equal")
+            print(f"{k}: {name}: DIFFERS, {len(a)} -> {len(b)} instructions, "
+                  f"{changed} changed; registers {r_theirs.get(twin)} -> "
+                  f"{r_ours.get(name)}")
+    print(f"{same} of {total} default instantiations identical")
+    if len(argv) == 2:
+        pathlib.Path(argv[1]).write_text("\n".join(diffs) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

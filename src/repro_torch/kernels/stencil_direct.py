@@ -13,6 +13,17 @@ column axis in the grid's mode.  The kernels accumulate in f32 in the
 row-major tap order of the JAX kernel (``stencil_direct.py:88-98``), skip
 zero taps, rebuild every non-periodic axis's halo before each step (the
 in-kernel fill), and round to ``x.dtype`` once, on store.
+
+The ``staging`` argument of :func:`stencil_direct_at` (a plan's entry)
+picks what a CTA reads to build its region (``common.STAGE_CODES``): the
+region alone (every main-path launch), or one of the traffic foils,
+which read whole neighbour tiles and compute the same function bit for
+bit -- ``"wholestrip"`` (K8: 2D the tiles above, at and below, 3D the
+3 x 3 whole-slab tiles) and ``"9tile"`` (K9, 2D periodic).  The foils
+launch the same kernel built with the foil's staging
+(``csrc/stencil_direct{,3d}.cu`` with ``-DREPRO_FOIL``); a 1D grid has the
+lift's staging only, so a foil there is the default lift.  Their plain
+version is the regime's.
 """
 from __future__ import annotations
 
@@ -24,10 +35,12 @@ import torch
 
 from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
+from repro_torch.testing import faults
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, SubstrateGeom, check_grid,
-                     check_tile_halo, direct3d_layout, direct_layout,
-                     kernel_mode_codes, launch_geom, lift_weights)
+from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
+                     check_grid, check_staging, check_tile_halo,
+                     direct3d_layout, direct_layout, kernel_mode_codes,
+                     launch_geom, lift_weights)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
 #: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
@@ -108,6 +121,44 @@ def _launcher3d():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _foil_launcher():
+    """The 2D foils' C entry point (the 2D entry's arguments and the
+    staging code after the dtype), built on first use."""
+    fn = _build.library("stencil_direct_foil").stencil_direct_foil_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+        ctypes.POINTER(_Taps), ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _foil_launcher3d():
+    """The whole-slab foil's C entry point, built on first use."""
+    fn = _build.library("stencil_direct3d_foil").stencil_direct3d_foil_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def kernel_source(ndim: int) -> str:
+    """The kernel source a launch on a grid of rank ``ndim`` builds from."""
+    return "stencil_direct3d" if ndim == 3 else "stencil_direct"
+
+
+def _entry(ndim: int, staging: str):
+    """``(library, C entry, staging arguments, launch counter)`` of a
+    tap-sum launch on a grid of rank ``ndim`` (1D: the 2D kernel's)."""
+    src = kernel_source(ndim)
+    if staging == "region":
+        return (src, _launcher3d() if ndim == 3 else _launcher(), (), src)
+    return (f"{src}_foil",
+            _foil_launcher3d() if ndim == 3 else _foil_launcher(),
+            (STAGE_CODES[staging],),
+            f"{src} ({'wholeslab' if ndim == 3 else staging})")
+
+
 @functools.lru_cache(maxsize=32)
 def _device_taps(w_bytes: bytes, shape: tuple, device: str) -> torch.Tensor:
     """The dense float32 (2r+1)^3 weights on the device, where the 3D
@@ -140,23 +191,30 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
 
 
 def stencil_direct_at(x: torch.Tensor, weights, t: int,
-                      geom: SubstrateGeom, boundary=None) -> torch.Tensor:
+                      geom: SubstrateGeom, boundary=None,
+                      staging: str = "region") -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
     ``launch_geom(x.shape, t * r, ...)``: a plan resolves it once, when it
-    is built, and launches every step on it."""
+    is built, and launches every step on it.  Inside a plan's first call
+    the launch is where the ``compile`` and ``vmem`` fault hooks fire
+    (``repro_torch.testing.faults``)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights)
     r, modes = check_grid(x.shape, w, t, boundary, "the tap-sum")
     check_tile_halo(geom, t * r)
+    check_staging(x.shape, geom, t * r, staging)
+    faults.on_launch(kernel_source(x.ndim))
     if x.device.type == "cpu":
         return stencil_direct_plain(x, w, t, modes)
-    return _run(x, w, t, r, geom, modes)
+    return _run(x, w, t, r, geom, modes, staging)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
-         geom: SubstrateGeom, modes: tuple) -> torch.Tensor:
-    """Launch the kernel of ``x``'s rank on ``geom``, or raise."""
+         geom: SubstrateGeom, modes: tuple,
+         staging: str = "region") -> torch.Tensor:
+    """Launch the kernel of ``x``'s rank on ``geom`` with ``staging`` (a
+    1D grid: the lift's), or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_direct runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -172,48 +230,49 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
         return torch.zeros_like(x)
     codes = kernel_mode_codes(modes)
     if x.ndim == 3:
-        return _launch3d(x, w32, t, r, geom, codes)
+        return _launch3d(x, w32, t, r, geom, codes, staging)
     if x.ndim == 1:
         return _launch2d(x.view(1, -1), lift_weights(w32), t, r, geom,
                          codes).view(-1)
-    return _launch2d(x, w32, t, r, geom, codes)
+    return _launch2d(x, w32, t, r, geom, codes, staging)
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple) -> torch.Tensor:
+              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
     arg = _tap_arg(w32.tobytes(), w32.shape)
     layout = direct_layout(geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"tap-sum tile needs {layout.smem_bytes} bytes of "
                          "shared memory, over the 227 KB budget")
     y = torch.empty_like(x)
-    fn = _launcher()
+    lib, fn, stage, counter = _entry(2, staging)
     h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
-                 geom.w_tile, t, r, _DTYPE_CODES[x.dtype], *codes,
+                 geom.w_tile, t, r, _DTYPE_CODES[x.dtype], *stage, *codes,
                  ctypes.byref(arg), layout.smem_bytes, stream)
-    _build.check(err, "stencil_direct")
-    _build.count_launch("stencil_direct")
+    _build.check(err, lib)
+    _build.count_launch(counter)
     return y
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple) -> torch.Tensor:
+              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
     layout = direct3d_layout(geom.z_slab, geom.strip_m, geom.w_tile, t * r)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
                          "of shared memory, over the 227 KB budget")
     taps = _device_taps(w32.tobytes(), w32.shape, str(x.device))
     y = torch.empty_like(x)
-    fn = _launcher3d()
+    lib, fn, stage, counter = _entry(3, staging)
     z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), z, h, wd,
                  geom.z_slab, geom.strip_m, geom.w_tile, t, r,
-                 _DTYPE_CODES[x.dtype], *codes, layout.smem_bytes, stream)
-    _build.check(err, "stencil_direct3d")
-    _build.count_launch("stencil_direct3d")
+                 _DTYPE_CODES[x.dtype], *stage, *codes, layout.smem_bytes,
+                 stream)
+    _build.check(err, lib)
+    _build.count_launch(counter)
     return y

@@ -22,6 +22,13 @@ or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
 ``csrc/stencil_banded3d.cu``, 1D grids the 2D kernel on the lifted
 (1, N) view, where the kernel's single row is one band (the lift's row
 axis periodic, its column axis in the grid's mode).
+
+The ``staging`` argument of :func:`stencil_matmul_at` picks what a CTA
+reads to build its region, as in ``stencil_direct_at``: the region alone, or a traffic foil's whole
+neighbour tiles -- ``"wholestrip"`` (K8) and ``"9tile"`` (K10, 2D
+periodic) -- launching the same kernel built with the foil's staging
+(``csrc/stencil_banded{,3d}.cu`` with ``-DREPRO_FOIL``).  A 1D grid has
+the lift's staging only.
 """
 from __future__ import annotations
 
@@ -34,11 +41,12 @@ import torch.nn.functional as F
 
 from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
+from repro_torch.testing import faults
 from . import _build
-from .common import (BAND_N, SMEM_BUDGET_BYTES, SubstrateGeom,
+from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
                      banded3d_layout, banded_layout, check_grid,
-                     check_tile_halo, kernel_mode_codes, launch_geom,
-                     lift_weights)
+                     check_staging, check_tile_halo, kernel_mode_codes,
+                     launch_geom, lift_weights)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
 #: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
@@ -184,6 +192,44 @@ def _launcher3d():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _foil_launcher():
+    """The 2D foils' C entry point (the 2D entry's arguments and the
+    staging code after the compute dtype), built on first use."""
+    fn = _build.library("stencil_banded_foil").stencil_banded_foil_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [
+        ctypes.POINTER(_BandRows), ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _foil_launcher3d():
+    """The whole-slab foil's C entry point, built on first use."""
+    fn = _build.library("stencil_banded3d_foil").stencil_banded3d_foil_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 20 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def kernel_source(ndim: int) -> str:
+    """The kernel source a launch on a grid of rank ``ndim`` builds from."""
+    return "stencil_banded3d" if ndim == 3 else "stencil_banded"
+
+
+def _entry(ndim: int, staging: str):
+    """``(library, C entry, staging arguments, launch counter)`` of a
+    banded launch on a grid of rank ``ndim`` (1D: the 2D kernel's)."""
+    src = kernel_source(ndim)
+    if staging == "region":
+        return (src, _launcher3d() if ndim == 3 else _launcher(), (), src)
+    return (f"{src}_foil",
+            _foil_launcher3d() if ndim == 3 else _foil_launcher(),
+            (STAGE_CODES[staging],),
+            f"{src} ({'wholeslab' if ndim == 3 else staging})")
+
+
 def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
                    tile_m: int = None, w_tile: int = None,
                    compute_dtype=None, boundary=None) -> torch.Tensor:
@@ -211,10 +257,12 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
 
 
 def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
-                      compute_dtype=None, boundary=None) -> torch.Tensor:
+                      compute_dtype=None, boundary=None,
+                      staging: str = "region") -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
     ``launch_geom(x.shape, t * R, ...)``: a plan resolves it once, when it
-    is built, and launches every step on it."""
+    is built, and launches every step on it.  Inside a plan's first call
+    the launch is where the ``compile`` and ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
@@ -222,14 +270,22 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
                                "the banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
+    check_staging(x.shape, geom, t * radius, staging)
+    faults.on_launch(kernel_source(x.ndim))
     if x.device.type == "cpu":
         return stencil_matmul_plain(x, w, t, BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes)
+    return _run(x, w, t, radius, cdt, geom, modes, staging)
 
 
-def _run(x, w, t, radius, cdt, geom, modes) -> torch.Tensor:
-    return run_kernel("stencil_matmul", _launch2d, _launch3d, x, w, t, radius,
-                      cdt, geom, modes)
+def _run(x, w, t, radius, cdt, geom, modes,
+         staging: str = "region") -> torch.Tensor:
+    if staging == "region" or x.ndim == 1:        # 1D: the lift's staging
+        return run_kernel("stencil_matmul", _launch2d, _launch3d, x, w, t,
+                          radius, cdt, geom, modes)
+    return run_kernel("stencil_matmul",
+                      functools.partial(_launch2d, staging=staging),
+                      functools.partial(_launch3d, staging=staging),
+                      x, w, t, radius, cdt, geom, modes)
 
 
 def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
@@ -264,7 +320,8 @@ def _checked(layout, what: str):
     return layout
 
 
-def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
+def _launch2d(x, w, t, radius, cdt, geom, codes,
+              staging: str = "region") -> torch.Tensor:
     layout = _checked(banded_layout(geom.strip_m, geom.w_tile, radius, t,
                                     cdt.itemsize), "banded")
     offsets, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
@@ -276,27 +333,28 @@ def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     for k, (dy,) in enumerate(offsets):
         arg.dy[k] = dy
     y = torch.empty_like(x)
-    fn = _launcher()
+    lib, fn, stage, counter = _entry(2, staging)
     h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(), h, wd,
                  geom.strip_m, geom.w_tile, t, radius, layout.rows,
                  layout.ld, layout.a_rows, layout.kpad, _DTYPE_CODES[x.dtype],
-                 _DTYPE_CODES[cdt], *codes, ctypes.byref(arg),
+                 _DTYPE_CODES[cdt], *stage, *codes, ctypes.byref(arg),
                  layout.smem_bytes, stream)
-    _build.check(err, "stencil_banded")
-    _build.count_launch("stencil_banded")
+    _build.check(err, lib)
+    _build.count_launch(counter)
     return y
 
 
-def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
+def _launch3d(x, w, t, radius, cdt, geom, codes,
+              staging: str = "region") -> torch.Tensor:
     layout = _checked(banded3d_layout(geom.z_slab, geom.strip_m, geom.w_tile,
                                       radius, t, cdt.itemsize), "3D banded")
     offsets, bands, offs = _device_bands(w.tobytes(), w.shape, layout.kpad,
                                          cdt, str(x.device))
     y = torch.empty_like(x)
-    fn = _launcher3d()
+    lib, fn, stage, counter = _entry(3, staging)
     z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -304,8 +362,8 @@ def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
                  offs.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
                  geom.w_tile, t, radius, layout.rows, layout.ld,
                  layout.a_rows, layout.kpad, len(offsets),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
                  layout.smem_bytes, stream)
-    _build.check(err, "stencil_banded3d")
-    _build.count_launch("stencil_banded3d")
+    _build.check(err, lib)
+    _build.count_launch(counter)
     return y

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.stencil.reference import pad_boundary
 from repro_torch.stencil.boundary import resolve_boundary
+from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SubstrateGeom, check_grid, check_tile_halo,
                      launch_geom, lift_weights, mma_k_step, sparse3d_layout,
@@ -252,7 +253,9 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                              geom: SubstrateGeom, compute_dtype=None,
                              boundary=None) -> torch.Tensor:
     """:func:`stencil_sparse_matmul` on a tile the caller resolved with
-    ``launch_geom(x.shape, t * R, ...)``, as plans do when built."""
+    ``launch_geom(x.shape, t * R, ...)``, as plans do when built.  Inside a
+    plan's first call the launch is where the ``compile`` and ``vmem``
+    fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
@@ -260,6 +263,7 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                                "the compacted banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
+    faults.on_launch("stencil_sparse3d" if x.ndim == 3 else "stencil_sparse")
     if x.device.type == "cpu":
         return stencil_sparse_matmul_plain(x, w, t, BAND_N, cdt, modes)
     return _run(x, w, t, radius, cdt, geom, modes)

@@ -169,11 +169,16 @@ def test_cpu_tensors_never_count_a_launch():
     tk.stencil_sparse_matmul(x, w, 2)
     tk.stencil_plan(w, x.shape, torch.float32, 2, device="cpu",
                     backend="fused_sparse_matmul")(x)
-    assert tk.launch_counts() == {"stencil_direct": 0, "stencil_banded": 0,
-                                  "stencil_direct3d": 0,
-                                  "stencil_banded3d": 0,
-                                  "stencil_sparse": 0,
-                                  "stencil_sparse3d": 0}
+    tk.stencil_plan(w, x.shape, torch.float32, 2, device="cpu",
+                    backend="fused_matmul_reuse_wholestrip")(x)
+    counts = tk.launch_counts()
+    assert set(counts.values()) == {0}
+    assert {"stencil_direct", "stencil_banded", "stencil_direct3d",
+            "stencil_banded3d", "stencil_sparse", "stencil_sparse3d",
+            "stencil_direct (wholestrip)", "stencil_direct (9tile)",
+            "stencil_banded (wholestrip)", "stencil_banded (9tile)",
+            "stencil_direct3d (wholeslab)",
+            "stencil_banded3d (wholeslab)"} == set(counts)
 
 
 def test_other_devices_raise():
@@ -255,8 +260,10 @@ def test_later_slices_raise_elsewhere():
     torch.testing.assert_close(y3, tk.stencil_plan(
         w3, (8, 8, 8), torch.float32, 1, device="cpu",
         backend="reference")(x3), rtol=0, atol=1e-5 * float(x3.abs().max()))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tk.stencil_apply(torch.zeros(16, 16), w2, guard=True)
+    # guarded execution (item 12) runs: a clean guarded call is the plan's
+    torch.testing.assert_close(
+        tk.stencil_apply(x3[0], w2, 2, guard=True),
+        tk.stencil_apply(x3[0], w2, 2), rtol=0, atol=0)
     # per-axis boundaries run in the kernel wrappers (item 9), and the
     # reference backend honours every boundary
     x = torch.randn(16, 16, generator=torch.Generator().manual_seed(1))
