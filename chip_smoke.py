@@ -38,7 +38,15 @@ Phases, any failure exits non-zero:
      kernels, 1000x1030 and 60x70x130, periodic and under one boundary
      spec; K9 / K10, the seed 9-tile kernels, on 1024^2 with 128x128
      tiles) with the same limits, and each against the default kernel of
-     the same call and tile, which it must equal;
+     the same call and tile, which it must equal; then the batch (K11):
+     every kernel and foil build at B in {1, 3, 8} on 1000x1030,
+     60x70x130 and 2^20+3 (the 9-tile foils on 1024^2), f32 and bf16,
+     periodic and under one boundary spec per rank, one launch per
+     batched call and every grid bit for bit its unbatched launch; a
+     pinned 3D tile depth (z_slab 4 and 8) equal to the rule's tile bit
+     for bit; B = 65537 grids of 32x32 in two launches; and batches past
+     2^31 cells (33 x 8192^2, 17 x 512^3) whose first and last grids
+     equal their unbatched launches;
   3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
      and ``auto`` against the ``reference`` backend, with every kernel's
      launches counted from 0 just before each path and read just after:
@@ -60,7 +68,13 @@ Phases, any failure exits non-zero:
      on fused_direct_wholestrip with the expected events and launches,
      a clean guarded call must return the cached plan object, and under
      REPRO_FAULTS=compile:inf the ladder must raise after its last kernel
-     rung (no plain rung on the card);
+     rung (no plain rung on the card); then the batched main paths, as
+     many cells per batch as the unbatched path beside them (16 x 2048^2
+     Box/Star-2D1R, 8 x 256^3 Box-3D1R, 16 x 2^22 Box-1D1R; every regime
+     and auto, batch_mode "auto" = "vmap", with exact launch counts; and
+     16 x 2048^2 under "zero" with use_sparse_unit), and the guarded
+     batched path (REPRO_FAULTS=compile:3 lands the bucket on
+     fused_direct_wholestrip);
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
      slow 3D plain versions and yardsticks): each regime's milliseconds
      per call and microseconds per step beside the model's choice, its
@@ -72,7 +86,16 @@ Phases, any failure exits non-zero:
      the same call, the kept-row fraction S and the MMA k-steps of both,
      the traffic table of each foil path (bytes requested per launch, ms,
      requested GB/s, for the 9-tile, whole-strip / whole-slab and default
-     stagings), and each wrapper's host time per launch.
+     stagings), each wrapper's host time per launch, the batched paths'
+     regime times beside their unbatched twins', and the batch table:
+     Box-2D1R at t=4 on 256^2 grids, B in {1, 8, 64, 512}, device and host
+     us per grid of the batched ("vmap") and "map" plans beside F.conv2d
+     with N = B;
+  5. serving: StencilServer on the card under closed-loop traffic
+     (Box/Star-2D1R, 256^2, t=1, 2048 requests each, windows of 128),
+     every response bit for bit the unbatched plan's, plan-cache hits >=
+     requests - signatures, no degraded batch; then the quick run of
+     ``python -m repro_torch.benchmarks.serving`` (printed, not gated).
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the 2D kernels on the 1D path as "... (1D lift)", the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
@@ -80,7 +103,10 @@ its own path's run (the compacted kernels' from the sparse path, with the
 dense banded kernel's time as "dense_ms"; the foils' from the foil path,
 as "stencil_direct (wholestrip)", "legacy_direct (9-tile)" and so on, with
 the default kernel's time as "default_ms" and the bytes one launch
-requests as "read_bytes"); the last line
+requests as "read_bytes"; the batched kernels' from the batched paths, as
+"stencil_direct (batched)" and so on, with the batch as "batch", the
+plain loop over the grids as "plain_ms" and F.conv with N = B as
+"library_ms"); the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -260,28 +286,30 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def conv_yardstick(x: torch.Tensor, w: np.ndarray, tf32: bool, modes=None,
-                   t: int = 1):
+                   t: int = 1, batched: bool = False):
     """``t`` times: pad the grid by r in each axis's mode (F.pad, axis by
     axis in ascending order; circular by default), then one F.conv1d /
-    F.conv2d / F.conv3d of ``w``."""
+    F.conv2d / F.conv3d of ``w``; ``batched``: ``x`` is a batch of grids,
+    the convolution's N."""
     r = (w.shape[0] - 1) // 2
+    nd = x.ndim - batched
     wt = torch.from_numpy(np.ascontiguousarray(w)).to(x.device, x.dtype)
-    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[x.ndim]
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[nd]
 
     def run():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
-            y = x[None, None]
+            y = x[:, None] if batched else x[None, None]
             for _ in range(t):
                 if modes is None:
-                    y = F.pad(y, (r,) * (2 * x.ndim), mode="circular")
+                    y = F.pad(y, (r,) * (2 * nd), mode="circular")
                 else:
                     for ax, m in enumerate(modes):
-                        pad = [0] * (2 * x.ndim)
-                        k = 2 * (x.ndim - 1 - ax)  # F.pad lists the last axis first
+                        pad = [0] * (2 * nd)
+                        k = 2 * (nd - 1 - ax)  # F.pad lists the last axis first
                         pad[k] = pad[k + 1] = r
                         y = F.pad(y, pad, mode=PAD_MODES[m])
                 y = conv(y, wt[None, None])
-            return y[0, 0]
+            return y[:, 0] if batched else y[0, 0]
     return run
 
 
@@ -700,18 +728,23 @@ def expected_launches(backend: str, t: int, dim: int):
     return name, n
 
 
-def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False):
+def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False,
+                    batch=None):
     """Drive every regime and auto through stencil_plan on one path, the
     launch counts set to 0 just before and read just after; returns the
     plans, the outputs' errors and the counts.  Under a non-periodic
     ``boundary``, fused_matmul runs at t=1 (its plan at t=MAIN_T must
     refuse) and every other regime and auto at t=MAIN_T.  With ``runs``,
     a list of (backend, t), those plans only (``sparse``: built with
-    ``use_sparse_unit=True``, the sparse path).  Every kernel a plan of the
-    path runs must have launched."""
+    ``use_sparse_unit=True``, the sparse path).  ``batch``: ``x`` holds that
+    many grids and every plan is a batched one (batch_mode "auto", which is
+    "vmap" on the card: each kernel call one launch for the whole batch,
+    so the expected launches are the unbatched plan's).  Every kernel a
+    plan of the path runs must have launched."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
-    shape, dim = tuple(x.shape), x.ndim
+    shape = tuple(x.shape[1:] if batch else x.shape)
+    dim = len(shape)
     mx = float(x.abs().max())
     periodic = boundary is None
     listed = runs is not None
@@ -727,9 +760,12 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False):
         for backend, t in runs:
             if t not in refs:
                 refs[t] = stencil_plan(w, shape, torch.float32, t, backend="reference",
-                                       boundary=boundary)(x)
+                                       boundary=boundary, batch=batch)(x)
             plan = stencil_plan(w, shape, torch.float32, t, backend=backend,
-                                boundary=boundary, use_sparse_unit=sparse)
+                                boundary=boundary, use_sparse_unit=sparse,
+                                batch=batch)
+            check(batch is None or plan.batch_mode == "vmap",
+                  f"{name} {plan.backend}: batch_mode {plan.batch_mode}")
             before = kernels.launch_counts()
             y = plan(x)
             torch.cuda.synchronize()
@@ -740,7 +776,7 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False):
             check(delta[kname] == n and sum(delta.values()) == n,
                   f"{name} {plan.backend}: launches {delta}, expected {n} "
                   f"of {kname}")
-            check(tuple(y.shape) == shape and y.dtype == torch.float32,
+            check(tuple(y.shape) == tuple(x.shape) and y.dtype == torch.float32,
                   f"{name} {plan.backend}: shape/dtype")
             check(bool(torch.isfinite(y).all()), f"{name} {plan.backend}: non-finite")
             err = max_err(y, refs[t])
@@ -765,28 +801,39 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False):
     for k in sorted(launched):
         check(counts[k] > 0, f"kernel {k} was not launched on the {label} path")
     print(f"main path {label}: {', '.join(dict.fromkeys(r for _, r in results))} x "
-          f"{list(ws)} on {shape} float32 match the reference"
+          f"{list(ws)} on {tuple(x.shape)} float32 match the reference"
           + ("" if periodic or listed else f", fused_matmul at t={MAIN_T} refuses")
           + f"; launches {counts}")
     return results, counts
 
 
-def phase_regime_times(label, x, ws, results, card):
+def phase_regime_times(label, x, ws, results, card, twins=None):
+    """Each plan's ms per call on ``x`` beside the model's choice, its read
+    amplification, its bound and its error; returns the ms by (stencil,
+    regime).  ``twins``: another path's returned times (the unbatched path
+    of the same cells), printed beside as the ratio."""
     n = x.numel()
     print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T} unless "
           "named; bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
     print("  stencil    regime              predicted           read_amp  "
-          "ms/call    us/step    bound_ms   max|err|")
+          "ms/call    us/step    bound_ms   max|err|"
+          + ("   twin_ms  ms/twin" if twins else ""))
+    times = {}
     for (name, regime), (plan, err, _) in results.items():
         ms = cuda_ms(lambda: plan(x))
-        kname, launches = expected_launches(plan.backend, plan.t, x.ndim)
+        times[(name, regime)] = ms
+        kname, launches = expected_launches(plan.backend, plan.t,
+                                            len(plan.grid_shape))
         k_taps = int(np.count_nonzero(ws[name]))
         peak = FP32_FLOPS if kname.startswith("stencil_direct") else TF32_FLOPS
         bound = max(launches * 2 * n * 4 / HBM_BPS,
                     plan.t * 2 * k_taps * n / peak) * 1e3
+        twin = (twins or {}).get((name, regime))
         print(f"  {name:10s} {regime:19s} {plan.decision.backend:19s} "
               f"{plan.geom.read_amp:8.4f}  {ms:9.4f}  {ms * 1e3 / plan.t:9.2f}  "
-              f"{bound:9.4f}  {err:.3e}")
+              f"{bound:9.4f}  {err:.3e}"
+              + ("" if twin is None else f"  {twin:8.4f}  {ms / twin:.3f}"))
+    return times
 
 
 def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
@@ -1148,6 +1195,384 @@ def phase_sparse_path(mods, label, x, ws, card, reps_slow, boundary=None):
     return kernel_report(mods, x, w, counts, reps_slow, boundary, sparse=True)
 
 
+# ---------------------------------------------------------------------------
+# K11: the batch.  Phase 2 holds every batched launch to B unbatched
+# launches, phase 3 drives the batched main paths and the guarded batched
+# path, phase 4 times the batch, phase 5 serves requests.
+# ---------------------------------------------------------------------------
+#: Phase 2's batch sizes, and its ragged grids with one boundary spec each.
+BATCH_SIZES = (1, 3, 8)
+BATCH_GRIDS = (((1000, 1030), ("reflect", "periodic")),
+               ((60, 70, 130), ("replicate", "reflect", "periodic")),
+               ((2**20 + 3,), "reflect"))
+#: The 9-tile foils' batched grid (their 128 x 128 tiles divide it).
+BATCH_NINE_GRID = (1024, 1024)
+#: Phase 2's batch limits: (grid, B, launches per batched call) -- past
+#: gridDim.z's 65535, and past 2^31 cells in 2D and in 3D.
+BATCH_LIMITS = (((32, 32), 65537, 2), ((8192, 8192), 33, 1),
+                ((512, 512, 512), 17, 1))
+#: The batched main paths: as many cells per batch as the unbatched path
+#: beside it (grid, batch, stencils), and the batched sparse path.
+BATCH_PATHS = {
+    "2D": ((2048, 2048), 16, (("box", 1), ("star", 1))),
+    "3D": ((256, 256, 256), 8, (("box", 1),)),
+    "1D": ((2**22,), 16, (("box", 1),)),
+}
+BATCH_SPARSE = ((2048, 2048), 16, "zero")
+#: Phase 4's batch table: Box-2D1R at t=MAIN_T on 256^2 grids.
+BATCH_TABLE = ((256, 256), (1, 8, 64, 512))
+BATCH_HOST_CALLS = 200
+#: The TPU kernel K11 replaces: fold_batch, mode vmap (jax.vmap).
+BATCH_REPLACES = "src/repro/kernels/common.py:1583"
+
+
+def batched_calls(mods, w, t, geom, bc, dim, foils=True):
+    """``(counter, f(x, batched))`` of every kernel (and foil build) on
+    ``geom``: the tap-sum, banded and compacted kernels' fused calls and
+    the whole-strip / whole-slab foils of the first two."""
+    _, sm, sd, _, ss = mods
+    out = [(kernel_name("stencil_direct", dim),
+            lambda x, bt: sd.stencil_direct_at(x, w, t, geom, bc, "region", bt)),
+           (kernel_name("stencil_banded", dim),
+            lambda x, bt: sm.stencil_matmul_at(x, w, t, geom, None, bc, "region", bt)),
+           (kernel_name("stencil_sparse", dim),
+            lambda x, bt: ss.stencil_sparse_matmul_at(x, w, t, geom, None, bc, bt))]
+    if foils and dim > 1:
+        st = "wholeslab" if dim == 3 else "wholestrip"
+        out += [(f"{kernel_name('stencil_direct', dim)} ({st})",
+                 lambda x, bt: sd.stencil_direct_at(x, w, t, geom, bc, "wholestrip", bt)),
+                (f"{kernel_name('stencil_banded', dim)} ({st})",
+                 lambda x, bt: sm.stencil_matmul_at(x, w, t, geom, None, bc, "wholestrip",
+                                                    bt))]
+    return out
+
+
+def hold_batch(kernels, counter, f, xb, tag, grids=None, launches=1) -> None:
+    """One batched call of ``f`` on ``xb``: exactly ``launches`` launches of
+    ``counter`` and nothing else, and each grid of ``grids`` (default all)
+    bit for bit its own unbatched launch."""
+    kernels.reset_launch_counts()
+    yb = f(xb, True)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(counts == {counter: launches},
+          f"{tag}: launches {counts}, expected {launches} of {counter}")
+    check(tuple(yb.shape) == tuple(xb.shape) and yb.dtype == xb.dtype,
+          f"{tag}: shape/dtype {tuple(yb.shape)} {yb.dtype}")
+    for b in (range(xb.shape[0]) if grids is None else grids):
+        y1 = f(xb[b], False)
+        torch.cuda.synchronize()
+        check(torch.equal(yb[b], y1), f"{tag}: grid {b} differs from its unbatched "
+                                      f"launch by {max_err(yb[b], y1):.3e}")
+    del yb
+
+
+def phase_batch_kernels(mods) -> None:
+    """Phase 2, K11: every kernel and foil build at B in BATCH_SIZES on the
+    ragged grids, f32 and bf16, periodic and under the grid's boundary
+    spec, and the 9-tile foils on 1024^2: one launch per batched call, each
+    grid bit for bit its unbatched launch; then a pinned 3D tile depth
+    (``z_slab``) against the rule's, on every 3D kernel."""
+    kernels, sm, sd, weights, _ = mods
+    from repro_torch.kernels import common, legacy
+    from repro_torch.stencil import StencilSpec
+    n = 0
+    for shape, bspec in BATCH_GRIDS:
+        dim = len(shape)
+        w = weights.make_weights(StencilSpec("box", dim, 1), seed=1)
+        geom = common.launch_geom(shape, MAIN_T)
+        for bc, dtype, b in itertools.product((None, bspec), (torch.float32, torch.bfloat16),
+                                              BATCH_SIZES):
+            xb = grid((b,) + shape, dtype, seed=5)
+            for counter, f in batched_calls(mods, w, MAIN_T, geom, bc, dim):
+                tag = (f"{counter} batch {b} x {shape} {str(dtype)[6:]}"
+                       + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+                hold_batch(kernels, counter, f, xb, tag)
+                n += 1
+            del xb
+    w = weights.make_weights(StencilSpec("box", 2, 1), seed=1)
+    wf = weights.fuse_weights(w, MAIN_T)
+    for dtype, b in itertools.product((torch.float32, torch.bfloat16), BATCH_SIZES):
+        xb = grid((b,) + BATCH_NINE_GRID, dtype, seed=5)
+        for counter, f in (
+                ("stencil_direct (9tile)", lambda x, bt: legacy.stencil_direct_9pt(
+                    x, w, MAIN_T, LEGACY_TILE, LEGACY_TILE, bt)),
+                ("stencil_banded (9tile)", lambda x, bt: legacy.stencil_matmul_9pt(
+                    x, wf, LEGACY_TILE, LEGACY_TILE, None, bt))):
+            hold_batch(kernels, counter, f, xb, f"{counter} batch {b} x "
+                                                f"{BATCH_NINE_GRID} {str(dtype)[6:]}")
+            n += 1
+        del xb
+    print(f"batched kernels (K11): {n} batched calls on {[s for s, _ in BATCH_GRIDS]} "
+          f"and {BATCH_NINE_GRID}, B in {BATCH_SIZES}, f32/bf16, periodic and one boundary spec "
+          "per rank: each one launch, every grid bit for bit its unbatched launch")
+    # z_slab: a pinned tile depth is a tile, not a function
+    shape, bspec = BATCH_GRIDS[1]
+    w = weights.make_weights(StencilSpec("box", 3, 1), seed=1)
+    free = common.launch_geom(shape, MAIN_T)
+    for zs in (4, 8):
+        pinned = common.launch_geom(shape, MAIN_T, z_slab=zs)
+        check(pinned.z_slab == zs and free.z_slab != zs,
+              f"z_slab: pinned {pinned}, free {free}")
+        for bc, dtype in itertools.product((None, bspec), (torch.float32, torch.bfloat16)):
+            x = grid(shape, dtype, seed=6)
+            for (counter, fp), (_, ff) in zip(
+                    batched_calls(mods, w, MAIN_T, pinned, bc, 3),
+                    batched_calls(mods, w, MAIN_T, free, bc, 3)):
+                yp, yf = fp(x, False), ff(x, False)
+                check(torch.equal(yp, yf), f"z_slab={zs}: {counter} {str(dtype)[6:]} "
+                                           f"boundary={bc} differs from the rule's "
+                                           f"tile by {max_err(yp, yf):.3e}")
+    print(f"z_slab pin: 3D kernels and foils on {shape} at TZ = 4 and 8 (the rule's "
+          f"TZ = {free.z_slab}) equal the rule's tile bit for bit, f32/bf16, periodic "
+          f"and {boundary_label(bspec)}")
+
+
+def phase_batch_limits(mods) -> None:
+    """Phase 2, K11 limits: B = 65537 grids of 32x32 launch twice (the
+    gridDim.z limit) with the last grid bit for bit its unbatched launch;
+    and a batch past 2^31 cells in 2D (33 x 8192^2) and 3D (17 x 512^3),
+    whose last grid starts at cell 2^31, each grid checked against its own
+    unbatched launch, for the tap-sum, banded and compacted kernels."""
+    kernels, _, _, weights, _ = mods
+    from repro_torch.kernels import common
+    from repro_torch.stencil import StencilSpec
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape, b, launches in BATCH_LIMITS:
+        dim = len(shape)
+        w = weights.make_weights(StencilSpec("box", dim, 1), seed=1)
+        geom = common.launch_geom(shape, MAIN_T)
+        xb = torch.empty((b,) + shape, device="cuda").normal_(generator=gen)
+        last = b - 1
+        for counter, f in batched_calls(mods, w, MAIN_T, geom, None, dim, foils=False):
+            hold_batch(kernels, counter, f, xb, f"{counter} batch {b} x {shape}",
+                       grids=(0, last), launches=launches)
+        print(f"batch limit: {b} x {shape} float32 ({xb.numel()} cells, last grid at "
+              f"cell {last * xb[0].numel()}): {launches} launch(es) of each kernel, the "
+              "first and last grids bit for bit their unbatched launches")
+        del xb
+        torch.cuda.empty_cache()
+
+
+def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
+    """The K11 entries at a batched main path's call on ``w`` (the fused
+    calls of kernel_report, ``batched=True`` on the path's tile): each
+    batched kernel against the loop of its plain version over the grids,
+    beside one F.conv with N = B; ``launches`` is the batched path's count,
+    the bound B grids' bytes or FLOPs."""
+    _, sm, sd, weights, ss = mods
+    from repro_torch.kernels import common
+    b, shape = xb.shape[0], tuple(xb.shape[1:])
+    dim, n = len(shape), xb.numel()
+    r = (w.shape[0] - 1) // 2
+    geom = common.launch_geom(shape, MAIN_T * r)
+    ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
+    mx, sw = float(xb.abs().max()), float(np.abs(w).sum())
+    if boundary is None:
+        wf = weights.fuse_weights(w, MAIN_T)
+        yardstick = lambda tf32: conv_yardstick(xb, wf, tf32, batched=True)  # noqa: E731
+    else:
+        from repro_torch.stencil import resolve_boundary
+        modes = resolve_boundary(boundary, dim)
+        yardstick = lambda tf32: conv_yardstick(  # noqa: E731
+            xb, w, tf32, modes, MAIN_T, batched=True)
+    loop = lambda plain, *a: (lambda: torch.stack([plain(x, *a) for x in xb]))  # noqa: E731
+    rows = [("stencil_direct",
+             lambda: sd.stencil_direct_at(xb, w, MAIN_T, geom, boundary, batched=True),
+             loop(sd.stencil_direct_plain, w, MAIN_T, boundary), FP32_FLOPS, False,
+             1e-5 * MAIN_T * mx),
+            ("stencil_banded",
+             lambda: sm.stencil_matmul_at(xb, w, MAIN_T, geom, None, boundary, batched=True),
+             loop(sm.stencil_matmul_plain, w, MAIN_T, 16, None, boundary), TF32_FLOPS, True,
+             MAIN_T * 2**-10 * sw * mx)]
+    if sparse:
+        rows = [("stencil_sparse",
+                 lambda: ss.stencil_sparse_matmul_at(xb, w, MAIN_T, geom, None, boundary,
+                                                     batched=True),
+                 loop(ss.stencil_sparse_matmul_plain, w, MAIN_T, 16, None, boundary),
+                 TF32_FLOPS, True, MAIN_T * 2**-10 * sw * mx)]
+    report = []
+    for base, kern, plain, peak, tf32, tol in rows:
+        kname = kernel_name(base, dim)
+        what = ", ".join(["batched"] + (["1D lift"] if dim == 1 else [])
+                         + ([] if boundary is None else [boundary_label(boundary)]))
+        entry = f"{kname} ({what})"
+        y = kern()
+        err = max_err(y, plain())
+        del y
+        check(err <= tol, f"kernel report {entry}: max|err| vs the plain loop {err:.3e} "
+                          f"> tol {tol:.3e}")
+        bytes_ms = 2 * n * 4 / HBM_BPS * 1e3
+        ops_ms = ops / peak * 1e3
+        report.append({
+            "name": entry, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + kname + ".cu",
+            "replaces": BATCH_REPLACES, "launches": counts[kname],
+            "max_abs_err": err, "ms": cuda_ms(kern, reps=reps_slow),
+            "plain_ms": cuda_ms(plain, reps=reps_slow, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow), "batch": b})
+    for k in report:
+        print(f"  kernel {k['name']}: {k['ms']:.4f} ms for {b} x {shape} (bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}), the plain loop "
+              f"{k['plain_ms']:.4f} ms, F.conv{dim}d with N={b} {k['library_ms']:.4f} ms, "
+              f"max|err| vs the plain loop {k['max_abs_err']:.3e}, {k['launches']} "
+              "launches on the batched path")
+    return report
+
+
+def phase_guarded_batched(mods, xb, w) -> None:
+    """The guarded batched path: ``guarded_stencil_plan(..., batch=B)``
+    (auto at t=MAIN_T) under REPRO_FAULTS=GUARD_FAULTS lands the whole
+    bucket on GUARD_LANDS, as the unbatched guarded path does: one launch
+    of the whole-strip kernel for the batch, matching the reference."""
+    kernels = mods[0]
+    from repro_torch.core import events
+    from repro_torch.kernels import clear_plan_cache, guarded_stencil_plan, stencil_plan
+    from repro_torch.testing import faults
+    b, shape = xb.shape[0], tuple(xb.shape[1:])
+    ref = stencil_plan(w, shape, torch.float32, MAIN_T, backend="reference", batch=b)(xb)
+    tol = 1e-5 * MAIN_T * float(xb.abs().max())
+    clear_plan_cache()
+    events.clear()
+    os.environ["REPRO_FAULTS"] = GUARD_FAULTS
+    faults.reset_faults()
+    try:
+        kernels.reset_launch_counts()
+        g = guarded_stencil_plan(w, shape, torch.float32, MAIN_T, batch=b)
+        y = g(xb)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        faults.reset_faults()
+        clear_plan_cache()
+    kinds = [e["kind"] for e in events.events()]
+    check(g.rung == GUARD_LANDS and g.batch == b,
+          f"guarded batched path: landed on {g.rung!r}, expected {GUARD_LANDS!r}")
+    check([h["cause"] for h in g.history] == ["compile"] * 3,
+          f"guarded batched path: history {g.history}")
+    check(kinds == ["guard_failure", "guard_fallback"] * 3,
+          f"guarded batched path: events {kinds}")
+    check(counts == {"stencil_direct (wholestrip)": 1},
+          f"guarded batched path: launches {counts}")
+    err = max_err(y, ref)
+    check(err <= tol, f"guarded batched path: max|err| {err:.3e} > {tol:.3e}")
+    print(f"guarded batched path {tuple(xb.shape)}: REPRO_FAULTS={GUARD_FAULTS} fails "
+          f"{', '.join(h['rung'] for h in g.history)}; the bucket lands on {g.rung} "
+          f"(events {kinds}; launches {counts}; max|err| vs reference {err:.3e})")
+
+
+def host_wall_us(fn, calls: int = BATCH_HOST_CALLS) -> float:
+    """Host wall microseconds per call of ``fn`` over ``calls`` calls issued
+    back to back with one sync at the end (the card drained before)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def profiled_us(fn, calls: int = 20):
+    """Device microseconds per call of ``fn`` spent in CUDA kernels, from
+    torch.profiler's CUDA activity over ``calls`` calls (the kernels' own
+    time, without the idle gaps a host-bound call leaves between them);
+    None ("not measured") when the profiler cannot trace the card or the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as e:
+        print(f"  profiler: no device trace ({type(e).__name__}: {e})")
+        return None
+    total = sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages())
+    return total / calls if total > 0 else None
+
+
+def phase_batch_times(mods, card):
+    """Phase 4, K11: Box-2D1R at t=MAIN_T on 256^2 grids for each B of
+    BATCH_TABLE, per grid: device us from CUDA events around each call
+    (which include the card's idle wait for a host-bound launch), kernel
+    us from the profiler, and host wall us over BATCH_HOST_CALLS calls,
+    for the batched plan ("vmap": one launch per call) and the "map" plan
+    (B launches per call, each grid the unbatched plan's work), beside one
+    F.conv2d of the composed kernel with N = B; the two folds must agree
+    bit for bit."""
+    _, _, _, weights, _ = mods
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.stencil import StencilSpec
+    shape, sizes = BATCH_TABLE
+    w = weights.make_weights(StencilSpec("box", 2, 1), seed=0)
+    wf = weights.fuse_weights(w, MAIN_T)
+    print(f"batch times on {card}: Box-2D1R {shape} float32, t={MAIN_T}, auto; us per "
+          f"grid: events = CUDA events around each call, kernel = the profiler's "
+          f"kernel time, host = wall clock over {BATCH_HOST_CALLS} calls, one sync:")
+    print("     B   vmap: events  kernel     host |  map: events  kernel     host | "
+          "F.conv2d(N=B): events  kernel")
+    rows = []
+
+    def per_grid(us, b):
+        return float("nan") if us is None else us / b
+    for b in sizes:
+        xb = grid((b,) + shape, torch.float32, seed=7)
+        pv = stencil_plan(w, shape, torch.float32, MAIN_T, batch=b)
+        pm = stencil_plan(w, shape, torch.float32, MAIN_T, batch=b, batch_mode="map")
+        check(pv.batch_mode == "vmap" and torch.equal(pv(xb), pm(xb)),
+              f"batch times B={b}: vmap and map plans differ")
+        conv = conv_yardstick(xb, wf, False, batched=True)
+        row = (b, cuda_ms(lambda: pv(xb)) * 1e3 / b, per_grid(profiled_us(lambda: pv(xb)), b),
+               host_wall_us(lambda: pv(xb)) / b,
+               cuda_ms(lambda: pm(xb)) * 1e3 / b, per_grid(profiled_us(lambda: pm(xb)), b),
+               host_wall_us(lambda: pm(xb)) / b,
+               cuda_ms(conv) * 1e3 / b, per_grid(profiled_us(conv), b))
+        rows.append(row)
+        print(f"  {row[0]:4d}  {row[1]:12.3f} {row[2]:7.3f} {row[3]:8.3f} | {row[4]:11.3f} "
+              f"{row[5]:7.3f} {row[6]:8.3f} | {row[7]:20.3f} {row[8]:7.3f}")
+        del xb
+    return rows
+
+
+def phase_serving(card) -> None:
+    """Phase 5: StencilServer on the card under closed-loop traffic, two
+    signatures (Box-2D1R and Star-2D1R, 256^2, t=1, f32), 2048 requests
+    each in windows of 128: every response bit for bit the unbatched
+    plan's output on the card, plan-cache hits >= requests - signatures,
+    no failed or degraded batch; then the quick serving benchmark (printed,
+    not gated)."""
+    from repro_torch.benchmarks import serving
+    payload = serving.run(True, grid=(256, 256), requests_per_signature=2048,
+                          passes=1, json_path=None)
+    n = payload["requests_per_signature"] * len(payload["signatures"])
+    b, pc = payload["batched"], payload["plan_cache"]
+    check(payload["bitwise_match"], "serving: a response differs from the unbatched plan")
+    check(b["responded"] == b["submitted"] == n and b["failed"] == 0,
+          f"serving: {b['responded']}/{b['submitted']} answered, {b['failed']} failed")
+    check(b["degraded_batches"] == 0, f"serving: {b['degraded_batches']} degraded batches")
+    check(pc["hits_delta"] >= n - len(payload["signatures"]),
+          f"serving: plan-cache hits {pc['hits_delta']} < {n} - signatures")
+    lat = b["latency"]
+    print(f"serving on {card}: {payload['signatures']} {tuple(payload['grid'])} t=1 "
+          f"float32, {n} "
+          f"requests in windows of {serving.WINDOW}: every response bit for bit the "
+          f"unbatched plan's; {b['requests_per_s']:.0f} req/s, p50 {lat['p50_ms']:.3f} ms, "
+          f"p99 {lat['p99_ms']:.3f} ms, occupancy {b['batch_occupancy']:.2f}, "
+          f"{b['batches']} batches, 0 degraded; plan-cache hits +{pc['hits_delta']}; "
+          f"sequential {payload['sequential']['requests_per_s']:.0f} req/s")
+    quick = serving.run(True)
+    for line in serving.summary(quick):
+        print(f"  {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1183,14 +1608,16 @@ def main() -> int:
         child = start_count_loads()
         phase_kernels_vs_plain(mods)
         phase_foils_vs_plain(mods)
+        phase_batch_kernels(mods)
+        phase_batch_limits(mods)
         finish_count_loads(child)
-        report = []
+        report, twins = [], {}
         for label, (shape, specs) in PATHS.items():
             x = grid(shape, torch.float32, seed=0)
             ws = {s.name: make_weights(s, seed=0)
                   for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
             results, counts = phase_main_path(mods, label, x, ws)
-            phase_regime_times(label, x, ws, results, card)
+            twins[label] = phase_regime_times(label, x, ws, results, card)
             # 15 repetitions of everything; in 3D the plain versions and
             # yardsticks are slow, 5.
             reps = 5 if label == "3D" else 15
@@ -1231,8 +1658,32 @@ def main() -> int:
             if label == "2D":
                 phase_guarded(mods, x, w)
             del x, results
+        for label, (shape, b, specs) in BATCH_PATHS.items():
+            xb = grid((b,) + shape, torch.float32, seed=0)
+            ws = {s.name: make_weights(s, seed=0)
+                  for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
+            tag = f"{label} batched {b} x {shape}"
+            results, counts = phase_main_path(mods, tag, xb, ws, batch=b)
+            phase_regime_times(tag, xb, ws, results, card, twins[label])
+            w = ws[StencilSpec("box", len(shape), 1).name]
+            report += batch_report(mods, xb, w, counts, 5 if label == "3D" else 15)
+            if label == "2D":
+                phase_guarded_batched(mods, xb, w)
+            del xb, results
+        shape, b, boundary = BATCH_SPARSE
+        xb = grid((b,) + shape, torch.float32, seed=0)
+        ws = {s.name: make_weights(s, seed=0)
+              for s in (StencilSpec(k, 2, 1) for k in ("box", "star"))}
+        tag = f"2D batched {b} x {shape} sparse boundary={boundary}"
+        results, counts = phase_main_path(mods, tag, xb, ws, boundary, runs=SPARSE_RUNS,
+                                          sparse=True, batch=b)
+        phase_regime_times(tag, xb, ws, results, card)
+        report += batch_report(mods, xb, ws["Star-2D1R"], counts, 15, boundary, sparse=True)
+        del xb, results
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))
+        phase_batch_times(mods, card)
+        phase_serving(card)
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,
             subprocess.TimeoutExpired) as e:

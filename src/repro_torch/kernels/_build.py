@@ -15,8 +15,9 @@ of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  :func:`build_all` starts one ``nvcc`` per
 library together.  A missing ``nvcc`` or a failed build raises.
 
-Every kernel wrapper adds one to its entry of the launch counts where it
-launches its kernel, and nowhere else; a foil launch counts under
+Every kernel wrapper adds one to its entry of the launch counts for each
+launch of its kernel, and nowhere else (a batch past gridDim.z's limit
+launches in chunks, ``common.batch_chunks``); a foil launch counts under
 ``<kernel> (<staging>)``.
 """
 from __future__ import annotations
@@ -62,8 +63,10 @@ build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
 
-def count_launch(name: str) -> None:
-    _COUNTS[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``name`` (a batch past gridDim.z's limit
+    launches in chunks: ``common.batch_chunks``)."""
+    _COUNTS[name] += n
 
 
 def launch_counts() -> Dict[str, int]:

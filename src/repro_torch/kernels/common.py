@@ -517,6 +517,13 @@ def _z_candidates(extent: int) -> list:
     return sorted({min(c, extent) for c in Z_SLAB_CANDIDATES}, reverse=True)
 
 
+def _z_pin(z_slab: int, extent: int) -> int:
+    """A pinned tile depth, clamped to the grid's depth."""
+    if int(z_slab) != z_slab or z_slab < 1:
+        raise ValueError(f"z_slab must be a positive integer, got {z_slab!r}")
+    return min(int(z_slab), extent)
+
+
 def _too_deep(halo: int, budget: int) -> ValueError:
     return ValueError(
         f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
@@ -524,7 +531,8 @@ def _too_deep(halo: int, budget: int) -> ValueError:
 
 
 def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
-                      w_tile: Optional[int] = None) -> SubstrateGeom:
+                      w_tile: Optional[int] = None,
+                      z_slab: Optional[int] = None) -> SubstrateGeom:
     """THE port's tile rule, by grid rank.
 
     2D: the largest output tile, at most PREFERRED_TILE on each axis and a
@@ -537,8 +545,10 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     JAX ``choose_slab_blocks`` criterion.  1D: the pricing geometry of
     the lift (the kernels launch :func:`lifted_tile_geom`).  ``tile_m`` /
     ``w_tile`` pin TM / TN (multiples of 16; clamped to the grid rounded
-    up to 16); TZ is always the rule's.  A halo no tile fits raises the
-    "too deep" ``ValueError``.
+    up to 16), ``z_slab`` pins TZ (3D only; clamped to the grid's depth,
+    the JAX pin's rule).  A halo no tile fits raises the "too deep"
+    ``ValueError``, and a pinned depth none of whose tiles fits raises
+    with its shared memory.
     """
     grid_shape = tuple(int(n) for n in grid_shape)
     dim = len(grid_shape)
@@ -558,9 +568,18 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
                 return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
                                      w_tile=tn, w_block=halo)
         raise _too_deep(halo, budget)
-    fitting = [(tz, tm, tn) for tz in _z_candidates(grid_shape[0])
+    tzs = (_z_candidates(grid_shape[0]) if z_slab is None
+           else [_z_pin(z_slab, grid_shape[0])])
+    fitting = [(tz, tm, tn) for tz in tzs
                for tm in dict.fromkeys(tms) for tn in dict.fromkeys(tns)
                if tile_smem_bound(tm, tn, halo, tz) <= budget]
+    if not fitting and z_slab is not None:
+        least = min(tile_smem_bound(tm, tn, halo, tzs[0])
+                    for tm in tms for tn in tns)
+        raise ValueError(
+            f"z_slab={z_slab}: a {tzs[0]}-deep tile at halo {halo} needs at "
+            f"least {least} bytes of shared memory, over the {budget}-byte "
+            "budget; pin a shallower z_slab or lower the fusion depth")
     if not fitting:
         raise _too_deep(halo, budget)
     tz, tm, tn = min(fitting, key=lambda c: (
@@ -578,14 +597,15 @@ def lifted_tile_geom(n: int, halo: int,
 
 
 def launch_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
-                w_tile: Optional[int] = None) -> SubstrateGeom:
+                w_tile: Optional[int] = None,
+                z_slab: Optional[int] = None) -> SubstrateGeom:
     """The tile the kernels launch on a grid of this shape at total halo
     ``halo``: :func:`resolve_tile_geom` in 2D and 3D, the lift's
     :func:`lifted_tile_geom` in 1D (where only ``w_tile`` applies).  Plans
     resolve it once when built; the wrappers take it as given."""
     if len(grid_shape) == 1:
         return lifted_tile_geom(int(grid_shape[0]), halo, w_tile)
-    return resolve_tile_geom(grid_shape, halo, tile_m, w_tile)
+    return resolve_tile_geom(grid_shape, halo, tile_m, w_tile, z_slab)
 
 
 def check_tile_halo(geom: SubstrateGeom, halo: int) -> None:
@@ -788,3 +808,79 @@ def assemble_foil(tiles, halo: int):
     rows = [torch.cat([up[:, -halo:], mid, dn[:, :halo]], dim=1)
             for up, mid, dn in (tiles[3 * i:3 * i + 3] for i in range(3))]
     return torch.cat([rows[0][-halo:], rows[1], rows[2][:halo]], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The batch (K11): the counterpart of ``repro.kernels.common.fold_batch``.
+# A batched launch advances B grids of one shape, stored one after another,
+# grid b on blockIdx.z; the tile, the fill and the tile rule stay per grid
+# (csrc/common.cuh, ``grid_at``).
+# ---------------------------------------------------------------------------
+#: The most grids one launch takes (CUDA's gridDim.z limit; MAX_GRID_Z in
+#: csrc/common.cuh).
+MAX_GRID_Z = 65535
+
+
+def batch_chunks(batch: int) -> list:
+    """``(first grid, grids)`` of each launch a batch of ``batch`` grids
+    takes: chunks of at most :data:`MAX_GRID_Z`, as the C entries split it
+    (``csrc/common.cuh::for_each_chunk``); the wrappers count one launch
+    per chunk."""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    return [(b0, min(MAX_GRID_Z, batch - b0))
+            for b0 in range(0, batch, MAX_GRID_Z)]
+
+
+def batch_grid(x, batched: bool) -> tuple:
+    """The grid shape of a wrapper's input: ``x.shape``, or without its
+    leading batch axis when ``batched`` -- never read from ``x.ndim``
+    alone, which cannot tell a batch of 2D grids from a 3D grid."""
+    if not batched:
+        return tuple(x.shape)
+    if x.ndim < 2 or x.shape[0] < 1:
+        raise ValueError(f"a batched call takes (B,) + grid_shape with "
+                         f"B >= 1, got {tuple(x.shape)}")
+    return tuple(x.shape[1:])
+
+
+def plain_loop(plain, x, batched: bool, *args):
+    """``plain(x, *args)``; for a batched ``x``, the loop of it over the
+    grids -- the plain version of a batched launch."""
+    if not batched:
+        return plain(x, *args)
+    import torch
+
+    return torch.stack([plain(xi, *args) for xi in x])
+
+
+def fold_batch(run, mode: str):
+    """Fold a leading batch axis through a plan's runner (the JAX
+    ``fold_batch``): the returned callable consumes ``(B,) + grid_shape``
+    and equals stacking ``B`` calls of ``run`` bit for bit.
+
+    ``mode="vmap"`` batches the kernels themselves: each of the runner's
+    kernel calls is one launch over the whole batch (K11).  ``mode="map"``
+    loops the runner over the grids (``B`` launches per kernel call, the
+    per-grid work of the unbatched plan).  As JAX traces a mapped runner
+    once, the fault hooks fire for the first grid's launches only
+    (``repro_torch.testing.faults.traced``), so one ``REPRO_FAULTS`` spec
+    lands both packages on the same rung."""
+    if mode == "map":
+        from repro_torch.testing import faults
+        import torch
+
+        def folded(xb):
+            ys = [run(xb[0])]
+            with faults.traced():
+                ys += [run(x) for x in xb[1:]]
+            return torch.stack(ys)
+    elif mode == "vmap":
+        def folded(xb):
+            return run(xb, batched=True)
+    else:
+        raise ValueError(f"fold_batch mode must be 'vmap' or 'map', "
+                         f"got {mode!r}")
+    if hasattr(run, "staging"):                 # a foil's (``explain``)
+        folded.staging = run.staging
+    return folded

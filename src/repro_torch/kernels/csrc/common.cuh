@@ -1,6 +1,6 @@
 // Pieces the stencil kernels share: the periodic index wrap, dtype
-// conversion, the halo-region load, the boundary fill, the tile store and
-// the launch attributes.
+// conversion, the halo-region load, the boundary fill, the tile store,
+// the batch (K11) and the launch attributes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -452,6 +452,40 @@ __device__ __forceinline__ void store_tile(T* __restrict__ y, int H, int W, int 
     for (int i = warp; i < TM && i0 + i < H; i += CTA_WARPS)
         for (int j = lane; j < TN && j0 + j < W; j += 32)
             y[(size_t)(i0 + i) * W + j0 + j] = from_f32<T>(src[i * ld + j]);
+}
+
+// K11, the batch (replaces repro/kernels/common.py::fold_batch, mode
+// vmap, where jax.vmap gives every pallas_call a batch grid dimension):
+// one launch advances B grids of grid_elems cells each, stored one after
+// another.  Grid b of a chunk is blockIdx.z: each CTA moves x and y to
+// its grid once, at entry, by a 64-bit offset (grid_at), and the tile,
+// the fill, the weights and the tile rule stay per grid.  The kernels
+// move them only when blockIdx.z != 0: the unconditional form cost the
+// 2D banded f32 kernel 17 registers (80 -> 97, one CTA per SM fewer) and
+// others up to 16 (ptxas on sm_90a), the branch left each within a few
+// registers of the unbatched kernel and some below it.  gridDim.z
+// takes at most MAX_GRID_Z, so a C entry launches a larger batch in
+// chunks of at most MAX_GRID_Z grids (for_each_chunk; the wrappers count
+// them with repro_torch/kernels/common.py::batch_chunks).  Nothing a CTA
+// does depends on B, so the batch is bound by what B grids' bytes cost.
+#define MAX_GRID_Z 65535
+
+// p moved b grids of grid_elems cells on, in 64-bit arithmetic.
+template <typename T>
+__host__ __device__ __forceinline__ T* grid_at(T* p, unsigned long long b, size_t grid_elems) {
+    return p + (size_t)b * grid_elems;
+}
+
+// Calls launch_chunk(b0, nb) for each chunk [b0, b0 + nb) of the B
+// grids, nb <= MAX_GRID_Z; returns the first error.
+template <typename F>
+static int for_each_chunk(int B, F&& launch_chunk) {
+    if (B < 1) return (int)cudaErrorInvalidValue;
+    for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+        const int err = launch_chunk(b0, B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z);
+        if (err != 0) return err;
+    }
+    return 0;
 }
 
 #define MAX_DEVICES 64

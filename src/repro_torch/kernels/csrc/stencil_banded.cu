@@ -52,6 +52,10 @@
 // of common.cuh, which reads 3 (TN+2h)/TN or 9 times the grid for the same
 // compute.  A foil's sink slots lie in the operand array, which nothing
 // reads before the first copy.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "banded_mma.cuh"
 
 #define MAX_ROWS 64
@@ -70,7 +74,7 @@ __global__ void __launch_bounds__(CTA_THREADS)
 stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                       const TC* __restrict__ bands, int H, int W, int TM, int TN, int t,
                       int R, int rows, int ld, int a_rows, int kpad, int my, int mx,
-                      BandRows br) {
+                      BandRows br, size_t grid_elems) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     float* const region = reinterpret_cast<float*>(smem);
@@ -81,6 +85,10 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int h0 = TM + 2 * halo, w0 = TN + 2 * halo;
     const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
     const int band_k = BAND_N + 2 * R;  // valid rows of one band
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
     const int nks = kpad / M::K;
 
     load_region<STAGE>(region, ld,
@@ -176,7 +184,8 @@ stencil_banded_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 template <typename TIn, typename TC, int STAGE>
 static int launch(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
                   int t, int R, int rows, int ld, int a_rows, int kpad, int my, int mx,
-                  const BandRows* br, int smem_bytes, cudaStream_t stream) {
+                  const BandRows* br, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
     const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
     if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
     constexpr bool kFill = STAGE != STAGE_NINE;
@@ -185,20 +194,23 @@ static int launch(const void* x, void* y, const void* bands, int H, int W, int T
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
-    kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(bands), H, W,
-        TM, TN, t, R, rows, ld, a_rows, kpad, my, mx, *br);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
+        kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const TIn*>(x), b0, grid_elems),
+            grid_at(static_cast<TIn*>(y), b0, grid_elems), static_cast<const TC*>(bands), H, W,
+            TM, TN, t, R, rows, ld, a_rows, kpad, my, mx, *br, (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <int STAGE>
 static int launch_types(const void* x, void* y, const void* bands, int H, int W, int TM, int TN,
                         int t, int R, int rows, int ld, int a_rows, int kpad, int dtype,
-                        int compute, int mode_y, int mode_x, const BandRows* br, int smem_bytes,
-                        cudaStream_t s) {
-#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, mode_y, mode_x, br, \
-             smem_bytes, s
+                        int compute, int mode_y, int mode_x, const BandRows* br, int B,
+                        long long grid_elems, int smem_bytes, cudaStream_t s) {
+#define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, mode_y, mode_x, br, B, \
+             grid_elems, smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float, STAGE>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16, STAGE>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float, STAGE>(ARGS);
@@ -208,17 +220,20 @@ static int launch_types(const void* x, void* y, const void* bands, int H, int W,
 }
 
 #define ARGS x, y, bands, H, W, TM, TN, t, R, rows, ld, a_rows, kpad, dtype, compute, mode_y, \
-             mode_x, br, smem_bytes, static_cast<cudaStream_t>(stream)
+             mode_x, br, B, grid_elems, smem_bytes, static_cast<cudaStream_t>(stream)
 #ifndef REPRO_FOIL
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands are
 // (n, kpad, 16) in the compute dtype; mode_y, mode_x: the rows' and the
-// columns' boundary codes (MODE_*).  Returns the cudaError_t of the launch
+// columns' boundary codes (MODE_*); x and y hold B grids of grid_elems =
+// H * W cells each (the batch, K11).  Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" int stencil_banded_launch(const void* x, void* y, const void* bands, int H, int W,
                                      int TM, int TN, int t, int R, int rows, int ld, int a_rows,
                                      int kpad, int dtype, int compute, int mode_y, int mode_x,
-                                     const BandRows* br, int smem_bytes, void* stream) {
-    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+                                     const BandRows* br, int B, long long grid_elems,
+                                     int smem_bytes, void* stream) {
+    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD || grid_elems != (long long)H * W)
+        return (int)cudaErrorInvalidValue;
     return launch_types<STAGE_REGION>(ARGS);
 }
 #else
@@ -227,9 +242,10 @@ extern "C" int stencil_banded_launch(const void* x, void* y, const void* bands, 
 extern "C" int stencil_banded_foil_launch(const void* x, void* y, const void* bands, int H,
                                           int W, int TM, int TN, int t, int R, int rows, int ld,
                                           int a_rows, int kpad, int dtype, int compute, int stage,
-                                          int mode_y, int mode_x, const BandRows* br,
-                                          int smem_bytes, void* stream) {
-    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+                                          int mode_y, int mode_x, const BandRows* br, int B,
+                                          long long grid_elems, int smem_bytes, void* stream) {
+    if (br->n < 1 || br->n > MAX_ROWS || kpad > MAX_KPAD || grid_elems != (long long)H * W)
+        return (int)cudaErrorInvalidValue;
     if (stage == STAGE_STRIP) return launch_types<STAGE_STRIP>(ARGS);
     if (stage == STAGE_NINE) return launch_types<STAGE_NINE>(ARGS);
     return (int)cudaErrorInvalidValue;

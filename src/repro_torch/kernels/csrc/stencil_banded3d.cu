@@ -54,6 +54,10 @@
 // staging of common.cuh, the 3 x 3 whole (z, y) neighbour tiles, which
 // reads 9 (TN+2h)/TN times the grid for the same compute; its sink slots
 // lie in the operand array, which nothing reads before the first copy.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "banded_mma.cuh"
 
 // Shared memory: the f32 region (planes x rows x ld), then one chunk's
@@ -67,7 +71,7 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                         const TC* __restrict__ bands, const int* __restrict__ offs, int Z,
                         int H, int W, int TZ, int TM, int TN, int t, int R, int rows, int ld,
                         int a_rows, int kpad, int n_rows, int gx, int gy, int mz, int my,
-                        int mx) {
+                        int mx, size_t grid_elems) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     const int halo = t * R;
@@ -82,6 +86,10 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
     const int band_k = BAND_N + 2 * R;  // valid rows of one band
     const int nks = kpad / M::K;
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
 
     load_region3d<STAGE>(region, ld, rplane,
                          sink_slot<STAGE>(reinterpret_cast<float*>(achunk),
@@ -184,7 +192,8 @@ stencil_banded3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 template <typename TIn, typename TC, int STAGE>
 static int launch(const void* x, void* y, const void* bands, const int* offs, int Z, int H, int W,
                   int TZ, int TM, int TN, int t, int R, int rows, int ld, int a_rows, int kpad,
-                  int n_rows, const int* modes, int smem_bytes, cudaStream_t stream) {
+                  int n_rows, const int* modes, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
     const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
                       modes[2] != MODE_PERIODIC;
     auto* kernel = fill ? stencil_banded3d_kernel<TIn, TC, true, STAGE>
@@ -195,20 +204,24 @@ static int launch(const void* x, void* y, const void* bands, const int* offs, in
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
-    kernel<<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(bands), offs, Z,
-        H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, gx, gy, modes[0], modes[1],
-        modes[2]);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        kernel<<<dim3((unsigned)ctas, 1, nb), CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const TIn*>(x), b0, grid_elems),
+            grid_at(static_cast<TIn*>(y), b0, grid_elems), static_cast<const TC*>(bands), offs,
+            Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, gx, gy, modes[0],
+            modes[1], modes[2], (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <int STAGE>
 static int launch_types(const void* x, void* y, const void* bands, const int* o, int Z, int H,
                         int W, int TZ, int TM, int TN, int t, int R, int rows, int ld,
                         int a_rows, int kpad, int n_rows, int dtype, int compute,
-                        const int* modes, int smem_bytes, cudaStream_t s) {
+                        const int* modes, int B, long long grid_elems, int smem_bytes,
+                        cudaStream_t s) {
 #define ARGS x, y, bands, o, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, kpad, n_rows, modes, \
-             smem_bytes, s
+             B, grid_elems, smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float, STAGE>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16, STAGE>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float, STAGE>(ARGS);
@@ -218,19 +231,21 @@ static int launch_types(const void* x, void* y, const void* bands, const int* o,
 }
 
 #define ARGS x, y, bands, static_cast<const int*>(offs), Z, H, W, TZ, TM, TN, t, R, rows, ld, \
-             a_rows, kpad, n_rows, dtype, compute, modes, smem_bytes, \
+             a_rows, kpad, n_rows, dtype, compute, modes, B, grid_elems, smem_bytes, \
              static_cast<cudaStream_t>(stream)
 #ifndef REPRO_FOIL
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; bands
 // are (n_rows, kpad, 16) in the compute dtype, offs (n_rows, 2) int32
-// (dz, dy); mode_z, mode_y, mode_x: each axis's boundary code (MODE_*).
-// Returns the cudaError_t of the launch (0 on success).
+// (dz, dy); mode_z, mode_y, mode_x: each axis's boundary code (MODE_*);
+// x and y hold B grids of grid_elems = Z * H * W cells each (the batch,
+// K11).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int stencil_banded3d_launch(const void* x, void* y, const void* bands, const void* offs,
                                        int Z, int H, int W, int TZ, int TM, int TN, int t, int R,
                                        int rows, int ld, int a_rows, int kpad, int n_rows,
                                        int dtype, int compute, int mode_z, int mode_y, int mode_x,
-                                       int smem_bytes, void* stream) {
-    if (n_rows < 1 || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+                                       int B, long long grid_elems, int smem_bytes, void* stream) {
+    if (n_rows < 1 || kpad > MAX_KPAD || grid_elems != (long long)Z * H * W)
+        return (int)cudaErrorInvalidValue;
     const int modes[3] = {mode_z, mode_y, mode_x};
     return launch_types<STAGE_REGION>(ARGS);
 }
@@ -242,8 +257,10 @@ extern "C" int stencil_banded3d_foil_launch(const void* x, void* y, const void* 
                                             int TN, int t, int R, int rows, int ld, int a_rows,
                                             int kpad, int n_rows, int dtype, int compute,
                                             int stage, int mode_z, int mode_y, int mode_x,
-                                            int smem_bytes, void* stream) {
-    if (n_rows < 1 || kpad > MAX_KPAD) return (int)cudaErrorInvalidValue;
+                                            int B, long long grid_elems, int smem_bytes,
+                                            void* stream) {
+    if (n_rows < 1 || kpad > MAX_KPAD || grid_elems != (long long)Z * H * W)
+        return (int)cudaErrorInvalidValue;
     const int modes[3] = {mode_z, mode_y, mode_x};
     if (stage == STAGE_STRIP) return launch_types<STAGE_STRIP>(ARGS);
     return (int)cudaErrorInvalidValue;

@@ -36,6 +36,10 @@
 // same compute.  What bounds a foil is the bytes it requests; its point
 // is to measure what they cost.  The foils build into a library of their
 // own, so the main path's build does not grow.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "common.cuh"
 
 #define MAX_TAPS 49
@@ -51,7 +55,7 @@ struct Taps {
 template <typename T, int R, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
-                      int TM, int TN, int t, int my, int mx, Taps taps) {
+                      int TM, int TN, int t, int my, int mx, Taps taps, size_t grid_elems) {
     constexpr int KW = 2 * R + 1;
     constexpr int V = ROWS_PER_THREAD;
     extern __shared__ float smem[];
@@ -64,6 +68,10 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
     float* const b1 = smem + rows0 * ld;
     const int i0 = blockIdx.y * TM;
     const int j0 = blockIdx.x * TN;
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
 
     if (threadIdx.x < KW * KW) wsh[threadIdx.x] = 0.f;
     __syncthreads();
@@ -122,7 +130,8 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
 
 template <typename T, int R, int STAGE>
 static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int my,
-                  int mx, const Taps* taps, int smem_bytes, cudaStream_t stream) {
+                  int mx, const Taps* taps, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
     const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
     if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
     constexpr bool kFill = STAGE != STAGE_NINE;
@@ -131,30 +140,40 @@ static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, i
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
-    kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), H, W, TM, TN, t, my, mx, *taps);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
+        kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const T*>(x), b0, grid_elems),
+            grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, my, mx, *taps,
+            (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <typename T, int STAGE>
 static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r,
-                    int my, int mx, const Taps* taps, int smem_bytes, cudaStream_t s) {
-    if (r == 1) return launch<T, 1, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
-    if (r == 2) return launch<T, 2, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
-    if (r == 3) return launch<T, 3, STAGE>(x, y, H, W, TM, TN, t, my, mx, taps, smem_bytes, s);
+                    int my, int mx, const Taps* taps, int B, long long grid_elems,
+                    int smem_bytes, cudaStream_t s) {
+#define ARGS x, y, H, W, TM, TN, t, my, mx, taps, B, grid_elems, smem_bytes, s
+    if (r == 1) return launch<T, 1, STAGE>(ARGS);
+    if (r == 2) return launch<T, 2, STAGE>(ARGS);
+    if (r == 3) return launch<T, 3, STAGE>(ARGS);
+#undef ARGS
     return (int)cudaErrorInvalidValue;
 }
 
-#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, smem_bytes, s
+#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
 #ifndef REPRO_FOIL
 // dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; mode_y,
-// mode_x: the rows' and the columns' boundary codes (MODE_*).  Returns
-// the cudaError_t of the launch (0 on success).
+// mode_x: the rows' and the columns' boundary codes (MODE_*); x and y
+// hold B grids of grid_elems = H * W cells each (the batch, K11).
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int TM, int TN,
                                      int t, int r, int dtype, int mode_y, int mode_x,
-                                     const Taps* taps, int smem_bytes, void* stream) {
-    if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
+                                     const Taps* taps, int B, long long grid_elems,
+                                     int smem_bytes, void* stream) {
+    if (taps->n < 1 || taps->n > MAX_TAPS || grid_elems != (long long)H * W)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return launch_r<float, STAGE_REGION>(ARGS);
     if (dtype == 1) return launch_r<__nv_bfloat16, STAGE_REGION>(ARGS);
@@ -165,9 +184,10 @@ extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int T
 // STAGE_STRIP (any boundary) or STAGE_NINE (periodic only).
 extern "C" int stencil_direct_foil_launch(const void* x, void* y, int H, int W, int TM, int TN,
                                           int t, int r, int dtype, int stage, int mode_y,
-                                          int mode_x, const Taps* taps, int smem_bytes,
-                                          void* stream) {
-    if (taps->n < 1 || taps->n > MAX_TAPS) return (int)cudaErrorInvalidValue;
+                                          int mode_x, const Taps* taps, int B,
+                                          long long grid_elems, int smem_bytes, void* stream) {
+    if (taps->n < 1 || taps->n > MAX_TAPS || grid_elems != (long long)H * W)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (stage == STAGE_STRIP && dtype == 0) return launch_r<float, STAGE_STRIP>(ARGS);
     if (stage == STAGE_STRIP && dtype == 1) return launch_r<__nv_bfloat16, STAGE_STRIP>(ARGS);

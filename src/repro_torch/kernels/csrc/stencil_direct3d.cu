@@ -34,6 +34,10 @@
 // kind wholeslab via _assemble_foil): this kernel with the STAGE_STRIP
 // staging of common.cuh, the 3 x 3 whole (z, y) neighbour tiles, which
 // reads 9 (TN+2h)/TN times the grid for the same compute.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "common.cuh"
 
 #define TAPS3D_SLOTS 344  // (2*3+1)^3 = 343, rounded to 16 bytes
@@ -43,7 +47,8 @@ template <typename T, int R, bool FILL, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS)
 stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
                         const float* __restrict__ taps, int Z, int H, int W, int TZ, int TM,
-                        int TN, int t, int gx, int gy, int mz, int my, int mx) {
+                        int TN, int t, int gx, int gy, int mz, int my, int mx,
+                        size_t grid_elems) {
     constexpr int KW = 2 * R + 1;
     constexpr int V = ROWS_PER_THREAD;
     extern __shared__ float smem[];
@@ -56,6 +61,10 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
     float* const b1 = b0 + planes0 * plane_ld;
     const Tile3 tl = tile3(blockIdx.x, gx, gy);
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
 
     for (int i = threadIdx.x; i < KW * KW * KW; i += blockDim.x) wsh[i] = taps[i];
     load_region3d<STAGE>(b0, ld, plane_ld, sink_slot<STAGE>(b1, planes0 * plane_ld), x, Z, H, W,
@@ -122,7 +131,8 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T, int R, int STAGE>
 static int launch(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ, int TM,
-                  int TN, int t, const int* modes, int smem_bytes, cudaStream_t stream) {
+                  int TN, int t, const int* modes, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
     const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
                       modes[2] != MODE_PERIODIC;
     auto* kernel = fill ? stencil_direct3d_kernel<T, R, true, STAGE>
@@ -133,17 +143,20 @@ static int launch(const void* x, void* y, const float* taps, int Z, int H, int W
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
-    kernel<<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), taps, Z, H, W, TZ, TM, TN, t, gx, gy,
-        modes[0], modes[1], modes[2]);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        kernel<<<dim3((unsigned)ctas, 1, nb), CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const T*>(x), b0, grid_elems),
+            grid_at(static_cast<T*>(y), b0, grid_elems), taps, Z, H, W, TZ, TM, TN, t, gx, gy,
+            modes[0], modes[1], modes[2], (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 template <typename T, int STAGE>
 static int launch_r(const void* x, void* y, const float* taps, int Z, int H, int W, int TZ,
-                    int TM, int TN, int t, int r, const int* modes, int smem_bytes,
-                    cudaStream_t s) {
-#define ARGS x, y, taps, Z, H, W, TZ, TM, TN, t, modes, smem_bytes, s
+                    int TM, int TN, int t, int r, const int* modes, int B, long long grid_elems,
+                    int smem_bytes, cudaStream_t s) {
+#define ARGS x, y, taps, Z, H, W, TZ, TM, TN, t, modes, B, grid_elems, smem_bytes, s
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
@@ -151,17 +164,19 @@ static int launch_r(const void* x, void* y, const float* taps, int Z, int H, int
     return (int)cudaErrorInvalidValue;
 }
 
-#define ARGS x, y, static_cast<const float*>(taps), Z, H, W, TZ, TM, TN, t, r, modes, smem_bytes, \
-             static_cast<cudaStream_t>(stream)
+#define ARGS x, y, static_cast<const float*>(taps), Z, H, W, TZ, TM, TN, t, r, modes, B, \
+             grid_elems, smem_bytes, static_cast<cudaStream_t>(stream)
 #ifndef REPRO_FOIL
 // taps: the dense (2r+1)^3 float32 weights on the device.  dtype: 0 =
 // float32, 1 = bfloat16 (input and output); r in 1..3; mode_z, mode_y,
-// mode_x: each axis's boundary code (MODE_*).  Returns the cudaError_t of
-// the launch (0 on success).
+// mode_x: each axis's boundary code (MODE_*); x and y hold B grids of
+// grid_elems = Z * H * W cells each (the batch, K11).  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int stencil_direct3d_launch(const void* x, void* y, const void* taps, int Z, int H,
                                        int W, int TZ, int TM, int TN, int t, int r, int dtype,
-                                       int mode_z, int mode_y, int mode_x, int smem_bytes,
-                                       void* stream) {
+                                       int mode_z, int mode_y, int mode_x, int B,
+                                       long long grid_elems, int smem_bytes, void* stream) {
+    if (grid_elems != (long long)Z * H * W) return (int)cudaErrorInvalidValue;
     const int modes[3] = {mode_z, mode_y, mode_x};
     if (dtype == 0) return launch_r<float, STAGE_REGION>(ARGS);
     if (dtype == 1) return launch_r<__nv_bfloat16, STAGE_REGION>(ARGS);
@@ -173,7 +188,9 @@ extern "C" int stencil_direct3d_launch(const void* x, void* y, const void* taps,
 extern "C" int stencil_direct3d_foil_launch(const void* x, void* y, const void* taps, int Z,
                                             int H, int W, int TZ, int TM, int TN, int t, int r,
                                             int dtype, int stage, int mode_z, int mode_y,
-                                            int mode_x, int smem_bytes, void* stream) {
+                                            int mode_x, int B, long long grid_elems,
+                                            int smem_bytes, void* stream) {
+    if (grid_elems != (long long)Z * H * W) return (int)cudaErrorInvalidValue;
     const int modes[3] = {mode_z, mode_y, mode_x};
     if (stage == STAGE_STRIP && dtype == 0) return launch_r<float, STAGE_STRIP>(ARGS);
     if (stage == STAGE_STRIP && dtype == 1) return launch_r<__nv_bfloat16, STAGE_STRIP>(ARGS);

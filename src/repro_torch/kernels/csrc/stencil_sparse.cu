@@ -40,6 +40,10 @@
 // into the region.  Measured on the card, the dense kernel spends its time
 // on the copies and the global load, not on the MMAs, so the compacted
 // kernel is expected to run close to it.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "sparse_mma.cuh"
 
 #define MAX_ROWS 64
@@ -62,7 +66,7 @@ __global__ void __launch_bounds__(CTA_THREADS)
 stencil_sparse_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                       const TC* __restrict__ packed, int H, int W, int TM, int TN, int t,
                       int R, int rows, int ld, int a_rows, int a_cols, int my, int mx,
-                      SparseRows br) {
+                      SparseRows br, size_t grid_elems) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     float* const region = reinterpret_cast<float*>(smem);
@@ -74,6 +78,10 @@ stencil_sparse_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const int h0 = TM + 2 * halo, w0 = TN + 2 * halo;
     const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN;
     const int band_k = BAND_N + 2 * R;  // rows of one dense band
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
 
     load_region<STAGE_REGION>(region, ld, nullptr, x, H, W, i0 - halo, j0 - halo, h0, w0, TM,
                               TN);
@@ -160,7 +168,8 @@ stencil_sparse_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 template <typename TIn, typename TC>
 static int launch(const void* x, void* y, const void* packed, int H, int W, int TM, int TN,
                   int t, int R, int rows, int ld, int a_rows, int a_cols, int my, int mx,
-                  const SparseRows* br, int smem_bytes, cudaStream_t stream) {
+                  const SparseRows* br, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
     for (int p = 0; p < br->n; ++p)
         if (br->nk[p] < 1 || br->nk[p] > SpMma<TC>::MAX_KS || br->lo[p] < 0 ||
             br->lo[p] + br->nk[p] * SpMma<TC>::K > a_cols)
@@ -171,25 +180,31 @@ static int launch(const void* x, void* y, const void* packed, int H, int W, int 
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
     cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM);
-    kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(packed), H, W,
-        TM, TN, t, R, rows, ld, a_rows, a_cols, my, mx, *br);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
+        kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const TIn*>(x), b0, grid_elems),
+            grid_at(static_cast<TIn*>(y), b0, grid_elems), static_cast<const TC*>(packed), H, W,
+            TM, TN, t, R, rows, ld, a_rows, a_cols, my, mx, *br, (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; packed is
 // (sum_p nk_p * K, 16) in the compute dtype, band by band; mode_y, mode_x:
-// the rows' and the columns' boundary codes (MODE_*).  Returns the
+// the rows' and the columns' boundary codes (MODE_*); x and y hold B grids
+// of grid_elems = H * W cells each (the batch, K11).  Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int stencil_sparse_launch(const void* x, void* y, const void* packed, int H, int W,
                                      int TM, int TN, int t, int R, int rows, int ld, int a_rows,
                                      int a_cols, int dtype, int compute, int mode_y, int mode_x,
-                                     const SparseRows* br, int smem_bytes, void* stream) {
-    if (br->n < 1 || br->n > MAX_ROWS) return (int)cudaErrorInvalidValue;
+                                     const SparseRows* br, int B, long long grid_elems,
+                                     int smem_bytes, void* stream) {
+    if (br->n < 1 || br->n > MAX_ROWS || grid_elems != (long long)H * W)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS x, y, packed, H, W, TM, TN, t, R, rows, ld, a_rows, a_cols, mode_y, mode_x, br, \
-             smem_bytes, s
+#define ARGS x, y, packed, H, W, TM, TN, t, R, rows, ld, a_rows, a_cols, mode_y, mode_x, br, B, \
+             grid_elems, smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);

@@ -35,6 +35,10 @@
 // column lo_p, which wmma cannot load) and stores the sums back into the
 // region at columns [16c, 16c + 16).  Chunk c + 1 reads from column
 // 16(c + 1) on, so the in-place store is safe and A holds one chunk.
+//
+// A launch advances a batch of B grids, grid b on blockIdx.z (K11,
+// replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
+// grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "sparse_mma.cuh"
 
 // Shared memory: the f32 region (planes x rows x ld), then one chunk's
@@ -48,7 +52,7 @@ stencil_sparse3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
                         const TC* __restrict__ packed, const int* __restrict__ meta, int Z,
                         int H, int W, int TZ, int TM, int TN, int t, int R, int rows, int ld,
                         int a_rows, int a_cols, int n_rows, int gx, int gy, int mz, int my,
-                        int mx) {
+                        int mx, size_t grid_elems) {
     using M = Mma<TC>;
     extern __shared__ __align__(128) unsigned char smem[];
     const int halo = t * R;
@@ -63,6 +67,10 @@ stencil_sparse3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
     const Tile3 tl = tile3(blockIdx.x, gx, gy);
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
     const int band_k = BAND_N + 2 * R;  // rows of one dense band
+    if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
 
     load_region3d<STAGE_REGION>(region, ld, rplane, nullptr, x, Z, H, W, k0 - halo, i0 - halo,
                                 j0 - halo, p0, h0, w0, TZ, TM);
@@ -160,8 +168,8 @@ stencil_sparse3d_kernel(const TIn* __restrict__ x, TIn* __restrict__ y,
 template <typename TIn, typename TC>
 static int launch(const void* x, void* y, const void* packed, const int* meta, int Z, int H,
                   int W, int TZ, int TM, int TN, int t, int R, int rows, int ld, int a_rows,
-                  int a_cols, int n_rows, const int* modes, int smem_bytes,
-                  cudaStream_t stream) {
+                  int a_cols, int n_rows, const int* modes, int B, long long grid_elems,
+                  int smem_bytes, cudaStream_t stream) {
     const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
                       modes[2] != MODE_PERIODIC;
     auto* kernel =
@@ -172,30 +180,35 @@ static int launch(const void* x, void* y, const void* packed, const int* meta, i
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
-    kernel<<<(unsigned)ctas, CTA_THREADS, smem_bytes, stream>>>(
-        static_cast<const TIn*>(x), static_cast<TIn*>(y), static_cast<const TC*>(packed), meta,
-        Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, a_cols, n_rows, gx, gy, modes[0],
-        modes[1], modes[2]);
-    return (int)cudaGetLastError();
+    return for_each_chunk(B, [&](int b0, int nb) {
+        kernel<<<dim3((unsigned)ctas, 1, nb), CTA_THREADS, smem_bytes, stream>>>(
+            grid_at(static_cast<const TIn*>(x), b0, grid_elems),
+            grid_at(static_cast<TIn*>(y), b0, grid_elems), static_cast<const TC*>(packed), meta,
+            Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, a_cols, n_rows, gx, gy, modes[0],
+            modes[1], modes[2], (size_t)grid_elems);
+        return (int)cudaGetLastError();
+    });
 }
 
 // dtype / compute: 0 = float32 (TF32 MMA operands), 1 = bfloat16; packed
 // is (sum_p nk_p * K, 16) in the compute dtype, band by band; meta
 // (n_rows, 4) int32 (dz, dy, lo, nk), each band's lo + nk * K <= a_cols
 // (the wrapper's BandMeta); mode_z, mode_y, mode_x: each axis's boundary
-// code (MODE_*).  Returns the cudaError_t of the launch (0 on success).
+// code (MODE_*); x and y hold B grids of grid_elems = Z * H * W cells
+// each (the batch, K11).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int stencil_sparse3d_launch(const void* x, void* y, const void* packed,
                                        const void* meta, int Z, int H, int W, int TZ, int TM,
                                        int TN, int t, int R, int rows, int ld, int a_rows,
                                        int a_cols, int n_rows, int dtype, int compute,
-                                       int mode_z, int mode_y, int mode_x, int smem_bytes,
-                                       void* stream) {
-    if (n_rows < 1) return (int)cudaErrorInvalidValue;
+                                       int mode_z, int mode_y, int mode_x, int B,
+                                       long long grid_elems, int smem_bytes, void* stream) {
+    if (n_rows < 1 || grid_elems != (long long)Z * H * W) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int* m = static_cast<const int*>(meta);
     const int modes[3] = {mode_z, mode_y, mode_x};
 #define ARGS x, y, packed, m, Z, H, W, TZ, TM, TN, t, R, rows, ld, a_rows, a_cols, n_rows, modes, \
-             smem_bytes, s
+             B, grid_elems, smem_bytes, s
     if (dtype == 0 && compute == 0) return launch<float, float>(ARGS);
     if (dtype == 0 && compute == 1) return launch<float, __nv_bfloat16>(ARGS);
     if (dtype == 1 && compute == 0) return launch<__nv_bfloat16, float>(ARGS);

@@ -192,7 +192,7 @@ def classify_failure(exc: BaseException,
 # Ladder construction
 # ---------------------------------------------------------------------------
 #: The plan arguments the degraded rung drops, so the tile re-resolves.
-_PINS = ("tile_m", "w_tile")
+_PINS = ("tile_m", "w_tile", "z_slab")
 
 
 class _Rung:
@@ -240,7 +240,7 @@ class _EnvPin:
 
 
 def _start_backend(weights, grid_shape, dtype, t, hw, backend, tile_m,
-                   w_tile, use_sparse_unit=False, boundary=None):
+                   w_tile, use_sparse_unit=False, boundary=None, z_slab=None):
     """The name the first rung executes: the override if given, else the
     selector's pick (``plan.auto_decision``, as ``stencil_plan`` takes
     it).  ``None`` when even pricing fails (then the walk uses the full
@@ -250,8 +250,8 @@ def _start_backend(weights, grid_shape, dtype, t, hw, backend, tile_m,
     try:
         return _plan.auto_decision(
             _plan.spec_from_weights(weights), grid_shape, dtype, t, hw=hw,
-            tile_m=tile_m, w_tile=w_tile, use_sparse_unit=use_sparse_unit,
-            boundary=boundary)[1].backend
+            tile_m=tile_m, w_tile=w_tile, z_slab=z_slab,
+            use_sparse_unit=use_sparse_unit, boundary=boundary)[1].backend
     except Exception:
         return None
 
@@ -310,7 +310,7 @@ class GuardedPlan:
             self._hw(), self._kwargs.get("backend"),
             self._kwargs.get("tile_m"), self._kwargs.get("w_tile"),
             self._kwargs.get("use_sparse_unit", False),
-            self._kwargs.get("boundary"))
+            self._kwargs.get("boundary"), self._kwargs.get("z_slab"))
 
         self.on_card = _on_card(self._kwargs.get("device"))
         self._rungs = _ladder(self._kwargs.get("backend"), self._start,
@@ -431,6 +431,22 @@ class GuardedPlan:
     def rung(self) -> str:
         return self._rungs[self._idx].label(self._start)
 
+    @property
+    def grid_shape(self):
+        return self._plan.grid_shape
+
+    @property
+    def batch(self):
+        return self._plan.batch
+
+    @property
+    def input_shape(self):
+        return self._plan.input_shape
+
+    @property
+    def decision(self):
+        return self._plan.decision
+
     def explain(self) -> str:
         lines = [self._plan.explain()]
         if self.degraded:
@@ -463,7 +479,7 @@ class GuardedPlan:
         return self._checked(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if tuple(x.shape) != self._plan.grid_shape:
+        if tuple(x.shape) != self._plan.input_shape:
             # caller bug, not a kernel failure: propagate raw
             return self._plan(x)
         while True:
@@ -521,7 +537,13 @@ def guarded_stencil_plan(spec_or_weights, grid_shape, dtype, t: int = 1,
 
     Raw argument errors (bad ``t``, rank mismatch, unknown backend, no
     card for ``device=None``) raise immediately and unguarded -- the
-    ladder only absorbs *kernel* failures, never caller bugs."""
+    ladder only absorbs *kernel* failures, never caller bugs.
+
+    ``batch=B`` plans are guarded per batch, as in JAX: a failing rung
+    demotes the whole bucket, the next rung re-runs the whole batched
+    input, and the watchdog checks (and re-runs) the whole batch.
+    ``batch`` and ``batch_mode`` ride through every rung; only the tile
+    pins drop on the degraded rung."""
     _plan.plan_signature(spec_or_weights, grid_shape, dtype, t,
                          **{k: v for k, v in kwargs.items()
                             if k != "use_cache"})

@@ -24,7 +24,7 @@ import torch
 
 from . import stencil_direct as _direct
 from . import stencil_matmul as _matmul
-from .common import BAND_N, SubstrateGeom, check_grid
+from .common import BAND_N, SubstrateGeom, batch_grid, check_grid, plain_loop
 
 NEIGHBOR_OFFSETS_2D = [(-1, -1), (-1, 0), (-1, 1),
                        (0, -1), (0, 0), (0, 1),
@@ -73,31 +73,39 @@ def tile_geom(shape, tile_m: int, tile_n: int, halo: int) -> SubstrateGeom:
 
 
 def stencil_direct_9pt(x: torch.Tensor, weights, t: int = 1,
-                       tile_m: int = 128, tile_n: int = 128) -> torch.Tensor:
-    """Seed tap-sum kernel (K9): ``t`` fused steps on the 9-tile scheme."""
+                       tile_m: int = 128, tile_n: int = 128,
+                       batched: bool = False) -> torch.Tensor:
+    """Seed tap-sum kernel (K9): ``t`` fused steps on the 9-tile scheme;
+    ``batched``: ``x`` is ``(B,) + grid_shape``, one launch (K11)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights)
-    geom = tile_geom(x.shape, tile_m, tile_n, t * ((w.shape[0] - 1) // 2))
-    r, modes = check_grid(x.shape, w, t, None, "the 9-tile tap-sum")
+    shape = batch_grid(x, batched)
+    geom = tile_geom(shape, tile_m, tile_n, t * ((w.shape[0] - 1) // 2))
+    r, modes = check_grid(shape, w, t, None, "the 9-tile tap-sum")
     if x.device.type == "cpu":
-        return _direct.stencil_direct_plain(x, w, t, modes)
-    return _direct._run(x, w, t, r, geom, modes, "9tile")
+        return plain_loop(_direct.stencil_direct_plain, x, batched, w, t,
+                          modes)
+    return _direct._run(x, w, t, r, geom, modes, "9tile", batched)
 
 
 def stencil_matmul_9pt(x: torch.Tensor, weights, tile_m: int = 128,
-                       tile_n: int = 128, compute_dtype=None) -> torch.Tensor:
+                       tile_n: int = 128, compute_dtype=None,
+                       batched: bool = False) -> torch.Tensor:
     """Seed banded kernel (K10): one contraction of ``weights`` (the
     composed radius-t*r kernel of a plan) on the 9-tile scheme; operands
-    in ``compute_dtype`` (default the grid's), 16-column band chunks."""
+    in ``compute_dtype`` (default the grid's), 16-column band chunks;
+    ``batched``: ``x`` is ``(B,) + grid_shape``, one launch (K11)."""
     w = np.asarray(weights, dtype=np.float32)
-    geom = tile_geom(x.shape, tile_m, tile_n, (w.shape[0] - 1) // 2)
-    radius, modes = check_grid(x.shape, w, 1, None, "the 9-tile banded "
+    shape = batch_grid(x, batched)
+    geom = tile_geom(shape, tile_m, tile_n, (w.shape[0] - 1) // 2)
+    radius, modes = check_grid(shape, w, 1, None, "the 9-tile banded "
                                "contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
-        return _matmul.stencil_matmul_plain(x, w, 1, BAND_N, cdt, modes)
-    return _matmul._run(x, w, 1, radius, cdt, geom, modes, "9tile")
+        return plain_loop(_matmul.stencil_matmul_plain, x, batched, w, 1,
+                          BAND_N, cdt, modes)
+    return _matmul._run(x, w, 1, radius, cdt, geom, modes, "9tile", batched)
 
 
 def hbm_read_bytes_per_step(shape, tile_m: int, tile_n: int, dtype_bytes: int,

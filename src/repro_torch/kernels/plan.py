@@ -6,7 +6,11 @@ procedure once -- spec inference, backend selection under the H100 model,
 tile sizing and weight preprocessing inside the chosen backend's ``build``
 -- and returns a :class:`StencilPlan` whose ``plan(x)`` / ``plan.step(x)`` /
 ``plan.run(x, n)`` execute with zero re-analysis.  PyTorch runs eagerly,
-so the executable is the builder's runner itself (no ``jit``).
+so the executable is the builder's runner itself (no ``jit``).  With
+``batch=B`` a plan consumes ``(B,) + grid_shape`` and advances B
+independent grids per call, equal bit for bit to a loop of unbatched
+plans: ``batch_mode="vmap"`` launches each kernel call once for the whole
+batch (K11), ``"map"`` loops the unbatched runner.
 
 Plans run on the card unless the caller asks for the CPU: ``device=None``
 means ``"cuda"`` and raises when no GPU is present.  On ``device="cpu"``
@@ -37,7 +41,7 @@ from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import jacobi_weights
 from repro_torch.testing import faults as _faults
 from . import registry
-from .common import BAND_N, resolve_tile_geom, smem_budget_bytes
+from .common import BAND_N, fold_batch, resolve_tile_geom, smem_budget_bytes
 
 #: Grid dtypes the port accepts, by numpy/torch name.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -125,10 +129,13 @@ class StencilPlan:
 
     def __init__(self, *, spec, weights, grid_shape, dtype, t, hw, backend,
                  decision, fn, device, geom, key=None, build_time_s=0.0,
-                 ctx=None, boundary=None):
+                 ctx=None, boundary=None, batch=None, batch_mode=None):
         self.spec = spec
         self.weights = weights
         self.grid_shape = grid_shape
+        #: Grids per call (``None``: unbatched) and the resolved fold.
+        self.batch = batch
+        self.batch_mode = batch_mode
         self.dtype = dtype
         self.t = t
         self.hw = hw
@@ -145,11 +152,22 @@ class StencilPlan:
         #: plan first reaches its kernels: repro_torch.testing.faults).
         self._reached = False
 
+    @property
+    def input_shape(self) -> Tuple[int, ...]:
+        """The tensor shape one call consumes: ``grid_shape``, or
+        ``(batch,) + grid_shape`` for a batched plan."""
+        if self.batch is None:
+            return self.grid_shape
+        return (self.batch,) + self.grid_shape
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if tuple(x.shape) != self.grid_shape:
+        if tuple(x.shape) != self.input_shape:
+            built = (f"grid {self.grid_shape}" if self.batch is None else
+                     f"input {self.input_shape} (grid {self.grid_shape}, "
+                     f"batch {self.batch})")
             raise ValueError(
-                f"plan was built for grid {self.grid_shape}, got "
-                f"{tuple(x.shape)}; build a new plan for a new geometry")
+                f"plan was built for {built}, got {tuple(x.shape)}; build a "
+                "new plan for a new geometry")
         if x.device.type != self.device.type or x.dtype != self.dtype:
             raise ValueError(
                 f"plan was built for {self.dtype} on {self.device}, got "
@@ -178,7 +196,9 @@ class StencilPlan:
         d = self.decision
         lines = [
             f"StencilPlan {self.spec.name} t={self.t} grid={self.grid_shape} "
-            f"dtype={self.dtype} on {self.device} priced as {self.hw.name}",
+            + ("" if self.batch is None
+               else f"batch={self.batch} ({self.batch_mode}) ")
+            + f"dtype={self.dtype} on {self.device} priced as {self.hw.name}",
             f"  executes : {self.backend}"
             + ("" if self.backend == d.backend
                else f" (override; auto would pick {d.backend})"),
@@ -198,7 +218,8 @@ class StencilPlan:
     def __repr__(self) -> str:
         return (f"StencilPlan({self.spec.name}, t={self.t}, "
                 f"grid={self.grid_shape}, backend={self.backend!r}, "
-                f"device={self.device})")
+                + ("" if self.batch is None else f"batch={self.batch}, ")
+                + f"device={self.device})")
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +335,31 @@ def _later_slice(name: str, item: str) -> NotImplementedError:
         f"{name} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
 
 
+#: How a batched plan folds its leading batch axis (``common.fold_batch``):
+#:   "vmap" -- each kernel call of the runner is one launch over the whole
+#:            batch, grid b on blockIdx.z (K11);
+#:   "map"  -- the unbatched runner looped over the grids (B launches per
+#:            kernel call, each grid's work that of the unbatched plan);
+#:   "auto" -- "vmap" on the card, "map" on the CPU, as JAX resolves it by
+#:            ``interpret`` (the CPU runs the plain versions, which loop
+#:            either way).
+#: Both equal a loop of unbatched plans bit for bit.
+BATCH_MODES = ("auto", "vmap", "map")
+
+
+def _resolve_batch_mode(batch_mode: str, on_card: bool) -> str:
+    if batch_mode not in BATCH_MODES:
+        raise ValueError(f"batch_mode must be one of {BATCH_MODES}, "
+                         f"got {batch_mode!r}")
+    if batch_mode == "auto":
+        return "vmap" if on_card else "map"
+    return batch_mode
+
+
 def auto_decision(spec: StencilSpec, grid_shape: Sequence[int], dtype, t: int,
                   *, hw: pm.HardwareSpec = pm.H100_SXM_DATASHEET,
                   tile_m: Optional[int] = None, w_tile: Optional[int] = None,
+                  z_slab: Optional[int] = None,
                   use_sparse_unit: bool = False,
                   boundary: BoundaryLike = None):
     """``(geom, decision)``: the CTA tile a plan of this signature resolves
@@ -326,7 +369,8 @@ def auto_decision(spec: StencilSpec, grid_shape: Sequence[int], dtype, t: int,
     (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in 3D, is the region the kernels
     really load, and the banded chunk width prices S."""
     grid_shape = tuple(int(n) for n in grid_shape)
-    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile)
+    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile,
+                             z_slab)
     decision = decide(spec, t, dtype_bytes=as_torch_dtype(dtype).itemsize,
                       hw=hw, tile_n=BAND_N, use_sparse_unit=use_sparse_unit,
                       boundary=resolve_boundary(boundary, len(grid_shape)),
@@ -344,21 +388,30 @@ def plan_signature(
     backend: Optional[str] = None,
     tile_m: Optional[int] = None,
     w_tile: Optional[int] = None,
+    z_slab: Optional[int] = None,
     compute_dtype=None,
     boundary: BoundaryLike = None,
     device=None,
     mesh=None,
     batch: Optional[int] = None,
+    batch_mode: str = "auto",
     audit: Optional[bool] = None,
     use_sparse_unit: bool = False,
 ) -> Tuple:
     """Validate plan arguments and return ``(key, weights, grid_shape,
     dtype, device)`` -- the deterministic cache signature WITHOUT
     building.  Arguments of later slices raise ``NotImplementedError``."""
+    if batch is not None:
+        if int(batch) < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        batch = int(batch)
+        if mesh is not None:
+            raise ValueError(      # the JAX message (plan.py:443-447)
+                "batched plans do not compose with distributed meshes yet; "
+                "shard the request stream across hosts instead "
+                "(repro.serve coalesces per host)")
     if mesh is not None:
         raise _later_slice("the distributed stepper (mesh=)", "item 15")
-    if batch is not None:
-        raise _later_slice("batched plans (batch=)", "item 13")
     if audit:
         raise _later_slice("the static auditor (audit=True)", "item 14")
     if t < 1:
@@ -377,15 +430,26 @@ def plan_signature(
     if len(grid_shape) not in (1, 2, 3):
         raise ValueError(f"the port runs 1D, 2D and 3D grids, got rank "
                          f"{len(grid_shape)}")
+    if z_slab is not None:
+        if len(grid_shape) != 3:
+            raise ValueError(f"z_slab pins the depth of a 3D tile; the grid "
+                             f"{grid_shape} is {len(grid_shape)}D")
+        if int(z_slab) < 1:
+            raise ValueError(f"z_slab must be >= 1, got {z_slab}")
     boundary_key = resolve_boundary(boundary, len(grid_shape))
     dtype = as_torch_dtype(dtype)
     cdt = None if compute_dtype is None else as_torch_dtype(compute_dtype)
     dev = resolve_device(device)
+    # The RESOLVED fold lands in the key, so "auto" shares one plan with
+    # its resolution while "vmap" and "map" plans never alias.
+    batch_key = None if batch is None else (
+        batch, _resolve_batch_mode(batch_mode, dev.type == "cuda"))
     # The tile rule's budget is part of the key: it decides the tile, and
     # the guard's degraded rung halves it, so those plans never alias.
     key = (_weights_key(weights), grid_shape, str(dtype), t, hw, backend,
-           tile_m, w_tile, str(cdt), bool(use_sparse_unit), boundary_key,
-           str(dev), smem_budget_bytes(), registry.generation())
+           tile_m, w_tile, z_slab, str(cdt), bool(use_sparse_unit),
+           boundary_key, batch_key, str(dev), smem_budget_bytes(),
+           registry.generation())
     return key, weights, grid_shape, dtype, dev
 
 
@@ -399,12 +463,14 @@ def stencil_plan(
     backend: Optional[str] = None,
     tile_m: Optional[int] = None,
     w_tile: Optional[int] = None,
+    z_slab: Optional[int] = None,
     compute_dtype=None,
     boundary: BoundaryLike = None,
     device=None,
     use_cache: bool = True,
     mesh=None,
     batch: Optional[int] = None,
+    batch_mode: str = "auto",
     audit: Optional[bool] = None,
     use_sparse_unit: bool = False,
 ) -> StencilPlan:
@@ -422,10 +488,13 @@ def stencil_plan(
         data sheet).
       backend: override the selector's choice with a registered backend.
       tile_m / w_tile: pin the CTA output tile (multiples of 16; ``None``
-        = ``resolve_tile_geom``; the 3D tile's depth is always sized by
-        the rule, and a 1D plan takes only ``w_tile``, for its lifted
-        tile).  The banded regimes contract
+        = ``resolve_tile_geom``; a 1D plan takes only ``w_tile``, for its
+        lifted tile).  The banded regimes contract
         BAND_N-column chunks (one wmma N), on the card and the CPU alike.
+      z_slab: 3D grids only -- pin the tile's depth TZ (clamped to the
+        grid's depth; ``None`` = the tile rule's).  A depth whose tile
+        fits no shared-memory budget raises, as does one shallower than
+        the halo under the whole-slab foils.  Part of the cache key.
       compute_dtype: MMA operand dtype of the banded regimes (default the
         grid dtype).
       boundary: per-axis boundary modes -- one of ``periodic`` (the
@@ -441,14 +510,22 @@ def stencil_plan(
       use_sparse_unit: admit the sparse-compacted backends
         (``sparse_matmul`` / ``fused_sparse_matmul``) as priced
         candidates.  Part of the cache key.
-      mesh / batch / audit: later slices; they raise
-        ``NotImplementedError`` naming their ROADMAP item.
+      batch: when given, the plan consumes ``(batch,) + grid_shape`` and
+        advances ``batch`` independent grids per call, bit for bit a loop
+        of unbatched plans.  Tile sizing and selection stay per grid.
+        Part of the cache key.
+      batch_mode: how the batch axis folds -- see :data:`BATCH_MODES`
+        ("auto" = "vmap" on the card, "map" on the CPU).  The resolved
+        mode is part of the cache key.
+      mesh / audit: later slices; they raise ``NotImplementedError``
+        naming their ROADMAP item (``batch`` with ``mesh`` raises the JAX
+        ``ValueError``).
     """
     key, weights, grid_shape, dtype, dev = plan_signature(
         spec_or_weights, grid_shape, dtype, t, hw=hw, backend=backend,
-        tile_m=tile_m, w_tile=w_tile,
+        tile_m=tile_m, w_tile=w_tile, z_slab=z_slab,
         compute_dtype=compute_dtype, boundary=boundary, device=device,
-        mesh=mesh, batch=batch, audit=audit,
+        mesh=mesh, batch=batch, batch_mode=batch_mode, audit=audit,
         use_sparse_unit=use_sparse_unit)
     modes = resolve_boundary(boundary, len(grid_shape))
     with _LOCK:
@@ -462,21 +539,27 @@ def stencil_plan(
     spec = spec_from_weights(weights)
     geom, decision = auto_decision(spec, grid_shape, dtype, t, hw=hw,
                                    tile_m=tile_m, w_tile=w_tile,
+                                   z_slab=z_slab,
                                    use_sparse_unit=use_sparse_unit,
                                    boundary=modes)
     ctx = registry.PlanContext(
         spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
-        t=t, tile_m=tile_m, w_tile=w_tile,
+        t=t, tile_m=tile_m, w_tile=w_tile, z_slab=z_slab,
         compute_dtype=None if compute_dtype is None
         else as_torch_dtype(compute_dtype),
         boundary=modes)
     exec_backend = backend if backend is not None else decision.backend
     fn = registry.get_backend(exec_backend).build(ctx)
+    mode = None
+    if batch is not None:
+        mode = _resolve_batch_mode(batch_mode, dev.type == "cuda")
+        fn = fold_batch(fn, mode)
     plan = StencilPlan(
         spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
         t=t, hw=hw, backend=exec_backend, decision=decision, fn=fn,
         device=dev, geom=geom, key=key,
-        build_time_s=time.perf_counter() - t0, ctx=ctx, boundary=modes)
+        build_time_s=time.perf_counter() - t0, ctx=ctx, boundary=modes,
+        batch=None if batch is None else int(batch), batch_mode=mode)
     if use_cache:
         with _LOCK:
             bound = plan_cache_max()

@@ -10,10 +10,12 @@ intermediate-reuse --, the sparse-compacted pair (``sparse_matmul`` /
 scheme (``legacy_direct`` / ``legacy_matmul``, 2D periodic) and the five
 regimes on the whole-strip staging (``<regime>_wholestrip``), which read
 whole neighbour tiles and compute what their regime computes.  Each
-:class:`BackendDef` carries ``build(ctx) -> run(x)``, which does all
-host-side work (tile sizing, weight composition, validation) once per
-plan, and an optional ``price(pctx)`` that makes it an auto-selection
-candidate.  ``fallback_rank`` orders the guard layer's degradation ladder
+:class:`BackendDef` carries ``build(ctx) -> run(x, batched=False)``, which
+does all host-side work (tile sizing, weight composition, validation)
+once per plan, and an optional ``price(pctx)`` that makes it an
+auto-selection candidate.  ``run(xb, batched=True)`` advances a batch
+``(B,) + grid_shape`` with one launch per kernel call (K11): a batched
+plan's "vmap" fold (``common.fold_batch``).  ``fallback_rank`` orders the guard layer's degradation ladder
 (``repro_torch.kernels.guard``), the JAX ranks.
 """
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.stencil.weights import fuse_weights
 from . import legacy as _legacy
 from . import ref as _ref
 from .common import (SubstrateGeom, check_grid, check_staging, launch_geom,
-                     staging_clause)
+                     plain_loop, staging_clause)
 from .stencil_direct import stencil_direct_at
 from .stencil_matmul import stencil_matmul_at
 from .stencil_sparse import sparse_tile_layout, stencil_sparse_matmul_at
@@ -49,6 +51,8 @@ class PlanContext:
     tile_m: Optional[int]        # CTA output tile rows; None = auto
     w_tile: Optional[int]        # CTA output tile columns; None = auto
     compute_dtype: Optional[torch.dtype] = None
+    #: 3D tile depth pin (``stencil_plan(z_slab=)``); None = the rule's.
+    z_slab: Optional[int] = None
     #: Per-axis boundary modes, resolved by the plan layer.
     boundary: Optional[Tuple[str, ...]] = None
     #: What each CTA reads (``common.STAGE_CODES``): "region", or
@@ -69,7 +73,7 @@ class PlanContext:
         r, _ = check_grid(self.grid_shape, np.asarray(weights), t_inner,
                           self.boundary, "the plan")
         geom = launch_geom(self.grid_shape, t_inner * r, self.tile_m,
-                           self.w_tile)
+                           self.w_tile, self.z_slab)
         check_staging(self.grid_shape, geom, t_inner * r, self.staging)
         return geom
 
@@ -176,8 +180,8 @@ def fallback_ladder(after: Optional[str] = None) -> Tuple[str, ...]:
 def _build_reference(ctx: PlanContext) -> Callable:
     w, t, b = ctx.weights, ctx.t, ctx.boundary
 
-    def run(x):
-        return _ref.stencil_direct_ref(x, w, t, boundary=b)
+    def run(x, batched=False):
+        return plain_loop(_ref.stencil_direct_ref, x, batched, w, t, b)
     return run
 
 
@@ -196,9 +200,9 @@ def _build_direct(ctx: PlanContext) -> Callable:
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, 1)
 
-    def run(x):
+    def run(x, batched=False):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom, b, st)
+            x = stencil_direct_at(x, w, 1, geom, b, st, batched)
         return x
     return _staged(run, ctx, geom)
 
@@ -208,8 +212,8 @@ def _build_fused_direct(ctx: PlanContext) -> Callable:
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, t)
 
-    def run(x):
-        return stencil_direct_at(x, w, t, geom, b, st)
+    def run(x, batched=False):
+        return stencil_direct_at(x, w, t, geom, b, st, batched)
     return _staged(run, ctx, geom)
 
 
@@ -218,9 +222,9 @@ def _build_matmul(ctx: PlanContext) -> Callable:
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, 1), ctx.compute_dtype
 
-    def run(x):
+    def run(x, batched=False):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched)
         return x
     return _staged(run, ctx, geom)
 
@@ -239,8 +243,8 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
     wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(wf, 1), ctx.compute_dtype
 
-    def run(x):
-        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st)
+    def run(x, batched=False):
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched)
     return _staged(run, ctx, geom)
 
 
@@ -250,8 +254,8 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, t), ctx.compute_dtype
 
-    def run(x):
-        return stencil_matmul_at(x, w, t, geom, cdt, b, st)
+    def run(x, batched=False):
+        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched)
     return _staged(run, ctx, geom)
 
 
@@ -269,9 +273,9 @@ def _build_sparse_matmul(ctx: PlanContext) -> Callable:
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom, cdt = _sparse_geom(ctx, 1), ctx.compute_dtype
 
-    def run(x):
+    def run(x, batched=False):
         for _ in range(t):
-            x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b)
+            x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b, batched)
         return x
     return run
 
@@ -283,8 +287,8 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom, cdt = _sparse_geom(ctx, t), ctx.compute_dtype
 
-    def run(x):
-        return stencil_sparse_matmul_at(x, w, t, geom, cdt, b)
+    def run(x, batched=False):
+        return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched)
     return run
 
 
@@ -324,8 +328,8 @@ def _build_legacy_direct(ctx: PlanContext) -> Callable:
     tm, tn = _legacy_tiles(ctx)
     geom = _legacy.tile_geom(ctx.grid_shape, tm, tn, t * ctx.spec.radius)
 
-    def run(x):
-        return _legacy.stencil_direct_9pt(x, w, t, tm, tn)
+    def run(x, batched=False):
+        return _legacy.stencil_direct_9pt(x, w, t, tm, tn, batched)
     return _staged(run, dataclasses.replace(ctx, staging="9tile"), geom)
 
 
@@ -336,8 +340,8 @@ def _build_legacy_matmul(ctx: PlanContext) -> Callable:
     tm, tn = _legacy_tiles(ctx)
     geom = _legacy.tile_geom(ctx.grid_shape, tm, tn, (wf.shape[0] - 1) // 2)
 
-    def run(x):
-        return _legacy.stencil_matmul_9pt(x, wf, tm, tn, cdt)
+    def run(x, batched=False):
+        return _legacy.stencil_matmul_9pt(x, wf, tm, tn, cdt, batched)
     return _staged(run, dataclasses.replace(ctx, staging="9tile"), geom)
 
 

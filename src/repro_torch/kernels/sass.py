@@ -13,8 +13,9 @@ and, where not, how many differ and the registers of each, and writes
 the differing instructions as a unified diff to DIFF_FILE; an
 instantiation of this checkout whose last template argument is the
 staging code 0 (``STAGE_REGION``, ``csrc/common.cuh``) is matched to the
-other checkout's instantiation without that argument.  Needs ``nvcc`` and
-``cuobjdump``, not a card.
+other checkout's instantiation without that argument, and instantiations
+are matched by their template arguments whatever their parameters.
+Needs ``nvcc`` and ``cuobjdump``, not a card.
 """
 from __future__ import annotations
 
@@ -79,11 +80,25 @@ def _build_lib(src: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
     return out
 
 
+def _targs(name: str) -> str:
+    """A kernel's mangled name up to the end of its template arguments
+    (every kernel's last template argument is a literal, so ``EEv``
+    closes them); the parameter list after it may differ between
+    checkouts (the batch's grid size came as a parameter, K11)."""
+    i = name.find("EEv")
+    return name if i < 0 else name[:i + 3]
+
+
 def _twin(name: str, others: Dict[str, List[str]]) -> str:
-    """The other checkout's name of this checkout's instantiation."""
+    """The other checkout's name of this checkout's instantiation: the
+    same template arguments, with or without the staging code 0."""
     if name in others:
         return name
-    return name.replace("Li0EEv", "Ev") if "Li0EEv" in name else name
+    by_targs = {_targs(n): n for n in others}
+    for cand in (name, name.replace("Li0EEv", "Ev")):
+        if _targs(cand) in by_targs:
+            return by_targs[_targs(cand)]
+    return name
 
 
 def main(argv: List[str]) -> int:

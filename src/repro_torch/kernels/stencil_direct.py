@@ -24,6 +24,11 @@ launch the same kernel built with the foil's staging
 (``csrc/stencil_direct{,3d}.cu`` with ``-DREPRO_FOIL``); a 1D grid has the
 lift's staging only, so a foil there is the default lift.  Their plain
 version is the regime's.
+
+With ``batched=True`` (:func:`stencil_direct_at`, a batched plan's entry)
+``x`` is ``(B,) + grid_shape``, the grid's rank is the weights', and one
+launch advances all B grids, grid b on ``blockIdx.z`` (K11); its plain
+version is the loop of the unbatched one.
 """
 from __future__ import annotations
 
@@ -38,9 +43,10 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     check_grid, check_staging, check_tile_halo,
-                     direct3d_layout, direct_layout, kernel_mode_codes,
-                     launch_geom, lift_weights)
+                     batch_chunks, batch_grid, check_grid, check_staging,
+                     check_tile_halo, direct3d_layout, direct_layout,
+                     kernel_mode_codes, launch_geom, lift_weights,
+                     plain_loop)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
 #: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
@@ -49,6 +55,10 @@ MAX_RADIUS = 3
 MAX_TAPS = (2 * MAX_RADIUS + 1) ** 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The last arguments of every C entry: the batch B, the cells of one grid,
+#: the dynamic shared memory and the stream.
+_BATCH_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 class _Taps(ctypes.Structure):
@@ -107,7 +117,7 @@ def _launcher():
     fn = _build.library("stencil_direct").stencil_direct_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
-        ctypes.POINTER(_Taps), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_Taps)] + _BATCH_ARGS
     return fn
 
 
@@ -116,8 +126,7 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d").stencil_direct3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + _BATCH_ARGS
     return fn
 
 
@@ -128,7 +137,7 @@ def _foil_launcher():
     fn = _build.library("stencil_direct_foil").stencil_direct_foil_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
-        ctypes.POINTER(_Taps), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_Taps)] + _BATCH_ARGS
     return fn
 
 
@@ -137,8 +146,7 @@ def _foil_launcher3d():
     """The whole-slab foil's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d_foil").stencil_direct3d_foil_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + _BATCH_ARGS
     return fn
 
 
@@ -192,29 +200,33 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
 
 def stencil_direct_at(x: torch.Tensor, weights, t: int,
                       geom: SubstrateGeom, boundary=None,
-                      staging: str = "region") -> torch.Tensor:
+                      staging: str = "region",
+                      batched: bool = False) -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
-    ``launch_geom(x.shape, t * r, ...)``: a plan resolves it once, when it
-    is built, and launches every step on it.  Inside a plan's first call
-    the launch is where the ``compile`` and ``vmem`` fault hooks fire
-    (``repro_torch.testing.faults``)."""
+    ``launch_geom(grid_shape, t * r, ...)``: a plan resolves it once, when
+    it is built, and launches every step on it.  ``batched``: ``x`` is
+    ``(B,) + grid_shape`` and one launch advances every grid (K11).
+    Inside a plan's first call the launch is where the ``compile`` and
+    ``vmem`` fault hooks fire (``repro_torch.testing.faults``)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights)
-    r, modes = check_grid(x.shape, w, t, boundary, "the tap-sum")
+    shape = batch_grid(x, batched)
+    r, modes = check_grid(shape, w, t, boundary, "the tap-sum")
     check_tile_halo(geom, t * r)
-    check_staging(x.shape, geom, t * r, staging)
-    faults.on_launch(kernel_source(x.ndim))
+    check_staging(shape, geom, t * r, staging)
+    faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
-        return stencil_direct_plain(x, w, t, modes)
-    return _run(x, w, t, r, geom, modes, staging)
+        return plain_loop(stencil_direct_plain, x, batched, w, t, modes)
+    return _run(x, w, t, r, geom, modes, staging, batched)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
          geom: SubstrateGeom, modes: tuple,
-         staging: str = "region") -> torch.Tensor:
-    """Launch the kernel of ``x``'s rank on ``geom`` with ``staging`` (a
-    1D grid: the lift's), or raise."""
+         staging: str = "region", batched: bool = False) -> torch.Tensor:
+    """Launch the kernel of the grid's rank on ``geom`` with ``staging``
+    (a 1D grid: the lift's) over one grid, or over the batch ``x`` holds
+    when ``batched``; or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_direct runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -229,12 +241,15 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     if not w32.any():
         return torch.zeros_like(x)
     codes = kernel_mode_codes(modes)
-    if x.ndim == 3:
-        return _launch3d(x, w32, t, r, geom, codes, staging)
-    if x.ndim == 1:
-        return _launch2d(x.view(1, -1), lift_weights(w32), t, r, geom,
-                         codes).view(-1)
-    return _launch2d(x, w32, t, r, geom, codes, staging)
+    xb = x if batched else x.unsqueeze(0)
+    if xb.ndim == 4:
+        y = _launch3d(xb, w32, t, r, geom, codes, staging)
+    elif xb.ndim == 2:
+        y = _launch2d(xb.view(xb.shape[0], 1, -1), lift_weights(w32), t, r,
+                      geom, codes).view(xb.shape)
+    else:
+        y = _launch2d(xb, w32, t, r, geom, codes, staging)
+    return y if batched else y[0]
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
@@ -246,14 +261,14 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
                          "shared memory, over the 227 KB budget")
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
-    h, wd = x.shape
+    b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
                  geom.w_tile, t, r, _DTYPE_CODES[x.dtype], *stage, *codes,
-                 ctypes.byref(arg), layout.smem_bytes, stream)
+                 ctypes.byref(arg), b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter)
+    _build.count_launch(counter, len(batch_chunks(b)))
     return y
 
 
@@ -266,13 +281,13 @@ def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     taps = _device_taps(w32.tobytes(), w32.shape, str(x.device))
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(3, staging)
-    z, h, wd = x.shape
+    b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), z, h, wd,
                  geom.z_slab, geom.strip_m, geom.w_tile, t, r,
-                 _DTYPE_CODES[x.dtype], *stage, *codes, layout.smem_bytes,
-                 stream)
+                 _DTYPE_CODES[x.dtype], *stage, *codes, b, z * h * wd,
+                 layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter)
+    _build.count_launch(counter, len(batch_chunks(b)))
     return y

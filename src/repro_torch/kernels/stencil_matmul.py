@@ -28,7 +28,9 @@ reads to build its region, as in ``stencil_direct_at``: the region alone, or a t
 neighbour tiles -- ``"wholestrip"`` (K8) and ``"9tile"`` (K10, 2D
 periodic) -- launching the same kernel built with the foil's staging
 (``csrc/stencil_banded{,3d}.cu`` with ``-DREPRO_FOIL``).  A 1D grid has
-the lift's staging only.
+the lift's staging only.  With ``batched=True``, as in
+``stencil_direct_at``, ``x`` is ``(B,) + grid_shape`` and one launch
+advances all B grids (K11).
 """
 from __future__ import annotations
 
@@ -44,9 +46,10 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     banded3d_layout, banded_layout, check_grid,
-                     check_staging, check_tile_halo, kernel_mode_codes,
-                     launch_geom, lift_weights)
+                     banded3d_layout, banded_layout, batch_chunks,
+                     batch_grid, check_grid, check_staging, check_tile_halo,
+                     kernel_mode_codes, launch_geom, lift_weights,
+                     plain_loop)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
 #: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
@@ -58,6 +61,10 @@ MAX_ROWS = 64
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The last arguments of every C entry: the batch B, the cells of one grid,
+#: the dynamic shared memory and the stream.
+BATCH_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 class _BandRows(ctypes.Structure):
@@ -178,7 +185,7 @@ def _launcher():
     fn = _build.library("stencil_banded").stencil_banded_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.POINTER(_BandRows), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_BandRows)] + BATCH_ARGS
     return fn
 
 
@@ -187,8 +194,7 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_banded3d").stencil_banded3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + BATCH_ARGS
     return fn
 
 
@@ -199,7 +205,7 @@ def _foil_launcher():
     fn = _build.library("stencil_banded_foil").stencil_banded_foil_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [
-        ctypes.POINTER(_BandRows), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_BandRows)] + BATCH_ARGS
     return fn
 
 
@@ -208,8 +214,7 @@ def _foil_launcher3d():
     """The whole-slab foil's C entry point, built on first use."""
     fn = _build.library("stencil_banded3d_foil").stencil_banded3d_foil_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 20 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + BATCH_ARGS
     return fn
 
 
@@ -258,41 +263,48 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
 
 def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
                       compute_dtype=None, boundary=None,
-                      staging: str = "region") -> torch.Tensor:
+                      staging: str = "region",
+                      batched: bool = False) -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
-    ``launch_geom(x.shape, t * R, ...)``: a plan resolves it once, when it
-    is built, and launches every step on it.  Inside a plan's first call
-    the launch is where the ``compile`` and ``vmem`` fault hooks fire."""
+    ``launch_geom(grid_shape, t * R, ...)``: a plan resolves it once, when
+    it is built, and launches every step on it.  ``batched``: ``x`` is
+    ``(B,) + grid_shape`` and one launch advances every grid (K11).
+    Inside a plan's first call the launch is where the ``compile`` and
+    ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
-    radius, modes = check_grid(x.shape, w, t, boundary,
+    shape = batch_grid(x, batched)
+    radius, modes = check_grid(shape, w, t, boundary,
                                "the banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
-    check_staging(x.shape, geom, t * radius, staging)
-    faults.on_launch(kernel_source(x.ndim))
+    check_staging(shape, geom, t * radius, staging)
+    faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
-        return stencil_matmul_plain(x, w, t, BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, staging)
+        return plain_loop(stencil_matmul_plain, x, batched, w, t, BAND_N,
+                          cdt, modes)
+    return _run(x, w, t, radius, cdt, geom, modes, staging, batched)
 
 
-def _run(x, w, t, radius, cdt, geom, modes,
-         staging: str = "region") -> torch.Tensor:
-    if staging == "region" or x.ndim == 1:        # 1D: the lift's staging
+def _run(x, w, t, radius, cdt, geom, modes, staging: str = "region",
+         batched: bool = False) -> torch.Tensor:
+    if staging == "region" or w.ndim == 1:        # 1D: the lift's staging
         return run_kernel("stencil_matmul", _launch2d, _launch3d, x, w, t,
-                          radius, cdt, geom, modes)
+                          radius, cdt, geom, modes, batched)
     return run_kernel("stencil_matmul",
                       functools.partial(_launch2d, staging=staging),
                       functools.partial(_launch3d, staging=staging),
-                      x, w, t, radius, cdt, geom, modes)
+                      x, w, t, radius, cdt, geom, modes, batched)
 
 
 def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
-               modes) -> torch.Tensor:
-    """Launch the banded-family kernel of ``x``'s rank on ``geom``
-    (``launch2d`` also for the 1D lift, on the (1, N) view with the lifted
-    kernel), or raise; ``name`` is the wrapper's, for the messages."""
+               modes, batched: bool = False) -> torch.Tensor:
+    """Launch the banded-family kernel of the grid's rank (the weights')
+    on ``geom`` (``launch2d`` also for the 1D lift, on the (B, 1, N) view
+    with the lifted kernel) over one grid, or over the batch ``x`` holds
+    when ``batched``; or raise.  The launchers take a ``(B,) + grid``
+    tensor; ``name`` is the wrapper's, for the messages."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
@@ -301,12 +313,15 @@ def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
     if not x.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous grid")
     codes = kernel_mode_codes(modes)
-    if x.ndim == 1:
-        return launch2d(x.view(1, -1), lift_weights(w), t, radius, cdt,
-                        geom, codes).view(-1)
-    if x.ndim == 3:
-        return launch3d(x, w, t, radius, cdt, geom, codes)
-    return launch2d(x, w, t, radius, cdt, geom, codes)
+    xb = x if batched else x.unsqueeze(0)
+    if w.ndim == 1:
+        y = launch2d(xb.view(xb.shape[0], 1, -1), lift_weights(w), t,
+                     radius, cdt, geom, codes).view(xb.shape)
+    elif w.ndim == 3:
+        y = launch3d(xb, w, t, radius, cdt, geom, codes)
+    else:
+        y = launch2d(xb, w, t, radius, cdt, geom, codes)
+    return y if batched else y[0]
 
 
 def _checked(layout, what: str):
@@ -334,16 +349,16 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
         arg.dy[k] = dy
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
-    h, wd = x.shape
+    b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(), h, wd,
                  geom.strip_m, geom.w_tile, t, radius, layout.rows,
                  layout.ld, layout.a_rows, layout.kpad, _DTYPE_CODES[x.dtype],
                  _DTYPE_CODES[cdt], *stage, *codes, ctypes.byref(arg),
-                 layout.smem_bytes, stream)
+                 b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter)
+    _build.count_launch(counter, len(batch_chunks(b)))
     return y
 
 
@@ -355,7 +370,7 @@ def _launch3d(x, w, t, radius, cdt, geom, codes,
                                          cdt, str(x.device))
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(3, staging)
-    z, h, wd = x.shape
+    b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(),
@@ -363,7 +378,7 @@ def _launch3d(x, w, t, radius, cdt, geom, codes,
                  geom.w_tile, t, radius, layout.rows, layout.ld,
                  layout.a_rows, layout.kpad, len(offsets),
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
-                 layout.smem_bytes, stream)
+                 b, z * h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter)
+    _build.count_launch(counter, len(batch_chunks(b)))
     return y

@@ -20,6 +20,8 @@ for bf16 operands, f32 accumulators) or raises: 2D grids
 grids the 2D kernel on the lifted (1, N) view.  The kernels run dense
 MMAs over fewer k-steps (no 2:4 ``mma.sp``): band p takes
 ``kpad_p / K`` steps, kpad_p = BAND_N + span_p rounded up to the K step.
+With ``batched=True`` (:func:`stencil_sparse_matmul_at`) ``x`` is
+``(B,) + grid_shape`` and one launch advances all B grids (K11).
 """
 from __future__ import annotations
 
@@ -35,11 +37,11 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (BAND_N, SubstrateGeom, check_grid, check_tile_halo,
-                     launch_geom, lift_weights, mma_k_step, sparse3d_layout,
-                     sparse_layout)
-from .stencil_matmul import (_DTYPE_CODES, MAX_ROWS, _checked, build_bands_nd,
-                             run_kernel)
+from .common import (BAND_N, SubstrateGeom, batch_chunks, batch_grid,
+                     check_grid, check_tile_halo, launch_geom, lift_weights,
+                     mma_k_step, plain_loop, sparse3d_layout, sparse_layout)
+from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, MAX_ROWS, _checked,
+                             build_bands_nd, run_kernel)
 
 
 def compact_bands(offsets, bands: np.ndarray):
@@ -215,7 +217,7 @@ def _launcher():
     fn = _build.library("stencil_sparse").stencil_sparse_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.POINTER(_SparseRows), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(_SparseRows)] + BATCH_ARGS
     return fn
 
 
@@ -224,8 +226,7 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_sparse3d").stencil_sparse3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + BATCH_ARGS
     return fn
 
 
@@ -251,33 +252,39 @@ def stencil_sparse_matmul(x: torch.Tensor, weights, t: int = 1,
 
 def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                              geom: SubstrateGeom, compute_dtype=None,
-                             boundary=None) -> torch.Tensor:
+                             boundary=None,
+                             batched: bool = False) -> torch.Tensor:
     """:func:`stencil_sparse_matmul` on a tile the caller resolved with
-    ``launch_geom(x.shape, t * R, ...)``, as plans do when built.  Inside a
-    plan's first call the launch is where the ``compile`` and ``vmem``
-    fault hooks fire."""
+    ``launch_geom(grid_shape, t * R, ...)``, as plans do when built.
+    ``batched``: ``x`` is ``(B,) + grid_shape`` and one launch advances
+    every grid (K11).  Inside a plan's first call the launch is where the
+    ``compile`` and ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
-    radius, modes = check_grid(x.shape, w, t, boundary,
+    shape = batch_grid(x, batched)
+    radius, modes = check_grid(shape, w, t, boundary,
                                "the compacted banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
-    faults.on_launch("stencil_sparse3d" if x.ndim == 3 else "stencil_sparse")
+    faults.on_launch("stencil_sparse3d" if len(shape) == 3
+                     else "stencil_sparse")
     if x.device.type == "cpu":
-        return stencil_sparse_matmul_plain(x, w, t, BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes)
+        return plain_loop(stencil_sparse_matmul_plain, x, batched, w, t,
+                          BAND_N, cdt, modes)
+    return _run(x, w, t, radius, cdt, geom, modes, batched)
 
 
-def _run(x, w, t, radius, cdt, geom, modes) -> torch.Tensor:
+def _run(x, w, t, radius, cdt, geom, modes,
+         batched: bool = False) -> torch.Tensor:
     return run_kernel("stencil_sparse_matmul", _launch2d, _launch3d, x, w, t,
-                      radius, cdt, geom, modes)
+                      radius, cdt, geom, modes, batched)
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     meta, packed, _ = _device_operand(w.tobytes(), w.shape, cdt,
                                       str(x.device))
-    layout = sparse_tile_layout(x.shape, w, t, geom, cdt)
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt)
     if len(meta.rows) > MAX_ROWS:
         raise ValueError(f"{len(meta.rows)} band rows exceed the kernel's "
                          f"{MAX_ROWS}")
@@ -286,26 +293,26 @@ def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
         arg.dy[k], arg.lo[k], arg.nk[k] = dy, lo, nk
     y = torch.empty_like(x)
     fn = _launcher()
-    h, wd = x.shape
+    b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(), h, wd,
                  geom.strip_m, geom.w_tile, t, radius, layout.rows,
                  layout.ld, layout.a_rows, layout.a_cols,
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
-                 ctypes.byref(arg), layout.smem_bytes, stream)
+                 ctypes.byref(arg), b, h * wd, layout.smem_bytes, stream)
     _build.check(err, "stencil_sparse")
-    _build.count_launch("stencil_sparse")
+    _build.count_launch("stencil_sparse", len(batch_chunks(b)))
     return y
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     meta, packed, rows = _device_operand(w.tobytes(), w.shape, cdt,
                                          str(x.device))
-    layout = sparse_tile_layout(x.shape, w, t, geom, cdt)
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt)
     y = torch.empty_like(x)
     fn = _launcher3d()
-    z, h, wd = x.shape
+    b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(),
@@ -313,7 +320,7 @@ def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
                  geom.w_tile, t, radius, layout.rows, layout.ld,
                  layout.a_rows, layout.a_cols, len(meta.rows),
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
-                 layout.smem_bytes, stream)
+                 b, z * h * wd, layout.smem_bytes, stream)
     _build.check(err, "stencil_sparse3d")
-    _build.count_launch("stencil_sparse3d")
+    _build.count_launch("stencil_sparse3d", len(batch_chunks(b)))
     return y

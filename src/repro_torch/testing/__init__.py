@@ -12,6 +12,7 @@ from .faults import (  # noqa: F401
     on_launch,
     parse_faults,
     reset_faults,
+    traced,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "on_launch",
     "parse_faults",
     "reset_faults",
+    "traced",
 ]

@@ -205,6 +205,19 @@ def first_call() -> Iterator[None]:
         _FIRST.depth -= 1
 
 
+@contextmanager
+def traced() -> Iterator[None]:
+    """The rest of a plan's first call once its runner has been through
+    its kernels once: a "map" plan's later grids, which JAX runs from the
+    runner it traced once.  :func:`on_launch` stays quiet inside."""
+    depth = getattr(_FIRST, "depth", 0)
+    _FIRST.depth = 0
+    try:
+        yield
+    finally:
+        _FIRST.depth = depth
+
+
 def on_launch(kernel: str) -> None:
     """The kernel hook: inside a plan's first call, the ``compile`` and
     then the ``vmem`` fault each get one hit per kernel launch, as in the

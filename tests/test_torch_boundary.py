@@ -514,7 +514,8 @@ def test_wrappers_pass_the_mode_codes_to_the_launchers(monkeypatch, mod,
         x = torch.zeros(shape)
         geom = common.launch_geom(shape, 2)
         codes = common.kernel_mode_codes(boundary)
-        x2 = x.view(1, -1) if len(shape) == 1 else x
+        # the launchers take (B,) + grid; the 1D lift's grid is (1, N)
+        x2 = x.view(1, 1, -1) if len(shape) == 1 else x[None]
         w2 = common.lift_weights(w) if len(shape) == 1 else w
         launch = m._launch3d if len(shape) == 3 else m._launch2d
         if mod == "direct":
@@ -530,3 +531,4 @@ def test_wrappers_pass_the_mode_codes_to_the_launchers(monkeypatch, mod,
     names = ("mode_z", "mode_y", "mode_x")[-len(codes):]
     assert tuple(args[n] for n in names) == codes
     assert args["t"] == 2 and args["dtype"] == 0
+    assert (args["B"], args["grid_elems"]) == (1, x.numel())

@@ -1,0 +1,31 @@
+"""The port's fault sweep (``python -m repro_torch.testing.fault_sweep``,
+the counterpart of ``scripts/fault_sweep.py``): its ``clean`` and
+``compile`` legs on the CPU, each in its own subprocess with
+``REPRO_FAULTS`` set, as the sweep runs them."""
+import os
+import subprocess
+import sys
+
+from repro_torch.testing import fault_sweep
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+
+
+def test_clean_and_compile_legs_pass_on_the_cpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.testing.fault_sweep",
+         "--device", "cpu", "clean", "compile"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "PASS clean (REPRO_FAULTS=<unset>)" in r.stdout
+    assert "PASS compile (REPRO_FAULTS=compile:inf)" in r.stdout
+
+
+def test_the_legs_and_the_ones_that_wait():
+    assert list(fault_sweep.LEGS) == ["clean", "compile", "vmem", "nan",
+                                      "sparse", "sparse_ladder"]
+    assert fault_sweep.main(["halo"]) == 2          # item 15
+    assert fault_sweep.main(["bogus"]) == 2

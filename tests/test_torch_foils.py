@@ -367,7 +367,7 @@ def test_foil_wrappers_pass_the_staging_code(monkeypatch, mod, shape,
                 else common.launch_geom(shape, 2))
         codes = common.kernel_mode_codes(("periodic",) * len(shape))
         launch = m._launch3d if len(shape) == 3 else m._launch2d
-        x = torch.zeros(shape)
+        x = torch.zeros((1,) + shape)          # the launchers take a batch
         if mod == "direct":
             launch(x, w, 2, 1, geom, codes, staging)
         else:
@@ -382,6 +382,7 @@ def test_foil_wrappers_pass_the_staging_code(monkeypatch, mod, shape,
     assert len(fake.args) == len(params) == len(fake.argtypes)
     args = dict(zip(params, fake.args))
     assert args["stage"] == common.STAGE_CODES[staging]
+    assert (args["B"], args["grid_elems"]) == (1, x.numel())
     assert (args["TM"], args["TN"]) == (geom.strip_m, geom.w_tile)
     src = (pathlib.Path(common.__file__).parent / "csrc" /
            "common.cuh").read_text()

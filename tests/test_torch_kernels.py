@@ -204,6 +204,16 @@ def test_plan_without_device_needs_a_gpu(monkeypatch):
     (dict(audit=True), "item 14")])
 def test_later_slices_raise(kwargs, item):
     w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    if item == "item 13":
+        # Batched plans (item 13) run since K11; a batch with a mesh
+        # raises the JAX ValueError, before the mesh's own refusal.
+        plan = tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                               **kwargs)
+        assert plan.input_shape == (4, 32, 32)
+        with pytest.raises(ValueError, match="distributed meshes"):
+            tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                            mesh=object(), **kwargs)
+        return
     with pytest.raises(NotImplementedError, match=item):
         tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu", **kwargs)
 

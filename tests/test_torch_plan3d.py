@@ -151,3 +151,56 @@ def test_main_path_decisions():
         assert "read_amp=2.812x (z_slab=16, z_block=4, strip_m=16" \
             in plan.decision.reason
         assert plan.backend == plan.decision.backend
+
+
+# ---------------------------------------------------------------------------
+# The z_slab pin (the JAX plan's ``z_slab``, plan.py:415): the 3D tile's
+# depth, in the cache key, checked when the plan is built.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("backend", ["fused_direct", "direct", "matmul",
+                                     "fused_matmul_reuse"])
+@pytest.mark.parametrize("z_slab,want", [(4, 4), (2, 2), (64, 20)])
+def test_z_slab_pin_reaches_the_tile_and_explain(backend, z_slab, want):
+    w, x = _inputs("box", 3, 1, 2, (20, 24, 40))
+    plan = tk.stencil_plan(w, x.shape, torch.float32, 2, backend=backend,
+                           z_slab=z_slab, device="cpu")
+    assert plan.geom.z_slab == want                 # priced (halo t*r)
+    inner = 1 if backend in ("direct", "matmul") else 2
+    assert plan.ctx.launch_geom(w, inner).z_slab == want  # launched
+    assert f"z_slab={want}," in plan.explain()
+    free = tk.stencil_plan(w, x.shape, torch.float32, 2, backend=backend,
+                           device="cpu")
+    assert free.key != plan.key and free.geom.z_slab == 16
+    xt = torch.from_numpy(x)
+    assert torch.equal(plan(xt), free(xt))          # the tile is not math
+
+
+def test_z_slab_pin_the_jax_decision():
+    # the pinned tile prices as the JAX decide prices it
+    w, _ = _inputs("star", 3, 1, 2, (20, 24, 40))
+    plan = tk.stencil_plan(w, (20, 24, 40), torch.float32, 2, z_slab=4,
+                           device="cpu")
+    g = plan.geom
+    jd = jplan.decide(JSpec("star", 3, 1), 2, 4, hw=J_H100, tile_n=16,
+                      strip_m=g.strip_m, h_block=g.h_block, z_slab=4,
+                      z_block=g.z_block, w_tile=g.w_tile, w_block=g.w_block)
+    assert plan.decision.reason == jd.reason
+
+
+def test_z_slab_pin_refusals():
+    w3, _ = _inputs("box", 3, 1, 1, (20, 24, 40))
+    w2 = make_weights(JSpec("box", 2, 1), seed=0)
+    with pytest.raises(ValueError, match="3D tile"):
+        tk.stencil_plan(w2, (32, 32), torch.float32, 1, z_slab=4,
+                        device="cpu")
+    with pytest.raises(ValueError, match="z_slab must be >= 1"):
+        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 1, z_slab=0,
+                        device="cpu")
+    # over the shared-memory budget: a 16-deep tile at halo 8
+    with pytest.raises(ValueError, match="z_slab=16: .*over the"):
+        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 8, z_slab=16,
+                        device="cpu")
+    # shallower than the halo under the whole-slab foil (JAX's message)
+    with pytest.raises(ValueError, match="exceeds z_slab 2"):
+        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 4, z_slab=2,
+                        backend="fused_direct_wholestrip", device="cpu")

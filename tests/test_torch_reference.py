@@ -94,3 +94,27 @@ def test_oracle_keeps_dtype():
     assert tref.apply_stencil_steps(x, w, 2).dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tref.apply_stencil(torch.zeros(4, 4, 4), w)
+
+
+@pytest.mark.parametrize("shape", ["box", "star"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_oracle_f64_matches_jax_x64(d, shape):
+    """f64 parity: the cases of the JAX test_roll_vs_conv_cross_check_f64
+    (which imports the removed ``jax.experimental.enable_x64``), with the
+    port's oracle at float64 against the JAX oracle under
+    ``jax.enable_x64``, roll path and conv path, at rtol = atol = 1e-13."""
+    import jax
+    with jax.enable_x64(True):
+        w = make_weights(StencilSpec(shape, d, 1), seed=5, dtype=np.float64)
+        x = np.random.default_rng(6).normal(size=(10,) * d)
+        xj = jnp.asarray(x)
+        assert xj.dtype == jnp.float64
+        xt = torch.from_numpy(x)
+        for boundary in ("periodic", "zero"):
+            want = np.asarray(jref.apply_stencil(xj, jnp.asarray(w),
+                                                 boundary))
+            for fn in (tref.apply_stencil, tref.apply_stencil_conv):
+                got = fn(xt, w, boundary)
+                assert got.dtype == torch.float64
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-13,
+                                           atol=1e-13)

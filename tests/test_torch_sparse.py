@@ -470,13 +470,13 @@ def test_wrappers_pass_the_band_metadata(monkeypatch, shape, boundary, cdt):
     x = torch.zeros(shape)
     geom = common.launch_geom(shape, 2)
     codes = common.kernel_mode_codes(boundary)
-    try:
+    try:                    # the launchers take (B,) + grid, the lift (1, N)
         if len(shape) == 3:
-            t_sparse._launch3d(x, w, 2, 1, cdt, geom, codes)
+            t_sparse._launch3d(x[None], w, 2, 1, cdt, geom, codes)
         else:
             w2 = common.lift_weights(w) if len(shape) == 1 else w
-            t_sparse._launch2d(x.view(1, -1) if len(shape) == 1 else x, w2,
-                               2, 1, cdt, geom, codes)
+            t_sparse._launch2d(x.view(1, 1, -1) if len(shape) == 1
+                               else x[None], w2, 2, 1, cdt, geom, codes)
     finally:
         launcher.cache_clear()
         counts = tk.launch_counts()
@@ -489,6 +489,7 @@ def test_wrappers_pass_the_band_metadata(monkeypatch, shape, boundary, cdt):
                  [-len(codes):]) == codes
     assert (args["t"], args["R"], args["dtype"]) == (2, 1, 0)
     assert args["compute"] == (1 if cdt == torch.bfloat16 else 0)
+    assert (args["B"], args["grid_elems"]) == (1, x.numel())
     wk = common.lift_weights(w) if len(shape) == 1 else w
     meta = t_sparse.band_meta(wk, cdt)
     assert args["a_cols"] == meta.a_cols
