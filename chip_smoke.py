@@ -5,9 +5,11 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
-     ten CUDA libraries from src/repro_torch/kernels/csrc (the six kernels
-     and the traffic foils' second build of the four main ones; one nvcc
-     per library, started together), each one's build time, and the
+     twelve CUDA libraries from src/repro_torch/kernels/csrc (the eight
+     kernels -- among them the folded 1D banded kernels stencil_banded1d
+     and stencil_sparse1d -- and the traffic foils' second build of four
+     of them; one nvcc per library, started together), each one's build
+     time, and the
      global load instructions of every foil instantiation in its SASS
      (cuobjdump, which must be there), which must not fall below its
      default twin's; then it starts this script with --count-loads in a
@@ -21,19 +23,23 @@ Phases, any failure exits non-zero:
      the plain version one step short: the 2D kernels at 1024^2 and a
      ragged 1000x1030 grid (box/star, r in {1, 3}, t in {1, 4}); the 3D
      kernels at 128^3 and a ragged 60x70x130 grid (box/star, (r, t) in
-     {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the 1D lift at
-     2^20 and 2^20+3 points (r in {1, 3}, t in {1, 4}); float32 and
+     {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the 1D kernels
+     (the tap-sum on the lift, the folded banded ones) at 2^20 and
+     2^20+3 points (box/star, r in {1, 3}, t in {1, 4}); float32 and
      bfloat16 grids, the banded kernels with either operand dtype and on
      the composed kernel; then every kernel under non-periodic boundaries
      (zero, reflect, replicate, and the mixed specs ("reflect",
      "periodic") and ("periodic", "zero") in 2D, ("replicate", "reflect",
-     "periodic") in 3D) on the ragged 1000x1030 and 40x72x100 grids and the
-     1D lift at 2^20+3 points, box/star, r in {1, 2}, t in {1, 4} (r=2,
+     "periodic") in 3D) on the ragged 1000x1030 and 40x72x100 grids and
+     the 1D kernels at 2^20+3 points, box/star, r in {1, 2}, t in {1, 4} (r=2,
      t=4 runs the 3D kernels on their 8-deep tile at h = 8), each against
      its plain version under the same boundary; the compacted (sparse)
      kernels on every one of these configurations beside the banded ones,
      and on base weights each against the dense banded kernel of the same
-     call (the largest difference printed; equal sums expected); then the
+     call (the largest difference printed; equal sums expected, and
+     required in 1D); every folded 1D call also against the 2D kernel on
+     the lifted (1, N) view with the same call and tile, which it must
+     equal bit for bit (the largest difference printed); then the
      traffic foils (K8 whole-strip / whole-slab on the tap-sum and banded
      kernels, 1000x1030 and 60x70x130, periodic and under one boundary
      spec; K9 / K10, the seed 9-tile kernels, on 1024^2 with 128x128
@@ -45,8 +51,8 @@ Phases, any failure exits non-zero:
      batched call and every grid bit for bit its unbatched launch; a
      pinned 3D tile depth (z_slab 4 and 8) equal to the rule's tile bit
      for bit; B = 65537 grids of 32x32 in two launches; and batches past
-     2^31 cells (33 x 8192^2, 17 x 512^3) whose first and last grids
-     equal their unbatched launches;
+     2^31 cells (33 x 8192^2, 17 x 512^3, 33 x 2^26) whose first and last
+     grids equal their unbatched launches;
   3. the main paths, ``stencil_plan(...)(x)`` for each of the five regimes
      and ``auto`` against the ``reference`` backend, with every kernel's
      launches counted from 0 just before each path and read just after:
@@ -81,7 +87,10 @@ Phases, any failure exits non-zero:
      read amplification and its bound, each kernel on each path beside its
      plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
      port never calls (on a boundary path: t x (F.pad in the boundary's
-     modes, axis by axis, + one F.conv of the base kernel)), the compacted
+     modes, axis by axis, + one F.conv of the base kernel)), on the 1D
+     paths each banded regime beside the 2D kernel on the lifted view
+     doing the same calls ("lift_ms") and the folded kernels' entries with
+     their registers (cuobjdump), the compacted
      kernel on the Star stencil (1D: Box) beside the dense banded kernel of
      the same call, the kept-row fraction S and the MMA k-steps of both,
      the traffic table of each foil path (bytes requested per launch, ms,
@@ -97,7 +106,10 @@ Phases, any failure exits non-zero:
      requests - signatures, no degraded batch; then the quick run of
      ``python -m repro_torch.benchmarks.serving`` (printed, not gated).
 The line before the last is the JSON kernel report, one entry per kernel
-and path (the 2D kernels on the 1D path as "... (1D lift)", the boundary
+and path (the tap-sum on the 1D path as "stencil_direct (1D lift)", the
+folded kernels as "stencil_banded1d" and "stencil_sparse1d" with the
+lifted 2D kernel's time on the same call as "lift_ms" and their registers
+as "registers", the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
 its own path's run (the compacted kernels' from the sparse path, with the
 dense banded kernel's time as "dense_ms"; the foils' from the foil path,
@@ -141,7 +153,7 @@ PATHS = {
 }
 #: The boundary paths: the same grids and stencils under non-periodic
 #: boundaries (a Dirichlet-zero smoother, JAX's test_3d_mixed_modes layout
-#: at full size, the 1D lift under reflect).
+#: at full size, the 1D kernels under reflect).
 BOUNDARY_PATHS = {
     "2D": ((8192, 8192), (("box", 1), ("star", 1)), "zero"),
     "3D": ((512, 512, 512), (("box", 1), ("star", 1)),
@@ -170,17 +182,18 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/common.py:1525"),
     "stencil_banded3d": ("src/repro_torch/kernels/csrc/stencil_banded3d.cu",
                          "src/repro/kernels/common.py:1525"),
-    # The 1D lift: the 2D kernels on the (1, N) view, as the JAX lift.
+    # The 1D tap-sum: the 2D kernel on the lifted (1, N) view, as the JAX
+    # lift; the 1D banded kernels fold the line into the MMA rows.
     "stencil_direct (1D lift)": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
                                  "src/repro/kernels/stencil_direct.py:139"),
-    "stencil_banded (1D lift)": ("src/repro_torch/kernels/csrc/stencil_banded.cu",
-                                 "src/repro/kernels/stencil_matmul.py:248"),
+    "stencil_banded1d": ("src/repro_torch/kernels/csrc/stencil_banded1d.cu",
+                         "src/repro/kernels/stencil_matmul.py:248"),
     "stencil_sparse": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
                        "src/repro/kernels/stencil_sparse.py:201"),
     "stencil_sparse3d": ("src/repro_torch/kernels/csrc/stencil_sparse3d.cu",
                          "src/repro/kernels/stencil_sparse.py:201"),
-    "stencil_sparse (1D lift)": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
-                                 "src/repro/kernels/stencil_sparse.py:229"),
+    "stencil_sparse1d": ("src/repro_torch/kernels/csrc/stencil_sparse1d.cu",
+                         "src/repro/kernels/stencil_sparse.py:229"),
 }
 #: The foil paths (K8-K10), at t=MAIN_T against the reference backend, each
 #: with its own launch counts: the seed 9-tile foils, the whole-strip /
@@ -347,13 +360,17 @@ def sass_loads(_build) -> None:
     instructions in the binary, not the loads a CTA issues at run time
     (no profiler counter is available)."""
     from repro_torch.kernels import sass
-    loads = {}
+    loads, foils = {}, set()
     for name in _build.KERNELS:
         for fn, instrs in sass.functions(_build._target(name)).items():
             loads[fn] = sum("LDG" in i for i in instrs)
+            if name.endswith("_foil"):
+                foils.add(fn)
     # mangled template arguments end in the staging code: ...Li0EEv...
     pairs = {}
     for fn, n in loads.items():
+        if fn not in foils:
+            continue
         for code, st in ((1, "wholestrip"), (2, "9tile")):
             tail = f"Li{code}EE"
             if tail in fn:
@@ -428,12 +445,35 @@ def hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short, worst,
 
 def kernel_name(base: str, dim: int) -> str:
     """The kernel a wrapper launches for a grid of rank ``dim``: the 3D
-    kernels for 3D grids, the 2D kernels for 2D grids and the 1D lift."""
-    return base + ("3d" if dim == 3 else "")
+    kernels for 3D grids, the 2D kernels for 2D grids, and for 1D grids
+    the folded banded kernels (``...1d``) and the tap-sum's lift."""
+    if dim == 3:
+        return base + "3d"
+    return base + ("1d" if dim == 1 and base != "stencil_direct" else "")
+
+
+def entry_suffix(kname: str, dim: int) -> str:
+    """What a 1D entry adds to its kernel's name: the tap-sum runs the 2D
+    kernel on the lifted (1, N) view."""
+    return " (1D lift)" if dim == 1 and kname == "stencil_direct" else ""
+
+
+def lifted_call(mod, x, w, t, cdt=None, boundary=None):
+    """A folded 1D call done by the 2D kernel of ``mod`` (stencil_matmul or
+    stencil_sparse) on the lifted (1, N) view, on the same tile: what the
+    port launched for 1D grids before the fold, kept for comparison."""
+    from repro_torch.kernels import common
+    from repro_torch.stencil import resolve_boundary
+    r = (w.shape[0] - 1) // 2
+    geom = common.launch_geom(tuple(x.shape), t * r)
+    codes = common.kernel_mode_codes(resolve_boundary(boundary, 1))
+    cdt = x.dtype if cdt is None else cdt
+    return mod._launch2d(x.view(1, 1, -1), common.lift_weights(np.asarray(w, np.float32)),
+                         t, r, cdt, geom, codes).view(x.shape)
 
 
 def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
-                  boundaries=(None,)) -> None:
+                  boundaries=(None,), vs_lift=None) -> None:
     """Every kernel against its plain version on ``shapes``, for each
     ``(kind, r, t)`` of ``cases`` and each boundary of ``boundaries`` (both
     sides under the same one), the banded and compacted kernels also with
@@ -442,7 +482,10 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
     also reject the plain version one step short, so a kernel that skipped
     a step (or a fill) could not pass.  On base weights each compacted
     kernel is also held against the dense banded kernel of the same call:
-    ``vs_dense`` gets the largest difference."""
+    ``vs_dense`` gets the largest difference, which must be 0 in 1D.  A
+    folded 1D call is also held against the 2D kernel on the lifted view
+    with the same call and tile (``lifted_call``), which it must equal
+    bit for bit; ``vs_lift`` gets the largest difference."""
     _, sm, sd, weights, ss = mods
     from repro_torch.stencil import StencilSpec
     for shape, (kind, r, t), bc in itertools.product(shapes, cases, boundaries):
@@ -462,16 +505,19 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                     ("stencil_banded", sm.stencil_matmul, sm.stencil_matmul_plain))
                 dense = (lambda: sm.stencil_matmul(x, wk, tk, compute_dtype=cdt, boundary=bc)
                          ) if sparse and wk is w else None
+                lift = (lambda: lifted_call(ss if sparse else sm, x, wk, tk, cdt, bc)
+                        ) if dim == 1 else None
                 return (f"{kernel_name(base, dim)}[{str(cdt)[6:]} operands]",
                         lambda: run(x, wk, tk, compute_dtype=cdt, boundary=bc),
                         lambda: pv(x, wk, tk, compute_dtype=cdt, boundary=bc),
                         lambda v: pv(v, wk, 1, compute_dtype=cdt, boundary=bc),
-                        tk, ops, wk, short, dense)
+                        tk, ops, wk, short, dense, lift)
             cases_ = [
                 (kernel_name("stencil_direct", dim),
                  lambda: sd.stencil_direct(x, w, t, boundary=bc),
                  lambda: sd.stencil_direct_plain(x, w, t, bc),
-                 lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None, None)]
+                 lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None, None,
+                 None)]
             for sparse in (False, True):
                 cases_ += [banded(w, t, dtype, sparse=sparse), banded(w, t, other, sparse=sparse)]
                 if t > 1 and bc is None:
@@ -479,21 +525,30 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                     cases_.append(banded(wf, 1, dtype, lambda: sm.stencil_matmul_plain(
                         x, weights.fuse_weights(w, t - 1), 1, compute_dtype=dtype),
                         sparse=sparse))
-            for name, kern, plain, step, tk, ops, wk, short, dense in cases_:
+            for name, kern, plain, step, tk, ops, wk, short, dense, lift in cases_:
                 y = kern()
                 tag = (f"{name} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
                        + ("" if tk == t else " composed")
                        + ("" if bc is None else f" boundary={boundary_label(bc)}"))
-                key = (name.split("[")[0] + (" (1D lift)" if dim == 1 else "")
+                kname = name.split("[")[0]
+                key = (kname + entry_suffix(kname, dim)
                        + ("" if bc is None else " (boundaries)"))
                 hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short,
                               worst, margin)
                 if dense is not None:
-                    vs_dense[key] = max(vs_dense.get(key, 0.0), max_err(y, dense()))
+                    diff = max_err(y, dense())
+                    check(dim > 1 or diff == 0.0, f"{tag}: differs from the dense folded "
+                                                  f"kernel of the same call by {diff:.3e}")
+                    vs_dense[key] = max(vs_dense.get(key, 0.0), diff)
+                if lift is not None:
+                    diff = max_err(y, lift())
+                    check(diff == 0.0, f"{tag}: differs from the 2D kernel on the lifted "
+                                       f"view by {diff:.3e}")
+                    vs_lift[key] = max(vs_lift.get(key, 0.0), diff)
 
 
 def phase_kernels_vs_plain(mods) -> None:
-    worst, margin, vs_dense = {}, {}, {}
+    worst, margin, vs_dense, vs_lift = {}, {}, {}, {}
     check_kernels(mods, ((1024, 1024), (1000, 1030)),
                   [(k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4)],
                   worst, margin, vs_dense)
@@ -502,23 +557,27 @@ def phase_kernels_vs_plain(mods) -> None:
                    for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))] + [("box", 2, 4)],
                   worst, margin, vs_dense)
     check_kernels(mods, ((2**20,), (2**20 + 3,)),
-                  [("box", r, t) for r in (1, 3) for t in (1, 4)], worst, margin, vs_dense)
+                  [(k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4)],
+                  worst, margin, vs_dense, vs_lift=vs_lift)
     # Non-periodic boundaries: every uniform mode and one mixed spec per
     # rank, on ragged grids; r = 2, t = 4 runs the 3D kernels on their
-    # 8-deep tile at h = 8, and the 1D lift fills its column axis only.
+    # 8-deep tile at h = 8, and the 1D kernels fill the line's ends only.
     uniform = ("zero", "reflect", "replicate")
     bc_cases = [(k, r, t) for k in ("box", "star") for r in (1, 2) for t in (1, 4)]
     check_kernels(mods, ((1000, 1030),), bc_cases, worst, margin, vs_dense,
                   uniform + (("reflect", "periodic"), ("periodic", "zero")))
     check_kernels(mods, ((40, 72, 100),), bc_cases, worst, margin, vs_dense,
                   uniform + (("replicate", "reflect", "periodic"),))
-    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, vs_dense, uniform)
+    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, vs_dense, uniform,
+                  vs_lift=vs_lift)
     print("kernels vs plain: all configurations within tolerance; worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst "
           "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
     print("  compacted vs dense banded kernel, same call, base weights: max|diff| "
           + ", ".join(f"{k}={v:.3e}" for k, v in vs_dense.items()))
+    print("  folded 1D kernels vs the 2D kernel on the lifted (1, N) view, same call and "
+          "tile: max|diff| " + ", ".join(f"{k}={v:.3e}" for k, v in vs_lift.items()))
 
 
 def check_foils(mods, shapes, cases, boundaries, worst, margin, vs_default):
@@ -807,21 +866,49 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False,
     return results, counts
 
 
-def phase_regime_times(label, x, ws, results, card, twins=None):
+def lifted_plan(mods, plan, w, x, boundary=None):
+    """The calls a 1D banded-family plan makes, done by the 2D kernels on
+    the lifted (1, N) view (``lifted_call``), or None for the tap-sum."""
+    _, sm, _, weights, ss = mods
+    t, backend = plan.t, plan.backend
+    mod = ss if "sparse" in backend else sm
+    if backend in ("matmul", "sparse_matmul"):
+        def run():
+            y = x
+            for _ in range(t):
+                y = lifted_call(mod, y, w, 1, None, boundary)
+            return y
+        return run
+    if backend == "fused_matmul":
+        wf = weights.fuse_weights(w, t)
+        return lambda: lifted_call(sm, x, wf, 1, None, boundary)
+    if backend in ("fused_matmul_reuse", "fused_sparse_matmul"):
+        return lambda: lifted_call(mod, x, w, t, None, boundary)
+    return None
+
+
+def phase_regime_times(label, x, ws, results, card, twins=None, lift=None):
     """Each plan's ms per call on ``x`` beside the model's choice, its read
     amplification, its bound and its error; returns the ms by (stencil,
     regime).  ``twins``: another path's returned times (the unbatched path
-    of the same cells), printed beside as the ratio."""
+    of the same cells), printed beside as the ratio.  ``lift``: ``(mods,
+    boundary)`` on an unbatched 1D path, where each banded-family regime
+    is also timed doing its calls by the 2D kernels on the lifted view
+    (``lift_ms``, returned under (stencil, regime + " lift"))."""
     n = x.numel()
     print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T} unless "
           "named; bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
     print("  stencil    regime              predicted           read_amp  "
           "ms/call    us/step    bound_ms   max|err|"
-          + ("   twin_ms  ms/twin" if twins else ""))
+          + ("   twin_ms  ms/twin" if twins else "")
+          + ("   lift_ms  lift/ms" if lift else ""))
     times = {}
     for (name, regime), (plan, err, _) in results.items():
         ms = cuda_ms(lambda: plan(x))
         times[(name, regime)] = ms
+        lifted = lift and lifted_plan(lift[0], plan, ws[name], x, lift[1])
+        if lifted:
+            times[(name, regime + " lift")] = cuda_ms(lifted, reps=5, warmup=1)
         kname, launches = expected_launches(plan.backend, plan.t,
                                             len(plan.grid_shape))
         k_taps = int(np.count_nonzero(ws[name]))
@@ -832,7 +919,9 @@ def phase_regime_times(label, x, ws, results, card, twins=None):
         print(f"  {name:10s} {regime:19s} {plan.decision.backend:19s} "
               f"{plan.geom.read_amp:8.4f}  {ms:9.4f}  {ms * 1e3 / plan.t:9.2f}  "
               f"{bound:9.4f}  {err:.3e}"
-              + ("" if twin is None else f"  {twin:8.4f}  {ms / twin:.3f}"))
+              + ("" if twin is None else f"  {twin:8.4f}  {ms / twin:.3f}")
+              + (f"  {times[(name, regime + ' lift')]:8.4f}  "
+                 f"{times[(name, regime + ' lift')] / ms:7.1f}" if lifted else ""))
     return times
 
 
@@ -849,7 +938,9 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     TF32's); the fill moves no HBM bytes.  ``sparse``: the compacted
     kernel's reuse form ``stencil_sparse_matmul(x, w, t)`` only, its
     ``launches`` from the sparse path and the dense banded kernel's time
-    on the same call beside it as ``dense_ms``."""
+    on the same call beside it as ``dense_ms``.  On a 1D path the folded
+    kernels' entries also carry the 2D kernel on the lifted view doing the
+    same call (``lift_ms``) and their registers (``fold_registers``)."""
     _, sm, sd, weights, ss = mods
     n, dim = x.numel(), x.ndim
     ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
@@ -879,11 +970,12 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
              TF32_FLOPS, True, MAIN_T * 2**-10 * sw * mx),)
     for base, kern, plain, peak, tf32, tol in kernels_:
         kname = kernel_name(base, dim)
+        lifted = entry_suffix(kname, dim)
         if boundary is None:
-            entry = kname + (" (1D lift)" if dim == 1 else "")
+            entry = kname + lifted
             src, replaces = KERNEL_SOURCES[entry]
         else:
-            entry = f"{kname} ({'1D lift, ' if dim == 1 else ''}{boundary_label(boundary)})"
+            entry = f"{kname} ({'1D lift, ' if lifted else ''}{boundary_label(boundary)})"
             src = KERNEL_SOURCES[kname][0]
             replaces = SPARSE_FILL_REPLACES if sparse else FILL_REPLACES
         y = kern()
@@ -903,14 +995,33 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow)})
         if sparse:
             report[-1]["dense_ms"] = cuda_ms(dense)
+        if dim == 1 and not lifted:
+            report[-1]["lift_ms"] = cuda_ms(
+                lambda: lifted_call(ss if sparse else sm, x, w, MAIN_T, None, boundary),
+                reps=5, warmup=1)
+            report[-1]["registers"] = fold_registers(kname, boundary is not None)
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
               f"{what} {k['library_ms']:.4f} ms, "
               f"max|err| vs plain {k['max_abs_err']:.3e}"
               + (f"; dense banded kernel, same call, {k['dense_ms']:.4f} ms"
-                 if "dense_ms" in k else ""))
+                 if "dense_ms" in k else "")
+              + (f"; the 2D kernel on the lifted view, same call, {k['lift_ms']:.4f} ms; "
+                 f"{k['registers']} registers" if "lift_ms" in k else ""))
     return report
+
+
+def fold_registers(kname: str, fill: bool) -> int:
+    """Registers per thread (cuobjdump) of the folded kernel's
+    instantiation a float32 call with a radius-1 band launches: f32 grid
+    and operands, the small band register set, with or without the fill
+    (``csrc/line_fold.cuh::line_fold_kernel<float, float, FILL, 3>``)."""
+    from repro_torch.kernels import _build, sass
+    tag = f"line_fold_kernelIffLb{int(fill)}ELi3EE"
+    regs = [n for f, n in sass.registers(_build._target(kname)).items() if tag in f]
+    check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in {kname}")
+    return regs[0]
 
 
 def phase_traffic(mods, label, x, ws, results, card, reps):
@@ -1190,7 +1301,8 @@ def phase_sparse_path(mods, label, x, ws, card, reps_slow, boundary=None):
     runs = SPARSE_RUNS + (SPARSE_AUTO if boundary is None and x.ndim > 1 else [])
     tag = f"{label} sparse" + ("" if boundary is None else f" boundary={boundary_label(boundary)}")
     results, counts = phase_main_path(mods, tag, x, ws, boundary, runs=runs, sparse=True)
-    phase_regime_times(tag, x, ws, results, card)
+    phase_regime_times(tag, x, ws, results, card,
+                       lift=(mods, boundary) if x.ndim == 1 else None)
     w = ws[StencilSpec("star" if x.ndim > 1 else "box", x.ndim, 1).name]
     return kernel_report(mods, x, w, counts, reps_slow, boundary, sparse=True)
 
@@ -1210,7 +1322,7 @@ BATCH_NINE_GRID = (1024, 1024)
 #: Phase 2's batch limits: (grid, B, launches per batched call) -- past
 #: gridDim.z's 65535, and past 2^31 cells in 2D and in 3D.
 BATCH_LIMITS = (((32, 32), 65537, 2), ((8192, 8192), 33, 1),
-                ((512, 512, 512), 17, 1))
+                ((512, 512, 512), 17, 1), ((2**26,), 33, 1))
 #: The batched main paths: as many cells per batch as the unbatched path
 #: beside it (grid, batch, stencils), and the batched sparse path.
 BATCH_PATHS = {
@@ -1331,7 +1443,8 @@ def phase_batch_kernels(mods) -> None:
 def phase_batch_limits(mods) -> None:
     """Phase 2, K11 limits: B = 65537 grids of 32x32 launch twice (the
     gridDim.z limit) with the last grid bit for bit its unbatched launch;
-    and a batch past 2^31 cells in 2D (33 x 8192^2) and 3D (17 x 512^3),
+    and a batch past 2^31 cells in 2D (33 x 8192^2), 3D (17 x 512^3) and
+    1D (33 x 2^26, the folded kernels' persistent CTAs walking it),
     whose last grid starts at cell 2^31, each grid checked against its own
     unbatched launch, for the tap-sum, banded and compacted kernels."""
     kernels, _, _, weights, _ = mods
@@ -1394,7 +1507,7 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
     report = []
     for base, kern, plain, peak, tf32, tol in rows:
         kname = kernel_name(base, dim)
-        what = ", ".join(["batched"] + (["1D lift"] if dim == 1 else [])
+        what = ", ".join(["batched"] + (["1D lift"] if entry_suffix(kname, dim) else [])
                          + ([] if boundary is None else [boundary_label(boundary)]))
         entry = f"{kname} ({what})"
         y = kern()
@@ -1617,7 +1730,8 @@ def main() -> int:
             ws = {s.name: make_weights(s, seed=0)
                   for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
             results, counts = phase_main_path(mods, label, x, ws)
-            twins[label] = phase_regime_times(label, x, ws, results, card)
+            twins[label] = phase_regime_times(label, x, ws, results, card,
+                                              lift=(mods, None) if x.ndim == 1 else None)
             # 15 repetitions of everything; in 3D the plain versions and
             # yardsticks are slow, 5.
             reps = 5 if label == "3D" else 15
@@ -1637,13 +1751,13 @@ def main() -> int:
                   for s in (StencilSpec(k, len(shape), r) for k, r in specs)}
             tag = f"{label} boundary={boundary_label(boundary)}"
             results, counts = phase_main_path(mods, tag, x, ws, boundary)
-            phase_regime_times(tag, x, ws, results, card)
+            phase_regime_times(tag, x, ws, results, card,
+                               lift=(mods, boundary) if x.ndim == 1 else None)
             w = ws[StencilSpec("box", len(shape), 1).name]
             report += kernel_report(mods, x, w, counts, 5 if label == "3D" else 15,
                                     boundary)
-            if x.ndim > 1:
-                report += phase_sparse_path(mods, label, x, ws, card, 5 if label == "3D" else 15,
-                                            boundary)
+            report += phase_sparse_path(mods, label, x, ws, card, 5 if label == "3D" else 15,
+                                        boundary)
             del x, results
         for label, (shape, specs, backends) in FOIL_PATHS.items():
             x = grid(shape, torch.float32, seed=0)

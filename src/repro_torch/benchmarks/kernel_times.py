@@ -10,12 +10,18 @@ checkout this file is in), builds its kernels there, and times
 the main paths -- 8192^2 Box-2D1R and Star-2D1R, 512^3 Box-3D1R, 2^26
 Box-1D1R; the five regimes and, with ``use_sparse_unit``, the two
 compacted ones -- as the median of ``REPS`` CUDA-event timings after
-warm-up (unbatched: B = 1 on the batched kernels).  It prints, and
-writes to OUT.json, ``{"card": ..., "times": {case: ms}}``.  It uses only
-the plan API, so it runs on any checkout of the port.
+warm-up (unbatched: B = 1 on the batched kernels).  On a checkout whose
+1D banded regimes run the folded kernels (``stencil_matmul._launch1d``),
+it also times each of them doing the same calls by the 2D kernel on the
+lifted (1, N) view, the kernel those regimes ran before, as the case
+``"1D box <regime> (lift)"``.  It prints, and writes to OUT.json,
+``{"card": ..., "times": {case: ms}}``.  Beyond those lifted cases it uses
+only the plan API, so it runs on any checkout of the port.
 
 The second form reads four such files taken in turns on one card and
-prints each case's change/parent ratio against the parents' own spread.
+prints the change/parent ratio of each case all four have, against the
+parents' own spread, then the cases only the changes have beside the
+parents' case of the same regime.
 """
 from __future__ import annotations
 
@@ -49,18 +55,49 @@ def _median_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+def _lifted(modules, w, t: int, backend: str):
+    """``f(x)``: the calls of a 1D banded-family plan of ``backend`` done by
+    the 2D kernel on the lifted (1, N) view with the lifted kernel, or None
+    for the tap-sum regimes."""
+    sm, ss, common, fuse = modules
+    mod = ss if "sparse" in backend else sm
+    steps = {"matmul": (w, 1, t), "sparse_matmul": (w, 1, t),
+             "fused_matmul": (fuse(w, t), 1, 1),
+             "fused_matmul_reuse": (w, t, 1),
+             "fused_sparse_matmul": (w, t, 1)}.get(backend)
+    if steps is None:
+        return None
+    wk, tk, launches = steps
+    r = (wk.shape[0] - 1) // 2
+    w2 = common.lift_weights(wk)
+
+    def run(x):
+        geom = common.launch_geom(tuple(x.shape), tk * r)
+        codes = common.kernel_mode_codes(("periodic",))
+        for _ in range(launches):
+            x = mod._launch2d(x.view(1, 1, -1), w2, tk, r, x.dtype, geom,
+                              codes).view(x.shape)
+        return x
+    return run
+
+
 def measure(src: str) -> dict:
     sys.path.insert(0, os.path.abspath(src))
+    import importlib
+
     import numpy as np
     import torch
-    from repro_torch.kernels import build_all, stencil_plan
-    from repro_torch.stencil import StencilSpec, make_weights
+    from repro_torch.kernels import build_all, common, stencil_plan
+    from repro_torch.stencil import StencilSpec, fuse_weights, make_weights
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times measures device time and needs a card")
     build_all()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+    sm = importlib.import_module("repro_torch.kernels.stencil_matmul")
+    ss = importlib.import_module("repro_torch.kernels.stencil_sparse")
+    folded = hasattr(sm, "_launch1d")
     times = {}
     for label, shape, kinds in PATHS:
         x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
@@ -71,6 +108,11 @@ def measure(src: str) -> dict:
                 plan = stencil_plan(w, shape, torch.float32, MAIN_T, backend=b,
                                     use_sparse_unit=b.startswith(("sparse", "fused_sparse")))
                 times[f"{label} {kind} {b}"] = _median_ms(torch, lambda: plan(x))
+                lifted = folded and len(shape) == 1 and _lifted(
+                    (sm, ss, common, fuse_weights), w, MAIN_T, b)
+                if lifted:
+                    times[f"{label} {kind} {b} (lift)"] = _median_ms(
+                        torch, lambda: lifted(x))
         del x
     return {"card": card, "src": src, "times": times}
 
@@ -81,7 +123,8 @@ def compare(paths) -> None:
     print(f"{'case':36s} {'parent':>9s} {'change':>9s} {'change':>9s} {'parent':>9s}"
           f" {'chg/par':>8s} {'par/par':>8s}")
     ratios = []
-    for case in p1["times"]:
+    shared = [c for c in p1["times"] if all(c in r["times"] for r in (c1, c2, p2))]
+    for case in shared:
         a, b, c, d = (r["times"][case] for r in (p1, c1, c2, p2))
         ratio = (b + c) / (a + d)
         ratios.append(ratio)
@@ -89,6 +132,14 @@ def compare(paths) -> None:
               f"{max(a, d) / min(a, d):8.3f}")
     print(f"change/parent over {len(ratios)} cases: median "
           f"{statistics.median(ratios):.3f}, {min(ratios):.3f}..{max(ratios):.3f}")
+    for case in c1["times"]:
+        if case in shared or case not in c2["times"]:
+            continue
+        base = case.rsplit(" (", 1)[0]
+        b, c = c1["times"][case], c2["times"][case]
+        par = [r["times"][base] for r in (p1, p2) if base in r["times"]]
+        print(f"{case:36s} change {b:9.4f} {c:9.4f}"
+              + (f"  parents' {base}: {' '.join(f'{v:.4f}' for v in par)}" if par else ""))
 
 
 def main(argv) -> int:

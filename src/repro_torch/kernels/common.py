@@ -32,9 +32,11 @@ whole neighbour tiles, of which the kernels keep the region's cells.
 and ``choose_slab_blocks``) take the same design one rank up: a CTA
 computes a (TZ x TM x TN) tile from its (TZ+2h)(TM+2h)(TN+2h) region and
 is priced as ``SubstrateGeom(3, z_slab=TZ, z_block=h, strip_m=TM,
-h_block=h, w_tile=TN, w_block=h)``.  1D grids run the 2D kernels on the
-lifted (1, N) view and are priced as the JAX lift is, with read
-amplification 1 (``SubstrateGeom(1, strip_m=1, h_block=1)``).
+h_block=h, w_tile=TN, w_block=h)``.  1D grids are priced as the JAX lift
+is, with read amplification 1 (``SubstrateGeom(1, strip_m=1,
+h_block=1)``), and launch on the lifted (1, N) tile's width: the tap-sum
+runs the 2D kernel on that lifted view, the banded kernels fold the line
+into MMA rows (:func:`line_windows`, :func:`line_layout`).
 """
 from __future__ import annotations
 
@@ -474,6 +476,88 @@ def sparse3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
     return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes, a_cols)
 
 
+#: The folded 1D kernels' CTA tile (csrc/line_fold.cuh): LINE_WARPS warps
+#: of LINE_TILE_ROWS rows, each row one w_tile-long segment of the line.
+LINE_WARPS = 4
+LINE_TILE_ROWS = MMA_TILE
+LINE_ROWS = LINE_WARPS * LINE_TILE_ROWS
+
+#: Shared memory past the last row window, so that a predicated-off A load
+#: of the last row never addresses past the allocation.
+LINE_SLACK_BYTES = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class LineLayout:
+    """Shared-memory layout of a folded 1D launch: per warp two staging
+    buffers of LINE_TILE_ROWS row windows (``lds`` input-dtype elements
+    apart, ``stage_bytes`` each) and, for a bfloat16 line, one f32 row
+    region (``ld`` apart; a float32 line runs its steps in place in the
+    staging buffer, whose rows are then at least ``ld`` wide), in
+    ``warp_bytes``; ``rows`` the CTA tile's rows (TM), ``kpad`` the dense
+    band's contraction depth, ``smem_bytes`` what the launch asks for."""
+
+    rows: int
+    lds: int
+    ld: int
+    kpad: int
+    stage_bytes: int
+    warp_bytes: int
+    smem_bytes: int
+
+
+def line_layout(w_tile: int, radius: int, t: int, in_bytes: int,
+                compute_bytes: int) -> LineLayout:
+    """The folded 1D kernels' layout at ``t`` fused steps of radius
+    ``radius`` on rows of ``w_tile`` outputs.  A row window holds the
+    row's L + 2h input cells from the 16-byte granule that holds its
+    first cell (up to 16 / in_bytes - 1 cells before it); the region
+    holds step 0's outputs in whole 16-column chunks.  Both strides are
+    4 mod 8 words, so the 8 rows of an A fragment fall in 8 distinct bank
+    quads, and keep every row on a 16-byte boundary.  A float32 line's
+    steps run in place in its staging buffer (chunk c writes columns
+    [16c, 16c + 16), which no later chunk reads), so it has no region and
+    its staged rows are at least ``ld`` wide."""
+    gran = 16 // in_bytes
+    h = t * radius
+    ld = _round_up(w_tile + 2 * (t - 1) * radius, BAND_N) + 4
+    lds = _round_up(w_tile + 2 * h + gran - 1, gran)
+    if in_bytes == 4:
+        lds = max(lds, ld)
+    while (lds * in_bytes // 4) % 8 != 4:
+        lds += gran
+    stage = _align(LINE_TILE_ROWS * lds * in_bytes)
+    warp = 2 * stage + (0 if in_bytes == 4
+                        else _align(LINE_TILE_ROWS * ld * 4))
+    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
+    return LineLayout(LINE_ROWS, lds, ld, kpad, stage, warp,
+                      LINE_WARPS * warp + LINE_SLACK_BYTES)
+
+
+def line_tiles(n: int, geom: SubstrateGeom) -> int:
+    """CTA tiles of a line of ``n`` points: ceil(n / (TM * w_tile))."""
+    return -(-n // (LINE_ROWS * geom.w_tile))
+
+
+def line_windows(n: int, geom: SubstrateGeom,
+                 batch: int = 1) -> Iterator[tuple]:
+    """Every row of every CTA tile of the folded 1D kernels on ``batch``
+    lines of ``n`` points, exactly as ``csrc/line_fold.cuh`` indexes
+    them: yields ``(b, tile, row, (out0, out1), (read0, read1))``, line b
+    of the batch, its CTA tile and the row's index in it, the outputs
+    [out0, out1) (clipped to the line) and the unwrapped cells it reads
+    [out0 - h, out0 + L + h), h = ``geom.w_block``, L = ``geom.w_tile``.
+    Rows that start past the line are not launched and not yielded."""
+    L, h = geom.w_tile, geom.w_block
+    for b in range(batch):
+        for tile in range(line_tiles(n, geom)):
+            for row in range(LINE_ROWS):
+                q = (tile * LINE_ROWS + row) * L
+                if q >= n:
+                    break
+                yield b, tile, row, (q, min(q + L, n)), (q - h, q + L + h)
+
+
 def _divisors(n: int) -> list:
     return [d for d in range(1, n + 1) if n % d == 0]
 
@@ -592,7 +676,9 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
 def lifted_tile_geom(n: int, halo: int,
                      w_tile: Optional[int] = None) -> SubstrateGeom:
     """The 2D tile the 1D lift launches on the (1, N) view: 16-row tiles of
-    which one row is the grid (every wrapped row is row 0)."""
+    which one row is the grid (every wrapped row is row 0).  The folded 1D
+    banded kernels take its width as their row length (``line_windows``),
+    so their chunks start where the lift's do."""
     return resolve_tile_geom((1, n), halo, None, w_tile)
 
 

@@ -15,7 +15,9 @@ instantiation of this checkout whose last template argument is the
 staging code 0 (``STAGE_REGION``, ``csrc/common.cuh``) is matched to the
 other checkout's instantiation without that argument, and instantiations
 are matched by their template arguments whatever their parameters.
-Needs ``nvcc`` and ``cuobjdump``, not a card.
+A kernel whose source the other checkout lacks is listed, with its
+instantiations' registers, as new.  Needs ``nvcc`` and ``cuobjdump``, not
+a card.
 """
 from __future__ import annotations
 
@@ -111,12 +113,16 @@ def main(argv: List[str]) -> int:
     diffs: List[str] = []
     jobs = {(side, k): (root / f"{k}.cu", out / f"{side}-{k}.so")
             for side, root in (("this", _build.CSRC), ("other", other))
-            for k in _build._MAIN}
+            for k in _build._MAIN if (root / f"{k}.cu").exists()}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: _build_lib(*j),
                                        jobs.values())))
     same = total = 0
     for k in _build._MAIN:
+        if ("other", k) not in libs:
+            for name, n in sorted(registers(libs["this", k]).items()):
+                print(f"{k}: {name}: new in this checkout, {n} registers")
+            continue
         ours, theirs = functions(libs["this", k]), functions(libs["other", k])
         r_ours, r_theirs = registers(libs["this", k]), registers(libs["other", k])
         for name in sorted(ours):           # the main builds: STAGE_REGION

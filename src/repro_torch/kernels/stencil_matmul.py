@@ -19,16 +19,20 @@ intermediate-reuse regime).  A tensor on the CPU runs
 :func:`stencil_matmul_plain`; a CUDA tensor launches a hand-written wmma
 kernel (TF32 operands for f32, bf16 for bf16, 16-column chunks: BAND_N)
 or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
-``csrc/stencil_banded3d.cu``, 1D grids the 2D kernel on the lifted
-(1, N) view, where the kernel's single row is one band (the lift's row
-axis periodic, its column axis in the grid's mode).
+``csrc/stencil_banded3d.cu``, 1D grids ``csrc/stencil_banded1d.cu``, which
+folds the line into the MMA rows (``csrc/line_fold.cuh``): each row one
+w_tile-long segment of the line, its one band the 1D kernel.  The 2D
+kernel on the lifted (1, N) view, where the kernel's single row is one
+band (the lift's row axis periodic, its column axis in the grid's mode),
+computes the same function bit for bit and stays reachable as
+:func:`_launch2d` for comparison.
 
 The ``staging`` argument of :func:`stencil_matmul_at` picks what a CTA
 reads to build its region, as in ``stencil_direct_at``: the region alone, or a traffic foil's whole
 neighbour tiles -- ``"wholestrip"`` (K8) and ``"9tile"`` (K10, 2D
 periodic) -- launching the same kernel built with the foil's staging
 (``csrc/stencil_banded{,3d}.cu`` with ``-DREPRO_FOIL``).  A 1D grid has
-the lift's staging only.  With ``batched=True``, as in
+one staging, the folded kernel's.  With ``batched=True``, as in
 ``stencil_direct_at``, ``x`` is ``(B,) + grid_shape`` and one launch
 advances all B grids (K11).
 """
@@ -48,7 +52,7 @@ from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
                      banded3d_layout, banded_layout, batch_chunks,
                      batch_grid, check_grid, check_staging, check_tile_halo,
-                     kernel_mode_codes, launch_geom, lift_weights,
+                     kernel_mode_codes, launch_geom, line_layout,
                      plain_loop)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
@@ -199,6 +203,15 @@ def _launcher3d():
 
 
 @functools.lru_cache(maxsize=None)
+def _launcher1d():
+    """The folded 1D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_banded1d").stencil_banded1d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _foil_launcher():
     """The 2D foils' C entry point (the 2D entry's arguments and the
     staging code after the compute dtype), built on first use."""
@@ -220,12 +233,13 @@ def _foil_launcher3d():
 
 def kernel_source(ndim: int) -> str:
     """The kernel source a launch on a grid of rank ``ndim`` builds from."""
-    return "stencil_banded3d" if ndim == 3 else "stencil_banded"
+    return {1: "stencil_banded1d", 3: "stencil_banded3d"}.get(
+        ndim, "stencil_banded")
 
 
 def _entry(ndim: int, staging: str):
     """``(library, C entry, staging arguments, launch counter)`` of a
-    banded launch on a grid of rank ``ndim`` (1D: the 2D kernel's)."""
+    banded launch on a grid of rank 2 or 3."""
     src = kernel_source(ndim)
     if staging == "region":
         return (src, _launcher3d() if ndim == 3 else _launcher(), (), src)
@@ -289,22 +303,22 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
 
 def _run(x, w, t, radius, cdt, geom, modes, staging: str = "region",
          batched: bool = False) -> torch.Tensor:
-    if staging == "region" or w.ndim == 1:        # 1D: the lift's staging
-        return run_kernel("stencil_matmul", _launch2d, _launch3d, x, w, t,
-                          radius, cdt, geom, modes, batched)
-    return run_kernel("stencil_matmul",
+    if staging == "region" or w.ndim == 1:        # 1D: one staging
+        return run_kernel("stencil_matmul", _launch1d, _launch2d, _launch3d,
+                          x, w, t, radius, cdt, geom, modes, batched)
+    return run_kernel("stencil_matmul", _launch1d,
                       functools.partial(_launch2d, staging=staging),
                       functools.partial(_launch3d, staging=staging),
                       x, w, t, radius, cdt, geom, modes, batched)
 
 
-def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
-               modes, batched: bool = False) -> torch.Tensor:
+def run_kernel(name, launch1d, launch2d, launch3d, x, w, t, radius, cdt,
+               geom, modes, batched: bool = False) -> torch.Tensor:
     """Launch the banded-family kernel of the grid's rank (the weights')
-    on ``geom`` (``launch2d`` also for the 1D lift, on the (B, 1, N) view
-    with the lifted kernel) over one grid, or over the batch ``x`` holds
-    when ``batched``; or raise.  The launchers take a ``(B,) + grid``
-    tensor; ``name`` is the wrapper's, for the messages."""
+    on ``geom`` over one grid, or over the batch ``x`` holds when
+    ``batched``; or raise.  The launchers take a ``(B,) + grid`` tensor
+    (``launch1d`` a (B, N) one, the line's mode code only); ``name`` is
+    the wrapper's, for the messages."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES or cdt not in _DTYPE_CODES:
@@ -315,8 +329,7 @@ def run_kernel(name, launch2d, launch3d, x, w, t, radius, cdt, geom,
     codes = kernel_mode_codes(modes)
     xb = x if batched else x.unsqueeze(0)
     if w.ndim == 1:
-        y = launch2d(xb.view(xb.shape[0], 1, -1), lift_weights(w), t,
-                     radius, cdt, geom, codes).view(xb.shape)
+        y = launch1d(xb, w, t, radius, cdt, geom, codes[-1])
     elif w.ndim == 3:
         y = launch3d(xb, w, t, radius, cdt, geom, codes)
     else:
@@ -333,6 +346,35 @@ def _checked(layout, what: str):
         raise ValueError(f"{what} tile needs {layout.smem_bytes} bytes of "
                          "shared memory, over the 227 KB budget")
     return layout
+
+
+def line_launch_layout(geom: SubstrateGeom, radius: int, t: int,
+                       in_dtype: torch.dtype, cdt: torch.dtype, what: str):
+    """The folded 1D kernels' shared-memory layout of a launch, checked
+    against the 227 KB budget and the deepest contraction they take."""
+    return _checked(line_layout(geom.w_tile, radius, t, in_dtype.itemsize,
+                                cdt.itemsize), what)
+
+
+def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
+    """The folded 1D kernel on the (B, N) lines ``x``: rows of the lifted
+    tile's width ``geom.w_tile``, the line's boundary ``code``."""
+    layout = line_launch_layout(geom, radius, t, x.dtype, cdt, "1D banded")
+    _, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
+                                str(x.device))
+    y = torch.empty_like(x)
+    fn = _launcher1d()
+    b, n = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(), n,
+                 geom.w_tile, layout.rows, t, radius, layout.lds, layout.ld,
+                 layout.kpad, layout.stage_bytes, layout.warp_bytes,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], code, b, n,
+                 layout.smem_bytes, stream)
+    _build.check(err, "stencil_banded1d")
+    _build.count_launch("stencil_banded1d")
+    return y
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes,

@@ -17,7 +17,11 @@ contractions with f32 intermediates on chip.  A tensor on the CPU runs
 kernel (``mma.sync``: TF32 m16n8k4 pairs for f32 operands, bf16 m16n8k16
 for bf16 operands, f32 accumulators) or raises: 2D grids
 ``csrc/stencil_sparse.cu``, 3D grids ``csrc/stencil_sparse3d.cu``, 1D
-grids the 2D kernel on the lifted (1, N) view.  The kernels run dense
+grids ``csrc/stencil_sparse1d.cu``, the folded 1D kernel
+(``csrc/line_fold.cuh``) on the compacted band, which equals the dense
+folded kernel bit for bit on box and star kernels (the 2D kernel on the
+lifted (1, N) view stays reachable as :func:`_launch2d` for
+comparison).  The kernels run dense
 MMAs over fewer k-steps (no 2:4 ``mma.sp``): band p takes
 ``kpad_p / K`` steps, kpad_p = BAND_N + span_p rounded up to the K step.
 With ``batched=True`` (:func:`stencil_sparse_matmul_at`) ``x`` is
@@ -38,10 +42,10 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SubstrateGeom, batch_chunks, batch_grid,
-                     check_grid, check_tile_halo, launch_geom, lift_weights,
+                     check_grid, check_tile_halo, launch_geom,
                      mma_k_step, plain_loop, sparse3d_layout, sparse_layout)
 from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, MAX_ROWS, _checked,
-                             build_bands_nd, run_kernel)
+                             build_bands_nd, line_launch_layout, run_kernel)
 
 
 def compact_bands(offsets, bands: np.ndarray):
@@ -163,8 +167,8 @@ def _band_meta(w_bytes: bytes, shape: tuple, k_step: int) -> BandMeta:
 
 
 def band_meta(weights, compute_dtype: torch.dtype) -> BandMeta:
-    """:class:`BandMeta` of ``weights`` (2D or 3D; a 1D grid passes its
-    lifted kernel) for MMA operands in ``compute_dtype``."""
+    """:class:`BandMeta` of ``weights`` (1D, 2D or 3D; 1D rows are
+    ``(lo, nk)``) for MMA operands in ``compute_dtype``."""
     w = np.ascontiguousarray(weights, dtype=np.float32)
     return _band_meta(w.tobytes(), w.shape,
                       mma_k_step(compute_dtype.itemsize))
@@ -185,22 +189,28 @@ def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
 
 
 def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
-                       compute_dtype: torch.dtype):
+                       compute_dtype: torch.dtype,
+                       in_dtype: torch.dtype = torch.float32):
     """The shared-memory layout the compacted kernel of a grid of this
     rank launches ``weights`` with at ``t`` fused steps on ``geom``;
     raises when it passes the 227 KB budget (or the deepest contraction
     the kernels take).  Plans call it when they are built, the launches
-    at every call (the 1D lift's with the lifted (1, N) grid and kernel,
-    which give the same layout)."""
+    at every call (the 2D kernel on the lifted (1, N) view with the
+    lifted (1, N) grid and kernel).  A 1D grid's folded layout depends on
+    the grid's dtype too; ``in_dtype`` is it (default: float32, the larger
+    staging)."""
     w = np.asarray(weights, dtype=np.float32)
     radius = (w.shape[-1] - 1) // 2
     cb = compute_dtype.itemsize
+    if len(grid_shape) == 1:
+        return line_launch_layout(geom, radius, t, in_dtype, compute_dtype,
+                                  "1D compacted banded")
     if len(grid_shape) == 3:
         meta = band_meta(w, compute_dtype)
         return _checked(sparse3d_layout(geom.z_slab, geom.strip_m,
                                         geom.w_tile, radius, t, cb,
                                         meta.a_cols), "3D compacted banded")
-    meta = band_meta(lift_weights(w) if w.ndim == 1 else w, compute_dtype)
+    meta = band_meta(w, compute_dtype)
     return _checked(sparse_layout(geom.strip_m, geom.w_tile, radius, t, cb,
                                   meta.a_cols), "compacted banded")
 
@@ -222,12 +232,27 @@ def _launcher():
 
 
 @functools.lru_cache(maxsize=None)
+def _launcher1d():
+    """The folded 1D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_sparse1d").stencil_sparse1d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_sparse3d").stencil_sparse3d_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + BATCH_ARGS
     return fn
+
+
+def kernel_source(ndim: int) -> str:
+    """The kernel source a launch on a grid of rank ``ndim`` builds from."""
+    return {1: "stencil_sparse1d", 3: "stencil_sparse3d"}.get(
+        ndim, "stencil_sparse")
 
 
 def stencil_sparse_matmul(x: torch.Tensor, weights, t: int = 1,
@@ -267,8 +292,7 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                                "the compacted banded contraction")
     cdt = x.dtype if compute_dtype is None else compute_dtype
     check_tile_halo(geom, t * radius)
-    faults.on_launch("stencil_sparse3d" if len(shape) == 3
-                     else "stencil_sparse")
+    faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
         return plain_loop(stencil_sparse_matmul_plain, x, batched, w, t,
                           BAND_N, cdt, modes)
@@ -277,8 +301,30 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
 
 def _run(x, w, t, radius, cdt, geom, modes,
          batched: bool = False) -> torch.Tensor:
-    return run_kernel("stencil_sparse_matmul", _launch2d, _launch3d, x, w, t,
-                      radius, cdt, geom, modes, batched)
+    return run_kernel("stencil_sparse_matmul", _launch1d, _launch2d,
+                      _launch3d, x, w, t, radius, cdt, geom, modes, batched)
+
+
+def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
+    """The folded 1D kernel on the compacted band, on the (B, N) lines
+    ``x``: rows of the lifted tile's width, the line's boundary ``code``."""
+    meta, packed, _ = _device_operand(w.tobytes(), w.shape, cdt,
+                                      str(x.device))
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt, x.dtype)
+    ((lo, nk),) = meta.rows
+    y = torch.empty_like(x)
+    fn = _launcher1d()
+    b, n = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(), n,
+                 geom.w_tile, layout.rows, t, radius, layout.lds, layout.ld,
+                 lo, nk, layout.stage_bytes, layout.warp_bytes,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], code, b, n,
+                 layout.smem_bytes, stream)
+    _build.check(err, "stencil_sparse1d")
+    _build.count_launch("stencil_sparse1d")
+    return y
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:

@@ -493,7 +493,8 @@ def test_wrappers_pass_the_band_metadata(monkeypatch, shape, boundary, cdt):
     wk = common.lift_weights(w) if len(shape) == 1 else w
     meta = t_sparse.band_meta(wk, cdt)
     assert args["a_cols"] == meta.a_cols
-    lay = t_sparse.sparse_tile_layout(shape, w, 2, geom, cdt)
+    lay = t_sparse.sparse_tile_layout((1,) * (len(shape) == 1) + shape, wk,
+                                      2, geom, cdt)     # the lift's grid
     assert args["smem_bytes"] == lay.smem_bytes
     if len(shape) == 3:
         assert args["n_rows"] == len(meta.rows) == 5
