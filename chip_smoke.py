@@ -5,11 +5,11 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
-     twelve CUDA libraries from src/repro_torch/kernels/csrc (the eight
-     kernels -- among them the folded 1D banded kernels stencil_banded1d
-     and stencil_sparse1d -- and the traffic foils' second build of four
-     of them; one nvcc per library, started together), each one's build
-     time, and the
+     thirteen CUDA libraries from src/repro_torch/kernels/csrc (the nine
+     kernels -- among them the folded 1D kernels stencil_direct1d,
+     stencil_banded1d and stencil_sparse1d -- and the traffic foils' second
+     build of four of them; one nvcc per library, started together), each
+     one's build time, and the
      global load instructions of every foil instantiation in its SASS
      (cuobjdump, which must be there), which must not fall below its
      default twin's; then it starts this script with --count-loads in a
@@ -23,23 +23,27 @@ Phases, any failure exits non-zero:
      the plain version one step short: the 2D kernels at 1024^2 and a
      ragged 1000x1030 grid (box/star, r in {1, 3}, t in {1, 4}); the 3D
      kernels at 128^3 and a ragged 60x70x130 grid (box/star, (r, t) in
-     {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the 1D kernels
-     (the tap-sum on the lift, the folded banded ones) at 2^20 and
-     2^20+3 points (box/star, r in {1, 3}, t in {1, 4}); float32 and
+     {(1,1), (1,4), (2,2), (3,1)}, and Box-3D2R at t=4); the folded 1D
+     kernels (tap-sum, banded, compacted) at 2^20, 2^20+3, 67, 1000 and
+     3 * 4096 + 3 points (the last three: shorter than one tap-sum
+     segment, and three segments and 3 points; box/star, r in {1, 3}, t
+     in {1, 4}); float32 and
      bfloat16 grids, the banded kernels with either operand dtype and on
      the composed kernel; then every kernel under non-periodic boundaries
      (zero, reflect, replicate, and the mixed specs ("reflect",
      "periodic") and ("periodic", "zero") in 2D, ("replicate", "reflect",
      "periodic") in 3D) on the ragged 1000x1030 and 40x72x100 grids and
-     the 1D kernels at 2^20+3 points, box/star, r in {1, 2}, t in {1, 4} (r=2,
+     the 1D kernels at 2^20+3, 67 and 1000 points, box/star, r in {1, 2},
+     t in {1, 4} (r=2,
      t=4 runs the 3D kernels on their 8-deep tile at h = 8), each against
      its plain version under the same boundary; the compacted (sparse)
      kernels on every one of these configurations beside the banded ones,
      and on base weights each against the dense banded kernel of the same
      call (the largest difference printed; equal sums expected, and
-     required in 1D); every folded 1D call also against the 2D kernel on
-     the lifted (1, N) view with the same call and tile, which it must
-     equal bit for bit (the largest difference printed); then the
+     required in 1D); every folded 1D call (the tap-sum's too) also
+     against the 2D kernel on the lifted (1, N) view with the same call
+     and tile, which it must equal bit for bit (the largest difference
+     printed); then the
      traffic foils (K8 whole-strip / whole-slab on the tap-sum and banded
      kernels, 1000x1030 and 60x70x130, periodic and under one boundary
      spec; K9 / K10, the seed 9-tile kernels, on 1024^2 with 128x128
@@ -88,9 +92,9 @@ Phases, any failure exits non-zero:
      plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
      port never calls (on a boundary path: t x (F.pad in the boundary's
      modes, axis by axis, + one F.conv of the base kernel)), on the 1D
-     paths each banded regime beside the 2D kernel on the lifted view
-     doing the same calls ("lift_ms") and the folded kernels' entries with
-     their registers (cuobjdump), the compacted
+     paths each regime beside the 2D kernel on the lifted view doing the
+     same calls ("lift_ms") and the folded kernels' entries with their
+     registers (cuobjdump), the compacted
      kernel on the Star stencil (1D: Box) beside the dense banded kernel of
      the same call, the kept-row fraction S and the MMA k-steps of both,
      the traffic table of each foil path (bytes requested per launch, ms,
@@ -106,8 +110,8 @@ Phases, any failure exits non-zero:
      requests - signatures, no degraded batch; then the quick run of
      ``python -m repro_torch.benchmarks.serving`` (printed, not gated).
 The line before the last is the JSON kernel report, one entry per kernel
-and path (the tap-sum on the 1D path as "stencil_direct (1D lift)", the
-folded kernels as "stencil_banded1d" and "stencil_sparse1d" with the
+and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
+and "stencil_sparse1d", and their boundary and batched forms, with the
 lifted 2D kernel's time on the same call as "lift_ms" and their registers
 as "registers", the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
@@ -182,10 +186,10 @@ KERNEL_SOURCES = {
                          "src/repro/kernels/common.py:1525"),
     "stencil_banded3d": ("src/repro_torch/kernels/csrc/stencil_banded3d.cu",
                          "src/repro/kernels/common.py:1525"),
-    # The 1D tap-sum: the 2D kernel on the lifted (1, N) view, as the JAX
-    # lift; the 1D banded kernels fold the line into the MMA rows.
-    "stencil_direct (1D lift)": ("src/repro_torch/kernels/csrc/stencil_direct.cu",
-                                 "src/repro/kernels/stencil_direct.py:139"),
+    # The 1D kernels fold the line the JAX package lifts to a (1, N) grid:
+    # the tap-sum into contiguous segments, the banded ones into MMA rows.
+    "stencil_direct1d": ("src/repro_torch/kernels/csrc/stencil_direct1d.cu",
+                         "src/repro/kernels/stencil_direct.py:139"),
     "stencil_banded1d": ("src/repro_torch/kernels/csrc/stencil_banded1d.cu",
                          "src/repro/kernels/stencil_matmul.py:248"),
     "stencil_sparse": ("src/repro_torch/kernels/csrc/stencil_sparse.cu",
@@ -445,31 +449,27 @@ def hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short, worst,
 
 def kernel_name(base: str, dim: int) -> str:
     """The kernel a wrapper launches for a grid of rank ``dim``: the 3D
-    kernels for 3D grids, the 2D kernels for 2D grids, and for 1D grids
-    the folded banded kernels (``...1d``) and the tap-sum's lift."""
-    if dim == 3:
-        return base + "3d"
-    return base + ("1d" if dim == 1 and base != "stencil_direct" else "")
-
-
-def entry_suffix(kname: str, dim: int) -> str:
-    """What a 1D entry adds to its kernel's name: the tap-sum runs the 2D
-    kernel on the lifted (1, N) view."""
-    return " (1D lift)" if dim == 1 and kname == "stencil_direct" else ""
+    kernels for 3D grids, the 2D kernels for 2D grids and the folded 1D
+    kernels (``...1d``) for 1D grids."""
+    return base + {1: "1d", 3: "3d"}.get(dim, "")
 
 
 def lifted_call(mod, x, w, t, cdt=None, boundary=None):
-    """A folded 1D call done by the 2D kernel of ``mod`` (stencil_matmul or
-    stencil_sparse) on the lifted (1, N) view, on the same tile: what the
-    port launched for 1D grids before the fold, kept for comparison."""
+    """A folded 1D call done by the 2D kernel of ``mod`` (stencil_direct,
+    stencil_matmul or stencil_sparse) on the lifted (1, N) view, on the
+    same tile: what the port launched for 1D grids before the fold, kept
+    for comparison.  ``x`` is one line or a batch of lines (one launch for
+    all, each on its own (1, N) view)."""
     from repro_torch.kernels import common
     from repro_torch.stencil import resolve_boundary
     r = (w.shape[0] - 1) // 2
-    geom = common.launch_geom(tuple(x.shape), t * r)
+    n = x.shape[-1]
+    geom = common.launch_geom((n,), t * r)
     codes = common.kernel_mode_codes(resolve_boundary(boundary, 1))
-    cdt = x.dtype if cdt is None else cdt
-    return mod._launch2d(x.view(1, 1, -1), common.lift_weights(np.asarray(w, np.float32)),
-                         t, r, cdt, geom, codes).view(x.shape)
+    dtype = () if mod.__name__.endswith("stencil_direct") else (
+        x.dtype if cdt is None else cdt,)
+    return mod._launch2d(x.reshape(-1, 1, n), common.lift_weights(np.asarray(w, np.float32)),
+                         t, r, *dtype, geom, codes).view(x.shape)
 
 
 def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
@@ -517,7 +517,7 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                  lambda: sd.stencil_direct(x, w, t, boundary=bc),
                  lambda: sd.stencil_direct_plain(x, w, t, bc),
                  lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None, None,
-                 None)]
+                 (lambda: lifted_call(sd, x, w, t, None, bc)) if dim == 1 else None)]
             for sparse in (False, True):
                 cases_ += [banded(w, t, dtype, sparse=sparse), banded(w, t, other, sparse=sparse)]
                 if t > 1 and bc is None:
@@ -531,8 +531,7 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                        + ("" if tk == t else " composed")
                        + ("" if bc is None else f" boundary={boundary_label(bc)}"))
                 kname = name.split("[")[0]
-                key = (kname + entry_suffix(kname, dim)
-                       + ("" if bc is None else " (boundaries)"))
+                key = kname + ("" if bc is None else " (boundaries)")
                 hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short,
                               worst, margin)
                 if dense is not None:
@@ -547,6 +546,13 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                     vs_lift[key] = max(vs_lift.get(key, 0.0), diff)
 
 
+#: Phase 2's 1D lines: 2^20 and 2^20 + 3 points, two lines shorter than
+#: one CTA segment of the folded tap-sum (64 tiles of 64 points), and one
+#: of three segments and 3 points.
+SHORT_LINES = ((67,), (1000,))
+LINE_SHAPES = ((2**20,), (2**20 + 3,)) + SHORT_LINES + ((3 * 64 * 64 + 3,),)
+
+
 def phase_kernels_vs_plain(mods) -> None:
     worst, margin, vs_dense, vs_lift = {}, {}, {}, {}
     check_kernels(mods, ((1024, 1024), (1000, 1030)),
@@ -556,7 +562,7 @@ def phase_kernels_vs_plain(mods) -> None:
                   [(k, r, t) for k in ("box", "star")
                    for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))] + [("box", 2, 4)],
                   worst, margin, vs_dense)
-    check_kernels(mods, ((2**20,), (2**20 + 3,)),
+    check_kernels(mods, LINE_SHAPES,
                   [(k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4)],
                   worst, margin, vs_dense, vs_lift=vs_lift)
     # Non-periodic boundaries: every uniform mode and one mixed spec per
@@ -568,8 +574,8 @@ def phase_kernels_vs_plain(mods) -> None:
                   uniform + (("reflect", "periodic"), ("periodic", "zero")))
     check_kernels(mods, ((40, 72, 100),), bc_cases, worst, margin, vs_dense,
                   uniform + (("replicate", "reflect", "periodic"),))
-    check_kernels(mods, ((2**20 + 3,),), bc_cases, worst, margin, vs_dense, uniform,
-                  vs_lift=vs_lift)
+    check_kernels(mods, ((2**20 + 3,),) + SHORT_LINES, bc_cases, worst, margin, vs_dense,
+                  uniform, vs_lift=vs_lift)
     print("kernels vs plain: all configurations within tolerance; worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst "
@@ -867,12 +873,12 @@ def phase_main_path(mods, label, x, ws, boundary=None, runs=None, sparse=False,
 
 
 def lifted_plan(mods, plan, w, x, boundary=None):
-    """The calls a 1D banded-family plan makes, done by the 2D kernels on
-    the lifted (1, N) view (``lifted_call``), or None for the tap-sum."""
-    _, sm, _, weights, ss = mods
+    """The calls a 1D plan makes, done by the 2D kernels on the lifted
+    (1, N) view (``lifted_call``)."""
+    _, sm, sd, weights, ss = mods
     t, backend = plan.t, plan.backend
-    mod = ss if "sparse" in backend else sm
-    if backend in ("matmul", "sparse_matmul"):
+    mod = sd if backend.endswith("direct") else ss if "sparse" in backend else sm
+    if backend in ("direct", "matmul", "sparse_matmul"):
         def run():
             y = x
             for _ in range(t):
@@ -882,7 +888,7 @@ def lifted_plan(mods, plan, w, x, boundary=None):
     if backend == "fused_matmul":
         wf = weights.fuse_weights(w, t)
         return lambda: lifted_call(sm, x, wf, 1, None, boundary)
-    if backend in ("fused_matmul_reuse", "fused_sparse_matmul"):
+    if backend in ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul"):
         return lambda: lifted_call(mod, x, w, t, None, boundary)
     return None
 
@@ -892,9 +898,9 @@ def phase_regime_times(label, x, ws, results, card, twins=None, lift=None):
     amplification, its bound and its error; returns the ms by (stencil,
     regime).  ``twins``: another path's returned times (the unbatched path
     of the same cells), printed beside as the ratio.  ``lift``: ``(mods,
-    boundary)`` on an unbatched 1D path, where each banded-family regime
-    is also timed doing its calls by the 2D kernels on the lifted view
-    (``lift_ms``, returned under (stencil, regime + " lift"))."""
+    boundary)`` on an unbatched 1D path, where each regime is also timed
+    doing its calls by the 2D kernels on the lifted view (``lift_ms``,
+    returned under (stencil, regime + " lift"))."""
     n = x.numel()
     print(f"times on {card}, {label} path ({tuple(x.shape)} float32, t={MAIN_T} unless "
           "named; bound = max(bytes / 3.35 TB/s, useful FLOPs / unit peak)):")
@@ -939,8 +945,10 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     kernel's reuse form ``stencil_sparse_matmul(x, w, t)`` only, its
     ``launches`` from the sparse path and the dense banded kernel's time
     on the same call beside it as ``dense_ms``.  On a 1D path the folded
-    kernels' entries also carry the 2D kernel on the lifted view doing the
-    same call (``lift_ms``) and their registers (``fold_registers``)."""
+    kernels' entries (``stencil_direct1d``, ``stencil_banded1d``,
+    ``stencil_sparse1d``) also carry the 2D kernel on the lifted view
+    doing the same call (``lift_ms``) and their registers
+    (``fold_registers``)."""
     _, sm, sd, weights, ss = mods
     n, dim = x.numel(), x.ndim
     ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
@@ -970,12 +978,11 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
              TF32_FLOPS, True, MAIN_T * 2**-10 * sw * mx),)
     for base, kern, plain, peak, tf32, tol in kernels_:
         kname = kernel_name(base, dim)
-        lifted = entry_suffix(kname, dim)
         if boundary is None:
-            entry = kname + lifted
+            entry = kname
             src, replaces = KERNEL_SOURCES[entry]
         else:
-            entry = f"{kname} ({'1D lift, ' if lifted else ''}{boundary_label(boundary)})"
+            entry = f"{kname} ({boundary_label(boundary)})"
             src = KERNEL_SOURCES[kname][0]
             replaces = SPARSE_FILL_REPLACES if sparse else FILL_REPLACES
         y = kern()
@@ -995,10 +1002,10 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow)})
         if sparse:
             report[-1]["dense_ms"] = cuda_ms(dense)
-        if dim == 1 and not lifted:
+        if dim == 1:
+            mod = {"stencil_direct": sd, "stencil_banded": sm, "stencil_sparse": ss}[base]
             report[-1]["lift_ms"] = cuda_ms(
-                lambda: lifted_call(ss if sparse else sm, x, w, MAIN_T, None, boundary),
-                reps=5, warmup=1)
+                lambda: lifted_call(mod, x, w, MAIN_T, None, boundary), reps=5, warmup=1)
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
@@ -1014,11 +1021,14 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
 
 def fold_registers(kname: str, fill: bool) -> int:
     """Registers per thread (cuobjdump) of the folded kernel's
-    instantiation a float32 call with a radius-1 band launches: f32 grid
-    and operands, the small band register set, with or without the fill
-    (``csrc/line_fold.cuh::line_fold_kernel<float, float, FILL, 3>``)."""
+    instantiation a float32 call of radius 1 launches, with or without the
+    fill: the banded ones' f32 grid and operands and small band register
+    set (``csrc/line_fold.cuh::line_fold_kernel<float, float, FILL, 3>``),
+    the tap-sum's f32 line at R = 1
+    (``csrc/stencil_direct1d.cu::stencil_direct1d_kernel<float, 1, FILL>``)."""
     from repro_torch.kernels import _build, sass
-    tag = f"line_fold_kernelIffLb{int(fill)}ELi3EE"
+    tag = (f"stencil_direct1d_kernelIfLi1ELb{int(fill)}EE" if kname == "stencil_direct1d"
+           else f"line_fold_kernelIffLb{int(fill)}ELi3EE")
     regs = [n for f, n in sass.registers(_build._target(kname)).items() if tag in f]
     check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in {kname}")
     return regs[0]
@@ -1472,7 +1482,9 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
     calls of kernel_report, ``batched=True`` on the path's tile): each
     batched kernel against the loop of its plain version over the grids,
     beside one F.conv with N = B; ``launches`` is the batched path's count,
-    the bound B grids' bytes or FLOPs."""
+    the bound B grids' bytes or FLOPs.  On a 1D path each entry also
+    carries the batched 2D kernel on the lifted views doing the same call
+    (``lift_ms``) and its registers, as kernel_report's."""
     _, sm, sd, weights, ss = mods
     from repro_torch.kernels import common
     b, shape = xb.shape[0], tuple(xb.shape[1:])
@@ -1507,8 +1519,7 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
     report = []
     for base, kern, plain, peak, tf32, tol in rows:
         kname = kernel_name(base, dim)
-        what = ", ".join(["batched"] + (["1D lift"] if entry_suffix(kname, dim) else [])
-                         + ([] if boundary is None else [boundary_label(boundary)]))
+        what = ", ".join(["batched"] + ([] if boundary is None else [boundary_label(boundary)]))
         entry = f"{kname} ({what})"
         y = kern()
         err = max_err(y, plain())
@@ -1526,12 +1537,20 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow), "batch": b})
+        if dim == 1:
+            mod = {"stencil_direct": sd, "stencil_banded": sm, "stencil_sparse": ss}[base]
+            report[-1]["lift_ms"] = cuda_ms(
+                lambda: lifted_call(mod, xb, w, MAIN_T, None, boundary),
+                reps=5, warmup=1)
+            report[-1]["registers"] = fold_registers(kname, boundary is not None)
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms for {b} x {shape} (bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), the plain loop "
               f"{k['plain_ms']:.4f} ms, F.conv{dim}d with N={b} {k['library_ms']:.4f} ms, "
               f"max|err| vs the plain loop {k['max_abs_err']:.3e}, {k['launches']} "
-              "launches on the batched path")
+              "launches on the batched path"
+              + (f"; the 2D kernel on the lifted view, same call, {k['lift_ms']:.4f} ms; "
+                 f"{k['registers']} registers" if "lift_ms" in k else ""))
     return report
 
 

@@ -14,7 +14,9 @@ warm-up (unbatched: B = 1 on the batched kernels).  On a checkout whose
 1D banded regimes run the folded kernels (``stencil_matmul._launch1d``),
 it also times each of them doing the same calls by the 2D kernel on the
 lifted (1, N) view, the kernel those regimes ran before, as the case
-``"1D box <regime> (lift)"``.  It prints, and writes to OUT.json,
+``"1D box <regime> (lift)"``; likewise the tap-sum regimes ``direct`` and
+``fused_direct`` where the checkout folds the tap-sum
+(``stencil_direct._launch1d``).  It prints, and writes to OUT.json,
 ``{"card": ..., "times": {case: ms}}``.  Beyond those lifted cases it uses
 only the plan API, so it runs on any checkout of the port.
 
@@ -30,6 +32,9 @@ import os
 import statistics
 import subprocess
 import sys
+
+import numpy as np
+import torch
 
 REPS = 15
 MAIN_T = 4
@@ -56,26 +61,29 @@ def _median_ms(torch, fn) -> float:
 
 
 def _lifted(modules, w, t: int, backend: str):
-    """``f(x)``: the calls of a 1D banded-family plan of ``backend`` done by
-    the 2D kernel on the lifted (1, N) view with the lifted kernel, or None
-    for the tap-sum regimes."""
-    sm, ss, common, fuse = modules
-    mod = ss if "sparse" in backend else sm
-    steps = {"matmul": (w, 1, t), "sparse_matmul": (w, 1, t),
+    """``f(x)``: the calls of a 1D plan of ``backend`` done by the 2D kernel
+    on the lifted (1, N) view with the lifted kernel, or None where the
+    checkout does not fold that regime's kernel."""
+    sm, ss, sd, common, fuse = modules
+    tapsum = backend in ("direct", "fused_direct")
+    mod = sd if tapsum else ss if "sparse" in backend else sm
+    steps = {"direct": (w, 1, t), "fused_direct": (w, t, 1),
+             "matmul": (w, 1, t), "sparse_matmul": (w, 1, t),
              "fused_matmul": (fuse(w, t), 1, 1),
              "fused_matmul_reuse": (w, t, 1),
-             "fused_sparse_matmul": (w, t, 1)}.get(backend)
-    if steps is None:
+             "fused_sparse_matmul": (w, t, 1)}[backend]
+    if not hasattr(mod, "_launch1d"):
         return None
     wk, tk, launches = steps
     r = (wk.shape[0] - 1) // 2
-    w2 = common.lift_weights(wk)
+    w2 = common.lift_weights(np.asarray(wk, np.float32))
+    dtype = () if tapsum else (torch.float32,)
 
     def run(x):
         geom = common.launch_geom(tuple(x.shape), tk * r)
         codes = common.kernel_mode_codes(("periodic",))
         for _ in range(launches):
-            x = mod._launch2d(x.view(1, 1, -1), w2, tk, r, x.dtype, geom,
+            x = mod._launch2d(x.view(1, 1, -1), w2, tk, r, *dtype, geom,
                               codes).view(x.shape)
         return x
     return run
@@ -85,8 +93,6 @@ def measure(src: str) -> dict:
     sys.path.insert(0, os.path.abspath(src))
     import importlib
 
-    import numpy as np
-    import torch
     from repro_torch.kernels import build_all, common, stencil_plan
     from repro_torch.stencil import StencilSpec, fuse_weights, make_weights
     if not torch.cuda.is_available():
@@ -97,7 +103,7 @@ def measure(src: str) -> dict:
                           text=True, check=True).stdout.strip().splitlines()[0]
     sm = importlib.import_module("repro_torch.kernels.stencil_matmul")
     ss = importlib.import_module("repro_torch.kernels.stencil_sparse")
-    folded = hasattr(sm, "_launch1d")
+    sd = importlib.import_module("repro_torch.kernels.stencil_direct")
     times = {}
     for label, shape, kinds in PATHS:
         x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
@@ -108,8 +114,8 @@ def measure(src: str) -> dict:
                 plan = stencil_plan(w, shape, torch.float32, MAIN_T, backend=b,
                                     use_sparse_unit=b.startswith(("sparse", "fused_sparse")))
                 times[f"{label} {kind} {b}"] = _median_ms(torch, lambda: plan(x))
-                lifted = folded and len(shape) == 1 and _lifted(
-                    (sm, ss, common, fuse_weights), w, MAIN_T, b)
+                lifted = len(shape) == 1 and _lifted(
+                    (sm, ss, sd, common, fuse_weights), w, MAIN_T, b)
                 if lifted:
                     times[f"{label} {kind} {b} (lift)"] = _median_ms(
                         torch, lambda: lifted(x))

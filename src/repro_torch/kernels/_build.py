@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (the folded 1D
 banded kernels, ``stencil_{banded,sparse}1d``, share
-``csrc/line_fold.cuh``); the four main
+``csrc/line_fold.cuh``, and with the folded 1D tap-sum,
+``stencil_direct1d``, ``csrc/line_stage.cuh``); the four main
 kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
 libraries of the traffic foils (``<name>_foil``), so instantiating the
 foils' staging costs the main path's build nothing.  With
@@ -43,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _MAIN = ("stencil_direct", "stencil_banded", "stencil_direct3d",
          "stencil_banded3d", "stencil_sparse", "stencil_sparse3d",
-         "stencil_banded1d", "stencil_sparse1d")
+         "stencil_banded1d", "stencil_sparse1d", "stencil_direct1d")
 _FOILED = _MAIN[:4]
 #: Every library: the main kernels and the foils' builds of their sources.
 KERNELS = _MAIN + tuple(f"{k}_foil" for k in _FOILED)

@@ -35,8 +35,9 @@ is priced as ``SubstrateGeom(3, z_slab=TZ, z_block=h, strip_m=TM,
 h_block=h, w_tile=TN, w_block=h)``.  1D grids are priced as the JAX lift
 is, with read amplification 1 (``SubstrateGeom(1, strip_m=1,
 h_block=1)``), and launch on the lifted (1, N) tile's width: the tap-sum
-runs the 2D kernel on that lifted view, the banded kernels fold the line
-into MMA rows (:func:`line_windows`, :func:`line_layout`).
+gives each CTA one contiguous segment of LINE_ROWS such tiles
+(:func:`line_segments`, :func:`direct1d_layout`), the banded kernels fold
+the line into MMA rows (:func:`line_windows`, :func:`line_layout`).
 """
 from __future__ import annotations
 
@@ -558,6 +559,59 @@ def line_windows(n: int, geom: SubstrateGeom,
                 yield b, tile, row, (q, min(q + L, n)), (q - h, q + L + h)
 
 
+#: Cells each buffer of the folded 1D tap-sum (csrc/stencil_direct1d.cu)
+#: holds past the window: the 16-byte granule's shift and the read past
+#: the last group of 4 outputs.  A CTA's segment is LINE_ROWS lifted tiles.
+DIRECT1D_SLACK = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Direct1dLayout:
+    """Shared-memory layout of a folded 1D tap-sum launch: two staging
+    buffers of ``lds`` input-dtype elements (``stage_bytes`` each) and the
+    f32 step buffers of ``ld`` elements (``work_bytes`` each): one for a
+    float32 line, whose staging buffer serves as the second once step 0
+    has read it, two for a bfloat16 line.  Every buffer keeps 16 bytes
+    before its cell 0.  ``seg`` is the outputs of a CTA's segment,
+    ``smem_bytes`` what the launch asks for."""
+
+    seg: int
+    lds: int
+    ld: int
+    stage_bytes: int
+    work_bytes: int
+    smem_bytes: int
+
+
+def direct1d_layout(w_tile: int, halo: int, in_bytes: int) -> Direct1dLayout:
+    """The folded 1D tap-sum's layout on segments of LINE_ROWS tiles of
+    ``w_tile`` outputs at total halo ``halo``: each buffer holds the
+    segment's window of seg + 2h cells and DIRECT1D_SLACK more, rounded
+    up to 16 cells."""
+    seg = LINE_ROWS * w_tile
+    span = _round_up(seg + 2 * halo + DIRECT1D_SLACK, 16)
+    lds, ld = 16 // in_bytes + span, 4 + span
+    stage, work = _align(lds * in_bytes), _align(ld * 4)
+    return Direct1dLayout(seg, lds, ld, stage, work,
+                          2 * stage + (1 if in_bytes == 4 else 2) * work)
+
+
+def line_segments(n: int, geom: SubstrateGeom,
+                  batch: int = 1) -> Iterator[tuple]:
+    """Every CTA segment of the folded 1D tap-sum on ``batch`` lines of
+    ``n`` points, exactly as ``csrc/stencil_direct1d.cu`` indexes them:
+    yields ``(b, seg, (out0, out1), (read0, read1))``, line b of the
+    batch, the segment's index in it, its outputs [out0, out1) (LINE_ROWS
+    tiles of ``geom.w_tile``, clipped to the line) and the unwrapped cells
+    it reads [out0 - h, out1 + h), h = ``geom.w_block``."""
+    s, h = LINE_ROWS * geom.w_tile, geom.w_block
+    for b in range(batch):
+        for seg in range(-(-n // s)):
+            p0 = seg * s
+            p1 = min(p0 + s, n)
+            yield b, seg, (p0, p1), (p0 - h, p1 + h)
+
+
 def _divisors(n: int) -> list:
     return [d for d in range(1, n + 1) if n % d == 0]
 
@@ -677,8 +731,9 @@ def lifted_tile_geom(n: int, halo: int,
                      w_tile: Optional[int] = None) -> SubstrateGeom:
     """The 2D tile the 1D lift launches on the (1, N) view: 16-row tiles of
     which one row is the grid (every wrapped row is row 0).  The folded 1D
-    banded kernels take its width as their row length (``line_windows``),
-    so their chunks start where the lift's do."""
+    kernels take its width as their row length (``line_windows``), so the
+    banded kernels' chunks start where the lift's do, and the tap-sum's
+    segments are LINE_ROWS of its tiles (``line_segments``)."""
     return resolve_tile_geom((1, n), halo, None, w_tile)
 
 

@@ -186,9 +186,12 @@ def _build_reference(ctx: PlanContext) -> Callable:
 
 
 def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
-    """Mark a foil's runner with what its launches read (``explain``)."""
+    """Mark a foil's runner with what its launches read (``explain``).  A
+    1D foil launches the folded 1D kernels' one staging, the default's,
+    and reads what the model prices for the lift: read amplification 1,
+    as JAX's halo-0 ``flat`` kind."""
     if ctx.staging != "region":
-        if len(ctx.grid_shape) == 1:        # the lift's staging
+        if len(ctx.grid_shape) == 1:        # the folded kernels' staging
             geom = SubstrateGeom(dim=1, strip_m=1, h_block=1)
         run.staging = staging_clause(geom, ctx.staging)
     return run

@@ -6,13 +6,17 @@ grid ``t`` fused steps under per-axis boundaries (periodic, zero,
 reflect, replicate).  A tensor on the CPU runs :func:`stencil_direct_plain`;
 a CUDA tensor launches a hand-written kernel or raises: 2D grids
 ``csrc/stencil_direct.cu``, 3D grids ``csrc/stencil_direct3d.cu``, and 1D
-grids the 2D kernel on the lifted (1, N) view with the kernel as the
-middle row of a square one (every wrapped row is row 0, and the zero rows
-are skipped), as the JAX lift does, its row axis periodic and its
-column axis in the grid's mode.  The kernels accumulate in f32 in the
-row-major tap order of the JAX kernel (``stencil_direct.py:88-98``), skip
-zero taps, rebuild every non-periodic axis's halo before each step (the
-in-kernel fill), and round to ``x.dtype`` once, on store.
+grids ``csrc/stencil_direct1d.cu``, which folds the line: each CTA one
+contiguous segment of ``common.LINE_ROWS`` lifted tiles
+(``common.line_segments``).  The 2D kernel on the lifted (1, N) view, with
+the kernel as the middle row of a square one (every wrapped row is row 0,
+and the zero rows are skipped), as the JAX lift does, its row axis
+periodic and its column axis in the grid's mode, computes the same
+function bit for bit and stays reachable as :func:`_launch2d` for
+comparison.  The kernels accumulate in f32 in the row-major tap order of
+the JAX kernel (``stencil_direct.py:88-98``), skip zero taps, rebuild
+every non-periodic axis's halo before each step (the in-kernel fill), and
+round to ``x.dtype`` once, on store.
 
 The ``staging`` argument of :func:`stencil_direct_at` (a plan's entry)
 picks what a CTA reads to build its region (``common.STAGE_CODES``): the
@@ -21,14 +25,15 @@ which read whole neighbour tiles and compute the same function bit for
 bit -- ``"wholestrip"`` (K8: 2D the tiles above, at and below, 3D the
 3 x 3 whole-slab tiles) and ``"9tile"`` (K9, 2D periodic).  The foils
 launch the same kernel built with the foil's staging
-(``csrc/stencil_direct{,3d}.cu`` with ``-DREPRO_FOIL``); a 1D grid has the
-lift's staging only, so a foil there is the default lift.  Their plain
-version is the regime's.
+(``csrc/stencil_direct{,3d}.cu`` with ``-DREPRO_FOIL``); a 1D grid has
+one staging, the folded kernel's, so a foil there is the default.  Their
+plain version is the regime's.
 
 With ``batched=True`` (:func:`stencil_direct_at`, a batched plan's entry)
 ``x`` is ``(B,) + grid_shape``, the grid's rank is the weights', and one
-launch advances all B grids, grid b on ``blockIdx.z`` (K11); its plain
-version is the loop of the unbatched one.
+launch advances all B grids, grid b on ``blockIdx.z`` (K11; the 1D kernel's
+persistent CTAs walk the (grid, segment) pairs); its plain version is the
+loop of the unbatched one.
 """
 from __future__ import annotations
 
@@ -44,8 +49,8 @@ from repro_torch.testing import faults
 from . import _build
 from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
                      batch_chunks, batch_grid, check_grid, check_staging,
-                     check_tile_halo, direct3d_layout, direct_layout,
-                     kernel_mode_codes, launch_geom, lift_weights,
+                     check_tile_halo, direct1d_layout, direct3d_layout,
+                     direct_layout, kernel_mode_codes, launch_geom,
                      plain_loop)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
@@ -131,6 +136,25 @@ def _launcher3d():
 
 
 @functools.lru_cache(maxsize=None)
+def _launcher1d():
+    """The folded 1D kernel's C entry point, built on first use."""
+    fn = _build.library("stencil_direct1d").stencil_direct1d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 10 + \
+        _BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=32)
+def _taps1d(w_bytes: bytes):
+    """The 1D kernel's 2r + 1 float32 taps as a C array, zero where
+    skipped, built once per weights (the launch copies them)."""
+    w = np.frombuffer(w_bytes, dtype=np.float32)
+    return (ctypes.c_float * w.size)(*w.tolist())
+
+
+@functools.lru_cache(maxsize=None)
 def _foil_launcher():
     """The 2D foils' C entry point (the 2D entry's arguments and the
     staging code after the dtype), built on first use."""
@@ -152,12 +176,13 @@ def _foil_launcher3d():
 
 def kernel_source(ndim: int) -> str:
     """The kernel source a launch on a grid of rank ``ndim`` builds from."""
-    return "stencil_direct3d" if ndim == 3 else "stencil_direct"
+    return {1: "stencil_direct1d", 3: "stencil_direct3d"}.get(
+        ndim, "stencil_direct")
 
 
 def _entry(ndim: int, staging: str):
     """``(library, C entry, staging arguments, launch counter)`` of a
-    tap-sum launch on a grid of rank ``ndim`` (1D: the 2D kernel's)."""
+    tap-sum launch on a grid of rank 2 or 3."""
     src = kernel_source(ndim)
     if staging == "region":
         return (src, _launcher3d() if ndim == 3 else _launcher(), (), src)
@@ -184,7 +209,8 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
     ``weights``: host-side (2r+1)^d ndarray (zeros outside support), d the
     grid rank.  ``tile_m`` / ``w_tile`` pin the CTA's output tile
     (multiples of 16; ``None`` = ``launch_geom``, which in 1D is the
-    lift's tile, where only ``w_tile`` applies).  ``boundary``: one mode
+    lift's tile, whose width sets the folded kernel's segment and where
+    only ``w_tile`` applies).  ``boundary``: one mode
     for every axis, a per-axis tuple (``None`` entries periodic) or
     ``None`` (periodic).
     """
@@ -225,8 +251,8 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
          geom: SubstrateGeom, modes: tuple,
          staging: str = "region", batched: bool = False) -> torch.Tensor:
     """Launch the kernel of the grid's rank on ``geom`` with ``staging``
-    (a 1D grid: the lift's) over one grid, or over the batch ``x`` holds
-    when ``batched``; or raise."""
+    (a 1D grid: the folded kernel's one staging) over one grid, or over
+    the batch ``x`` holds when ``batched``; or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"stencil_direct runs on cpu or cuda, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -245,11 +271,33 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     if xb.ndim == 4:
         y = _launch3d(xb, w32, t, r, geom, codes, staging)
     elif xb.ndim == 2:
-        y = _launch2d(xb.view(xb.shape[0], 1, -1), lift_weights(w32), t, r,
-                      geom, codes).view(xb.shape)
+        y = _launch1d(xb, w32, t, r, geom, codes[-1])
     else:
         y = _launch2d(xb, w32, t, r, geom, codes, staging)
     return y if batched else y[0]
+
+
+def _launch1d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
+              geom, code: int) -> torch.Tensor:
+    """The folded 1D kernel on the (B, N) lines ``x``: segments of
+    LINE_ROWS tiles of the lifted tile's width ``geom.w_tile``, the
+    line's boundary ``code``; one launch for the batch."""
+    layout = direct1d_layout(geom.w_tile, t * r, x.dtype.itemsize)
+    if layout.smem_bytes > SMEM_BUDGET_BYTES:
+        raise ValueError(f"1D tap-sum segment needs {layout.smem_bytes} "
+                         "bytes of shared memory, over the 227 KB budget")
+    taps = _taps1d(w32.tobytes())
+    y = torch.empty_like(x)
+    fn = _launcher1d()
+    b, n = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), taps, n, geom.w_tile, t, r,
+                 layout.lds, layout.ld, layout.stage_bytes, layout.work_bytes,
+                 _DTYPE_CODES[x.dtype], code, b, n, layout.smem_bytes, stream)
+    _build.check(err, "stencil_direct1d")
+    _build.count_launch("stencil_direct1d")
+    return y
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,

@@ -175,7 +175,7 @@ def test_cpu_tensors_never_count_a_launch():
     assert set(counts.values()) == {0}
     assert {"stencil_direct", "stencil_banded", "stencil_direct3d",
             "stencil_banded3d", "stencil_sparse", "stencil_sparse3d",
-            "stencil_banded1d", "stencil_sparse1d",
+            "stencil_banded1d", "stencil_sparse1d", "stencil_direct1d",
             "stencil_direct (wholestrip)", "stencil_direct (9tile)",
             "stencil_banded (wholestrip)", "stencil_banded (9tile)",
             "stencil_direct3d (wholeslab)",
