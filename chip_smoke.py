@@ -7,9 +7,13 @@ Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
      thirteen CUDA libraries from src/repro_torch/kernels/csrc (the nine
      kernels -- among them the folded 1D kernels stencil_direct1d,
-     stencil_banded1d and stencil_sparse1d -- and the traffic foils' second
-     build of four of them; one nvcc per library, started together), each
-     one's build time, and the
+     stencil_banded1d and stencil_sparse1d, and the 3D banded kernels
+     stencil_banded3d and stencil_sparse3d, one body, csrc/slab_fold.cuh,
+     which folds each step's (plane, row) pairs into the MMA rows, reads
+     its A operands straight from the f32 region and its bands as Toeplitz
+     rows staged once per CTA, and fits two CTAs per SM at the main tile
+     -- and the traffic foils' second build of four of them; one nvcc per
+     library, started together), each one's build time, and the
      global load instructions of every foil instantiation in its SASS
      (cuobjdump, which must be there), which must not fall below its
      default twin's; then it starts this script with --count-loads in a
@@ -40,7 +44,7 @@ Phases, any failure exits non-zero:
      kernels on every one of these configurations beside the banded ones,
      and on base weights each against the dense banded kernel of the same
      call (the largest difference printed; equal sums expected, and
-     required in 1D); every folded 1D call (the tap-sum's too) also
+     required in 1D and 3D); every folded 1D call (the tap-sum's too) also
      against the 2D kernel on the lifted (1, N) view with the same call
      and tile, which it must equal bit for bit (the largest difference
      printed); then the
@@ -113,7 +117,10 @@ The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
 lifted 2D kernel's time on the same call as "lift_ms" and their registers
-as "registers", the boundary
+as "registers"; the 3D banded kernels, "stencil_banded3d" and
+"stencil_sparse3d" and their boundary and batched forms, with the
+registers and the CTAs per SM of the instantiation the call launches as
+"registers" and "ctas_per_sm"; the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
 its own path's run (the compacted kernels' from the sparse path, with the
 dense banded kernel's time as "dense_ms"; the foils' from the foil path,
@@ -536,8 +543,8 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                               worst, margin)
                 if dense is not None:
                     diff = max_err(y, dense())
-                    check(dim > 1 or diff == 0.0, f"{tag}: differs from the dense folded "
-                                                  f"kernel of the same call by {diff:.3e}")
+                    check(dim == 2 or diff == 0.0, f"{tag}: differs from the dense "
+                                                   f"kernel of the same call by {diff:.3e}")
                     vs_dense[key] = max(vs_dense.get(key, 0.0), diff)
                 if lift is not None:
                     diff = max_err(y, lift())
@@ -1007,6 +1014,8 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             report[-1]["lift_ms"] = cuda_ms(
                 lambda: lifted_call(mod, x, w, MAIN_T, None, boundary), reps=5, warmup=1)
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
+        if kname in SLAB_KERNELS:
+            report[-1].update(slab_resources(kname, x, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
@@ -1015,8 +1024,40 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
               + (f"; dense banded kernel, same call, {k['dense_ms']:.4f} ms"
                  if "dense_ms" in k else "")
               + (f"; the 2D kernel on the lifted view, same call, {k['lift_ms']:.4f} ms; "
-                 f"{k['registers']} registers" if "lift_ms" in k else ""))
+                 f"{k['registers']} registers" if "lift_ms" in k else "")
+              + (f"; {k['registers']} registers, {k['ctas_per_sm']} CTAs per SM"
+                 if "ctas_per_sm" in k else ""))
     return report
+
+
+#: The 3D banded kernels: one body, csrc/slab_fold.cuh.
+SLAB_KERNELS = ("stencil_banded3d", "stencil_sparse3d")
+
+
+def slab_resources(kname: str, x: torch.Tensor, w: np.ndarray, fill: bool) -> dict:
+    """Registers per thread (cuobjdump) and CTAs per SM of the 3D banded
+    instantiation a float32 call of ``w`` (radius 1, t=MAIN_T) on the
+    grid(s) ``x`` launches (``csrc/slab_fold.cuh::slab_fold_kernel<float,
+    float, FILL, 3, STAGE_REGION>``): the CTAs as the runtime counts them
+    at that call's shared memory (the library's ``<kernel>_ctas_per_sm``,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    from repro_torch.kernels import _build, common, sass
+    shape = tuple(x.shape[-3:])
+    r = (w.shape[0] - 1) // 2
+    geom = common.launch_geom(shape, MAIN_T * r)
+    n_rows = int(np.count_nonzero(np.abs(w).sum(axis=-1)))   # the nonzero x-rows
+    smem = common.slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile, r, MAIN_T, 4,
+                                   n_rows).smem_bytes
+    tag = f"slab_fold_kernelIffLb{int(fill)}ELi3ELi0EE"
+    regs = [n for f, n in sass.registers(_build._target(kname)).items() if tag in f]
+    check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in {kname}")
+    fn = getattr(_build.library(kname), f"{kname}_ctas_per_sm")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    ctas = fn(0, 0, int(fill), smem)
+    check(ctas >= 1, f"{kname}: {ctas} CTAs per SM at {smem} bytes")
+    return {"registers": regs[0], "ctas_per_sm": ctas}
 
 
 def fold_registers(kname: str, fill: bool) -> int:
@@ -1543,6 +1584,8 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
                 lambda: lifted_call(mod, xb, w, MAIN_T, None, boundary),
                 reps=5, warmup=1)
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
+        if kname in SLAB_KERNELS:
+            report[-1].update(slab_resources(kname, xb, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms for {b} x {shape} (bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), the plain loop "
@@ -1550,7 +1593,9 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
               f"max|err| vs the plain loop {k['max_abs_err']:.3e}, {k['launches']} "
               "launches on the batched path"
               + (f"; the 2D kernel on the lifted view, same call, {k['lift_ms']:.4f} ms; "
-                 f"{k['registers']} registers" if "lift_ms" in k else ""))
+                 f"{k['registers']} registers" if "lift_ms" in k else "")
+              + (f"; {k['registers']} registers, {k['ctas_per_sm']} CTAs per SM"
+                 if "ctas_per_sm" in k else ""))
     return report
 
 

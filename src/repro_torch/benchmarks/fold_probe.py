@@ -1,9 +1,10 @@
-"""A short check of the folded 1D kernels on one card: build them, hold
-them to the 2D kernel on the lifted (1, N) view (bit for bit), the
-compacted banded kernel to the dense one (bit for bit), and each to its
-plain version, then time them at 2^26 points.
+"""A short check of the folded kernels on one card: build them, hold them
+to the kernel they replace or their plain version, bit for bit where the
+arithmetic is the same, then time them.
 
     python src/repro_torch/benchmarks/fold_probe.py [banded | tapsum]
+    python src/repro_torch/benchmarks/fold_probe.py slab [--src CHECKOUT/src]
+        [--save HASHES.json | --against HASHES.json]
 
 ``banded`` (or no argument) builds the two folded banded kernels and the
 two lifted ones they are compared with, runs 320 calls (2^20 + 3, 2^20,
@@ -22,13 +23,30 @@ and t=1 and of four launches at t=1 (the ``direct`` regime) on 2^26
 float32 points, periodic and ``reflect``, beside the lifted kernel doing
 the same calls and F.conv1d (one step of the composed kernel, periodic;
 4 x (F.pad + F.conv1d) under ``reflect``).  Times are the mean over 10
-calls after 3, CUDA events.  Exits 1 if a call differs.
-``chip_smoke.py`` runs the same checks among all others; this is the
-quick one for a kernel change.
+calls after 3, CUDA events.
+
+``slab`` builds the two 3D banded kernels (``stencil_banded3d``,
+``stencil_sparse3d``) and prints their ptxas lines, registers and CTAs
+per SM, runs chip_smoke.py's phase-2 3D calls (60x70x130 and 40x72x100;
+Box/Star-3D with (r, t) in {(1, 1), (1, 4), (2, 2), (3, 1)} and Box-3D2R
+at t=4; periodic, zero, reflect, replicate and (replicate, reflect,
+periodic); every grid and operand dtype pair), and prints each call
+outside its plain version's limit (chip_smoke.py's ``kernel_limit``) and
+each compacted call that differs from the dense kernel's, then times the
+five regimes on 512^3 Box-3D1R and the compacted two (beside the dense
+reuse form) on 512^3 Star-3D1R, f32, t=4, through ``stencil_plan``.
+``--src`` imports ``repro_torch`` from another checkout (the calls use
+only the public wrappers); ``--save`` writes a hash of every call's
+output, and ``--against`` counts the calls whose output differs from
+such a file's, so two checkouts' kernels can be compared bit for bit.
+Exits 1 if a call differs.  ``chip_smoke.py`` runs the same checks among
+all others; this is the quick one for a kernel change.
 """
 from __future__ import annotations
 
+import hashlib
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -57,12 +75,16 @@ def ms(torch, fn, reps=10):
 
 
 def main(argv) -> int:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))))
-    import torch
-    if argv not in ([], ["banded"], ["tapsum"]):
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    opts = dict(zip(argv[1::2], argv[2::2])) if argv[:1] == ["slab"] else {}
+    if (argv not in ([], ["banded"], ["tapsum"]) and argv[:1] != ["slab"]
+            or len(argv) % 2 == 0 and argv[:1] == ["slab"]
+            or not set(opts) <= {"--src", "--save", "--against"}):
         print(__doc__, file=sys.stderr)
         return 2
+    sys.path.insert(0, os.path.abspath(opts.get("--src", root)))
+    import torch
     if not torch.cuda.is_available():
         print("fold_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -71,6 +93,8 @@ def main(argv) -> int:
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["slab"]:
+        return 1 if probe_slab(torch, os.path.dirname(root), opts) else 0
     bad = 0
     if argv != ["tapsum"]:
         bad += probe_banded(torch)
@@ -236,6 +260,142 @@ def probe_tapsum(torch) -> int:
             print(f"  {name:20s} {ms(torch, fold):.4f} ({ms(torch, lift, 3):.4f})")
         print(f"  {'F.conv1d':20s} {ms(torch, conv(bc)):.4f}"
               + (" (composed, one step)" if bc is None else " (4 x (F.pad + F.conv1d))"))
+    return bad
+
+
+#: The slab probe's grids, cases ((kind, r, t)) and boundaries: those of
+#: chip_smoke.py's phase 2 on 3D grids.
+SLAB_GRIDS = ((60, 70, 130), (40, 72, 100))
+SLAB_CASES = tuple((k, r, t) for k in ("box", "star")
+                   for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))) + (("box", 2, 4),)
+SLAB_BOUNDARIES = (None, "zero", "reflect", "replicate",
+                   ("replicate", "reflect", "periodic"))
+
+
+def slab_occupancy(name: str, dtype: int, compute: int, fill: bool,
+                   smem: int):
+    """CTAs per SM of a 3D banded instantiation, as the runtime counts them
+    (the library's ``<name>_ctas_per_sm``), or None where the checkout's
+    library has no such entry."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = getattr(_build.library(name), f"{name}_ctas_per_sm", None)
+    if fn is None:
+        return None
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn(dtype, compute, int(fill), smem)
+
+
+def probe_slab(torch, repo: str, opts) -> int:
+    """The 3D banded kernels: the phase-2 3D calls against the plain
+    version's limit and (compacted) the dense kernel, optionally hashed
+    against another checkout's outputs, then their 512^3 times; returns
+    the calls that differ."""
+    import numpy as np
+    sys.path.insert(1, repo)
+    from chip_smoke import kernel_limit, plain_chain
+    from repro_torch.kernels import _build, common, stencil_plan
+    from repro_torch.stencil import StencilSpec, make_weights
+    sm = importlib.import_module("repro_torch.kernels.stencil_matmul")
+    ss = importlib.import_module("repro_torch.kernels.stencil_sparse")
+    names = ("stencil_banded3d", "stencil_sparse3d")
+    t0 = time.perf_counter()
+    _build.build_all(names)
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+        try:
+            from repro_torch.kernels import sass
+            for fn, n in sorted(sass.registers(_build._target(name)).items()):
+                print(f"  {name}: {fn}: {n} registers")
+        except RuntimeError as e:              # no cuobjdump beside nvcc
+            print(f"  {name}: registers not read ({e})")
+    main = common.launch_geom((512,) * 3, 4)
+    if hasattr(common, "slab_fold_layout"):
+        for cb, compute in ((4, 0), (2, 1)):
+            lay = common.slab_fold_layout(main.z_slab, main.strip_m,
+                                          main.w_tile, 1, 4, cb, 9)
+            for name in names:
+                ctas = [slab_occupancy(name, 0, compute, fill, lay.smem_bytes)
+                        for fill in (False, True)]
+                print(f"  {name} at {main.z_slab}x{main.strip_m}x"
+                      f"{main.w_tile}, h=4, {lay.smem_bytes} bytes, compute "
+                      f"{'f32' if cb == 4 else 'bf16'}: CTAs per SM {ctas[0]}, "
+                      f"{ctas[1]} with the fill")
+
+    hashes, bad, calls = {}, 0, 0
+    pairs = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32))
+    for shape in SLAB_GRIDS:
+        for kind, r, t in SLAB_CASES:
+            w = make_weights(StencilSpec(kind, 3, r), seed=1)
+            for bc in SLAB_BOUNDARIES:
+                for dt, cdt in pairs:
+                    x = torch.from_numpy(np.random.default_rng(2).normal(
+                        size=shape).astype(np.float32)).cuda().to(dt)
+                    ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+                    maxima, _ = plain_chain(
+                        lambda v: sm.stencil_matmul_plain(
+                            v, w, 1, compute_dtype=cdt, boundary=bc), x, t)
+                    tol = kernel_limit(ops, float(np.abs(w).sum()),
+                                       int(np.count_nonzero(w)), maxima,
+                                       dt == torch.bfloat16)
+                    ys = {}
+                    for label, run, plain in (
+                            ("dense", sm.stencil_matmul, sm.stencil_matmul_plain),
+                            ("compacted", ss.stencil_sparse_matmul,
+                             ss.stencil_sparse_matmul_plain)):
+                        y = run(x, w, t, compute_dtype=cdt, boundary=bc)
+                        err = float((y.float() - plain(
+                            x, w, t, compute_dtype=cdt, boundary=bc).float())
+                            .abs().max())
+                        key = (f"{shape} {kind} r={r} t={t} {bc} "
+                               f"{str(dt)[6:]} {str(cdt)[6:]} {label}")
+                        hashes[key] = hashlib.sha256(
+                            y.contiguous().view(torch.uint8).cpu().numpy()
+                            .tobytes()).hexdigest()
+                        ys[label] = y
+                        calls += 1
+                        if not err <= tol:
+                            bad += 1
+                            print(f"{key}: max|err| vs plain {err:.3e} > "
+                                  f"limit {tol:.3e}")
+                    diff = float((ys["dense"].float() - ys["compacted"]
+                                  .float()).abs().max())
+                    if diff:
+                        bad += 1
+                        print(f"{key}: compacted differs from dense by "
+                              f"{diff:.3e}")
+    print(f"slab: {calls} calls, {bad} outside the limit or compacted != dense")
+    if "--save" in opts:
+        with open(opts["--save"], "w") as f:
+            json.dump(hashes, f, indent=0)
+    if "--against" in opts:
+        with open(opts["--against"]) as f:
+            other = json.load(f)
+        same = [k for k in hashes if other.get(k) == hashes[k]]
+        print(f"slab: {len(same)} of {len(hashes)} outputs bit for bit those "
+              f"of {opts['--against']}")
+        for k in hashes:
+            if other.get(k) != hashes[k]:
+                print(f"  differs: {k}")
+        bad += len(hashes) - len(same)
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(512,) * 3)
+                         .astype(np.float32)).cuda()
+    for kind, backends in (("box", ("direct", "fused_direct", "matmul",
+                                    "fused_matmul", "fused_matmul_reuse")),
+                           ("star", ("fused_matmul_reuse", "sparse_matmul",
+                                     "fused_sparse_matmul"))):
+        w = make_weights(StencilSpec(kind, 3, 1), seed=0)
+        print(f"512^3 {kind.capitalize()}-3D1R f32, t=4: ms per call")
+        for b in backends:
+            plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b,
+                                use_sparse_unit="sparse" in b)
+            print(f"  {b:20s} {ms(torch, lambda: plan(x), 5):.4f}")
     return bad
 
 

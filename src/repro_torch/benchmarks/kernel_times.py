@@ -7,10 +7,10 @@ checkouts of the port on one card (parent, change, change, parent).
 The first form imports ``repro_torch`` from ``--src`` (default: the
 checkout this file is in), builds its kernels there, and times
 ``stencil_plan(w, shape, float32, 4, backend=b)(x)`` for every regime of
-the main paths -- 8192^2 Box-2D1R and Star-2D1R, 512^3 Box-3D1R, 2^26
-Box-1D1R; the five regimes and, with ``use_sparse_unit``, the two
-compacted ones -- as the median of ``REPS`` CUDA-event timings after
-warm-up (unbatched: B = 1 on the batched kernels).  On a checkout whose
+the main paths -- 8192^2 Box-2D1R and Star-2D1R, 512^3 Box-3D1R and
+Star-3D1R (the compacted kernel's cell), 2^26 Box-1D1R; the five regimes
+and, with ``use_sparse_unit``, the two compacted ones -- as the median of
+``REPS`` CUDA-event timings after warm-up (unbatched: B = 1 on the batched kernels).  On a checkout whose
 1D banded regimes run the folded kernels (``stencil_matmul._launch1d``),
 it also times each of them doing the same calls by the 2D kernel on the
 lifted (1, N) view, the kernel those regimes ran before, as the case
@@ -38,7 +38,7 @@ import torch
 
 REPS = 15
 MAIN_T = 4
-PATHS = (("2D", (8192, 8192), ("box", "star")), ("3D", (512, 512, 512), ("box",)),
+PATHS = (("2D", (8192, 8192), ("box", "star")), ("3D", (512, 512, 512), ("box", "star")),
          ("1D", (2**26,), ("box",)))
 REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
            "fused_matmul_reuse", "sparse_matmul", "fused_sparse_matmul")

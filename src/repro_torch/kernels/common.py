@@ -354,11 +354,12 @@ class SmemLayout:
     (``planes`` is 1 in 2D); ``kpad`` the banded contraction depth
     BAND_N + 2R rounded up to the MMA K step; ``chunks`` x ``a_rows`` x
     ``kpad`` the banded kernel's chunked operand array (all three 0 for
-    the tap-sum; the 3D banded kernel holds one chunk of ``planes`` x
-    ``a_rows`` x ``kpad`` at a time); ``a_cols`` the row width of the
-    compacted kernels' operand copy (0 for the others, whose rows are
-    ``kpad`` wide); ``smem_bytes`` the dynamic shared memory the launch
-    asks for.
+    the tap-sum; :func:`banded3d_layout`, the 3D tile rule's reserve,
+    holds one chunk of ``planes`` x ``a_rows`` x ``kpad``); ``a_cols`` the
+    row width of the compacted kernels' operand copy (0 for the others,
+    whose rows are ``kpad`` wide); ``smem_bytes`` the dynamic shared
+    memory the launch asks for.  The 3D banded kernels launch with a
+    :class:`SlabLayout`.
     """
 
     rows: int
@@ -436,12 +437,14 @@ def banded_layout(tm: int, tn: int, radius: int, t: int,
 
 def banded3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
                     compute_bytes: int) -> SmemLayout:
-    """3D banded kernel: one f32 region buffer of (TZ + 2h) planes, each
-    laid out as the 2D kernel's region, and the operand array of ONE
-    16-column chunk over every plane, A[plane][row][k].  Chunks run in
-    order and write their sums back into the region in place: chunk c
-    writes columns [16c, 16c + 16) and every later chunk reads columns
-    from 16(c + 1) on, so one chunk's operands suffice."""
+    """The 3D banded kernel's layout before the slab fold: one f32 region
+    buffer of (TZ + 2h) planes, each laid out as the 2D kernel's region
+    (rows rounded up to 16-row tiles), and the operand array of ONE
+    16-column chunk over every plane, A[plane][row][k].  No kernel
+    launches with it: it is the 3D tile rule's reserve
+    (:func:`tile_smem_bound`), kept so that every 3D call keeps its tile
+    while the rule is not re-derived for :func:`slab_fold_layout`, which
+    needs less at every tile."""
     kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
                                                      compute_bytes)
     planes = tz + 2 * t * radius
@@ -464,17 +467,128 @@ def sparse_layout(tm: int, tn: int, radius: int, t: int, compute_bytes: int,
     return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, a_cols=a_cols)
 
 
-def sparse3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
-                    compute_bytes: int, a_cols: int) -> SmemLayout:
-    """Compacted 3D banded kernel: the region of :func:`banded3d_layout`
-    and one chunk's operand array over every plane, each operand row
-    ``a_cols`` wide (see :func:`sparse_layout`)."""
-    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
-                                                     compute_bytes)
-    planes = tz + 2 * t * radius
-    smem = (_align(planes * rows * ld * 4)
-            + planes * a_rows * a_cols * compute_bytes)
-    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes, a_cols)
+#: The slab fold's passes (csrc/slab_fold.cuh): each warp holds the sums
+#: of at most SLAB_TILES_PER_WARP 16-row MMA tiles, so a pass of the
+#: CTA's 8 warps takes SLAB_PASS_TILES tiles.
+SLAB_TILES_PER_WARP = 4
+SLAB_PASS_TILES = 8 * SLAB_TILES_PER_WARP
+#: Bytes of one band's header in shared memory (an int4).
+SLAB_HEADER_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabLayout:
+    """Shared-memory layout of a 3D banded launch (``csrc/slab_fold.cuh``,
+    dense and compacted): the f32 region of ``planes`` planes of ``rows``
+    rows, ``ld`` floats apart, the planes ``plane_ld`` floats apart; then
+    ``n_rows`` Toeplitz rows of ``toe_ld`` compute-dtype elements, one per
+    band; then one header per band.  ``kpad`` is the dense band's depth,
+    ``a_cols`` the widest chunk column a band reads (``kpad`` on the
+    dense operand), ``smem_bytes`` what the launch asks for."""
+
+    planes: int
+    rows: int
+    ld: int
+    plane_ld: int
+    kpad: int
+    toe_ld: int
+    n_rows: int
+    a_cols: int
+    smem_bytes: int
+
+
+def slab_fold_layout(tz: int, tm: int, tn: int, radius: int, t: int,
+                     compute_bytes: int, n_rows: int,
+                     k_rows: Optional[int] = None,
+                     a_cols: Optional[int] = None) -> SlabLayout:
+    """The 3D banded kernels' layout at ``t`` fused steps of radius
+    ``radius`` on a (tz, tm, tn) tile with ``n_rows`` bands whose deepest
+    runs ``k_rows`` padded rows (default: the dense ``kpad``).  The region
+    holds the step-0 region, (tz+2h)(tm+2h)(tn+2h) with h = t*radius,
+    and no more: the fold needs no 16-row rounding, and the chunks' stores
+    are masked at the step's width.  Its row stride is 4 mod 8 words, and
+    its plane stride is congruent mod 32 words to step 0's ho output rows
+    of a plane, so the (plane, row) pairs m of step 0 lie m * ld words
+    apart mod 32: the 8 rows of an A fragment hit 8 bank quads across a
+    plane boundary too.  A band's Toeplitz row holds f(d) at d + 15 for
+    d in [-15, k_rows) (``stencil_matmul.toeplitz_rows``): toe_ld =
+    k_rows + 16 elements, a multiple of 8."""
+    h = t * radius
+    planes, rows, w0 = tz + 2 * h, tm + 2 * h, tn + 2 * h
+    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
+    k_rows = kpad if k_rows is None else k_rows
+    ld = w0 + (4 - w0) % 8
+    ho = tm + 2 * (t - 1) * radius
+    plane_ld = rows * ld + (ho - rows) * ld % 32
+    toe_ld = k_rows + BAND_N
+    smem = (_align(planes * plane_ld * 4)
+            + _align(n_rows * toe_ld * compute_bytes)
+            + n_rows * SLAB_HEADER_BYTES)
+    return SlabLayout(planes, rows, ld, plane_ld, kpad, toe_ld, n_rows,
+                      kpad if a_cols is None else a_cols, smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldTile:
+    """One 16-row MMA tile of one pass of the slab fold: step ``step``,
+    16-column chunk ``chunk``, pass ``pass_`` of the chunk, the step's
+    tile ``tile`` on warp ``warp``.  ``pairs`` are the (plane, row) cells
+    its 16 MMA rows compute (a row past the step's last pair computes the
+    last pair again), ``stored`` which of them it stores, ``cols`` the
+    output columns [c0, c1) it stores, ``extent`` the step's input region
+    (planes, rows, columns) and ``kv`` the chunk columns it loads (the
+    rest read as zero)."""
+
+    step: int
+    chunk: int
+    pass_: int
+    tile: int
+    warp: int
+    pairs: tuple
+    stored: tuple
+    cols: tuple
+    extent: tuple
+    kv: int
+
+    def reads(self, rows, k_step: int) -> Iterator[tuple]:
+        """The region cells this tile's MMA rows read for the bands
+        ``rows``, each ``(dz, dy, lo, nk)``: per row and band ``(plane,
+        row, c_lo, c_kv, c_end)``, the columns [c_lo, c_kv) loaded and
+        [c_kv, c_end) read as zero."""
+        c0 = self.cols[0]
+        for z, y in self.pairs:
+            for dz, dy, lo, nk in rows:
+                a, e = c0 + lo, c0 + lo + nk * k_step
+                yield z + dz, y + dy, a, max(a, min(e, c0 + self.kv)), e
+
+
+def slab_fold_tiles(tz: int, tm: int, tn: int, radius: int,
+                    t: int) -> Iterator[FoldTile]:
+    """The slab fold's map on a (tz, tm, tn) tile, exactly as
+    ``csrc/slab_fold.cuh`` walks it: per step (each axis shrinking by
+    ``radius``), per 16-column chunk of the step's output in order, per
+    pass of at most SLAB_PASS_TILES tiles in pair order, every tile.  A
+    tile is 16 consecutive (plane, row) output pairs, plane-major, of the
+    step's po x ho; pass tile j runs on warp j mod 8.  Every CTA of a
+    launch, and every grid of a batch, runs this map on its own region."""
+    h = t * radius
+    pin, hin, win = tz + 2 * h, tm + 2 * h, tn + 2 * h
+    for s in range(t):
+        po, ho, wo = pin - 2 * radius, hin - 2 * radius, win - 2 * radius
+        pairs = po * ho
+        ntiles = -(-pairs // MMA_TILE)
+        for c, c0 in enumerate(range(0, wo, BAND_N)):
+            kv = min(BAND_N + 2 * radius, win - c0)
+            for pss, base in enumerate(range(0, ntiles, SLAB_PASS_TILES)):
+                for j in range(min(SLAB_PASS_TILES, ntiles - base)):
+                    ms = range((base + j) * MMA_TILE,
+                               (base + j + 1) * MMA_TILE)
+                    yield FoldTile(
+                        s, c, pss, base + j, j % 8,
+                        tuple(divmod(min(m, pairs - 1), ho) for m in ms),
+                        tuple(m < pairs for m in ms),
+                        (c0, min(c0 + BAND_N, wo)), (pin, hin, win), kv)
+        pin, hin, win = po, ho, wo
 
 
 #: The folded 1D kernels' CTA tile (csrc/line_fold.cuh): LINE_WARPS warps

@@ -88,47 +88,6 @@ struct LineArgs {
     int warp_bytes;            // a warp's two staging buffers (and region)
 };
 
-// k-steps of the band held in registers by the instantiation for small
-// radii (R <= 4 in TF32, R <= 8 in bf16); the others hold MAX_KS.
-template <typename TC> struct LineKs;
-template <> struct LineKs<float> { static constexpr int SMALL = 3; };
-template <> struct LineKs<__nv_bfloat16> { static constexpr int SMALL = 2; };
-
-// Element k of a row window as f32, zero from k >= kv on.
-template <typename T>
-__device__ __forceinline__ float line_at(const T* row, int k, int kv) {
-    return k < kv ? to_f32(row[k]) : 0.f;
-}
-
-// The A fragment of one k-step whose first column is k of the chunk (rows
-// g and g + 8 of the warp's 16 at r0 and r8), in the layouts of
-// sparse_mma.cuh, rounded as the lifted kernel's operand copy rounds.
-template <typename TC> struct LineA;
-template <> struct LineA<float> {
-    template <typename T>
-    __device__ static __forceinline__ void load(uint32_t (&a)[4], const T* r0, const T* r8, int k,
-                                                int kv, int q) {
-        a[0] = __float_as_uint(wmma::__float_to_tf32(line_at(r0, k + q, kv)));
-        a[1] = __float_as_uint(wmma::__float_to_tf32(line_at(r8, k + q, kv)));
-        a[2] = __float_as_uint(wmma::__float_to_tf32(line_at(r0, k + q + 4, kv)));
-        a[3] = __float_as_uint(wmma::__float_to_tf32(line_at(r8, k + q + 4, kv)));
-    }
-};
-template <> struct LineA<__nv_bfloat16> {
-    __device__ static __forceinline__ uint32_t pair(float lo, float hi) {
-        return SpMma<__nv_bfloat16>::pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
-    }
-    template <typename T>
-    __device__ static __forceinline__ void load(uint32_t (&a)[4], const T* r0, const T* r8, int k,
-                                                int kv, int q) {
-        const int c = k + 2 * q;
-        a[0] = pair(line_at(r0, c, kv), line_at(r0, c + 1, kv));
-        a[1] = pair(line_at(r8, c, kv), line_at(r8, c + 1, kv));
-        a[2] = pair(line_at(r0, c + 8, kv), line_at(r0, c + 9, kv));
-        a[3] = pair(line_at(r8, c + 8, kv), line_at(r8, c + 9, kv));
-    }
-};
-
 // Where a CTA tile's rows lie: grid b of the batch, first output p0.
 struct LineTile {
     long long b;
@@ -205,7 +164,7 @@ __device__ __forceinline__ void line_step(const TS* src, int lds, float* dst, in
         for (int ks = 0; ks < MAXKS; ++ks)
             if (ks < nk) {
                 uint32_t af[4];
-                LineA<TC>::load(af, r0 + c0, r8 + c0, lo + ks * S::K, kv, q);
+                FoldA<TC>::load(af, r0 + c0, r8 + c0, lo + ks * S::K, kv, q);
                 S::mma(acc[0], af, bfr[ks][0]);
                 S::mma(acc[1], af, bfr[ks][1]);
             }
@@ -330,8 +289,8 @@ static int line_launch(const LineArgs& a, int smem_bytes, cudaStream_t stream) {
     if (a.nk < 1 || a.nk > S::MAX_KS || a.lo < 0 || a.lo + a.nk * S::K > MAX_KPAD + S::K)
         return (int)cudaErrorInvalidValue;
     const bool fill = a.mode != MODE_PERIODIC;
-    const bool small = a.nk <= LineKs<TC>::SMALL;
-    constexpr int KS = LineKs<TC>::SMALL, KL = S::MAX_KS;
+    const bool small = a.nk <= FoldKs<TC>::SMALL;
+    constexpr int KS = FoldKs<TC>::SMALL, KL = S::MAX_KS;
     auto* kernel = fill ? (small ? line_fold_kernel<TIn, TC, true, KS>
                                  : line_fold_kernel<TIn, TC, true, KL>)
                         : (small ? line_fold_kernel<TIn, TC, false, KS>

@@ -1,12 +1,14 @@
-// mma.sync operand fragments for the compacted banded kernels
-// (stencil_sparse{,3d}.cu): TF32 for f32 operands (a K = 8 step of the
-// m16n8k8 fragment layout, issued as two m16n8k4 products), bf16 m16n8k16
-// for bf16 operands, f32 accumulators.  A 16 x 16 output tile is two
-// 16 x 8 halves.  Each lane loads its own fragment elements (the layouts of
-// the PTX ISA's "Matrix Fragments for mma.m16n8k8 / m16n8k16"), so an A
-// operand may start at any column of the shared-memory copy: band p reads
-// from column lo_p, which wmma::load_matrix_sync (256-bit aligned pointers
-// only) cannot.  With g = lane / 4 and q = lane % 4:
+// mma.sync operand fragments for the compacted 2D banded kernel
+// (stencil_sparse.cu) and the folded kernels (line_fold.cuh in 1D,
+// slab_fold.cuh in 3D, dense and compacted): TF32 for f32 operands (a
+// K = 8 step of the m16n8k8 fragment layout, issued as two m16n8k4
+// products), bf16 m16n8k16 for bf16 operands, f32 accumulators.  A 16 x 16
+// output tile is two 16 x 8 halves.  Each lane loads its own fragment
+// elements (the layouts of the PTX ISA's "Matrix Fragments for
+// mma.m16n8k8 / m16n8k16"), so an A operand may start at any column of
+// the shared-memory rows: band p reads from column lo_p, which
+// wmma::load_matrix_sync (256-bit aligned pointers only) cannot.  With
+// g = lane / 4 and q = lane % 4:
 //   TF32 A (16 x 8): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4);
 //        B (8 x 8):  b0 (q, g), b1 (q + 4, g);
 //   bf16 A (16 x 16), two elements per register, the lower index in the
@@ -139,3 +141,50 @@ __device__ __forceinline__ void store_acc(const SpAcc& acc, int t, float* dst, i
         *reinterpret_cast<float2*>(d + 8 * ld) = make_float2(acc.c[t][h][2], acc.c[t][h][3]);
     }
 }
+
+// k-steps of a band the folded kernels' instantiation for small radii
+// unrolls (R <= 4 in TF32, R <= 8 in bf16: line_fold.cuh holds them in
+// registers); their other instantiation takes MAX_KS.
+template <typename TC> struct FoldKs;
+template <> struct FoldKs<float> { static constexpr int SMALL = 3; };
+template <> struct FoldKs<__nv_bfloat16> { static constexpr int SMALL = 2; };
+
+// The folded kernels (line_fold.cuh, slab_fold.cuh) keep no operand copy:
+// each lane loads its A fragment elements straight from the rows the MMA
+// rows fold, f32 sums (or a staged input row), and rounds them as the
+// copy of the kernels before them rounded them.  Element k of a row as
+// f32, zero from k >= kv on (past the band's rows or the row's valid
+// extent, so NaN * 0 never reaches a valid output):
+template <typename T>
+__device__ __forceinline__ float fold_at(const T* row, int k, int kv) {
+    return k < kv ? to_f32(row[k]) : 0.f;
+}
+
+// The A fragment of one k-step whose first column is k of the chunk (MMA
+// rows g and g + 8 at r0 and r8), in the layouts above, rounded by
+// wmma::__float_to_tf32 / __float2bfloat16_rn.
+template <typename TC> struct FoldA;
+template <> struct FoldA<float> {
+    template <typename T>
+    __device__ static __forceinline__ void load(uint32_t (&a)[4], const T* r0, const T* r8, int k,
+                                                int kv, int q) {
+        a[0] = __float_as_uint(wmma::__float_to_tf32(fold_at(r0, k + q, kv)));
+        a[1] = __float_as_uint(wmma::__float_to_tf32(fold_at(r8, k + q, kv)));
+        a[2] = __float_as_uint(wmma::__float_to_tf32(fold_at(r0, k + q + 4, kv)));
+        a[3] = __float_as_uint(wmma::__float_to_tf32(fold_at(r8, k + q + 4, kv)));
+    }
+};
+template <> struct FoldA<__nv_bfloat16> {
+    __device__ static __forceinline__ uint32_t pair(float lo, float hi) {
+        return SpMma<__nv_bfloat16>::pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+    }
+    template <typename T>
+    __device__ static __forceinline__ void load(uint32_t (&a)[4], const T* r0, const T* r8, int k,
+                                                int kv, int q) {
+        const int c = k + 2 * q;
+        a[0] = pair(fold_at(r0, c, kv), fold_at(r0, c + 1, kv));
+        a[1] = pair(fold_at(r8, c, kv), fold_at(r8, c + 1, kv));
+        a[2] = pair(fold_at(r0, c + 8, kv), fold_at(r0, c + 9, kv));
+        a[3] = pair(fold_at(r8, c + 8, kv), fold_at(r8, c + 9, kv));
+    }
+};

@@ -19,7 +19,10 @@ intermediate-reuse regime).  A tensor on the CPU runs
 :func:`stencil_matmul_plain`; a CUDA tensor launches a hand-written wmma
 kernel (TF32 operands for f32, bf16 for bf16, 16-column chunks: BAND_N)
 or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
-``csrc/stencil_banded3d.cu``, 1D grids ``csrc/stencil_banded1d.cu``, which
+``csrc/stencil_banded3d.cu``, which folds each step's (plane, row) pairs
+into the MMA rows and reads its bands as Toeplitz rows
+(``csrc/slab_fold.cuh``, :func:`toeplitz_rows`), 1D grids
+``csrc/stencil_banded1d.cu``, which
 folds the line into the MMA rows (``csrc/line_fold.cuh``): each row one
 w_tile-long segment of the line, its one band the 1D kernel.  The 2D
 kernel on the lifted (1, N) view, where the kernel's single row is one
@@ -50,10 +53,10 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     banded3d_layout, banded_layout, batch_chunks,
-                     batch_grid, check_grid, check_staging, check_tile_halo,
-                     kernel_mode_codes, launch_geom, line_layout,
-                     plain_loop)
+                     banded_layout, batch_chunks, batch_grid, check_grid,
+                     check_staging, check_tile_halo, kernel_mode_codes,
+                     launch_geom, line_layout, mma_k_step, plain_loop,
+                     slab_fold_layout)
 
 #: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
 #: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
@@ -110,6 +113,25 @@ def build_bands_nd(weights: np.ndarray, tile_n: int):
                if np.count_nonzero(w[off + (slice(None),)])]
     rows = np.stack([w[off + (slice(None),)] for off in offsets])
     return offsets, build_bands(rows, tile_n)
+
+
+def toeplitz_rows(bands: np.ndarray) -> np.ndarray:
+    """The (n, K + BAND_N) Toeplitz rows of (n, K, BAND_N) banded operands,
+    as the 3D kernels read them (``csrc/slab_fold.cuh``): a band B with
+    B[k][j] = f(k - j) is one row T of f, T[d + BAND_N - 1] = f(d) for d
+    in [-(BAND_N - 1), K), its last element zero.  Every band of
+    ``build_bands_nd`` (B[j + dx, j] = w[dx]), padded with zero rows or
+    compacted to its row hull, is Toeplitz; a band that is not raises."""
+    bands = np.asarray(bands)
+    n, k, cols = bands.shape
+    toe = np.zeros((n, k + cols), bands.dtype)
+    toe[:, cols - 1:cols - 1 + k] = bands[:, :, 0]
+    toe[:, :cols - 1] = bands[:, 0, :0:-1]
+    d = np.arange(k)[:, None] - np.arange(cols)[None, :] + cols - 1
+    if not np.array_equal(toe[:, d], bands):
+        raise ValueError("a band is not Toeplitz: B[k][j] must depend on "
+                         "k - j alone")
+    return toe
 
 
 def band_sparsity(weights: np.ndarray, tile_n: int) -> float:
@@ -170,9 +192,8 @@ def _device_bands(w_bytes: bytes, shape: tuple, kpad: int,
     """``(row offsets, bands, offsets on the device)`` of one weight array
     as the kernels read them: the ``build_bands_nd`` operands padded with
     zero rows to ``kpad`` and stored in the compute dtype on the device,
-    and the leading-axis offset of every band row as int32 (the 3D kernel
-    reads its (dz, dy) pairs there), built once per weights, dtype and
-    device (plans call the wrapper every step)."""
+    and the leading-axis offset of every band row as int32, built once
+    per weights, dtype and device (plans call the wrapper every step)."""
     w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
     offsets, bands = build_bands_nd(w, BAND_N)
     bands = np.pad(bands, ((0, 0), (0, kpad - bands.shape[1]), (0, 0)))
@@ -180,6 +201,26 @@ def _device_bands(w_bytes: bytes, shape: tuple, kpad: int,
     return (tuple(offsets),
             torch.from_numpy(bands).to(device=device, dtype=cdt),
             torch.from_numpy(offs).to(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _device_toe(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
+                device: str):
+    """``(toe, rows)`` of one 3D weight array as the 3D kernel reads it:
+    the ``build_bands_nd`` bands padded with zero rows to the MMA K step
+    of ``cdt`` (kpad) as their Toeplitz rows (:func:`toeplitz_rows`) in
+    the compute dtype, and every band's (dz, dy, lo, nk) = (dz, dy, 0,
+    kpad / K) as int32 (the compacted operand's form, every row kept),
+    both on the device, built once per weights, dtype and device."""
+    w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
+    offsets, bands = build_bands_nd(w, BAND_N)
+    k, step = bands.shape[1], mma_k_step(cdt.itemsize)
+    kpad = -(-k // step) * step
+    toe = toeplitz_rows(np.pad(bands, ((0, 0), (0, kpad - k), (0, 0))))
+    rows = np.asarray([tuple(o) + (0, kpad // step) for o in offsets],
+                      dtype=np.int32)
+    return (torch.from_numpy(toe).to(device=device, dtype=cdt),
+            torch.from_numpy(rows).to(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,21 +447,22 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
 
 def _launch3d(x, w, t, radius, cdt, geom, codes,
               staging: str = "region") -> torch.Tensor:
-    layout = _checked(banded3d_layout(geom.z_slab, geom.strip_m, geom.w_tile,
-                                      radius, t, cdt.itemsize), "3D banded")
-    offsets, bands, offs = _device_bands(w.tobytes(), w.shape, layout.kpad,
-                                         cdt, str(x.device))
+    """The slab fold on the dense bands (``csrc/stencil_banded3d.cu``) on
+    the (B, Z, H, W) grids ``x``."""
+    toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
+    layout = _checked(slab_fold_layout(geom.z_slab, geom.strip_m,
+                                       geom.w_tile, radius, t, cdt.itemsize,
+                                       len(rows)), "3D banded")
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(3, staging)
     b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(),
-                 offs.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
-                 geom.w_tile, t, radius, layout.rows, layout.ld,
-                 layout.a_rows, layout.kpad, len(offsets),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
-                 b, z * h * wd, layout.smem_bytes, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
+                 z, h, wd, geom.z_slab, geom.strip_m, geom.w_tile, t, radius,
+                 layout.ld, layout.plane_ld, layout.kpad, layout.toe_ld,
+                 layout.n_rows, _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt],
+                 *stage, *codes, b, z * h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
     _build.count_launch(counter, len(batch_chunks(b)))
     return y

@@ -16,8 +16,9 @@ contractions with f32 intermediates on chip.  A tensor on the CPU runs
 :func:`stencil_sparse_matmul_plain`; a CUDA tensor launches a hand-written
 kernel (``mma.sync``: TF32 m16n8k4 pairs for f32 operands, bf16 m16n8k16
 for bf16 operands, f32 accumulators) or raises: 2D grids
-``csrc/stencil_sparse.cu``, 3D grids ``csrc/stencil_sparse3d.cu``, 1D
-grids ``csrc/stencil_sparse1d.cu``, the folded 1D kernel
+``csrc/stencil_sparse.cu``, 3D grids ``csrc/stencil_sparse3d.cu`` (the
+slab fold, ``csrc/slab_fold.cuh``, on the compacted bands' Toeplitz
+rows), 1D grids ``csrc/stencil_sparse1d.cu``, the folded 1D kernel
 (``csrc/line_fold.cuh``) on the compacted band, which equals the dense
 folded kernel bit for bit on box and star kernels (the 2D kernel on the
 lifted (1, N) view stays reachable as :func:`_launch2d` for
@@ -43,9 +44,10 @@ from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SubstrateGeom, batch_chunks, batch_grid,
                      check_grid, check_tile_halo, launch_geom,
-                     mma_k_step, plain_loop, sparse3d_layout, sparse_layout)
+                     mma_k_step, plain_loop, slab_fold_layout, sparse_layout)
 from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, MAX_ROWS, _checked,
-                             build_bands_nd, line_launch_layout, run_kernel)
+                             build_bands_nd, line_launch_layout, run_kernel,
+                             toeplitz_rows)
 
 
 def compact_bands(offsets, bands: np.ndarray):
@@ -174,6 +176,32 @@ def band_meta(weights, compute_dtype: torch.dtype) -> BandMeta:
                       mma_k_step(compute_dtype.itemsize))
 
 
+def band_toeplitz(meta: BandMeta, k_step: int) -> np.ndarray:
+    """The compacted operand as the 3D kernel reads it: each band's kept
+    rows, padded to nk * K, as its Toeplitz row (``toeplitz_rows``), the
+    rows padded with zeros to the deepest band's max(nk) * K + BAND_N."""
+    deepest = max(r[-1] for r in meta.rows) * k_step
+    toe = np.zeros((len(meta.rows), deepest + BAND_N), np.float32)
+    start = 0
+    for p, r in enumerate(meta.rows):
+        k = r[-1] * k_step
+        block = meta.packed[None, start:start + k]
+        toe[p, :k + BAND_N] = toeplitz_rows(block)[0]
+        start += k
+    return toe
+
+
+@functools.lru_cache(maxsize=32)
+def _device_toe(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
+                device: str):
+    """The :func:`band_toeplitz` rows of one 3D weight array in the
+    compute dtype on the device, built once per weights, dtype and
+    device."""
+    meta = _band_meta(w_bytes, shape, mma_k_step(cdt.itemsize))
+    return torch.from_numpy(band_toeplitz(meta, mma_k_step(cdt.itemsize))
+                            ).to(device=device, dtype=cdt)
+
+
 @functools.lru_cache(maxsize=32)
 def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
                     device: str):
@@ -207,9 +235,11 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
                                   "1D compacted banded")
     if len(grid_shape) == 3:
         meta = band_meta(w, compute_dtype)
-        return _checked(sparse3d_layout(geom.z_slab, geom.strip_m,
-                                        geom.w_tile, radius, t, cb,
-                                        meta.a_cols), "3D compacted banded")
+        k_rows = max(r[-1] for r in meta.rows) * mma_k_step(cb)
+        return _checked(slab_fold_layout(geom.z_slab, geom.strip_m,
+                                         geom.w_tile, radius, t, cb,
+                                         len(meta.rows), k_rows,
+                                         meta.a_cols), "3D compacted banded")
     meta = band_meta(w, compute_dtype)
     return _checked(sparse_layout(geom.strip_m, geom.w_tile, radius, t, cb,
                                   meta.a_cols), "compacted banded")
@@ -353,20 +383,21 @@ def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
-    meta, packed, rows = _device_operand(w.tobytes(), w.shape, cdt,
-                                         str(x.device))
+    """The slab fold on the compacted bands (``csrc/stencil_sparse3d.cu``)
+    on the (B, Z, H, W) grids ``x``."""
+    _, _, rows = _device_operand(w.tobytes(), w.shape, cdt, str(x.device))
+    toe = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
     layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt)
     y = torch.empty_like(x)
     fn = _launcher3d()
     b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(),
-                 rows.data_ptr(), z, h, wd, geom.z_slab, geom.strip_m,
-                 geom.w_tile, t, radius, layout.rows, layout.ld,
-                 layout.a_rows, layout.a_cols, len(meta.rows),
-                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
-                 b, z * h * wd, layout.smem_bytes, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
+                 z, h, wd, geom.z_slab, geom.strip_m, geom.w_tile, t, radius,
+                 layout.ld, layout.plane_ld, layout.a_cols, layout.toe_ld,
+                 layout.n_rows, _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt],
+                 *codes, b, z * h * wd, layout.smem_bytes, stream)
     _build.check(err, "stencil_sparse3d")
     _build.count_launch("stencil_sparse3d", len(batch_chunks(b)))
     return y

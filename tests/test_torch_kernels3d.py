@@ -211,11 +211,13 @@ def test_3d_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
     for t in range(1, halo + 1):
         if halo % t:
             continue
-        for cb in (4, 2):
-            b = common.banded3d_layout(tz, tm, tn, halo // t, t, cb)
+        r = halo // t
+        for cb in (4, 2):       # the slab fold's layout, (2r+1)^2 bands
+            b = common.slab_fold_layout(tz, tm, tn, r, t, cb,
+                                        (2 * r + 1) ** 2)
             assert b.smem_bytes <= bound and b.planes == tz + 2 * halo
             assert b.rows >= tm + 2 * halo and b.ld >= tn + 2 * halo
-            assert b.ld % 8 == 0 and b.kpad % 8 == 0
+            assert b.ld % 8 == 4 and b.kpad % 8 == 0
 
 
 def test_3d_tile_choices_on_the_main_path():

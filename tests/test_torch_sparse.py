@@ -319,14 +319,16 @@ def test_stencil_apply_takes_the_sparse_unit():
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_base_kernels_need_no_wider_copy(kind, dim, cdt):
     # On star and box base kernels every band ends by the dense kpad, so
-    # the compacted kernels launch with the dense kernels' shared memory.
+    # the compacted kernels launch with the dense kernels' shared memory
+    # (3D: the slab fold's layout of the same bands).
     for r in (1, 2, 3):
         w = make_weights(StencilSpec(kind, dim, r), seed=0)
         meta = t_sparse.band_meta(w, cdt)
         geom = common.launch_geom((64,) * dim, r)
         lay = t_sparse.sparse_tile_layout((64,) * dim, w, 1, geom, cdt)
-        dense = (common.banded3d_layout(geom.z_slab, geom.strip_m,
-                                        geom.w_tile, r, 1, cdt.itemsize)
+        dense = (common.slab_fold_layout(geom.z_slab, geom.strip_m,
+                                         geom.w_tile, r, 1, cdt.itemsize,
+                                         len(meta.rows))
                  if dim == 3 else
                  common.banded_layout(geom.strip_m, geom.w_tile, r, 1,
                                       cdt.itemsize))
