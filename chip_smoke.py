@@ -11,8 +11,11 @@ Phases, any failure exits non-zero:
      stencil_banded3d and stencil_sparse3d, one body, csrc/slab_fold.cuh,
      which folds each step's (plane, row) pairs into the MMA rows, reads
      its A operands straight from the f32 region and its bands as Toeplitz
-     rows staged once per CTA, and fits two CTAs per SM at the main tile
-     -- and the traffic foils' second build of four of them; one nvcc per
+     rows staged once per CTA, and fits two CTAs per SM at the main tile,
+     and the 2D banded kernels stencil_banded and stencil_sparse, one body,
+     csrc/tile_fold.cuh, its 2D form, which runs a step's 16-row tiles of
+     every chunk in passes held in registers -- and the traffic foils'
+     second build of four of them; one nvcc per
      library, started together), each one's build time, and the
      global load instructions of every foil instantiation in its SASS
      (cuobjdump, which must be there), which must not fall below its
@@ -43,8 +46,8 @@ Phases, any failure exits non-zero:
      its plain version under the same boundary; the compacted (sparse)
      kernels on every one of these configurations beside the banded ones,
      and on base weights each against the dense banded kernel of the same
-     call (the largest difference printed; equal sums expected, and
-     required in 1D and 3D); every folded 1D call (the tap-sum's too) also
+     call (the largest difference printed; equal sums required); every
+     folded 1D call (the tap-sum's too) also
      against the 2D kernel on the lifted (1, N) view with the same call
      and tile, which it must equal bit for bit (the largest difference
      printed); then the
@@ -92,7 +95,9 @@ Phases, any failure exits non-zero:
   4. times from CUDA events (median of 15 after 3 warm-ups; 5 for the
      slow 3D plain versions and yardsticks): each regime's milliseconds
      per call and microseconds per step beside the model's choice, its
-     read amplification and its bound, each kernel on each path beside its
+     read amplification and its bound, each kernel on each path (through
+     the plan entries on a tile resolved once; the public wrapper's time
+     on a host line of its own) beside its
      plain version and an F.conv1d / F.conv2d / F.conv3d yardstick the
      port never calls (on a boundary path: t x (F.pad in the boundary's
      modes, axis by axis, + one F.conv of the base kernel)), on the 1D
@@ -117,10 +122,12 @@ The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
 lifted 2D kernel's time on the same call as "lift_ms" and their registers
-as "registers"; the 3D banded kernels, "stencil_banded3d" and
-"stencil_sparse3d" and their boundary and batched forms, with the
-registers and the CTAs per SM of the instantiation the call launches as
-"registers" and "ctas_per_sm"; the boundary
+as "registers"; the 2D and 3D banded kernels, "stencil_banded",
+"stencil_sparse", "stencil_banded3d" and "stencil_sparse3d" and their
+boundary and batched forms, with the registers and the CTAs per SM of the
+instantiation the call launches as "registers" and "ctas_per_sm"; every
+main, boundary and sparse entry with the same call's time through the
+public wrapper as "wrapper_ms"; the boundary
 paths' as "stencil_direct (zero)" and so on), each with the launches of
 its own path's run (the compacted kernels' from the sparse path, with the
 dense banded kernel's time as "dense_ms"; the foils' from the foil path,
@@ -489,7 +496,7 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
     also reject the plain version one step short, so a kernel that skipped
     a step (or a fill) could not pass.  On base weights each compacted
     kernel is also held against the dense banded kernel of the same call:
-    ``vs_dense`` gets the largest difference, which must be 0 in 1D.  A
+    ``vs_dense`` gets the largest difference, which must be 0.  A
     folded 1D call is also held against the 2D kernel on the lifted view
     with the same call and tile (``lifted_call``), which it must equal
     bit for bit; ``vs_lift`` gets the largest difference."""
@@ -543,8 +550,8 @@ def check_kernels(mods, shapes, cases, worst, margin, vs_dense,
                               worst, margin)
                 if dense is not None:
                     diff = max_err(y, dense())
-                    check(dim == 2 or diff == 0.0, f"{tag}: differs from the dense "
-                                                   f"kernel of the same call by {diff:.3e}")
+                    check(diff == 0.0, f"{tag}: differs from the dense kernel of the "
+                                       f"same call by {diff:.3e}")
                     vs_dense[key] = max(vs_dense.get(key, 0.0), diff)
                 if lift is not None:
                     diff = max_err(y, lift())
@@ -941,8 +948,12 @@ def phase_regime_times(label, x, ws, results, card, twins=None, lift=None):
 def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     """Each kernel at its fused main-path call on ``w`` (``stencil_direct(x,
     w, t)`` and the reuse form ``stencil_matmul(x, w, t)``, under the
-    path's boundary), held against its plain version with the phase-3
-    limit, beside a yardstick: one F.conv of the composed kernel on a
+    path's boundary), timed through the plan entries (``stencil_*_at``) on
+    the tile ``launch_geom`` resolves once, outside the timed call, as a
+    plan launches it (``wrapper_ms``: the same call through the public
+    wrapper, which resolves the tile on every call; a host cost), held
+    against its plain version with the phase-3 limit, beside a yardstick:
+    one F.conv of the composed kernel on a
     periodic path, t x (F.pad in the boundary's modes + one F.conv of the
     base kernel) on a boundary path; ``launches`` is the count of this
     path's run.  The bound counts the FLOPs the stencil needs (2 per
@@ -955,9 +966,12 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
     kernels' entries (``stencil_direct1d``, ``stencil_banded1d``,
     ``stencil_sparse1d``) also carry the 2D kernel on the lifted view
     doing the same call (``lift_ms``) and their registers
-    (``fold_registers``)."""
+    (``fold_registers``); the 2D and 3D banded entries their registers
+    and CTAs per SM (``fold_resources``)."""
     _, sm, sd, weights, ss = mods
+    from repro_torch.kernels import common
     n, dim = x.numel(), x.ndim
+    geom = common.launch_geom(tuple(x.shape), MAIN_T * ((w.shape[0] - 1) // 2))
     ops = MAIN_T * 2 * int(np.count_nonzero(w)) * n
     mx, sw = float(x.abs().max()), float(np.abs(w).sum())
     if boundary is None:
@@ -970,20 +984,23 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
         yardstick = lambda tf32: conv_yardstick(x, w, tf32, modes, MAIN_T)  # noqa: E731
         what = f"{MAIN_T} x (F.pad + F.conv{dim}d)"
     report = []
-    dense = lambda: sm.stencil_matmul(x, w, MAIN_T, boundary=boundary)  # noqa: E731
+    dense = lambda: sm.stencil_matmul_at(x, w, MAIN_T, geom, boundary=boundary)  # noqa: E731
     kernels_ = (
-        ("stencil_direct", lambda: sd.stencil_direct(x, w, MAIN_T, boundary=boundary),
+        ("stencil_direct", lambda: sd.stencil_direct_at(x, w, MAIN_T, geom, boundary),
+         lambda: sd.stencil_direct(x, w, MAIN_T, boundary=boundary),
          lambda: sd.stencil_direct_plain(x, w, MAIN_T, boundary), FP32_FLOPS,
          False, 1e-5 * MAIN_T * mx),
-        ("stencil_banded", dense,
+        ("stencil_banded", dense, lambda: sm.stencil_matmul(x, w, MAIN_T, boundary=boundary),
          lambda: sm.stencil_matmul_plain(x, w, MAIN_T, boundary=boundary), TF32_FLOPS,
          True, MAIN_T * 2**-10 * sw * mx))
     if sparse:
         kernels_ = (
-            ("stencil_sparse", lambda: ss.stencil_sparse_matmul(x, w, MAIN_T, boundary=boundary),
+            ("stencil_sparse",
+             lambda: ss.stencil_sparse_matmul_at(x, w, MAIN_T, geom, boundary=boundary),
+             lambda: ss.stencil_sparse_matmul(x, w, MAIN_T, boundary=boundary),
              lambda: ss.stencil_sparse_matmul_plain(x, w, MAIN_T, boundary=boundary),
              TF32_FLOPS, True, MAIN_T * 2**-10 * sw * mx),)
-    for base, kern, plain, peak, tf32, tol in kernels_:
+    for base, kern, public, plain, peak, tf32, tol in kernels_:
         kname = kernel_name(base, dim)
         if boundary is None:
             entry = kname
@@ -1006,7 +1023,8 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             "plain_ms": cuda_ms(plain, reps=reps_slow),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow)})
+            "library_ms": cuda_ms(yardstick(tf32), reps=reps_slow),
+            "wrapper_ms": cuda_ms(public)})
         if sparse:
             report[-1]["dense_ms"] = cuda_ms(dense)
         if dim == 1:
@@ -1014,8 +1032,8 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             report[-1]["lift_ms"] = cuda_ms(
                 lambda: lifted_call(mod, x, w, MAIN_T, None, boundary), reps=5, warmup=1)
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
-        if kname in SLAB_KERNELS:
-            report[-1].update(slab_resources(kname, x, w, boundary is not None))
+        if kname in SLAB_KERNELS + TILE_KERNELS:
+            report[-1].update(fold_resources(kname, x, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
@@ -1027,29 +1045,36 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
                  f"{k['registers']} registers" if "lift_ms" in k else "")
               + (f"; {k['registers']} registers, {k['ctas_per_sm']} CTAs per SM"
                  if "ctas_per_sm" in k else ""))
+        print(f"    host: the same call through the public wrapper, which resolves the "
+              f"tile on every call, {k['wrapper_ms']:.4f} ms")
     return report
 
 
 #: The 3D banded kernels: one body, csrc/slab_fold.cuh.
 SLAB_KERNELS = ("stencil_banded3d", "stencil_sparse3d")
+#: The 2D banded kernels: one body, csrc/tile_fold.cuh.
+TILE_KERNELS = ("stencil_banded", "stencil_sparse")
 
 
-def slab_resources(kname: str, x: torch.Tensor, w: np.ndarray, fill: bool) -> dict:
-    """Registers per thread (cuobjdump) and CTAs per SM of the 3D banded
-    instantiation a float32 call of ``w`` (radius 1, t=MAIN_T) on the
-    grid(s) ``x`` launches (``csrc/slab_fold.cuh::slab_fold_kernel<float,
-    float, FILL, 3, STAGE_REGION>``): the CTAs as the runtime counts them
-    at that call's shared memory (the library's ``<kernel>_ctas_per_sm``,
+def fold_resources(kname: str, x: torch.Tensor, w: np.ndarray, fill: bool) -> dict:
+    """Registers per thread (cuobjdump) and CTAs per SM of the 2D or 3D
+    banded instantiation a float32 call of ``w`` (radius 1, t=MAIN_T) on
+    the grid(s) ``x`` launches (``csrc/tile_fold.cuh::tile_fold_kernel``,
+    ``csrc/slab_fold.cuh::slab_fold_kernel``, each ``<float, float, FILL,
+    3, STAGE_REGION>``): the CTAs as the runtime counts them at that
+    call's shared memory (the library's ``<kernel>_ctas_per_sm``,
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
     from repro_torch.kernels import _build, common, sass
-    shape = tuple(x.shape[-3:])
+    dim = 3 if kname in SLAB_KERNELS else 2
+    shape = tuple(x.shape[-dim:])
     r = (w.shape[0] - 1) // 2
     geom = common.launch_geom(shape, MAIN_T * r)
     n_rows = int(np.count_nonzero(np.abs(w).sum(axis=-1)))   # the nonzero x-rows
-    smem = common.slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile, r, MAIN_T, 4,
-                                   n_rows).smem_bytes
-    tag = f"slab_fold_kernelIffLb{int(fill)}ELi3ELi0EE"
+    smem = (common.slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile, r, MAIN_T, 4,
+                                    n_rows) if dim == 3 else
+            common.tile_fold_layout(geom.strip_m, geom.w_tile, r, MAIN_T, 4, n_rows)).smem_bytes
+    tag = f"{'slab' if dim == 3 else 'tile'}_fold_kernelIffLb{int(fill)}ELi3ELi0EE"
     regs = [n for f, n in sass.registers(_build._target(kname)).items() if tag in f]
     check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in {kname}")
     fn = getattr(_build.library(kname), f"{kname}_ctas_per_sm")
@@ -1327,7 +1352,7 @@ def band_sparsity_lines(mods, ws):
         for cdt in (torch.float32, torch.bfloat16):
             rows = ss.band_meta(wk, cdt).rows
             k = common.mma_k_step(cdt.itemsize)
-            dense = common.banded_layout(64, 64, r, 1, cdt.itemsize).kpad // k
+            dense = common.tile_fold_layout(64, 64, r, 1, cdt.itemsize, 1).kpad // k
             steps.append(f"{len(rows) * dense} -> {sum(row[-1] for row in rows)}")
         print(f"  {name:10s} compacted operand (base): kept-row S "
               f"{ss.kept_row_fraction(w, 16):.4f}; MMA k-steps per 16x16 tile and step, "
@@ -1335,7 +1360,7 @@ def band_sparsity_lines(mods, ws):
         for label, wop in (("base", w), (f"fused t={MAIN_T}", weights.fuse_weights(w, MAIN_T))):
             r_op = (wop.shape[0] - 1) // 2
             s = sm.band_sparsity(wop, 16)
-            padded = [s * (16 + 2 * r_op) / common.banded_layout(64, 64, r_op, 1, cb).kpad
+            padded = [s * (16 + 2 * r_op) / common.tile_fold_layout(64, 64, r_op, 1, cb, 1).kpad
                       for cb in (4, 2)]
             print(f"  {name:10s} band S ({label}, R={r_op}): {s:.4f}; over padded K: "
                   f"TF32 {padded[0]:.4f}, bf16 {padded[1]:.4f}")
@@ -1584,8 +1609,8 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
                 lambda: lifted_call(mod, xb, w, MAIN_T, None, boundary),
                 reps=5, warmup=1)
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
-        if kname in SLAB_KERNELS:
-            report[-1].update(slab_resources(kname, xb, w, boundary is not None))
+        if kname in SLAB_KERNELS + TILE_KERNELS:
+            report[-1].update(fold_resources(kname, xb, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms for {b} x {shape} (bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), the plain loop "

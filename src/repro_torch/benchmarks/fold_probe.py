@@ -3,8 +3,9 @@ to the kernel they replace or their plain version, bit for bit where the
 arithmetic is the same, then time them.
 
     python src/repro_torch/benchmarks/fold_probe.py [banded | tapsum]
-    python src/repro_torch/benchmarks/fold_probe.py slab [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py slab|tile [--src CHECKOUT/src]
         [--save HASHES.json | --against HASHES.json]
+    python src/repro_torch/benchmarks/fold_probe.py tile-times [--src CHECKOUT/src]
 
 ``banded`` (or no argument) builds the two folded banded kernels and the
 two lifted ones they are compared with, runs 320 calls (2^20 + 3, 2^20,
@@ -39,8 +40,25 @@ reuse form) on 512^3 Star-3D1R, f32, t=4, through ``stencil_plan``.
 only the public wrappers); ``--save`` writes a hash of every call's
 output, and ``--against`` counts the calls whose output differs from
 such a file's, so two checkouts' kernels can be compared bit for bit.
-Exits 1 if a call differs.  ``chip_smoke.py`` runs the same checks among
-all others; this is the quick one for a kernel change.
+
+``tile`` does the same for the two 2D banded kernels (``stencil_banded``,
+``stencil_sparse``, and the foil build ``stencil_banded_foil``): their
+ptxas lines, registers and CTAs per SM at the main tile, then
+chip_smoke.py's phase-2 2D calls (1024^2 and 1000x1030; Box/Star-2D
+with (r, t) in {(1, 1), (1, 4), (3, 1), (3, 4)} periodic, with the
+composed kernel at t=4, and (r, t) in {(1, 1), (1, 4), (2, 1), (2, 4)}
+under zero, reflect, replicate, (reflect, periodic) and (periodic,
+zero); every grid and operand dtype pair, dense and compacted), the 2D
+kernels on the lifted (1, N) view of phase 2's 1D lines (each held to
+the folded 1D kernel of the same call, bit for bit), the whole-strip and
+9-tile foils (each held to the default kernel of the same call and
+tile) and batches of 3 grids (held to the unbatched calls), then times
+the regimes on 8192^2 Box- and Star-2D1R, f32, t=4, periodic and
+``zero``, the kernels on a resolved tile, the K8 / K10 foil plans and
+16 x 2048^2 batches.  ``tile-times`` prints the same resources and times
+without the calls (for variants of the kernel source in another
+checkout).  Exits 1 if a call differs.  ``chip_smoke.py`` runs the same
+checks among all others; this is the quick one for a kernel change.
 """
 from __future__ import annotations
 
@@ -77,9 +95,10 @@ def ms(torch, fn, reps=10):
 def main(argv) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    opts = dict(zip(argv[1::2], argv[2::2])) if argv[:1] == ["slab"] else {}
-    if (argv not in ([], ["banded"], ["tapsum"]) and argv[:1] != ["slab"]
-            or len(argv) % 2 == 0 and argv[:1] == ["slab"]
+    optioned = argv[:1] in (["slab"], ["tile"], ["tile-times"])
+    opts = dict(zip(argv[1::2], argv[2::2])) if optioned else {}
+    if (argv not in ([], ["banded"], ["tapsum"]) and not optioned
+            or len(argv) % 2 == 0 and optioned
             or not set(opts) <= {"--src", "--save", "--against"}):
         print(__doc__, file=sys.stderr)
         return 2
@@ -95,6 +114,9 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if argv[:1] == ["slab"]:
         return 1 if probe_slab(torch, os.path.dirname(root), opts) else 0
+    if argv[:1] in (["tile"], ["tile-times"]):
+        return 1 if probe_tile(torch, os.path.dirname(root), opts,
+                               calls=argv[:1] == ["tile"]) else 0
     bad = 0
     if argv != ["tapsum"]:
         bad += probe_banded(torch)
@@ -263,18 +285,33 @@ def probe_tapsum(torch) -> int:
     return bad
 
 
-#: The slab probe's grids, cases ((kind, r, t)) and boundaries: those of
-#: chip_smoke.py's phase 2 on 3D grids.
-SLAB_GRIDS = ((60, 70, 130), (40, 72, 100))
-SLAB_CASES = tuple((k, r, t) for k in ("box", "star")
-                   for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))) + (("box", 2, 4),)
-SLAB_BOUNDARIES = (None, "zero", "reflect", "replicate",
-                   ("replicate", "reflect", "periodic"))
+def digest(torch, y) -> str:
+    """A hash of a call's output bits."""
+    return hashlib.sha256(y.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
-def slab_occupancy(name: str, dtype: int, compute: int, fill: bool,
-                   smem: int):
-    """CTAs per SM of a 3D banded instantiation, as the runtime counts them
+def save_against(hashes: dict, opts, mode: str) -> int:
+    """Writes ``hashes`` to ``--save``, and counts the calls whose output
+    differs from ``--against``'s; returns that count (0 without it)."""
+    if "--save" in opts:
+        with open(opts["--save"], "w") as f:
+            json.dump(hashes, f, indent=0)
+    if "--against" not in opts:
+        return 0
+    with open(opts["--against"]) as f:
+        other = json.load(f)
+    same = [k for k in hashes if other.get(k) == hashes[k]]
+    print(f"{mode}: {len(same)} of {len(hashes)} outputs bit for bit those "
+          f"of {opts['--against']}")
+    for k in hashes:
+        if other.get(k) != hashes[k]:
+            print(f"  differs: {k}")
+    return len(hashes) - len(same)
+
+
+def occupancy(name: str, dtype: int, compute: int, fill: bool, smem: int):
+    """CTAs per SM of a banded instantiation, as the runtime counts them
     (the library's ``<name>_ctas_per_sm``), or None where the checkout's
     library has no such entry."""
     import ctypes
@@ -285,6 +322,31 @@ def slab_occupancy(name: str, dtype: int, compute: int, fill: bool,
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 4
     return fn(dtype, compute, int(fill), smem)
+
+
+def print_resources(names) -> None:
+    """The ptxas lines (each kernel's name, spills and registers) and the
+    registers of the libraries ``names``."""
+    from repro_torch.kernels import _build
+    for name in names:
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "properties for" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+        try:
+            from repro_torch.kernels import sass
+            for fn, n in sorted(sass.registers(_build._target(name)).items()):
+                print(f"  {name}: {fn}: {n} registers")
+        except RuntimeError as e:              # no cuobjdump beside nvcc
+            print(f"  {name}: registers not read ({e})")
+
+
+#: The slab probe's grids, cases ((kind, r, t)) and boundaries: those of
+#: chip_smoke.py's phase 2 on 3D grids.
+SLAB_GRIDS = ((60, 70, 130), (40, 72, 100))
+SLAB_CASES = tuple((k, r, t) for k in ("box", "star")
+                   for r, t in ((1, 1), (1, 4), (2, 2), (3, 1))) + (("box", 2, 4),)
+SLAB_BOUNDARIES = (None, "zero", "reflect", "replicate",
+                   ("replicate", "reflect", "periodic"))
 
 
 def probe_slab(torch, repo: str, opts) -> int:
@@ -303,23 +365,14 @@ def probe_slab(torch, repo: str, opts) -> int:
     t0 = time.perf_counter()
     _build.build_all(names)
     print(f"build {time.perf_counter() - t0:.1f} s")
-    for name in names:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
-        try:
-            from repro_torch.kernels import sass
-            for fn, n in sorted(sass.registers(_build._target(name)).items()):
-                print(f"  {name}: {fn}: {n} registers")
-        except RuntimeError as e:              # no cuobjdump beside nvcc
-            print(f"  {name}: registers not read ({e})")
+    print_resources(names)
     main = common.launch_geom((512,) * 3, 4)
     if hasattr(common, "slab_fold_layout"):
         for cb, compute in ((4, 0), (2, 1)):
             lay = common.slab_fold_layout(main.z_slab, main.strip_m,
                                           main.w_tile, 1, 4, cb, 9)
             for name in names:
-                ctas = [slab_occupancy(name, 0, compute, fill, lay.smem_bytes)
+                ctas = [occupancy(name, 0, compute, fill, lay.smem_bytes)
                         for fill in (False, True)]
                 print(f"  {name} at {main.z_slab}x{main.strip_m}x"
                       f"{main.w_tile}, h=4, {lay.smem_bytes} bytes, compute "
@@ -354,9 +407,7 @@ def probe_slab(torch, repo: str, opts) -> int:
                             .abs().max())
                         key = (f"{shape} {kind} r={r} t={t} {bc} "
                                f"{str(dt)[6:]} {str(cdt)[6:]} {label}")
-                        hashes[key] = hashlib.sha256(
-                            y.contiguous().view(torch.uint8).cpu().numpy()
-                            .tobytes()).hexdigest()
+                        hashes[key] = digest(torch, y)
                         ys[label] = y
                         calls += 1
                         if not err <= tol:
@@ -370,19 +421,7 @@ def probe_slab(torch, repo: str, opts) -> int:
                         print(f"{key}: compacted differs from dense by "
                               f"{diff:.3e}")
     print(f"slab: {calls} calls, {bad} outside the limit or compacted != dense")
-    if "--save" in opts:
-        with open(opts["--save"], "w") as f:
-            json.dump(hashes, f, indent=0)
-    if "--against" in opts:
-        with open(opts["--against"]) as f:
-            other = json.load(f)
-        same = [k for k in hashes if other.get(k) == hashes[k]]
-        print(f"slab: {len(same)} of {len(hashes)} outputs bit for bit those "
-              f"of {opts['--against']}")
-        for k in hashes:
-            if other.get(k) != hashes[k]:
-                print(f"  differs: {k}")
-        bad += len(hashes) - len(same)
+    bad += save_against(hashes, opts, "slab")
 
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(512,) * 3)
                          .astype(np.float32)).cuda()
@@ -398,6 +437,205 @@ def probe_slab(torch, repo: str, opts) -> int:
             print(f"  {b:20s} {ms(torch, lambda: plan(x), 5):.4f}")
     return bad
 
+
+
+#: The tile probe's grids, cases ((kind, r, t)) and boundaries: those of
+#: chip_smoke.py's phase 2 on 2D grids and on the 1D lines the 2D kernels
+#: run on the lifted view, and of its 2D foil checks.
+TILE_GRIDS = ((1024, 1024), (1000, 1030))
+TILE_CASES = tuple((k, r, t) for k in ("box", "star") for r in (1, 3) for t in (1, 4))
+TILE_BC_CASES = tuple((k, r, t) for k in ("box", "star") for r in (1, 2) for t in (1, 4))
+TILE_BOUNDARIES = ("zero", "reflect", "replicate", ("reflect", "periodic"),
+                   ("periodic", "zero"))
+TILE_LINES = ((2**20,), (2**20 + 3,), (67,), (1000,), (3 * 64 * 64 + 3,))
+TILE_BC_LINES = ((2**20 + 3,), (67,), (1000,))
+
+
+def probe_tile(torch, repo: str, opts, calls: bool = True) -> int:
+    """The 2D banded kernels: their registers and CTAs per SM; with
+    ``calls``, every call against the plain version's limit, the compacted
+    kernel against the dense one, the lifted calls against the folded 1D
+    kernels, the foils against the default kernel and the batches against
+    the unbatched calls, optionally hashed against another checkout's
+    outputs; then their 8192^2 times.  Returns the calls that differ."""
+    import numpy as np
+    sys.path.insert(1, repo)
+    from chip_smoke import kernel_limit, lifted_call, plain_chain
+    from repro_torch.kernels import _build, common, legacy, stencil_plan
+    from repro_torch.stencil import StencilSpec, fuse_weights, make_weights
+    sm = importlib.import_module("repro_torch.kernels.stencil_matmul")
+    ss = importlib.import_module("repro_torch.kernels.stencil_sparse")
+    names = ("stencil_banded", "stencil_sparse", "stencil_banded_foil")
+    t0 = time.perf_counter()
+    _build.build_all(names + ("stencil_banded1d", "stencil_sparse1d"))
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    print_resources(names[:2])
+    if hasattr(common, "tile_fold_layout"):
+        for cb, compute in ((4, 0), (2, 1)):
+            lay = common.tile_fold_layout(64, 64, 1, 4, cb, 3)
+            for name in names[:2]:
+                ctas = [occupancy(name, 0, compute, fill, lay.smem_bytes)
+                        for fill in (False, True)]
+                print(f"  {name} at 64x64, h=4, {lay.smem_bytes} bytes, compute "
+                      f"{'f32' if cb == 4 else 'bf16'}: CTAs per SM {ctas[0]}, "
+                      f"{ctas[1]} with the fill")
+
+    if not calls:
+        tile_times(torch, sm, ss, common, legacy, stencil_plan, make_weights, StencilSpec)
+        return 0
+
+    def grid(shape, dt, seed=2):
+        return torch.from_numpy(np.random.default_rng(seed).normal(
+            size=shape).astype(np.float32)).cuda().to(dt)
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    hashes, bad = {}, 0
+    pairs = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32))
+
+    def held(key, y, x, wk, tk, cdt, bc, plain):
+        """Hashes ``y`` and holds it to the plain version's limit; returns
+        whether it is outside."""
+        hashes[key] = digest(torch, y)
+        maxima, _ = plain_chain(lambda v: plain(v, wk, 1, compute_dtype=cdt,
+                                                boundary=bc), x, tk)
+        tol = kernel_limit("bf16" if cdt == torch.bfloat16 else "tf32",
+                           float(np.abs(wk).sum()), int(np.count_nonzero(wk)),
+                           maxima, x.dtype == torch.bfloat16)
+        err = diff(y, plain(x, wk, tk, compute_dtype=cdt, boundary=bc))
+        if not err <= tol:
+            print(f"{key}: max|err| vs plain {err:.3e} > limit {tol:.3e}")
+        return not err <= tol
+
+    kernels = (("dense", sm.stencil_matmul, sm.stencil_matmul_plain),
+               ("compacted", ss.stencil_sparse_matmul, ss.stencil_sparse_matmul_plain))
+    runs = [(shape, c, None) for shape in TILE_GRIDS for c in TILE_CASES] + \
+        [((1000, 1030), c, bc) for c in TILE_BC_CASES for bc in TILE_BOUNDARIES]
+    for shape, (kind, r, t), bc in runs:
+        w = np.asarray(make_weights(StencilSpec(kind, 2, r), seed=1), np.float32)
+        ops = [(w, t, "")] + ([(fuse_weights(w, t), 1, " composed")]
+                              if t > 1 and bc is None else [])
+        for dt, cdt in pairs:
+            x = grid(shape, dt)
+            for wk, tk, what in ops:
+                ys = {}
+                for label, run, plain in kernels:
+                    key = (f"{shape} {kind} r={r} t={t}{what} {bc} "
+                           f"{str(dt)[6:]} {str(cdt)[6:]} {label}")
+                    ys[label] = run(x, wk, tk, compute_dtype=cdt, boundary=bc)
+                    bad += held(key, ys[label], x, wk, tk, cdt, bc, plain)
+                d = diff(ys["dense"], ys["compacted"])
+                if d and not what:
+                    bad += 1
+                    print(f"{key}: compacted differs from dense by {d:.3e}")
+    n2d = len(hashes)
+    lines = [(n, c, None) for n in TILE_LINES for c in TILE_CASES] + \
+        [(n, c, bc) for n in TILE_BC_LINES for c in TILE_BC_CASES
+         for bc in ("zero", "reflect", "replicate")]
+    for shape, (kind, r, t), bc in lines:
+        w = np.asarray(make_weights(StencilSpec(kind, 1, r), seed=1), np.float32)
+        for dt, cdt in pairs:
+            x = grid(shape, dt)
+            for label, run, plain in kernels:
+                mod = sm if label == "dense" else ss
+                key = (f"{shape} {kind} r={r} t={t} {bc} {str(dt)[6:]} "
+                       f"{str(cdt)[6:]} {label} lifted")
+                y = lifted_call(mod, x, w, t, cdt, bc)
+                bad += held(key, y, x, w, t, cdt, bc, plain)
+                d = diff(y, run(x, w, t, compute_dtype=cdt, boundary=bc))
+                if d:
+                    bad += 1
+                    print(f"{key}: the folded 1D kernel differs by {d:.3e}")
+    nlift = len(hashes) - n2d
+    for (kind, r, t), bc in ((c, bc) for c in TILE_BC_CASES for bc in (None, "zero")):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, r), seed=1), np.float32)
+        geom = common.launch_geom((1000, 1030), t * r)
+        for dt in (torch.float32, torch.bfloat16):
+            x = grid((1000, 1030), dt)
+            key = f"(1000, 1030) {kind} r={r} t={t} {bc} {str(dt)[6:]} wholestrip"
+            y = sm.stencil_matmul_at(x, w, t, geom, boundary=bc, staging="wholestrip")
+            bad += held(key, y, x, w, t, dt, bc, sm.stencil_matmul_plain)
+            d = diff(y, sm.stencil_matmul_at(x, w, t, geom, boundary=bc))
+            if d:
+                bad += 1
+                print(f"{key}: differs from the default kernel by {d:.3e}")
+    for kind, r, t in TILE_BC_CASES:
+        wf = np.asarray(fuse_weights(make_weights(StencilSpec(kind, 2, r), seed=1), t),
+                        np.float32)
+        geom = legacy.tile_geom((1024, 1024), 128, 128, t * r)
+        for dt in (torch.float32, torch.bfloat16):
+            x = grid((1024, 1024), dt)
+            key = f"(1024, 1024) {kind} r={r} t={t} {str(dt)[6:]} 9tile"
+            y = legacy.stencil_matmul_9pt(x, wf)
+            bad += held(key, y, x, wf, 1, dt, None, sm.stencil_matmul_plain)
+            d = diff(y, sm.stencil_matmul_at(x, wf, 1, geom))
+            if d:
+                bad += 1
+                print(f"{key}: differs from the default kernel by {d:.3e}")
+    for kind, bc in (("box", None), ("star", ("reflect", "periodic"))):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=1), np.float32)
+        geom = common.launch_geom((1000, 1030), 4)
+        for dt, cdt in pairs:
+            xb = grid((3, 1000, 1030), dt)
+            for label, at in (("dense", sm.stencil_matmul_at),
+                              ("compacted", ss.stencil_sparse_matmul_at)):
+                key = f"3 x (1000, 1030) {kind} r=1 t=4 {bc} {str(dt)[6:]} {str(cdt)[6:]} {label}"
+                yb = at(xb, w, 4, geom, compute_dtype=cdt, boundary=bc, batched=True)
+                hashes[key] = digest(torch, yb)
+                d = max(diff(yb[i], at(xb[i], w, 4, geom, compute_dtype=cdt, boundary=bc))
+                        for i in range(3))
+                if d:
+                    bad += 1
+                    print(f"{key}: differs from the unbatched calls by {d:.3e}")
+    print(f"tile: {len(hashes)} calls ({n2d} 2D, {nlift} lifted 1D, "
+          f"{len(hashes) - n2d - nlift} foil and batched), {bad} outside the "
+          "limit or unequal where they must be equal")
+    bad += save_against(hashes, opts, "tile")
+    tile_times(torch, sm, ss, common, legacy, stencil_plan, make_weights, StencilSpec)
+    return bad
+
+
+def tile_times(torch, sm, ss, common, legacy, stencil_plan, make_weights, StencilSpec):
+    """The 2D banded kernels' times at 8192^2, f32, t=4: through
+    ``stencil_plan`` for every regime, periodic and ``zero``; the kernels
+    on a tile resolved once (``stencil_matmul_at`` /
+    ``stencil_sparse_matmul_at``); the K8 and K10 foil plans; and 16 x
+    2048^2 batches."""
+    import numpy as np
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(8192, 8192))
+                         .astype(np.float32)).cuda()
+    geom = common.launch_geom((8192, 8192), 4)
+    for kind in ("box", "star"):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=0), np.float32)
+        for bc in (None, "zero"):
+            print(f"8192^2 {kind.capitalize()}-2D1R f32, t=4, boundary {bc}: ms per call")
+            for b in ("direct", "fused_direct", "matmul", "fused_matmul",
+                      "fused_matmul_reuse", "sparse_matmul", "fused_sparse_matmul", None):
+                if b == "fused_matmul" and bc is not None:
+                    continue                # the composed kernel is periodic only
+                plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b, boundary=bc,
+                                    use_sparse_unit=b is not None and "sparse" in b)
+                print(f"  {str(b or 'auto'):20s} {ms(torch, lambda: plan(x), 5):.4f}"
+                      + (f" ({plan.backend})" if b is None else ""))
+            for label, at in (("stencil_banded", sm.stencil_matmul_at),
+                              ("stencil_sparse", ss.stencil_sparse_matmul_at)):
+                print(f"  kernel {label} on a resolved tile "
+                      f"{ms(torch, lambda: at(x, w, 4, geom, boundary=bc), 5):.4f}")
+        for b in ("fused_matmul_reuse_wholestrip", "legacy_matmul"):
+            plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b)
+            print(f"  {kind} {b:30s} {ms(torch, lambda: plan(x), 5):.4f}")
+    del x
+    xb = torch.from_numpy(np.random.default_rng(0).normal(size=(16, 2048, 2048))
+                          .astype(np.float32)).cuda()
+    for kind, b, bc in (("box", "fused_matmul_reuse", None),
+                        ("star", "fused_sparse_matmul", None),
+                        ("star", "fused_sparse_matmul", "zero")):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=0), np.float32)
+        plan = stencil_plan(w, (2048, 2048), torch.float32, 4, backend=b, boundary=bc,
+                            batch=16, use_sparse_unit="sparse" in b)
+        print(f"  16 x 2048^2 {kind} {b} {bc}: {ms(torch, lambda: plan(xb), 5):.4f}")
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

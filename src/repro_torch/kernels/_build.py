@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (the folded 1D
 banded kernels, ``stencil_{banded,sparse}1d``, share
 ``csrc/line_fold.cuh``, and with the folded 1D tap-sum,
-``stencil_direct1d``, ``csrc/line_stage.cuh``); the four main
+``stencil_direct1d``, ``csrc/line_stage.cuh``; the 2D banded kernels,
+``stencil_{banded,sparse}``, share ``csrc/tile_fold.cuh``, which builds
+on the 3D ones' ``csrc/slab_fold.cuh``); the four main
 kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
 libraries of the traffic foils (``<name>_foil``), so instantiating the
 foils' staging costs the main path's build nothing.  With

@@ -353,13 +353,11 @@ class SmemLayout:
     ``planes`` x ``rows`` x ``ld`` f32 elements per region buffer
     (``planes`` is 1 in 2D); ``kpad`` the banded contraction depth
     BAND_N + 2R rounded up to the MMA K step; ``chunks`` x ``a_rows`` x
-    ``kpad`` the banded kernel's chunked operand array (all three 0 for
-    the tap-sum; :func:`banded3d_layout`, the 3D tile rule's reserve,
-    holds one chunk of ``planes`` x ``a_rows`` x ``kpad``); ``a_cols`` the
-    row width of the compacted kernels' operand copy (0 for the others,
-    whose rows are ``kpad`` wide); ``smem_bytes`` the dynamic shared
-    memory the launch asks for.  The 3D banded kernels launch with a
-    :class:`SlabLayout`.
+    ``kpad`` a chunked operand array (all three 0 for the tap-sum;
+    :func:`banded3d_layout`, the 3D tile rule's reserve, holds one chunk
+    of ``planes`` x ``a_rows`` x ``kpad``); ``smem_bytes`` the dynamic
+    shared memory the launch asks for.  The 2D and 3D banded kernels
+    launch with a :class:`SlabLayout`.
     """
 
     rows: int
@@ -369,11 +367,10 @@ class SmemLayout:
     a_rows: int = 0
     chunks: int = 0
     planes: int = 1
-    a_cols: int = 0
 
 
 def mma_k_step(compute_bytes: int) -> int:
-    """wmma K step: 8 for TF32 (m16n16k8), 16 for bf16 (m16n16k16)."""
+    """MMA K step: 8 for TF32 (two m16n8k4), 16 for bf16 (m16n8k16)."""
     return 8 if compute_bytes == 4 else 16
 
 
@@ -400,11 +397,17 @@ def _align(nbytes: int) -> int:
     return _round_up(nbytes, 128)
 
 
-def _banded_extents(tm: int, tn: int, radius: int, t: int,
-                    compute_bytes: int) -> tuple:
-    """``(kpad, rows, ld, a_rows, chunks)`` of the banded kernels' region
-    and operand array for one (TM x TN) cross-section (see
-    :func:`banded_layout`)."""
+def banded3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
+                    compute_bytes: int) -> SmemLayout:
+    """The 3D banded kernel's layout before the slab fold: one f32 region
+    buffer of (TZ + 2h) planes, each laid out as the 2D wmma kernel's
+    region before the tile fold (rows and columns rounded up to whole
+    16 x 16 tiles of the steps' outputs), and the operand array of ONE
+    16-column chunk over every plane, A[plane][row][k].  No kernel
+    launches with it: it is the 3D tile rule's reserve
+    (:func:`tile_smem_bound`), kept so that every 3D call keeps its tile
+    while the rule is not re-derived for :func:`slab_fold_layout`, which
+    needs less at every tile."""
     halo = t * radius
     kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
     lead_out = 2 * (t - 1) * radius
@@ -414,62 +417,15 @@ def _banded_extents(tm: int, tn: int, radius: int, t: int,
         ld += 8
     a_rows = _round_up(tm + lead_out, MMA_TILE) + 2 * radius
     chunks = -(-(tn + lead_out) // BAND_N)
-    return kpad, rows, ld, a_rows, chunks
-
-
-def banded_layout(tm: int, tn: int, radius: int, t: int,
-                  compute_bytes: int) -> SmemLayout:
-    """Banded kernel: one f32 region buffer and the chunked operand array
-    A[c][row][k] (compute dtype) the MMAs read.
-
-    Step s computes its (TM + 2(t-1-s)r)-square output in whole 16x16 MMA
-    tiles, so the region holds the rounded-up extent as well as the
-    step-0 region, and A holds the rows those tiles read (rounded-up
-    extent + 2r) for every 16-column chunk of the step-0 output.  The
-    region's row stride avoids multiples of 32 floats, which would put
-    every row of a fragment store in the same bank.
-    """
-    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
-                                                     compute_bytes)
-    smem = _align(rows * ld * 4) + chunks * a_rows * kpad * compute_bytes
-    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks)
-
-
-def banded3d_layout(tz: int, tm: int, tn: int, radius: int, t: int,
-                    compute_bytes: int) -> SmemLayout:
-    """The 3D banded kernel's layout before the slab fold: one f32 region
-    buffer of (TZ + 2h) planes, each laid out as the 2D kernel's region
-    (rows rounded up to 16-row tiles), and the operand array of ONE
-    16-column chunk over every plane, A[plane][row][k].  No kernel
-    launches with it: it is the 3D tile rule's reserve
-    (:func:`tile_smem_bound`), kept so that every 3D call keeps its tile
-    while the rule is not re-derived for :func:`slab_fold_layout`, which
-    needs less at every tile."""
-    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
-                                                     compute_bytes)
-    planes = tz + 2 * t * radius
+    planes = tz + 2 * halo
     smem = (_align(planes * rows * ld * 4)
             + planes * a_rows * kpad * compute_bytes)
     return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, planes)
 
 
-def sparse_layout(tm: int, tn: int, radius: int, t: int, compute_bytes: int,
-                  a_cols: int) -> SmemLayout:
-    """Compacted banded kernel (2D and the 1D lift): the region of
-    :func:`banded_layout` and its chunked operand array, each operand row
-    ``a_cols`` wide instead of ``kpad``.  Band p reads columns
-    [lo_p, lo_p + kpad_p) of a chunk (its kept rows padded to the MMA K
-    step), so ``a_cols = max_p(lo_p + kpad_p)``, which may pass the dense
-    ``kpad`` by up to K - 1 on an irregular or composed kernel."""
-    kpad, rows, ld, a_rows, chunks = _banded_extents(tm, tn, radius, t,
-                                                     compute_bytes)
-    smem = _align(rows * ld * 4) + chunks * a_rows * a_cols * compute_bytes
-    return SmemLayout(rows, ld, smem, kpad, a_rows, chunks, a_cols=a_cols)
-
-
-#: The slab fold's passes (csrc/slab_fold.cuh): each warp holds the sums
-#: of at most SLAB_TILES_PER_WARP 16-row MMA tiles, so a pass of the
-#: CTA's 8 warps takes SLAB_PASS_TILES tiles.
+#: The slab and tile folds' passes (csrc/slab_fold.cuh, csrc/tile_fold.cuh):
+#: each warp holds the sums of at most SLAB_TILES_PER_WARP 16-row MMA
+#: tiles, so a pass of the CTA's 8 warps takes SLAB_PASS_TILES tiles.
 SLAB_TILES_PER_WARP = 4
 SLAB_PASS_TILES = 8 * SLAB_TILES_PER_WARP
 #: Bytes of one band's header in shared memory (an int4).
@@ -478,9 +434,10 @@ SLAB_HEADER_BYTES = 16
 
 @dataclasses.dataclass(frozen=True)
 class SlabLayout:
-    """Shared-memory layout of a 3D banded launch (``csrc/slab_fold.cuh``,
-    dense and compacted): the f32 region of ``planes`` planes of ``rows``
-    rows, ``ld`` floats apart, the planes ``plane_ld`` floats apart; then
+    """Shared-memory layout of a 2D or 3D banded launch
+    (``csrc/tile_fold.cuh``, ``csrc/slab_fold.cuh``, dense and compacted):
+    the f32 region of ``planes`` planes (1 in 2D) of ``rows`` rows, ``ld``
+    floats apart, the planes ``plane_ld`` floats apart; then
     ``n_rows`` Toeplitz rows of ``toe_ld`` compute-dtype elements, one per
     band; then one header per band.  ``kpad`` is the dense band's depth,
     ``a_cols`` the widest chunk column a band reads (``kpad`` on the
@@ -528,16 +485,38 @@ def slab_fold_layout(tz: int, tm: int, tn: int, radius: int, t: int,
                       kpad if a_cols is None else a_cols, smem)
 
 
+def tile_fold_layout(tm: int, tn: int, radius: int, t: int,
+                     compute_bytes: int, n_rows: int,
+                     k_rows: Optional[int] = None,
+                     a_cols: Optional[int] = None) -> SlabLayout:
+    """The 2D banded kernels' layout (``csrc/tile_fold.cuh``), the one-plane
+    form of :func:`slab_fold_layout`: the step-0 region, (tm+2h) rows of
+    ld >= tn+2h floats, ld 4 mod 8 words, so 8 consecutive rows (the rows
+    of an A fragment) hit 8 bank quads; then the bands' Toeplitz rows and
+    headers.  ``plane_ld`` is the region's size in floats."""
+    h = t * radius
+    rows, w0 = tm + 2 * h, tn + 2 * h
+    kpad = _round_up(BAND_N + 2 * radius, mma_k_step(compute_bytes))
+    k_rows = kpad if k_rows is None else k_rows
+    ld = w0 + (4 - w0) % 8
+    toe_ld = k_rows + BAND_N
+    smem = (_align(rows * ld * 4)
+            + _align(n_rows * toe_ld * compute_bytes)
+            + n_rows * SLAB_HEADER_BYTES)
+    return SlabLayout(1, rows, ld, rows * ld, kpad, toe_ld, n_rows,
+                      kpad if a_cols is None else a_cols, smem)
+
+
 @dataclasses.dataclass(frozen=True)
 class FoldTile:
-    """One 16-row MMA tile of one pass of the slab fold: step ``step``,
-    16-column chunk ``chunk``, pass ``pass_`` of the chunk, the step's
-    tile ``tile`` on warp ``warp``.  ``pairs`` are the (plane, row) cells
-    its 16 MMA rows compute (a row past the step's last pair computes the
-    last pair again), ``stored`` which of them it stores, ``cols`` the
-    output columns [c0, c1) it stores, ``extent`` the step's input region
-    (planes, rows, columns) and ``kv`` the chunk columns it loads (the
-    rest read as zero)."""
+    """One 16-row MMA tile of one pass of the slab fold or the tile fold:
+    step ``step``, 16-column chunk ``chunk``, pass ``pass_`` (of the chunk
+    in 3D, of the step in 2D), the step's tile ``tile`` on warp ``warp``.
+    ``pairs`` are the (plane, row) cells its 16 MMA rows compute (a row
+    past the step's last pair computes the last pair again), ``stored``
+    which of them it stores, ``cols`` the output columns [c0, c1) it
+    stores, ``extent`` the step's input region (planes, rows, columns)
+    and ``kv`` the chunk columns it loads (the rest read as zero)."""
 
     step: int
     chunk: int
@@ -589,6 +568,33 @@ def slab_fold_tiles(tz: int, tm: int, tn: int, radius: int,
                         tuple(m < pairs for m in ms),
                         (c0, min(c0 + BAND_N, wo)), (pin, hin, win), kv)
         pin, hin, win = po, ho, wo
+
+
+def tile_fold_tiles(tm: int, tn: int, radius: int,
+                    t: int) -> Iterator[FoldTile]:
+    """The tile fold's map on a (tm, tn) tile, exactly as
+    ``csrc/tile_fold.cuh`` walks it: per step (both axes shrinking by
+    ``radius``), the step's 16-row tiles of its 16-column chunks,
+    chunk-major, then by row tile, in passes of at most SLAB_PASS_TILES
+    that cross chunks; step tile j runs on warp j mod 8.  A tile's rows
+    are (0, y) pairs, a row past the step's last computing the last row
+    again.  Every CTA of a launch, and every grid of a batch, runs this map
+    on its own region."""
+    h = t * radius
+    hin, win = tm + 2 * h, tn + 2 * h
+    for s in range(t):
+        ho, wo = hin - 2 * radius, win - 2 * radius
+        nrt = -(-ho // MMA_TILE)
+        for j in range(nrt * -(-wo // BAND_N)):
+            c, rt = divmod(j, nrt)
+            c0 = c * BAND_N
+            ms = range(rt * MMA_TILE, (rt + 1) * MMA_TILE)
+            yield FoldTile(s, c, j // SLAB_PASS_TILES, j, j % 8,
+                           tuple((0, min(m, ho - 1)) for m in ms),
+                           tuple(m < ho for m in ms),
+                           (c0, min(c0 + BAND_N, wo)), (1, hin, win),
+                           min(BAND_N + 2 * radius, win - c0))
+        hin, win = ho, wo
 
 
 #: The folded 1D kernels' CTA tile (csrc/line_fold.cuh): LINE_WARPS warps
@@ -734,8 +740,12 @@ def tile_smem_bound(tm: int, tn: int, halo: int,
                     tz: Optional[int] = None) -> int:
     """Upper bound on either kernel's shared memory at total halo ``halo``.
 
-    2D (``tz=None``): the banded kernel at R = halo (monolithic fusion, the
-    deepest K) with the row rounding of the reuse regime, in f32.  3D: the
+    2D (``tz=None``): the 2D wmma banded kernel before the tile fold at
+    R = halo (monolithic fusion, the deepest K) with the row rounding of
+    the reuse regime, in f32: no kernel launches with it any more, it is
+    the 2D tile rule's reserve, kept so that every 2D call keeps its tile
+    (:func:`tile_fold_layout`, which the 2D kernels launch with, needs
+    less at every tile and halo the rule picks).  3D: the
     largest layout either 3D kernel launches with at that halo -- the
     tap-sum, and the banded kernel at every (R, t) with t*R = halo and
     either operand dtype."""

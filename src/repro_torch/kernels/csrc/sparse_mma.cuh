@@ -1,12 +1,11 @@
-// mma.sync operand fragments for the compacted 2D banded kernel
-// (stencil_sparse.cu) and the folded kernels (line_fold.cuh in 1D,
-// slab_fold.cuh in 3D, dense and compacted): TF32 for f32 operands (a
-// K = 8 step of the m16n8k8 fragment layout, issued as two m16n8k4
-// products), bf16 m16n8k16 for bf16 operands, f32 accumulators.  A 16 x 16
-// output tile is two 16 x 8 halves.  Each lane loads its own fragment
-// elements (the layouts of the PTX ISA's "Matrix Fragments for
-// mma.m16n8k8 / m16n8k16"), so an A operand may start at any column of
-// the shared-memory rows: band p reads from column lo_p, which
+// mma.sync operand fragments for the folded banded kernels (line_fold.cuh
+// in 1D, tile_fold.cuh in 2D, slab_fold.cuh in 3D, dense and compacted):
+// TF32 for f32 operands (a K = 8 step of the m16n8k8 fragment layout,
+// issued as two m16n8k4 products), bf16 m16n8k16 for bf16 operands, f32
+// accumulators.  A 16 x 16 output tile is two 16 x 8 halves.  Each lane
+// loads its own fragment elements (the layouts of the PTX ISA's "Matrix
+// Fragments for mma.m16n8k8 / m16n8k16"), so an A operand may start at any
+// column of the shared-memory rows: band p reads from column lo_p, which
 // wmma::load_matrix_sync (256-bit aligned pointers only) cannot.  With
 // g = lane / 4 and q = lane % 4:
 //   TF32 A (16 x 8): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4);
@@ -15,12 +14,13 @@
 //        low half: a0 (g, 2q..), a1 (g + 8, 2q..), a2 (g, 2q + 8..),
 //        a3 (g + 8, 2q + 8..);  B (16 x 8): b0 (2q.., g), b1 (2q + 8.., g);
 //   C (16 x 8): c0, c1 (g, 2q + 0/1), c2, c3 (g + 8, 2q + 0/1).
-// Operands are rounded as the dense kernels round them (A by Mma<TC>::cvt
-// when copied, TF32 B by __float_to_tf32), and wmma's m16n16k8 /
-// m16n16k16 products compile to the same instructions (HMMA.1684 pairs,
-// HMMA.16816), so on a star or box kernel, where a band's kept rows keep
-// its taps in one k-step grouping or hold a single tap, the compacted
-// kernel's sums equal the dense kernel's bit for bit.
+// Operands are rounded as the wmma kernels before the folds rounded them
+// (A by wmma::__float_to_tf32 / __float2bfloat16_rn, TF32 B by
+// __float_to_tf32), and wmma's m16n16k8 / m16n16k16 products compiled to
+// the same instructions (HMMA.1684 pairs, HMMA.16816), so the folds equal
+// those kernels bit for bit; on a star or box kernel, where a band's kept
+// rows keep its taps in one k-step grouping or hold a single tap, the
+// compacted sums equal the dense ones bit for bit.
 #pragma once
 
 #include <stdint.h>
@@ -32,14 +32,6 @@ template <typename TC> struct SpMma;
 template <> struct SpMma<float> {
     static constexpr int K = 8;
     static constexpr int MAX_KS = MAX_KPAD / 8;
-    // The 16 x 8 A fragment at p (row stride ld), already TF32-rounded.
-    __device__ static __forceinline__ void load_a(uint32_t (&a)[4], const float* p, int ld,
-                                                  int g, int q) {
-        a[0] = __float_as_uint(p[g * ld + q]);
-        a[1] = __float_as_uint(p[(g + 8) * ld + q]);
-        a[2] = __float_as_uint(p[g * ld + q + 4]);
-        a[3] = __float_as_uint(p[(g + 8) * ld + q + 4]);
-    }
     // The 8 x 8 B fragment at p of a row-major (k, BAND_N) band.
     __device__ static __forceinline__ void load_b(uint32_t (&b)[2], const float* __restrict__ p,
                                                   int g, int q) {
@@ -72,17 +64,6 @@ template <> struct SpMma<__nv_bfloat16> {
     __device__ static __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
         return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
     }
-    // Element pairs are loaded one by one: at an odd column a 32-bit load
-    // would be misaligned.
-    __device__ static __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* p,
-                                                  int ld, int g, int q) {
-        const __nv_bfloat16* r0 = p + g * ld + 2 * q;
-        const __nv_bfloat16* r8 = r0 + 8 * ld;
-        a[0] = pack(r0[0], r0[1]);
-        a[1] = pack(r8[0], r8[1]);
-        a[2] = pack(r0[8], r0[9]);
-        a[3] = pack(r8[8], r8[9]);
-    }
     __device__ static __forceinline__ void load_b(uint32_t (&b)[2],
                                                   const __nv_bfloat16* __restrict__ p, int g,
                                                   int q) {
@@ -99,48 +80,6 @@ template <> struct SpMma<__nv_bfloat16> {
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
     }
 };
-
-// Accumulators of one warp's MAX_TILES_PER_WARP 16 x 16 output tiles: two
-// 16 x 8 halves of four f32 each per tile.
-struct SpAcc {
-    float c[MAX_TILES_PER_WARP][2][4];
-};
-
-// Band p of a step, against the warp's tiles: nk k-steps from the band's
-// first packed row bp, each reading the A operand of tile q at a[q] +
-// ks * K (a[q] already holds the band's row shift and lo_p), row stride
-// lda.
-template <typename TC>
-__device__ __forceinline__ void sparse_band(SpAcc& acc, const TC* __restrict__ bp,
-                                            const TC* const (&a)[MAX_TILES_PER_WARP], int lda,
-                                            int nk, int g, int q) {
-    using S = SpMma<TC>;
-#pragma unroll
-    for (int ks = 0; ks < S::MAX_KS; ++ks)
-        if (ks < nk) {
-            uint32_t b[2][2];
-            S::load_b(b[0], bp + ks * S::K * BAND_N, g, q);
-            S::load_b(b[1], bp + ks * S::K * BAND_N + 8, g, q);
-#pragma unroll
-            for (int t = 0; t < MAX_TILES_PER_WARP; ++t) {
-                uint32_t af[4];
-                S::load_a(af, a[t] + ks * S::K, lda, g, q);
-                S::mma(acc.c[t][0], af, b[0]);
-                S::mma(acc.c[t][1], af, b[1]);
-            }
-        }
-}
-
-// Stores tile t's accumulators to the f32 buffer at dst (row stride ld).
-__device__ __forceinline__ void store_acc(const SpAcc& acc, int t, float* dst, int ld, int g,
-                                          int q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        float* d = dst + g * ld + 8 * h + 2 * q;
-        *reinterpret_cast<float2*>(d) = make_float2(acc.c[t][h][0], acc.c[t][h][1]);
-        *reinterpret_cast<float2*>(d + 8 * ld) = make_float2(acc.c[t][h][2], acc.c[t][h][3]);
-    }
-}
 
 // k-steps of a band the folded kernels' instantiation for small radii
 // unrolls (R <= 4 in TF32, R <= 8 in bf16: line_fold.cuh holds them in

@@ -16,13 +16,14 @@ dtype.
 ``weights`` (which may be a composed radius-t*r kernel: monolithic
 fusion); ``t>1`` runs t radius-r contractions with f32 intermediates (the
 intermediate-reuse regime).  A tensor on the CPU runs
-:func:`stencil_matmul_plain`; a CUDA tensor launches a hand-written wmma
-kernel (TF32 operands for f32, bf16 for bf16, 16-column chunks: BAND_N)
-or raises: 2D grids ``csrc/stencil_banded.cu``, 3D grids
-``csrc/stencil_banded3d.cu``, which folds each step's (plane, row) pairs
-into the MMA rows and reads its bands as Toeplitz rows
-(``csrc/slab_fold.cuh``, :func:`toeplitz_rows`), 1D grids
-``csrc/stencil_banded1d.cu``, which
+:func:`stencil_matmul_plain`; a CUDA tensor launches a hand-written
+``mma.sync`` kernel (TF32 operands for f32, bf16 for bf16, 16-column
+chunks: BAND_N) or raises: 2D grids ``csrc/stencil_banded.cu``, which
+runs each step's 16-row tiles of every chunk in passes held in registers
+and reads its bands as Toeplitz rows (``csrc/tile_fold.cuh``,
+:func:`toeplitz_rows`), 3D grids ``csrc/stencil_banded3d.cu``, which
+folds each step's (plane, row) pairs into the MMA rows
+(``csrc/slab_fold.cuh``), 1D grids ``csrc/stencil_banded1d.cu``, which
 folds the line into the MMA rows (``csrc/line_fold.cuh``): each row one
 w_tile-long segment of the line, its one band the 1D kernel.  The 2D
 kernel on the lifted (1, N) view, where the kernel's single row is one
@@ -53,18 +54,13 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     banded_layout, batch_chunks, batch_grid, check_grid,
-                     check_staging, check_tile_halo, kernel_mode_codes,
-                     launch_geom, line_layout, mma_k_step, plain_loop,
-                     slab_fold_layout)
-
-#: Most band rows (kernel rows) one 2D launch takes; must match MAX_ROWS
-#: in csrc/stencil_banded.cu.  The 3D kernel reads its (dz, dy) rows from
-#: device memory and takes any number.
-MAX_ROWS = 64
+                     batch_chunks, batch_grid, check_grid, check_staging,
+                     check_tile_halo, kernel_mode_codes, launch_geom,
+                     line_layout, mma_k_step, plain_loop, slab_fold_layout,
+                     tile_fold_layout)
 
 #: Deepest padded contraction the kernels take (BAND_N + 2R <= 64, so
-#: R <= 24); must match MAX_KPAD in csrc/stencil_banded{,3d}.cu.
+#: R <= 24); must match MAX_KPAD in csrc/banded_mma.cuh.
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,10 +68,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: The last arguments of every C entry: the batch B, the cells of one grid,
 #: the dynamic shared memory and the stream.
 BATCH_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-
-
-class _BandRows(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("dy", ctypes.c_int * MAX_ROWS)]
 
 
 def build_bands(weights: np.ndarray, tile_n: int) -> np.ndarray:
@@ -117,7 +109,8 @@ def build_bands_nd(weights: np.ndarray, tile_n: int):
 
 def toeplitz_rows(bands: np.ndarray) -> np.ndarray:
     """The (n, K + BAND_N) Toeplitz rows of (n, K, BAND_N) banded operands,
-    as the 3D kernels read them (``csrc/slab_fold.cuh``): a band B with
+    as the 2D and 3D kernels read them (``csrc/tile_fold.cuh``,
+    ``csrc/slab_fold.cuh``): a band B with
     B[k][j] = f(k - j) is one row T of f, T[d + BAND_N - 1] = f(d) for d
     in [-(BAND_N - 1), K), its last element zero.  Every band of
     ``build_bands_nd`` (B[j + dx, j] = w[dx]), padded with zero rows or
@@ -189,36 +182,33 @@ def stencil_matmul_plain(x: torch.Tensor, weights, t: int = 1,
 @functools.lru_cache(maxsize=32)
 def _device_bands(w_bytes: bytes, shape: tuple, kpad: int,
                   cdt: torch.dtype, device: str):
-    """``(row offsets, bands, offsets on the device)`` of one weight array
-    as the kernels read them: the ``build_bands_nd`` operands padded with
-    zero rows to ``kpad`` and stored in the compute dtype on the device,
-    and the leading-axis offset of every band row as int32, built once
-    per weights, dtype and device (plans call the wrapper every step)."""
+    """The ``build_bands_nd`` operands of one weight array as the folded 1D
+    kernels read them: padded with zero rows to ``kpad`` and stored in the
+    compute dtype on the device, built once per weights, dtype and device
+    (plans call the wrapper every step)."""
     w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
-    offsets, bands = build_bands_nd(w, BAND_N)
+    _, bands = build_bands_nd(w, BAND_N)
     bands = np.pad(bands, ((0, 0), (0, kpad - bands.shape[1]), (0, 0)))
-    offs = np.asarray(offsets, dtype=np.int32).reshape(len(offsets), -1)
-    return (tuple(offsets),
-            torch.from_numpy(bands).to(device=device, dtype=cdt),
-            torch.from_numpy(offs).to(device))
+    return torch.from_numpy(bands).to(device=device, dtype=cdt)
 
 
 @functools.lru_cache(maxsize=32)
 def _device_toe(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
                 device: str):
-    """``(toe, rows)`` of one 3D weight array as the 3D kernel reads it:
-    the ``build_bands_nd`` bands padded with zero rows to the MMA K step
-    of ``cdt`` (kpad) as their Toeplitz rows (:func:`toeplitz_rows`) in
-    the compute dtype, and every band's (dz, dy, lo, nk) = (dz, dy, 0,
-    kpad / K) as int32 (the compacted operand's form, every row kept),
-    both on the device, built once per weights, dtype and device."""
+    """``(toe, rows)`` of one 2D or 3D weight array as the 2D and 3D
+    kernels read it: the ``build_bands_nd`` bands padded with zero rows to
+    the MMA K step of ``cdt`` (kpad) as their Toeplitz rows
+    (:func:`toeplitz_rows`) in the compute dtype, and every band's (dz,
+    dy, lo, nk) = (dz, dy, 0, kpad / K) as int32, dz = 0 in 2D (the
+    compacted operand's form, every row kept), both on the device, built
+    once per weights, dtype and device."""
     w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
     offsets, bands = build_bands_nd(w, BAND_N)
     k, step = bands.shape[1], mma_k_step(cdt.itemsize)
     kpad = -(-k // step) * step
     toe = toeplitz_rows(np.pad(bands, ((0, 0), (0, kpad - k), (0, 0))))
-    rows = np.asarray([tuple(o) + (0, kpad // step) for o in offsets],
-                      dtype=np.int32)
+    rows = np.asarray([(0,) * (2 - len(o)) + tuple(o) + (0, kpad // step)
+                       for o in offsets], dtype=np.int32)
     return (torch.from_numpy(toe).to(device=device, dtype=cdt),
             torch.from_numpy(rows).to(device))
 
@@ -229,8 +219,7 @@ def _launcher():
     signature set once."""
     fn = _build.library("stencil_banded").stencil_banded_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.POINTER(_BandRows)] + BATCH_ARGS
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + BATCH_ARGS
     return fn
 
 
@@ -258,8 +247,7 @@ def _foil_launcher():
     staging code after the compute dtype), built on first use."""
     fn = _build.library("stencil_banded_foil").stencil_banded_foil_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15 + [
-        ctypes.POINTER(_BandRows)] + BATCH_ARGS
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + BATCH_ARGS
     return fn
 
 
@@ -401,8 +389,8 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
     """The folded 1D kernel on the (B, N) lines ``x``: rows of the lifted
     tile's width ``geom.w_tile``, the line's boundary ``code``."""
     layout = line_launch_layout(geom, radius, t, x.dtype, cdt, "1D banded")
-    _, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
-                                str(x.device))
+    bands = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
+                          str(x.device))
     y = torch.empty_like(x)
     fn = _launcher1d()
     b, n = x.shape
@@ -420,25 +408,20 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
 
 def _launch2d(x, w, t, radius, cdt, geom, codes,
               staging: str = "region") -> torch.Tensor:
-    layout = _checked(banded_layout(geom.strip_m, geom.w_tile, radius, t,
-                                    cdt.itemsize), "banded")
-    offsets, bands, _ = _device_bands(w.tobytes(), w.shape, layout.kpad, cdt,
-                                      str(x.device))
-    if len(offsets) > MAX_ROWS:
-        raise ValueError(f"{len(offsets)} band rows exceed the kernel's "
-                         f"{MAX_ROWS}")
-    arg = _BandRows(len(offsets))
-    for k, (dy,) in enumerate(offsets):
-        arg.dy[k] = dy
+    """The tile fold on the dense bands (``csrc/stencil_banded.cu``) on
+    the (B, H, W) grids ``x``."""
+    toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
+    layout = _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
+                                       cdt.itemsize, len(rows)), "banded")
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), bands.data_ptr(), h, wd,
-                 geom.strip_m, geom.w_tile, t, radius, layout.rows,
-                 layout.ld, layout.a_rows, layout.kpad, _DTYPE_CODES[x.dtype],
-                 _DTYPE_CODES[cdt], *stage, *codes, ctypes.byref(arg),
+        err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
+                 h, wd, geom.strip_m, geom.w_tile, t, radius, layout.ld,
+                 layout.kpad, layout.toe_ld, layout.n_rows,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
                  b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
     _build.count_launch(counter, len(batch_chunks(b)))

@@ -16,9 +16,10 @@ contractions with f32 intermediates on chip.  A tensor on the CPU runs
 :func:`stencil_sparse_matmul_plain`; a CUDA tensor launches a hand-written
 kernel (``mma.sync``: TF32 m16n8k4 pairs for f32 operands, bf16 m16n8k16
 for bf16 operands, f32 accumulators) or raises: 2D grids
-``csrc/stencil_sparse.cu``, 3D grids ``csrc/stencil_sparse3d.cu`` (the
-slab fold, ``csrc/slab_fold.cuh``, on the compacted bands' Toeplitz
-rows), 1D grids ``csrc/stencil_sparse1d.cu``, the folded 1D kernel
+``csrc/stencil_sparse.cu`` (the tile fold, ``csrc/tile_fold.cuh``) and 3D
+grids ``csrc/stencil_sparse3d.cu`` (the slab fold,
+``csrc/slab_fold.cuh``), each on the compacted bands' Toeplitz rows, 1D
+grids ``csrc/stencil_sparse1d.cu``, the folded 1D kernel
 (``csrc/line_fold.cuh``) on the compacted band, which equals the dense
 folded kernel bit for bit on box and star kernels (the 2D kernel on the
 lifted (1, N) view stays reachable as :func:`_launch2d` for
@@ -44,8 +45,9 @@ from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SubstrateGeom, batch_chunks, batch_grid,
                      check_grid, check_tile_halo, launch_geom,
-                     mma_k_step, plain_loop, slab_fold_layout, sparse_layout)
-from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, MAX_ROWS, _checked,
+                     mma_k_step, plain_loop, slab_fold_layout,
+                     tile_fold_layout)
+from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, _checked,
                              build_bands_nd, line_launch_layout, run_kernel,
                              toeplitz_rows)
 
@@ -177,9 +179,10 @@ def band_meta(weights, compute_dtype: torch.dtype) -> BandMeta:
 
 
 def band_toeplitz(meta: BandMeta, k_step: int) -> np.ndarray:
-    """The compacted operand as the 3D kernel reads it: each band's kept
-    rows, padded to nk * K, as its Toeplitz row (``toeplitz_rows``), the
-    rows padded with zeros to the deepest band's max(nk) * K + BAND_N."""
+    """The compacted operand as the 2D and 3D kernels read it: each band's
+    kept rows, padded to nk * K, as its Toeplitz row (``toeplitz_rows``),
+    the rows padded with zeros to the deepest band's max(nk) * K +
+    BAND_N."""
     deepest = max(r[-1] for r in meta.rows) * k_step
     toe = np.zeros((len(meta.rows), deepest + BAND_N), np.float32)
     start = 0
@@ -194,7 +197,7 @@ def band_toeplitz(meta: BandMeta, k_step: int) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _device_toe(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
                 device: str):
-    """The :func:`band_toeplitz` rows of one 3D weight array in the
+    """The :func:`band_toeplitz` rows of one 2D or 3D weight array in the
     compute dtype on the device, built once per weights, dtype and
     device."""
     meta = _band_meta(w_bytes, shape, mma_k_step(cdt.itemsize))
@@ -207,10 +210,12 @@ def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
                     device: str):
     """``(meta, packed, rows)`` of one weight array on the device: the
     :class:`BandMeta`, its packed operand in the compute dtype, and its
-    per-band ``rows`` as int32, built once per weights, dtype and device
-    (plans call the wrapper every step)."""
+    per-band ``rows`` as (dz, dy, lo, nk) int32 (dz = 0 in 2D, dz = dy =
+    0 in 1D), built once per weights, dtype and device (plans call the
+    wrapper every step)."""
     meta = _band_meta(w_bytes, shape, mma_k_step(cdt.itemsize))
-    rows = np.asarray(meta.rows, dtype=np.int32)
+    rows = np.asarray([(0,) * (4 - len(r)) + tuple(r) for r in meta.rows],
+                      dtype=np.int32)
     return (meta,
             torch.from_numpy(meta.packed).to(device=device, dtype=cdt),
             torch.from_numpy(rows).to(device))
@@ -233,21 +238,16 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
     if len(grid_shape) == 1:
         return line_launch_layout(geom, radius, t, in_dtype, compute_dtype,
                                   "1D compacted banded")
+    meta = band_meta(w, compute_dtype)
+    k_rows = max(r[-1] for r in meta.rows) * mma_k_step(cb)
     if len(grid_shape) == 3:
-        meta = band_meta(w, compute_dtype)
-        k_rows = max(r[-1] for r in meta.rows) * mma_k_step(cb)
         return _checked(slab_fold_layout(geom.z_slab, geom.strip_m,
                                          geom.w_tile, radius, t, cb,
                                          len(meta.rows), k_rows,
                                          meta.a_cols), "3D compacted banded")
-    meta = band_meta(w, compute_dtype)
-    return _checked(sparse_layout(geom.strip_m, geom.w_tile, radius, t, cb,
-                                  meta.a_cols), "compacted banded")
-
-
-class _SparseRows(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("dy", ctypes.c_int * MAX_ROWS),
-                ("lo", ctypes.c_int * MAX_ROWS), ("nk", ctypes.c_int * MAX_ROWS)]
+    return _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t, cb,
+                                     len(meta.rows), k_rows, meta.a_cols),
+                    "compacted banded")
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,8 +256,7 @@ def _launcher():
     signature set once."""
     fn = _build.library("stencil_sparse").stencil_sparse_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [
-        ctypes.POINTER(_SparseRows)] + BATCH_ARGS
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + BATCH_ARGS
     return fn
 
 
@@ -358,25 +357,21 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
-    meta, packed, _ = _device_operand(w.tobytes(), w.shape, cdt,
-                                      str(x.device))
+    """The tile fold on the compacted bands (``csrc/stencil_sparse.cu``)
+    on the (B, H, W) grids ``x``."""
+    _, _, rows = _device_operand(w.tobytes(), w.shape, cdt, str(x.device))
+    toe = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
     layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt)
-    if len(meta.rows) > MAX_ROWS:
-        raise ValueError(f"{len(meta.rows)} band rows exceed the kernel's "
-                         f"{MAX_ROWS}")
-    arg = _SparseRows(len(meta.rows))
-    for k, (dy, lo, nk) in enumerate(meta.rows):
-        arg.dy[k], arg.lo[k], arg.nk[k] = dy, lo, nk
     y = torch.empty_like(x)
     fn = _launcher()
     b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), packed.data_ptr(), h, wd,
-                 geom.strip_m, geom.w_tile, t, radius, layout.rows,
-                 layout.ld, layout.a_rows, layout.a_cols,
+        err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
+                 h, wd, geom.strip_m, geom.w_tile, t, radius, layout.ld,
+                 layout.a_cols, layout.toe_ld, layout.n_rows,
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes,
-                 ctypes.byref(arg), b, h * wd, layout.smem_bytes, stream)
+                 b, h * wd, layout.smem_bytes, stream)
     _build.check(err, "stencil_sparse")
     _build.count_launch("stencil_sparse", len(batch_chunks(b)))
     return y

@@ -112,24 +112,30 @@ def test_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
     layouts = [common.direct_layout(tm, tn, halo)]
     for t in range(1, halo + 1):
         if halo % t == 0:
-            for cb in (4, 2):
-                layouts.append(common.banded_layout(tm, tn, halo // t, t, cb))
+            r = halo // t
+            for cb in (4, 2):       # the (2r + 1) rows of a square kernel
+                layouts.append(common.tile_fold_layout(tm, tn, r, t, cb,
+                                                       2 * r + 1))
     for lay in layouts:
         assert lay.smem_bytes <= bound
         assert lay.rows >= tm + 2 * halo and lay.ld >= tn + 2 * halo
     for lay in layouts[1:]:
-        assert lay.ld % 8 == 0 and lay.kpad % 8 == 0
+        assert lay.ld % 8 == 4 and lay.kpad % 8 == 0
 
 
 def test_banded_layout_holds_rounded_steps():
-    # r=3, t=4 on a 64 tile: step 0 computes 82 -> 96 rows of MMA tiles,
-    # whose A operands reach 6 rows further, in ceil(82 / 16) chunks
-    lay = common.banded_layout(64, 64, 3, 4, 4)
-    assert lay.rows == 96 and lay.ld >= 96 and lay.ld % 32 != 0
-    assert (lay.a_rows, lay.chunks) == (102, 6)
+    # r=3, t=4 on a 64 tile: the tile fold holds the step-0 region alone,
+    # 88 x 88 (no 16-row rounding: the last row tile is clamped and
+    # masked), its rows 4 mod 8 words apart, and the 7 bands' Toeplitz
+    # rows of kpad + 16
+    lay = common.tile_fold_layout(64, 64, 3, 4, 4, 7)
+    assert (lay.planes, lay.rows, lay.ld) == (1, 88, 92)
+    assert lay.plane_ld == 88 * 92 and lay.toe_ld == lay.kpad + 16
     assert lay.kpad == 24                      # 16 + 6 -> TF32 K step 8
-    assert common.banded_layout(64, 64, 3, 4, 2).kpad == 32   # bf16 K 16
-    assert common.banded_layout(64, 64, 12, 1, 4).kpad == 40
+    # the region, the 1120 bytes of Toeplitz rows 128-byte aligned, headers
+    assert lay.smem_bytes == 88 * 92 * 4 + 1152 + 7 * 16
+    assert common.tile_fold_layout(64, 64, 3, 4, 2, 7).kpad == 32  # bf16 K 16
+    assert common.tile_fold_layout(64, 64, 12, 1, 4, 25).kpad == 40
 
 
 def test_tile_pins_and_limits():

@@ -320,7 +320,8 @@ def test_stencil_apply_takes_the_sparse_unit():
 def test_base_kernels_need_no_wider_copy(kind, dim, cdt):
     # On star and box base kernels every band ends by the dense kpad, so
     # the compacted kernels launch with the dense kernels' shared memory
-    # (3D: the slab fold's layout of the same bands).
+    # (the tile fold's layout of the same bands in 2D, the slab fold's in
+    # 3D).
     for r in (1, 2, 3):
         w = make_weights(StencilSpec(kind, dim, r), seed=0)
         meta = t_sparse.band_meta(w, cdt)
@@ -330,16 +331,18 @@ def test_base_kernels_need_no_wider_copy(kind, dim, cdt):
                                          geom.w_tile, r, 1, cdt.itemsize,
                                          len(meta.rows))
                  if dim == 3 else
-                 common.banded_layout(geom.strip_m, geom.w_tile, r, 1,
-                                      cdt.itemsize))
+                 common.tile_fold_layout(geom.strip_m, geom.w_tile, r, 1,
+                                         cdt.itemsize, len(meta.rows)))
         assert meta.a_cols == dense.kpad == lay.a_cols
         assert lay.smem_bytes == dense.smem_bytes
 
 
 def test_band_meta_of_a_shifted_band():
     # A band whose taps sit at dx = 3, 4 of a radius-2 row: lo = 3,
-    # span = 1, so kpad_p = 24 in TF32 and the copy is 27 columns wide,
-    # past the dense kpad of 24; in bf16 kpad_p = 32 and a_cols = 35.
+    # span = 1, so kpad_p = 24 in TF32 and the band reads 27 chunk
+    # columns, past the dense kpad of 24; in bf16 kpad_p = 32 and a_cols =
+    # 35.  The tile fold reads them from the region, masked at the chunk's
+    # kv, so the compacted layout is the dense one's (no wider copy).
     w = np.zeros((5, 5), np.float32)
     w[2, 2], w[0, 3], w[0, 4] = 1.0, 0.5, 0.25
     f32 = t_sparse.band_meta(w, torch.float32)
@@ -347,9 +350,12 @@ def test_band_meta_of_a_shifted_band():
     assert f32.packed.shape == (24 + 16, 16)
     bf16 = t_sparse.band_meta(w, torch.bfloat16)
     assert bf16.rows == ((0, 3, 2), (2, 2, 1)) and bf16.a_cols == 35
-    lay = common.sparse_layout(64, 64, 2, 1, 4, f32.a_cols)
-    assert lay.smem_bytes == common.banded_layout(64, 64, 2, 1, 4) \
-        .smem_bytes + lay.chunks * lay.a_rows * (27 - 24) * 4
+    lay = t_sparse.sparse_tile_layout((64, 64), w, 1,
+                                      common.launch_geom((64, 64), 2),
+                                      torch.float32)
+    assert lay == common.tile_fold_layout(64, 64, 2, 1, 4, 2, 24, 27)
+    assert lay.smem_bytes == \
+        common.tile_fold_layout(64, 64, 2, 1, 4, 2).smem_bytes
 
 
 def test_layout_over_budget_raises():
@@ -498,12 +504,13 @@ def test_wrappers_pass_the_band_metadata(monkeypatch, shape, boundary, cdt):
     lay = t_sparse.sparse_tile_layout((1,) * (len(shape) == 1) + shape, wk,
                                       2, geom, cdt)     # the lift's grid
     assert args["smem_bytes"] == lay.smem_bytes
-    if len(shape) == 3:
-        assert args["n_rows"] == len(meta.rows) == 5
-    else:
-        rows = args["br"]._obj
-        n = rows.n
-        assert tuple(zip(rows.dy[:n], rows.lo[:n], rows.nk[:n])) == meta.rows
+    assert args["n_rows"] == len(meta.rows) == (5 if len(shape) == 3 else
+                                                3 if len(shape) == 2 else 1)
+    # each band's (dz, dy, lo, nk), the offsets a lower rank lacks zero
+    _, _, rows = t_sparse._device_operand(wk.tobytes(), wk.shape, cdt, "cpu")
+    assert args["meta"] == rows.data_ptr()
+    assert [tuple(r) for r in rows.tolist()] == \
+        [(0,) * (4 - len(m)) + m for m in meta.rows]
 
 
 def test_cuda_tensors_need_the_kernel_or_raise():
