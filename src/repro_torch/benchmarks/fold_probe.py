@@ -6,6 +6,9 @@ arithmetic is the same, then time them.
     python src/repro_torch/benchmarks/fold_probe.py slab|tile [--src CHECKOUT/src]
         [--save HASHES.json | --against HASHES.json]
     python src/repro_torch/benchmarks/fold_probe.py tile-times [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum2d [--src CHECKOUT/src]
+        [--save HASHES.json | --against HASHES.json]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum2d-times [--src CHECKOUT/src]
 
 ``banded`` (or no argument) builds the two folded banded kernels and the
 two lifted ones they are compared with, runs 320 calls (2^20 + 3, 2^20,
@@ -57,8 +60,29 @@ the regimes on 8192^2 Box- and Star-2D1R, f32, t=4, periodic and
 ``zero``, the kernels on a resolved tile, the K8 / K10 foil plans and
 16 x 2048^2 batches.  ``tile-times`` prints the same resources and times
 without the calls (for variants of the kernel source in another
-checkout).  Exits 1 if a call differs.  ``chip_smoke.py`` runs the same
-checks among all others; this is the quick one for a kernel change.
+checkout).
+
+``tapsum2d`` does the same for the 2D tap-sum (``stencil_direct`` and
+its foil build ``stencil_direct_foil``): their ptxas lines, registers
+and stack frames (spills), the CTAs per SM of the radius-1
+instantiations at the main tile (64 x 64, h = 4; the library's
+``stencil_direct_ctas_per_sm``), then chip_smoke.py's phase-2 2D tap-sum
+calls (the grids, cases and boundaries of ``tile``, float32 and bfloat16
+grids, each held to the plain version with chip_smoke.py's limit), three
+grids with an axis shallower than the halo, the 2D kernel on the lifted
+(1, N) view of phase 2's 1D lines (each held to the folded 1D tap-sum
+bit for bit), the whole-strip (K8) and 9-tile (K9) foils (each held to
+the default kernel of the same call and tile) and batches of 3 grids
+(held to the unbatched calls), hashed for ``--save`` / ``--against``;
+then the times at 8192^2 Box- and Star-2D1R, f32, t=4, periodic and
+``zero``: the kernel through the plan entry on a resolved tile
+(``stencil_direct_at``: one launch at t=4, and the ``direct`` regime's
+four at t=1), the plans of the regimes it is weighed against, the plain
+version, F.conv2d, the K8 and K9 foil plans and 16 x 2048^2 batches.
+``tapsum2d-times`` prints the resources and times alone (for variants of
+the kernel source in another checkout). Exits 1 if a call differs.
+``chip_smoke.py`` runs the same checks among all others; this is the
+quick one for a kernel change.
 """
 from __future__ import annotations
 
@@ -95,7 +119,8 @@ def ms(torch, fn, reps=10):
 def main(argv) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    optioned = argv[:1] in (["slab"], ["tile"], ["tile-times"])
+    optioned = argv[:1] in (["slab"], ["tile"], ["tile-times"], ["tapsum2d"],
+                            ["tapsum2d-times"])
     opts = dict(zip(argv[1::2], argv[2::2])) if optioned else {}
     if (argv not in ([], ["banded"], ["tapsum"]) and not optioned
             or len(argv) % 2 == 0 and optioned
@@ -117,6 +142,9 @@ def main(argv) -> int:
     if argv[:1] in (["tile"], ["tile-times"]):
         return 1 if probe_tile(torch, os.path.dirname(root), opts,
                                calls=argv[:1] == ["tile"]) else 0
+    if argv[:1] in (["tapsum2d"], ["tapsum2d-times"]):
+        return 1 if probe_tapsum2d(torch, os.path.dirname(root), opts,
+                                   calls=argv[:1] == ["tapsum2d"]) else 0
     bad = 0
     if argv != ["tapsum"]:
         bad += probe_banded(torch)
@@ -325,8 +353,9 @@ def occupancy(name: str, dtype: int, compute: int, fill: bool, smem: int):
 
 
 def print_resources(names) -> None:
-    """The ptxas lines (each kernel's name, spills and registers) and the
-    registers of the libraries ``names``."""
+    """The ptxas lines (each kernel's name, spills and registers) of the
+    libraries ``names`` built in this process, and the registers and stack
+    frame (spills) of each of their kernels (cuobjdump)."""
     from repro_torch.kernels import _build
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():
@@ -334,8 +363,12 @@ def print_resources(names) -> None:
                 print(f"  ptxas {name}: {line.strip()}")
         try:
             from repro_torch.kernels import sass
-            for fn, n in sorted(sass.registers(_build._target(name)).items()):
-                print(f"  {name}: {fn}: {n} registers")
+            lib = _build._target(name)
+            # a checkout from before stack_bytes (--src) shows registers alone
+            stack = getattr(sass, "stack_bytes", lambda _: {})(lib)
+            for fn, n in sorted(sass.registers(lib).items()):
+                print(f"  {name}: {fn}: {n} registers, {stack.get(fn, '?')} bytes "
+                      "of stack frame")
         except RuntimeError as e:              # no cuobjdump beside nvcc
             print(f"  {name}: registers not read ({e})")
 
@@ -636,6 +669,199 @@ def tile_times(torch, sm, ss, common, legacy, stencil_plan, make_weights, Stenci
         plan = stencil_plan(w, (2048, 2048), torch.float32, 4, backend=b, boundary=bc,
                             batch=16, use_sparse_unit="sparse" in b)
         print(f"  16 x 2048^2 {kind} {b} {bc}: {ms(torch, lambda: plan(xb), 5):.4f}")
+
+
+#: The 2D tap-sum probe's grids with an axis shallower than the halo
+#: (which the port runs and JAX refuses), with the boundaries each runs.
+TAPSUM2D_SHALLOW = (((5, 1030), (None, "zero", "replicate")),
+                    ((1000, 6), (None, ("reflect", "zero"))),
+                    ((3, 7), (None, "zero")))
+
+
+def probe_tapsum2d(torch, repo: str, opts, calls: bool = True) -> int:
+    """The 2D tap-sum: its registers and CTAs per SM; with ``calls``, every
+    call against the plain version's limit, the lifted calls against the
+    folded 1D kernel, the foils against the default kernel and the
+    batches against the unbatched calls, optionally hashed against
+    another checkout's outputs; then its 8192^2 times.  Returns the calls
+    that differ."""
+    import numpy as np
+    sys.path.insert(1, repo)
+    from chip_smoke import kernel_limit, lifted_call, plain_chain
+    from repro_torch.kernels import _build, common, legacy
+    from repro_torch.stencil import StencilSpec, make_weights
+    sd = importlib.import_module("repro_torch.kernels.stencil_direct")
+    names = ("stencil_direct", "stencil_direct_foil")
+    t0 = time.perf_counter()
+    _build.build_all(names + (("stencil_direct1d",) if calls else ()))
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    print_resources(names)
+    fn = getattr(_build.library("stencil_direct"), "stencil_direct_ctas_per_sm", None)
+    smem = common.direct_layout(64, 64, 4).smem_bytes
+    if fn is None:
+        print("  stencil_direct: no stencil_direct_ctas_per_sm in this checkout")
+    else:
+        import ctypes
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+        for dtype, label in ((0, "f32"), (1, "bf16")):
+            print(f"  stencil_direct r=1 {label} at 64x64, h=4, {smem} bytes: CTAs per "
+                  f"SM {fn(dtype, 0, smem)}, {fn(dtype, 1, smem)} with the fill")
+    if not calls:
+        tapsum2d_times(torch, sd, common, make_weights, StencilSpec, full=False)
+        return 0
+
+    def grid(shape, dt, seed=2):
+        return torch.from_numpy(np.random.default_rng(seed).normal(
+            size=shape).astype(np.float32)).cuda().to(dt)
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    hashes, bad = {}, 0
+
+    def held(key, y, x, w, t, bc):
+        """Hashes ``y`` and holds it to the plain version with chip_smoke.py's
+        tap-sum limit (1e-5 max|x| for a float32 grid); returns whether it
+        is outside."""
+        hashes[key] = digest(torch, y)
+        maxima, _ = plain_chain(lambda v: sd.stencil_direct_plain(v, w, 1, bc), x, t)
+        tol = (kernel_limit("bf16", float(np.abs(w).sum()), int(np.count_nonzero(w)),
+                            maxima, True) if x.dtype == torch.bfloat16 else 1e-5 * maxima[0])
+        err = diff(y, sd.stencil_direct_plain(x, w, t, bc))
+        if not err <= tol:
+            print(f"{key}: max|err| vs plain {err:.3e} > limit {tol:.3e}")
+        return not err <= tol
+
+    dtypes = (torch.float32, torch.bfloat16)
+    runs = [(shape, c, None) for shape in TILE_GRIDS for c in TILE_CASES] + \
+        [((1000, 1030), c, bc) for c in TILE_BC_CASES for bc in TILE_BOUNDARIES] + \
+        [(shape, ("box", r, t), bc) for shape, bcs in TAPSUM2D_SHALLOW
+         for r, t in ((1, 4), (2, 4)) for bc in bcs]
+    for shape, (kind, r, t), bc in runs:
+        w = np.asarray(make_weights(StencilSpec(kind, 2, r), seed=1), np.float32)
+        for dt in dtypes:
+            x = grid(shape, dt)
+            key = f"{shape} {kind} r={r} t={t} {bc} {str(dt)[6:]}"
+            bad += held(key, sd.stencil_direct(x, w, t, boundary=bc), x, w, t, bc)
+    n2d = len(hashes)
+    lines = [(n, c, None) for n in TILE_LINES for c in TILE_CASES] + \
+        [(n, c, bc) for n in TILE_BC_LINES for c in TILE_BC_CASES
+         for bc in ("zero", "reflect", "replicate")]
+    for shape, (kind, r, t), bc in lines:
+        w = np.asarray(make_weights(StencilSpec(kind, 1, r), seed=1), np.float32)
+        for dt in dtypes:
+            x = grid(shape, dt)
+            key = f"{shape} {kind} r={r} t={t} {bc} {str(dt)[6:]} lifted"
+            y = lifted_call(sd, x, w, t, None, bc)
+            bad += held(key, y, x, w, t, bc)
+            d = diff(y, sd.stencil_direct(x, w, t, boundary=bc))
+            if d:
+                bad += 1
+                print(f"{key}: the folded 1D kernel differs by {d:.3e}")
+    nlift = len(hashes) - n2d
+    for (kind, r, t), bc in ((c, bc) for c in TILE_BC_CASES for bc in (None, "zero")):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, r), seed=1), np.float32)
+        geom = common.launch_geom((1000, 1030), t * r)
+        for dt in dtypes:
+            x = grid((1000, 1030), dt)
+            key = f"(1000, 1030) {kind} r={r} t={t} {bc} {str(dt)[6:]} wholestrip"
+            y = sd.stencil_direct_at(x, w, t, geom, boundary=bc, staging="wholestrip")
+            bad += held(key, y, x, w, t, bc)
+            d = diff(y, sd.stencil_direct_at(x, w, t, geom, boundary=bc))
+            if d:
+                bad += 1
+                print(f"{key}: differs from the default kernel by {d:.3e}")
+    for kind, r, t in TILE_BC_CASES:
+        w = np.asarray(make_weights(StencilSpec(kind, 2, r), seed=1), np.float32)
+        geom = legacy.tile_geom((1024, 1024), 128, 128, t * r)
+        for dt in dtypes:
+            x = grid((1024, 1024), dt)
+            key = f"(1024, 1024) {kind} r={r} t={t} {str(dt)[6:]} 9tile"
+            y = legacy.stencil_direct_9pt(x, w, t)
+            bad += held(key, y, x, w, t, None)
+            d = diff(y, sd.stencil_direct_at(x, w, t, geom))
+            if d:
+                bad += 1
+                print(f"{key}: differs from the default kernel by {d:.3e}")
+    for kind, bc in (("box", None), ("star", ("reflect", "periodic"))):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=1), np.float32)
+        for t in (1, 4):
+            geom = common.launch_geom((1000, 1030), t)
+            for dt in dtypes:
+                xb = grid((3, 1000, 1030), dt)
+                key = f"3 x (1000, 1030) {kind} r=1 t={t} {bc} {str(dt)[6:]}"
+                yb = sd.stencil_direct_at(xb, w, t, geom, boundary=bc, batched=True)
+                hashes[key] = digest(torch, yb)
+                d = max(diff(yb[i], sd.stencil_direct_at(xb[i], w, t, geom, boundary=bc))
+                        for i in range(3))
+                if d:
+                    bad += 1
+                    print(f"{key}: differs from the unbatched calls by {d:.3e}")
+    print(f"tapsum2d: {len(hashes)} calls ({n2d} 2D, {nlift} lifted 1D, "
+          f"{len(hashes) - n2d - nlift} foil and batched), {bad} outside the "
+          "limit or unequal where they must be equal")
+    bad += save_against(hashes, opts, "tapsum2d")
+    tapsum2d_times(torch, sd, common, make_weights, StencilSpec)
+    return bad
+
+
+def tapsum2d_times(torch, sd, common, make_weights, StencilSpec, full=True):
+    """The 2D tap-sum's times at 8192^2, f32, t=4, periodic and ``zero``:
+    the kernel through the plan entry on a tile resolved once (one launch
+    at t=4; four at t=1, the ``direct`` regime), the K8 and K9 foil plans
+    and 16 x 2048^2 batches; with ``full`` also the plans of ``direct``,
+    ``fused_direct``, auto and the banded regimes, the plain version and
+    F.conv2d (chip_smoke.py's yardstick: one step of the composed kernel,
+    periodic; 4 x (F.pad + F.conv2d) under ``zero``)."""
+    import numpy as np
+    from chip_smoke import conv_yardstick
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.stencil import fuse_weights, resolve_boundary
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(8192, 8192))
+                         .astype(np.float32)).cuda()
+    geom4 = common.launch_geom((8192, 8192), 4)
+    geom1 = common.launch_geom((8192, 8192), 1)
+    print(f"bound: {2 * x.numel() * 4 / 3.35e12 * 1e3:.4f} ms (one read and one write "
+          "of the grid at 3.35 TB/s)")
+    for kind in ("box", "star"):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=0), np.float32)
+        for bc in (None, "zero"):
+            print(f"8192^2 {kind.capitalize()}-2D1R f32, t=4, boundary {bc}: ms per call")
+
+            def four(bc=bc, w=w):
+                y = x
+                for _ in range(4):
+                    y = sd.stencil_direct_at(y, w, 1, geom1, bc)
+                return y
+            print(f"  kernel, plan entry, t=4 (fused_direct) "
+                  f"{ms(torch, lambda: sd.stencil_direct_at(x, w, 4, geom4, bc), 10):.4f}")
+            print(f"  kernel, plan entry, 4 x t=1 (direct)  {ms(torch, four, 5):.4f}")
+            if not full:
+                continue
+            for b in ("direct", "fused_direct", None, "fused_matmul", "fused_matmul_reuse"):
+                if b == "fused_matmul" and bc is not None:
+                    continue                # the composed kernel is periodic only
+                plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b, boundary=bc)
+                print(f"  plan {str(b or 'auto'):20s} {ms(torch, lambda: plan(x), 5):.4f}"
+                      + (f" ({plan.backend})" if b is None else ""))
+            print(f"  plain version              "
+                  f"{ms(torch, lambda: sd.stencil_direct_plain(x, w, 4, bc), 3):.4f}")
+            conv = (conv_yardstick(x, fuse_weights(w, 4), False) if bc is None else
+                    conv_yardstick(x, w, False, resolve_boundary(bc, 2), 4))
+            print(f"  F.conv2d                   {ms(torch, conv, 3):.4f}"
+                  + (" (composed, one step)" if bc is None else " (4 x (F.pad + F.conv2d))"))
+        for b in ("fused_direct_wholestrip", "legacy_direct"):
+            plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b)
+            print(f"  {kind} foil plan {b:26s} {ms(torch, lambda: plan(x), 5):.4f}")
+    del x
+    xb = torch.from_numpy(np.random.default_rng(0).normal(size=(16, 2048, 2048))
+                          .astype(np.float32)).cuda()
+    for kind, bc in (("box", None), ("star", "zero")):
+        w = np.asarray(make_weights(StencilSpec(kind, 2, 1), seed=0), np.float32)
+        plan = stencil_plan(w, (2048, 2048), torch.float32, 4, backend="fused_direct",
+                            boundary=bc, batch=16)
+        print(f"  16 x 2048^2 {kind} fused_direct {bc}: {ms(torch, lambda: plan(xb), 5):.4f}")
+
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -353,7 +353,7 @@ class SmemLayout:
     ``planes`` x ``rows`` x ``ld`` f32 elements per region buffer
     (``planes`` is 1 in 2D); ``kpad`` the banded contraction depth
     BAND_N + 2R rounded up to the MMA K step; ``chunks`` x ``a_rows`` x
-    ``kpad`` a chunked operand array (all three 0 for the tap-sum;
+    ``kpad`` a chunked operand array (all three 0 for the 3D tap-sum;
     :func:`banded3d_layout`, the 3D tile rule's reserve, holds one chunk
     of ``planes`` x ``a_rows`` x ``kpad``); ``smem_bytes`` the dynamic
     shared memory the launch asks for.  The 2D and 3D banded kernels
@@ -374,10 +374,38 @@ def mma_k_step(compute_bytes: int) -> int:
     return 8 if compute_bytes == 4 else 16
 
 
-def direct_layout(tm: int, tn: int, halo: int) -> SmemLayout:
-    """Tap-sum kernel: two f32 buffers holding the (TM+2h) x (TN+2h) region."""
-    rows, ld = tm + 2 * halo, tn + 2 * halo
-    return SmemLayout(rows, ld, 2 * rows * ld * 4)
+#: Floats the 2D tap-sum keeps before its first buffer, between its two
+#: and after the second: a patch reads up to 3 cells past a buffer's rows.
+#: Must match csrc/stencil_direct.cu.
+DIRECT_MARGIN = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectLayout:
+    """Shared-memory layout of the 2D tap-sum (``csrc/stencil_direct.cu``).
+
+    Two f32 buffers of ``rows`` x ``ld``; region cell (i, j) is buffer
+    cell (i, ``lead`` + j) of both, ``lead`` = (-h) mod 4 so that a row
+    starts at the 16-byte granule holding the region's first cell and the
+    tile's first column sits on a granule; ``ld`` is the region's
+    ``lead`` + TN + 2h cells rounded up to whole granules.  Each buffer
+    has ``DIRECT_MARGIN`` floats before it and the second one after it;
+    ``smem_bytes`` is the dynamic shared memory the launch asks for.
+    """
+
+    rows: int
+    ld: int
+    lead: int
+    smem_bytes: int
+
+
+def direct_layout(tm: int, tn: int, halo: int) -> DirectLayout:
+    """The 2D tap-sum's layout on a TM x TN tile at halo h."""
+    lead = -halo % 4
+    rows = tm + 2 * halo
+    ld = _round_up(lead + tn + 2 * halo, 4)
+    return DirectLayout(rows, ld, lead,
+                        (2 * rows * ld + 3 * DIRECT_MARGIN) * 4)
 
 
 #: Dense taps the 3D tap-sum keeps in shared memory: a (2*3+1)^3 box,

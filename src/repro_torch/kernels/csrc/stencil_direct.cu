@@ -6,32 +6,59 @@
 // together with the halo staging that repro/kernels/common.py::_launch
 // (kinds subblocked / flat) does for it on the TPU.
 //
-// What bounds it on an H100: bytes.  A step costs 2K flops per point
-// (K <= 49 taps) against 8 bytes moved for an f32 grid, far below the
-// 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of the CUDA cores until
-// t*K is large.  The design therefore reads each tile's
-// (TM+2h) x (TN+2h) region from global memory once (h = t*r,
-// modulo indices on both axes; Hopper blocks may read overlapping
-// regions, so there is no halo ring), runs all t steps out of two
-// ping-pong f32 buffers in shared memory, carrying the x-halo and
-// shrinking both axes by r per step, and writes the tile once, masked at
-// the ragged grid edge.  Between those, what costs is latency and
-// instruction issue: the region load keeps 32 loads in flight per thread,
-// and each thread computes V rows of one column from a (V+2r) x (2r+1)
-// register window, so an output costs (2r+1)(V+2r)/V shared-memory loads
-// instead of K.  The taps come in as a by-value argument in row-major
-// order with the zero taps left out, as the JAX kernel skips them at
-// trace time; the kernel is specialised on r <= 3.  Non-periodic axes
-// are rebuilt in the input buffer before every step by fill_boundary
-// (common.cuh), as the JAX kernel's apply_boundary_fills does per step;
-// the fill is compiled only into the FILL instantiation, which launches
-// with a non-periodic axis, so a periodic launch runs the periodic code.
+// What bounds it on an H100: bytes, then shared-memory bandwidth and issue.
+// A step costs 2K flops per point (K <= 49 taps) against 8 bytes moved for
+// an f32 grid, far below the 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of
+// the CUDA cores until t*K is large.  So each CTA reads its tile's
+// (TM+2h) x (TN+2h) region (h = t*r) from global memory once, runs all t
+// steps out of two f32 buffers in shared memory and writes the tile once,
+// masked at the ragged grid edge.  What the design does about the rest:
+//   * the staging (stage_region) copies the region in 16-byte granules
+//     with cp.async, 4 cells each, spread evenly over the CTA's threads.
+//     A buffer row starts at the granule that holds the region's first
+//     cell: `lead` = (-h) mod 4 cells come before it (the tile's columns
+//     are multiples of 16, so the lead is the same in every CTA), and the
+//     tile's first column sits on a granule.  A granule whose source is
+//     not on 16 bytes (rows of a grid whose width is not a multiple of 4,
+//     a misaligned base) or that wraps the grid's edge mid-granule is
+//     copied cell by cell, modulo (H, W).  bfloat16 grids load 8 bytes (4
+//     cells) a granule and widen to f32 at staging: the steps and the fill
+//     then read one layout whatever the grid's type.
+//   * the steps keep every cell in place: region cell (i, j) is buffer
+//     cell (i, lead + j) of both buffers, and a step's output at (i, j)
+//     goes to (i, j) of the other buffer, so every step's reads and
+//     stores stay on 16 bytes.  A thread computes a patch of V rows x 4
+//     columns, streaming the V + 2r input rows it needs one at a time
+//     (a 16-byte word and the r cells each side, direct_row) into V x 4
+//     f32 sums; a patch reads (V+2r)(4+2r) cells for 4V outputs.  The
+//     work map (g, b) of the patches is fixed per thread from the thread
+//     index once per CTA, the patches of every step on the first step's
+//     column groups; a group that holds no output of a later step is
+//     skipped.  Cells a patch computes outside the step's output window
+//     feed no output: rows past it are not stored, and columns past it
+//     are only ever read by cells outside the next window.
+//   * __launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS) bounds the
+//     registers so that that many CTAs share an SM (the main tile's two
+//     buffers take 41,520 bytes, so shared memory allows 5, and 5 run).
+// Every output starts at 0.f and takes fmaf in ascending (dy, dx) order
+// (dy rises with the streamed row), zero taps skipped, in f32, and rounds
+// to the grid's type once, on store: the JAX kernel's order
+// (stencil_direct.py:88-98), so the 2D kernel on the lifted (1, N) view
+// equals the folded 1D tap-sum bit for bit.  The taps come in as a
+// by-value argument, read by the FMAs from the parameter bank; the kernel
+// is specialised on r <= 3.  Non-periodic
+// axes are rebuilt in the input buffer before every step by
+// fill_boundary (common.cuh), on the step's input window, as the JAX
+// kernel's apply_boundary_fills does per step; the fill is compiled only
+// into the FILL instantiation, which launches with a non-periodic axis, so
+// a periodic launch runs the periodic code.
 //
 // The same source built with -DREPRO_FOIL is the library of the traffic
 // foils (K8 whole-strip, replacing repro/kernels/common.py::_launch kind
 // wholestrip via _assemble_foil; K9 the seed 9-tile kernel,
 // repro/kernels/legacy.py::stencil_direct_9pt): this kernel with the
-// STAGE_STRIP or STAGE_NINE staging of common.cuh, which reads 3 (TN+2h)/TN
+// STAGE_STRIP or STAGE_NINE staging of common.cuh (load_region, into the
+// same layout at the buffer's column `lead`), which reads 3 (TN+2h)/TN
 // or 9 times the grid where the region reads (1+2h/TM)(1+2h/TN), for the
 // same compute.  What bounds a foil is the bytes it requests; its point
 // is to measure what they cost.  The foils build into a library of their
@@ -40,32 +67,168 @@
 // A launch advances a batch of B grids, grid b on blockIdx.z (K11,
 // replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
 // grid_at / for_each_chunk); B = 1 is the unbatched call.
-#include "common.cuh"
+#include "line_stage.cuh"
 
 #define MAX_TAPS 49
-#define ROWS_PER_THREAD 8
+// V, the rows of a thread's patch, and the CTAs per SM __launch_bounds__
+// asks registers for: chosen by timing V in {4, 5, 6, 8} x N in {2..5} on
+// the H100 (8192^2, t = 4, fold_probe.py tapsum2d-times on copies of this
+// source).  V = 5 at N = 5 (48 registers) ran fused_direct in 0.338-0.346
+// ms, V = 5 at 4 in 0.360-0.369, V = 8 at 3 in 0.49-0.51.  At the main
+// tile (70 rows, 18 column groups at step 0) 5-row patches give 252 of
+// the 256 threads one patch a step.  The foil build keeps N = 4: its
+// window loads hold 32 values in flight a thread, which spill at 48
+// registers (the 9-tile foil 3.16 ms at N = 5 against 1.63 at 4).
+#define DIRECT_ROWS 5
+#ifndef REPRO_FOIL
+#define DIRECT_MIN_BLOCKS 5
+#else
+#define DIRECT_MIN_BLOCKS 4
+#endif
+// Floats before the first buffer, between the two and after the second:
+// a patch's reads run up to 3 cells past its buffer's rows.  Must match
+// repro_torch/kernels/common.py::DIRECT_MARGIN.
+#define DIRECT_MARGIN 4
 
+// The (2r+1)^2 taps, row-major, zero where skipped.
 struct Taps {
-    int n;
-    int dy[MAX_TAPS];
-    int dx[MAX_TAPS];
     float w[MAX_TAPS];
 };
 
-template <typename T, int R, bool FILL, int STAGE>
-__global__ void __launch_bounds__(CTA_THREADS)
-stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
-                      int TM, int TN, int t, int my, int mx, Taps taps, size_t grid_elems) {
-    constexpr int KW = 2 * R + 1;
-    constexpr int V = ROWS_PER_THREAD;
-    extern __shared__ float smem[];
-    __shared__ float wsh[KW * KW];  // dense taps; zero where skipped
+__device__ __forceinline__ bool on_bytes(const void* p, int n) {
+    return ((uintptr_t)p & (uintptr_t)(n - 1)) == 0;
+}
 
+// One granule: the 4 cells from src (on 4 * sizeof(T) bytes) to dst (on
+// 16 bytes) as f32.
+__device__ __forceinline__ void granule(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void granule(float* dst, const __nv_bfloat16* src) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+
+// The region staging: buffer cell (q, c) of buf (row stride ld, c < ld) is
+// global cell (r0 + q, c0 + c) taken modulo (H, W), as f32; granule k of
+// row q holds cells [4k, 4k + 4).  Leaves cp.async copies in flight.
+template <typename T>
+__device__ __forceinline__ void stage_region(float* buf, int ld, const T* __restrict__ x, int H,
+                                             int W, int r0, int c0, int rows) {
+    const int gpr = ld >> 2;
+    const int n = rows * gpr;
+    for (int f = threadIdx.x; f < n; f += CTA_THREADS) {
+        const int q = f / gpr;
+        const int k = f - q * gpr;
+        const T* row = x + (size_t)wrap(r0 + q, H) * W;
+        const int gc = wrap(c0 + 4 * k, W);
+        float* dst = buf + q * ld + 4 * k;
+        if (gc + 4 <= W && on_bytes(row + gc, 4 * sizeof(T))) {
+            granule(dst, row + gc);
+        } else {
+#pragma unroll 1
+            for (int u = 0; u < 4; ++u) dst[u] = to_f32(row[wrap(c0 + 4 * k + u, W)]);
+        }
+    }
+}
+
+// The 4 + 2R cells [c - R, c + 4 + R) of a buffer row, p at cell c (on
+// 16 bytes): a 16-byte word and the R cells each side, in words of 8
+// bytes where they are on 8.
+template <int R>
+__device__ __forceinline__ void direct_row(const float* p, float (&v)[4 + 2 * R]) {
+    const float4 m = *reinterpret_cast<const float4*>(p);
+    v[R] = m.x, v[R + 1] = m.y, v[R + 2] = m.z, v[R + 3] = m.w;
+    if constexpr (R == 1) {
+        v[0] = p[-1], v[5] = p[4];
+    } else {
+        const float2 l = *reinterpret_cast<const float2*>(p - 2);
+        const float2 r = *reinterpret_cast<const float2*>(p + 4);
+        v[R - 2] = l.x, v[R - 1] = l.y, v[R + 4] = r.x, v[R + 5] = r.y;
+        if constexpr (R == 3) v[0] = p[-3], v[9] = p[6];
+    }
+}
+
+// One patch of one step: outputs at rows [r0, r0 + V) (those below r_end
+// stored) and columns [c, c + 4) of `out`, from rows [r0 - R, r0 + V + R)
+// of `in` (clamped to its last row, r_last).
+template <int R, int V>
+__device__ __forceinline__ void direct_patch(const float* in, float* out, int ld, int r0, int c,
+                                             int r_last, int r_end, const Taps& taps) {
+    constexpr int KW = 2 * R + 1;
+    float acc[V][4];
+#pragma unroll
+    for (int o = 0; o < V; ++o)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[o][k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < V + 2 * R; ++q) {
+        float v[4 + 2 * R];
+        direct_row<R>(in + min(r0 - R + q, r_last) * ld + c, v);
+#pragma unroll
+        for (int dy = 0; dy < KW; ++dy) {
+            const int o = q - dy;  // the output row this input row is tap row dy of
+            if (o < 0 || o >= V) continue;
+#pragma unroll
+            for (int dx = 0; dx < KW; ++dx) {
+                const float wv = taps.w[dy * KW + dx];
+                if (wv != 0.f) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) acc[o][k] = fmaf(wv, v[k + dx], acc[o][k]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int o = 0; o < V; ++o)
+        if (r0 + o < r_end)
+            *reinterpret_cast<float4*>(out + (r0 + o) * ld + c) =
+                make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+}
+
+// Stores the TM x TN tile at src (row stride ld, on 16 bytes) to y at
+// (i0, j0), masked at the grid's ragged edge, 4 cells a store where the
+// destination is on 4 * sizeof(T) bytes.
+template <typename T>
+__device__ __forceinline__ void store_tile4(T* __restrict__ y, int H, int W, int i0, int j0,
+                                            int TM, int TN, const float* src, int ld) {
+    const int gpr = TN >> 2;
+    for (int f = threadIdx.x; f < TM * gpr; f += CTA_THREADS) {
+        const int i = f / gpr;
+        const int j = 4 * (f - i * gpr);
+        if (i0 + i >= H || j0 + j >= W) continue;
+        const float4 v = *reinterpret_cast<const float4*>(src + i * ld + j);
+        T* dst = y + (size_t)(i0 + i) * W + j0 + j;
+        if (j0 + j + 4 <= W && on_bytes(dst, 4 * sizeof(T))) {
+            if constexpr (sizeof(T) == 4) {
+                *reinterpret_cast<float4*>(dst) = v;
+            } else {
+                uint2 u;
+                *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v.x, v.y);
+                *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v.z, v.w);
+                *reinterpret_cast<uint2*>(dst) = u;
+            }
+        } else {
+            const float c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (j0 + j + u < W) dst[u] = from_f32<T>(c[u]);
+        }
+    }
+}
+
+template <typename T, int R, bool FILL, int STAGE>
+__global__ void __launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS)
+stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int TM, int TN,
+                      int t, int ld, int my, int mx, const __grid_constant__ Taps taps,
+                      size_t grid_elems) {
+    constexpr int V = DIRECT_ROWS;
+    extern __shared__ __align__(16) float smem[];
     const int halo = t * R;
-    const int rows0 = TM + 2 * halo;
-    const int ld = TN + 2 * halo;
-    float* const b0 = smem;
-    float* const b1 = smem + rows0 * ld;
+    const int rows0 = TM + 2 * halo, cols0 = TN + 2 * halo;
+    const int lead = (-halo) & 3;
+    float* const b0 = smem + DIRECT_MARGIN;
+    float* const b1 = b0 + rows0 * ld + DIRECT_MARGIN;
     const int i0 = blockIdx.y * TM;
     const int j0 = blockIdx.x * TN;
     if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
@@ -73,88 +236,98 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W,
         y = grid_at(y, blockIdx.z, grid_elems);
     }
 
-    if (threadIdx.x < KW * KW) wsh[threadIdx.x] = 0.f;
-    __syncthreads();
-    if (threadIdx.x < taps.n) wsh[taps.dy[threadIdx.x] * KW + taps.dx[threadIdx.x]] = taps.w[threadIdx.x];
-    load_region<STAGE>(b0, ld, sink_slot<STAGE>(b1, rows0 * ld), x, H, W, i0 - halo, j0 - halo,
-                       rows0, ld, TM, TN);
+    if constexpr (STAGE == STAGE_REGION) {
+        stage_region(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0);
+        cp_async_commit();
+        cp_async_wait<0>();
+    } else {
+        load_region<STAGE>(b0 + lead, ld, sink_slot<STAGE>(b1, rows0 * ld), x, H, W, i0 - halo,
+                           j0 - halo, rows0, cols0, TM, TN);
+    }
     __syncthreads();
     const bool fill = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
-                               leaves_domain(mx, j0 - halo, ld, W));
+                               leaves_domain(mx, j0 - halo, cols0, W));
 
-    int hin = rows0, win = ld;
+    // The work map: this thread's first patch (g, b) -- column group g_lo +
+    // g, row block b -- and the step to its next, on the first step's
+    // groups.
+    const int g_lo = (lead + R) >> 2;
+    const int G = ((lead + cols0 - R + 3) >> 2) - g_lo;
+    const int g_first = threadIdx.x % G, b_first = threadIdx.x / G;
+    const int g_step = CTA_THREADS % G, b_step = CTA_THREADS / G;
     for (int s = 0; s < t; ++s) {
         float* in = (s & 1) ? b1 : b0;
         float* out = (s & 1) ? b0 : b1;
         if (fill) {
             const int depth = (t - s) * R;
-            fill_boundary(in, 0, ld, 1, hin, win, 0, i0 - depth, j0 - depth, 1, H, W, depth,
+            fill_boundary(in + s * R * ld + lead + s * R, 0, ld, 1, rows0 - 2 * s * R,
+                          cols0 - 2 * s * R, 0, i0 - depth, j0 - depth, 1, H, W, depth,
                           MODE_PERIODIC, my, mx);
         }
-        const int ho = hin - 2 * R, wo = win - 2 * R;
-        const int strips = ((ho + V - 1) / V) * wo;
-        for (int sid = threadIdx.x; sid < strips; sid += blockDim.x) {
-            const int rb = sid / wo;
-            const int j = sid - rb * wo;
-            const int r0 = rb * V;
-            float win_[V + 2 * R][KW];
-#pragma unroll
-            for (int q = 0; q < V + 2 * R; ++q)
-#pragma unroll
-                for (int dx = 0; dx < KW; ++dx)
-                    win_[q][dx] = (r0 + q < hin) ? in[(r0 + q) * ld + j + dx] : 0.f;
-            float acc[V];
-#pragma unroll
-            for (int v = 0; v < V; ++v) acc[v] = 0.f;
-            // Row-major tap order per output; zero taps are skipped.
-#pragma unroll
-            for (int dy = 0; dy < KW; ++dy)
-#pragma unroll
-                for (int dx = 0; dx < KW; ++dx) {
-                    const float wv = wsh[dy * KW + dx];
-                    if (wv != 0.f) {
-#pragma unroll
-                        for (int v = 0; v < V; ++v) acc[v] = fmaf(wv, win_[v + dy][dx], acc[v]);
-                    }
-                }
-#pragma unroll
-            for (int v = 0; v < V; ++v)
-                if (r0 + v < ho) out[(r0 + v) * ld + j] = acc[v];
+        const int r_lo = (s + 1) * R, r_end = rows0 - (s + 1) * R;
+        const int c_lo = lead + r_lo, c_end = lead + cols0 - (s + 1) * R;
+        const int nb = (r_end - r_lo + V - 1) / V;
+        for (int g = g_first, b = b_first; b < nb;) {
+            const int c = (g_lo + g) * 4;
+            if (c + 4 > c_lo && c < c_end)
+                direct_patch<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
+            g += g_step;
+            b += b_step;
+            if (g >= G) g -= G, ++b;
         }
         __syncthreads();
-        hin = ho;
-        win = wo;
     }
-    store_tile(y, H, W, i0, j0, TM, TN, (t & 1) ? b1 : b0, ld);
+    store_tile4(y, H, W, i0, j0, TM, TN, ((t & 1) ? b1 : b0) + halo * ld + lead + halo, ld);
 }
 
+// The instantiation a launch in this type, radius, fill and staging takes,
+// its launch attributes set on the current device (err: the outcome).  The
+// 9-tile foil stages periodic grids only, so it has no FILL instantiation.
 template <typename T, int R, int STAGE>
-static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int my,
-                  int mx, const Taps* taps, int B, long long grid_elems, int smem_bytes,
-                  cudaStream_t stream) {
-    const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
-    if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
+static auto direct_kernel(bool fill, cudaError_t& err) {
     constexpr bool kFill = STAGE != STAGE_NINE;
     auto* kernel = fill ? stencil_direct_kernel<T, R, kFill, STAGE>
                         : stencil_direct_kernel<T, R, false, STAGE>;
     static std::atomic<bool> attributes_set[2][MAX_DEVICES];
-    cudaError_t err = prepare_launch(kernel, attributes_set[fill]);
+    err = prepare_launch(kernel, attributes_set[fill]);
+    return kernel;
+}
+
+// The dynamic shared memory of the layout: the two buffers of rows x ld
+// floats and the three margins (repro_torch/kernels/common.py::
+// direct_layout).
+static inline long long direct_smem_bytes(int rows, int ld) {
+    return (2LL * rows * ld + 3 * DIRECT_MARGIN) * (long long)sizeof(float);
+}
+
+template <typename T, int R, int STAGE>
+static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int ld, int my,
+                  int mx, const Taps* taps, int B, long long grid_elems, int smem_bytes,
+                  cudaStream_t stream) {
+    const bool fill = my != MODE_PERIODIC || mx != MODE_PERIODIC;
+    if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
+    const int halo = t * R, lead = (-halo) & 3;
+    if (TM < 1 || TN < 4 || TN % 4 != 0 || t < 1 || ld % 4 != 0 ||
+        ld < lead + TN + 2 * halo || smem_bytes < direct_smem_bytes(TM + 2 * halo, ld))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    auto* kernel = direct_kernel<T, R, STAGE>(fill, err);
     if (err != cudaSuccess) return (int)err;
     return for_each_chunk(B, [&](int b0, int nb) {
         dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
         kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
             grid_at(static_cast<const T*>(x), b0, grid_elems),
-            grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, my, mx, *taps,
+            grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, ld, my, mx, *taps,
             (size_t)grid_elems);
         return (int)cudaGetLastError();
     });
 }
 
 template <typename T, int STAGE>
-static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r,
+static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t, int r, int ld,
                     int my, int mx, const Taps* taps, int B, long long grid_elems,
                     int smem_bytes, cudaStream_t s) {
-#define ARGS x, y, H, W, TM, TN, t, my, mx, taps, B, grid_elems, smem_bytes, s
+#define ARGS x, y, H, W, TM, TN, t, ld, my, mx, taps, B, grid_elems, smem_bytes, s
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
@@ -162,32 +335,52 @@ static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t,
     return (int)cudaErrorInvalidValue;
 }
 
-#define ARGS x, y, H, W, TM, TN, t, r, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
+#define ARGS x, y, H, W, TM, TN, t, r, ld, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
 #ifndef REPRO_FOIL
-// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; mode_y,
-// mode_x: the rows' and the columns' boundary codes (MODE_*); x and y
-// hold B grids of grid_elems = H * W cells each (the batch, K11).
+// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; ld and
+// smem_bytes: the layout of repro_torch/kernels/common.py::direct_layout;
+// mode_y, mode_x: the rows' and the columns' boundary codes (MODE_*); x
+// and y hold B grids of grid_elems = H * W cells each (the batch, K11).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int stencil_direct_launch(const void* x, void* y, int H, int W, int TM, int TN,
-                                     int t, int r, int dtype, int mode_y, int mode_x,
+                                     int t, int r, int ld, int dtype, int mode_y, int mode_x,
                                      const Taps* taps, int B, long long grid_elems,
                                      int smem_bytes, void* stream) {
-    if (taps->n < 1 || taps->n > MAX_TAPS || grid_elems != (long long)H * W)
-        return (int)cudaErrorInvalidValue;
+    if (grid_elems != (long long)H * W) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return launch_r<float, STAGE_REGION>(ARGS);
     if (dtype == 1) return launch_r<__nv_bfloat16, STAGE_REGION>(ARGS);
     return (int)cudaErrorInvalidValue;
 }
+
+// CTAs of the radius-1 instantiation a launch of this dtype and fill takes
+// that fit on one SM at once with smem_bytes of dynamic shared memory, as
+// the runtime counts them (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the cudaError_t of a failed query.
+extern "C" int stencil_direct_ctas_per_sm(int dtype, int fill, int smem_bytes) {
+    cudaError_t err = cudaErrorInvalidValue;
+    int n = 0;
+    if (dtype == 0) {
+        auto* kernel = direct_kernel<float, 1, STAGE_REGION>(fill != 0, err);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, CTA_THREADS,
+                                                                smem_bytes);
+    } else if (dtype == 1) {
+        auto* kernel = direct_kernel<__nv_bfloat16, 1, STAGE_REGION>(fill != 0, err);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, CTA_THREADS,
+                                                                smem_bytes);
+    }
+    return err == cudaSuccess ? n : -(int)err;
+}
 #else
 // The foils: stencil_direct_launch's arguments and the staging, stage =
 // STAGE_STRIP (any boundary) or STAGE_NINE (periodic only).
 extern "C" int stencil_direct_foil_launch(const void* x, void* y, int H, int W, int TM, int TN,
-                                          int t, int r, int dtype, int stage, int mode_y,
+                                          int t, int r, int ld, int dtype, int stage, int mode_y,
                                           int mode_x, const Taps* taps, int B,
                                           long long grid_elems, int smem_bytes, void* stream) {
-    if (taps->n < 1 || taps->n > MAX_TAPS || grid_elems != (long long)H * W)
-        return (int)cudaErrorInvalidValue;
+    if (grid_elems != (long long)H * W) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (stage == STAGE_STRIP && dtype == 0) return launch_r<float, STAGE_STRIP>(ARGS);
     if (stage == STAGE_STRIP && dtype == 1) return launch_r<__nv_bfloat16, STAGE_STRIP>(ARGS);

@@ -34,7 +34,7 @@ from . import legacy as _legacy
 from . import ref as _ref
 from .common import (SubstrateGeom, check_grid, check_staging, launch_geom,
                      plain_loop, staging_clause)
-from .stencil_direct import stencil_direct_at
+from .stencil_direct import direct2d_layout, stencil_direct_at
 from .stencil_matmul import stencil_matmul_at
 from .stencil_sparse import sparse_tile_layout, stencil_sparse_matmul_at
 
@@ -197,11 +197,20 @@ def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
     return run
 
 
+def _direct_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
+    """:meth:`PlanContext.launch_geom` of the tap-sum, with the 2D
+    kernel's shared memory on that tile checked."""
+    geom = ctx.launch_geom(ctx.weights, t_inner)
+    if len(ctx.grid_shape) == 2:
+        direct2d_layout(geom, geom.h_block)
+    return geom
+
+
 def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = ctx.launch_geom(w, 1)
+    geom = _direct_geom(ctx, 1)
 
     def run(x, batched=False):
         for _ in range(t):
@@ -213,7 +222,7 @@ def _build_direct(ctx: PlanContext) -> Callable:
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = ctx.launch_geom(w, t)
+    geom = _direct_geom(ctx, t)
 
     def run(x, batched=False):
         return stencil_direct_at(x, w, t, geom, b, st, batched)

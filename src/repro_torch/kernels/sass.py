@@ -1,7 +1,7 @@
 """The SASS of the port's CUDA libraries, read with ``cuobjdump``.
 
 :func:`functions` gives each kernel instantiation's instructions,
-:func:`registers` its register count.  Run as a script, the module
+:func:`registers` its register count, :func:`stack_bytes` its stack frame.  Run as a script, the module
 compares the main kernels of this checkout with those of another
 checkout of the repository, both built here with this checkout's
 ``nvcc`` flags, instantiation by instantiation::
@@ -61,19 +61,31 @@ def functions(lib: os.PathLike) -> Dict[str, List[str]]:
     return fns
 
 
-def registers(lib: os.PathLike) -> Dict[str, int]:
-    """Mangled name -> registers per thread of every kernel in ``lib``."""
+def _usage(lib: os.PathLike, key: str) -> Dict[str, int]:
+    """Mangled name -> the resource ``key`` of ``cuobjdump -res-usage``
+    ("REG", "STACK", ...) of every kernel in ``lib``."""
     out = subprocess.run([cuobjdump(), "-res-usage", str(lib)],
                          capture_output=True, text=True, check=True).stdout
-    regs, fn = {}, None
+    vals, fn = {}, None
     for line in out.splitlines():
         if "Function " in line:
             fn = line.split("Function ")[1].strip().rstrip(":")
-        m = re.search(r"REG:(\d+)", line)
+        m = re.search(rf"\b{key}:(\d+)", line)
         if fn is not None and m:
-            regs[fn] = int(m.group(1))
+            vals[fn] = int(m.group(1))
             fn = None
-    return regs
+    return vals
+
+
+def registers(lib: os.PathLike) -> Dict[str, int]:
+    """Mangled name -> registers per thread of every kernel in ``lib``."""
+    return _usage(lib, "REG")
+
+
+def stack_bytes(lib: os.PathLike) -> Dict[str, int]:
+    """Mangled name -> bytes of stack frame per thread of every kernel in
+    ``lib``: the spills, for kernels with no local arrays."""
+    return _usage(lib, "STACK")
 
 
 def _build_lib(src: pathlib.Path, out: pathlib.Path) -> pathlib.Path:

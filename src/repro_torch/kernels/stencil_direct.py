@@ -67,14 +67,15 @@ _BATCH_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 class _Taps(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("dy", ctypes.c_int * MAX_TAPS),
-                ("dx", ctypes.c_int * MAX_TAPS),
-                ("w", ctypes.c_float * MAX_TAPS)]
+    """``csrc/stencil_direct.cu::Taps``: the (2r+1)^2 taps, row-major,
+    zero where skipped."""
+    _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
 
 
 def nonzero_taps(weights: np.ndarray):
     """``(*offset, w)`` of every nonzero tap in row-major order, ``w`` as
-    float32 -- the kernels' tap order (2D: ``(dy, dx, w)``)."""
+    float32 -- the order in which the kernels and the plain version sum
+    (2D: ``(dy, dx, w)``)."""
     w = np.asarray(weights, dtype=np.float32)
     return [idx + (float(w[idx]),) for idx in np.ndindex(*w.shape)
             if w[idx] != 0.0]
@@ -103,16 +104,13 @@ def stencil_direct_plain(x: torch.Tensor, weights, t: int = 1,
 
 
 @functools.lru_cache(maxsize=32)
-def _tap_arg(w_bytes: bytes, shape: tuple) -> _Taps:
-    """The kernel's by-value tap list of one float32 weight array, built
-    once per weights (plans call the wrapper every step; building it took
-    most of the wrapper's host time).  The launch copies it, so callers
-    share it read-only."""
-    taps = nonzero_taps(np.frombuffer(w_bytes, dtype=np.float32).reshape(shape))
-    arg = _Taps(len(taps))
-    for k, (dy, dx, wv) in enumerate(taps):
-        arg.dy[k], arg.dx[k], arg.w[k] = dy, dx, wv
-    return arg
+def _tap_arg(w_bytes: bytes) -> _Taps:
+    """The kernel's by-value taps of one float32 weight array's bytes,
+    built once per weights (plans call the wrapper every step; building
+    them took most of the wrapper's host time).  The launch copies them,
+    so callers share them read-only."""
+    w = np.frombuffer(w_bytes, dtype=np.float32)
+    return _Taps((ctypes.c_float * MAX_TAPS)(*w.tolist()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,7 +119,7 @@ def _launcher():
     signature set once."""
     fn = _build.library("stencil_direct").stencil_direct_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
         ctypes.POINTER(_Taps)] + _BATCH_ARGS
     return fn
 
@@ -160,7 +158,7 @@ def _foil_launcher():
     staging code after the dtype), built on first use."""
     fn = _build.library("stencil_direct_foil").stencil_direct_foil_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11 + [
         ctypes.POINTER(_Taps)] + _BATCH_ARGS
     return fn
 
@@ -300,21 +298,30 @@ def _launch1d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     return y
 
 
-def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
-    arg = _tap_arg(w32.tobytes(), w32.shape)
-    layout = direct_layout(geom.strip_m, geom.w_tile, t * r)
+def direct2d_layout(geom: SubstrateGeom, halo: int):
+    """The 2D tap-sum's shared-memory layout on ``geom`` at ``halo``
+    (``common.direct_layout``), or raise past the 227 KB budget; plans
+    check it when they are built."""
+    layout = direct_layout(geom.strip_m, geom.w_tile, halo)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"tap-sum tile needs {layout.smem_bytes} bytes of "
                          "shared memory, over the 227 KB budget")
+    return layout
+
+
+def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
+              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
+    arg = _tap_arg(w32.tobytes())
+    layout = direct2d_layout(geom, t * r)
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
-                 geom.w_tile, t, r, _DTYPE_CODES[x.dtype], *stage, *codes,
-                 ctypes.byref(arg), b, h * wd, layout.smem_bytes, stream)
+                 geom.w_tile, t, r, layout.ld, _DTYPE_CODES[x.dtype], *stage,
+                 *codes, ctypes.byref(arg), b, h * wd, layout.smem_bytes,
+                 stream)
     _build.check(err, lib)
     _build.count_launch(counter, len(batch_chunks(b)))
     return y

@@ -69,11 +69,11 @@ def test_nonzero_taps_row_major_and_skip_zeros():
 @pytest.mark.parametrize("kind,r", [("star", 1), ("box", 3)])
 def test_tap_arg_holds_the_tap_list_once_per_weights(kind, r):
     w = make_weights(StencilSpec(kind, 2, r), seed=0).astype(np.float32)
-    arg = t_direct._tap_arg(w.tobytes(), w.shape)
-    taps = t_direct.nonzero_taps(w)
-    assert arg.n == len(taps)
-    assert [(arg.dy[k], arg.dx[k], arg.w[k]) for k in range(arg.n)] == taps
-    assert t_direct._tap_arg(w.copy().tobytes(), w.shape) is arg
+    arg = t_direct._tap_arg(w.tobytes())
+    # the (2r+1)^2 taps row-major, zero where skipped, then zero slots
+    assert list(arg.w)[:w.size] == w.ravel().tolist()
+    assert list(arg.w)[w.size:] == [0.0] * (t_direct.MAX_TAPS - w.size)
+    assert t_direct._tap_arg(w.copy().tobytes()) is arg
 
 
 # ---------------------------------------------------------------------------
