@@ -17,7 +17,9 @@ Phases, any failure exits non-zero:
      every chunk in passes held in registers, and the 2D tap-sum
      stencil_direct, which stages its region in 16-byte granules and
      keeps every cell in place across its steps, each thread a patch of
-     rows x 4 columns -- and the traffic foils'
+     rows x 4 columns, and the 3D tap-sum stencil_direct3d, which streams
+     its region plane by plane through a ring of planes per fused step in
+     the same cell coordinates -- and the traffic foils'
      second build of four of them; one nvcc per
      library, started together), each one's build time, and the
      global load instructions of every foil instantiation in its SASS
@@ -127,8 +129,9 @@ and "stencil_sparse1d", and their boundary and batched forms, with the
 lifted 2D kernel's time on the same call as "lift_ms" and their registers
 as "registers"; the 2D and 3D banded kernels, "stencil_banded",
 "stencil_sparse", "stencil_banded3d" and "stencil_sparse3d" and their
-boundary and batched forms, and the 2D tap-sum, "stencil_direct" and its
-boundary and batched forms, with the registers and the CTAs per SM of the
+boundary and batched forms, and the 2D and 3D tap-sums, "stencil_direct"
+and "stencil_direct3d" and their boundary and batched forms, with the
+registers and the CTAs per SM of the
 instantiation the call launches as "registers" and "ctas_per_sm"; every
 main, boundary and sparse entry with the same call's time through the
 public wrapper as "wrapper_ms"; the boundary
@@ -1038,8 +1041,8 @@ def kernel_report(mods, x, w, counts, reps_slow, boundary=None, sparse=False):
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
         if kname in SLAB_KERNELS + TILE_KERNELS:
             report[-1].update(fold_resources(kname, x, w, boundary is not None))
-        elif kname == "stencil_direct":
-            report[-1].update(direct_resources(x, w, boundary is not None))
+        elif kname in ("stencil_direct", "stencil_direct3d"):
+            report[-1].update(direct_resources(kname, x, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms "
               f"by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
@@ -1091,26 +1094,33 @@ def fold_resources(kname: str, x: torch.Tensor, w: np.ndarray, fill: bool) -> di
     return {"registers": regs[0], "ctas_per_sm": ctas}
 
 
-def direct_resources(x: torch.Tensor, w: np.ndarray, fill: bool) -> dict:
-    """Registers per thread (cuobjdump) and CTAs per SM of the 2D tap-sum
-    instantiation a float32 call of ``w`` (radius 1, t=MAIN_T) on the
-    grid(s) ``x`` launches (``csrc/stencil_direct.cu::stencil_direct_kernel
-    <float, 1, FILL, STAGE_REGION>``): the CTAs as the runtime counts them
-    at that call's shared memory (the library's
-    ``stencil_direct_ctas_per_sm``)."""
+def direct_resources(kname: str, x: torch.Tensor, w: np.ndarray, fill: bool) -> dict:
+    """Registers per thread (cuobjdump) and CTAs per SM of the 2D or 3D
+    tap-sum instantiation a float32 call of ``w`` (radius 1, t=MAIN_T) on
+    the grid(s) ``x`` launches (``csrc/stencil_direct.cu::
+    stencil_direct_kernel`` / ``csrc/stencil_direct3d.cu::
+    stencil_direct3d_kernel``, each ``<float, 1, FILL, STAGE_REGION>``):
+    the CTAs as the runtime counts them at that call's shared memory (the
+    library's ``<kernel>_ctas_per_sm``; the 3D one takes the radius too)."""
     import ctypes
     from repro_torch.kernels import _build, common, sass
-    geom = common.launch_geom(tuple(x.shape[-2:]), MAIN_T * ((w.shape[0] - 1) // 2))
-    smem = common.direct_layout(geom.strip_m, geom.w_tile, geom.h_block).smem_bytes
-    tag = f"stencil_direct_kernelIfLi1ELb{int(fill)}ELi0EE"
-    regs = [n for f, n in sass.registers(_build._target("stencil_direct")).items()
-            if tag in f]
-    check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in stencil_direct")
-    fn = _build.library("stencil_direct").stencil_direct_ctas_per_sm
+    dim = 3 if kname == "stencil_direct3d" else 2
+    r = (w.shape[0] - 1) // 2
+    geom = common.launch_geom(tuple(x.shape[-dim:]), MAIN_T * r)
+    fn = getattr(_build.library(kname), f"{kname}_ctas_per_sm")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3
-    ctas = fn(0, int(fill), smem)
-    check(ctas >= 1, f"stencil_direct: {ctas} CTAs per SM at {smem} bytes")
+    if dim == 3:
+        smem = common.direct3d_layout(geom.strip_m, geom.w_tile, r, MAIN_T).smem_bytes
+        fn.argtypes = [ctypes.c_int] * 4
+        ctas = fn(0, r, int(fill), smem)
+    else:
+        smem = common.direct_layout(geom.strip_m, geom.w_tile, geom.h_block).smem_bytes
+        fn.argtypes = [ctypes.c_int] * 3
+        ctas = fn(0, int(fill), smem)
+    tag = f"{kname}_kernelIfLi1ELb{int(fill)}ELi0EE"
+    regs = [n for f, n in sass.registers(_build._target(kname)).items() if tag in f]
+    check(len(regs) == 1, f"registers: {len(regs)} instantiations {tag} in {kname}")
+    check(ctas >= 1, f"{kname}: {ctas} CTAs per SM at {smem} bytes")
     return {"registers": regs[0], "ctas_per_sm": ctas}
 
 
@@ -1640,8 +1650,8 @@ def batch_report(mods, xb, w, counts, reps_slow, boundary=None, sparse=False):
             report[-1]["registers"] = fold_registers(kname, boundary is not None)
         if kname in SLAB_KERNELS + TILE_KERNELS:
             report[-1].update(fold_resources(kname, xb, w, boundary is not None))
-        elif kname == "stencil_direct":
-            report[-1].update(direct_resources(xb, w, boundary is not None))
+        elif kname in ("stencil_direct", "stencil_direct3d"):
+            report[-1].update(direct_resources(kname, xb, w, boundary is not None))
     for k in report:
         print(f"  kernel {k['name']}: {k['ms']:.4f} ms for {b} x {shape} (bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), the plain loop "

@@ -9,6 +9,10 @@ arithmetic is the same, then time them.
     python src/repro_torch/benchmarks/fold_probe.py tapsum2d [--src CHECKOUT/src]
         [--save HASHES.json | --against HASHES.json]
     python src/repro_torch/benchmarks/fold_probe.py tapsum2d-times [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum3d [--src CHECKOUT/src]
+        [--save HASHES.json | --against HASHES.json]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum3d-times|tapsum3d-quick [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum3d-sweep
 
 ``banded`` (or no argument) builds the two folded banded kernels and the
 two lifted ones they are compared with, runs 320 calls (2^20 + 3, 2^20,
@@ -80,9 +84,31 @@ then the times at 8192^2 Box- and Star-2D1R, f32, t=4, periodic and
 four at t=1), the plans of the regimes it is weighed against, the plain
 version, F.conv2d, the K8 and K9 foil plans and 16 x 2048^2 batches.
 ``tapsum2d-times`` prints the resources and times alone (for variants of
-the kernel source in another checkout). Exits 1 if a call differs.
-``chip_smoke.py`` runs the same checks among all others; this is the
-quick one for a kernel change.
+the kernel source in another checkout).
+
+``tapsum3d`` does the same for the 3D tap-sum (``stencil_direct3d`` and
+its foil build ``stencil_direct3d_foil``): their ptxas lines, registers
+and stack frames, the CTAs per SM of the radius-1 instantiations at the
+main tile (16 x 16 x 32, h = 4; ``stencil_direct3d_ctas_per_sm``), then
+chip_smoke.py's phase-2 3D tap-sum calls (the grids, cases and boundaries
+of ``slab``, float32 and bfloat16 grids, each held to the plain version
+with chip_smoke.py's limit), three grids with an axis shallower than the
+halo, pinned tile depths (z_slab 4 and 8), the whole-slab foil (K8, held
+to the default kernel of the same call and tile) and batches of 3 grids
+(held to the unbatched calls), hashed for ``--save`` / ``--against``;
+then the times at 512^3 Box- and Star-3D1R, f32, t=4, periodic and
+(replicate, reflect, periodic): the kernel through the plan entry (one
+launch at t=4, and the ``direct`` regime's four at t=1), the plans of the
+regimes it is weighed against, the K8 foil plan, the plain version,
+F.conv3d and 8 x 256^3 batches.  ``tapsum3d-times`` prints the resources
+and these times alone (for parent, change, change, parent on one card),
+``tapsum3d-quick`` the resources and the plan entry's times of Box-3D1R,
+periodic, and ``tapsum3d-sweep`` runs that on copies of the package whose
+3D tap-sum has
+each patch height V in {2, 4, 5, 8} and CTA minimum N in {2, 3, 4},
+and planes staged ahead A in {2, 3, 4, 6} (TAPSUM3D_SWEEP).  Exits 1 if a call differs.  ``chip_smoke.py`` runs
+the same checks among all others; this is the quick one for a kernel
+change.
 """
 from __future__ import annotations
 
@@ -120,9 +146,10 @@ def main(argv) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     optioned = argv[:1] in (["slab"], ["tile"], ["tile-times"], ["tapsum2d"],
-                            ["tapsum2d-times"])
+                            ["tapsum2d-times"], ["tapsum3d"], ["tapsum3d-times"],
+                            ["tapsum3d-quick"])
     opts = dict(zip(argv[1::2], argv[2::2])) if optioned else {}
-    if (argv not in ([], ["banded"], ["tapsum"]) and not optioned
+    if (argv not in ([], ["banded"], ["tapsum"], ["tapsum3d-sweep"]) and not optioned
             or len(argv) % 2 == 0 and optioned
             or not set(opts) <= {"--src", "--save", "--against"}):
         print(__doc__, file=sys.stderr)
@@ -145,6 +172,12 @@ def main(argv) -> int:
     if argv[:1] in (["tapsum2d"], ["tapsum2d-times"]):
         return 1 if probe_tapsum2d(torch, os.path.dirname(root), opts,
                                    calls=argv[:1] == ["tapsum2d"]) else 0
+    if argv[:1] in (["tapsum3d"], ["tapsum3d-times"], ["tapsum3d-quick"]):
+        return 1 if probe_tapsum3d(torch, os.path.dirname(root), opts,
+                                   calls=argv[:1] == ["tapsum3d"],
+                                   full=argv[:1] != ["tapsum3d-quick"]) else 0
+    if argv == ["tapsum3d-sweep"]:
+        return 1 if tapsum3d_sweep(root) else 0
     bad = 0
     if argv != ["tapsum"]:
         bad += probe_banded(torch)
@@ -862,6 +895,252 @@ def tapsum2d_times(torch, sd, common, make_weights, StencilSpec, full=True):
                             boundary=bc, batch=16)
         print(f"  16 x 2048^2 {kind} fused_direct {bc}: {ms(torch, lambda: plan(xb), 5):.4f}")
 
+
+#: The 3D tap-sum probe's grids with an axis shallower than the halo
+#: (which the port runs and JAX refuses), with the boundaries each runs.
+TAPSUM3D_SHALLOW = (((3, 40, 50), (None, "zero")),
+                    ((30, 5, 50), (None, ("periodic", "replicate", "zero"))),
+                    ((30, 40, 6), (None, ("zero", "periodic", "periodic"))))
+#: The sweep's points: patch height V (DIRECT3D_ROWS), CTAs per SM N at
+#: radius 1 (DIRECT3D_MIN_BLOCKS) and planes staged ahead A
+#: (DIRECT3D_AHEAD): V x N at A = 4, then A at V = 4, N = 3.
+TAPSUM3D_SWEEP = tuple((v, n, 4) for v in (2, 4, 5, 8) for n in (2, 3, 4)) + \
+    tuple((4, 3, a) for a in (2, 3, 6))
+
+
+def tapsum3d_ctas(common, lib) -> None:
+    """CTAs per SM of the 3D tap-sum's radius-1 instantiations at the main
+    tile (16 x 16 x 32, h = 4; the library's ``stencil_direct3d_ctas_per_sm``
+    at the rings' shared memory), where the library has that entry."""
+    import ctypes
+    fn = getattr(lib, "stencil_direct3d_ctas_per_sm", None)
+    if fn is None or not hasattr(common, "Direct3dLayout"):
+        print("  stencil_direct3d: no stencil_direct3d_ctas_per_sm in this checkout")
+        return
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+    smem = common.direct3d_layout(16, 32, 1, 4).smem_bytes
+    for dtype, label in ((0, "f32"), (1, "bf16")):
+        print(f"  stencil_direct3d r=1 {label} at 16x16x32, h=4, {smem} bytes: CTAs per "
+              f"SM {fn(dtype, 1, 0, smem)}, {fn(dtype, 1, 1, smem)} with the fill")
+
+
+def probe_tapsum3d(torch, repo: str, opts, calls: bool = True, full: bool = True) -> int:
+    """The 3D tap-sum: its registers and CTAs per SM; with ``calls``, every
+    call against the plain version's limit, the whole-slab foil against
+    the default kernel and the batches against the unbatched calls,
+    optionally hashed against another checkout's outputs; then its 512^3
+    times (``full``: every row of tapsum3d_times).  Returns the calls that
+    differ."""
+    import numpy as np
+    sys.path.insert(1, repo)
+    from chip_smoke import kernel_limit, plain_chain
+    from repro_torch.kernels import _build, common
+    from repro_torch.stencil import StencilSpec, make_weights
+    sd = importlib.import_module("repro_torch.kernels.stencil_direct")
+    names = ("stencil_direct3d",) + (("stencil_direct3d_foil",) if calls else ())
+    t0 = time.perf_counter()
+    _build.build_all(names)
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    print_resources(names)
+    tapsum3d_ctas(common, _build.library("stencil_direct3d"))
+    if not calls:
+        tapsum3d_times(torch, sd, common, make_weights, StencilSpec, full=full)
+        return 0
+
+    def grid(shape, dt, seed=2):
+        return torch.from_numpy(np.random.default_rng(seed).normal(
+            size=shape).astype(np.float32)).cuda().to(dt)
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    hashes, bad = {}, 0
+
+    def held(key, y, x, w, t, bc):
+        """Hashes ``y`` and holds it to the plain version with chip_smoke.py's
+        tap-sum limit (1e-5 max|x| for a float32 grid); returns whether it
+        is outside."""
+        hashes[key] = digest(torch, y)
+        maxima, _ = plain_chain(lambda v: sd.stencil_direct_plain(v, w, 1, bc), x, t)
+        tol = (kernel_limit("bf16", float(np.abs(w).sum()), int(np.count_nonzero(w)),
+                            maxima, True) if x.dtype == torch.bfloat16 else 1e-5 * maxima[0])
+        err = diff(y, sd.stencil_direct_plain(x, w, t, bc))
+        if not err <= tol:
+            print(f"{key}: max|err| vs plain {err:.3e} > limit {tol:.3e}")
+        return not err <= tol
+
+    dtypes = (torch.float32, torch.bfloat16)
+    runs = [(shape, c, bc) for shape in SLAB_GRIDS for c in SLAB_CASES
+            for bc in SLAB_BOUNDARIES] + \
+        [(shape, ("box", r, t), bc) for shape, bcs in TAPSUM3D_SHALLOW
+         for r, t in ((1, 4), (2, 4)) for bc in bcs]
+    for shape, (kind, r, t), bc in runs:
+        w = np.asarray(make_weights(StencilSpec(kind, 3, r), seed=1), np.float32)
+        for dt in dtypes:
+            x = grid(shape, dt)
+            key = f"{shape} {kind} r={r} t={t} {bc} {str(dt)[6:]}"
+            bad += held(key, sd.stencil_direct(x, w, t, boundary=bc), x, w, t, bc)
+    for z_slab in (4, 8):                   # pinned tile depths, held to the rule's tile
+        for kind, r, t, bc in (("box", 1, 4, None), ("star", 2, 2, "reflect"),
+                               ("box", 1, 4, ("replicate", "reflect", "periodic"))):
+            w = np.asarray(make_weights(StencilSpec(kind, 3, r), seed=1), np.float32)
+            shape = (60, 70, 130)
+            geom = common.launch_geom(shape, t * r, None, None, z_slab)
+            for dt in dtypes:
+                x = grid(shape, dt)
+                key = f"{shape} {kind} r={r} t={t} {bc} {str(dt)[6:]} z_slab={z_slab}"
+                y = sd.stencil_direct_at(x, w, t, geom, boundary=bc)
+                bad += held(key, y, x, w, t, bc)
+    n3d = len(hashes)
+    for (kind, r, t), bc in ((c, bc) for c in SLAB_CASES[:3] + SLAB_CASES[5:7]
+                             for bc in (None, ("replicate", "reflect", "periodic"))):
+        w = np.asarray(make_weights(StencilSpec(kind, 3, r), seed=1), np.float32)
+        geom = common.launch_geom((60, 70, 130), t * r)
+        for dt in dtypes:
+            x = grid((60, 70, 130), dt)
+            key = f"(60, 70, 130) {kind} r={r} t={t} {bc} {str(dt)[6:]} wholeslab"
+            y = sd.stencil_direct_at(x, w, t, geom, boundary=bc, staging="wholestrip")
+            bad += held(key, y, x, w, t, bc)
+            d = diff(y, sd.stencil_direct_at(x, w, t, geom, boundary=bc))
+            if d:
+                bad += 1
+                print(f"{key}: differs from the default kernel by {d:.3e}")
+    for kind, bc in (("box", None), ("star", ("replicate", "reflect", "periodic"))):
+        w = np.asarray(make_weights(StencilSpec(kind, 3, 1), seed=1), np.float32)
+        for t in (1, 4):
+            geom = common.launch_geom((40, 72, 100), t)
+            for dt in dtypes:
+                xb = grid((3, 40, 72, 100), dt)
+                key = f"3 x (40, 72, 100) {kind} r=1 t={t} {bc} {str(dt)[6:]}"
+                yb = sd.stencil_direct_at(xb, w, t, geom, boundary=bc, batched=True)
+                hashes[key] = digest(torch, yb)
+                d = max(diff(yb[i], sd.stencil_direct_at(xb[i], w, t, geom, boundary=bc))
+                        for i in range(3))
+                if d:
+                    bad += 1
+                    print(f"{key}: differs from the unbatched calls by {d:.3e}")
+    print(f"tapsum3d: {len(hashes)} calls ({n3d} 3D, {len(hashes) - n3d} foil and "
+          f"batched), {bad} outside the limit or unequal where they must be equal")
+    bad += save_against(hashes, opts, "tapsum3d")
+    tapsum3d_times(torch, sd, common, make_weights, StencilSpec)
+    return bad
+
+
+def tapsum3d_times(torch, sd, common, make_weights, StencilSpec, full=True):
+    """The 3D tap-sum's times at 512^3, f32, t=4: the kernel through the
+    plan entry on a tile resolved once (one launch at t=4; four at t=1,
+    the ``direct`` regime), Box-3D1R periodic; with ``full`` also Star-3D1R
+    and (replicate, reflect, periodic), the plans of ``direct``,
+    ``fused_direct``, auto and the banded regimes, the K8 whole-slab foil
+    plan, the plain version, F.conv3d (chip_smoke.py's yardstick) and 8 x
+    256^3 batches."""
+    import numpy as np
+    from chip_smoke import conv_yardstick
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.stencil import fuse_weights, resolve_boundary
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 512, 512))
+                         .astype(np.float32)).cuda()
+    geom4 = common.launch_geom((512,) * 3, 4)
+    geom1 = common.launch_geom((512,) * 3, 1)
+    print(f"bound: {2 * x.numel() * 4 / 3.35e12 * 1e3:.4f} ms (one read and one write "
+          "of the grid at 3.35 TB/s); Box-3D1R's FMAs at 67 TFLOP/s "
+          f"{4 * 2 * 27 * x.numel() / 67e12 * 1e3:.4f} ms")
+    boundaries = (None, ("replicate", "reflect", "periodic")) if full else (None,)
+    for kind in ("box", "star") if full else ("box",):
+        w = np.asarray(make_weights(StencilSpec(kind, 3, 1), seed=0), np.float32)
+        for bc in boundaries:
+            print(f"512^3 {kind.capitalize()}-3D1R f32, t=4, boundary {bc}: ms per call")
+
+            def four(bc=bc, w=w):
+                y = x
+                for _ in range(4):
+                    y = sd.stencil_direct_at(y, w, 1, geom1, bc)
+                return y
+            print(f"  kernel, plan entry, t=4 (fused_direct) "
+                  f"{ms(torch, lambda: sd.stencil_direct_at(x, w, 4, geom4, bc), 10):.4f}")
+            print(f"  kernel, plan entry, 4 x t=1 (direct)  {ms(torch, four, 5):.4f}")
+            if not full:
+                continue
+            for b in ("direct", "fused_direct", None, "matmul", "fused_matmul",
+                      "fused_matmul_reuse"):
+                if b == "fused_matmul" and bc is not None:
+                    continue                # the composed kernel is periodic only
+                plan = stencil_plan(w, x.shape, torch.float32, 4, backend=b, boundary=bc)
+                print(f"  plan {str(b or 'auto'):20s} {ms(torch, lambda: plan(x), 5):.4f}"
+                      + (f" ({plan.backend})" if b is None else ""))
+            if kind == "box":
+                plan = stencil_plan(w, x.shape, torch.float32, 4,
+                                    backend="fused_direct_wholestrip", boundary=bc)
+                print(f"  foil plan fused_direct_wholestrip {ms(torch, lambda: plan(x), 5):.4f}")
+            print(f"  plain version              "
+                  f"{ms(torch, lambda: sd.stencil_direct_plain(x, w, 4, bc), 3):.4f}")
+            conv = (conv_yardstick(x, fuse_weights(w, 4), False) if bc is None else
+                    conv_yardstick(x, w, False, resolve_boundary(bc, 3), 4))
+            print(f"  F.conv3d                   {ms(torch, conv, 3):.4f}"
+                  + (" (composed, one step)" if bc is None else " (4 x (F.pad + F.conv3d))"))
+    del x
+    xb = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 256, 256, 256))
+                          .astype(np.float32)).cuda()
+    w = np.asarray(make_weights(StencilSpec("box", 3, 1), seed=0), np.float32)
+    plan = stencil_plan(w, (256,) * 3, torch.float32, 4, backend="fused_direct", batch=8)
+    print(f"  8 x 256^3 box fused_direct: {ms(torch, lambda: plan(xb), 5):.4f}")
+    if full:
+        plan1 = stencil_plan(w, (256,) * 3, torch.float32, 4, backend="fused_direct")
+        print(f"  the same 8 grids unbatched: "
+              f"{ms(torch, lambda: [plan1(g) for g in xb], 3):.4f}")
+
+
+def tapsum3d_sweep(root: str) -> int:
+    """The sweep of the 3D tap-sum's V, N and A over TAPSUM3D_SWEEP: a copy
+    of the package per point under build/tapsum3d_sweep/ with the defines
+    edited (and the host's DIRECT3D_AHEAD, which sizes the rings), all
+    built at once, then ``tapsum3d-quick`` on each copy in turn (its
+    registers, stack frame, CTAs per SM, and the t=4 and 4 x t=1
+    plan-entry times of Box-3D1R, periodic).  Returns the copies that
+    failed."""
+    import re
+    import shutil
+    repo = os.path.dirname(root)
+    base = os.path.join(repo, "build", "tapsum3d_sweep")
+    shutil.rmtree(base, ignore_errors=True)
+    copies = {}
+    for v, n, a in TAPSUM3D_SWEEP:
+        dst = os.path.join(base, f"V{v}N{n}A{a}", "src")
+        shutil.copytree(os.path.join(root, "repro_torch"), os.path.join(dst, "repro_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        kdir = os.path.join(dst, "repro_torch", "kernels")
+        for name, edits in (("csrc/stencil_direct3d.cu",
+                             ((r"#define DIRECT3D_ROWS \d+", f"#define DIRECT3D_ROWS {v}"),
+                              (r"#define DIRECT3D_MIN_BLOCKS \d+",
+                               f"#define DIRECT3D_MIN_BLOCKS {n}"),
+                              (r"#define DIRECT3D_AHEAD \d+", f"#define DIRECT3D_AHEAD {a}"))),
+                            ("common.py", ((r"\nDIRECT3D_AHEAD = \d+", f"\nDIRECT3D_AHEAD = {a}"),))):
+            path = os.path.join(kdir, name)
+            with open(path) as f:
+                text = f.read()
+            for pattern, repl in edits:
+                text, hits = re.subn(pattern, repl, text)
+                if hits != 1:
+                    raise RuntimeError(f"sweep: {pattern!r} matched {hits} times in {name}")
+            with open(path, "w") as f:
+                f.write(text)
+        copies[(v, n, a)] = dst
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); from repro_torch.kernels "
+             "import _build; _build.build_all(('stencil_direct3d',))")
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-c", build, d])
+             for k, d in copies.items()}
+    failed = [k for k, p in procs.items() if p.wait() != 0]
+    print(f"sweep: {len(copies)} builds in {time.perf_counter() - t0:.1f} s, "
+          f"{len(failed)} failed {failed}", flush=True)
+    for k, d in copies.items():
+        if k in failed:
+            continue
+        print(f"sweep point V={k[0]} N={k[1]} A={k[2]}", flush=True)
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "tapsum3d-quick",
+                             "--src", d]).returncode
+        failed += [k] if rc else []
+    return len(failed)
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

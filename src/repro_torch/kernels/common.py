@@ -408,17 +408,58 @@ def direct_layout(tm: int, tn: int, halo: int) -> DirectLayout:
                         (2 * rows * ld + 3 * DIRECT_MARGIN) * 4)
 
 
-#: Dense taps the 3D tap-sum keeps in shared memory: a (2*3+1)^3 box,
-#: rounded up to whole 16-byte words; must match csrc/stencil_direct3d.cu.
-TAPS3D_SLOTS = 344
+#: Planes the 3D tap-sum's staging runs ahead of the plane it lands, and
+#: the floats before each ring slot and after the last (a patch reads up
+#: to 3 cells past a slot's rows); must match csrc/stencil_direct3d.cu.
+DIRECT3D_AHEAD = 2
+DIRECT3D_MARGIN = 4
 
 
-def direct3d_layout(tz: int, tm: int, tn: int, halo: int) -> SmemLayout:
-    """3D tap-sum kernel: the dense taps, then two f32 buffers holding the
-    (TZ+2h) x (TM+2h) x (TN+2h) region."""
+@dataclasses.dataclass(frozen=True)
+class Direct3dLayout:
+    """Shared-memory layout of the 3D tap-sum (``csrc/stencil_direct3d.cu``):
+    rings of planes, each plane one step's input window in the 2D
+    tap-sum's fixed cell coordinates (:class:`DirectLayout`: ``rows`` x
+    ``ld``, region cell (i, j) at (i, ``lead`` + j)).  Step 0's ring holds
+    ``ring0`` = 2r + 1 + ``DIRECT3D_AHEAD`` slots (the planes a step reads,
+    the plane landing and the one staged ahead), each later step's but
+    the last ``ring`` = 2r + 2 (the planes read and the one the step before
+    writes); the last step stores to global memory.  Every slot has
+    ``DIRECT3D_MARGIN`` floats before it, ``plane_ld`` floats from one to
+    the next, and the last one the margin after it; ``smem_bytes`` is what
+    the launch asks for."""
+
+    rows: int
+    ld: int
+    lead: int
+    ring0: int
+    ring: int
+    slots: int
+    plane_ld: int
+    smem_bytes: int
+
+
+def direct3d_layout(tm: int, tn: int, radius: int, t: int) -> Direct3dLayout:
+    """The 3D tap-sum's rings on a (TZ x) TM x TN tile at ``t`` fused steps
+    of radius ``radius`` (the depth TZ sets how many planes stream
+    through, not the rings)."""
+    d = direct_layout(tm, tn, t * radius)
+    ring0, ring = 2 * radius + 1 + DIRECT3D_AHEAD, 2 * radius + 2
+    slots = ring0 + (t - 1) * ring
+    plane_ld = d.rows * d.ld + DIRECT3D_MARGIN
+    return Direct3dLayout(d.rows, d.ld, d.lead, ring0, ring, slots, plane_ld,
+                          (DIRECT3D_MARGIN + slots * plane_ld) * 4)
+
+
+def direct3d_reserve(tz: int, tm: int, tn: int, halo: int) -> int:
+    """Bytes the 3D tap-sum took before its plane stream: 344 dense taps
+    and two f32 buffers of the whole (TZ+2h)(TM+2h)(TN+2h) region.  No
+    kernel launches with it: it is the 3D tile rule's reserve
+    (:func:`tile_smem_bound`), kept so that every 3D call keeps its tile
+    while the rule is not re-derived for :func:`direct3d_layout`, which
+    needs less at every tile but the shallowest."""
     planes, rows, ld = tz + 2 * halo, tm + 2 * halo, tn + 2 * halo
-    return SmemLayout(rows, ld, TAPS3D_SLOTS * 4 + 2 * planes * rows * ld * 4,
-                      planes=planes)
+    return 344 * 4 + 2 * planes * rows * ld * 4
 
 
 def _align(nbytes: int) -> int:
@@ -773,17 +814,22 @@ def tile_smem_bound(tm: int, tn: int, halo: int,
     the reuse regime, in f32: no kernel launches with it any more, it is
     the 2D tile rule's reserve, kept so that every 2D call keeps its tile
     (:func:`tile_fold_layout`, which the 2D kernels launch with, needs
-    less at every tile and halo the rule picks).  3D: the
-    largest layout either 3D kernel launches with at that halo -- the
-    tap-sum, and the banded kernel at every (R, t) with t*R = halo and
-    either operand dtype."""
+    less at every tile and halo the rule picks).  3D: the reserves of
+    both 3D kernels (:func:`direct3d_reserve`, and the banded kernel
+    before the slab fold at every (R, t) with t*R = halo and either
+    operand dtype) and the tap-sum's rings at every such (R, t), so that
+    every tile the rule picks launches.  The rings exceed the tap-sum's
+    reserve only on tiles one or two planes deep at h >= 5, and move one
+    tile's fit to the budget: 1 x 48 x 32 at h = 5 (t = 5, r = 1)."""
     if tz is None:
         rows = tm + 2 * halo + MMA_TILE
         ld = tn + 2 * halo + MMA_TILE + 8
         chunks = -(-(tn + 2 * halo) // BAND_N)
         return (_align(rows * ld * 4)
                 + chunks * rows * _round_up(BAND_N + 2 * halo, 16) * 4)
-    return max([direct3d_layout(tz, tm, tn, halo).smem_bytes]
+    return max([direct3d_reserve(tz, tm, tn, halo)]
+               + [direct3d_layout(tm, tn, halo // t, t).smem_bytes
+                  for t in _divisors(halo)]
                + [banded3d_layout(tz, tm, tn, halo // t, t, cb).smem_bytes
                   for t in _divisors(halo) for cb in (4, 2)])
 

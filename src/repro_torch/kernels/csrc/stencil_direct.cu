@@ -67,7 +67,7 @@
 // A launch advances a batch of B grids, grid b on blockIdx.z (K11,
 // replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
 // grid_at / for_each_chunk); B = 1 is the unbatched call.
-#include "line_stage.cuh"
+#include "tap_stage.cuh"
 
 #define MAX_TAPS 49
 // V, the rows of a thread's patch, and the CTAs per SM __launch_bounds__
@@ -94,60 +94,6 @@
 struct Taps {
     float w[MAX_TAPS];
 };
-
-__device__ __forceinline__ bool on_bytes(const void* p, int n) {
-    return ((uintptr_t)p & (uintptr_t)(n - 1)) == 0;
-}
-
-// One granule: the 4 cells from src (on 4 * sizeof(T) bytes) to dst (on
-// 16 bytes) as f32.
-__device__ __forceinline__ void granule(float* dst, const float* src) { cp_async16(dst, src); }
-__device__ __forceinline__ void granule(float* dst, const __nv_bfloat16* src) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-}
-
-// The region staging: buffer cell (q, c) of buf (row stride ld, c < ld) is
-// global cell (r0 + q, c0 + c) taken modulo (H, W), as f32; granule k of
-// row q holds cells [4k, 4k + 4).  Leaves cp.async copies in flight.
-template <typename T>
-__device__ __forceinline__ void stage_region(float* buf, int ld, const T* __restrict__ x, int H,
-                                             int W, int r0, int c0, int rows) {
-    const int gpr = ld >> 2;
-    const int n = rows * gpr;
-    for (int f = threadIdx.x; f < n; f += CTA_THREADS) {
-        const int q = f / gpr;
-        const int k = f - q * gpr;
-        const T* row = x + (size_t)wrap(r0 + q, H) * W;
-        const int gc = wrap(c0 + 4 * k, W);
-        float* dst = buf + q * ld + 4 * k;
-        if (gc + 4 <= W && on_bytes(row + gc, 4 * sizeof(T))) {
-            granule(dst, row + gc);
-        } else {
-#pragma unroll 1
-            for (int u = 0; u < 4; ++u) dst[u] = to_f32(row[wrap(c0 + 4 * k + u, W)]);
-        }
-    }
-}
-
-// The 4 + 2R cells [c - R, c + 4 + R) of a buffer row, p at cell c (on
-// 16 bytes): a 16-byte word and the R cells each side, in words of 8
-// bytes where they are on 8.
-template <int R>
-__device__ __forceinline__ void direct_row(const float* p, float (&v)[4 + 2 * R]) {
-    const float4 m = *reinterpret_cast<const float4*>(p);
-    v[R] = m.x, v[R + 1] = m.y, v[R + 2] = m.z, v[R + 3] = m.w;
-    if constexpr (R == 1) {
-        v[0] = p[-1], v[5] = p[4];
-    } else {
-        const float2 l = *reinterpret_cast<const float2*>(p - 2);
-        const float2 r = *reinterpret_cast<const float2*>(p + 4);
-        v[R - 2] = l.x, v[R - 1] = l.y, v[R + 4] = r.x, v[R + 5] = r.y;
-        if constexpr (R == 3) v[0] = p[-3], v[9] = p[6];
-    }
-}
 
 // One patch of one step: outputs at rows [r0, r0 + V) (those below r_end
 // stored) and columns [c, c + 4) of `out`, from rows [r0 - R, r0 + V + R)

@@ -2,9 +2,10 @@
 
 :func:`functions` gives each kernel instantiation's instructions,
 :func:`registers` its register count, :func:`stack_bytes` its stack frame.  Run as a script, the module
-compares the main kernels of this checkout with those of another
-checkout of the repository, both built here with this checkout's
-``nvcc`` flags, instantiation by instantiation::
+compares the kernels of this checkout (every library of
+``_build.KERNELS``: the main builds and the foils') with those of
+another checkout of the repository, both built here with this
+checkout's ``nvcc`` flags, instantiation by instantiation::
 
     python -m repro_torch.kernels.sass OTHER_CHECKOUT [DIFF_FILE]
 
@@ -88,9 +89,9 @@ def stack_bytes(lib: os.PathLike) -> Dict[str, int]:
     return _usage(lib, "STACK")
 
 
-def _build_lib(src: pathlib.Path, out: pathlib.Path) -> pathlib.Path:
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True, capture_output=True)
+def _build_lib(src: pathlib.Path, out: pathlib.Path, flags: tuple) -> pathlib.Path:
+    subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)], check=True,
+                   capture_output=True)
     return out
 
 
@@ -123,21 +124,22 @@ def main(argv: List[str]) -> int:
     out = _build.BUILD_DIR / "sass"
     out.mkdir(parents=True, exist_ok=True)
     diffs: List[str] = []
-    jobs = {(side, k): (root / f"{k}.cu", out / f"{side}-{k}.so")
+    jobs = {(side, k): (root / f"{_build.source(k)}.cu", out / f"{side}-{k}.so",
+                        _build._flags(k))
             for side, root in (("this", _build.CSRC), ("other", other))
-            for k in _build._MAIN if (root / f"{k}.cu").exists()}
+            for k in _build.KERNELS if (root / f"{_build.source(k)}.cu").exists()}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: _build_lib(*j),
                                        jobs.values())))
     same = total = 0
-    for k in _build._MAIN:
+    for k in _build.KERNELS:
         if ("other", k) not in libs:
             for name, n in sorted(registers(libs["this", k]).items()):
                 print(f"{k}: {name}: new in this checkout, {n} registers")
             continue
         ours, theirs = functions(libs["this", k]), functions(libs["other", k])
         r_ours, r_theirs = registers(libs["this", k]), registers(libs["other", k])
-        for name in sorted(ours):           # the main builds: STAGE_REGION
+        for name in sorted(ours):
             twin = _twin(name, theirs)
             total += 1
             if twin not in theirs:
@@ -156,7 +158,7 @@ def main(argv: List[str]) -> int:
             print(f"{k}: {name}: DIFFERS, {len(a)} -> {len(b)} instructions, "
                   f"{changed} changed; registers {r_theirs.get(twin)} -> "
                   f"{r_ours.get(name)}")
-    print(f"{same} of {total} default instantiations identical")
+    print(f"{same} of {total} instantiations identical")
     if len(argv) == 2:
         pathlib.Path(argv[1]).write_text("\n".join(diffs) + "\n")
     return 0

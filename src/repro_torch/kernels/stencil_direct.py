@@ -54,10 +54,11 @@ from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
                      plain_loop)
 
 #: Radii the kernels are specialised on (1..3), and so the most taps the
-#: 2D kernel takes (a dense r=3 box); must match csrc/stencil_direct.cu
-#: (the 3D kernel's dense taps fill common.TAPS3D_SLOTS).
+#: 2D and 3D kernels take (a dense r=3 box); must match
+#: csrc/stencil_direct.cu and csrc/stencil_direct3d.cu.
 MAX_RADIUS = 3
 MAX_TAPS = (2 * MAX_RADIUS + 1) ** 2
+MAX_TAPS3D = (2 * MAX_RADIUS + 1) ** 3
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,6 +71,12 @@ class _Taps(ctypes.Structure):
     """``csrc/stencil_direct.cu::Taps``: the (2r+1)^2 taps, row-major,
     zero where skipped."""
     _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
+
+
+class _Taps3(ctypes.Structure):
+    """``csrc/stencil_direct3d.cu::Taps3``: the (2r+1)^3 taps, row-major,
+    zero where skipped."""
+    _fields_ = [("w", ctypes.c_float * MAX_TAPS3D)]
 
 
 def nonzero_taps(weights: np.ndarray):
@@ -104,12 +111,14 @@ def stencil_direct_plain(x: torch.Tensor, weights, t: int = 1,
 
 
 @functools.lru_cache(maxsize=32)
-def _tap_arg(w_bytes: bytes) -> _Taps:
-    """The kernel's by-value taps of one float32 weight array's bytes,
-    built once per weights (plans call the wrapper every step; building
-    them took most of the wrapper's host time).  The launch copies them,
-    so callers share them read-only."""
+def _tap_arg(w_bytes: bytes, ndim: int = 2):
+    """The 2D (``_Taps``) or 3D (``_Taps3``) kernel's by-value taps of one
+    float32 weight array's bytes, built once per weights (plans call the
+    wrapper every step; building them took most of the wrapper's host
+    time).  The launch copies them, so callers share them read-only."""
     w = np.frombuffer(w_bytes, dtype=np.float32)
+    if ndim == 3:
+        return _Taps3((ctypes.c_float * MAX_TAPS3D)(*w.tolist()))
     return _Taps((ctypes.c_float * MAX_TAPS)(*w.tolist()))
 
 
@@ -129,7 +138,8 @@ def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d").stencil_direct3d_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + _BATCH_ARGS
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Taps3)] + [
+        ctypes.c_int] * 13 + _BATCH_ARGS
     return fn
 
 
@@ -168,7 +178,8 @@ def _foil_launcher3d():
     """The whole-slab foil's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d_foil").stencil_direct3d_foil_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + _BATCH_ARGS
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Taps3)] + [
+        ctypes.c_int] * 14 + _BATCH_ARGS
     return fn
 
 
@@ -188,15 +199,6 @@ def _entry(ndim: int, staging: str):
             _foil_launcher3d() if ndim == 3 else _foil_launcher(),
             (STAGE_CODES[staging],),
             f"{src} ({'wholeslab' if ndim == 3 else staging})")
-
-
-@functools.lru_cache(maxsize=32)
-def _device_taps(w_bytes: bytes, shape: tuple, device: str) -> torch.Tensor:
-    """The dense float32 (2r+1)^3 weights on the device, where the 3D
-    kernel reads them (once per CTA, into shared memory), built once per
-    weights and device."""
-    w = np.frombuffer(w_bytes, dtype=np.float32).reshape(shape)
-    return torch.from_numpy(w.copy()).to(device)
 
 
 def stencil_direct(x: torch.Tensor, weights, t: int = 1,
@@ -327,20 +329,27 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     return y
 
 
-def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
-    layout = direct3d_layout(geom.z_slab, geom.strip_m, geom.w_tile, t * r)
+def direct3d_rings(geom: SubstrateGeom, r: int, t: int):
+    """The 3D tap-sum's rings on ``geom`` at ``t`` steps of radius ``r``
+    (``common.direct3d_layout``), or raise past the 227 KB budget."""
+    layout = direct3d_layout(geom.strip_m, geom.w_tile, r, t)
     if layout.smem_bytes > SMEM_BUDGET_BYTES:
         raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
                          "of shared memory, over the 227 KB budget")
-    taps = _device_taps(w32.tobytes(), w32.shape, str(x.device))
+    return layout
+
+
+def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
+              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
+    layout = direct3d_rings(geom, r, t)
+    arg = _tap_arg(w32.tobytes(), 3)
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(3, staging)
     b, z, h, wd = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), z, h, wd,
-                 geom.z_slab, geom.strip_m, geom.w_tile, t, r,
+        err = fn(x.data_ptr(), y.data_ptr(), ctypes.byref(arg), z, h, wd,
+                 geom.z_slab, geom.strip_m, geom.w_tile, t, r, layout.ld,
                  _DTYPE_CODES[x.dtype], *stage, *codes, b, z * h * wd,
                  layout.smem_bytes, stream)
     _build.check(err, lib)

@@ -206,12 +206,15 @@ def test_3d_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
     tz, tm, tn = g.z_slab, g.strip_m, g.w_tile
     bound = common.tile_smem_bound(tm, tn, halo, tz)
     assert bound <= common.SMEM_BUDGET_BYTES
-    d = common.direct3d_layout(tz, tm, tn, halo)
-    assert d.smem_bytes <= bound and d.planes == tz + 2 * halo
+    assert common.direct3d_reserve(tz, tm, tn, halo) <= bound
     for t in range(1, halo + 1):
         if halo % t:
             continue
         r = halo // t
+        if r <= 3:              # the tap-sum's rings, one per step but the last
+            d = common.direct3d_layout(tm, tn, r, t)
+            assert d.smem_bytes <= bound and d.rows == tm + 2 * halo
+            assert d.slots == (2 * r + 1 + common.DIRECT3D_AHEAD) + (t - 1) * (2 * r + 2)
         for cb in (4, 2):       # the slab fold's layout, (2r+1)^2 bands
             b = common.slab_fold_layout(tz, tm, tn, r, t, cb,
                                         (2 * r + 1) ** 2)

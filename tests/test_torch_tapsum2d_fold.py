@@ -458,16 +458,21 @@ def test_source_constants_match_the_host():
     blocks = [int(n) for n in re.findall(r"#define DIRECT_MIN_BLOCKS (\d+)\b", SRC)]
     assert len(blocks) == 2 and all(2 <= n <= 5 for n in blocks)
     assert "__launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS)" in SRC
-    assert '#include "line_stage.cuh"' in SRC and "cp_async16(" in SRC
+    # the staging is the tap-sums' shared header's, on line_stage.cuh's copy
+    stage = (CSRC / "tap_stage.cuh").read_text()
+    assert '#include "tap_stage.cuh"' in SRC
+    assert '#include "line_stage.cuh"' in stage and "cp_async16(" in stage
     assert 'extern "C" int stencil_direct_ctas_per_sm(int dtype, int fill, int smem_bytes)' \
         in SRC
     # the Taps struct: the dense taps the FMAs read
     body = re.search(r"struct Taps \{(.*?)\};", SRC, re.S).group(1)
     assert re.findall(r"float (\w+)\[MAX_TAPS\];", body) == \
         [f for f, _ in t_direct._Taps._fields_] == ["w"]
-    # the new staging is the kernel's own; the tile fold's 2D loads and
-    # the 3D kernels keep common.cuh's load_rect
-    assert "void stage_region(" in SRC and "load_rect(" not in SRC
+    # the new staging is the tap-sums' own (the 3D tap-sum stages each
+    # plane with it); the tile fold's 2D loads and the 3D banded kernels
+    # keep common.cuh's load_rect
+    assert "void stage_region(" in stage and "stage_region(" in SRC
+    assert "load_rect(" not in SRC + stage
     assert "void load_rect(" in (CSRC / "common.cuh").read_text()
 
 
