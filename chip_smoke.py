@@ -28,8 +28,17 @@ Phases, any failure exits non-zero:
      child process, which builds the foils' libraries once more with
      REPRO_COUNT_LOADS=1, launches every foil kernel on the foil paths'
      grids and two ragged grids, and requires every CTA of each launch to
-     have loaded exactly the analytic count of cells (its output is
-     printed, and its exit checked, after phase 2);
+     have loaded exactly the analytic count of cells; then, in the same
+     child, the phase ``audit``: on each rank's main cell (Box, t=4) the
+     plans of fused_direct, fused_matmul_reuse and fused_sparse_matmul,
+     and direct at 512^3, and one boundary row per rank, built with
+     ``audit=True`` (the static auditor, ``repro_torch.audit``: zero
+     violations required) and run on the card in the counting build of the
+     default kernels, whose least and most cells per CTA must equal the
+     auditor's staged cells per CTA (3D: each plane of the stream once);
+     it prints the priced and launched read amplification and the
+     executed / useful FLOPs of each (its output is printed, and its exit
+     checked, after phase 2);
   2. each kernel against its plain PyTorch version on the card, each limit
      built from the plain version's step-by-step maxima and shown to reject
      the plain version one step short: the 2D kernels at 1024^2 and a
@@ -699,7 +708,7 @@ COUNT_SHAPES = (((8192, 8192), None), ((1000, 1030), "zero"),
 
 
 def start_count_loads() -> subprocess.Popen:
-    """Start this script with COUNT_FLAG in a child process whose foil
+    """Start this script with COUNT_FLAG in a child process whose
     libraries count loads (REPRO_COUNT_LOADS=1: they build anew, beside
     the uncounted ones); it runs while phase 2 checks the kernels."""
     env = dict(os.environ, REPRO_COUNT_LOADS="1")
@@ -718,7 +727,7 @@ def finish_count_loads(child: subprocess.Popen) -> None:
 
 def phase_count_loads(mods) -> None:
     """Loads per CTA of every foil kernel, counted at run time by the
-    counting build of the foil libraries (REPRO_COUNT_LOADS=1): the least
+    counting build of the libraries (REPRO_COUNT_LOADS=1): the least
     and the most cells a CTA of the launch loaded must both equal the
     analytic count, ``common.staged_read_bytes`` over the CTAs of the
     launch, on COUNT_SHAPES."""
@@ -728,11 +737,10 @@ def phase_count_loads(mods) -> None:
     from repro_torch.stencil import StencilSpec
     check(os.environ.get("REPRO_COUNT_LOADS") == "1",
           "load count: REPRO_COUNT_LOADS=1 is not set")
-    foils = [k for k in _build.KERNELS if k.endswith("_foil")]
     t0 = time.perf_counter()
-    _build.build_all(foils)
-    print(f"load count: the counting builds of {len(foils)} foil libraries in "
-          f"{time.perf_counter() - t0:.1f} s")
+    _build.build_all()
+    print(f"load count: the counting builds of all {len(_build.KERNELS)} "
+          f"libraries in {time.perf_counter() - t0:.1f} s")
 
     def counts(lib):
         fn = _build.library(lib).repro_load_counts
@@ -777,6 +785,84 @@ def phase_count_loads(mods) -> None:
                                     f"cells, the analytic count is {want}")
             print(f"load count {tag}: every one of {ctas} CTAs loaded {want} cells "
                   f"(least {lo}, most {hi}; analytic {want})")
+        del x
+
+
+#: The audit phase's plans (COUNT_FLAG child): the fused regimes on each
+#: rank's main cell at t=MAIN_T, direct on 512^3, and one boundary row per
+#: rank (fused_direct under the boundary path's spec).
+AUDIT_RUNS = ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul")
+AUDIT_EXTRA = (("3D", "direct", None),
+               ("2D", "fused_direct", BOUNDARY_PATHS["2D"][2]),
+               ("3D", "fused_direct", BOUNDARY_PATHS["3D"][2]),
+               ("1D", "fused_direct", BOUNDARY_PATHS["1D"][2]))
+
+
+def phase_audit(mods) -> None:
+    """The static auditor's measured witness (COUNT_FLAG child, counting
+    build of every library): each AUDIT_RUNS / AUDIT_EXTRA plan is built
+    with ``audit=True`` and must carry zero violations; run once on the
+    card, the least and the most cells a CTA of its kernel staged must
+    equal the auditor's (``blocks/staged-cells``: the windows, in whole
+    16-byte granules where the kernel copies granules; in 3D each plane of
+    the stream once, as ``staged_read_bytes`` charges it; the persistent 1D
+    kernels per segment or CTA tile)."""
+    import ctypes
+    kernels, sm, sd, weights, ss = mods
+    wrappers = {"direct": sd, "matmul": sm, "sparse_matmul": ss}
+    from repro_torch.kernels import _build, registry
+    from repro_torch.stencil import StencilSpec
+
+    def counts(lib):
+        fn = _build.library(lib).repro_load_counts
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_uint)], ctypes.c_int
+        out = (ctypes.c_uint * 2)()
+        _build.check(fn(out), lib)
+        return out[0], out[1]
+
+    rows = [(label, b, None) for label in PATHS for b in AUDIT_RUNS]
+    rows += list(AUDIT_EXTRA)
+    for label, backend, bc in rows:
+        shape = PATHS[label][0]
+        dim = len(shape)
+        w = weights.make_weights(StencilSpec("box", dim, 1), seed=0)
+        plan = kernels.stencil_plan(w, shape, torch.float32, MAIN_T,
+                                    backend=backend, boundary=bc, audit=True,
+                                    use_sparse_unit="sparse" in backend,
+                                    use_cache=False)
+        rep = plan.audit_report
+        tag = (f"{backend} {shape} t={MAIN_T}"
+               + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+        check(rep is not None and rep.exempt is None,
+              f"audit {tag}: no report attached")
+        check(rep.ok, f"audit {tag}: {rep.summary()}")
+        launch = registry.get_backend(backend).audit(plan.ctx).launches[0]
+        lib = wrappers[launch.engine].kernel_source(dim)
+        staged = rep.check("blocks/staged-cells").actual
+        want = (staged["per_cta_least"], staged["per_cta_most"])
+        x = grid(shape, torch.float32, seed=0)
+        torch.cuda.synchronize()
+        counts(lib)                                   # start afresh
+        plan(x)
+        torch.cuda.synchronize()
+        got = counts(lib)
+        check(got == want, f"audit {tag}: {lib} CTAs staged {got[0]}..{got[1]} "
+                           f"cells, the auditor counts {want[0]}..{want[1]}")
+        pvl = rep.check("blocks/priced-vs-launched")
+        fl = rep.flops
+        print(f"audit {tag}: {len(rep.checks)} checks, 0 violations; {lib} "
+              f"staged {got[0]}..{got[1]} cells per CTA on the card = the "
+              f"auditor's {want[0]}..{want[1]} (windows x "
+              f"{staged['excess']:.4f})")
+        print(f"audit {tag}: read_amp priced {pvl.expected['priced_amp']:.4f} "
+              f"launched {pvl.actual['launched_amp']:.4f} (grid-free strip "
+              f"{pvl.actual['grid_free_amp']:.4f})")
+        print(f"audit {tag}: {fl['unit']} FLOPs executed {fl['executed']} / "
+              f"useful {fl['useful']} = {fl['redundancy']:.4f}"
+              + ("" if fl["unit"] != "matrix" else
+                 f" (real tiles {fl['redundancy_tiles']:.4f}; "
+                 f"{fl['mma_sync']} mma.sync, {fl['zero_k4']} over zero "
+                 "band rows)"))
         del x
 
 
@@ -1562,7 +1648,8 @@ def phase_batch_limits(mods) -> None:
     1D (33 x 2^26, the folded kernels' persistent CTAs walking it),
     whose last grid starts at cell 2^31, each grid checked against its own
     unbatched launch, for the tap-sum, banded and compacted kernels."""
-    kernels, _, _, weights, _ = mods
+    kernels, sm, sd, weights, ss = mods
+    wrappers = {"direct": sd, "matmul": sm, "sparse_matmul": ss}
     from repro_torch.kernels import common
     from repro_torch.stencil import StencilSpec
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1841,6 +1928,7 @@ def main() -> int:
     if sys.argv[1:] == [COUNT_FLAG]:
         try:
             phase_count_loads(mods)
+            phase_audit(mods)
         except (SmokeFailure, RuntimeError, ValueError, TypeError) as e:
             print(f"load count: FAIL: {type(e).__name__}: {e}")
             return 1

@@ -10,11 +10,14 @@ on the 3D ones' ``csrc/slab_fold.cuh``); the four main
 kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
 libraries of the traffic foils (``<name>_foil``), so instantiating the
 foils' staging costs the main path's build nothing.  With
-``REPRO_COUNT_LOADS=1`` the foils' libraries build with
-``-DREPRO_COUNT_LOADS`` instead: each CTA then counts the cells its
-staging loads, and ``repro_load_counts`` returns the least and the most
-count over a launch's CTAs (``csrc/common.cuh``; ``chip_smoke.py``
-checks them against the analytic count).  The build runs at
+``REPRO_COUNT_LOADS=1`` every library builds with ``-DREPRO_COUNT_LOADS``
+instead (a name of its own, beside the default build): each CTA then
+counts the cells its staging loads -- a foil's windows, a default
+kernel's region, the 1D kernels per segment or CTA tile -- and
+``repro_load_counts`` returns the least and the most count over a
+launch's CTAs (``csrc/common.cuh``; ``chip_smoke.py`` checks them
+against the analytic count and the auditor's, ``repro_torch.audit``).
+The default build compiles the counts away.  The build runs at
 first use into ``build/repro_torch/`` under the checkout, named by a hash
 of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  :func:`build_all` starts one ``nvcc`` per
@@ -103,11 +106,9 @@ def source(name: str) -> str:
 
 
 def _flags(name: str) -> tuple:
-    if not name.endswith("_foil"):
-        return NVCC_FLAGS
+    foil = ("-DREPRO_FOIL",) if name.endswith("_foil") else ()
     count = env_flag("REPRO_COUNT_LOADS", False)
-    return NVCC_FLAGS + ("-DREPRO_FOIL",) + (
-        ("-DREPRO_COUNT_LOADS",) if count else ())
+    return NVCC_FLAGS + foil + (("-DREPRO_COUNT_LOADS",) if count else ())
 
 
 def _target(name: str) -> pathlib.Path:

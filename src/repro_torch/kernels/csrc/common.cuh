@@ -53,14 +53,25 @@ __device__ __forceinline__ int wrap(int v, int n) {
 #define STAGE_STRIP 1
 #define STAGE_NINE 2
 
+// The load-counting build (REPRO_COUNT_LOADS=1 at build time): a staging
+// adds the cells it copies to its count n; every other build compiles the
+// count away, so its code is the same instruction for instruction.
+#ifdef REPRO_COUNT_LOADS
+#define COUNT_CELLS(n, k) ((n) += (k))
+#else
+#define COUNT_CELLS(n, k) ((void)0)
+#endif
+
 // Loads the rows x cols region whose first cell is global (r0, c0), taken
 // modulo (H, W), into dst (row stride ld) as f32.  A global load waits
 // ~1 us, so each warp issues 8 rows x 4 column chunks of 32 before storing
-// any: a thread keeps 32 loads in flight.
+// any: a thread keeps 32 loads in flight.  Returns the cells this thread
+// loaded in the counting build, 0 in every other.
 template <typename T>
-__device__ __forceinline__ void load_rect(float* dst, int ld, const T* __restrict__ x, int H,
-                                          int W, int r0, int c0, int rows, int cols) {
+__device__ __forceinline__ int load_rect(float* dst, int ld, const T* __restrict__ x, int H,
+                                         int W, int r0, int c0, int rows, int cols) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int n = 0;
     for (int cb = 0; cb < cols; cb += 128) {
         int gj[4];
 #pragma unroll
@@ -78,10 +89,13 @@ __device__ __forceinline__ void load_rect(float* dst, int ld, const T* __restric
             for (int u = 0; u < 8; ++u)
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
-                    if (rb + u < rows && cb + lane + 32 * c < cols)
+                    if (rb + u < rows && cb + lane + 32 * c < cols) {
                         dst[(rb + u) * ld + cb + lane + 32 * c] = v[u][c];
+                        COUNT_CELLS(n, 1);
+                    }
         }
     }
+    return n;
 }
 
 // The 3D form of load_rect: the planes x rows x cols region whose first
@@ -89,14 +103,16 @@ __device__ __forceinline__ void load_rect(float* dst, int ld, const T* __restric
 // stride plane_ld, row stride ld) as f32.  The (plane, row) pairs are
 // walked as one flattened row index, 8 per warp at a time as in
 // load_rect, and every global offset is 64-bit ((z*H + y)*W + x passes
-// 2^31 at 2048 x 1024 x 1024).
+// 2^31 at 2048 x 1024 x 1024).  Returns the cells this thread loaded in
+// the counting build, 0 in every other.
 template <typename T>
-__device__ __forceinline__ void load_rect3d(float* dst, int ld, size_t plane_ld,
-                                            const T* __restrict__ x, int Z, int H, int W,
-                                            int p0, int r0, int c0, int planes, int rows,
-                                            int cols) {
+__device__ __forceinline__ int load_rect3d(float* dst, int ld, size_t plane_ld,
+                                           const T* __restrict__ x, int Z, int H, int W,
+                                           int p0, int r0, int c0, int planes, int rows,
+                                           int cols) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int nrows = planes * rows;
+    int n = 0;
     for (int cb = 0; cb < cols; cb += 128) {
         int gj[4];
 #pragma unroll
@@ -118,15 +134,22 @@ __device__ __forceinline__ void load_rect3d(float* dst, int ld, size_t plane_ld,
             for (int u = 0; u < 8; ++u)
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
-                    if (rb + u < nrows && cb + lane + 32 * c < cols) dst[doff[u] + 32 * c] = v[u][c];
+                    if (rb + u < nrows && cb + lane + 32 * c < cols) {
+                        dst[doff[u] + 32 * c] = v[u][c];
+                        COUNT_CELLS(n, 1);
+                    }
         }
     }
+    return n;
 }
 
 #ifdef REPRO_COUNT_LOADS
-// The load-counting build of the foils (REPRO_COUNT_LOADS=1 at build
-// time; chip_smoke.py): every CTA counts the grid cells its staging loads,
-// and a launch keeps the least and the most count over its CTAs.
+// The load-counting build (REPRO_COUNT_LOADS=1 at build time;
+// chip_smoke.py): every CTA counts the grid cells its staging loads -- a
+// foil's windows, the default kernels' region (the tap-sums' and the 1D
+// kernels' in whole 16-byte granules; the persistent 1D kernels count
+// each segment or CTA tile they stage) -- and a launch keeps the least and
+// the most count over its CTAs.
 __device__ unsigned int repro_cta_loads[2] = {0xffffffffu, 0u};
 
 // Copies the least and the most count since the last call to out[0..1],
@@ -209,7 +232,7 @@ __device__ __forceinline__ void load_region(float* dst, int ld, volatile float* 
                                             const T* __restrict__ x, int H, int W, int r0,
                                             int c0, int rows, int cols, int TM, int TN) {
     if constexpr (STAGE == STAGE_REGION) {
-        load_rect(dst, ld, x, H, W, r0, c0, rows, cols);
+        count_cta_loads(load_rect(dst, ld, x, H, W, r0, c0, rows, cols));
     } else {
         const int hy = (rows - TM) / 2, hx = (cols - TN) / 2;  // the halo
         int n = 0;
@@ -290,7 +313,8 @@ __device__ __forceinline__ void load_region3d(float* dst, int ld, size_t plane_l
                                               int planes, int rows, int cols, int TZ, int TM) {
     static_assert(STAGE != STAGE_NINE, "the 9-tile foil stages 2D grids only");
     if constexpr (STAGE == STAGE_REGION) {
-        load_rect3d(dst, ld, plane_ld, x, Z, H, W, p0, r0, c0, planes, rows, cols);
+        count_cta_loads(
+            load_rect3d(dst, ld, plane_ld, x, Z, H, W, p0, r0, c0, planes, rows, cols));
     } else {
         const int hz = (planes - TZ) / 2, hy = (rows - TM) / 2;  // the halo
         int n = 0;

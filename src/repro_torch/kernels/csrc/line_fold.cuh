@@ -103,16 +103,18 @@ __device__ __forceinline__ LineTile line_tile(const LineArgs& a, long long item)
 // Issues the copies of this warp's valid rows of a CTA tile into `stage`:
 // row r's window [q - h, q + L + 2h) lands at columns [sh, sh + L + 2h).
 // Granules inside the line go by cp.async, the others (the line's ends)
-// element by element, modulo N.
+// element by element, modulo N.  Returns the cells this lane copied in the
+// counting build, 0 in every other.
 template <typename TIn>
-__device__ __forceinline__ void stage_rows(TIn* stage, const LineArgs& a, long long item,
-                                           int row0, int lane) {
+__device__ __forceinline__ int stage_rows(TIn* stage, const LineArgs& a, long long item,
+                                          int row0, int lane) {
     constexpr int G = 16 / (int)sizeof(TIn);
     const LineTile tl = line_tile(a, item);
     const TIn* xg = grid_at(static_cast<const TIn*>(a.x), tl.b, (size_t)a.grid_elems);
     const int h = a.t * a.R;
     const int q0 = tl.p0 + row0 * a.L;  // the warp's first output
-    if (q0 >= a.N) return;
+    int cells = 0;
+    if (q0 >= a.N) return cells;
     const int nrows = min(LINE_TILE_ROWS, (a.N - q0 + a.L - 1) / a.L);
     const int sh = line_shift(xg, h);
     const int nb = (sh + a.L + 2 * h + G - 1) / G;  // granules per row
@@ -120,6 +122,7 @@ __device__ __forceinline__ void stage_rows(TIn* stage, const LineArgs& a, long l
         const int r = f / nb, j = f - r * nb;
         const int s0 = q0 + r * a.L - h - sh + j * G;  // the granule's first cell
         TIn* dst = stage + r * a.lds + j * G;
+        COUNT_CELLS(cells, G);
         if (s0 >= 0 && s0 + G <= a.N) {
             cp_async16(dst, xg + s0);
         } else {
@@ -127,6 +130,7 @@ __device__ __forceinline__ void stage_rows(TIn* stage, const LineArgs& a, long l
             for (int e = 0; e < G; ++e) dst[e] = xg[wrap(s0 + e, a.N)];
         }
     }
+    return cells;
 }
 
 // Fills every valid row of the warp whose window leaves the line at step
@@ -241,11 +245,11 @@ __global__ void __launch_bounds__(LINE_THREADS, LINE_MIN_BLOCKS) line_fold_kerne
         }
 
     long long item = blockIdx.x;
-    if (item < a.items) stage_rows(stage(0), a, item, row0, lane);
+    if (item < a.items) count_cta_loads(stage_rows(stage(0), a, item, row0, lane));
     cp_async_commit();
     for (int k = 0; item < a.items; ++k) {
         const long long next = item + gridDim.x;
-        if (next < a.items) stage_rows(stage(k + 1), a, next, row0, lane);
+        if (next < a.items) count_cta_loads(stage_rows(stage(k + 1), a, next, row0, lane));
         cp_async_commit();
         cp_async_wait<1>();  // this tile's copies have landed
         __syncwarp();

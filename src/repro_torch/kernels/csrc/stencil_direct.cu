@@ -183,7 +183,7 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
     }
 
     if constexpr (STAGE == STAGE_REGION) {
-        stage_region(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0);
+        count_cta_loads(stage_region(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0));
         cp_async_commit();
         cp_async_wait<0>();
     } else {

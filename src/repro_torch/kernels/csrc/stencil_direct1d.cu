@@ -100,14 +100,17 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
 }
 
 // Issues the copies of a segment's window: `cells` cells of the line from
-// global cell `base` (16-byte aligned in the input) to dst.
+// global cell `base` (16-byte aligned in the input) to dst.  Returns the
+// cells this thread copied in the counting build, 0 in every other.
 template <typename TIn>
-__device__ __forceinline__ void stage_window(TIn* dst, const TIn* xg, int N, int base,
-                                             int cells) {
+__device__ __forceinline__ int stage_window(TIn* dst, const TIn* xg, int N, int base,
+                                            int cells) {
     constexpr int G = 16 / (int)sizeof(TIn);
     const int nb = (cells + G - 1) / G;
+    int copied = 0;
     for (int f = threadIdx.x; f < nb; f += DIRECT1D_THREADS) {
         const int s0 = base + f * G;
+        COUNT_CELLS(copied, G);
         if (s0 >= 0 && s0 <= N - G) {
             cp_async16(dst + f * G, xg + s0);
         } else {
@@ -115,6 +118,7 @@ __device__ __forceinline__ void stage_window(TIn* dst, const TIn* xg, int N, int
             for (int e = 0; e < G; ++e) dst[f * G + e] = xg[wrap(s0 + e, N)];
         }
     }
+    return copied;
 }
 
 // The fill of the window at depth o (its first cell global p0 - o, at
@@ -205,7 +209,7 @@ stencil_direct1d_kernel(Direct1dArgs a) {
         const Segment sg = segment(a, item);
         const TIn* xg = grid_at(x, sg.b, (size_t)a.grid_elems);
         const int sh = line_shift(xg, h);
-        stage_window(stage(k), xg, a.N, sg.p0 - h - sh, sh + sg.nv + 2 * h);
+        count_cta_loads(stage_window(stage(k), xg, a.N, sg.p0 - h - sh, sh + sg.nv + 2 * h));
     };
 
     long long item = blockIdx.x;

@@ -298,7 +298,7 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
     const bool fill_yx = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
                                   leaves_domain(mx, j0 - halo, cols0, W));
     volatile float* const sink = sink_slot<STAGE>(smem, DIRECT3D_MARGIN);
-    int loaded = 0;  // the foil's cells (the counting build)
+    int loaded = 0;  // the cells staged (the counting build)
 
     // Stages region plane q into step 0's ring (none past the region).
     auto stage = [&](int q) {
@@ -306,7 +306,7 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
         const T* xp = x + (size_t)wrap(z0 + q, Z) * plane_cells;
         float* pl = smem + rings.slot(0, q);
         if constexpr (STAGE == STAGE_REGION) {
-            stage_region(pl, ld, xp, H, W, i0 - halo, j0 - halo - lead, rows0);
+            loaded += stage_region(pl, ld, xp, H, W, i0 - halo, j0 - halo - lead, rows0);
         } else {
             loaded += foil_plane(pl, ld, lead, sink, xp, H, W, i0 - TM, j0 - halo, 3 * TM, cols0,
                                  TM - halo, rows0);
@@ -414,7 +414,7 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
             store_patch(s, sw.q, row0, c, rows0 - sw.r_lo, acc);
         }
     }
-    if constexpr (STAGE == STAGE_STRIP) count_cta_loads(loaded);
+    count_cta_loads(loaded);  // each plane of the region once
 }
 
 // The instantiation a launch in this type, radius, fill and staging takes,

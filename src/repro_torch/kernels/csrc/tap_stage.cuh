@@ -23,12 +23,16 @@ __device__ __forceinline__ void granule(float* dst, const __nv_bfloat16* src) {
 // The region staging: buffer cell (q, c) of buf (row stride ld, c < ld) is
 // global cell (r0 + q, c0 + c) taken modulo (H, W), as f32; granule k of
 // row q holds cells [4k, 4k + 4).  Leaves cp.async copies in flight.
+// Returns the cells this thread copied in the counting build, 0 in every
+// other.
 template <typename T>
-__device__ __forceinline__ void stage_region(float* buf, int ld, const T* __restrict__ x, int H,
-                                             int W, int r0, int c0, int rows) {
+__device__ __forceinline__ int stage_region(float* buf, int ld, const T* __restrict__ x, int H,
+                                            int W, int r0, int c0, int rows) {
     const int gpr = ld >> 2;
     const int n = rows * gpr;
+    int cells = 0;
     for (int f = threadIdx.x; f < n; f += CTA_THREADS) {
+        COUNT_CELLS(cells, 4);
         const int q = f / gpr;
         const int k = f - q * gpr;
         const T* row = x + (size_t)wrap(r0 + q, H) * W;
@@ -41,6 +45,7 @@ __device__ __forceinline__ void stage_region(float* buf, int ld, const T* __rest
             for (int u = 0; u < 4; ++u) dst[u] = to_f32(row[wrap(c0 + 4 * k + u, W)]);
         }
     }
+    return cells;
 }
 
 // The 4 + 2R cells [c - R, c + 4 + R) of a buffer row, p at cell c (on

@@ -19,7 +19,10 @@ process-wide in a bounded LRU keyed on the full execution signature,
 device and the tile rule's budget included, with hit/miss counters and
 the guard layer's counters (:func:`plan_cache_stats`) and a
 negative-result registry of failed signatures (:func:`note_plan_failure`,
-:func:`failed_plan`), which ``repro_torch.kernels.guard`` keeps.
+:func:`failed_plan`), which ``repro_torch.kernels.guard`` keeps.  With
+``audit=True`` (or ``REPRO_AUDIT=1``) a built plan carries the static
+auditor's report on its launches (``plan.audit_report``,
+``repro_torch.audit``), counted in ``audits_run`` / ``audit_violations``.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import perfmodel as pm
-from repro_torch.core.envutil import env_int
+from repro_torch.core.envutil import env_flag, env_int
 from repro_torch.core.selector import Decision, select_backend
 from repro_torch.stencil.boundary import (BoundaryLike, boundary_label,
                                           is_periodic, resolve_boundary)
@@ -151,6 +154,9 @@ class StencilPlan:
         #: Whether a call has run to its end (the first call is where a
         #: plan first reaches its kernels: repro_torch.testing.faults).
         self._reached = False
+        #: The static auditor's report (``repro_torch.audit.AuditReport``),
+        #: attached when the plan was built with auditing on.
+        self.audit_report = None
 
     @property
     def input_shape(self) -> Tuple[int, ...]:
@@ -240,7 +246,10 @@ _STATS = {"hits": 0, "misses": 0,
           # moves, and negative-cache short-circuits.  All zero unless
           # something actually failed.
           "build_failures": 0, "exec_failures": 0,
-          "fallbacks": 0, "negative_hits": 0}
+          "fallbacks": 0, "negative_hits": 0,
+          # static-auditor counters (repro_torch.audit): audited plan builds
+          # and the violations their reports hold.
+          "audits_run": 0, "audit_violations": 0}
 
 #: Negative-result registry: signature key -> {"cause", "backend", "stamp"}.
 #: A signature lands here when its build or execution failed, so the guard
@@ -258,9 +267,10 @@ def plan_cache_max() -> int:
 
 
 def plan_cache_stats() -> dict:
-    """Cache and guard counters: hits/misses/size plus ``build_failures``,
-    ``exec_failures``, ``fallbacks``, ``negative_hits`` and
-    ``negative_size``, snapshotted under the lock."""
+    """Cache, guard and auditor counters: hits/misses/size plus
+    ``build_failures``, ``exec_failures``, ``fallbacks``, ``negative_hits``,
+    ``negative_size``, ``audits_run`` and ``audit_violations``,
+    snapshotted under the lock."""
     with _LOCK:
         out = dict(_STATS)
         out["size"] = len(_CACHE)
@@ -412,8 +422,6 @@ def plan_signature(
                 "(repro.serve coalesces per host)")
     if mesh is not None:
         raise _later_slice("the distributed stepper (mesh=)", "item 15")
-    if audit:
-        raise _later_slice("the static auditor (audit=True)", "item 14")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     if backend is not None:
@@ -517,8 +525,16 @@ def stencil_plan(
       batch_mode: how the batch axis folds -- see :data:`BATCH_MODES`
         ("auto" = "vmap" on the card, "map" on the CPU).  The resolved
         mode is part of the cache key.
-      mesh / audit: later slices; they raise ``NotImplementedError``
-        naming their ROADMAP item (``batch`` with ``mesh`` raises the JAX
+      audit: run the static auditor (``repro_torch.audit``) over the
+        built plan's launches and attach its report as
+        ``plan.audit_report`` (``None`` defers to the ``REPRO_AUDIT`` env
+        flag).  Violations never fail the build: they bump the
+        ``audit_violations`` counter in :func:`plan_cache_stats` and
+        surface in the report.  Not part of the cache key -- a cached
+        plan keeps the report of the build that audited it.  A batched
+        plan gets an exempt report.
+      mesh: a later slice; it raises ``NotImplementedError`` naming its
+        ROADMAP item (``batch`` with ``mesh`` raises the JAX
         ``ValueError``).
     """
     key, weights, grid_shape, dtype, dev = plan_signature(
@@ -560,6 +576,8 @@ def stencil_plan(
         device=dev, geom=geom, key=key,
         build_time_s=time.perf_counter() - t0, ctx=ctx, boundary=modes,
         batch=None if batch is None else int(batch), batch_mode=mode)
+    if audit if audit is not None else env_flag("REPRO_AUDIT"):
+        _attach_audit(plan, ctx, exec_backend, decision, geom)
     if use_cache:
         with _LOCK:
             bound = plan_cache_max()
@@ -568,3 +586,37 @@ def stencil_plan(
                 _CACHE.popitem(last=False)
             _tick_churn()
     return plan
+
+
+def _attach_audit(plan, ctx, exec_backend, decision, geom_px) -> None:
+    """Run the static auditor over the freshly built plan and attach the
+    report (the JAX ``_attach_audit``).  Never raises: violations count
+    into the plan stats and live in ``plan.audit_report``; an auditor
+    crash records itself as ``audit/crashed`` rather than failing the
+    build.  A batched plan's fold wraps the launch, so it attaches an
+    exempt report instead of false violations."""
+    from repro_torch import audit as _audit
+
+    dtype = str(ctx.dtype).replace("torch.", "")
+    try:
+        if plan.batch is not None:
+            report = _audit.AuditReport(
+                backend=exec_backend, grid_shape=tuple(ctx.grid_shape),
+                t=ctx.t, dtype=dtype, exempt="batch fold wraps the launch")
+        else:
+            report = _audit.audit_context(ctx, exec_backend)
+            pvl = report.check("blocks/priced-vs-launched")
+            report.checks.append(_audit.audit_reason_read_amp(
+                decision.reason, tuple(ctx.grid_shape), geom_px,
+                ctx.dtype.itemsize,
+                launched=None if pvl is None else pvl.actual["launched_amp"]))
+    except Exception as e:  # the auditor must not break a build
+        report = _audit.AuditReport(
+            backend=exec_backend, grid_shape=tuple(ctx.grid_shape),
+            t=ctx.t, dtype=dtype,
+            checks=[_audit.AuditCheck("audit/crashed", False,
+                                      actual=repr(e))])
+    plan.audit_report = report
+    with _LOCK:
+        _STATS["audits_run"] += 1
+        _STATS["audit_violations"] += len(report.violations)

@@ -16,7 +16,11 @@ once per plan, and an optional ``price(pctx)`` that makes it an
 auto-selection candidate.  ``run(xb, batched=True)`` advances a batch
 ``(B,) + grid_shape`` with one launch per kernel call (K11): a batched
 plan's "vmap" fold (``common.fold_batch``).  ``fallback_rank`` orders the guard layer's degradation ladder
-(``repro_torch.kernels.guard``), the JAX ranks.
+(``repro_torch.kernels.guard``), the JAX ranks.  ``audit(ctx)`` declares
+the backend's launches for the static auditor (``repro_torch.audit``):
+each :class:`LaunchAudit` names the tile the plan's decision priced and
+the tile the kernel launches, resolved through the same
+:class:`PlanContext` methods each ``build`` uses.
 """
 from __future__ import annotations
 
@@ -27,16 +31,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import perfmodel as pm
-from repro_torch.stencil.boundary import is_periodic
+from repro_torch.stencil.boundary import is_periodic, resolve_boundary
 from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import fuse_weights
 from . import legacy as _legacy
 from . import ref as _ref
-from .common import (SubstrateGeom, check_grid, check_staging, launch_geom,
-                     plain_loop, staging_clause)
+from .common import (BAND_N, SubstrateGeom, check_grid, check_staging,
+                     launch_geom, mma_k_step, plain_loop, pricing_geom,
+                     resolve_tile_geom, staging_clause)
 from .stencil_direct import direct2d_layout, stencil_direct_at
-from .stencil_matmul import stencil_matmul_at
-from .stencil_sparse import sparse_tile_layout, stencil_sparse_matmul_at
+from .stencil_matmul import build_bands_nd, stencil_matmul_at
+from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
+                             stencil_sparse_matmul_at)
 
 
 @dataclasses.dataclass
@@ -77,6 +83,178 @@ class PlanContext:
         check_staging(self.grid_shape, geom, t_inner * r, self.staging)
         return geom
 
+    def priced_geom(self) -> SubstrateGeom:
+        """The geometry the plan's decision prices (``plan.auto_decision``):
+        ``pricing_geom`` at the fused halo t*r on the tile the rule
+        resolves there (1D: the lift's, read amplification 1)."""
+        halo = self.t * self.spec.radius
+        tile = resolve_tile_geom(self.grid_shape, halo, self.tile_m,
+                                 self.w_tile, self.z_slab)
+        if tile.dim == 1:
+            return pricing_geom(1, halo)
+        return pricing_geom(tile.dim, halo, tile.strip_m, tile.h_block,
+                            tile.z_slab if tile.dim == 3 else None,
+                            tile.z_block if tile.dim == 3 else None,
+                            tile.w_tile, tile.w_block)
+
+
+# ---------------------------------------------------------------------------
+# Audit hooks: what a backend declares it will launch (repro_torch.audit)
+# ---------------------------------------------------------------------------
+#: The kernel family a launch runs, by engine and grid rank: the tap-sums
+#: (csrc/stencil_direct{,3d,1d}.cu) and the folds (csrc/tile_fold.cuh,
+#: slab_fold.cuh, line_fold.cuh).
+FAMILIES = {("direct", 2): "tapsum2d", ("direct", 3): "tapsum3d",
+            ("direct", 1): "tapsum1d", ("matmul", 2): "tile_fold",
+            ("matmul", 3): "slab_fold", ("matmul", 1): "line_fold"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchAudit:
+    """One declared kernel launch of a backend, in auditable terms (the
+    JAX ``LaunchAudit``'s fields, meaning what they mean there, and the
+    port's own).
+
+    ``geom`` is the tile the kernel launches (``PlanContext.launch_geom``,
+    halo ``t_inner * radius``; 1D the lifted tile, whose width sets the
+    folded kernels' segments and rows); ``priced`` the geometry the plan's
+    decision priced (``PlanContext.priced_geom``, halo t*r).  ``family``
+    names the kernel (:data:`FAMILIES`), ``staging`` what a CTA reads.
+    ``weights`` is the kernel-rank operand (a 1D kernel lifted to
+    (1, 2r+1), as in JAX), so ``halo`` (the leading halo) is 0 on a 1D
+    grid; ``x_halo`` is the launched tile's x halo.  The banded launches
+    declare their bands at the port's chunk width (``tile_n`` = BAND_N):
+    ``bands_shape`` the built operand's shape (the compacted one's packed
+    shape), ``band_rows`` every band's (dz, dy, lo, nk) as the kernels
+    read it, nk MMA k-steps of ``mma_k_step(compute_bytes)``.
+    """
+
+    geom: SubstrateGeom
+    priced: SubstrateGeom
+    grid_shape: Tuple[int, ...]
+    halo: int
+    x_halo: int
+    t_inner: int
+    weights: np.ndarray
+    radius: int
+    engine: str                   # "direct" | "matmul" | "sparse_matmul"
+    family: str
+    staging: str = "region"
+    dtype_bytes: int = 4
+    compute_bytes: int = 4
+    tile_n: int = 0
+    bands_shape: Optional[Tuple[int, ...]] = None
+    n_offsets: int = 0
+    band_lo: Optional[Tuple[int, ...]] = None
+    band_spans: Optional[Tuple[int, ...]] = None
+    band_rows: Optional[Tuple[Tuple[int, ...], ...]] = None
+    boundary: Optional[Tuple[str, ...]] = None
+
+    @property
+    def total_halo(self) -> int:
+        """The halo the launch stages along x (and every staged axis)."""
+        return self.t_inner * self.radius
+
+
+@dataclasses.dataclass(frozen=True)
+class AuditSpec:
+    """A backend's full audit declaration: its launches, in run order."""
+
+    launches: Tuple[LaunchAudit, ...] = ()
+    #: Non-None opts the backend out with a recorded reason.
+    exempt: Optional[str] = None
+
+
+def _launch_audit(ctx: PlanContext, w_op, t_inner: int,
+                  engine: str) -> LaunchAudit:
+    """Describe one launch exactly as the backend's ``build`` resolves
+    it."""
+    w_op = np.asarray(w_op, dtype=np.float32)
+    geom = ctx.launch_geom(w_op, t_inner)
+    dim = len(ctx.grid_shape)
+    lifted = w_op[None, :] if dim == 1 else w_op
+    radius = (lifted.shape[-1] - 1) // 2
+    family = FAMILIES[("direct" if engine == "direct" else "matmul", dim)]
+    cdt = ctx.compute_dtype or ctx.dtype
+    extra = {}
+    if engine != "direct":
+        k_step = mma_k_step(cdt.itemsize)
+        offsets, bands = build_bands_nd(lifted, BAND_N)
+        extra = dict(tile_n=BAND_N, n_offsets=len(offsets))
+        if engine == "matmul":
+            nk = -(-bands.shape[1] // k_step)
+            extra.update(
+                bands_shape=tuple(bands.shape),
+                band_rows=tuple((0,) * (2 - len(o)) + tuple(o) + (0, nk)
+                                for o in offsets))
+        else:
+            row_index, packed = compact_bands(offsets, bands)
+            meta = band_meta(w_op, cdt)
+            extra.update(
+                bands_shape=tuple(packed.shape),
+                band_lo=tuple(int(ix[0]) for ix in row_index),
+                band_spans=tuple(int(ix.size) - BAND_N for ix in row_index),
+                band_rows=tuple((0,) * (4 - len(r)) + tuple(r)
+                                for r in meta.rows))
+    return LaunchAudit(
+        geom=geom, priced=ctx.priced_geom(),
+        grid_shape=tuple(ctx.grid_shape),
+        halo=t_inner * ((lifted.shape[0] - 1) // 2),
+        x_halo=t_inner * radius, t_inner=t_inner, weights=lifted,
+        radius=radius, engine=engine, family=family,
+        staging=ctx.staging if dim > 1 else "region",
+        dtype_bytes=ctx.dtype.itemsize, compute_bytes=cdt.itemsize,
+        boundary=resolve_boundary(ctx.boundary, dim), **extra)
+
+
+def _audit_direct(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+                                             "direct"),) * ctx.t)
+
+
+def _audit_fused_direct(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
+                                             "direct"),))
+
+
+def _audit_matmul(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+                                             "matmul"),) * ctx.t)
+
+
+def _audit_fused_matmul(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.fused_weights(), 1,
+                                             "matmul"),))
+
+
+def _audit_fused_matmul_reuse(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
+                                             "matmul"),))
+
+
+def _audit_sparse_matmul(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+                                             "sparse_matmul"),) * ctx.t)
+
+
+def _audit_fused_sparse_matmul(ctx: PlanContext) -> AuditSpec:
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
+                                             "sparse_matmul"),))
+
+
+def _wholestrip_audit(audit: Callable) -> Callable:
+    """Audit the same regime on the whole-strip staging, mirroring
+    :func:`_wholestrip` exactly."""
+    def audit_ws(ctx: PlanContext) -> AuditSpec:
+        return audit(dataclasses.replace(ctx, staging="wholestrip"))
+    return audit_ws
+
+
+def _audit_exempt(reason: str) -> Callable:
+    def audit(ctx: PlanContext) -> AuditSpec:
+        return AuditSpec(exempt=reason)
+    return audit
+
 
 @dataclasses.dataclass(frozen=True)
 class BackendDef:
@@ -88,6 +266,10 @@ class BackendDef:
     #: Position on the degradation ladder (lower = more aggressive); the
     #: reference oracle carries the largest rank.
     fallback_rank: Optional[int] = None
+    #: ``audit(ctx) -> AuditSpec`` declares the backend's launches for the
+    #: static auditor; ``None`` means "not yet auditable" (plug-ins),
+    #: reported as exempt rather than violating.
+    audit: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, BackendDef] = {}
@@ -102,9 +284,12 @@ def generation() -> int:
 def register_backend(name: str, build: Callable, price: Callable = None,
                      description: str = "", unit: str = None,
                      overwrite: bool = False,
-                     fallback_rank: Optional[int] = None) -> BackendDef:
+                     fallback_rank: Optional[int] = None,
+                     audit: Callable = None) -> BackendDef:
     """Register an execution backend under ``name`` (see the JAX registry);
-    re-registering an existing name raises unless ``overwrite``."""
+    ``audit(ctx) -> AuditSpec`` (optional) declares its launches for the
+    static auditor.  Re-registering an existing name raises unless
+    ``overwrite``."""
     global _generation
     if name == "auto":
         raise ValueError("'auto' is the selection policy, not a backend")
@@ -113,7 +298,7 @@ def register_backend(name: str, build: Callable, price: Callable = None,
                          "(pass overwrite=True to replace)")
     bd = BackendDef(name=name, build=build, price=price,
                     description=description, unit=unit,
-                    fallback_rank=fallback_rank)
+                    fallback_rank=fallback_rank, audit=audit)
     _REGISTRY[name] = bd
     _generation += 1
     return bd
@@ -409,20 +594,21 @@ def _price_fused_sparse_matmul(p):
 # Fallback ranks as in the JAX registry (registry.py:620-650).
 register_backend("direct", _build_direct, _price_direct,
                  "t sequential tap-sum kernel launches (halo r per step)",
-                 unit="vector", fallback_rank=50)
+                 unit="vector", fallback_rank=50, audit=_audit_direct)
 register_backend("fused_direct", _build_fused_direct, _price_fused_direct,
                  "one tap-sum launch, t steps in shared memory",
-                 unit="vector", fallback_rank=40)
+                 unit="vector", fallback_rank=40, audit=_audit_fused_direct)
 register_backend("matmul", _build_matmul, _price_matmul,
                  "t sequential banded tensor-core contractions",
-                 unit="matrix", fallback_rank=30)
+                 unit="matrix", fallback_rank=30, audit=_audit_matmul)
 register_backend("fused_matmul", _build_fused_matmul, _price_fused_matmul,
                  "monolithic fusion: one radius-t*r banded contraction",
-                 unit="matrix", fallback_rank=20)
+                 unit="matrix", fallback_rank=20, audit=_audit_fused_matmul)
 register_backend("fused_matmul_reuse", _build_fused_matmul_reuse,
                  _price_fused_matmul_reuse,
                  "one banded launch, t radius-r contractions, shared-memory "
-                 "intermediates", unit="matrix", fallback_rank=10)
+                 "intermediates", unit="matrix", fallback_rank=10,
+                 audit=_audit_fused_matmul_reuse)
 # The sparse-compacted pair, registered in the JAX order (ties in the
 # selector break by registration order): ladder rungs between the reuse
 # regime and monolithic fusion.
@@ -430,32 +616,42 @@ register_backend("fused_sparse_matmul", _build_fused_sparse_matmul,
                  _price_fused_sparse_matmul,
                  "one compacted banded launch, t radius-r contractions, "
                  "shared-memory intermediates", unit="matrix",
-                 fallback_rank=12)
+                 fallback_rank=12, audit=_audit_fused_sparse_matmul)
 register_backend("sparse_matmul", _build_sparse_matmul, _price_sparse_matmul,
                  "t sequential compacted banded tensor-core contractions",
-                 unit="matrix", fallback_rank=16)
+                 unit="matrix", fallback_rank=16, audit=_audit_sparse_matmul)
 register_backend("reference", _build_reference,
                  description="plain PyTorch oracle (debug)",
-                 fallback_rank=1000)
+                 fallback_rank=1000,
+                 audit=_audit_exempt("plain PyTorch oracle: no launch "
+                                     "structure to audit"))
 register_backend("legacy_direct", _build_legacy_direct,
                  description="seed 9-tile tap-sum scheme (traffic foil)",
-                 unit="vector")
+                 unit="vector",
+                 audit=_audit_exempt("seed 9-tile foil predates the "
+                                     "substrate traffic model"))
 register_backend("legacy_matmul", _build_legacy_matmul,
                  description="seed 9-tile monolithic banded scheme (foil)",
-                 unit="matrix")
+                 unit="matrix",
+                 audit=_audit_exempt("seed 9-tile foil predates the "
+                                     "substrate traffic model"))
 
 # The whole-strip traffic foils: the five regimes on the whole-strip
 # staging, unpriced so they never win selection.  The tap-sum pair are
 # the ladder's last kernel rungs (ranks 60 and 55, as in JAX): after every
 # regime on its region has failed, the foil's different staging, then the
 # reference oracle.
-for _name, _build, _unit, _rank in (
-        ("direct", _build_direct, "vector", 60),
-        ("fused_direct", _build_fused_direct, "vector", 55),
-        ("matmul", _build_matmul, "matrix", None),
-        ("fused_matmul", _build_fused_matmul, "matrix", None),
-        ("fused_matmul_reuse", _build_fused_matmul_reuse, "matrix", None)):
+for _name, _build, _audit, _unit, _rank in (
+        ("direct", _build_direct, _audit_direct, "vector", 60),
+        ("fused_direct", _build_fused_direct, _audit_fused_direct,
+         "vector", 55),
+        ("matmul", _build_matmul, _audit_matmul, "matrix", None),
+        ("fused_matmul", _build_fused_matmul, _audit_fused_matmul,
+         "matrix", None),
+        ("fused_matmul_reuse", _build_fused_matmul_reuse,
+         _audit_fused_matmul_reuse, "matrix", None)):
     register_backend(f"{_name}_wholestrip", _wholestrip(_build),
                      description=f"{_name} on the whole-strip staging "
                                  "(traffic foil)",
-                     unit=_unit, fallback_rank=_rank)
+                     unit=_unit, fallback_rank=_rank,
+                     audit=_wholestrip_audit(_audit))

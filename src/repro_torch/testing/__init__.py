@@ -4,6 +4,7 @@ unconditionally, so it lives in the package, not under ``tests/``."""
 from .faults import (  # noqa: F401
     FaultSpec,
     active_faults,
+    corrupt_geometry,
     corrupt_output,
     fault_hits,
     first_call,
@@ -18,6 +19,7 @@ from .faults import (  # noqa: F401
 __all__ = [
     "FaultSpec",
     "active_faults",
+    "corrupt_geometry",
     "corrupt_output",
     "fault_hits",
     "first_call",

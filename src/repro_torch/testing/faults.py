@@ -12,8 +12,12 @@ Every failure class the degradation ladder must survive has a kind:
   requested for launch") at the same point, as if the tile estimate lied;
 - ``nan``: corrupt a guarded step's output with NaN (consumed by
   ``GuardedPlan`` via :func:`corrupt_output`) to exercise the watchdog;
-- ``halo`` and ``geometry``: parsed, with no hook until the distributed
-  stepper and the static auditor are ported.
+- ``geometry``: corrupt the static auditor's walk of the next audited
+  launch (:func:`corrupt_geometry`: a window read twice), never a launch
+  on the card -- the port's kernels compute their windows on the device,
+  so the fault warps what the auditor enumerates, as JAX's
+  ``corrupt_geometry`` warps the BlockSpec index maps it walks;
+- ``halo``: parsed, with no hook until the distributed stepper is ported.
 
 The JAX package fires ``compile`` and ``vmem`` once per kernel launch
 while a plan's runner is traced, which happens on the plan's first call.
@@ -226,6 +230,19 @@ def on_launch(kernel: str) -> None:
     if getattr(_FIRST, "depth", 0) and _armed():
         maybe_fail("compile", kernel)
         maybe_fail("vmem", kernel)
+
+
+def corrupt_geometry(walk):
+    """If a ``geometry`` fault is due, return the auditor's window walk
+    (``repro_torch.audit.blocks.Walk``) with a window read twice
+    (``Walk.repeat_window``); otherwise ``walk``.  Called only from the
+    auditor, once per audited launch."""
+    if not _armed():
+        return walk
+    for spec in active_faults():
+        if spec.kind == "geometry" and spec.should_fire():
+            return walk.repeat_window()
+    return walk
 
 
 def corrupt_output(y):

@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.stencil_direct import stencil_direct as j_direct  # noqa
 from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
+from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
@@ -109,21 +110,23 @@ class _Buffer:
         return self.a[self.front + lo:self.front + hi]
 
 
-def _step(src, dst, w, r, lo, hi):
+def _step(src, dst, w, r, lo, hi, stats=None):
     """One step of csrc/stencil_direct1d.cu::direct1d_step: groups of 4
     outputs from ``lo`` rounded down to a multiple of 4 below ``hi``, each
     from the 12 cells [c - 4, c + 8), taps in ascending dx, zero taps
-    skipped."""
+    skipped (``stats["fma"]`` counts their FMAs)."""
     for c in range(lo & ~3, hi, 4):
         v = src.at(c - 4, c + 8)
         acc = np.zeros(4)
         for dx in range(2 * r + 1):
             if w[dx] != 0.0:
                 acc = acc + float(w[dx]) * v[4 + dx - r:8 + dx - r]
+                if stats is not None:
+                    stats["fma"] += 4
         dst.at(c, c + 4)[:] = acc
 
 
-def emulate_direct1d(x, w, t, geom, mode, in_bytes=4):
+def emulate_direct1d(x, w, t, geom, mode, in_bytes=4, stats=None):
     """The folded tap-sum on the CPU, segment by segment of
     ``line_segments``, on the buffers of ``direct1d_layout``: the window
     staged in 16-byte granules from the granule that holds its first cell
@@ -132,7 +135,8 @@ def emulate_direct1d(x, w, t, geom, mode, in_bytes=4):
     fill misses and a valid output reads shows -- then per step the fill
     at depth (t - s) R when the window leaves the line, the step between
     the two f32 buffers (a float32 line's staging buffer is the second),
-    and the segment's outputs read at cell sh + h."""
+    and the segment's outputs read at cell sh + h.  ``stats["fma"]``
+    counts the FMAs the steps issue."""
     xs = np.asarray(x, dtype=np.float64).reshape(-1, x.shape[-1])
     batch, n = xs.shape
     r = (len(w) - 1) // 2
@@ -165,7 +169,8 @@ def emulate_direct1d(x, w, t, geom, mode, in_bytes=4):
                 _fill_line(cur.at(sh + s * r, sh + s * r + win), p0 - o, n,
                            o, mode)
             nxt = ping if cur is not ping else pong
-            _step(cur, nxt, w, r, sh + (s + 1) * r, sh + h + nv + o - r)
+            _step(cur, nxt, w, r, sh + (s + 1) * r, sh + h + nv + o - r,
+                  stats)
             cur = nxt
         y[b, p0:p1] = cur.at(sh + h, sh + h + nv)
     return y.reshape(x.shape)
@@ -272,6 +277,8 @@ def test_direct1d_layout_fits_at_the_plan_tiles(r, t, dtype):
     geom = common.launch_geom((2**26,), h)
     lay = common.direct1d_layout(geom.w_tile, h, dtype.itemsize)
     ib = dtype.itemsize
+    checks = scratch.audit_layout("tapsum1d", geom, r, t, lay, ib)
+    assert all(c.passed for c in checks), [c.to_dict() for c in checks]
     assert lay.seg == TM * geom.w_tile
     assert lay.smem_bytes <= common.SMEM_BUDGET_BYTES
     # the window from its granule's first cell, and the read past it

@@ -400,8 +400,10 @@ class _Null:
 
 @pytest.mark.parametrize("count", [False, True])
 def test_load_counting_builds_only_the_foils(monkeypatch, count):
-    # REPRO_COUNT_LOADS=1 adds the counting define to the foils' builds
-    # alone, so their libraries rebuild apart and the main path's do not
+    # REPRO_COUNT_LOADS=1 adds the counting define to every library's
+    # build (the foils' and, since the auditor's witness, the default
+    # kernels'), so the counting libraries build apart from the default
+    # ones, whose flags stay as they were
     if count:
         monkeypatch.setenv("REPRO_COUNT_LOADS", "1")
     else:
@@ -409,8 +411,10 @@ def test_load_counting_builds_only_the_foils(monkeypatch, count):
     for name in _build.KERNELS:
         flags = _build._flags(name)
         assert ("-DREPRO_FOIL" in flags) == name.endswith("_foil")
-        assert ("-DREPRO_COUNT_LOADS" in flags) == \
-            (count and name.endswith("_foil"))
+        assert ("-DREPRO_COUNT_LOADS" in flags) == count
+        if not count:
+            assert flags == _build.NVCC_FLAGS + (
+                ("-DREPRO_FOIL",) if name.endswith("_foil") else ())
     src = (pathlib.Path(common.__file__).parent / "csrc" /
            "common.cuh").read_text()
     assert 'extern "C" int repro_load_counts(' in src

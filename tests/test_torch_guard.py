@@ -31,9 +31,10 @@ from repro_torch.testing import faults as tfaults  # noqa: E402
 
 W = make_weights(JSpec("box", 2, 1), seed=0)
 X = np.random.default_rng(0).normal(size=(64, 128)).astype(np.float32)
-#: Counters both packages keep (the JAX auditor's are not ported yet).
+#: Counters both packages keep.
 STATS = ("hits", "misses", "size", "build_failures", "exec_failures",
-         "fallbacks", "negative_hits", "negative_size")
+         "fallbacks", "negative_hits", "negative_size", "audits_run",
+         "audit_violations")
 
 
 @pytest.fixture(autouse=True)

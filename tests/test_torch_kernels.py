@@ -12,6 +12,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.stencil_direct import stencil_direct as j_direct  # noqa: E402
 from repro.stencil import StencilSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
+from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
@@ -110,12 +111,16 @@ def test_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
     bound = common.tile_smem_bound(tm, tn, halo)
     assert bound <= common.SMEM_BUDGET_BYTES
     layouts = [common.direct_layout(tm, tn, halo)]
+    checks = scratch.audit_layout("tapsum2d", geom, halo, 1, layouts[0])
     for t in range(1, halo + 1):
         if halo % t == 0:
             r = halo // t
             for cb in (4, 2):       # the (2r + 1) rows of a square kernel
                 layouts.append(common.tile_fold_layout(tm, tn, r, t, cb,
                                                        2 * r + 1))
+                checks += scratch.audit_layout("tile_fold", geom, r, t,
+                                               layouts[-1], compute_bytes=cb)
+    assert all(c.passed for c in checks), [c.to_dict() for c in checks]
     for lay in layouts:
         assert lay.smem_bytes <= bound
         assert lay.rows >= tm + 2 * halo and lay.ld >= tn + 2 * halo
@@ -211,6 +216,13 @@ def test_plan_without_device_needs_a_gpu(monkeypatch):
     (dict(audit=True), "item 14")])
 def test_later_slices_raise(kwargs, item):
     w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    if item == "item 14":
+        # The static auditor (item 14) runs since its port: the plan
+        # carries a clean report of its own launches.
+        plan = tk.stencil_plan(w, (32, 32), torch.float32, 2, device="cpu",
+                               use_cache=False, **kwargs)
+        assert plan.audit_report is not None and plan.audit_report.ok
+        return
     if item == "item 13":
         # Batched plans (item 13) run since K11; a batch with a mesh
         # raises the JAX ValueError, before the mesh's own refusal.

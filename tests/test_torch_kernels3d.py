@@ -18,6 +18,7 @@ from repro.kernels.stencil_matmul import band_sparsity as j_band_sparsity  # noq
 from repro.kernels.stencil_matmul import stencil_matmul as j_matmul  # noqa
 from repro.stencil import StencilSpec, fuse_weights, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
+from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
@@ -215,12 +216,17 @@ def test_3d_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
             d = common.direct3d_layout(tm, tn, r, t)
             assert d.smem_bytes <= bound and d.rows == tm + 2 * halo
             assert d.slots == (2 * r + 1 + common.DIRECT3D_AHEAD) + (t - 1) * (2 * r + 2)
+            checks = scratch.audit_layout("tapsum3d", g, r, t, d)
+            assert all(c.passed for c in checks), [c.to_dict() for c in checks]
         for cb in (4, 2):       # the slab fold's layout, (2r+1)^2 bands
             b = common.slab_fold_layout(tz, tm, tn, r, t, cb,
                                         (2 * r + 1) ** 2)
             assert b.smem_bytes <= bound and b.planes == tz + 2 * halo
             assert b.rows >= tm + 2 * halo and b.ld >= tn + 2 * halo
             assert b.ld % 8 == 4 and b.kpad % 8 == 0
+            checks = scratch.audit_layout("slab_fold", g, r, t, b,
+                                          compute_bytes=cb)
+            assert all(c.passed for c in checks), [c.to_dict() for c in checks]
 
 
 def test_3d_tile_choices_on_the_main_path():

@@ -23,6 +23,7 @@ from repro.kernels import stencil_sparse as jsp  # noqa: E402
 from repro.kernels.stencil_matmul import stencil_matmul as j_matmul  # noqa
 from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
+from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
 
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
@@ -96,13 +97,15 @@ def _fill_line(win, g0, n, o, mode):
             win[c] = win[gs - g0]
 
 
-def emulate_fold(x, w, t, geom, mode):
+def emulate_fold(x, w, t, geom, mode, stats=None):
     """The folded kernels' dataflow on the CPU, row by row of
     ``line_windows``: the row's window by modulo indices -- every cell
     outside the line NaN under a non-periodic mode, so a cell the fill
     misses and a valid output reads shows -- then per step the fill at
     depth (t-s)R with the window's origin at q - (t-s)R and a shrinking
-    valid correlation of the 1D kernel, and the row's outputs stored."""
+    valid correlation of the 1D kernel, and the row's outputs stored.
+    ``stats["chunks"]`` counts the 16-column output chunks of every row's
+    steps."""
     n, r = x.shape[0], (w.shape[0] - 1) // 2
     y = np.full_like(x, np.nan)
     for _, _, _, (o0, o1), (r0, r1) in common.line_windows(n, geom):
@@ -114,6 +117,8 @@ def emulate_fold(x, w, t, geom, mode):
             if mode != "periodic":
                 _fill_line(win, o0 - (t - s) * r, n, (t - s) * r, mode)
             out = np.zeros(len(win) - 2 * r)
+            if stats is not None:
+                stats["chunks"] += -(-len(out) // 16)
             for dx in range(2 * r + 1):
                 if w[dx]:
                     out += w[dx] * win[dx:dx + len(out)]
@@ -169,6 +174,9 @@ def test_line_layout_fits_at_the_plan_tiles(r, t, in_dtype, cdt):
     geom = common.launch_geom((2**26,), t * r)
     lay = t_matmul.line_launch_layout(geom, r, t, in_dtype, cdt, "1D")
     ib, h = in_dtype.itemsize, t * r
+    checks = scratch.audit_layout("line_fold", geom, r, t, lay, ib,
+                                  cdt.itemsize)
+    assert all(c.passed for c in checks), [c.to_dict() for c in checks]
     gran = 16 // ib
     assert lay.rows == TM and lay.smem_bytes <= common.SMEM_BUDGET_BYTES
     # the staged window, from its first cell's 16-byte granule on

@@ -133,11 +133,13 @@ def test_plan_cache_hits_and_misses():
     assert uncached is not p1 and tk.plan_cache_stats()["size"] == 8
     tk.clear_plan_cache()
     assert _cache_view() == {"hits": 0, "misses": 0, "size": 0}
-    # the guard layer's counters stay zero on runs where nothing failed
+    # the guard layer's counters stay zero on runs where nothing failed,
+    # and the auditor's on runs that audit nothing
     assert {k: v for k, v in tk.plan_cache_stats().items()
             if k not in ("hits", "misses", "size")} == {
         "build_failures": 0, "exec_failures": 0, "fallbacks": 0,
-        "negative_hits": 0, "negative_size": 0}
+        "negative_hits": 0, "negative_size": 0, "audits_run": 0,
+        "audit_violations": 0}
 
 
 def test_plan_cache_is_bounded(monkeypatch):

@@ -149,7 +149,7 @@ def _bf16(a):
         torch.bfloat16).float().numpy()
 
 
-def emulate_slab(x, w, t, geom, modes, cdt, sparse=False):
+def emulate_slab(x, w, t, geom, modes, cdt, sparse=False, stats=None):
     """The 3D banded kernels' dataflow on the CPU, CTA by CTA, on the map
     ``slab_fold_tiles`` alone.  The region is laid out as
     ``slab_fold_layout`` lays it out, its padding columns NaN; it loads by
@@ -167,7 +167,9 @@ def emulate_slab(x, w, t, geom, modes, cdt, sparse=False):
     and only then the pass's stores, f32 (TF32-rounded for a next step),
     masked at the step's width and last pair; after the step every cell
     outside its output is set to NaN, as the next step must not read it.
-    The last step's tile is stored, clipped to the grid."""
+    The last step's tile is stored, clipped to the grid.
+    ``stats["mma"]`` counts the products of the tiles' sums: per tile and
+    band, each k-step of each n8 half of the chunk that holds an output."""
     r = (w.shape[-1] - 1) // 2
     h = t * r
     k_step = common.mma_k_step(cdt.itemsize)
@@ -214,6 +216,9 @@ def emulate_slab(x, w, t, geom, modes, cdt, sparse=False):
                     if not tf32:
                         a = _bf16(a)
                     acc += a.astype(np.float64) @ blk.astype(np.float64)
+                    if stats is not None:
+                        stats["mma"] += len(group) * nk * (
+                            1 + (group[0].cols[1] - c0 > 8))
                 out = acc.astype(np.float32)
                 if tf32 and s + 1 < t:
                     out = _tf32(out)

@@ -120,7 +120,8 @@ def emulate_tapsum2d(x, w, t, geom, modes, staging="region", in_bytes=4,
     mid-granule; a foil staging writes the region's cells alone), then
     per step the fill when the region leaves a non-periodic axis, the
     patches of the work map, and the tile read at (h, lead + h).
-    ``stats`` counts granule and element copies."""
+    ``stats`` counts granule and element copies, and with an "fma" key the
+    FMAs the patches issue (one per nonzero tap and patch cell)."""
     b_, H, W = x.shape
     r = (w.shape[0] - 1) // 2
     kw = 2 * r + 1
@@ -152,7 +153,8 @@ def emulate_tapsum2d(x, w, t, geom, modes, staging="region", in_bytes=4,
                             _fill_axis(view, 0, i0 - o, H, o, modes[0])
                         if _leaves(modes[1], j0 - o, win_, W):
                             _fill_axis(view, 1, j0 - o, W, o, modes[1])
-                    _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead)
+                    _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead,
+                          stats)
                 fin = bufs[t % 2] + h * ld + lead + h
                 for i in range(min(tm, H - i0)):
                     n = min(tn, W - j0)
@@ -191,7 +193,7 @@ def _stage(sm, xg, base, r0, c0, rows0, cols0, ld, lead, b0, modes, staging,
         sm.write(dst, [cell(q, 4 * k + u - lead) for u in range(4)])
 
 
-def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead):
+def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead, stats=None):
     """One step: every patch of the work map from buffer ``src`` into
     ``dst``; each output of the step's window is written once, and no
     write lands outside ``dst``'s rows."""
@@ -217,6 +219,8 @@ def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead):
             for dx in range(kw):
                 if w[dy, dx] != 0.0:
                     acc = acc + float(w[dy, dx]) * win[dy:dy + V, dx:dx + 4]
+                    if stats is not None and "fma" in stats:
+                        stats["fma"] += V * 4
         for o in range(V):
             if r0 + o < r_end:
                 assert 0 <= (r0 + o) * ld + c and (r0 + o) * ld + c + 4 <= rows0 * ld
@@ -470,10 +474,11 @@ def test_source_constants_match_the_host():
         [f for f, _ in t_direct._Taps._fields_] == ["w"]
     # the new staging is the tap-sums' own (the 3D tap-sum stages each
     # plane with it); the tile fold's 2D loads and the 3D banded kernels
-    # keep common.cuh's load_rect
-    assert "void stage_region(" in stage and "stage_region(" in SRC
+    # keep common.cuh's load_rect (both return the cells a thread copied:
+    # the counting build's count, 0 in every other)
+    assert "int stage_region(" in stage and "stage_region(" in SRC
     assert "load_rect(" not in SRC + stage
-    assert "void load_rect(" in (CSRC / "common.cuh").read_text()
+    assert "int load_rect(" in (CSRC / "common.cuh").read_text()
 
 
 def _c_params(entry: str) -> list:

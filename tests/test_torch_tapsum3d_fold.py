@@ -116,7 +116,9 @@ def emulate_tapsum3d(x, w, t, geom, modes, staging="region", stats=None):
     Writes of an interval land at its end (its barrier), so a read of what
     the same interval writes, or of a slot whose staging is in flight,
     fails.  ``stats`` counts granule and element copies and the foil's
-    loaded cells."""
+    loaded cells, and with an "fma" key the FMAs the kernel's patches
+    issue: V-row patches over each live plane's window, one per tap whose
+    input plane is read, and cell."""
     b_, Z, H, W = x.shape
     r = (w.shape[0] - 1) // 2
     h = t * r
@@ -246,6 +248,9 @@ def _cta(xg, yg, base, taps, r, t, k0, i0, j0, tz, tm, tn, planes0, rows0, cols0
             rows = np.arange(r_lo, r_end)[:, None]
             cols = np.arange(4 * g_lo, 4 * (g_lo + gn))[None, :]
             acc = np.zeros((rows.size, cols.size))
+            if stats is not None and "fma" in stats:
+                stats["fma"] += (-(-rows.size // V) * V * cols.size
+                                 * sum(po[dz] is not None for dz, *_ in taps))
             for dz, dy, dx, wv in taps:
                 if po[dz] is None:
                     continue

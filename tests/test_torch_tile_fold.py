@@ -136,7 +136,7 @@ def test_tile_map_runs_each_main_tile_step_in_one_pass_across_chunks():
 # ---------------------------------------------------------------------------
 # The kernels' dataflow, emulated on the map alone, against JAX
 # ---------------------------------------------------------------------------
-def emulate_tile(x, w, t, geom, modes, cdt, sparse=False):
+def emulate_tile(x, w, t, geom, modes, cdt, sparse=False, stats=None):
     """The 2D banded kernels' dataflow on the CPU, CTA by CTA, on the map
     ``tile_fold_tiles`` alone.  The region is laid out as
     ``tile_fold_layout`` lays it out, its padding columns NaN; it loads by
@@ -150,7 +150,10 @@ def emulate_tile(x, w, t, geom, modes, cdt, sparse=False):
     f64, and only then the pass's stores, f32 (TF32-rounded for a next
     step), masked at the step's width and last row; after the step every
     cell outside its output is set to NaN, as the next step must not read
-    it.  The last step's tile is stored, clipped to the grid."""
+    it.  The last step's tile is stored, clipped to the grid.
+    ``stats["mma"]`` counts the products of the tiles' sums: per band,
+    each k-step of each n8 half of the tile's 16 columns that holds an
+    output."""
     r = (w.shape[-1] - 1) // 2
     h = t * r
     k_step = common.mma_k_step(cdt.itemsize)
@@ -195,6 +198,8 @@ def emulate_tile(x, w, t, geom, modes, cdt, sparse=False):
                         if not tf32:
                             a = _bf16(a)
                         acc += a.astype(np.float64) @ blk.astype(np.float64)
+                        if stats is not None:
+                            stats["mma"] += nk * (1 + (f.cols[1] - c0 > 8))
                     out = acc.astype(np.float32)
                     sums.append((f, ys, _tf32(out) if tf32 and s + 1 < t else out))
                 for f, ys, out in sums:
