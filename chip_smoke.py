@@ -131,7 +131,21 @@ Phases, any failure exits non-zero:
      (Box/Star-2D1R, 256^2, t=1, 2048 requests each, windows of 128),
      every response bit for bit the unbatched plan's, plan-cache hits >=
      requests - signatures, no degraded batch; then the quick run of
-     ``python -m repro_torch.benchmarks.serving`` (printed, not gated).
+     ``python -m repro_torch.benchmarks.serving`` (printed, not gated);
+  6. distributed: ``stencil_plan(mesh=, shard_spec=, dist_mode=)`` on a
+     gloo world of four ranks (child processes, every shard on this card,
+     the halos staged through pinned host memory): 8192^2 Box-2D1R at t=4
+     over a 2x2 mesh (stepwise, fused) and a 4x1 mesh (stepwise, fused,
+     overlap),
+     each with fused_direct, fused_matmul_reuse and auto as the local
+     update, and under ("reflect", "periodic") with fused_direct; 512^3
+     Box-3D1R over four ranks along z (fused; auto, fused_matmul_reuse):
+     each plan's launches per shard, exchange rounds and halo bytes
+     against its halo plan, the gathered grid against the undistributed
+     plan of the same backend, overlap equal to stepwise bit for bit on
+     the tap-sum; ms per call across a barrier of the ranks beside the
+     undistributed plan's; then REPRO_FAULTS=halo landing every rank on
+     the same rung.
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -1903,6 +1917,186 @@ def phase_serving(card) -> None:
         print(f"  {line}")
 
 
+#: The distributed phase: a gloo world of DIST_RANKS ranks, every shard on
+#: the card (one card: the ranks time-slice it; the halos pass through
+#: pinned host memory).  Rows: (label, grid, stencil, mesh shape, mesh dim
+#: names, shard_spec, modes, local backends (None = auto), boundary).
+DIST_RANKS = 4
+DIST_CASES = (
+    ("2D 2x2", (8192, 8192), ("box", 1), (2, 2), ("x", "y"), ("x", "y"),
+     ("stepwise", "fused"), ("fused_direct", "fused_matmul_reuse", None), None),
+    ("2D 4x1", (8192, 8192), ("box", 1), (4, 1), ("x", "y"), ("x", None),
+     ("stepwise", "fused", "overlap"), ("fused_direct", "fused_matmul_reuse", None),
+     None),
+    ("2D 4x1", (8192, 8192), ("box", 1), (4, 1), ("x", "y"), ("x", None),
+     ("stepwise", "overlap"), ("fused_direct",), ("reflect", "periodic")),
+    ("3D 4 along z", (512, 512, 512), ("box", 1), (4,), ("z",),
+     ("z", None, None), ("fused",), (None, "fused_matmul_reuse"), None),
+)
+#: Timed calls per case (the wall time across a barrier of every rank).
+DIST_REPS = 5
+
+
+def _dist_wall_ms(fn, reps: int = DIST_REPS) -> float:
+    """Median wall milliseconds of ``fn()`` on every rank at once: a
+    barrier, the call, the card drained, a barrier."""
+    import torch.distributed as dist
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _distributed_rank(mesh, rank, cases):
+    """One rank of the distributed phase: every case's plans on this rank's
+    shard; returns its checks' lines (rank 0: with the comparison against
+    the undistributed plan and the times)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.kernels import guarded_stencil_plan, stencil_plan
+    from repro_torch.stencil import StencilSpec, make_weights
+    from repro_torch.stencil.distributed import gather_shards, shard_of
+    from repro_torch.testing import faults
+
+    meshes, lines = {}, []
+    for label, shape, (kind, r), mshape, names, spec, modes, backends, bc in cases:
+        key = (mshape, names)
+        if key not in meshes:               # every rank builds them in order
+            meshes[key] = init_device_mesh("cpu", mshape, mesh_dim_names=names)
+        m = meshes[key]
+        dim = len(shape)
+        w = make_weights(StencilSpec(kind, dim, r), seed=0)
+        x = grid(shape, torch.float32, seed=0)
+        xl = shard_of(x, m, spec)
+        mx, sw = float(x.abs().max()), float(np.abs(w).sum())
+        stepwise_out = {}
+        for backend in backends:
+            for mode in modes:
+                plan = stencil_plan(w, shape, torch.float32, MAIN_T, mesh=m,
+                                    shard_spec=spec, dist_mode=mode,
+                                    backend=backend, boundary=bc)
+                hp = plan.halo_plan
+                tag = (f"{label} {kind} {mode} {backend or 'auto'}->{plan.backend}"
+                       + ("" if bc is None else f" boundary={boundary_label(bc)}"))
+                plan(xl)                          # warm-up: builds the local plans
+                torch.cuda.synchronize()
+                dist.barrier()
+                kernels.reset_launch_counts()
+                plan.fn.reset_stats()
+                y = plan(xl)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+                st = plan.fn.stats
+                local_t = MAIN_T if mode == "fused" else 1
+                kname, n = expected_launches(plan.backend, local_t, dim)
+                n *= 1 if mode == "fused" else MAIN_T * (3 if mode == "overlap" else 1)
+                check(counts == {kname: n}, f"distributed {tag} rank {rank}: launches "
+                                            f"{counts}, expected {n} of {kname}")
+                check(st["rounds"] == hp["exchanges_per_call"]
+                      == (1 if mode == "fused" else MAIN_T),
+                      f"distributed {tag} rank {rank}: {st['rounds']} exchange rounds, "
+                      f"halo plan {hp['exchanges_per_call']}")
+                check(st["halo_bytes"] == hp["halo_bytes_per_call"],
+                      f"distributed {tag} rank {rank}: halo bytes {st['halo_bytes']} "
+                      f"against the plan's {hp['halo_bytes_per_call']}")
+                check(tuple(y.shape) == tuple(xl.shape) and bool(torch.isfinite(y).all()),
+                      f"distributed {tag} rank {rank}: shape or non-finite")
+                full = gather_shards(y, m, spec, shape)
+                ms = _dist_wall_ms(lambda: plan(xl))
+                if rank == 0:
+                    ref_plan = stencil_plan(w, shape, torch.float32, MAIN_T,
+                                            backend=plan.backend, boundary=bc)
+                    ref = ref_plan(x)
+                    full = full.to(x.device)
+                    err = max_err(full, ref)
+                    tol = (1e-5 * MAIN_T * mx if kname.startswith("stencil_direct")
+                           else MAIN_T * 2**-10 * sw * mx)
+                    check(err <= tol, f"distributed {tag}: max|diff| vs the undistributed "
+                                      f"plan {err:.3e} > tol {tol:.3e}")
+                    ms_u = cuda_ms(lambda: ref_plan(x), reps=5 if dim == 3 else 15)
+                    extra = ""
+                    if mode == "stepwise":
+                        stepwise_out[backend] = full
+                    elif mode == "overlap":
+                        diff = max_err(full, stepwise_out[backend])
+                        if kname.startswith("stencil_direct"):
+                            check(diff == 0, f"distributed {tag}: overlap differs from "
+                                             f"stepwise by {diff:.3e}")
+                        extra = f"; max|overlap - stepwise| {diff:.3e}"
+                    lines.append(
+                        f"distributed {tag} {shape}: {ms:.4f} ms per call (wall across a "
+                        f"barrier of {DIST_RANKS} ranks, median of {DIST_REPS}); "
+                        f"undistributed plan {ms_u:.4f} ms; halo {hp['halo_bytes_per_call']} "
+                        f"B per shard per call, {st['rounds']} exchange rounds, "
+                        f"{st['p2p_ops']} P2P ops; launches per shard {counts}; "
+                        f"max|diff| vs undistributed {err:.3e} (tol {tol:.3e}){extra}")
+                    del ref, full
+                dist.barrier()
+        del x, xl, stepwise_out
+        torch.cuda.empty_cache()
+    # The guard on a distributed plan: REPRO_FAULTS=halo fails the first
+    # exchange on every rank; every rank lands on the same rung.
+    label, shape, (kind, r), mshape, names, spec = cases[1][:6]
+    m = meshes[(mshape, names)]
+    w = make_weights(StencilSpec(kind, len(shape), r), seed=0)
+    xl = shard_of(grid(shape, torch.float32, seed=0), m, spec)
+    os.environ["REPRO_FAULTS"] = "halo"
+    faults.reset_faults()
+    try:
+        g = guarded_stencil_plan(w, shape, torch.float32, MAIN_T, mesh=m,
+                                 shard_spec=spec, dist_mode="fused",
+                                 backend="fused_direct")
+        g(xl)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("REPRO_FAULTS", None)
+        faults.reset_faults()
+    check([h["cause"] for h in g.history] == ["halo"] and g.rung == "fused_direct+degraded",
+          f"distributed guard rank {rank}: {g.rung}, history {g.history}")
+    rungs = [None] * dist.get_world_size()
+    dist.all_gather_object(rungs, g.rung)
+    check(len(set(rungs)) == 1, f"distributed guard: ranks landed on {rungs}")
+    if rank == 0:
+        lines.append(f"distributed guard {label} {shape}: REPRO_FAULTS=halo fails the "
+                     f"first exchange on every rank; all {len(rungs)} ranks land on "
+                     f"{rungs[0]} (cause halo); transport: {g.plan.halo_plan['transport']}")
+    return lines
+
+
+def phase_distributed() -> None:
+    """The distributed stepper (``stencil_plan(mesh=, shard_spec=,
+    dist_mode=)``) on a gloo world of DIST_RANKS ranks (child processes,
+    so a process-group fault cannot reach the main process's context),
+    each with its shard on the card: every DIST_CASES plan's launches per
+    shard equal to ``expected_launches`` (fused: one local plan call of
+    depth t; stepwise: t calls of depth 1; overlap: 3 t calls, interior
+    and two edge strips), its exchange rounds and halo bytes equal to its
+    halo plan, the gathered grid within the phase-3 tolerance of the
+    undistributed plan of the same backend, overlap equal to stepwise bit
+    for bit on the tap-sum backends (the largest difference printed on the
+    banded ones); then REPRO_FAULTS=halo landing every rank on the same
+    rung."""
+    from repro_torch.launch.world import run_world
+    print(f"distributed: {DIST_RANKS} gloo ranks time-slice this one card and their "
+          "halos pass through pinned host memory: these numbers measure transport "
+          "and interleaving, not scaling")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = run_world(_distributed_rank, DIST_RANKS, args=(DIST_CASES,),
+                      mesh_shape=(DIST_RANKS,), mesh_dim_names=("world",),
+                      device="cuda", timeout_s=600)[0]
+    for line in lines:
+        print(line)
+    print(f"distributed: phase in {time.perf_counter() - t0:.1f} s, the world's "
+          "start included")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2016,9 +2210,10 @@ def main() -> int:
                    make_weights(StencilSpec("box", 3, 1), seed=0))
         phase_batch_times(mods, card)
         phase_serving(card)
+        phase_distributed()
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,
-            subprocess.TimeoutExpired) as e:
+            subprocess.TimeoutExpired, TimeoutError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     finally:

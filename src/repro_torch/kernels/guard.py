@@ -39,7 +39,10 @@ Degradation ladder
   module's negative-result registry (``note_plan_failure``): the LRU never
   keeps a failed signature, and a repeat request skips known-bad rungs
   (``failed_plan``).  The ladder is a pure function of the plan signature
-  and the process env.
+  and the process env, so every rank of a distributed plan's mesh sees
+  the same signature and environment and lands on the same rung without
+  communicating (``guarded_stencil_plan(mesh=, shard_spec=,
+  dist_mode=)`` carries the mesh through every rung).
 
 Watchdog
   Opt-in (``watchdog=True`` or ``REPRO_NAN_WATCHDOG=1``): each guarded
@@ -122,7 +125,9 @@ class NumericalFaultError(GuardedExecutionError):
 
 
 class HaloExchangeError(GuardedExecutionError):
-    """The distributed halo exchange failed."""
+    """The distributed halo exchange failed: a send or receive of the
+    stepper's rings (gloo's and ``torch.distributed``'s own errors,
+    ``torch.distributed.DistError``) or the injected ``halo`` fault."""
 
     cause = "halo"
 
@@ -150,7 +155,9 @@ _COMPILE_MARKERS = ("nvcc", "ptxas", "failed to build", "launch failed",
                     "no kernel image", "mosaic", "failed to compile",
                     "lowering", "unsupported", "internal:", "xla", "pallas",
                     "unimplemented", "mlir")
-_HALO_MARKERS = ("halo exchange", "ppermute", "collective")
+_HALO_MARKERS = ("halo exchange", "ppermute", "collective", "gloo",
+                 "connection closed by peer", "connection reset by peer",
+                 "timed out waiting")
 _NUMERIC_MARKERS = ("nan", "non-finite", "not finite", "inf produced")
 
 
@@ -170,7 +177,8 @@ def classify_failure(exc: BaseException,
     low = msg.lower()
     if any(m in low for m in _STICKY_MARKERS):
         cls = DeviceFaultError
-    elif any(m in low for m in _HALO_MARKERS):
+    elif (isinstance(exc, torch.distributed.DistError)
+          or any(m in low for m in _HALO_MARKERS)):
         cls = HaloExchangeError
     elif (isinstance(exc, torch.cuda.OutOfMemoryError)
           or any(m in low for m in _VMEM_MARKERS)):

@@ -23,6 +23,10 @@ negative-result registry of failed signatures (:func:`note_plan_failure`,
 ``audit=True`` (or ``REPRO_AUDIT=1``) a built plan carries the static
 auditor's report on its launches (``plan.audit_report``,
 ``repro_torch.audit``), counted in ``audits_run`` / ``audit_violations``.
+With ``mesh=`` / ``shard_spec=`` a plan drives the distributed
+halo-exchange stepper (``repro_torch.stencil.distributed``): it consumes
+and returns this rank's local shard, its local update runs through the
+port's kernels, and ``plan.halo_plan`` describes the exchange schedule.
 """
 from __future__ import annotations
 
@@ -132,7 +136,8 @@ class StencilPlan:
 
     def __init__(self, *, spec, weights, grid_shape, dtype, t, hw, backend,
                  decision, fn, device, geom, key=None, build_time_s=0.0,
-                 ctx=None, boundary=None, batch=None, batch_mode=None):
+                 ctx=None, boundary=None, batch=None, batch_mode=None,
+                 mesh=None, shard_spec=None, dist_mode=None, halo_plan=None):
         self.spec = spec
         self.weights = weights
         self.grid_shape = grid_shape
@@ -151,6 +156,12 @@ class StencilPlan:
         self.build_time_s = build_time_s
         self.ctx = ctx
         self.boundary = boundary
+        #: The distributed plan's mesh, shard spec, mode and exchange
+        #: schedule (``None`` for a local plan).
+        self.mesh = mesh
+        self.shard_spec = shard_spec
+        self.dist_mode = dist_mode
+        self.halo_plan = halo_plan
         #: Whether a call has run to its end (the first call is where a
         #: plan first reaches its kernels: repro_torch.testing.faults).
         self._reached = False
@@ -161,16 +172,24 @@ class StencilPlan:
     @property
     def input_shape(self) -> Tuple[int, ...]:
         """The tensor shape one call consumes: ``grid_shape``, or
-        ``(batch,) + grid_shape`` for a batched plan."""
+        ``(batch,) + grid_shape`` for a batched plan, or this rank's
+        local shard for a distributed one."""
+        if self.halo_plan is not None:
+            return self.halo_plan["local_shape"]
         if self.batch is None:
             return self.grid_shape
         return (self.batch,) + self.grid_shape
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != self.input_shape:
-            built = (f"grid {self.grid_shape}" if self.batch is None else
-                     f"input {self.input_shape} (grid {self.grid_shape}, "
-                     f"batch {self.batch})")
+            if self.halo_plan is not None:
+                built = (f"local shard {self.input_shape} (grid "
+                         f"{self.grid_shape}, shard_spec {self.shard_spec})")
+            elif self.batch is None:
+                built = f"grid {self.grid_shape}"
+            else:
+                built = (f"input {self.input_shape} (grid {self.grid_shape}, "
+                         f"batch {self.batch})")
             raise ValueError(
                 f"plan was built for {built}, got {tuple(x.shape)}; build a "
                 "new plan for a new geometry")
@@ -219,13 +238,24 @@ class StencilPlan:
         staging = getattr(self.fn, "staging", None)
         if staging is not None:
             lines.insert(2, f"  staging  : {staging}")
+        if self.halo_plan is not None:
+            hp = self.halo_plan
+            line = (f"  halo plan: mode={hp['mode']} depth={hp['halo_depth']} "
+                    f"exchanges/call={hp['exchanges_per_call']} "
+                    f"bytes/shard/call={hp['halo_bytes_per_call']}")
+            if "interior_fraction" in hp:
+                line += (" overlap: interior_fraction="
+                         f"{hp['interior_fraction']:.3f}")
+            lines.append(line)
+            lines.append(f"  transport: {hp['transport']}")
         return "\n".join(lines)
 
     def __repr__(self) -> str:
         return (f"StencilPlan({self.spec.name}, t={self.t}, "
                 f"grid={self.grid_shape}, backend={self.backend!r}, "
                 + ("" if self.batch is None else f"batch={self.batch}, ")
-                + f"device={self.device})")
+                + f"device={self.device}, "
+                + f"distributed={self.mesh is not None})")
 
 
 # ---------------------------------------------------------------------------
@@ -340,11 +370,6 @@ def _weights_key(w: np.ndarray) -> Tuple:
     return (w.shape, w.dtype.name, digest)
 
 
-def _later_slice(name: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported to PyTorch yet (ROADMAP queue 1, {item})")
-
-
 #: How a batched plan folds its leading batch axis (``common.fold_batch``):
 #:   "vmap" -- each kernel call of the runner is one launch over the whole
 #:            batch, grid b on blockIdx.z (K11);
@@ -403,6 +428,8 @@ def plan_signature(
     boundary: BoundaryLike = None,
     device=None,
     mesh=None,
+    shard_spec: Optional[Sequence[Optional[str]]] = None,
+    dist_mode: str = "fused",
     batch: Optional[int] = None,
     batch_mode: str = "auto",
     audit: Optional[bool] = None,
@@ -410,7 +437,9 @@ def plan_signature(
 ) -> Tuple:
     """Validate plan arguments and return ``(key, weights, grid_shape,
     dtype, device)`` -- the deterministic cache signature WITHOUT
-    building.  Arguments of later slices raise ``NotImplementedError``."""
+    building.  The key depends only on the arguments and the process env,
+    never on device state, so every rank of a mesh computes the same one
+    and lands on the same guard rung without communicating."""
     if batch is not None:
         if int(batch) < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
@@ -420,8 +449,9 @@ def plan_signature(
                 "batched plans do not compose with distributed meshes yet; "
                 "shard the request stream across hosts instead "
                 "(repro.serve coalesces per host)")
-    if mesh is not None:
-        raise _later_slice("the distributed stepper (mesh=)", "item 15")
+    if mesh is not None and shard_spec is None:
+        raise ValueError("a mesh-parameterized plan needs shard_spec "
+                         "(one mesh-axis name per grid dim, None=unsharded)")
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     if backend is not None:
@@ -452,11 +482,13 @@ def plan_signature(
     # its resolution while "vmap" and "map" plans never alias.
     batch_key = None if batch is None else (
         batch, _resolve_batch_mode(batch_mode, dev.type == "cuda"))
+    shard_key = None if mesh is None else (id(mesh), tuple(shard_spec),
+                                           dist_mode)
     # The tile rule's budget is part of the key: it decides the tile, and
     # the guard's degraded rung halves it, so those plans never alias.
     key = (_weights_key(weights), grid_shape, str(dtype), t, hw, backend,
            tile_m, w_tile, z_slab, str(cdt), bool(use_sparse_unit),
-           boundary_key, batch_key, str(dev), smem_budget_bytes(),
+           boundary_key, batch_key, shard_key, str(dev), smem_budget_bytes(),
            registry.generation())
     return key, weights, grid_shape, dtype, dev
 
@@ -477,6 +509,8 @@ def stencil_plan(
     device=None,
     use_cache: bool = True,
     mesh=None,
+    shard_spec: Optional[Sequence[Optional[str]]] = None,
+    dist_mode: str = "fused",
     batch: Optional[int] = None,
     batch_mode: str = "auto",
     audit: Optional[bool] = None,
@@ -533,16 +567,28 @@ def stencil_plan(
         surface in the report.  Not part of the cache key -- a cached
         plan keeps the report of the build that audited it.  A batched
         plan gets an exempt report.
-      mesh: a later slice; it raises ``NotImplementedError`` naming its
-        ROADMAP item (``batch`` with ``mesh`` raises the JAX
-        ``ValueError``).
+      mesh / shard_spec: when given, the plan drives the distributed
+        halo-exchange stepper (``repro_torch.stencil.distributed``) on a
+        ``torch.distributed`` ``DeviceMesh``: ``shard_spec`` names one
+        mesh dim per grid dim (``None`` entries = unsharded dims), the
+        plan consumes and returns this rank's local shard (``grid_shape``
+        stays the global shape), every rank calls it together, and the
+        local update runs the chosen backend's kernels on the shard's
+        device through a periodic local plan (``reference``: the
+        stepper's plain update).  ``dist_mode`` is ``"fused"`` (one
+        depth-t*r exchange per call, the default), ``"stepwise"`` (t
+        depth-r exchanges) or ``"overlap"`` (stepwise's exchanges with
+        the interior update launched before the exchange is waited on;
+        one sharded dim).  ``plan.halo_plan`` holds the schedule.  Part
+        of the cache key (the mesh by identity).  ``batch`` with ``mesh``
+        raises the JAX ``ValueError``.
     """
     key, weights, grid_shape, dtype, dev = plan_signature(
         spec_or_weights, grid_shape, dtype, t, hw=hw, backend=backend,
         tile_m=tile_m, w_tile=w_tile, z_slab=z_slab,
         compute_dtype=compute_dtype, boundary=boundary, device=device,
-        mesh=mesh, batch=batch, batch_mode=batch_mode, audit=audit,
-        use_sparse_unit=use_sparse_unit)
+        mesh=mesh, shard_spec=shard_spec, dist_mode=dist_mode, batch=batch,
+        batch_mode=batch_mode, audit=audit, use_sparse_unit=use_sparse_unit)
     modes = resolve_boundary(boundary, len(grid_shape))
     with _LOCK:
         if use_cache and key in _CACHE:
@@ -565,17 +611,23 @@ def stencil_plan(
         else as_torch_dtype(compute_dtype),
         boundary=modes)
     exec_backend = backend if backend is not None else decision.backend
-    fn = registry.get_backend(exec_backend).build(ctx)
-    mode = None
-    if batch is not None:
-        mode = _resolve_batch_mode(batch_mode, dev.type == "cuda")
-        fn = fold_batch(fn, mode)
+    mode, halo_plan = None, None
+    if mesh is None:
+        fn = registry.get_backend(exec_backend).build(ctx)
+        if batch is not None:
+            mode = _resolve_batch_mode(batch_mode, dev.type == "cuda")
+            fn = fold_batch(fn, mode)
+    else:
+        fn, halo_plan = _build_distributed(mesh, tuple(shard_spec), dist_mode,
+                                           ctx, exec_backend, dev)
     plan = StencilPlan(
         spec=spec, weights=weights, grid_shape=grid_shape, dtype=dtype,
         t=t, hw=hw, backend=exec_backend, decision=decision, fn=fn,
         device=dev, geom=geom, key=key,
         build_time_s=time.perf_counter() - t0, ctx=ctx, boundary=modes,
-        batch=None if batch is None else int(batch), batch_mode=mode)
+        batch=None if batch is None else int(batch), batch_mode=mode,
+        mesh=mesh, shard_spec=None if mesh is None else tuple(shard_spec),
+        dist_mode=None if mesh is None else dist_mode, halo_plan=halo_plan)
     if audit if audit is not None else env_flag("REPRO_AUDIT"):
         _attach_audit(plan, ctx, exec_backend, decision, geom)
     if use_cache:
@@ -593,16 +645,20 @@ def _attach_audit(plan, ctx, exec_backend, decision, geom_px) -> None:
     report (the JAX ``_attach_audit``).  Never raises: violations count
     into the plan stats and live in ``plan.audit_report``; an auditor
     crash records itself as ``audit/crashed`` rather than failing the
-    build.  A batched plan's fold wraps the launch, so it attaches an
-    exempt report instead of false violations."""
+    build.  A distributed plan's stepper and a batched plan's fold wrap
+    the launch, so they attach an exempt report instead of false
+    violations."""
     from repro_torch import audit as _audit
 
     dtype = str(ctx.dtype).replace("torch.", "")
     try:
-        if plan.batch is not None:
+        if plan.mesh is not None or plan.batch is not None:
             report = _audit.AuditReport(
                 backend=exec_backend, grid_shape=tuple(ctx.grid_shape),
-                t=ctx.t, dtype=dtype, exempt="batch fold wraps the launch")
+                t=ctx.t, dtype=dtype,
+                exempt=("distributed stepper wraps the launch in halo "
+                        "collectives" if plan.mesh is not None
+                        else "batch fold wraps the launch"))
         else:
             report = _audit.audit_context(ctx, exec_backend)
             pvl = report.check("blocks/priced-vs-launched")
@@ -620,3 +676,66 @@ def _attach_audit(plan, ctx, exec_backend, decision, geom_px) -> None:
     with _LOCK:
         _STATS["audits_run"] += 1
         _STATS["audit_violations"] += len(report.violations)
+
+
+def _build_distributed(mesh, axis_names, dist_mode, ctx, exec_backend, dev):
+    """Wire the halo-exchange stepper around the chosen local backend (the
+    JAX ``_build_distributed``); returns ``(stepper, halo_plan)``."""
+    import torch.distributed as dist
+    from repro_torch.stencil.distributed import (halo_bytes_per_step,
+                                                 kernel_local_apply,
+                                                 make_distributed_stepper)
+
+    if len(axis_names) != len(ctx.grid_shape):
+        raise ValueError(f"shard_spec {axis_names} must name one mesh axis "
+                         f"per grid dim of {ctx.grid_shape}")
+    names = tuple(mesh.mesh_dim_names or ())
+    local_shape = []
+    for n, ax in zip(ctx.grid_shape, axis_names):
+        if ax is not None and ax not in names:
+            raise ValueError(f"shard_spec {axis_names} names mesh axis "
+                             f"{ax!r}, which the mesh {names} does not have")
+        parts = mesh.size(names.index(ax)) if ax is not None else 1
+        if n % parts:
+            raise ValueError(f"grid dim {n} not divisible by mesh axis "
+                             f"{ax!r} ({parts} shards)")
+        local_shape.append(n // parts)
+    local_shape = tuple(local_shape)
+
+    # reference executes through the stepper's plain local update; every
+    # other registered backend plugs in as a kernel local apply.  The
+    # LOCAL plan stays periodic whatever ctx.boundary says: the global
+    # boundary is realized in the halo extension (mode pads + edge-shard
+    # fills), and the kernel's modulo wrap only pollutes the discarded
+    # halo ring.
+    local = None if exec_backend == "reference" else kernel_local_apply(
+        exec_backend, tile_m=ctx.tile_m, w_tile=ctx.w_tile,
+        z_slab=ctx.z_slab)
+    stepper = make_distributed_stepper(
+        mesh, axis_names, ctx.weights, t=ctx.t, mode=dist_mode,
+        local_apply=local, boundary=ctx.boundary)
+
+    r = ctx.spec.radius
+    transport = dist.get_backend()
+    if transport == "gloo" and dev.type == "cuda":
+        transport += ", each halo slab staged through pinned host memory"
+    halo_plan = {
+        "mode": dist_mode,
+        "halo_depth": r * ctx.t if dist_mode == "fused" else r,
+        "exchanges_per_call": 1 if dist_mode == "fused" else ctx.t,
+        "halo_bytes_per_call": halo_bytes_per_step(
+            local_shape, axis_names, r, ctx.t, dist_mode,
+            ctx.dtype.itemsize),
+        "local_shape": local_shape,
+        "transport": transport,
+    }
+    if dist_mode == "overlap":
+        # Fraction of the local block whose update is computed while the
+        # exchange is in flight -- the latency-hiding headroom explain()
+        # surfaces.
+        frac = 1.0
+        for m, ax in zip(local_shape, axis_names):
+            if ax is not None:
+                frac *= max(m - 2 * r, 0) / m
+        halo_plan["interior_fraction"] = frac
+    return stepper, halo_plan

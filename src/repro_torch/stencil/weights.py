@@ -26,13 +26,15 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-from scipy.signal import convolve as _convolve
 
 
 def convolve(a, b, mode="full"):
     """Direct-method convolution: FFT convolution leaves ~1e-18 junk
     outside the true support, which corrupts structural-zero accounting
-    (sparsity factors, fused support counts)."""
+    (sparsity factors, fused support counts).  ``scipy.signal`` is
+    imported here, not with the module: it takes seconds to import, which
+    every rank process of a distributed world would pay."""
+    from scipy.signal import convolve as _convolve
     return _convolve(a, b, mode=mode, method="direct")
 
 from .spec import StencilSpec

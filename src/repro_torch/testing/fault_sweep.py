@@ -27,8 +27,13 @@ for bit, because the kernels' fused multiply-adds round differently from
 the plain oracle.  On the CPU the tap-sum rungs equal the oracle bit for
 bit, as in JAX.
 
-The ``halo`` and ``boundary`` legs need the distributed stepper (ROADMAP
-queue 1, item 15) and are not ported yet; asking for them fails.
+The ``halo`` and ``boundary`` legs run a distributed plan on a 2-rank
+``gloo`` world (``repro_torch.launch.world``; on the card both ranks
+share it and stage their halos through host memory): the armed ``halo``
+fault fails the first exchange on both ranks, and both must land on the
+same rung with cause ``halo`` and finish, the ``boundary`` leg on a
+non-periodic (reflect x periodic) ``stepwise`` plan whose surviving rung
+must still honour the boundary spec.
 """
 from __future__ import annotations
 
@@ -42,11 +47,11 @@ LEGS = {
     "compile": ("compile:inf", {}),
     "vmem": ("vmem", {}),
     "nan": ("nan", {"REPRO_NAN_WATCHDOG": "1"}),
+    "halo": ("halo", {}),
+    "boundary": ("halo", {}),
     "sparse": ("vmem", {}),
     "sparse_ladder": ("compile:inf", {}),
 }
-#: The JAX sweep's legs that wait for the distributed stepper.
-LATER = {"halo": "item 15", "boundary": "item 15"}
 
 _T = 2
 
@@ -173,6 +178,74 @@ def leg_nan(device):
     _matches(g(x), ref, "nan-demoted")
 
 
+_N = 64
+
+
+def _halo_rank(mesh, rank, device_type, dist_mode, boundary):
+    """One rank of the halo / boundary legs: a guarded distributed plan on
+    the 2-rank mesh, run once on this rank's shard; returns the rung, the
+    history and (rank 0) the gathered grid."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import guarded_stencil_plan
+    from repro_torch.stencil import StencilSpec, make_weights
+    from repro_torch.stencil.distributed import gather_shards, shard_of
+
+    spec = ("x", None)
+    w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    x = np.random.default_rng(0).normal(size=(_N, _N)).astype(np.float32)
+    xt = torch.from_numpy(x).to(device_type)
+    g = guarded_stencil_plan(w, (_N, _N), torch.float32, _T, mesh=mesh,
+                             shard_spec=spec, dist_mode=dist_mode,
+                             backend="fused_direct", boundary=boundary,
+                             device=xt.device)
+    y = g(shard_of(xt, mesh, spec))
+    full = gather_shards(y, mesh, spec, (_N, _N))
+    return {"rung": g.rung, "degraded": g.degraded,
+            "causes": [h["cause"] for h in g.history],
+            "grid": None if full is None else full.numpy()}
+
+
+def _halo_world(device, label, dist_mode, boundary):
+    """A failed halo exchange on a 2-rank mesh: the guard retries on the
+    next rung (deterministic from the plan key, so both ranks agree) and
+    the stepper completes; the gathered grid matches the oracle of the
+    same boundary."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.launch.world import run_world
+    from repro_torch.stencil import StencilSpec, make_weights
+
+    res = run_world(_halo_rank, 2, args=(device.type, dist_mode, boundary),
+                    mesh_dim_names=("x",), device=device.type,
+                    timeout_s=600)
+    for r, out in enumerate(res):
+        assert out["causes"] == ["halo"], (label, r, out["causes"])
+        assert out["degraded"], (label, r)
+    rungs = [out["rung"] for out in res]
+    assert len(set(rungs)) == 1, f"{label}: ranks landed on {rungs}"
+    w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    x = np.random.default_rng(0).normal(size=(_N, _N)).astype(np.float32)
+    xt = torch.from_numpy(x).to(device)
+    ref = stencil_plan(w, (_N, _N), torch.float32, _T, backend="reference",
+                       boundary=boundary, device=device)(xt)
+    _matches(torch.from_numpy(res[0]["grid"]).to(device), ref, label)
+
+
+def leg_halo(device):
+    """A failed halo exchange on a fused distributed plan."""
+    _halo_world(device, "halo", "fused", None)
+
+
+def leg_boundary(device):
+    """A failed halo exchange on a NON-PERIODIC distributed plan: the
+    ladder degrades exactly as on the periodic path and the surviving rung
+    still honours the boundary spec (stepwise, not fused: fused refuses
+    non-periodic specs)."""
+    _halo_world(device, "boundary", "stepwise", ("reflect", "periodic"))
+
+
 def leg_sparse(device):
     """One shared-memory overflow on the sparse-compacted rung: the
     degraded tile of the SAME sparse backend must survive -- bit for bit
@@ -216,7 +289,8 @@ def leg_sparse_ladder(device):
 def run_child(leg: str, device) -> None:
     from repro_torch.kernels.plan import resolve_device
     fn = {"clean": leg_clean, "compile": leg_compile, "vmem": leg_vmem,
-          "nan": leg_nan, "sparse": leg_sparse,
+          "nan": leg_nan, "halo": leg_halo, "boundary": leg_boundary,
+          "sparse": leg_sparse,
           "sparse_ladder": leg_sparse_ladder}[leg]
     fn(resolve_device(device))
     print(f"PASS {leg}")
@@ -230,11 +304,6 @@ def main(argv) -> int:
         run_child(argv[1], device)
         return 0
     legs = argv or list(LEGS)
-    later = [leg for leg in legs if leg in LATER]
-    if later:
-        print(f"leg(s) {later} need the distributed stepper, not ported yet "
-              f"(ROADMAP queue 1, {LATER[later[0]]})", file=sys.stderr)
-        return 2
     unknown = [leg for leg in legs if leg not in LEGS]
     if unknown:
         print(f"unknown leg(s) {unknown}; choose from {list(LEGS)}",

@@ -17,7 +17,11 @@ Every failure class the degradation ladder must survive has a kind:
   on the card -- the port's kernels compute their windows on the device,
   so the fault warps what the auditor enumerates, as JAX's
   ``corrupt_geometry`` warps the BlockSpec index maps it walks;
-- ``halo``: parsed, with no hook until the distributed stepper is ported.
+- ``halo``: raise a failed halo exchange where the distributed stepper
+  (``repro_torch.stencil.distributed``) starts an exchange round, in
+  ``_extend`` and ``_overlap_step``, before any send or receive is
+  posted, as JAX's ``maybe_fail("halo")`` does there; every rank of a
+  world fires on the same round, so none is left waiting on a peer.
 
 The JAX package fires ``compile`` and ``vmem`` once per kernel launch
 while a plan's runner is traced, which happens on the plan's first call.

@@ -406,11 +406,31 @@ class TestPlanAttachment:
         x = torch.zeros(256, 512)
         assert plan(x).shape == (256, 512)
 
-    def test_mesh_still_names_its_item(self):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tk.stencil_plan(make_weights(JSpec("box", 2, 1), seed=0),
-                            (32, 32), torch.float32, 1, device="cpu",
-                            mesh=object(), audit=True)
+    def test_mesh_still_names_its_item(self, tmp_path):
+        # The distributed stepper (item 15) runs since its port: a mesh
+        # plan with audit=True carries JAX's exempt report (JAX plan.py
+        # _attach_audit), on a one-rank gloo world.
+        import datetime
+        import inspect
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp_path}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("x",))
+            plan = tk.stencil_plan(make_weights(JSpec("box", 2, 1), seed=0),
+                                   (32, 32), torch.float32, 1, device="cpu",
+                                   mesh=mesh, shard_spec=("x", None),
+                                   audit=True, use_cache=False)
+        finally:
+            dist.destroy_process_group()
+        rep = plan.audit_report
+        assert rep.exempt == ("distributed stepper wraps the launch in halo "
+                              "collectives")
+        assert rep.ok and rep.checks == []
+        assert rep.exempt.split(" in ")[0] in \
+            inspect.getsource(jplan._attach_audit)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port's fault sweep (``python -m repro_torch.testing.fault_sweep``,
-the counterpart of ``scripts/fault_sweep.py``): its ``clean`` and
-``compile`` legs on the CPU, each in its own subprocess with
+the counterpart of ``scripts/fault_sweep.py``): its ``clean``, ``compile``
+and ``halo`` legs on the CPU, each in its own subprocess with
 ``REPRO_FAULTS`` set, as the sweep runs them."""
 import os
 import subprocess
@@ -25,7 +25,11 @@ def test_clean_and_compile_legs_pass_on_the_cpu():
 
 
 def test_the_legs_and_the_ones_that_wait():
+    # Since the distributed stepper's port (item 15) no leg waits: the
+    # halo leg runs on a 2-rank gloo world and passes (the boundary leg:
+    # tests/test_torch_distributed_plan.py).
     assert list(fault_sweep.LEGS) == ["clean", "compile", "vmem", "nan",
-                                      "sparse", "sparse_ladder"]
-    assert fault_sweep.main(["halo"]) == 2          # item 15
+                                      "halo", "boundary", "sparse",
+                                      "sparse_ladder"]
+    assert fault_sweep.main(["--device", "cpu", "halo"]) == 0
     assert fault_sweep.main(["bogus"]) == 2
