@@ -132,7 +132,16 @@ Phases, any failure exits non-zero:
      every response bit for bit the unbatched plan's, plan-cache hits >=
      requests - signatures, no degraded batch; then the quick run of
      ``python -m repro_torch.benchmarks.serving`` (printed, not gated);
-  6. distributed: ``stencil_plan(mesh=, shard_spec=, dist_mode=)`` on a
+  6. paper: the port's benchmark harness (``python -m
+     repro_torch.benchmarks.run``, in-process) prints table2, table3,
+     table4, fig10, fig16 and halo; fig16 times fused_direct and
+     fused_matmul at 8192^2 (2D) and 512^3 (Box-3D1R), each plan first
+     held against ``reference``, and the manifest must list no failed
+     module; table2's aten count on CUDA inputs must equal the CPU's bit
+     for bit; the cost counter over a fused_direct plan call at 1024^2 must
+     report the plan's one kernel launch as ``opaque_launches``; every
+     quickstart backend must lie within its tolerance;
+  7. distributed: ``stencil_plan(mesh=, shard_spec=, dist_mode=)`` on a
      gloo world of four ranks (child processes, every shard on this card,
      the halos staged through pinned host memory): 8192^2 Box-2D1R at t=4
      over a 2x2 mesh (stepwise, fused) and a 4x1 mesh (stepwise, fused,
@@ -1917,6 +1926,65 @@ def phase_serving(card) -> None:
         print(f"  {line}")
 
 
+#: The grid of the cost counter's check on the card (phase ``paper``, b).
+PAPER_COUNT_GRID = (1024, 1024)
+
+
+def phase_paper() -> None:
+    """Phase ``paper``: the paper's tables and Figure 16 through the port's
+    harness on the card (``python -m repro_torch.benchmarks.run``
+    in-process, its lines printed), failing on any of: (a) ``table2``'s
+    counted C on CUDA inputs not equal to the CPU's bit for bit; (b) the
+    aten cost counter over a ``fused_direct`` plan call at 1024^2 not
+    reporting the plan's kernel launches as ``opaque_launches``; (c) a
+    ``fig16`` plan outside its tolerance against ``reference`` (checked
+    inside ``fig16`` before it times the plan); (d) a quickstart backend
+    outside its tolerance against the oracle; (e) a failed module in the
+    harness's manifest."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks import table2
+    from repro_torch.core.hlo_cost import analyze_program
+    from repro_torch.examples import quickstart
+    from repro_torch.stencil import StencilSpec, make_weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    manifest = os.path.join(REPO, bench_run.MANIFEST_PATH)
+    rc = bench_run.main(["--manifest", manifest])
+    with open(manifest) as f:
+        failed = json.load(f)["failed"]
+    check(rc == 0 and not failed, f"paper: harness exit {rc}, failed modules {failed}")
+    card_c = [r["c_meas"] for r in table2.rows("cuda")]
+    cpu_c = [r["c_meas"] for r in table2.rows("cpu")]
+    check(card_c == cpu_c, f"paper: table2 C_measured on the card {card_c} != on the CPU "
+                           f"{cpu_c}")
+    print(f"paper: table2 C_measured on CUDA inputs = on the CPU, bit for bit: {card_c}")
+    w = make_weights(StencilSpec("box", 2, 1), seed=0)
+    x = grid(PAPER_COUNT_GRID, torch.float32, seed=0)
+    plan = kernels.stencil_plan(w, x.shape, torch.float32, MAIN_T, backend="fused_direct")
+    plan(x)                                        # builds the plan outside the count
+    torch.cuda.synchronize()
+    kname, n = expected_launches("fused_direct", MAIN_T, 2)
+    before = kernels.launch_counts()[kname]
+    cost = analyze_program(plan, x)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()[kname] - before
+    check(cost.opaque_launches == launched == n,
+          f"paper: the cost counter saw {cost.opaque_launches} opaque launches, the "
+          f"plan launched {launched} of {kname} (expected {n})")
+    print(f"paper: analyze_program over fused_direct {PAPER_COUNT_GRID} t={MAIN_T}: "
+          f"opaque_launches {cost.opaque_launches} = the plan's {launched} {kname} launch; "
+          f"aten flops {cost.flops:.0f}, bytes {cost.bytes:.0f}")
+    rows = quickstart.backend_errors("cuda")
+    bad = [r for r in rows if not r[1] <= r[2]]
+    check(not bad, f"paper: quickstart backends outside their tolerance: {bad}")
+    print("paper: quickstart 256^2 Box-2D1R t=4, max|err| vs the oracle (tol): "
+          + ", ".join(f"{b}={e:.2e} ({t:.1e})" for b, e, t in rows))
+    del x, plan
+    torch.cuda.empty_cache()
+    print(f"paper: phase in {time.perf_counter() - t0:.1f} s")
+
+
 #: The distributed phase: a gloo world of DIST_RANKS ranks, every shard on
 #: the card (one card: the ranks time-slice it; the halos pass through
 #: pinned host memory).  Rows: (label, grid, stencil, mesh shape, mesh dim
@@ -2210,6 +2278,7 @@ def main() -> int:
                    make_weights(StencilSpec("box", 3, 1), seed=0))
         phase_batch_times(mods, card)
         phase_serving(card)
+        phase_paper()
         phase_distributed()
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,

@@ -2,6 +2,7 @@
 the counterpart of ``repro.kernels.ref``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.stencil.reference import apply_stencil, apply_stencil_steps
@@ -33,3 +34,16 @@ def stencil_fused_matmul_ref(x: torch.Tensor, weights, t: int,
 
 def fused_kernel(weights, t: int):
     return fuse_weights(weights, t)
+
+
+def oracle_tolerance(backend: str, t: int, weights, x: torch.Tensor) -> float:
+    """How far a plan of ``backend`` may lie from these oracles on ``x``
+    after ``t`` steps: 1e-5 * t * max|x| for the tap-sums (f32 summation
+    order), t * 2^-10 * sum|w| * max|x| for the banded regimes (TF32
+    operands on the card)."""
+    from .registry import get_backend
+
+    mx = float(x.abs().max())
+    if get_backend(backend).unit == "matrix":
+        return t * 2 ** -10 * float(np.abs(np.asarray(weights)).sum()) * mx
+    return 1e-5 * t * mx

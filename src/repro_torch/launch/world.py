@@ -70,11 +70,13 @@ def _rank_main(fn, rank, nranks, init_method, device, mesh_shape,
 def run_world(fn: Callable, nranks: int, *, args: Sequence = (),
               mesh_shape: Optional[Sequence[int]] = None,
               mesh_dim_names: Sequence[str] = ("x",),
-              device: str = "cpu", timeout_s: float = 300.0,
+              device: str = "cuda", timeout_s: float = 300.0,
               workdir: Optional[str] = None) -> list:
     """Run ``fn(mesh, rank, *args)`` on ``nranks`` spawned processes and
     return their results by rank.
 
+    The ranks' shards live on the card (``device="cuda"``, the default)
+    unless the caller passes ``device="cpu"``, as the CPU tests do.
     ``fn`` and ``args`` are pickled (``fn`` by import path: a module-level
     function), and so are the results: return numpy arrays, not tensors,
     whose storage torch would share with a process that has exited.  ``mesh_shape`` defaults to ``(nranks,)``; its product must
@@ -94,6 +96,12 @@ def run_world(fn: Callable, nranks: int, *, args: Sequence = (),
                          "ranks")
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("run_world: no CUDA device for the ranks' "
+                               "shards; pass device='cpu' to run them on "
+                               "the CPU")
     own = workdir is None
     root = tempfile.mkdtemp(prefix="repro_world_") if own else workdir
     init_method = "file://" + os.path.join(os.path.abspath(root),

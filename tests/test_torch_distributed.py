@@ -266,7 +266,7 @@ def sides(tmp_path_factory):
     proc = _start_jax(tmp, CASES, JAX_SCRIPT)
     try:
         res = run_world(_port_rank, 4, args=(CASES,), mesh_shape=(4,),
-                        mesh_dim_names=("i",), timeout_s=300,
+                        mesh_dim_names=("i",), device="cpu", timeout_s=300,
                         workdir=str(tmp))
     except BaseException:
         proc.kill()

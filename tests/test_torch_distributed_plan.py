@@ -303,8 +303,8 @@ def sides(tmp_path_factory):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     try:
         port = run_world(_plan_rank, 4, args=(CASES,), mesh_shape=(4,),
-                         mesh_dim_names=("i",), timeout_s=300,
-                         workdir=str(tmp))
+                         mesh_dim_names=("i",), device="cpu",
+                         timeout_s=300, workdir=str(tmp))
         out, err = proc.communicate(timeout=300)
     finally:
         if proc.poll() is None:
