@@ -154,7 +154,21 @@ Phases, any failure exits non-zero:
      plan of the same backend, overlap equal to stepwise bit for bit on
      the tap-sum; ms per call across a barrier of the ranks beside the
      undistributed plan's; then REPRO_FAULTS=halo landing every rank on
-     the same rung.
+     the same rung;
+  8. llm: the LLM serving path (``repro_torch.launch.serve.serve_llm``, no
+     hand-written kernel: the models' ops are PyTorch's) at full width,
+     random weights from seed 0 stored in bf16 once, batch 4: llama3.2-1b
+     and rwkv6-1.6b (factored WKV) at JAX's serve defaults (prompt 16, gen
+     32), every other arch of the registry on a prompt of 8 and 4 generated
+     tokens, qwen3-moe-235b-a22b with n_layers cut 94 -> 2 (printed); each
+     with finite logits, tokens in the vocabulary, prefill and decode tok/s
+     and ms per decode step beside the weight-byte bound; the cached decode
+     against the uncached forward pass (``consistency``) on the dense, vlm,
+     hybrid and rwkv archs at full depth in bf16 (tolerance twice the
+     uncached pass's own bf16 error) and at full width and one layer in
+     float32 (1e-4 * max|logit|) and bf16, MoE exempt (its capacity
+     depends on S); then every SMOKE arch on the card against the port on
+     the CPU (loss_fn and 4 decode steps, float32 and bf16).
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -2165,6 +2179,274 @@ def phase_distributed() -> None:
           "start included")
 
 
+#: The LLM phase (``phase_llm``).  Every arch of the port's registry at its
+#: full width (random weights from seed 0, stored in bf16 once), batch 4:
+#: LLM_LONG at JAX's serve defaults (prompt 16, gen 32), the others on a
+#: prompt of 8 and 4 generated tokens; LLM_DEPTH cuts n_layers where the
+#: full depth does not fit one card.
+LLM_BATCH = 4
+LLM_LONG = ("llama3.2-1b", "rwkv6-1.6b")
+LLM_LONG_RUN = (16, 32)
+LLM_SHORT_RUN = (8, 4)
+LLM_DEPTH = {"qwen3-moe-235b-a22b": 2}
+#: Families whose cached decode is held to the uncached forward pass
+#: (``launch.serve.consistency``); MoE is not: its capacity depends on S.
+LLM_CONSISTENT = ("dense", "vlm", "hybrid", "rwkv")
+#: Depth of the well-conditioned consistency check at full width: with the
+#: models' random init (q, k scaled by the heads' fan-in) attention is
+#: saturated and f32 rounding grows with depth (the phase prints the sweep over
+#: LLM_SWEEP_DEPTHS), so only one layer can be held to 1e-4.
+LLM_CHECK_DEPTH = 1
+#: The SMOKE runs, card against CPU: B x S tokens, decode steps.
+LLM_SMOKE = (2, 8, 4)
+LLM_F32_TOL = 1e-4
+LLM_BF16_UNIT = 2.0 ** -8
+
+
+def decode_weight_bytes(cfg, params, batch: int) -> tuple:
+    """Bytes of the weights one decode step reads, as stored, and the same
+    with each MoE layer's experts cut to the ones a step can route to
+    (min(E, batch * top_k)): every leaf but the token embedding (of which
+    ``batch`` rows), whisper's encoder and the VLM projector, which decode
+    does not run."""
+    from repro_torch.models import base
+    total = active = 0
+    for name, leaf in base.named_leaves(params):
+        if name.startswith(("encoder.", "enc_ln_post", "img_proj")):
+            continue
+        nbytes = leaf.numel() * leaf.element_size()
+        if name == "tok_embed":
+            nbytes = batch * leaf.shape[1] * leaf.element_size()
+        total += nbytes
+        if cfg.moe is not None and ".moe.w" in name:
+            E = cfg.moe.num_experts
+            nbytes = nbytes * min(E, batch * cfg.moe.top_k) // E
+        active += nbytes
+    return total, active
+
+
+def _gib(nbytes: float) -> float:
+    return nbytes / 2**30
+
+
+def _smoke_pass(model, params, inputs, device):
+    """loss_fn and LLM_SMOKE[2] teacher-forced decode steps' logits of the
+    port on ``device`` (numpy, float64)."""
+    B, S, steps = LLM_SMOKE
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    with torch.no_grad():
+        loss, _ = model.loss_fn(params, batch)
+        caches = model.init_caches(B, S + steps, device)
+        out = [loss.double().cpu().numpy()]
+        for t in range(steps):
+            logits, caches = model.decode_logits(params, caches, batch["tokens"][:, t:t + 1], t)
+            out.append(logits.double().cpu().numpy())
+    return out
+
+
+def llm_smoke_card_vs_cpu(arch: str, device) -> str:
+    """A SMOKE arch on the card against the port on the CPU, from the same
+    parameters (float32, from a CPU generator seeded 0) and inputs: loss_fn
+    and LLM_SMOKE[2] decode steps' logits.  float32 (TF32 off): within
+    LLM_F32_TOL * max(1, max|cpu|); bf16: within twice bf16's own error on
+    the CPU (max|cpu bf16 - cpu f32|: both sides round at bf16), at least
+    LLM_BF16_UNIT * max(1, max|cpu|); greedy tokens equal where the CPU's
+    top-2 margin exceeds the bound."""
+    import dataclasses
+    from repro_torch.configs import SMOKE
+    from repro_torch.models import base
+    from repro_torch.models.api import get_model
+    B, S, _ = LLM_SMOKE
+    cfg = SMOKE[arch]
+    rng = np.random.default_rng(1)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)}
+    if cfg.family == "whisper":
+        inputs["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = rng.normal(size=(B, cfg.n_img_patches, cfg.d_model)).astype(np.float32)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0))
+    on_card = base.tree_map(lambda a: a.to(device), params)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = get_model(dataclasses.replace(cfg, dtype=dtype))
+        runs[dtype] = (_smoke_pass(model, params, inputs, "cpu"),
+                       _smoke_pass(model, on_card, inputs, device))
+    worst = []
+    for dtype, (cpu, card) in runs.items():
+        cpu32 = runs["float32"][0]
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            scale = max(1.0, float(np.max(np.abs(b))))
+            lim = LLM_F32_TOL * scale if dtype == "float32" else max(
+                2.0 * float(np.max(np.abs(b - cpu32[i]))), LLM_BF16_UNIT * scale)
+            err = float(np.max(np.abs(a - b)))
+            what = "loss" if i == 0 else f"step {i - 1} logits"
+            check(np.isfinite(a).all() and err <= lim,
+                  f"llm smoke {arch} {dtype} {what}: card vs CPU max|diff| {err:.3e} > {lim:.3e}")
+            if i:
+                top2 = np.sort(b, axis=-1)[..., -2:]
+                sure = (top2[..., 1] - top2[..., 0]) > lim
+                check(np.array_equal(a.argmax(-1)[sure], b.argmax(-1)[sure]),
+                      f"llm smoke {arch} {dtype} step {i - 1}: tokens differ")
+            worst.append((err / lim, dtype, what, err, lim))
+    r, dtype, what, err, lim = max(worst)
+    return f"{arch} worst {dtype} {what} {err:.3e} / {lim:.3e}"
+
+
+#: Depths of the float32 cached-vs-uncached sweep (printed, not gated) at
+#: full width on the first LLM_LONG arch.
+LLM_SWEEP_DEPTHS = (1, 2, 4, 8)
+LLM_PROFILE_STEPS = 5
+
+
+def llm_profile(model, params, device):
+    """Where a decode step's time goes: ``torch.profiler`` over
+    LLM_PROFILE_STEPS steps after 3 warm-ups (B = LLM_BATCH, caches of 64):
+    device kernel ms per step, kernel launches per step and the four aten
+    ops with the most device time (the profiler's own start-up lands in
+    the host's time, so the step time is ``serve_llm``'s); returns the
+    device ms per step and the line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caches = model.init_caches(LLM_BATCH, 64, device)
+    tok = torch.zeros((LLM_BATCH, 1), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        for i in range(3):
+            _, caches = model.decode_logits(params, caches, tok, i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(3, 3 + LLM_PROFILE_STEPS):
+                _, caches = model.decode_logits(params, caches, tok, i)
+            torch.cuda.synchronize()
+    rows = prof.key_averages()
+    n = LLM_PROFILE_STEPS
+    device_us = sum(r.self_device_time_total for r in rows if r.device_type == DeviceType.CUDA)
+    launches = sum(r.count for r in rows
+                   if r.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    ops = sorted((r for r in rows if r.key.startswith("aten::") and r.self_device_time_total),
+                 key=lambda r: -r.self_device_time_total)[:4]
+    top = ", ".join(f"{r.key} {r.self_device_time_total / n / 1e3:.3f} ms ({r.count // n})"
+                    for r in ops)
+    return device_us / n / 1e3, (
+        f"device kernels {device_us / n / 1e3:.3f} ms per step, {launches / n:.0f} "
+        f"launches per step; most device time: {top}")
+
+
+def llm_consistency(arch, cfg, params, r, gated: bool) -> str:
+    """``launch.serve.consistency`` of a ``serve_llm`` run kept with its
+    logits, as one printed line; a gated check that fails fails the run.
+    Under ``wkv_factored`` the uncached scan runs 16-position chunks, so the
+    stream is cut to a multiple of 16 (JAX's reshape needs that too)."""
+    from repro_torch.launch.serve import consistency
+    n = r["logits"].shape[1]
+    length = n - n % 16 if getattr(cfg, "wkv_factored", False) and n > 16 else None
+    c = consistency(cfg, params, r["prompts"], r["tokens"], r["logits"], length)
+    if gated:
+        check(c["ok"], f"llm {arch} {cfg.dtype} at {cfg.n_layers} layers: the cached "
+                       f"decode disagrees with the uncached forward: {c}")
+    return (f"cached vs uncached logits max|diff| {c['max_abs_err']:.4e} (tol "
+            f"{c['tol']:.4e}; the uncached pass's own error against f32 "
+            f"{c['bf16_err']:.4e}, max|logit| {c['ref_max']:.3f}); greedy tokens "
+            f"compared at {c['positions'] - c['under_margin']} of {c['positions']} "
+            f"positions{'' if c['ok'] else ' -- OUTSIDE the tolerance'}")
+
+
+def phase_llm(device="cuda") -> None:
+    """Phase ``llm``: the LLM serving path (``repro_torch.launch.serve.
+    serve_llm``) at full width on the card, arch by arch, each freed before
+    the next: finite logits and tokens in the vocabulary; prefill and
+    decode tok/s, ms per decode step beside the weight-byte bound (bytes of
+    the stored weights one step reads over 3.35 TB/s); on LLM_CONSISTENT
+    families the cached decode against the uncached forward pass
+    (``consistency``): at full depth as served (gated), for LLM_LONG also in
+    float32 (printed: random weights amplify rounding with depth) with a
+    profile of its decode step (``llm_profile``), on the first of them the
+    float32 check at LLM_SWEEP_DEPTHS layers (printed), and at full width
+    and LLM_CHECK_DEPTH layers in float32 and the served dtype (gated);
+    then every SMOKE arch on the card against the port on the CPU
+    (``llm_smoke_card_vs_cpu``)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, SMOKE
+    from repro_torch.launch.serve import serve_llm
+    from repro_torch.models import base
+    from repro_torch.models.api import get_model
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    order = list(LLM_LONG) + [a for a in ARCHS if a not in LLM_LONG]
+    for arch in order:
+        cfg = ARCHS[arch]
+        full_params = get_model(cfg).param_count()
+        if arch in LLM_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=LLM_DEPTH[arch])
+            print(f"llm: {arch}: full width, n_layers cut {ARCHS[arch].n_layers} -> "
+                  f"{cfg.n_layers}: the full depth holds {full_params / 1e9:.1f} B "
+                  f"parameters, {_gib(4 * full_params):.1f} GiB in f32, past one card")
+        model = get_model(cfg)
+        P, G = LLM_LONG_RUN if arch in LLM_LONG else LLM_SHORT_RUN
+        params = base.serving_params(
+            model.init_params(torch.Generator(device).manual_seed(0)), cfg)
+        r = serve_llm(cfg, LLM_BATCH, P, G, device=device, params=params, keep_logits=True)
+        logits = r["logits"]
+        check(bool(torch.isfinite(logits).all()), f"llm {arch}: non-finite logits")
+        check(((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab)).all(),
+              f"llm {arch}: tokens outside the vocabulary")
+        total, active = decode_weight_bytes(cfg, params, LLM_BATCH)
+        step_ms = 1e3 * r["decode_s"] / (G - 1)
+        bound_ms = 1e3 * total / HBM_BPS
+        moe = (f", routed experts only {1e3 * active / HBM_BPS:.4f} ms"
+               if cfg.moe is not None else "")
+        print(f"llm: {arch}: {model.param_count() / 1e9:.3f} B params, "
+              f"{_gib(sum(v.numel() * v.element_size() for _, v in base.named_leaves(params))):.2f} GiB "
+              f"stored; B={LLM_BATCH} prompt={P} gen={G}: prefill {r['prefill_tok_s']:.1f} tok/s, "
+              f"decode {r['decode_tok_s']:.1f} tok/s, {step_ms:.3f} ms per decode step; "
+              f"bound {bound_ms:.4f} ms ({_gib(total):.2f} GiB of weights per step at 3.35 TB/s)"
+              f"{moe}; step / bound {step_ms / bound_ms:.1f}")
+        if cfg.family in LLM_CONSISTENT:
+            line = llm_consistency(arch, cfg, params, r, gated=True)
+            print(f"llm: {arch} full depth, {cfg.dtype} as served: {line}")
+            if arch in LLM_LONG:
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                r32 = serve_llm(cfg32, LLM_BATCH, P, G, device=device, params=params,
+                                keep_logits=True)
+                line = llm_consistency(arch, cfg32, params, r32, gated=False)
+                print(f"llm: {arch} full depth, float32 (not gated: random weights "
+                      f"amplify rounding with depth): {line}")
+                del r32
+                if device != "cpu":
+                    dev_ms, line = llm_profile(model, params, device)
+                    print(f"llm: {arch} profile: {line}; against the {step_ms:.3f} ms "
+                          f"step the device idles {1 - dev_ms / step_ms:.1%}")
+            if arch == LLM_LONG[0]:
+                for depth in LLM_SWEEP_DEPTHS:
+                    cfg_d = dataclasses.replace(cfg, n_layers=depth, dtype="float32")
+                    p_d = get_model(cfg_d).init_params(torch.Generator(device).manual_seed(0))
+                    r_d = serve_llm(cfg_d, LLM_BATCH, P, G, device=device, params=p_d,
+                                    keep_logits=True)
+                    print(f"llm: {arch} full width, {depth} layers, float32 (sweep, not "
+                          f"gated): {llm_consistency(arch, cfg_d, p_d, r_d, gated=False)}")
+                    del p_d, r_d
+            for dtype in ("float32", cfg.dtype):
+                cfg1 = dataclasses.replace(cfg, n_layers=LLM_CHECK_DEPTH, dtype=dtype)
+                p1 = base.serving_params(get_model(cfg1).init_params(
+                    torch.Generator(device).manual_seed(0)), cfg1)
+                r1 = serve_llm(cfg1, LLM_BATCH, P, G, device=device, params=p1,
+                               keep_logits=True)
+                line = llm_consistency(arch, cfg1, p1, r1, gated=True)
+                print(f"llm: {arch} full width, {LLM_CHECK_DEPTH} layer, {dtype}: {line}")
+                del p1, r1
+        elif cfg.family == "moe":
+            print(f"llm: {arch}: cached vs uncached not compared: the MoE capacity "
+                  "int(1.25 * S * K / E) depends on S, so a one-token decode and a "
+                  "full forward may drop different tokens")
+        else:
+            print(f"llm: {arch}: cached vs uncached not compared: whisper's decode "
+                  "attends to its encoder caches (zeros in the serve loop, as in JAX)")
+        del params, r, logits
+        torch.cuda.empty_cache()
+    for arch in SMOKE:
+        print(f"llm: SMOKE card vs CPU: {llm_smoke_card_vs_cpu(arch, device)}")
+    print(f"llm: phase in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2280,6 +2562,7 @@ def main() -> int:
         phase_serving(card)
         phase_paper()
         phase_distributed()
+        phase_llm()
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,
             subprocess.TimeoutExpired, TimeoutError) as e:

@@ -1,0 +1,7 @@
+"""Config module for ``llama3.2-1b`` (see registry.py for the numbers)."""
+from repro_torch.configs.registry import ARCHS, SMOKE, SHAPES, cells_for
+
+ARCH = "llama3.2-1b"
+FULL = ARCHS[ARCH]
+SMOKE_CFG = SMOKE[ARCH]
+CELLS = {name: SHAPES[name] for name in cells_for(ARCH)}

@@ -1,15 +1,26 @@
 """The port's serving drivers on the CPU: ``repro_torch.launch.serve``'s
 arguments (mirrored from ``tests/test_serve.py``), its ``stencil``
-subcommand, the LLM path's refusal, the serving benchmark at a tiny size,
-and the timing plumbing of ``repro_torch.benchmarks.timing``."""
+subcommand, the LLM driver (``--device cpu``: the dense ``--check``, rwkv,
+JAX's prompts and greedy stream, the refusal to fall back to the CPU), the
+serving benchmark at a tiny size, and the timing plumbing of
+``repro_torch.benchmarks.timing``."""
+import dataclasses
 import json
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import SMOKE as JAX_SMOKE
+from repro.models.api import get_model as jax_get_model
 from repro_torch.benchmarks import serving, timing
-from repro_torch.launch.serve import (build_parser, main, parse_args,
-                                      serve_stencil)
+from repro_torch.configs import SMOKE
+from repro_torch.launch.serve import (build_parser, consistency, main,
+                                      parse_args, serve_llm, serve_stencil)
+from repro_torch.models import base
+from repro_torch.models.api import get_model
 
 
 class TestServeArgValidation:
@@ -56,9 +67,79 @@ class TestServeArgValidation:
             parse_args(argv)
         assert ei.value.code == 2 and flag in capsys.readouterr().err
 
-    def test_llm_path_names_its_item(self):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            main(["--batch", "2"])
+    def test_arch_takes_the_registry_names(self, capsys):
+        assert parse_args(["--arch", "rwkv6-1.6b"]).arch == "rwkv6-1.6b"
+        with pytest.raises(SystemExit) as ei:
+            parse_args(["--arch", "gpt-2"])
+        assert ei.value.code == 2 and "invalid choice" in capsys.readouterr().err
+        choices = next(a for a in build_parser()._actions if "--arch" in a.option_strings).choices
+        assert choices == sorted(JAX_SMOKE)
+
+
+def test_llm_driver_dense_check_on_the_cpu(capsys):
+    main(["--device", "cpu", "--check"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "arch=llama3.2-1b B=4 prompt=16 gen=32"
+    assert out[1].startswith("prefill: ") and out[2].startswith("decode : ")
+    assert out[3].startswith("sample completions (first 8 ids): ")
+    assert out[-1] == "greedy consistency vs uncached forward: OK"
+
+
+def test_llm_driver_rwkv_on_the_cpu(capsys):
+    main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--batch", "2",
+          "--prompt-len", "5", "--gen", "6", "--check"])
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-1.6b B=2 prompt=5 gen=6" in out
+    assert "greedy consistency" not in out          # --check is dense-only, as in JAX
+
+
+def test_llm_driver_needs_the_card_unless_told(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--batch", "1", "--prompt-len", "1", "--gen", "1"])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"])
+def test_llm_stream_matches_jax(arch):
+    """JAX's driver loop (``repro.launch.serve.main``) on its own
+    parameters, in float32: the same prompts from
+    ``np.random.default_rng(0)``, and the port's greedy stream from the same
+    parameters equals JAX's token for token."""
+    B, P, G = 2, 6, 5
+    jcfg = dataclasses.replace(JAX_SMOKE[arch], dtype="float32")
+    jm = jax_get_model(jcfg)
+    params = jm.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, jcfg.vocab, size=(B, P)).astype(np.int32)
+    serve = jax.jit(jm.decode_step)
+    caches = jm.init_caches(B, P + G + 1)
+    for i in range(P):
+        nxt, caches = serve(params, caches, jnp.asarray(prompts[:, i:i + 1]),
+                            jnp.asarray(i, jnp.int32))
+    out = [np.asarray(nxt)]
+    for i in range(P, P + G - 1):
+        nxt, caches = serve(params, caches, jnp.asarray(out[-1]), jnp.asarray(i, jnp.int32))
+        out.append(np.asarray(nxt))
+    want = np.concatenate(out, axis=1)
+
+    cfg = dataclasses.replace(SMOKE[arch], dtype="float32")
+    got = serve_llm(cfg, B, P, G, device="cpu",
+                    params=base.params_from_numpy(jax.tree.map(np.asarray, params), "cpu"))
+    np.testing.assert_array_equal(got["prompts"], prompts)
+    np.testing.assert_array_equal(got["tokens"], want)
+    assert got["tokens"].dtype == np.int32 and got["check"] is None
+
+
+def test_llm_check_holds_cached_logits_to_the_forward():
+    """serve_llm's check: the kept logits equal the uncached forward's
+    within the stated tolerance; a float32 config gets the float32 floor."""
+    cfg = dataclasses.replace(SMOKE["glm4-9b"], dtype="float32")
+    r = serve_llm(cfg, 2, 4, 5, check=True, device="cpu", keep_logits=True)
+    c = r["check"]
+    assert r["logits"].shape == (2, 4 + 5 - 1, cfg.vocab)
+    assert c["ok"] and c["tokens_ok"] and c["positions"] == 2 * 5
+    assert c["tol"] == pytest.approx(1e-4 * c["ref_max"]) and c["max_abs_err"] < c["tol"]
+    assert c["under_margin"] < c["positions"]
 
 
 def test_stencil_subcommand_runs_on_the_cpu(capsys):
@@ -70,6 +151,20 @@ def test_stencil_subcommand_runs_on_the_cpu(capsys):
     assert snap["failed"] == 0 and snap["degraded_batches"] == 0
     out = capsys.readouterr().out
     assert "requests   : 24/24" in out and "device=cpu" in out
+
+
+def test_llm_check_on_a_prefix_of_the_stream():
+    """The factored WKV scan runs 16-position chunks: a stream of 8 + 40 - 1
+    = 47 positions splits into 2 chunks of 23 and one left over, which it
+    refuses (as JAX's reshape does); its first 32 positions scan, and the
+    tokens compared are the ones those positions produce."""
+    cfg = dataclasses.replace(SMOKE["rwkv6-1.6b"], dtype="float32", wkv_factored=True)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0))
+    r = serve_llm(cfg, 2, 8, 40, device="cpu", params=params, keep_logits=True)
+    with pytest.raises(ValueError, match="cannot split"):
+        consistency(cfg, params, r["prompts"], r["tokens"], r["logits"])
+    c = consistency(cfg, params, r["prompts"], r["tokens"], r["logits"], length=32)
+    assert c["ok"] and c["positions"] == 2 * (32 - 8 + 1)
 
 
 def test_serving_benchmark_tiny_on_the_cpu(tmp_path):
