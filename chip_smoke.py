@@ -168,7 +168,22 @@ Phases, any failure exits non-zero:
      uncached pass's own bf16 error) and at full width and one layer in
      float32 (1e-4 * max|logit|) and bf16, MoE exempt (its capacity
      depends on S); then every SMOKE arch on the card against the port on
-     the CPU (loss_fn and 4 decode steps, float32 and bf16).
+     the CPU (loss_fn and 4 decode steps, float32 and bf16);
+  9. train: the LLM training path (``repro_torch.train.loop.train``: the
+     models under autograd with remat, AdamW in place; no hand-written
+     kernel): llama3.2-1b as registered (16 layers, bf16 compute on f32
+     masters) for 4 steps at B=4, S=1024 on SyntheticLM batches, finite
+     losses and grad_norm, ms per step (median of steps 2-4), tok/s, peak
+     memory, the share of 6 * N * tokens at 989 TFLOP/s, a profile of one
+     step, then one step with remat off whose peak must be the higher;
+     every other arch at full width, 2 steps at B=2, S=256 (n_layers cut
+     where 16 bytes per parameter pass 56 GiB, printed) and one without
+     remat; ``examples.train_lm`` at preset 30m with and without int8
+     gradients (the loss must fall); crash and resume at preset 30m (10
+     steps, checkpoint, resume to 20 against 20 straight: final losses
+     within rel 1e-4), with the checkpoint's size and save time; every
+     SMOKE arch's train step on the card against the port on the CPU
+     (loss, gradients, updated parameters; float32 and bf16).
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -2447,6 +2462,300 @@ def phase_llm(device="cuda") -> None:
     print(f"llm: phase in {time.perf_counter() - t0:.1f} s")
 
 
+#: The training phase (``phase_train``).  llama3.2-1b as registered at
+#: TRAIN_MAIN (B, S, steps); every other arch at TRAIN_OTHER (B, S, steps)
+#: with n_layers cut where 16 bytes per parameter (f32 weights, grads and
+#: two moments) pass TRAIN_BUDGET_GIB; the example's preset and steps; the
+#: crash/resume run (preset, straight steps, checkpoint step).
+TRAIN_MAIN = (4, 1024, 4)
+TRAIN_OTHER = (2, 256, 2)
+TRAIN_BUDGET_GIB = 56.0
+TRAIN_EXAMPLE = ("30m", 40)
+TRAIN_RESUME = ("30m", 20, 10)
+#: Dense bf16 tensor-core peak of the H100 SXM (data sheet), FLOP/s.
+BF16_PEAK = 989e12
+
+
+def model_flops(cfg, tokens: int) -> float:
+    """JAX's MODEL_FLOPS of a train step (``repro.core.hlo_roofline.
+    model_flops_for``): 6 * N * tokens, N counting each MoE layer's experts
+    at top_k / E."""
+    from repro_torch.models.api import get_model
+    n = get_model(cfg).param_count()
+    if cfg.moe is not None:
+        e, k = cfg.moe.num_experts, cfg.moe.top_k
+        expert = 3 * cfg.d_model * cfg.d_ff * e * cfg.n_layers
+        n = n - expert + expert * (k / e)
+    return 6.0 * n * tokens
+
+
+def train_depth(cfg) -> int:
+    """The most layers (at most the registered depth, at least 1) whose
+    16 bytes per parameter fit TRAIN_BUDGET_GIB."""
+    import dataclasses
+    from repro_torch.models.api import get_model
+    count = lambda n: get_model(dataclasses.replace(cfg, n_layers=n)).param_count()
+    per = count(2) - count(1)
+    fixed = count(1) - per
+    fit = int((TRAIN_BUDGET_GIB * 2**30 / 16 - fixed) // per)
+    return max(1, min(cfg.n_layers, fit))
+
+
+def _train_batch(data, step, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(step).items()}
+
+
+def _peak_step(step_fn, params, state, batch):
+    """One train step from a reset peak: (params, state, metrics, ms on the
+    host clock around it, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, batch)
+    loss = float(m["loss"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(np.isfinite(loss) and bool(torch.isfinite(m["grad_norm"])),
+          f"train: non-finite loss {loss} or grad_norm")
+    return params, state, m, ms, _gib(torch.cuda.max_memory_allocated())
+
+
+def train_profile(step_fn, params, state, batch):
+    """``torch.profiler`` over one train step (after the loop's warm
+    steps): device kernel ms, kernel launches and the four aten ops with the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, m = step_fn(params, state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    device_us = sum(r.self_device_time_total for r in rows if r.device_type == DeviceType.CUDA)
+    launches = sum(r.count for r in rows
+                   if r.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    ops = sorted((r for r in rows if r.key.startswith("aten::") and r.self_device_time_total),
+                 key=lambda r: -r.self_device_time_total)[:4]
+    top = ", ".join(f"{r.key} {r.self_device_time_total / 1e3:.3f} ms ({r.count})" for r in ops)
+    return params, state, device_us / 1e3, (
+        f"device kernels {device_us / 1e3:.3f} ms, {launches} launches; most device "
+        f"time: {top}")
+
+
+def train_arch(cfg, B: int, S: int, steps: int, device, profile_step: bool = False) -> dict:
+    """``train.loop.train`` of ``cfg`` for ``steps`` steps at B x S, then
+    one step with remat on (grad_norm, peak) and one with remat off (peak;
+    an out-of-memory is reported, not raised); ms per step is the median of
+    the loop's steps after the first."""
+    import dataclasses
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import data_config
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.steps import make_train_step
+    model = get_model(cfg)
+    data = SyntheticLM(data_config(cfg, S, B))
+    opt = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, hist = train(model, data, opt, LoopConfig(steps=steps, ckpt_dir=None,
+                                                             log_every=10**9), device=device)
+    losses = [r["loss"] for r in hist]
+    check(all(np.isfinite(losses)), f"train {cfg.name}: non-finite losses {losses}")
+    out = {"losses": losses, "loop_peak": _gib(torch.cuda.max_memory_allocated()),
+           "ms": statistics.median(1e3 * r["dt"] for r in hist[1:])}
+    batch = _train_batch(data, steps, device)
+    params, state, m, out["remat_ms"], out["remat_peak"] = _peak_step(
+        make_train_step(model, opt), params, state, batch)
+    out["grad_norm"] = float(m["grad_norm"])
+    if profile_step:
+        params, state, out["device_ms"], out["profile"] = train_profile(
+            make_train_step(model, opt), params, state, batch)
+    try:
+        step_off = make_train_step(get_model(dataclasses.replace(cfg, remat=False)), opt)
+        params, state, _, out["plain_ms"], out["plain_peak"] = _peak_step(
+            step_off, params, state, batch)
+    except torch.cuda.OutOfMemoryError:
+        out["plain_ms"] = out["plain_peak"] = None
+    del params, state, batch, m
+    torch.cuda.empty_cache()
+    out["flops_share"] = model_flops(cfg, B * S) / (out["ms"] / 1e3) / BF16_PEAK
+    return out
+
+
+def train_line(arch, cfg, B, S, r) -> str:
+    plain = ("out of memory" if r["plain_peak"] is None else
+             f"{r['plain_ms']:.1f} ms, peak {r['plain_peak']:.2f} GiB")
+    return (f"train: {arch} ({cfg.n_layers} layers): B={B} S={S}: losses "
+            f"{', '.join(f'{x:.4f}' for x in r['losses'])}; {r['ms']:.1f} ms per step, "
+            f"{B * S / (r['ms'] / 1e3):,.0f} tok/s, MODEL_FLOPS share {r['flops_share']:.1%} "
+            f"of {BF16_PEAK / 1e12:.0f} TFLOP/s; loop peak {r['loop_peak']:.2f} GiB; one step "
+            f"remat on {r['remat_ms']:.1f} ms, peak {r['remat_peak']:.2f} GiB, grad_norm "
+            f"{r['grad_norm']:.4f}; remat off {plain}")
+
+
+def train_smoke_card_vs_cpu(arch: str, device) -> str:
+    """One train step of a SMOKE arch on the card against the port on the
+    CPU from the same parameters (float32, a CPU generator seeded 0) and
+    inputs, at lr 1e-3 (warm-up 1: the first step runs at lr): the loss and
+    every gradient within the CPU tests' bounds (float32 with TF32 off:
+    LLM_F32_TOL * max(1, max|cpu|); bf16: twice bf16's own error on the CPU,
+    at least LLM_BF16_UNIT * max(1, max|cpu|)), and the updated parameters
+    within LLM_F32_TOL * max(1, max|p|) wherever the CPU's gradient exceeds
+    its bound (elsewhere Adam's first step, ~lr * sign(g), may flip: 2 * lr
+    more)."""
+    import dataclasses
+    from repro_torch.configs import SMOKE
+    from repro_torch.models import base
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import value_and_grad
+    B, S, _ = LLM_SMOKE
+    cfg = SMOKE[arch]
+    rng = np.random.default_rng(1)
+    inputs = {"tokens": rng.integers(0, cfg.vocab, size=(B, S + 1)).astype(np.int32)}
+    if cfg.family == "whisper":
+        inputs["frames"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = rng.normal(size=(B, cfg.n_img_patches, cfg.d_model)).astype(np.float32)
+    params0 = get_model(cfg).init_params(torch.Generator().manual_seed(0))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = get_model(dataclasses.replace(cfg, dtype=dtype))
+        for where in ("cpu", device):
+            p = base.tree_map(lambda a: a.clone().to(where), params0)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in inputs.items()}
+            (loss, _), grads = value_and_grad(model, p, batch)
+            p, _, _ = adamw.apply(opt, grads, adamw.init(p), p)
+            flat = lambda t: {n: v.double().cpu().numpy() for n, v in base.named_leaves(t)}
+            runs[dtype, where] = (float(loss), flat(grads), flat(p))
+    worst = []
+    for dtype in ("float32", "bfloat16"):
+        (l0, g0, p0), (l1, g1, p1) = runs[dtype, "cpu"], runs[dtype, device]
+        l32, g32 = runs["float32", "cpu"][:2]
+
+        def lim(ref, ref32):
+            scale = max(1.0, float(np.max(np.abs(ref))))
+            if dtype == "float32":
+                return LLM_F32_TOL * scale
+            return max(2.0 * float(np.max(np.abs(ref - ref32))), LLM_BF16_UNIT * scale)
+        err, tol = abs(l1 - l0), lim(np.asarray(l0), np.asarray(l32))
+        check(np.isfinite(l1) and err <= tol,
+              f"train smoke {arch} {dtype} loss: card vs CPU {err:.3e} > {tol:.3e}")
+        worst.append((err / tol, dtype, "loss", err, tol))
+        for name in g0:
+            gl = lim(g0[name], g32[name])
+            err = float(np.max(np.abs(g1[name] - g0[name])))
+            check(np.isfinite(g1[name]).all() and err <= gl,
+                  f"train smoke {arch} {dtype} grad {name}: card vs CPU {err:.3e} > {gl:.3e}")
+            worst.append((err / gl, dtype, f"grad {name}", err, gl))
+            pl = LLM_F32_TOL * max(1.0, float(np.max(np.abs(p0[name]))))
+            allowed = pl + np.where(np.abs(g0[name]) > gl, 0.0, 2 * opt.lr)
+            perr = np.abs(p1[name] - p0[name])
+            check(np.isfinite(p1[name]).all() and bool((perr <= allowed).all()),
+                  f"train smoke {arch} {dtype} updated {name}: card vs CPU "
+                  f"{float(perr.max()):.3e} outside its bound")
+            firm = np.abs(g0[name]) > gl
+            if firm.any():
+                e = float(perr[firm].max())
+                worst.append((e / pl, dtype, f"updated {name}", e, pl))
+    r, dtype, what, err, tol = max(worst)
+    return f"{arch} worst {dtype} {what} {err:.3e} / {tol:.3e}"
+
+
+def phase_train(device="cuda") -> None:
+    """Phase ``train``: the LLM training path (``repro_torch.train``,
+    ``optim``, ``data``, ``checkpoint``) on the card (see the module's
+    docstring, item 9)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS, SMOKE
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.examples import train_lm
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # (a) the main path: llama3.2-1b as registered
+    arch = "llama3.2-1b"
+    cfg = ARCHS[arch]
+    B, S, steps = TRAIN_MAIN
+    r = train_arch(cfg, B, S, steps, device, profile_step=True)
+    print(train_line(arch, cfg, B, S, r))
+    bound_ms = 1e3 * model_flops(cfg, B * S) / BF16_PEAK
+    print(f"train: {arch} profile of one step: {r['profile']}; against the "
+          f"{r['remat_ms']:.1f} ms step the device idles {1 - r['device_ms'] / r['remat_ms']:.1%}; "
+          f"bound {bound_ms:.1f} ms (6 N tokens at {BF16_PEAK / 1e12:.0f} TFLOP/s), "
+          f"{1e3 * 7 * 4 * get_model(cfg).param_count() / HBM_BPS:.1f} ms of AdamW's f32 "
+          f"state traffic at 3.35 TB/s")
+    check(r["plain_peak"] is None or r["remat_peak"] < r["plain_peak"],
+          f"train {arch}: remat's peak {r['remat_peak']:.2f} GiB is not below "
+          f"{r['plain_peak']:.2f} GiB without it")
+    # (b) every other arch at full width
+    B, S, steps = TRAIN_OTHER
+    for arch in (a for a in ARCHS if a != "llama3.2-1b"):
+        cfg = ARCHS[arch]
+        depth = train_depth(cfg)
+        if depth < cfg.n_layers:
+            full = get_model(cfg).param_count()
+            print(f"train: {arch}: full width, n_layers cut {cfg.n_layers} -> {depth}: the "
+                  f"full depth holds {full / 1e9:.3f} B parameters, {_gib(16 * full):.1f} GiB "
+                  f"at 16 bytes each (f32 weights, grads, two moments), past "
+                  f"{TRAIN_BUDGET_GIB:.0f} GiB")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        print(train_line(arch, cfg, B, S, train_arch(cfg, B, S, steps, device)))
+    # (c) the example at preset 30m, with and without int8 gradients
+    preset, n = TRAIN_EXAMPLE
+    tmp = tempfile.mkdtemp(prefix="train_smoke_")
+    try:
+        for extra in ([], ["--grad-compression", "int8"]):
+            hist = train_lm.main(["--preset", preset, "--steps", str(n), "--ckpt-every", "0",
+                                  "--ckpt-dir", os.path.join(tmp, "ex"), "--device", device]
+                                 + extra)
+            first, last = hist[0]["loss"], hist[-1]["loss"]
+            check(last < first, f"train_lm {preset} {extra}: loss {first} -> {last} did not fall")
+            print(f"train: train_lm {preset} {' '.join(extra) or '(f32 grads)'}: loss "
+                  f"{first:.4f} -> {last:.4f} over {n} steps, "
+                  f"{statistics.median(1e3 * h['dt'] for h in hist[1:]):.1f} ms per step")
+        # (d) crash and resume
+        preset, total, at = TRAIN_RESUME
+        cfg = train_lm.PRESETS[preset]
+        model = get_model(cfg)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0))
+        opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=total)
+        _, _, straight = train(model, data, opt, LoopConfig(steps=total, ckpt_dir=None,
+                                                            log_every=10**9), device=device)
+        ck = os.path.join(tmp, "ck")
+        train(model, data, opt, LoopConfig(steps=at, ckpt_every=at, ckpt_dir=ck,
+                                           log_every=10**9), device=device)
+        params, state, resumed = train(model, data, opt, LoopConfig(
+            steps=total, ckpt_every=10**9, ckpt_dir=ck, log_every=10**9), device=device)
+        check(resumed[0]["step"] == at + 1, f"train resume: restarted at {resumed[0]['step']}")
+        a, b = straight[-1]["loss"], resumed[-1]["loss"]
+        check(abs(a - b) <= 1e-4 * abs(a), f"train resume: {a} (straight) against {b}")
+        t1 = time.perf_counter()
+        path = CheckpointManager(os.path.join(tmp, "size")).save(
+            total, {"params": params, "opt": state._asdict()})
+        save_s = time.perf_counter() - t1
+        print(f"train: crash/resume {preset}: {at} steps, checkpoint, resume to {total}: "
+              f"final loss {b:.6f} against {a:.6f} straight (rel {abs(a - b) / abs(a):.2e}); "
+              f"checkpoint {os.path.getsize(path) / 2**20:.1f} MiB "
+              f"({model.param_count() / 1e6:.1f} M params + two moments), saved in "
+              f"{save_s:.2f} s")
+        del params, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # (e) every SMOKE arch, card against CPU
+    for arch in SMOKE:
+        print(f"train: SMOKE step card vs CPU: {train_smoke_card_vs_cpu(arch, device)}")
+    print(f"train: phase in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -2563,6 +2872,7 @@ def main() -> int:
         phase_paper()
         phase_distributed()
         phase_llm()
+        phase_train()
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,
             subprocess.TimeoutExpired, TimeoutError) as e:

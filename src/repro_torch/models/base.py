@@ -17,6 +17,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,6 +74,25 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 def layer(tree, i: int):
     """Layer ``i`` of a stacked (L-leading) tree: views, no copies."""
     return tree_map(lambda t: t[i], tree)
+
+
+def layers_of(tree) -> list:
+    """Every layer of a stacked (L-leading) tree as views, from one
+    ``torch.unbind`` per leaf.  Under autograd the backward of an unbind
+    stacks the layers' gradients once, where ``layer(tree, i)`` per layer
+    would build a zero tensor of the whole stacked leaf for each select."""
+    parts = {name: torch.unbind(leaf, 0) for name, leaf in named_leaves(tree)}
+    n = len(next(iter(parts.values())))
+    return [_unflatten(tree, {k: v[i] for k, v in parts.items()}) for i in range(n)]
+
+
+def remat(fn: Callable, enabled: bool, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``jax.checkpoint``) when ``enabled`` and autograd records: the serving
+    path under ``torch.no_grad()`` calls ``fn`` as it is."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _init_one(d: ParamDef, generator: torch.Generator, device) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Shared neural layers of the port (the counterpart of
 ``repro.models.layers``): norms, RoPE, GQA attention (train/prefill/decode),
 MLPs, embeddings, chunked cross-entropy.  Pure functions over parameter
-trees, run under ``torch.no_grad()`` by the serving path.
+trees, run under ``torch.no_grad()`` by the serving path and under autograd
+by the train step, which recomputes each attention and cross-entropy chunk
+in the backward (``jax.checkpoint`` in JAX).
 
 JAX's ``logical(...)`` sharding constraints are no-ops off a mesh and are
 left out.  Attention is JAX's exact query-chunked form ("lazy flash"): per
@@ -17,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.base import ParamDef
+from repro_torch.models.base import ParamDef, remat
 
 #: The masked score, as in JAX.
 NEG_INF = -1e30
@@ -109,7 +111,9 @@ def _scalar_in(value: float, dtype: torch.dtype) -> float:
 def _chunked_attention(q, k, v, positions_q, positions_k, causal, chunk):
     """Exact chunked attention.  q:(B,Sq,H,hd).  The dots run on q's-dtype
     operands with f32 accumulation (the operands widened to f32, where a
-    product of two bf16 values is exact); only the softmax runs in f32."""
+    product of two bf16 values is exact); only the softmax runs in f32.
+    Under autograd each chunk is recomputed in the backward, so the live
+    footprint stays O(chunk * Sk)."""
     b, sq, h, hd = q.shape
     scale = _scalar_in(1.0 / math.sqrt(hd), q.dtype)
     chunk = _even_chunk(sq, chunk)
@@ -127,8 +131,8 @@ def _chunked_attention(q, k, v, positions_q, positions_k, causal, chunk):
         return out.to(q.dtype)
 
     if chunk == sq:
-        return one_chunk(q, positions_q)
-    return torch.cat([one_chunk(q[:, i:i + chunk], positions_q[:, i:i + chunk])
+        return remat(one_chunk, True, q, positions_q)
+    return torch.cat([remat(one_chunk, True, q[:, i:i + chunk], positions_q[:, i:i + chunk])
                       for i in range(0, sq, chunk)], dim=1)
 
 
@@ -265,11 +269,14 @@ def chunked_xent(p, h, labels, cfg, chunk: int = 512):
     B, S, D = h.shape
     chunk = _even_chunk(S, chunk)
     hn = rmsnorm(h, p["final_norm"], cfg.norm_eps)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(0, S, chunk):
-        hc, lc = hn[:, i:i + chunk], labels[:, i:i + chunk]
+
+    def one(hc, lc):
         logits = torch.einsum("bsd,dv->bsv", hc, p["lm_head"].to(hc.dtype)).float()
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-        total = total + torch.sum(lse - ll)
+        return torch.sum(lse - ll)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, chunk):
+        total = total + remat(one, True, hn[:, i:i + chunk], labels[:, i:i + chunk])
     return total / (B * S)

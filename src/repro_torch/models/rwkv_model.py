@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import rwkv6
-from repro_torch.models.base import ParamDef, compute_dtype, layer
+from repro_torch.models.base import ParamDef, compute_dtype, layers_of, remat
 
 
 def param_defs(cfg: ModelConfig):
@@ -36,24 +36,28 @@ def init_state(cfg: ModelConfig, batch: int, device=None):
     }
 
 
+def _body(cfg, h, lp, tm_last, cm_last, wkv):
+    a_in = nn.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    a, (tm_last2, wkv2) = rwkv6.time_mix(lp["tm"], a_in, cfg, tm_last, wkv)
+    h = h + a
+    c_in = nn.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+    c, cm_last2 = rwkv6.channel_mix(lp["cm"], c_in, cfg, cm_last)
+    return h + c, tm_last2.to(tm_last.dtype), cm_last2.to(cm_last.dtype), wkv2
+
+
 def forward(params, tokens, cfg: ModelConfig, state=None):
     """Returns (hidden, new_state); the new state is a fresh tree."""
     h = nn.embed(params, tokens, cfg, compute_dtype(cfg))
     if state is None:
         state = init_state(cfg, h.shape[0], h.device)
     tm, cm, wkv = [], [], []
-    for i in range(cfg.n_layers):
-        lp = layer(params["blocks"], i)
-        tm_last, cm_last = state["tm_last"][i], state["cm_last"][i]
-        a_in = nn.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        a, (tm_last2, wkv2) = rwkv6.time_mix(lp["tm"], a_in, cfg, tm_last,
-                                             state["wkv"][i])
-        h = h + a
-        c_in = nn.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        c, cm_last2 = rwkv6.channel_mix(lp["cm"], c_in, cfg, cm_last)
-        h = h + c
-        tm.append(tm_last2.to(tm_last.dtype))
-        cm.append(cm_last2.to(cm_last.dtype))
+    use_remat = cfg.remat and tokens.shape[1] > 1
+    for i, lp in enumerate(layers_of(params["blocks"])):
+        h, tm_last2, cm_last2, wkv2 = remat(
+            _body, use_remat, cfg, h, lp, state["tm_last"][i], state["cm_last"][i],
+            state["wkv"][i])
+        tm.append(tm_last2)
+        cm.append(cm_last2)
         wkv.append(wkv2)
     return h, {"tm_last": torch.stack(tm), "cm_last": torch.stack(cm),
                "wkv": torch.stack(wkv)}

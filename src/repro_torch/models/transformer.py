@@ -3,10 +3,11 @@
 (olmoe/qwen3-moe) and VLM (internvl2 backbone + stub patch embeds).
 
 Parameters are stacked over layers, as in JAX; JAX's ``lax.scan`` over them
-is a loop over the layer index on views of the stacked tensors.  Decode
-threads the stacked KV caches (``(L, ...)`` leaves) through the same loop,
-writing each layer's new key/value in place.  Remat is a training concern
-and is left out.
+is a loop over the layers' views of the stacked tensors (``layers_of``).
+Under autograd each layer body is recomputed in the backward when
+``cfg.remat`` (``jax.checkpoint`` in JAX).  Decode threads the stacked KV
+caches (``(L, ...)`` leaves) through the same loop, writing each layer's
+new key/value in place.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.base import ParamDef, compute_dtype, layer
+from repro_torch.models.base import ParamDef, compute_dtype, layer, layers_of, remat
 
 
 def param_defs(cfg: ModelConfig):
@@ -53,6 +54,11 @@ def _block(cfg, h, lp, positions, cache=None):
     return h + m_out, new_cache, aux
 
 
+def _train_block(cfg, h, lp, positions):
+    h, _, a = _block(cfg, h, lp, positions)
+    return h, a
+
+
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
@@ -75,18 +81,17 @@ def forward(params, tokens, cfg: ModelConfig, img_embeds=None, caches=None,
     if positions is None:
         positions = _positions(B, S, h.device)
 
-    blocks = params["blocks"]
+    blocks = layers_of(params["blocks"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if caches is None:
-        for i in range(cfg.n_layers):
-            h, _, a = _block(cfg, h, layer(blocks, i), positions)
+        for lp in blocks:
+            h, a = remat(_train_block, cfg.remat, cfg, h, lp, positions)
             aux = aux + a
         return h, None, aux
 
     new_pos = []
-    for i in range(cfg.n_layers):
-        h, new_cache, _ = _block(cfg, h, layer(blocks, i), positions,
-                                 cache=layer(caches, i))
+    for i, lp in enumerate(blocks):
+        h, new_cache, _ = _block(cfg, h, lp, positions, cache=layer(caches, i))
         new_pos.append(new_cache["pos"])
     return h, dict(caches, pos=torch.stack(new_pos)), aux
 
@@ -117,9 +122,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, img_embeds=None):
     dtype = compute_dtype(cfg)
     h = nn.embed(params, tokens, cfg, dtype)
     positions = _positions(B, S, h.device)
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        lp = layer(blocks, i)
+    for i, lp in enumerate(layers_of(params["blocks"])):
         a_in = nn.rmsnorm(h, lp["ln1"], cfg.norm_eps)
         k = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wk"].to(dtype))
         v = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wv"].to(dtype))

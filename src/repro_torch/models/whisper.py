@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
-from repro_torch.models.base import ParamDef, compute_dtype, layer
+from repro_torch.models.base import ParamDef, compute_dtype, layer, layers_of, remat
 
 
 def param_defs(cfg: ModelConfig):
@@ -48,13 +48,16 @@ def encode(params, frames, cfg: ModelConfig):
     h = frames.to(compute_dtype(cfg))
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
-    for i in range(cfg.n_layers):
-        lp = layer(params["encoder"], i)
-        a, _ = nn.attention(lp["attn"], nn.rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                            cfg, positions, causal=False)
-        h = h + a
-        h = h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+    for lp in layers_of(params["encoder"]):
+        h = remat(_enc_block, cfg.remat, cfg, h, lp, positions)
     return nn.rmsnorm(h, params["enc_ln_post"], cfg.norm_eps)
+
+
+def _enc_block(cfg, h, lp, positions):
+    a, _ = nn.attention(lp["attn"], nn.rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, positions, causal=False)
+    h = h + a
+    return h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
 
 
 def _cross_kv(lp, enc_h, cfg):
@@ -70,17 +73,20 @@ def decode_train(params, tokens, enc_h, cfg: ModelConfig):
     h = nn.embed(params, tokens, cfg, compute_dtype(cfg))
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
-    for i in range(cfg.dec_layers):
-        lp = layer(params["decoder"], i)
-        a, _ = nn.attention(lp["self_attn"], nn.rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                            cfg, positions, causal=True)
-        h = h + a
-        c, _ = nn.attention(lp["cross_attn"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps),
-                            cfg, positions, cross_kv=_cross_kv(lp, enc_h, cfg),
-                            use_rope=False)
-        h = h + c
-        h = h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
+    for lp in layers_of(params["decoder"]):
+        h = remat(_dec_block, cfg.remat, cfg, h, lp, enc_h, positions)
     return h
+
+
+def _dec_block(cfg, h, lp, enc_h, positions):
+    a, _ = nn.attention(lp["self_attn"], nn.rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                        cfg, positions, causal=True)
+    h = h + a
+    c, _ = nn.attention(lp["cross_attn"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps),
+                        cfg, positions, cross_kv=_cross_kv(lp, enc_h, cfg),
+                        use_rope=False)
+    h = h + c
+    return h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -109,8 +115,8 @@ def prefill(params, frames, cfg: ModelConfig, batch: int, max_seq: int):
     """Encode audio + precompute cross K/V for decoding."""
     enc_h = encode(params, frames, cfg)
     caches = init_caches(cfg, batch, max_seq, frames.shape[1], frames.device)
-    for i in range(cfg.dec_layers):
-        ck, cv = _cross_kv(layer(params["decoder"], i), enc_h, cfg)
+    for i, lp in enumerate(layers_of(params["decoder"])):
+        ck, cv = _cross_kv(lp, enc_h, cfg)
         caches["cross_k"][i] = ck.to(caches["cross_k"].dtype)
         caches["cross_v"][i] = cv.to(caches["cross_v"].dtype)
     return caches
@@ -121,8 +127,7 @@ def decode_logits(params, caches, token, cfg: ModelConfig, pos):
     h = nn.embed(params, token, cfg, dtype)
     positions = nn.decode_positions(pos, token.shape[0], token.device)
     new_pos = []
-    for i in range(cfg.dec_layers):
-        lp = layer(params["decoder"], i)
+    for i, lp in enumerate(layers_of(params["decoder"])):
         a, new_cache = nn.attention(lp["self_attn"],
                                     nn.rmsnorm(h, lp["ln1"], cfg.norm_eps), cfg,
                                     positions, cache=layer(caches["self"], i))

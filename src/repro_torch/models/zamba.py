@@ -11,7 +11,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.base import ParamDef, compute_dtype, layer
+from repro_torch.models.base import ParamDef, compute_dtype, layer, layers_of, remat
 
 
 def n_shared_sites(cfg) -> int:
@@ -47,6 +47,15 @@ def _shared_block(cfg, params, h, positions, cache=None):
     return h, new_cache
 
 
+def _train_body(cfg, params, h, lp, positions, with_attn: bool):
+    """One layer of the full-sequence path: the shared block at a site,
+    then the Mamba2 block (JAX's scan body, remat'ed as a whole)."""
+    if with_attn:
+        h, _ = _shared_block(cfg, params, h, positions)
+    out, _ = ssm_lib.mamba_block(lp["block"], nn.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
+    return h + out
+
+
 def forward(params, tokens, cfg: ModelConfig, caches=None, positions=None):
     """caches: {"kv": stacked (sites,...) KV, "ssm": (L,...), "conv": (L,...)}.
     In decode the sites' k/v are written in place; the returned tree holds
@@ -56,27 +65,22 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, positions=None):
     if positions is None:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
     every = cfg.ssm.shared_attn_every
-    mamba = params["mamba"]
+    mamba = layers_of(params["mamba"])
 
     if caches is None:
-        for i in range(cfg.n_layers):
-            if i % every == 0:
-                h, _ = _shared_block(cfg, params, h, positions)
-            lp = layer(mamba, i)
-            out, _ = ssm_lib.mamba_block(lp["block"],
-                                         nn.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg)
-            h = h + out
+        for i, lp in enumerate(mamba):
+            h = remat(_train_body, cfg.remat, cfg, params, h, lp, positions,
+                      i % every == 0)
         return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
 
     kv = caches["kv"]
     site_pos = list(kv["pos"].unbind(0))
     ssm2, conv2 = [], []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(mamba):
         if i % every == 0:
             site = i // every
             h, new_c = _shared_block(cfg, params, h, positions, cache=layer(kv, site))
             site_pos[site] = new_c["pos"]
-        lp = layer(mamba, i)
         out, (st2, cv2) = ssm_lib.mamba_block(
             lp["block"], nn.rmsnorm(h, lp["ln"], cfg.norm_eps), cfg,
             state=caches["ssm"][i], conv_state=caches["conv"][i])
