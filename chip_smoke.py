@@ -184,6 +184,27 @@ Phases, any failure exits non-zero:
      within rel 1e-4), with the checkpoint's size and save time; every
      SMOKE arch's train step on the card against the port on the CPU
      (loss, gradients, updated parameters; float32 and bf16).
+ 10. mesh: the mesh half of the LLM scaffold (``repro_torch.parallel``,
+     ``launch.mesh``, ``launch.dryrun``; no hand-written kernel): (a)
+     llama3.2-1b as registered, 3 train steps at B=4, S=1024 as DTensors
+     on a (1, 1) ("data", "model") mesh of a one-rank NCCL world, which
+     must equal 3 plain steps from the same parameters and batches bit
+     for bit (losses and every updated leaf), with ms per step of both;
+     (b) the GPipe pipeline (``parallel.pipeline``) of its 16 full-width
+     blocks over 2 ranks of a gloo world that time-slice the card, 8
+     blocks per stage, 4 microbatches of B=4, S=1024 in bf16: 5 ticks and
+     5 ring shifts per call and rank, bubble fraction 0.2, the output
+     equal to the sequential stack on the same microbatches bit for bit,
+     ms per call against it, peak memory per rank; (c) the dry run
+     (``python -m repro_torch.launch.dryrun``: one rank of a fake world
+     of 256 or 512 ranks traced on meta tensors) of llama3.2-1b train_4k
+     and decode_32k, olmoe-1b-7b train_4k and rwkv6-1.6b train_4k on
+     both production meshes and JAX's three stencil cells, in three child
+     processes started with the run (no card): every record ok, its three
+     terms, bottleneck, useful fraction and estimated peak per rank
+     printed; (d) the same estimator on (a)'s step (a fake world of one
+     rank): its FLOPs against 6 * N * tokens, its compute term against
+     (a)'s ms and its estimated peak against (a)'s measured one.
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -213,6 +234,7 @@ import importlib
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2669,7 +2691,6 @@ def phase_train(device="cuda") -> None:
     ``optim``, ``data``, ``checkpoint``) on the card (see the module's
     docstring, item 9)."""
     import dataclasses
-    import shutil
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import ARCHS, SMOKE
@@ -2756,7 +2777,347 @@ def phase_train(device="cuda") -> None:
     print(f"train: phase in {time.perf_counter() - t0:.1f} s")
 
 
+#: The mesh phase (``phase_mesh``).  (a) llama3.2-1b as registered, one
+#: DTensor train step on a (1, 1) ("data", "model") mesh of a one-rank NCCL
+#: world against the plain step, MESH_STEPS steps each from the same
+#: parameters and batches at TRAIN_MAIN's B x S; (b) the GPipe pipeline of
+#: its full-width blocks over MESH_PIPE_RANKS ranks that time-slice the
+#: card, MESH_PIPE_MICRO microbatches of TRAIN_MAIN's B x S in bf16; (c) the
+#: dry run of MESH_DRYRUN_CELLS on fake worlds of 256 and 512 ranks and of
+#: JAX's three stencil cells, in MESH_DRYRUN_CHAINS child processes started
+#: with the run (they need no card); (d) the dry-run estimator on (a)'s
+#: step, on a fake world of one rank, in the last chain.
+MESH_STEPS = 3
+MESH_PIPE_RANKS = 2
+MESH_PIPE_MICRO = 4
+MESH_DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "decode_32k"),
+                     ("olmoe-1b-7b", "train_4k"), ("rwkv6-1.6b", "train_4k"))
+#: The chains of dry-run calls (``repro_torch.launch.dryrun.main`` argv),
+#: one child process each; rwkv6's 24 layers of 256 WKV chunks trace longest.
+MESH_DRYRUN_CHAINS = (
+    (["--arch", "rwkv6-1.6b", "--cell", "train_4k", "--mesh", "single"],),
+    (["--arch", "rwkv6-1.6b", "--cell", "train_4k", "--mesh", "multi"],),
+    (["--arch", "llama3.2-1b", "--cell", "train_4k", "--mesh", "both"],
+     ["--arch", "llama3.2-1b", "--cell", "decode_32k", "--mesh", "both"],
+     ["--arch", "olmoe-1b-7b", "--cell", "train_4k", "--mesh", "both"],
+     ["--stencil", "--mesh", "both"],
+     "witness"),
+)
+DRYRUN_FLAG = "--dryrun"
+#: How long phase ``mesh`` waits for the dry-run children (seconds).
+MESH_DRYRUN_WAIT_S = 900
+
+
+def dryrun_child(chain: int, witness_path: str) -> int:
+    """One dry-run chain (a child of this script, the card hidden): each
+    call with --force, so no record of another run is read; the witness
+    writes its estimate to ``witness_path``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    for call in MESH_DRYRUN_CHAINS[chain]:
+        if call == "witness":
+            B, S, _ = TRAIN_MAIN
+            cfg = ARCHS["llama3.2-1b"]
+            t0 = time.perf_counter()
+            try:
+                with dryrun.fake_world(1):
+                    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+                    cost, memory = dryrun.trace_cell(cfg, ShapeCell("witness", S, B, "train"),
+                                                     mesh)
+                w = {"flops": cost.flops, "bytes_major": cost.bytes_major,
+                     "collective_bytes": cost.collective_bytes, "memory": memory,
+                     "trace_s": time.perf_counter() - t0}
+            except Exception as e:  # noqa: BLE001 -- reported by phase_mesh
+                import traceback
+                w = {"error": f"{type(e).__name__}: {e}", "tb": traceback.format_exc()[-3000:]}
+            with open(witness_path, "w") as f:
+                json.dump(w, f)
+        else:
+            dryrun.main(call + ["--force"])
+    return 0
+
+
+def start_dryrun() -> list:
+    """Start the dry-run chains; returns [(process, log path, witness path)]."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mesh_dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    out = []
+    for i in range(len(MESH_DRYRUN_CHAINS)):
+        log = os.path.join(tmp, f"chain{i}.log")
+        wit = os.path.join(tmp, "witness.json")
+        with open(log, "w") as f:
+            p = subprocess.Popen([sys.executable, os.path.abspath(__file__), DRYRUN_FLAG,
+                                  str(i), wit], env=env, stdout=f,
+                                 stderr=subprocess.STDOUT, cwd=REPO)
+        out.append((p, log, wit))
+    return out
+
+
+def stop_dryrun(children) -> None:
+    """Stop the chains still running and remove their logs."""
+    for p, _, _ in children or ():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if children:
+        shutil.rmtree(os.path.dirname(children[0][1]), ignore_errors=True)
+
+
+def mesh_dtensor_step(device="cuda") -> dict:
+    """(a): MESH_STEPS train steps of llama3.2-1b, plain and as DTensors on
+    a (1, 1) mesh, from the same parameters and batches."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import base
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import make_train_step
+    cfg = ARCHS["llama3.2-1b"]
+    B, S, _ = TRAIN_MAIN
+    model = get_model(cfg)
+    data = SyntheticLM(data_config(cfg, S, B))
+    step_fn = make_train_step(model, adamw.AdamWConfig(lr=1e-4, warmup_steps=2,
+                                                       total_steps=100))
+    p0 = base.tree_map(lambda t: t.cpu(),
+                       model.init_params(torch.Generator(device).manual_seed(0)))
+    batches = [_train_batch(data, i, device) for i in range(MESH_STEPS)]
+    torch.cuda.empty_cache()
+
+    def run(params, state, wrap=lambda b: b):
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, wrap(b))
+            loss = m["loss"]
+            losses.append(float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return params, losses, ms
+
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = base.tree_map(lambda t: t.to(device, copy=True), p0)
+    params, plain_losses, plain_ms = run(params, adamw.init(params))
+    out = {"plain_peak": torch.cuda.max_memory_allocated() - base_bytes,
+           "plain_peak_raw": torch.cuda.max_memory_allocated(),
+           "plain_losses": plain_losses, "plain_ms": plain_ms}
+    plain = {n: t.cpu() for n, t in base.named_leaves(params)}
+    del params
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mesh_nccl_")
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method="file://" + os.path.join(tmp, "store"),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        pl = sharding.param_shardings(model.param_defs(), mesh, cfg.fsdp)
+        dparams = sharding.distribute(base.tree_map(lambda t: t.to(device, copy=True), p0),
+                                      mesh, pl)
+        bpl = base.tree_map(lambda s: sharding.placements(s, mesh),
+                            sharding.batch_pspecs(batches[0], mesh))
+        with sharding.use_mesh(mesh, cfg.fsdp):
+            dparams, out["mesh_losses"], out["mesh_ms"] = run(
+                dparams, adamw.init(dparams), lambda b: sharding.distribute(b, mesh, bpl))
+        differ, worst, wname = 0, 0.0, ""
+        for name, d in base.named_leaves(dparams):
+            a, b = d.to_local(), plain[name].to(device)
+            if not torch.equal(a, b):
+                differ += 1
+                e = float((a.float() - b.float()).abs().max())
+                if e >= worst:
+                    worst, wname = e, name
+        out.update(mesh=str(mesh), leaves=len(plain), differ=differ, worst=worst,
+                   worst_leaf=wname)
+        del dparams
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_pipe_rank(mesh, rank, micro, device):
+    """(b), one rank: llama3.2-1b's full-width blocks (bf16) over the
+    pipeline; rank 0 also runs the sequential stack on the same
+    microbatches and compares."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import base, transformer
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import seq_positions
+    from repro_torch.parallel.pipeline import bubble_fraction, make_pipelined_step
+    if device == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    cfg = ARCHS["llama3.2-1b"]
+    B, S, _ = TRAIN_MAIN
+    gen = torch.Generator(device).manual_seed(0)
+    blocks = base.serving_params(get_model(cfg).init_params(gen)["blocks"], cfg)
+    torch.cuda.empty_cache()
+    x = torch.randn((micro * B, S, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    pos = seq_positions(B, S, device)
+
+    def layer_fn(lp, h):
+        return transformer._block(cfg, h, lp, pos)[0]
+    step = make_pipelined_step(layer_fn, cfg.n_layers, mesh, axis="pod", microbatches=micro)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y = step(blocks, x)                               # warm
+        torch.cuda.synchronize()
+        step.reset_stats()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            y = step(blocks, x)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out = {"stats": dict(step.stats), "ms": ms,
+               "peak": _gib(torch.cuda.max_memory_allocated()),
+               "bubble": bubble_fraction(mesh.size(0), micro)}
+        if rank == 0:
+            def sequential():
+                outs = []
+                for mb in x.split(B):
+                    h = mb
+                    for lp in base.layers_of(blocks):
+                        h = layer_fn(lp, h)
+                    outs.append(h)
+                return torch.cat(outs)
+            ref = sequential()
+            torch.cuda.synchronize()
+            seq_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                sequential()
+                torch.cuda.synchronize()
+                seq_ms.append(1e3 * (time.perf_counter() - t0))
+            out.update(equal=bool(torch.equal(y, ref)), seq_ms=seq_ms,
+                       max_diff=float((y.float() - ref.float()).abs().max()),
+                       finite=bool(torch.isfinite(y).all()))
+    return out
+
+
+def _dryrun_line(r) -> str:
+    if not r.get("ok"):
+        return f"mesh: dry run {r['arch']} {r['cell']} {r['mesh']}: FAILED: {r.get('error')}"
+    t = r["roofline"]
+    uf = t.get("useful_fraction")
+    peak = (r.get("memory") or {}).get("peak_bytes")
+    return (f"mesh: dry run {r['arch']} {r['cell']} {r['mesh']} ({r.get('n_chips', '-')} ranks): "
+            f"compute {1e3 * t['compute_s']:.3f} ms, memory {1e3 * t['memory_s']:.3f} ms, "
+            f"collective {1e3 * t['collective_s']:.3f} ms, bottleneck {t['bottleneck']}, "
+            f"useful fraction {uf if uf is None else round(uf, 4)}, peak~ "
+            f"{'-' if peak is None else f'{_gib(peak):.2f} GiB'} per rank (estimate)"
+            + (f"; local update {r['local_update']}" if "local_update" in r else ""))
+
+
+def phase_mesh(children, device="cuda") -> None:
+    """Phase ``mesh``: the mesh half of the LLM scaffold (see the module's
+    docstring, item 10)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.dryrun import RESULTS_DIR, STENCIL_CASES
+    from repro_torch.launch.world import run_world
+    from repro_torch.models.api import get_model
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = ARCHS["llama3.2-1b"]
+    B, S, _ = TRAIN_MAIN
+    # (a) the DTensor step on a (1, 1) mesh against the plain step
+    a = mesh_dtensor_step(device)
+    check(all(np.isfinite(a["mesh_losses"])), f"mesh (a): losses {a['mesh_losses']}")
+    print(f"mesh: (a) llama3.2-1b ({cfg.n_layers} layers) B={B} S={S}, {MESH_STEPS} train "
+          f"steps on {a['mesh']} against the plain step: losses "
+          f"{', '.join(f'{x:.6f}' for x in a['mesh_losses'])} (DTensor) and "
+          f"{', '.join(f'{x:.6f}' for x in a['plain_losses'])} (plain); "
+          f"{a['differ']} of {a['leaves']} updated leaves differ"
+          + (f" (largest {a['worst']:.3e}, {a['worst_leaf']})" if a["differ"] else
+             ", every one equal bit for bit"))
+    check(a["mesh_losses"] == a["plain_losses"] and a["differ"] == 0,
+          f"mesh (a): the (1, 1) mesh's step is not the plain step bit for bit "
+          f"({a['differ']} leaves differ, largest {a['worst']:.3e} in {a['worst_leaf']})")
+    dt_ms, pl_ms = statistics.median(a["mesh_ms"][1:]), statistics.median(a["plain_ms"][1:])
+    print(f"mesh: (a) ms per step (host clock, steps after the first): DTensor "
+          f"{dt_ms:.1f} ({', '.join(f'{x:.1f}' for x in a['mesh_ms'])}), plain {pl_ms:.1f} "
+          f"({', '.join(f'{x:.1f}' for x in a['plain_ms'])}): DTensor's host cost "
+          f"{dt_ms - pl_ms:.1f} ms per step; plain peak {_gib(a['plain_peak']):.2f} GiB above "
+          f"the {_gib(a['plain_peak_raw'] - a['plain_peak']):.2f} GiB held before it "
+          f"(max_memory_allocated {_gib(a['plain_peak_raw']):.2f} GiB)")
+    # (b) the pipeline over ranks that time-slice the card
+    rs = run_world(_mesh_pipe_rank, MESH_PIPE_RANKS, args=(MESH_PIPE_MICRO, device),
+                   mesh_shape=(MESH_PIPE_RANKS,), mesh_dim_names=("pod",),
+                   device=device, timeout_s=600)
+    r0 = rs[0]
+    for i, r in enumerate(rs):
+        st = r["stats"]
+        print(f"mesh: (b) pipeline rank {i}: {st['calls']} calls, {st['ticks']} ticks, "
+              f"{st['p2p_ops']} ring shifts ({_gib(st['bytes_sent']) * 1024:.1f} MiB sent), "
+              f"{statistics.median(r['ms']):.1f} ms per call "
+              f"({', '.join(f'{x:.1f}' for x in r['ms'])}), peak {r['peak']:.2f} GiB")
+        check(st["ticks"] == 3 * (MESH_PIPE_MICRO + MESH_PIPE_RANKS - 1)
+              and st["p2p_ops"] == st["ticks"], f"mesh (b): rank {i}'s schedule {st}")
+    print(f"mesh: (b) {MESH_PIPE_RANKS} stages x {cfg.n_layers // MESH_PIPE_RANKS} llama3.2-1b "
+          f"blocks, {MESH_PIPE_MICRO} microbatches of B={B} S={S} bf16: bubble fraction "
+          f"{r0['bubble']:.4f}; sequential stack on the same microbatches "
+          f"{statistics.median(r0['seq_ms']):.1f} ms ({', '.join(f'{x:.1f}' for x in r0['seq_ms'])}); "
+          f"output equal to it bit for bit: {r0['equal']} (max |diff| {r0['max_diff']:.3e})")
+    check(r0["finite"] and r0["equal"], "mesh (b): the pipeline's output is not the "
+          f"sequential stack's bit for bit (max |diff| {r0['max_diff']:.3e})")
+    check(abs(r0["bubble"] - 0.2) < 1e-12, f"mesh (b): bubble fraction {r0['bubble']}")
+    # (c) the dry run's records, from the children started with the run
+    deadline = time.monotonic() + MESH_DRYRUN_WAIT_S
+    for p, log, _ in children:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            stop_dryrun(children)
+            raise SmokeFailure(f"mesh (c): a dry-run chain outlived {MESH_DRYRUN_WAIT_S} s")
+        with open(log) as f:
+            tail = [ln for ln in f.read().splitlines() if ln.startswith("[")]
+        check(p.returncode == 0, f"mesh (c): a dry-run chain exited {p.returncode}: {tail[-3:]}")
+    names = [f"{a_}__{c}__{m}.json" for a_, c in MESH_DRYRUN_CELLS for m in ("single", "multi")]
+    names += [f"stencil-{n}__t{t}__{m}.json" for n, _, _, t in STENCIL_CASES
+              for m in ("single", "multi")]
+    failed = []
+    for name in names:
+        with open(os.path.join(RESULTS_DIR, name)) as f:
+            r = json.load(f)
+        print(_dryrun_line(r))
+        if not r.get("ok"):
+            failed.append(name)
+    # a cell this torch cannot trace is a record (ok: false, its error), as
+    # JAX's failed compiles are; the run fails only on a missing record
+    print(f"mesh: (c) {len(names) - len(failed)} of {len(names)} cells traced"
+          + (f"; ok: false: {', '.join(failed)}" if failed else ""))
+    # (d) the witness: the estimator on (a)'s step
+    with open(children[-1][2]) as f:
+        w = json.load(f)
+    check("error" not in w, f"mesh (d): the estimator failed: {w.get('error')}\n{w.get('tb')}")
+    mf = model_flops(cfg, B * S)
+    est_ms = 1e3 * w["flops"] / BF16_PEAK
+    print(f"mesh: (d) the dry-run estimator on (a)'s step (one rank, (1, 1) mesh, traced in "
+          f"{w['trace_s']:.0f} s): {w['flops']:.4e} FLOPs against 6 N tokens {mf:.4e} "
+          f"(x{w['flops'] / mf:.3f}); compute term {est_ms:.1f} ms at "
+          f"{BF16_PEAK / 1e12:.0f} TFLOP/s against (a)'s measured {pl_ms:.1f} ms "
+          f"({est_ms / pl_ms:.1%}); memory term {1e3 * w['bytes_major'] / HBM_BPS:.1f} ms; "
+          f"peak~ {_gib(w['memory']['peak_bytes']):.2f} GiB (arguments "
+          f"{_gib(w['memory']['argument_bytes']):.2f} + temp {_gib(w['memory']['temp_bytes']):.2f}) "
+          f"against (a)'s measured {_gib(a['plain_peak']):.2f} GiB")
+    print(f"mesh: phase in {time.perf_counter() - t0:.1f} s")
+
 def main() -> int:
+    if sys.argv[1:2] == [DRYRUN_FLAG]:          # a dry-run chain's child
+        sys.path.insert(0, os.path.join(REPO, "src"))
+        return dryrun_child(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -2786,8 +3147,10 @@ def main() -> int:
             print(f"load count: FAIL: {type(e).__name__}: {e}")
             return 1
         return 0
-    child = None
+    child = dry = None
     try:
+        # the dry run needs no card: its chains run beside every phase
+        dry = start_dryrun()
         card = phase_build(kernels)
         child = start_count_loads()
         phase_kernels_vs_plain(mods)
@@ -2873,6 +3236,7 @@ def main() -> int:
         phase_distributed()
         phase_llm()
         phase_train()
+        phase_mesh(dry)
     except (SmokeFailure, RuntimeError, ValueError, TypeError,
             NotImplementedError, subprocess.CalledProcessError,
             subprocess.TimeoutExpired, TimeoutError) as e:
@@ -2882,6 +3246,7 @@ def main() -> int:
         if child is not None and child.poll() is None:
             child.kill()
             child.wait()
+        stop_dryrun(dry)
     print(card)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

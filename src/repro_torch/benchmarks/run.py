@@ -4,8 +4,9 @@ one module per paper table or figure, and the halo table.
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--quick] \\
         [--device cpu] [--manifest PATH]
 
-Runs ``table2``, ``table3``, ``table4``, ``fig10``, ``fig16`` and ``halo``
-and prints their CSV lines; each module documents its columns in the
+Runs ``table2``, ``table3``, ``table4``, ``fig10``, ``fig16``, ``halo`` and
+``scaling`` (the dry run's strong scaling, read from its cached records:
+only its header when there are none) and prints their CSV lines; each module documents its columns in the
 header line it emits.  Every module is imported before any runs, so import
 cost never leaks into a module's time; ``bench.<mod>.total`` is how long
 the module took to produce its lines (host clock, bookkeeping), and
@@ -30,7 +31,7 @@ import traceback
 import torch
 
 MANIFEST_PATH = "BENCH_torch_run.json"
-MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo")
+MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling")
 #: The arguments each module's ``run`` takes from the command line.
 RUN_ARGS = {"table2": ("device",), "fig16": ("device", "quick")}
 
@@ -47,12 +48,12 @@ def main(argv=None) -> int:
         return 1
     # Import everything up front: module import cost must never leak into
     # any timed region.
-    from repro_torch.benchmarks import (fig10, fig16, halo, table2, table3,
-                                        table4)
+    from repro_torch.benchmarks import (fig10, fig16, halo, scaling, table2,
+                                        table3, table4)
     from repro_torch.kernels import plan_cache_stats
 
     mods = dict(table2=table2, table3=table3, table4=table4, fig10=fig10,
-                fig16=fig16, halo=halo)
+                fig16=fig16, halo=halo, scaling=scaling)
     opts = vars(args)
     modules = []
     for name in MODULES:

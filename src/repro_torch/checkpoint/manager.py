@@ -8,8 +8,14 @@ time).  A crash mid-save can never corrupt the latest checkpoint.
 The format is JAX's, key for key: a leaf's key is its tree path joined by
 '/' (dict keys, a named tuple's field names, sequence indices), so
 ``{"params": ..., "opt": AdamWState}`` gives ``opt/m/blocks/attn/wq``.  A
-checkpoint written by either package restores in the other.  ``restore``
-takes the device to put the tree on where JAX takes shardings.
+checkpoint written by either package restores in the other.
+
+Sharded trees (DTensor leaves, ``parallel.sharding``): ``save`` gathers
+every leaf (every rank calls it) and the world's rank 0 writes the full
+tensors, in the same format; ``restore(..., shardings=, mesh=)`` puts each
+leaf back as a DTensor with its placements (JAX's reshard-on-restore), so
+a checkpoint saved unsharded or on another mesh restores onto any mesh.
+Without shardings ``restore`` takes the device to put the tree on.
 """
 from __future__ import annotations
 
@@ -37,11 +43,19 @@ def _paths(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     elif _is_namedtuple(tree):
         for f in tree._fields:
             yield from _paths(getattr(tree, f), prefix + (f,))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) and not _is_placements(tree):
         for i, x in enumerate(tree):
             yield from _paths(x, prefix + (str(i),))
     else:
         yield "/".join(prefix), tree
+
+
+def _is_placements(x) -> bool:
+    """A DTensor placements tuple: a leaf of a shardings tree."""
+    if not (x and torch.distributed.is_available()):
+        return False
+    from torch.distributed.tensor import Placement
+    return all(isinstance(p, Placement) for p in x)
 
 
 def _rebuild(tree, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
@@ -59,6 +73,8 @@ def _rebuild(tree, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:        # numpy has no bfloat16
             t = t.float()
         return t.cpu().numpy()
@@ -69,6 +85,13 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {key: _to_numpy(leaf) for key, leaf in _paths(tree)}
 
 
+def _is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -77,8 +100,19 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree) -> str:
-        flat = _flatten(tree)
+        sharded = any(_is_dtensor(leaf) for _, leaf in _paths(tree))
+        flat = _flatten(tree)            # a sharded tree: every rank gathers
         final = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
+        if sharded:
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                self._write(step, flat, final)
+            dist.barrier()               # the file is whole before any reads
+            return final
+        self._write(step, flat, final)
+        return final
+
+    def _write(self, step: int, flat: Dict[str, np.ndarray], final: str) -> None:
         tmp = final + f".tmp.{os.getpid()}"
         with open(tmp, "wb") as f:
             np.savez(f, **flat)
@@ -89,7 +123,6 @@ class CheckpointManager:
             json.dump(meta, f)
         os.replace(mtmp, final + ".json")
         self._gc()
-        return final
 
     def _gc(self):
         steps = self.all_steps()
@@ -111,10 +144,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def restore(self, step: int, like_tree, device=None):
+    def restore(self, step: int, like_tree, device=None, shardings=None, mesh=None):
         """Load into the structure of ``like_tree`` (tensors, meta tensors
         will do, giving each leaf's shape and dtype), every leaf on
-        ``device`` (default the card)."""
+        ``device`` (default the card).
+
+        ``shardings``: a placements tree matching ``like_tree`` (a leaf's
+        placements, or None to keep it a plain tensor) and the ``mesh``
+        they are on: each leaf is put back as a DTensor of its placements
+        (reshard onto the current mesh, the elastic restart path), on the
+        mesh's device type."""
+        if shardings is not None:
+            if mesh is None:
+                raise ValueError("restore: shardings need the mesh they are on")
+            device = mesh.device_type
         device = resolve_device(device)
         path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
         with np.load(path) as z:
@@ -129,10 +172,15 @@ class CheckpointManager:
                     f"{key}: checkpoint shape {arr.shape} != expected {tuple(like.shape)}"
                 )
             leaves[key] = torch.from_numpy(np.array(arr)).to(device, like.dtype)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            for key, placements in _paths(shardings):
+                if placements is not None:
+                    leaves[key] = distribute_tensor(leaves[key], mesh, list(placements))
         return _rebuild(like_tree, leaves)
 
-    def restore_latest(self, like_tree, device=None):
+    def restore_latest(self, like_tree, device=None, shardings=None, mesh=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like_tree, device)
+        return step, self.restore(step, like_tree, device, shardings, mesh)

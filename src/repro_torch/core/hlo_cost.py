@@ -27,12 +27,28 @@ always 0.  The counts follow the JAX module's rules:
   * collectives -- the c10d ops the dispatcher shows, under JAX's kind
                    names: ``allreduce_`` -> all-reduce, ``allgather*`` ->
                    all-gather, ``reduce_scatter*`` -> reduce-scatter,
-                   ``alltoall*`` -> all-to-all, ``send`` ->
+                   ``alltoall*`` and DTensor's ``shard_dim_alltoall`` ->
+                   all-to-all, ``send`` ->
                    collective-permute (JAX's ``ppermute``), and the
                    ``_c10d_functional`` forms alike.  A collective counts
                    its payload (the bytes it leaves in its output, a
                    ``send`` the bytes it sends) in ``coll``, ``bytes`` and
                    ``bytes_major``; a ``recv_`` counts nothing.
+
+DTensor programs are counted per rank: an op on DTensors is left to
+DTensor (the mode returns ``NotImplemented``), which dispatches this rank's
+local ops and the collectives of its redistributions, and those are what
+is counted.  DTensor's sharding propagation runs each new op once more on
+fake tensors of the global shapes; that run is not part of the program and
+is not counted.  On a fake world (``launch.dryrun``) this gives one rank's
+FLOPs, bytes and collective payload without allocating anything.
+
+Memory: ``temp_peak_bytes`` is the high-water mark of the live bytes that
+the program's ops allocated -- each op's outputs (not views, not writes
+into an input) tracked by their storage until it is freed, saved-for-
+backward tensors included.  It is an estimate of the program's own peak
+above its arguments: the allocator's rounding, caching and workspaces are
+not in it.
 
 The port's own kernels launch through ``ctypes`` and never reach the
 dispatcher: their FLOPs and bytes are not in these counts.  So that a
@@ -43,7 +59,9 @@ executed FLOPs of a kernel launch are ``repro_torch.audit.flops``'s count.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from collections import defaultdict
 from typing import Dict
 
@@ -72,8 +90,10 @@ _COLLECTIVE_KIND = {
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "all_to_all_single": "all-to-all",
     "send": "collective-permute",
+    # DTensor's shard-to-shard all-to-all on a card mesh (one op)
+    "shard_dim_alltoall": "all-to-all",
 }
-_C10D = ("c10d", "_c10d_functional")
+_C10D = ("c10d", "_c10d_functional", "_dtensor")
 
 #: Dot-like aten ops: their contracting extent from their arguments, and
 #: whether an add is fused in (1 FLOP per result element).
@@ -121,6 +141,9 @@ class ProgramCost:
     unknown_loops: int = 0
     #: Launches of the port's own kernels (``ctypes``, outside these counts).
     opaque_launches: int = 0
+    #: High-water mark of the live bytes the program's ops allocated (an
+    #: estimate; module docstring).
+    temp_peak_bytes: float = 0.0
 
     @property
     def collective_bytes(self) -> float:
@@ -147,16 +170,46 @@ class _CostMode(TorchDispatchMode):
         self.cost = cost
         self._coll = defaultdict(float)
         self._coll_counts = defaultdict(float)
+        self._dtensor = _dtensor_type()
+        #: > 0 while DTensor's sharding propagation runs (not counted).
+        self.muted = 0
+        self._live = {}             # id(storage) -> bytes, until freed
+        self._live_bytes = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types):
+            return NotImplemented   # DTensor dispatches the local ops to us
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self.muted:
+            return out
         ns, name = func.namespace, func._opname
         if ns in _C10D:
             self._collective(ns, name, args, out)
+            self._track(args, kwargs, out)
         elif ns == "aten" and not (func.is_view or name in _VIEWS):
             self._aten(name, args, kwargs, out)
+            self._track(args, kwargs, out)
         return out
+
+    def _track(self, args, kwargs, out) -> None:
+        """Count the storages ``out`` brings to life until they are freed."""
+        inputs = {id(_storage(x)) for x in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            st = _storage(t)
+            key = id(st)
+            if st is None or key in inputs or key in self._live:
+                continue
+            n = st.nbytes()
+            self._live[key] = n
+            self._live_bytes += n
+            weakref.finalize(st, self._free, key)
+            self.cost.temp_peak_bytes = max(self.cost.temp_peak_bytes,
+                                            self._live_bytes)
+
+    def _free(self, key) -> None:
+        self._live_bytes -= self._live.pop(key, 0)
 
     def _collective(self, ns, name, args, out) -> None:
         kind = _COLLECTIVE_KIND.get(name)
@@ -190,16 +243,57 @@ class _CostMode(TorchDispatchMode):
             c.flops += elems
 
 
+def _storage(t):
+    try:
+        return t.untyped_storage()
+    except (RuntimeError, NotImplementedError):   # a tensor without storage
+        return None
+
+
+def _dtensor_type():
+    """``DTensor``, where this build has ``torch.distributed``."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+@contextlib.contextmanager
+def _propagation_muted(mode: _CostMode):
+    """DTensor's sharding propagation (a run of each new op on fake tensors
+    of the global shapes) counts nothing while ``mode`` is active."""
+    if mode._dtensor is None:
+        yield
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def muted(self, op_schema):
+        mode.muted += 1
+        try:
+            return orig(self, op_schema)
+        finally:
+            mode.muted -= 1
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = muted
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = orig
+
+
 def analyze_program(fn, *args, **kwargs) -> ProgramCost:
     """Run ``fn(*args, **kwargs)`` once and count the aten ops it
-    dispatches (module docstring).  The program runs for real, on its
-    inputs' device; its result is dropped."""
+    dispatches (module docstring); on DTensors, this rank's.  The program
+    runs for real, on its inputs' device (on fake tensors, nowhere); its
+    result is dropped."""
     from repro_torch.kernels import _build
 
     before = sum(_build.launch_counts().values())
     cost = ProgramCost()
     mode = _CostMode(cost)
-    with mode:
+    with _propagation_muted(mode), mode:
         fn(*args, **kwargs)
     cost.coll = dict(mode._coll)
     cost.coll_counts = dict(mode._coll_counts)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.base import ParamDef
+from repro_torch.parallel.sharding import locally, logical, on_mesh
 
 
 def moe_defs(cfg, L: int) -> Dict[str, ParamDef]:
@@ -35,6 +36,7 @@ def moe_mlp(p, x, cfg):
     ``cfg.moe_group > 0`` routes within sequence groups of that size
     (t5x-style): capacity shrinks linearly with group size."""
     B, S, D = x.shape
+    x = logical(x, "batch", None, "embed")   # Megatron-SP, as at attention's entry
     g = getattr(cfg, "moe_group", 0) or 0
     if g and g < S and S % g == 0:
         yg, aux = _moe_mlp_grouped(p, x.reshape(B * (S // g), g, D), cfg)
@@ -47,6 +49,33 @@ def top_k(probs, k: int):
     index (a stable descending sort)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _combine_einsum(eout, combine):
+    return torch.einsum("ebcd,bsec->bsd", eout, combine)
+
+
+def _combine(eout, combine):
+    """sum over (expert, slot) of eout (E,B,C,D) x combine (B,S,E,C).
+
+    On a mesh each rank contracts its own experts of its own rows
+    (``local_map``), the sum over the expert shards left partial: the
+    contraction never flattens the sharded expert dim, which some DTensor
+    versions refuse to view.  Off a mesh it is the einsum itself."""
+    if not on_mesh():
+        return _combine_einsum(eout, combine)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = tuple(combine.placements)
+    if any(not (isinstance(p, Replicate) or p in (Shard(0), Shard(2))) for p in cp):
+        raise ValueError(f"combine must be sharded on batch and experts only, got {cp}")
+    ep = tuple(Shard(1) if p == Shard(0) else Shard(0) if p == Shard(2) else p for p in cp)
+    yp = tuple(Partial() if p == Shard(2) else p for p in cp)
+    run = local_map(locally(_combine_einsum), out_placements=(yp,),
+                    in_placements=(ep, cp), device_mesh=combine.device_mesh,
+                    redistribute_inputs=True)
+    return run(eout, combine)
 
 
 def _moe_mlp_grouped(p, x, cfg):
@@ -76,16 +105,20 @@ def _moe_mlp_grouped(p, x, cfg):
     dispatch = torch.einsum("bske,bskc->bsec", within, slot_oh).to(x.dtype)
     combine = torch.einsum("bsk,bske,bskc->bsec", topk_p, within,
                            slot_oh).to(x.dtype)
+    dispatch = logical(dispatch, "batch", None, "experts", None)
+    combine = logical(combine, "batch", None, "experts", None)
 
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)
+    xin = logical(xin, "experts", "batch", None, None)
     g = torch.einsum("ebcd,edf->ebcf", xin, p["wg"].to(x.dtype))
     u = torch.einsum("ebcd,edf->ebcf", xin, p["wu"].to(x.dtype))
     h = F.silu(g) * u
     eout = torch.einsum("ebcf,efd->ebcd", h, p["wd"].to(x.dtype))
-    y = torch.einsum("ebcd,bsec->bsd", eout, combine)
+    eout = logical(eout, "experts", "batch", None, None)
+    y = _combine(eout, combine)
 
     # Switch-style load balance aux
     density = torch.mean(onehot.sum(2), dim=(0, 1))         # fraction routed
     mean_prob = torch.mean(probs, dim=(0, 1))
     aux = E * torch.sum(density / K * mean_prob)
-    return y, aux
+    return logical(y, "batch", "seq", "embed"), aux

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.base import ParamDef
 from repro_torch.models.layers import rmsnorm
+from repro_torch.parallel.sharding import gathered, locally, logical, on_mesh
 
 #: ``jnp.log(4.0)`` in float32: the decay clamp's top under ``wkv_factored``.
 _LOG4_F32 = float(torch.tensor(math.log(4.0), dtype=torch.float32))
@@ -92,8 +93,12 @@ def wkv_chunked(r, k, v, lw, u, state, chunk: int = 32):
     nchunks = max(1, S // chunk)
     chunk = S // nchunks
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), -1)
+
+    def _chunked(a):
+        return [logical(c, "batch", None, "heads", None) for c in _chunks(a, nchunks, chunk)]
+
     st, ys = state, []
-    for rc, kc, vc, lc in zip(*(_chunks(a, nchunks, chunk) for a in (r, k, v, lw))):
+    for rc, kc, vc, lc in zip(*(_chunked(a) for a in (r, k, v, lw))):
         cum = torch.cumsum(lc, dim=1)                        # (B,C,H,K) inclusive
         cum_prev = cum - lc
         dmat = cum_prev[:, :, None] - cum[:, None, :]        # (B,Ci,Cj,H,K)
@@ -124,8 +129,12 @@ def wkv_chunked_factored(r, k, v, lw, u, state, chunk: int = 16):
     nchunks = max(1, S // chunk)
     chunk = S // nchunks
     causal = torch.tril(torch.ones((chunk, chunk), dtype=r.dtype, device=r.device), -1)
+
+    def _chunked(a):
+        return [logical(c, "batch", None, "heads", None) for c in _chunks(a, nchunks, chunk)]
+
     st, ys = state, []
-    for rc, kc, vc, lc in zip(*(_chunks(a, nchunks, chunk) for a in (r, k, v, lw))):
+    for rc, kc, vc, lc in zip(*(_chunked(a) for a in (r, k, v, lw))):
         cum = torch.cumsum(lc, dim=1)
         cum_prev = cum - lc
         r_ = rc * torch.exp(cum_prev)                        # <= |r|
@@ -142,6 +151,37 @@ def wkv_chunked_factored(r, k, v, lw, u, state, chunk: int = 16):
     return torch.cat(ys, dim=1), st
 
 
+def _wkv_local(fn, r, k, v, lw, u, state, chunk):
+    """``fn(r, k, v, lw, u, state, chunk)`` on this rank's shards.
+
+    The WKV scan is independent per (batch row, head), so on a mesh it runs
+    on the local shards (``local_map``): the chunk loop is a loop over
+    plain tensors, not hundreds of DTensor dispatches per layer.  r, k, v
+    and lw come constrained to (batch, *, heads, *); u and the state follow
+    their head and batch sharding, y is placed like r and the new state
+    like the old.  Off a mesh it is ``fn`` itself."""
+    if not on_mesh():
+        return fn(r, k, v, lw, u, state, chunk)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rp = tuple(r.placements)
+    if not isinstance(state, DTensor):     # the zero state: every rank's alike
+        state = DTensor.from_local(state, r.device_mesh, [Replicate()] * len(rp),
+                                   run_check=False)
+    if any(not (isinstance(p, Replicate) or p in (Shard(0), Shard(2))) for p in rp):
+        raise ValueError(f"WKV inputs must be sharded on batch and heads only, got {rp}")
+    up = tuple(Shard(0) if p == Shard(2) else Replicate() for p in rp)
+    sp = tuple(Shard(1) if p == Shard(2) else p for p in rp)
+    # u's gradient sums over the batch shards; the others' are local
+    ug = tuple(Partial() if p == Shard(0) else q for p, q in zip(rp, up))
+    run = local_map(locally(fn), out_placements=(rp, sp),
+                    in_placements=(rp, rp, rp, rp, up, sp, None),
+                    in_grad_placements=(rp, rp, rp, rp, ug, sp, None),
+                    device_mesh=r.device_mesh, redistribute_inputs=True)
+    return run(r, k, v, lw, u, state, chunk)
+
+
 def wkv_step(r, k, v, lw, u, state):
     """One-token WKV (B,1,H,K).  y_t = r.(S + u*k v);  S' = w*S + k v."""
     kv = torch.einsum("bhk,bhv->bhkv", k[:, 0], v[:, 0])
@@ -154,6 +194,10 @@ def time_mix(p, x, cfg, last, state, chunk: int = 32):
     """RWKV-6 attention substitute.  Returns (y, (last_x, wkv_state))."""
     B, S, D = x.shape
     H, hd = rwkv_dims(cfg)
+    # Megatron-SP: the sequence-sharded residual is gathered once at the
+    # block's entry, as at attention's (some DTensor versions refuse the
+    # einsums' flatten of a sharded sequence)
+    x = logical(x, "batch", None, "embed")
     prev = _token_shift(x, last)
     mu = p["mix"].float()
     xr, xk, xv, xw, xg = (_lerp(x, prev, mu[i]) for i in range(5))
@@ -170,11 +214,16 @@ def time_mix(p, x, cfg, last, state, chunk: int = 32):
     lw = -torch.exp(torch.clamp(wx, -8.0, hi))               # log w_t in [-4,0)
     lw = torch.clamp(lw, min=-4.0)
 
-    rh = r.float().reshape(B, S, H, hd)
-    kh = k.float().reshape(B, S, H, hd)
-    vh = v.float().reshape(B, S, H, hd)
-    lwh = lw.reshape(B, S, H, hd)
-    u = p["u"].float().reshape(H, hd)
+    # Head-sharding constraints: after the S -> chunks split the WKV math
+    # stays local per head shard.
+    def _heads(a):
+        return logical(a.reshape(B, S, H, hd), "batch", None, "heads", None)
+
+    rh = _heads(r.float())
+    kh = _heads(k.float())
+    vh = _heads(v.float())
+    lwh = _heads(lw)
+    u = gathered(p["u"]).float().reshape(H, hd)
 
     if S == 1 and state is not None:
         y, st = wkv_step(rh, kh, vh, lwh, u, state)
@@ -182,17 +231,19 @@ def time_mix(p, x, cfg, last, state, chunk: int = 32):
         st0 = state if state is not None else torch.zeros(
             (B, H, hd, hd), dtype=torch.float32, device=x.device)
         if getattr(cfg, "wkv_factored", False):
-            y, st = wkv_chunked_factored(rh, kh, vh, lwh, u, st0, min(chunk, 16))
+            y, st = _wkv_local(wkv_chunked_factored, rh, kh, vh, lwh, u, st0,
+                               min(chunk, 16))
         else:
-            y, st = wkv_chunked(rh, kh, vh, lwh, u, st0, chunk)
+            y, st = _wkv_local(wkv_chunked, rh, kh, vh, lwh, u, st0, chunk)
 
     y = y.reshape(B, S, D).to(x.dtype)
     y = rmsnorm(y, p["ln_w"], cfg.norm_eps) * g
     out = torch.einsum("bse,ed->bsd", y, p["wo"].to(x.dtype))
-    return out, (x[:, -1:], st)
+    return logical(out, "batch", "seq", "embed"), (x[:, -1:], st)
 
 
 def channel_mix(p, x, cfg, last):
+    x = logical(x, "batch", None, "embed")   # Megatron-SP, as in time_mix
     prev = _token_shift(x, last)
     mu = p["mix"].float()
     xk = _lerp(x, prev, mu[0])
@@ -200,4 +251,4 @@ def channel_mix(p, x, cfg, last):
     k = torch.einsum("bsd,df->bsf", xk, p["wk"].to(x.dtype))
     kv = torch.einsum("bsf,fd->bsd", torch.square(F.relu(k)), p["wv"].to(x.dtype))
     rgate = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["wr"].to(x.dtype)))
-    return rgate * kv, x[:, -1:]
+    return logical(rgate * kv, "batch", "seq", "embed"), x[:, -1:]

@@ -10,6 +10,7 @@ from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import rwkv6
 from repro_torch.models.base import ParamDef, compute_dtype, layers_of, remat
+from repro_torch.parallel.sharding import logical_state
 
 
 def param_defs(cfg: ModelConfig):
@@ -49,7 +50,7 @@ def forward(params, tokens, cfg: ModelConfig, state=None):
     """Returns (hidden, new_state); the new state is a fresh tree."""
     h = nn.embed(params, tokens, cfg, compute_dtype(cfg))
     if state is None:
-        state = init_state(cfg, h.shape[0], h.device)
+        state = logical_state(init_state(cfg, h.shape[0], h.device))
     tm, cm, wkv = [], [], []
     use_remat = cfg.remat and tokens.shape[1] > 1
     for i, lp in enumerate(layers_of(params["blocks"])):

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.base import ParamDef
+from repro_torch.parallel.sharding import logical
 
 
 def ssm_dims(cfg):
@@ -132,10 +133,15 @@ def mamba_block(p, x, cfg, state=None, conv_state=None, chunk: int = 64):
     """
     B, S, D = x.shape
     d_inner, H, hd, N = ssm_dims(cfg)
+    # Megatron-SP: the sequence-sharded residual is gathered once at the
+    # block's entry, as at attention's (some DTensor versions refuse the
+    # einsums' flatten of a sharded sequence)
+    x = logical(x, "batch", None, "embed")
     proj = torch.einsum("bsd,dp->bsp", x, p["w_in"].to(x.dtype))
     z, xc, b, c, dt_raw = _split_proj(proj, cfg)
     xc, conv_state = _causal_conv(xc, p["conv"], conv_state)
     xc = F.silu(xc)
+    xc = logical(xc, "batch", None, "mlp")
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
     A = -torch.exp(p["A_log"].float())                      # (H,) < 0
     xh = xc.reshape(B, S, H, hd)
@@ -147,7 +153,7 @@ def mamba_block(p, x, cfg, state=None, conv_state=None, chunk: int = 64):
     y = y + p["Dskip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, d_inner) * F.silu(z)
     out = torch.einsum("bsp,pd->bsd", y, p["w_out"].to(x.dtype))
-    return out, (new_state, conv_state)
+    return logical(out, "batch", "seq", "embed"), (new_state, conv_state)
 
 
 def init_ssm_cache(cfg, batch: int, device=None):

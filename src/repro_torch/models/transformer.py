@@ -19,6 +19,7 @@ from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ParamDef, compute_dtype, layer, layers_of, remat
+from repro_torch.parallel.sharding import logical
 
 
 def param_defs(cfg: ModelConfig):
@@ -51,16 +52,12 @@ def _block(cfg, h, lp, positions, cache=None):
         m_out, aux = moe_lib.moe_mlp(lp["moe"], m_in, cfg)
     else:
         m_out, aux = nn.mlp(lp["mlp"], m_in, cfg), 0.0
-    return h + m_out, new_cache, aux
+    return logical(h + m_out, "batch", "seq", "embed"), new_cache, aux
 
 
 def _train_block(cfg, h, lp, positions):
     h, _, a = _block(cfg, h, lp, positions)
     return h, a
-
-
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
 
 
 def forward(params, tokens, cfg: ModelConfig, img_embeds=None, caches=None,
@@ -77,9 +74,10 @@ def forward(params, tokens, cfg: ModelConfig, img_embeds=None, caches=None,
         img = torch.einsum("bpd,de->bpe", img_embeds.to(dtype),
                            params["img_proj"].to(dtype))
         h = torch.cat([img, h], dim=1)
+        h = logical(h, "batch", "seq", "embed")
     B, S, _ = h.shape
     if positions is None:
-        positions = _positions(B, S, h.device)
+        positions = nn.seq_positions(B, S, h.device)
 
     blocks = layers_of(params["blocks"])
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -121,7 +119,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, img_embeds=None):
     caches = init_caches(cfg, B, max_seq, tokens.device)
     dtype = compute_dtype(cfg)
     h = nn.embed(params, tokens, cfg, dtype)
-    positions = _positions(B, S, h.device)
+    positions = nn.seq_positions(B, S, h.device)
     for i, lp in enumerate(layers_of(params["blocks"])):
         a_in = nn.rmsnorm(h, lp["ln1"], cfg.norm_eps)
         k = torch.einsum("bsd,dhk->bshk", a_in, lp["attn"]["wk"].to(dtype))

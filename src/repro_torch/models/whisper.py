@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as nn
 from repro_torch.models.base import ParamDef, compute_dtype, layer, layers_of, remat
+from repro_torch.parallel.sharding import logical
 
 
 def param_defs(cfg: ModelConfig):
@@ -39,15 +40,11 @@ def param_defs(cfg: ModelConfig):
             **nn.embed_defs(cfg)}
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
-
-
 def encode(params, frames, cfg: ModelConfig):
     """frames: (B, S_f, D) precomputed embeddings (stub frontend output)."""
-    h = frames.to(compute_dtype(cfg))
+    h = logical(frames.to(compute_dtype(cfg)), "batch", "seq", "embed")
     B, S, _ = h.shape
-    positions = _positions(B, S, h.device)
+    positions = nn.seq_positions(B, S, h.device)
     for lp in layers_of(params["encoder"]):
         h = remat(_enc_block, cfg.remat, cfg, h, lp, positions)
     return nn.rmsnorm(h, params["enc_ln_post"], cfg.norm_eps)
@@ -57,7 +54,8 @@ def _enc_block(cfg, h, lp, positions):
     a, _ = nn.attention(lp["attn"], nn.rmsnorm(h, lp["ln1"], cfg.norm_eps),
                         cfg, positions, causal=False)
     h = h + a
-    return h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+    h = h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return logical(h, "batch", "seq", "embed")
 
 
 def _cross_kv(lp, enc_h, cfg):
@@ -72,7 +70,7 @@ def decode_train(params, tokens, enc_h, cfg: ModelConfig):
     """Teacher-forced decoder pass over full target sequence."""
     h = nn.embed(params, tokens, cfg, compute_dtype(cfg))
     B, S, _ = h.shape
-    positions = _positions(B, S, h.device)
+    positions = nn.seq_positions(B, S, h.device)
     for lp in layers_of(params["decoder"]):
         h = remat(_dec_block, cfg.remat, cfg, h, lp, enc_h, positions)
     return h
@@ -86,7 +84,8 @@ def _dec_block(cfg, h, lp, enc_h, positions):
                         cfg, positions, cross_kv=_cross_kv(lp, enc_h, cfg),
                         use_rope=False)
     h = h + c
-    return h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
+    h = h + nn.mlp(lp["mlp"], nn.rmsnorm(h, lp["ln3"], cfg.norm_eps), cfg)
+    return logical(h, "batch", "seq", "embed")
 
 
 def loss_fn(params, batch, cfg: ModelConfig):

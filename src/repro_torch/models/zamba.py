@@ -63,7 +63,7 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, positions=None):
     h = nn.embed(params, tokens, cfg, compute_dtype(cfg))
     B, S, _ = h.shape
     if positions is None:
-        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        positions = nn.seq_positions(B, S, h.device)
     every = cfg.ssm.shared_attn_every
     mamba = layers_of(params["mamba"])
 

@@ -47,7 +47,8 @@ class AdamWState(NamedTuple):
 
 
 def init(params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a DTensor leaf gets moments with its own placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(torch.zeros((), dtype=torch.int32),
                       tree_map(zeros, params), tree_map(zeros, params))
 

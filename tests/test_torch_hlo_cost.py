@@ -255,7 +255,7 @@ def test_program_cost_fields_match_jax():
 
     port = {f.name for f in dataclasses.fields(ProgramCost)}
     jax_fields = {f.name for f in dataclasses.fields(hc.ProgramCost)}
-    assert port - jax_fields == {"opaque_launches"}
+    assert port - jax_fields == {"opaque_launches", "temp_peak_bytes"}
     assert jax_fields <= port and COLLECTIVES == hc.COLLECTIVES
     assert ProgramCost(coll={"all-reduce": 8.0, "all-gather": 4.0}).collective_bytes == 12.0
 

@@ -32,7 +32,7 @@ from repro_torch.kernels.common import BAND_N
 from repro_torch.stencil import StencilSpec
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo")
+MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling")
 
 
 def _jax_file(rel: str):
@@ -81,7 +81,8 @@ def test_harness_runs_every_module(harness):
     totals = [ln for ln in lines["bench"] if ln.endswith(",us_wall")]
     assert [ln.split(".")[1] for ln in totals] == list(MODULES)
     assert any(ln.startswith("bench.plan_cache,") for ln in lines["bench"])
-    assert "scaling" not in lines and "traffic" not in lines
+    assert lines["scaling"][0].startswith("scaling.arch,cell,dom_single_ms")
+    assert "traffic" not in lines
 
 
 def _boom(*args, **kwargs):
