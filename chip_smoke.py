@@ -205,6 +205,26 @@ Phases, any failure exits non-zero:
      printed; (d) the same estimator on (a)'s step (a fake world of one
      rank): its FLOPs against 6 * N * tokens, its compute term against
      (a)'s ms and its estimated peak against (a)'s measured one.
+ 11. wide (run after the batched paths, before phase 4's host table;
+     ``python3 chip_smoke.py --wide`` runs the build and this phase alone):
+     the JAX package's own wide stencils and deep halos.  Each kernel
+     against its plain version with phase 2's limit, which must reject the
+     plain version one step short: the tap-sums at r = 5 and 7 in 1D, 2D
+     and 3D, the dense and compacted reuse forms, and the composed
+     contraction 72 and 128 deep (2D and 1D; f32 and bf16 operands), 2D
+     halos 35 and 56, 3D halos 10, 12 and 14, on phase 2's grids periodic
+     and under one non-periodic spec per rank; the launches whose own
+     layout fits no tile (the 3D tap-sum's rings and the composed slab past
+     h = 10) must raise "too deep", and no other may; one batched call at
+     r = 7 bit for bit the loop of its calls.  Then the main paths:
+     Box-2D7R on 8192^2 at t = 1..8 and Box-3D2R and Star-3D2R on 512^3
+     at t = 5..8, all seven regimes and auto, each against ``reference``
+     with exact launch counts, timed with CUDA events, a plan that cannot
+     launch raising "too deep" naming its regime when built (3D only);
+     Figure 16's Box-2D7R row on both paths; and the phase's JSON entries
+     ("stencil_direct (r=7)", "stencil_banded (depth 128)",
+     "stencil_direct3d (h=10)", "stencil_banded3d (h=10)"), with the tile
+     each ran on as "tile".
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -474,15 +494,17 @@ def sass_loads(_build) -> None:
             loads[fn] = sum("LDG" in i for i in instrs)
             if name.endswith("_foil"):
                 foils.add(fn)
-    # mangled template arguments end in the staging code: ...Li0EEv...
+    # mangled template arguments end in the staging code, then the void
+    # return type: ...Li0EEv... (the tap-sums' argument type names its
+    # rank, tap_slots(R, 2), as Li2EE too)
     pairs = {}
     for fn, n in loads.items():
         if fn not in foils:
             continue
         for code, st in ((1, "wholestrip"), (2, "9tile")):
-            tail = f"Li{code}EE"
+            tail = f"Li{code}EEv"
             if tail in fn:
-                base = fn.replace(tail, "Li0EE")
+                base = fn.replace(tail, "Li0EEv", 1)
                 check(base in loads, f"sass: no default twin of {fn}")
                 check(n >= loads[base], f"sass: {fn} has {n} global loads, "
                                         f"its default twin {loads[base]}")
@@ -864,12 +886,17 @@ def phase_count_loads(mods) -> None:
 
 #: The audit phase's plans (COUNT_FLAG child): the fused regimes on each
 #: rank's main cell at t=MAIN_T, direct on 512^3, and one boundary row per
-#: rank (fused_direct under the boundary path's spec).
+#: rank (fused_direct under the boundary path's spec), each a box of
+#: radius 1; then phase wide's deep cells: Box-2D7R at t = 8 composed
+#: (the 2D fold 128 deep, h = 56) and Box-3D2R at t = 5 (h = 10) on the
+#: 3D tap-sum's rings.  Rows: (path, backend, boundary, radius, t).
 AUDIT_RUNS = ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul")
-AUDIT_EXTRA = (("3D", "direct", None),
-               ("2D", "fused_direct", BOUNDARY_PATHS["2D"][2]),
-               ("3D", "fused_direct", BOUNDARY_PATHS["3D"][2]),
-               ("1D", "fused_direct", BOUNDARY_PATHS["1D"][2]))
+AUDIT_EXTRA = (("3D", "direct", None, 1, MAIN_T),
+               ("2D", "fused_direct", BOUNDARY_PATHS["2D"][2], 1, MAIN_T),
+               ("3D", "fused_direct", BOUNDARY_PATHS["3D"][2], 1, MAIN_T),
+               ("1D", "fused_direct", BOUNDARY_PATHS["1D"][2], 1, MAIN_T),
+               ("2D", "fused_matmul", None, 7, 8),
+               ("3D", "fused_direct", None, 2, 5))
 
 
 def phase_audit(mods) -> None:
@@ -894,18 +921,18 @@ def phase_audit(mods) -> None:
         _build.check(fn(out), lib)
         return out[0], out[1]
 
-    rows = [(label, b, None) for label in PATHS for b in AUDIT_RUNS]
+    rows = [(label, b, None, 1, MAIN_T) for label in PATHS for b in AUDIT_RUNS]
     rows += list(AUDIT_EXTRA)
-    for label, backend, bc in rows:
+    for label, backend, bc, r, t in rows:
         shape = PATHS[label][0]
         dim = len(shape)
-        w = weights.make_weights(StencilSpec("box", dim, 1), seed=0)
-        plan = kernels.stencil_plan(w, shape, torch.float32, MAIN_T,
+        w = weights.make_weights(StencilSpec("box", dim, r), seed=0)
+        plan = kernels.stencil_plan(w, shape, torch.float32, t,
                                     backend=backend, boundary=bc, audit=True,
                                     use_sparse_unit="sparse" in backend,
                                     use_cache=False)
         rep = plan.audit_report
-        tag = (f"{backend} {shape} t={MAIN_T}"
+        tag = (f"{backend} {shape} r={r} t={t}"
                + ("" if bc is None else f" boundary={boundary_label(bc)}"))
         check(rep is not None and rep.exempt is None,
               f"audit {tag}: no report attached")
@@ -2036,6 +2063,354 @@ def phase_paper() -> None:
     print(f"paper: phase in {time.perf_counter() - t0:.1f} s")
 
 
+#: Phase ``wide``: the JAX package's own wide stencils and deep halos.
+#: Kernel checks by rank: (grids, (kind, r, t) cases, non-periodic spec):
+#: the tap-sums at r = 5 and 7, the composed contraction 72 deep (r = 7,
+#: t = 4) and 128 deep (t = 8), 2D halos 35 and 56, 3D halos 10, 12, 14.
+WIDE_KERNELS = {
+    2: (((1024, 1024), (1000, 1030)),
+        (("box", 5, 1), ("box", 7, 1), ("star", 7, 4), ("box", 7, 5), ("box", 7, 8)),
+        ("reflect", "periodic")),
+    3: (((128, 128, 128), (60, 70, 130)),
+        (("box", 5, 1), ("box", 7, 1), ("box", 2, 5), ("star", 2, 6), ("box", 2, 7)),
+        ("replicate", "reflect", "periodic")),
+    1: (((2**20 + 3,),), (("box", 5, 1), ("box", 7, 4), ("box", 7, 8)), "reflect"),
+}
+#: The kernel checks whose launch must refuse, by (rank, kernel, halo,
+#: operands): the 3D tap-sum's rings past h = 10 and the composed slab of
+#: TF32 operands past it (of bf16 ones past h = 12) fit no tile.
+WIDE_REFUSED = {(3, "tap-sum", 12, "f32"), (3, "tap-sum", 14, "f32"),
+                (3, "composed", 12, "tf32"), (3, "composed", 14, "tf32"),
+                (3, "composed", 14, "bf16")}
+#: The main paths: (label, grid, pattern, fusion depths); every regime,
+#: and auto, of each (pattern, t) against ``reference``.
+WIDE_PATHS = (("2D", (8192, 8192), "Box-2D7R", tuple(range(1, 9))),
+              ("3D", (512, 512, 512), "Box-3D2R", (5, 6, 7, 8)),
+              ("3D", (512, 512, 512), "Star-3D2R", (5, 6, 7, 8)))
+WIDE_REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
+                "fused_matmul_reuse", "sparse_matmul", "fused_sparse_matmul", None)
+#: The JSON entries of the phase: (name, path label, pattern, t, kernel);
+#: "composed" is one contraction of the composed kernel.
+WIDE_REPORT = (("stencil_direct (r=7)", "2D", "Box-2D7R", 4, "tap-sum"),
+               ("stencil_banded (depth 128)", "2D", "Box-2D7R", 8, "composed"),
+               ("stencil_direct3d (h=10)", "3D", "Box-3D2R", 5, "tap-sum"),
+               ("stencil_banded3d (h=10)", "3D", "Box-3D2R", 5, "reuse"))
+
+
+#: ``python3 chip_smoke.py --wide`` runs the build and phase ``wide`` alone.
+WIDE_FLAG = "--wide"
+
+
+def wide_calls(mods, x, w, t, bc, dim):
+    """``(kernel, kname, call, plain, step, tk, operands, weights, short)``
+    of every kernel check of one case: the tap-sum, the dense and the
+    compacted reuse form with either operand dtype, and on a periodic grid
+    at t > 1 the composed contraction (dense: the compacted one stays
+    within MAX_KPAD) with the plain version one step short on the
+    depth-(t-1) composed kernel.  ``call`` resolves the launch's tile as
+    a plan does (``launch_geom`` held to the kernel's own layout, which
+    raises "too deep" where it fits none) and launches the plan entry
+    (``stencil_*_at``) on it."""
+    _, sm, sd, weights, ss = mods
+    from repro_torch.kernels import common
+    shape, dt = tuple(x.shape), x.dtype
+    bf = dt == torch.bfloat16
+
+    def at(entry, wk, tk, need, cdt=None):
+        def call():
+            rk = (wk.shape[0] - 1) // 2
+            geom = common.launch_geom(shape, tk * rk, need=need)
+            if entry is sd.stencil_direct_at:
+                return entry(x, wk, tk, geom, bc)
+            return entry(x, wk, tk, geom, cdt, bc)
+        return call
+    out = [("tap-sum", kernel_name("stencil_direct", dim),
+            at(sd.stencil_direct_at, w, t, sd.tile_need(shape, (w.shape[0] - 1) // 2, t, dt)),
+            lambda: sd.stencil_direct_plain(x, w, t, bc),
+            lambda v: sd.stencil_direct_plain(v, w, 1, bc), t, "f32", w, None)]
+    for cdt in (dt, torch.float32 if bf else torch.bfloat16):
+        ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+        for base, mod, entry, pv in (
+                ("stencil_banded", sm, sm.stencil_matmul_at, sm.stencil_matmul_plain),
+                ("stencil_sparse", ss, ss.stencil_sparse_matmul_at,
+                 ss.stencil_sparse_matmul_plain)):
+            out.append(("reuse", f"{kernel_name(base, dim)}[{str(cdt)[6:]}]",
+                        at(entry, w, t, mod.tile_need(shape, w, t, dt, cdt), cdt),
+                        lambda pv=pv, cdt=cdt: pv(x, w, t, compute_dtype=cdt, boundary=bc),
+                        lambda v, pv=pv, cdt=cdt: pv(v, w, 1, compute_dtype=cdt, boundary=bc),
+                        t, ops, w, None))
+        if t > 1 and bc is None:
+            wf = weights.fuse_weights(w, t)
+            out.append(("composed", f"{kernel_name('stencil_banded', dim)}[{str(cdt)[6:]}]",
+                        at(sm.stencil_matmul_at, wf, 1, sm.tile_need(shape, wf, 1, dt, cdt),
+                           cdt),
+                        lambda wf=wf, cdt=cdt: sm.stencil_matmul_plain(x, wf, 1,
+                                                                        compute_dtype=cdt),
+                        lambda v, wf=wf, cdt=cdt: sm.stencil_matmul_plain(
+                            v, wf, 1, compute_dtype=cdt),
+                        1, ops, wf,
+                        lambda cdt=cdt: sm.stencil_matmul_plain(
+                            x, weights.fuse_weights(w, t - 1), 1, compute_dtype=cdt)))
+    return out
+
+
+#: The share of phase wide's kernel-check weights on one tap, the x
+#: neighbour of the centre (``wide_weights``).
+WIDE_SHIFT = 0.75
+
+
+def wide_weights(weights, kind: str, dim: int, r: int) -> np.ndarray:
+    """``make_weights(seed=1)`` of the spec, scaled to 1 - WIDE_SHIFT, plus
+    WIDE_SHIFT on the tap one cell right of the centre: still positive
+    and summing to 1, but a step now mostly moves the grid by one cell
+    instead of averaging it.  A normalized wide kernel alone damps a noise
+    grid so fast that, 7 or 8 steps deep, one step more or less moves the
+    output by less than the limit's own accumulation and bf16 terms
+    (about 2^-7 of max|y| per step), so no limit could reject the plain
+    version one step short; a moving grid keeps that step the size of the
+    grid's own differences."""
+    from repro_torch.stencil import StencilSpec
+    w = (1 - WIDE_SHIFT) * weights.make_weights(StencilSpec(kind, dim, r), seed=1)
+    w[(r,) * (dim - 1) + (r + 1,)] += WIDE_SHIFT
+    return w.astype(np.float32)
+
+
+def wide_kernels(mods) -> None:
+    """Phase ``wide``'s kernel checks: each kernel of every WIDE_KERNELS
+    case against its plain version with phase 2's limit, which must reject
+    the plain version one step short; on each rank's first grid periodic
+    and on its ragged grid under the rank's non-periodic spec, each in
+    float32 and bfloat16.  A launch in WIDE_REFUSED
+    must raise "too deep", and no other may.  The weights mostly move the
+    grid (``wide_weights``).  Then one batched call at r = 7 against the
+    loop of its unbatched calls, bit for bit."""
+    _, sm, sd, weights, ss = mods
+    from repro_torch.kernels import common
+    from repro_torch.stencil import StencilSpec
+    worst, margin, refused, n = {}, {}, set(), 0
+    for dim, (shapes, cases, spec) in WIDE_KERNELS.items():
+        runs = [(shapes[0], None, torch.float32), (shapes[0], None, torch.bfloat16),
+                (shapes[-1], spec, torch.float32), (shapes[-1], spec, torch.bfloat16)]
+        for (shape, bc, dtype), (kind, r, t) in itertools.product(dict.fromkeys(runs),
+                                                                   cases):
+            w = wide_weights(weights, kind, dim, r)
+            x = grid(shape, dtype, seed=2)
+            for what, kname, call, plain, step, tk, ops, wk, short in wide_calls(
+                    mods, x, w, t, bc, dim):
+                tag = (f"{kname} {what} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
+                       + ("" if bc is None else f" boundary={boundary_label(bc)}")
+                       + " (wide)")
+                key = (dim, what, t * r, ops)
+                try:
+                    y = call()
+                except ValueError as e:
+                    check(key in WIDE_REFUSED and "too deep" in str(e), f"{tag}: refused: {e}")
+                    refused.add(key)
+                    continue
+                check(key not in WIDE_REFUSED, f"{tag}: did not refuse")
+                hold_to_plain(tag, kname.split("[")[0] + f" {what}", y, x, plain, step, tk,
+                              ops, wk, short, worst, margin)
+                n += 1
+                del y
+            del x
+    check(refused == WIDE_REFUSED, f"wide: refused {sorted(refused)}, expected "
+                                   f"{sorted(WIDE_REFUSED)}")
+    print(f"wide kernels vs plain: {n} calls within their limits; worst err/tol "
+          + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
+    print("  and every limit rejects the plain version one step short; worst "
+          "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
+    print(f"  refused as expected (rank, kernel, halo, operands): {sorted(refused)}")
+    # one batched call at r = 7: the tap-sum at t = 4 and the composed
+    # contraction 128 deep, three grids in one launch = three launches
+    shape = (1000, 1030)
+    w = weights.make_weights(StencilSpec("box", 2, 7), seed=1)
+    wf = weights.fuse_weights(w, 8)
+    xb = grid((3,) + shape, torch.float32, seed=3)
+    for tag, at, wk, tk in (
+            ("stencil_direct r=7 t=4", sd.stencil_direct_at, w, 4),
+            ("stencil_banded composed depth 128", sm.stencil_matmul_at, wf, 1)):
+        r_ = (wk.shape[0] - 1) // 2
+        need = (sd.tile_need(shape, r_, tk, xb.dtype) if at is sd.stencil_direct_at
+                else sm.tile_need(shape, wk, tk, xb.dtype, xb.dtype))
+        geom = common.launch_geom(shape, tk * r_, need=need)
+        yb = at(xb, wk, tk, geom, batched=True)
+        loop = torch.stack([at(xi, wk, tk, geom) for xi in xb])
+        diff = max_err(yb, loop)
+        check(diff == 0.0, f"wide batched {tag}: differs from the loop by {diff:.3e}")
+        print(f"wide batched {tag}, 3 x {shape}: = the loop of unbatched calls bit for bit")
+
+
+def wide_path(mods, label, shape, pattern, ts, card):
+    """One WIDE_PATHS path: every regime and auto of ``pattern`` at each
+    fusion depth of ``ts`` through ``stencil_plan``, the launch counts set
+    to 0 just before the run and read just after it; each plan held
+    against ``reference`` (the phase-3 limits; the reference one step at a
+    time) with its exact launches; a plan that cannot launch must raise
+    "too deep" naming its regime when built (only in 3D: the tap-sum's
+    rings and the composed slab past h = 10, the reuse slab past h = 14).
+    Then every plan that ran is timed with CUDA events (a plan slower than
+    0.2 s a call once: the reuse slabs at h = 14 take over a second).
+    Returns the run's counts and the times by (t, regime)."""
+    kernels = mods[0]
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.kernels.plan import auto_decision
+    from repro_torch.stencil import StencilSpec, make_weights
+    spec = StencilSpec.from_name(pattern)
+    w = make_weights(spec, seed=0)
+    x = grid(shape, torch.float32, seed=0)
+    dim, mx, sw = len(shape), float(x.abs().max()), float(np.abs(w).sum())
+    ran, refused = [], []
+    step = stencil_plan(w, shape, torch.float32, 1, backend="reference")
+    ref, done = x, 0
+    kernels.reset_launch_counts()
+    for t in ts:
+        while done < t:                # the reference, one step at a time
+            ref, done = step(ref), done + 1
+        for backend in WIDE_REGIMES:
+            regime = backend or auto_decision(spec, shape, torch.float32, t)[1].backend
+            tag = f"wide {label} {pattern} t={t} {backend or 'auto'}"
+            try:
+                plan = stencil_plan(w, shape, torch.float32, t, backend=backend)
+            except ValueError as e:
+                check(dim == 3 and "too deep" in str(e) and f"{regime}'s own" in str(e),
+                      f"{tag}: refused: {e}")
+                refused.append(f"t={t} {backend or 'auto'}")
+                continue
+            before = kernels.launch_counts()
+            t1 = time.perf_counter()
+            y = plan(x)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t1
+            after = kernels.launch_counts()
+            kname, n = expected_launches(plan.backend, t, dim)
+            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            check(delta == {kname: n}, f"{tag}: launches {delta}, expected {n} of {kname}")
+            check(tuple(y.shape) == shape and bool(torch.isfinite(y).all()),
+                  f"{tag}: shape or non-finite")
+            err = max_err(y, ref)
+            tol = (1e-5 * t * mx if kname.startswith("stencil_direct")
+                   else t * 2**-10 * sw * mx)
+            check(err <= tol, f"{tag}: max|err| vs reference {err:.3e} > tol {tol:.3e}")
+            ran.append((t, backend, plan, kname, n, first, err, tol))
+            del y
+    counts = kernels.launch_counts()
+    for k in {r[3] for r in ran}:
+        check(counts[k] > 0, f"wide: kernel {k} was not launched on the {label} path")
+    del ref, step
+    times = {}
+    for t, backend, plan, kname, n, first, err, tol in ran:
+        ms = (cuda_ms(lambda: plan(x), reps=3, warmup=1) if first < 0.2
+              else cuda_ms(lambda: plan(x), reps=1, warmup=0))
+        times[(t, backend or "auto")] = ms
+        print(f"  {pattern} t={t:<2d} {backend or 'auto':20s} {plan.backend:20s} "
+              f"{kname:18s} x{n}  read_amp {plan.geom.read_amp:7.4f}  {ms:9.4f} ms  "
+              f"max|err| {err:.3e} (tol {tol:.3e})")
+    print(f"wide path {label} {pattern} on {shape} float32, t in {list(ts)}: every "
+          f"regime that builds matches the reference; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; refused (too deep, naming the "
+          f"regime): {refused or 'none'}; on {card}")
+    del x
+    return counts, times
+
+
+def wide_report(mods, counts, card) -> list:
+    """The WIDE_REPORT entries: each kernel's call on its path's grid at
+    that path's tile (``stencil_*_at``), held against its plain version,
+    timed beside the plain version and one F.conv of the composed kernel
+    (TF32), with the bound of the FLOPs the stencil needs (2 per nonzero
+    tap, point and step; the composed kernel's taps, one step) at the
+    unit's peak, or the bytes of one read and one write at 3.35 TB/s.  The
+    plain version (0.24-0.61 s a call) and the F.conv of a 57^2, 113^2 or
+    21^3 kernel (4-52 s) are timed once each, after the plain version's
+    checked call and with no warm-up for the F.conv, once for the two 3D
+    entries, which share its call."""
+    _, sm, sd, weights, ss = mods
+    from repro_torch.stencil import StencilSpec, make_weights
+    report, library = [], {}
+    for name, label, pattern, t, what in WIDE_REPORT:
+        spec = StencilSpec.from_name(pattern)
+        shape = next(g for lb, g, _, _ in WIDE_PATHS if lb == label)
+        dim = len(shape)
+        w = make_weights(spec, seed=0)
+        x = grid(shape, torch.float32, seed=0)
+        n, mx = x.numel(), float(x.abs().max())
+        wf = weights.fuse_weights(w, t)
+        if what == "tap-sum":
+            from repro_torch.kernels import common
+            geom = common.launch_geom(shape, t * spec.radius,
+                                      need=sd.tile_need(shape, spec.radius, t, x.dtype))
+            kern = lambda: sd.stencil_direct_at(x, w, t, geom)  # noqa: E731
+            plain = lambda: sd.stencil_direct_plain(x, w, t)  # noqa: E731
+            peak, tol = FP32_FLOPS, 1e-5 * t * mx
+            ops, base = t * 2 * int(np.count_nonzero(w)) * n, "stencil_direct"
+        else:
+            from repro_torch.kernels import common
+            wk, tk = (wf, 1) if what == "composed" else (w, t)
+            rk = (wk.shape[0] - 1) // 2
+            geom = common.launch_geom(shape, tk * rk,
+                                      need=sm.tile_need(shape, wk, tk, x.dtype, x.dtype))
+            kern = lambda: sm.stencil_matmul_at(x, wk, tk, geom)  # noqa: E731
+            plain = lambda: sm.stencil_matmul_plain(x, wk, tk)  # noqa: E731
+            peak, tol = TF32_FLOPS, t * 2**-10 * float(np.abs(w).sum()) * mx
+            ops = (2 * int(np.count_nonzero(wf)) * n if what == "composed"
+                   else t * 2 * int(np.count_nonzero(w)) * n)
+            base = "stencil_banded"
+        kname = kernel_name(base, dim)
+        y = kern()
+        err = max_err(y, plain())
+        del y
+        check(err <= tol, f"wide report {name}: max|err| vs plain {err:.3e} > tol {tol:.3e}")
+        bytes_ms, ops_ms = 2 * n * 4 / HBM_BPS * 1e3, ops / peak * 1e3
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[kname][0],
+                 "replaces": KERNEL_SOURCES[kname][1], "launches": counts[label][kname],
+                 "max_abs_err": err, "ms": cuda_ms(kern, reps=5, warmup=1),
+                 "plain_ms": cuda_ms(plain, reps=1, warmup=0),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": library.get((label, pattern, t)),
+                 "tile": f"{geom.z_slab}x{geom.strip_m}x{geom.w_tile}" if dim == 3
+                         else f"{geom.strip_m}x{geom.w_tile}"}
+        if entry["library_ms"] is None:
+            entry["library_ms"] = library[(label, pattern, t)] = cuda_ms(
+                conv_yardstick(x, wf, True), reps=1, warmup=0)
+        report.append(entry)
+        print(f"  kernel {name} ({pattern} t={t}, tile {entry['tile']}): {entry['ms']:.4f} ms "
+              f"(bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}), plain "
+              f"{entry['plain_ms']:.4f} ms, F.conv{dim}d of the composed kernel (TF32) "
+              f"{entry['library_ms']:.4f} ms, max|err| vs plain {err:.3e}, "
+              f"launches {entry['launches']}; on {card}")
+        del x
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_wide(mods, card) -> list:
+    """Phase ``wide``: the kernel checks (``wide_kernels``), the main
+    paths (``wide_path``), Figure 16's Box-2D7R row on both paths, and the
+    phase's JSON entries (``wide_report``)."""
+    from repro_torch.benchmarks import fig16
+    t0 = time.perf_counter()
+    wide_kernels(mods)
+    print(f"wide: kernel checks in {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for label, shape, pattern, ts in WIDE_PATHS:
+        t1 = time.perf_counter()
+        c, _ = wide_path(mods, label, shape, pattern, ts, card)
+        counts.setdefault(label, {k: 0 for k in c})
+        for k, v in c.items():
+            counts[label][k] += v
+        torch.cuda.empty_cache()
+        print(f"wide: path {label} {pattern} in {time.perf_counter() - t1:.1f} s")
+    head, row = fig16.run("cuda", patterns=["Box-2D7R"])
+    check("refused" not in row, f"wide: fig16 Box-2D7R: {row}")
+    print(f"wide: {head}\nwide: {row}")
+    t1 = time.perf_counter()
+    report = wide_report(mods, counts, card)
+    print(f"wide: report in {time.perf_counter() - t1:.1f} s; phase in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return report
+
+
 #: The distributed phase: a gloo world of DIST_RANKS ranks, every shard on
 #: the card (one card: the ranks time-slice it; the halos pass through
 #: pinned host memory).  Rows: (label, grid, stencil, mesh shape, mesh dim
@@ -3147,6 +3522,16 @@ def main() -> int:
             print(f"load count: FAIL: {type(e).__name__}: {e}")
             return 1
         return 0
+    if sys.argv[1:] == [WIDE_FLAG]:                # phase wide alone
+        try:
+            card = phase_build(kernels)
+            report = phase_wide(mods, card)
+        except (SmokeFailure, RuntimeError, ValueError, TypeError) as e:
+            print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
+            return 1
+        print(card)
+        print(json.dumps({"kernels": report}))
+        return 0
     child = dry = None
     try:
         # the dry run needs no card: its chains run beside every phase
@@ -3228,6 +3613,7 @@ def main() -> int:
         phase_regime_times(tag, xb, ws, results, card)
         report += batch_report(mods, xb, ws["Star-2D1R"], counts, 15, boundary, sparse=True)
         del xb, results
+        report += phase_wide(mods, card)
         phase_host(mods, make_weights(StencilSpec("box", 2, 1), seed=0),
                    make_weights(StencilSpec("box", 3, 1), seed=0))
         phase_batch_times(mods, card)

@@ -3,14 +3,14 @@
 
 Runs :func:`repro_torch.audit.audit_context` for every registered backend
 over ``scripts/audit.py``'s grid matrix (the port's pins: a ``w_tile``
-pin stands for JAX's ``w_tile`` / ``w_block`` pair) and the port's main
+pin stands for JAX's ``w_tile`` / ``w_block`` pair), the port's main
 cells (8192^2 Box / Star-2D1R, 512^3 Box / Star-3D1R, 2^26 Box-1D1R, at
-t=4), writes a JSON report, prints one line per audit and exits nonzero
+t=4) and the wide cells (radius-7 stencils and 3D halos past 9), writes a JSON report, prints one line per audit and exits nonzero
 if ANY check is violated.  Everything is static -- no kernel runs, no
 card is needed -- so it runs on the CPU:
 
     PYTHONPATH=src python -m repro_torch.audit [--out AUDIT_torch_report.json]
-        [--cells matrix,main]
+        [--cells matrix,main,wide]
 """
 from __future__ import annotations
 
@@ -46,6 +46,22 @@ MATRIX = [
      dict(boundary="replicate")),
     ((32, 64, 128), 2, dict(dim=3, radius=1, shape="box"),
      dict(boundary=("reflect", "periodic", "zero"))),
+]
+
+#: The wide stencils and deep halos the reserves admit no tile for (the
+#: tile rule's second half, csrc's radius-7 tap-sums, the 2D and 1D folds
+#: past contraction depth 64), at sizes the sweep walks quickly: Box-2D7R
+#: at t = 4 and 8 (h = 28, 56; fused_matmul 72 and 128 deep), Box-3D2R at
+#: t = 5 and 7 (h = 10, 14), a radius-7 line at t = 8, and a zero boundary
+#: row.
+WIDE_CELLS = [
+    ((256, 320), 4, dict(dim=2, radius=7, shape="box"), {}),
+    ((200, 300), 8, dict(dim=2, radius=7, shape="box"), {}),
+    ((40, 72, 100), 5, dict(dim=3, radius=2, shape="box"), {}),
+    ((40, 72, 100), 7, dict(dim=3, radius=2, shape="star"), {}),
+    ((5000,), 8, dict(dim=1, radius=7, shape="box"), {}),
+    ((200, 300), 5, dict(dim=2, radius=7, shape="star"),
+     dict(boundary=("zero", "reflect"))),
 ]
 
 #: The port's main cells (chip_smoke.py's PATHS) at t=4.
@@ -90,12 +106,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="AUDIT_torch_report.json",
                     help="report path (default AUDIT_torch_report.json)")
-    ap.add_argument("--cells", default="matrix,main",
-                    help="comma list of 'matrix' and 'main' (default both)")
+    ap.add_argument("--cells", default="matrix,main,wide",
+                    help="comma list of 'matrix', 'main' and 'wide' (default "
+                         "all three)")
     args = ap.parse_args(argv)
     rows = []
     for name in args.cells.split(","):
-        rows += {"matrix": MATRIX, "main": MAIN_CELLS}[name.strip()]
+        rows += {"matrix": MATRIX, "main": MAIN_CELLS,
+                 "wide": WIDE_CELLS}[name.strip()]
     reports, skipped = sweep(rows)
     for rep in reports:
         print(rep.summary())

@@ -100,7 +100,8 @@ def _nnz_planes(w) -> list:
 
 
 def tapsum2d_cta(launch) -> Count:
-    """One CTA of ``stencil_direct.cu``: the work map's patches per step."""
+    """One CTA of ``stencil_direct.cu``: the work map's patches per step
+    (radii 4..7 run the wide patch, the same V x 4 outputs and taps)."""
     g, r, t = launch.geom, launch.radius, launch.t_inner
     h, V = launch.total_halo, direct_rows()
     nnz = int(np.count_nonzero(launch.weights))
@@ -251,7 +252,9 @@ def _zero_halves(launch) -> int:
 
 def _mma_per_slot(launch) -> tuple:
     """(S::mma calls per n8 half over every band, of them over a zero
-    k4 half) for one tile slot."""
+    k4 half) for one tile slot.  A band past MAX_KS k-steps (a composed
+    kernel past radius 24) runs them in pieces of MAX_KS (``FoldKs::
+    DEEP``), the same k-steps in the same order: the count is nk."""
     return sum(_band_ks(launch)), _zero_halves(launch)
 
 

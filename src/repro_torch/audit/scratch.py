@@ -12,7 +12,9 @@ fixed cell coordinates.  This module verifies, statically and per launch:
     and headers, per-warp staging buffers), at the offsets the ``.cu``
     computes them, are pairwise disjoint, aligned as the kernel's vector
     accesses need, end within the launch's ``smem_bytes``, which fits the
-    227 KB budget (and, in 2D and 3D, the tile rule's ``tile_smem_bound``);
+    227 KB budget (and, in 2D and 3D, the tile rule's reserve
+    ``tile_smem_bound`` on every tile the reserve admits: the tiles past
+    it are the rule's second half, held to the layout itself);
   * ``scratch/read-window``     -- the staged region is the tile plus its
     t*r halo on every staged axis (1D: the segment's or row's window from
     its granule), and each ring of the 3D tap-sum holds 2r+1 planes per
@@ -155,14 +157,15 @@ def _slots_check(launch, lay) -> AuditCheck:
     if lay.smem_bytes > common.SMEM_BUDGET_BYTES:
         problems.append(f"{lay.smem_bytes} bytes over the 227 KB budget")
     g = launch.geom
-    if launch.family in ("tapsum2d", "tile_fold"):
-        bound = common.tile_smem_bound(g.strip_m, g.w_tile,
-                                       launch.total_halo)
-    elif launch.family in ("tapsum3d", "slab_fold"):
-        bound = common.tile_smem_bound(g.strip_m, g.w_tile,
-                                       launch.total_halo, g.z_slab)
-    else:
-        bound = common.SMEM_BUDGET_BYTES
+    bound = common.SMEM_BUDGET_BYTES
+    if launch.family in ("tapsum2d", "tile_fold", "tapsum3d", "slab_fold"):
+        # a tile the reserve admits holds the layout to it; past it the
+        # rule's second half holds the candidates to the layout itself
+        reserve = common.tile_smem_bound(
+            g.strip_m, g.w_tile, launch.total_halo,
+            g.z_slab if launch.family in ("tapsum3d", "slab_fold") else None)
+        if reserve <= bound:
+            bound = reserve
     if lay.smem_bytes > bound:
         problems.append(f"{lay.smem_bytes} bytes over the tile rule's "
                         f"reserve {bound}")

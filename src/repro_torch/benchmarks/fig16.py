@@ -86,14 +86,14 @@ def _wall(spec, t, w, x, ref, backend, device, iters):
     return time_us(plan, x, iters=iters, warmup=1), None
 
 
-def run(device="cuda", quick: bool = False) -> list[str]:
+def run(device="cuda", quick: bool = False, patterns=None) -> list[str]:
     hw = pm.H100_SXM_DATASHEET
     p = "cpu_" if device == "cpu" else "card_"
     name = "cpu" if device == "cpu" else torch.cuda.get_device_name(0)
     iters = QUICK_ITERS if quick else ITERS
     out = [f"fig16.pattern,t,model_vec_GSt/s,model_mat_GSt/s,model_winner,grid,"
            f"{p}vec_us,{p}vec_GSt/s,{p}mat_us,{p}mat_GSt/s,{p}winner,device"]
-    for pattern in PATTERNS:
+    for pattern in PATTERNS if patterns is None else patterns:
         spec = StencilSpec.from_name(pattern)
         t = 4 if spec.dim == 2 else 2              # the JAX figure's depths
         gv = model_gstencils(spec, t, hw, "vector")

@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from repro_torch.core.envutil import env_int
 from repro_torch.stencil.boundary import resolve_boundary
@@ -807,20 +807,21 @@ def _divisors(n: int) -> list:
 
 def tile_smem_bound(tm: int, tn: int, halo: int,
                     tz: Optional[int] = None) -> int:
-    """Upper bound on either kernel's shared memory at total halo ``halo``.
+    """The tile rule's reserve at total halo ``halo``: the first half of
+    the rule (:func:`resolve_tile_geom`) keeps every tile it has always
+    picked by holding the candidates to it.
 
     2D (``tz=None``): the 2D wmma banded kernel before the tile fold at
     R = halo (monolithic fusion, the deepest K) with the row rounding of
-    the reuse regime, in f32: no kernel launches with it any more, it is
-    the 2D tile rule's reserve, kept so that every 2D call keeps its tile
-    (:func:`tile_fold_layout`, which the 2D kernels launch with, needs
-    less at every tile and halo the rule picks).  3D: the reserves of
-    both 3D kernels (:func:`direct3d_reserve`, and the banded kernel
-    before the slab fold at every (R, t) with t*R = halo and either
-    operand dtype) and the tap-sum's rings at every such (R, t), so that
-    every tile the rule picks launches.  The rings exceed the tap-sum's
-    reserve only on tiles one or two planes deep at h >= 5, and move one
-    tile's fit to the budget: 1 x 48 x 32 at h = 5 (t = 5, r = 1)."""
+    the reuse regime, in f32: no kernel launches with it any more
+    (:func:`tile_fold_layout` and :func:`direct_layout`, which the 2D
+    kernels launch with, need less at every tile and halo it admits).  3D:
+    the reserves of both 3D kernels (:func:`direct3d_reserve`, and the
+    banded kernel before the slab fold at every (R, t) with t*R = halo and
+    either operand dtype) and the tap-sum's rings at every such (R, t).
+    The rings exceed the tap-sum's reserve only on tiles one or two
+    planes deep at h >= 5, and move one tile's fit to the budget: 1 x 48
+    x 32 at h = 5 (t = 5, r = 1)."""
     if tz is None:
         rows = tm + 2 * halo + MMA_TILE
         ld = tn + 2 * halo + MMA_TILE + 8
@@ -832,6 +833,53 @@ def tile_smem_bound(tm: int, tn: int, halo: int,
                   for t in _divisors(halo)]
                + [banded3d_layout(tz, tm, tn, halo // t, t, cb).smem_bytes
                   for t in _divisors(halo) for cb in (4, 2)])
+
+
+@dataclasses.dataclass(frozen=True)
+class TileNeed:
+    """One launch's own shared memory on a candidate tile: ``smem(tz, tm,
+    tn)`` bytes (tz = 1 in 2D; in 1D, tn is the lifted tile's width), the
+    layout its kernel really launches with.  ``regime`` names it when no
+    candidate fits.  The second half of the tile rule holds the
+    candidates to it where the reserves fit none."""
+
+    regime: str
+    smem: Callable[[int, int, int], int]
+
+
+def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
+                regime: str) -> TileNeed:
+    """The tap-sums' layouts at ``t`` fused steps of radius ``radius``:
+    :func:`direct_layout` (2D), :func:`direct3d_layout` (3D),
+    :func:`direct1d_layout` (1D, a grid of ``in_bytes`` cells)."""
+    h = t * radius
+    if dim == 3:
+        return TileNeed(regime, lambda tz, tm, tn: direct3d_layout(
+            tm, tn, radius, t).smem_bytes)
+    if dim == 1:
+        return TileNeed(regime, lambda tz, tm, tn: direct1d_layout(
+            tn, h, in_bytes).smem_bytes)
+    return TileNeed(regime, lambda tz, tm, tn: direct_layout(
+        tm, tn, h).smem_bytes)
+
+
+def fold_need(dim: int, radius: int, t: int, in_bytes: int,
+              compute_bytes: int, n_rows: int, regime: str,
+              k_rows: Optional[int] = None,
+              a_cols: Optional[int] = None) -> TileNeed:
+    """The banded folds' layouts at ``t`` steps of radius ``radius`` with
+    ``n_rows`` bands (``k_rows`` / ``a_cols``: the compacted operand's):
+    :func:`tile_fold_layout` (2D), :func:`slab_fold_layout` (3D),
+    :func:`line_layout` (1D)."""
+    cb = compute_bytes
+    if dim == 3:
+        return TileNeed(regime, lambda tz, tm, tn: slab_fold_layout(
+            tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes)
+    if dim == 1:
+        return TileNeed(regime, lambda tz, tm, tn: line_layout(
+            tn, radius, t, in_bytes, cb).smem_bytes)
+    return TileNeed(regime, lambda tz, tm, tn: tile_fold_layout(
+        tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes)
 
 
 def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:
@@ -860,91 +908,160 @@ def _z_pin(z_slab: int, extent: int) -> int:
     return min(int(z_slab), extent)
 
 
-def _too_deep(halo: int, budget: int) -> ValueError:
+def _too_deep(halo: int, budget: int, need: Optional[TileNeed] = None,
+              least: int = 0) -> ValueError:
+    what = ("" if need is None else
+            f": {need.regime}'s own layout needs at least {least} bytes")
     return ValueError(
         f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
-        f"{budget} bytes of shared memory; lower the fusion depth")
+        f"{budget} bytes of shared memory{what}; lower the fusion depth")
 
 
-def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
-                      w_tile: Optional[int] = None,
-                      z_slab: Optional[int] = None) -> SubstrateGeom:
-    """THE port's tile rule, by grid rank.
-
-    2D: the largest output tile, at most PREFERRED_TILE on each axis and a
-    multiple of 16, whose shared memory (``tile_smem_bound``) fits the
-    budget (:func:`smem_budget_bytes`, 227 KB by default).  3D: among
-    the (TZ, TM, TN) with TZ in
-    ``Z_SLAB_CANDIDATES`` and TM, TN in {64, 32, 16} whose 3D
-    ``tile_smem_bound`` fits, the one of least read amplification
-    (1 + 2h/TZ)(1 + 2h/TM)(1 + 2h/TN), ties to the larger tile -- the
-    JAX ``choose_slab_blocks`` criterion.  1D: the pricing geometry of
-    the lift (the kernels launch :func:`lifted_tile_geom`).  ``tile_m`` /
-    ``w_tile`` pin TM / TN (multiples of 16; clamped to the grid rounded
-    up to 16), ``z_slab`` pins TZ (3D only; clamped to the grid's depth,
-    the JAX pin's rule).  A halo no tile fits raises the "too deep"
-    ``ValueError``, and a pinned depth none of whose tiles fits raises
-    with its shared memory.
-    """
-    grid_shape = tuple(int(n) for n in grid_shape)
-    dim = len(grid_shape)
-    if dim == 1:
-        return SubstrateGeom(dim=1, strip_m=1, h_block=1)
-    if dim not in (2, 3):
-        raise ValueError(f"the port tiles 1D/2D/3D grids, got rank {dim}")
-    if halo < 1:
-        raise ValueError(f"halo must be >= 1, got {halo}")
+def _candidates(grid_shape, halo: int, tile_m, w_tile, z_slab) -> list:
+    """The tile rule's candidates ``(tz, tm, tn)`` in its order of
+    preference (tz = 1 in 2D).  2D: (64, 64), (32, 32), (16, 16), pins
+    kept.  3D: every (TZ, TM, TN) with TZ in ``Z_SLAB_CANDIDATES`` (or the
+    pin) and TM, TN in {64, 32, 16}, by least read amplification
+    (1 + 2h/TZ)(1 + 2h/TM)(1 + 2h/TN), ties to the larger tile -- the JAX
+    ``choose_slab_blocks`` criterion."""
     tms = _tile_candidates(grid_shape[-2], tile_m, "tile_m")
     tns = _tile_candidates(grid_shape[-1], w_tile, "w_tile")
-    budget = smem_budget_bytes()
-    if dim == 2:
-        for k in range(max(len(tms), len(tns))):
-            tm, tn = tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)]
-            if tile_smem_bound(tm, tn, halo) <= budget:
-                return SubstrateGeom(dim=2, strip_m=tm, h_block=halo,
-                                     w_tile=tn, w_block=halo)
-        raise _too_deep(halo, budget)
+    if len(grid_shape) == 2:
+        return [(1, tms[min(k, len(tms) - 1)], tns[min(k, len(tns) - 1)])
+                for k in range(max(len(tms), len(tns)))]
     tzs = (_z_candidates(grid_shape[0]) if z_slab is None
            else [_z_pin(z_slab, grid_shape[0])])
-    fitting = [(tz, tm, tn) for tz in tzs
-               for tm in dict.fromkeys(tms) for tn in dict.fromkeys(tns)
-               if tile_smem_bound(tm, tn, halo, tz) <= budget]
-    if not fitting and z_slab is not None:
-        least = min(tile_smem_bound(tm, tn, halo, tzs[0])
-                    for tm in tms for tn in tns)
-        raise ValueError(
-            f"z_slab={z_slab}: a {tzs[0]}-deep tile at halo {halo} needs at "
-            f"least {least} bytes of shared memory, over the {budget}-byte "
-            "budget; pin a shallower z_slab or lower the fusion depth")
-    if not fitting:
-        raise _too_deep(halo, budget)
-    tz, tm, tn = min(fitting, key=lambda c: (
+    cands = [(tz, tm, tn) for tz in tzs
+             for tm in dict.fromkeys(tms) for tn in dict.fromkeys(tns)]
+    return sorted(cands, key=lambda c: (
         (1 + 2 * halo / c[0]) * (1 + 2 * halo / c[1]) * (1 + 2 * halo / c[2]),
         -c[0] * c[1] * c[2]))
+
+
+def _reserve(halo: int, dim: int) -> Callable:
+    """The reserve of a candidate ``(tz, tm, tn)`` (:func:`tile_smem_bound`)."""
+    if dim == 2:
+        return lambda c: tile_smem_bound(c[1], c[2], halo)
+    return lambda c: tile_smem_bound(c[1], c[2], halo, c[0])
+
+
+def _tile_geom(dim: int, c: tuple, halo: int) -> SubstrateGeom:
+    tz, tm, tn = c
+    if dim == 2:
+        return SubstrateGeom(dim=2, strip_m=tm, h_block=halo, w_tile=tn,
+                             w_block=halo)
     return SubstrateGeom(dim=3, strip_m=tm, h_block=halo, z_slab=tz,
                          z_block=halo, w_tile=tn, w_block=halo)
 
 
-def lifted_tile_geom(n: int, halo: int,
-                     w_tile: Optional[int] = None) -> SubstrateGeom:
+def _check_halo(grid_shape, halo: int) -> int:
+    dim = len(grid_shape)
+    if dim not in (2, 3):
+        raise ValueError(f"the port tiles 1D/2D/3D grids, got rank {dim}")
+    if halo < 1:
+        raise ValueError(f"halo must be >= 1, got {halo}")
+    return dim
+
+
+def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
+                      w_tile: Optional[int] = None,
+                      z_slab: Optional[int] = None,
+                      need: Optional[TileNeed] = None) -> SubstrateGeom:
+    """THE port's tile rule, by grid rank.
+
+    The first candidate (:func:`_candidates`: 2D the largest output tile,
+    at most PREFERRED_TILE on each axis and a multiple of 16; 3D the least
+    read amplification) whose reserve (:func:`tile_smem_bound`) fits the
+    budget (:func:`smem_budget_bytes`, 227 KB by default), and the
+    launch's own layout ``need`` too (:class:`TileNeed`: the layout its
+    kernel really launches with; the reserves cover every layout of
+    radius 3 and less, so only a wider stencil's, such as a radius-7 3D
+    box's 225 bands, moves a tile here) -- the tile every plan has
+    launched on.  Where no reserve fits, the first candidate, in the same
+    order, on which ``need`` fits; without ``need``, or where that fits
+    none either, the
+    "too deep" ``ValueError``, naming ``need``'s regime and its least
+    bytes.  1D: the pricing geometry of the lift (the kernels launch
+    :func:`lifted_tile_geom`).  ``tile_m`` / ``w_tile`` pin TM / TN
+    (multiples of 16; clamped to the grid rounded up to 16), ``z_slab``
+    pins TZ (3D only; clamped to the grid's depth, the JAX pin's rule); a
+    pinned depth none of whose tiles fits raises with its shared memory.
+    """
+    grid_shape = tuple(int(n) for n in grid_shape)
+    if len(grid_shape) == 1:
+        return SubstrateGeom(dim=1, strip_m=1, h_block=1)
+    dim = _check_halo(grid_shape, halo)
+    cands = _candidates(grid_shape, halo, tile_m, w_tile, z_slab)
+    budget = smem_budget_bytes()
+    reserve = _reserve(halo, dim)
+    fits = (lambda c: True) if need is None else (
+        lambda c: need.smem(*c) <= budget)
+    fit = next((c for c in cands if reserve(c) <= budget and fits(c)), None)
+    if fit is None and need is not None:
+        fit = next((c for c in cands if fits(c)), None)
+    if fit is not None:
+        return _tile_geom(dim, fit, halo)
+    size = reserve if need is None else (lambda c: need.smem(*c))
+    least = min(size(c) for c in cands)
+    if dim == 3 and z_slab is not None:
+        whose = "" if need is None else f"{need.regime}'s layout on "
+        raise ValueError(
+            f"z_slab={z_slab}: {whose}a {cands[0][0]}-deep tile at halo "
+            f"{halo} needs at least {least} bytes of shared memory, over "
+            f"the {budget}-byte budget; pin a shallower z_slab or lower the "
+            "fusion depth")
+    raise _too_deep(halo, budget, need, least)
+
+
+def priced_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
+                     w_tile: Optional[int] = None,
+                     z_slab: Optional[int] = None,
+                     needs=()) -> SubstrateGeom:
+    """The tile a plan's decision prices at the fused halo ``halo``:
+    :func:`resolve_tile_geom`'s where a reserve fits; else the first
+    candidate on which one of ``needs`` (the fused regimes' own layouts)
+    fits; else the rule's first candidate, unbudgeted.  It never raises
+    for depth: every halo the JAX package prices is priced, and a regime
+    that cannot launch raises when it is built.  1D: the lift's pricing
+    geometry."""
+    grid_shape = tuple(int(n) for n in grid_shape)
+    if len(grid_shape) == 1:
+        return SubstrateGeom(dim=1, strip_m=1, h_block=1)
+    dim = _check_halo(grid_shape, halo)
+    cands = _candidates(grid_shape, halo, tile_m, w_tile, z_slab)
+    budget = smem_budget_bytes()
+    reserve = _reserve(halo, dim)
+    fit = next((c for c in cands if reserve(c) <= budget), None)
+    if fit is None:
+        fit = next((c for c in cands
+                    if any(n.smem(*c) <= budget for n in needs)), cands[0])
+    return _tile_geom(dim, fit, halo)
+
+
+def lifted_tile_geom(n: int, halo: int, w_tile: Optional[int] = None,
+                     need: Optional[TileNeed] = None) -> SubstrateGeom:
     """The 2D tile the 1D lift launches on the (1, N) view: 16-row tiles of
     which one row is the grid (every wrapped row is row 0).  The folded 1D
     kernels take its width as their row length (``line_windows``), so the
     banded kernels' chunks start where the lift's do, and the tap-sum's
-    segments are LINE_ROWS of its tiles (``line_segments``)."""
-    return resolve_tile_geom((1, n), halo, None, w_tile)
+    segments are LINE_ROWS of its tiles (``line_segments``); ``need`` is
+    the folded kernel's own layout (:func:`tapsum_need`,
+    :func:`fold_need` in 1D)."""
+    return resolve_tile_geom((1, n), halo, None, w_tile, need=need)
 
 
 def launch_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
                 w_tile: Optional[int] = None,
-                z_slab: Optional[int] = None) -> SubstrateGeom:
+                z_slab: Optional[int] = None,
+                need: Optional[TileNeed] = None) -> SubstrateGeom:
     """The tile the kernels launch on a grid of this shape at total halo
     ``halo``: :func:`resolve_tile_geom` in 2D and 3D, the lift's
-    :func:`lifted_tile_geom` in 1D (where only ``w_tile`` applies).  Plans
+    :func:`lifted_tile_geom` in 1D (where only ``w_tile`` applies), held
+    to the launch's own layout ``need`` where no reserve fits.  Plans
     resolve it once when built; the wrappers take it as given."""
     if len(grid_shape) == 1:
-        return lifted_tile_geom(int(grid_shape[0]), halo, w_tile)
-    return resolve_tile_geom(grid_shape, halo, tile_m, w_tile, z_slab)
+        return lifted_tile_geom(int(grid_shape[0]), halo, w_tile, need)
+    return resolve_tile_geom(grid_shape, halo, tile_m, w_tile, z_slab, need)
 
 
 def check_tile_halo(geom: SubstrateGeom, halo: int) -> None:

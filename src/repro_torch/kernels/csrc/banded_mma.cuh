@@ -1,6 +1,8 @@
 // Constants every banded kernel shares: 16-row MMA tiles, 16-column band
-// chunks (BAND_N), contraction depth padded to the MMA K step and at most
-// MAX_KPAD; and wmma's TF32 rounding (wmma::__float_to_tf32).
+// chunks (BAND_N), contraction depth padded to the MMA K step, at most
+// MAX_KPAD in one unrolled piece (the 1D and 2D dense folds take deeper
+// bands in pieces: FoldKs::DEEP, sparse_mma.cuh); and wmma's TF32 rounding
+// (wmma::__float_to_tf32).
 #pragma once
 
 #include <mma.h>

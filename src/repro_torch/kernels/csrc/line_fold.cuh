@@ -37,7 +37,10 @@
 //     minimum of CTAs per SM) and each warp double-buffers: it stages its
 //     rows of the next tile while it computes this one;
 //   * the band's B fragments are loaded once per warp into registers,
-//     before every tile: one band serves every row, chunk and step;
+//     before every tile: one band serves every row, chunk and step (a band
+//     deeper than MAX_KPAD, a composed kernel past radius 24, runs the
+//     DEEP instantiation, which loads each k-step's B fragments from the
+//     L1-cached band as it runs it, in the same order);
 //   * there is no operand copy: each lane loads its A fragment elements
 //     straight from the row windows (step 0 from the staged input, later
 //     steps from the f32 sums of the step before), rounds them as the
@@ -150,11 +153,14 @@ __device__ __forceinline__ void fill_rows(T* rows, int ld, int q0, int nrows, in
 // lds) give the (win - 2R)-cell outputs, chunk by chunk in column order,
 // into dst (row stride ld).  dst may be src: chunk c writes columns
 // [16c, 16c + 16), which no later chunk reads, after its own operands are
-// in registers (mma.sync waits for every lane's).
+// in registers (mma.sync waits for every lane's).  The B fragments are bfr,
+// or in the DEEP instantiation (MAXKS > MAX_KS) loaded from `band` per
+// k-step.
 template <typename TC, int MAXKS, typename TS>
 __device__ __forceinline__ void line_step(const TS* src, int lds, float* dst, int ld, int win,
                                           int R, int lo, int nk,
-                                          const uint32_t (&bfr)[MAXKS][2][2], int g, int q) {
+                                          const uint32_t (&bfr)[MAXKS][2][2], const TC* band,
+                                          int g, int q) {
     using S = SpMma<TC>;
     const int nch = (win - 2 * R + BAND_N - 1) / BAND_N;
     const int band_k = BAND_N + 2 * R;
@@ -164,14 +170,26 @@ __device__ __forceinline__ void line_step(const TS* src, int lds, float* dst, in
         const int c0 = c * BAND_N;
         const int kv = min(band_k, win - c0);
         float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int ks = 0; ks < MAXKS; ++ks)
-            if (ks < nk) {
-                uint32_t af[4];
+        if constexpr (MAXKS > S::MAX_KS) {
+#pragma unroll 2
+            for (int ks = 0; ks < nk; ++ks) {
+                uint32_t af[4], b[2][2];
+                S::load_b(b[0], band + ks * S::K * BAND_N, g, q);
+                S::load_b(b[1], band + ks * S::K * BAND_N + 8, g, q);
                 FoldA<TC>::load(af, r0 + c0, r8 + c0, lo + ks * S::K, kv, q);
-                S::mma(acc[0], af, bfr[ks][0]);
-                S::mma(acc[1], af, bfr[ks][1]);
+                S::mma(acc[0], af, b[0]);
+                S::mma(acc[1], af, b[1]);
             }
+        } else {
+#pragma unroll
+            for (int ks = 0; ks < MAXKS; ++ks)
+                if (ks < nk) {
+                    uint32_t af[4];
+                    FoldA<TC>::load(af, r0 + c0, r8 + c0, lo + ks * S::K, kv, q);
+                    S::mma(acc[0], af, bfr[ks][0]);
+                    S::mma(acc[1], af, bfr[ks][1]);
+                }
+        }
         __syncwarp();
         float* d0 = dst + g * ld + c0 + 2 * q;
         float* d8 = d0 + 8 * ld;
@@ -234,15 +252,18 @@ __global__ void __launch_bounds__(LINE_THREADS, LINE_MIN_BLOCKS) line_fold_kerne
     const int row0 = warp * LINE_TILE_ROWS;  // the warp's rows of a CTA tile
     const int h = a.t * a.R;
 
-    // The band, once: every row, chunk and step of this warp uses it.
+    // The band, once: every row, chunk and step of this warp uses it (the
+    // DEEP instantiation loads it per k-step instead).
     uint32_t bfr[MAXKS][2][2];
     const TC* band = static_cast<const TC*>(a.band);
+    if constexpr (MAXKS <= S::MAX_KS) {
 #pragma unroll
-    for (int ks = 0; ks < MAXKS; ++ks)
-        if (ks < a.nk) {
-            S::load_b(bfr[ks][0], band + ks * S::K * BAND_N, g, q);
-            S::load_b(bfr[ks][1], band + ks * S::K * BAND_N + 8, g, q);
-        }
+        for (int ks = 0; ks < MAXKS; ++ks)
+            if (ks < a.nk) {
+                S::load_b(bfr[ks][0], band + ks * S::K * BAND_N, g, q);
+                S::load_b(bfr[ks][1], band + ks * S::K * BAND_N + 8, g, q);
+            }
+    }
 
     long long item = blockIdx.x;
     if (item < a.items) count_cta_loads(stage_rows(stage(0), a, item, row0, lane));
@@ -267,10 +288,12 @@ __global__ void __launch_bounds__(LINE_THREADS, LINE_MIN_BLOCKS) line_fold_kerne
                 const int depth = (a.t - s) * a.R;
                 if (s == 0) {
                     if (FILL) fill_rows(in, a.lds, q0, nrows, a.L, win, a.N, depth, a.mode, lane);
-                    line_step<TC, MAXKS>(in, a.lds, region, ld, win, a.R, a.lo, a.nk, bfr, g, q);
+                    line_step<TC, MAXKS>(in, a.lds, region, ld, win, a.R, a.lo, a.nk, bfr, band,
+                                         g, q);
                 } else {
                     if (FILL) fill_rows(region, ld, q0, nrows, a.L, win, a.N, depth, a.mode, lane);
-                    line_step<TC, MAXKS>(region, ld, region, ld, win, a.R, a.lo, a.nk, bfr, g, q);
+                    line_step<TC, MAXKS>(region, ld, region, ld, win, a.R, a.lo, a.nk, bfr,
+                                         band, g, q);
                 }
                 __syncwarp();
                 win -= 2 * a.R;
@@ -286,21 +309,30 @@ __global__ void __launch_bounds__(LINE_THREADS, LINE_MIN_BLOCKS) line_fold_kerne
 
 // Launches the instantiation of the launch's types, boundary and band
 // depth on a persistent grid: as many CTAs as fit on the card at once (at
-// most one per CTA tile).
-template <typename TIn, typename TC>
+// most one per CTA tile).  DEEP: a dense band (lo = 0) may run past MAX_KS
+// k-steps, in the DEEP instantiation; the compacted bands stay within it.
+template <typename TIn, typename TC, bool DEEP>
 static int line_launch(const LineArgs& a, int smem_bytes, cudaStream_t stream) {
     using S = SpMma<TC>;
-    if (a.nk < 1 || a.nk > S::MAX_KS || a.lo < 0 || a.lo + a.nk * S::K > MAX_KPAD + S::K)
+    const bool deep = DEEP && a.nk > S::MAX_KS;
+    if (a.nk < 1 || a.lo < 0 ||
+        (deep ? a.lo != 0 : a.nk > S::MAX_KS || a.lo + a.nk * S::K > MAX_KPAD + S::K))
         return (int)cudaErrorInvalidValue;
     const bool fill = a.mode != MODE_PERIODIC;
     const bool small = a.nk <= FoldKs<TC>::SMALL;
-    constexpr int KS = FoldKs<TC>::SMALL, KL = S::MAX_KS;
-    auto* kernel = fill ? (small ? line_fold_kernel<TIn, TC, true, KS>
-                                 : line_fold_kernel<TIn, TC, true, KL>)
-                        : (small ? line_fold_kernel<TIn, TC, false, KS>
-                                 : line_fold_kernel<TIn, TC, false, KL>);
-    static std::atomic<bool> attributes_set[4][MAX_DEVICES];
-    cudaError_t err = prepare_launch(kernel, attributes_set[2 * fill + small]);
+    constexpr int KS = FoldKs<TC>::SMALL, KL = S::MAX_KS, KD = FoldKs<TC>::DEEP;
+    void (*kernel)(LineArgs) = fill ? (small ? line_fold_kernel<TIn, TC, true, KS>
+                                             : line_fold_kernel<TIn, TC, true, KL>)
+                                    : (small ? line_fold_kernel<TIn, TC, false, KS>
+                                             : line_fold_kernel<TIn, TC, false, KL>);
+    if constexpr (DEEP) {
+        if (deep)
+            kernel = fill ? line_fold_kernel<TIn, TC, true, KD>
+                          : line_fold_kernel<TIn, TC, false, KD>;
+    }
+    static std::atomic<bool> attributes_set[6][MAX_DEVICES];
+    cudaError_t err =
+        prepare_launch(kernel, attributes_set[deep ? 4 + fill : 2 * fill + small]);
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -316,7 +348,9 @@ static int line_launch(const LineArgs& a, int smem_bytes, cudaStream_t stream) {
 }
 
 // Checks a launch's arguments against the host's layout and launches it in
-// its types: dtype / compute 0 = float32 (TF32 MMA operands), 1 = bfloat16.
+// its types: dtype / compute 0 = float32 (TF32 MMA operands), 1 = bfloat16
+// (DEEP: as line_launch).
+template <bool DEEP = false>
 static int line_launch_types(LineArgs a, int B, int dtype, int compute, int smem_bytes,
                              cudaStream_t stream) {
     const int in_bytes = dtype == 0 ? 4 : 2;
@@ -331,10 +365,10 @@ static int line_launch_types(LineArgs a, int B, int dtype, int compute, int smem
         return (int)cudaErrorInvalidValue;
     a.tiles = (int)((a.N + (long long)a.TM * a.L - 1) / ((long long)a.TM * a.L));
     a.items = (long long)B * a.tiles;
-    if (dtype == 0 && compute == 0) return line_launch<float, float>(a, smem_bytes, stream);
-    if (dtype == 0 && compute == 1) return line_launch<float, __nv_bfloat16>(a, smem_bytes, stream);
-    if (dtype == 1 && compute == 0) return line_launch<__nv_bfloat16, float>(a, smem_bytes, stream);
-    if (dtype == 1 && compute == 1)
-        return line_launch<__nv_bfloat16, __nv_bfloat16>(a, smem_bytes, stream);
+    using BF = __nv_bfloat16;
+    if (dtype == 0 && compute == 0) return line_launch<float, float, DEEP>(a, smem_bytes, stream);
+    if (dtype == 0 && compute == 1) return line_launch<float, BF, DEEP>(a, smem_bytes, stream);
+    if (dtype == 1 && compute == 0) return line_launch<BF, float, DEEP>(a, smem_bytes, stream);
+    if (dtype == 1 && compute == 1) return line_launch<BF, BF, DEEP>(a, smem_bytes, stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -83,10 +83,21 @@ template <> struct SpMma<__nv_bfloat16> {
 
 // k-steps of a band the folded kernels' instantiation for small radii
 // unrolls (R <= 4 in TF32, R <= 8 in bf16: line_fold.cuh holds them in
-// registers); their other instantiation takes MAX_KS.
+// registers); their other instantiation takes MAX_KS.  DEEP, past MAX_KS,
+// names the instantiation of the 1D and 2D dense folds for bands deeper
+// than MAX_KPAD (a composed kernel past radius 24): the tile fold runs a
+// band's k-steps in pieces of MAX_KS into the same sums, the line fold
+// loads each k-step's B fragments as it runs it.  Its k-steps, and the
+// order of its products, are those of one unrolled loop over the band.
 template <typename TC> struct FoldKs;
-template <> struct FoldKs<float> { static constexpr int SMALL = 3; };
-template <> struct FoldKs<__nv_bfloat16> { static constexpr int SMALL = 2; };
+template <> struct FoldKs<float> {
+    static constexpr int SMALL = 3;
+    static constexpr int DEEP = 2 * SpMma<float>::MAX_KS;
+};
+template <> struct FoldKs<__nv_bfloat16> {
+    static constexpr int SMALL = 2;
+    static constexpr int DEEP = 2 * SpMma<__nv_bfloat16>::MAX_KS;
+};
 
 // The folded kernels (line_fold.cuh, slab_fold.cuh) keep no operand copy:
 // each lane loads its A fragment elements straight from the rows the MMA

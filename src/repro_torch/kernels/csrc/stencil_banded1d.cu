@@ -4,7 +4,8 @@
 // what bounds it are in line_fold.cuh; the host builds the operand with
 // build_bands_nd, as the JAX package does, one band of (BAND_N + 2R,
 // BAND_N) padded with zero rows to kpad, and every k-step of it runs
-// (lo = 0, nk = kpad / K).
+// (lo = 0, nk = kpad / K); a band past MAX_KPAD (a composed kernel past
+// radius 24) runs the DEEP instantiation.
 #include "line_fold.cuh"
 
 // x and y hold B lines of N = grid_elems cells each; bands is (kpad, 16)
@@ -20,7 +21,7 @@ extern "C" int stencil_banded1d_launch(const void* x, void* y, const void* bands
                                        int mode_x, int B, long long grid_elems, int smem_bytes,
                                        void* stream) {
     const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
-    if (kpad > MAX_KPAD || kpad < BAND_N + 2 * R || kpad % k != 0)
+    if (kpad < BAND_N + 2 * R || kpad % k != 0)
         return (int)cudaErrorInvalidValue;
     LineArgs a{};
     a.x = x;
@@ -39,5 +40,6 @@ extern "C" int stencil_banded1d_launch(const void* x, void* y, const void* bands
     a.mode = mode_x;
     a.stage_bytes = stage_bytes;
     a.warp_bytes = warp_bytes;
-    return line_launch_types(a, B, dtype, compute, smem_bytes, static_cast<cudaStream_t>(stream));
+    return line_launch_types<true>(a, B, dtype, compute, smem_bytes,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -6,10 +6,11 @@
 // together with the halo staging that repro/kernels/common.py::_launch
 // (kinds subblocked / flat) does for it on the TPU.
 //
-// What bounds it on an H100: bytes, then shared-memory bandwidth and issue.
-// A step costs 2K flops per point (K <= 49 taps) against 8 bytes moved for
-// an f32 grid, far below the 67 TFLOP/s / 3.35 TB/s = 20 flop/byte ridge of
-// the CUDA cores until t*K is large.  So each CTA reads its tile's
+// What bounds it on an H100: bytes, then shared-memory bandwidth and issue,
+// for radii up to 3.  A step costs 2K flops per point (K <= 49 taps) against
+// 8 bytes moved for an f32 grid, far below the 67 TFLOP/s / 3.35 TB/s = 20
+// flop/byte ridge of the CUDA cores until t*K is large; a dense radius-7
+// box (K = 225) at t = 4 is past it, bound by its FMAs.  So each CTA reads its tile's
 // (TM+2h) x (TN+2h) region (h = t*r) from global memory once, runs all t
 // steps out of two f32 buffers in shared memory and writes the tile once,
 // masked at the ragged grid edge.  What the design does about the rest:
@@ -46,7 +47,11 @@
 // (stencil_direct.py:88-98), so the 2D kernel on the lifted (1, N) view
 // equals the folded 1D tap-sum bit for bit.  The taps come in as a
 // by-value argument, read by the FMAs from the parameter bank; the kernel
-// is specialised on r <= 3.  Non-periodic
+// is specialised on r <= 7.  Radii 4..7 (the wide patch, direct_patch_wide)
+// stream each output row's 2r+1 input rows in a loop over dy, dx unrolled,
+// so a patch reads V (2r+1) rows where the narrow patch reads V + 2r, and
+// its code stays small; their taps, (2r+1)^2 floats (900 bytes at r = 7),
+// are an argument of their own size.  Non-periodic
 // axes are rebuilt in the input buffer before every step by
 // fill_boundary (common.cuh), on the step's input window, as the JAX
 // kernel's apply_boundary_fills does per step; the fill is compiled only
@@ -69,7 +74,10 @@
 // grid_at / for_each_chunk); B = 1 is the unbatched call.
 #include "tap_stage.cuh"
 
-#define MAX_TAPS 49
+// The radii the kernel takes, and the taps the host passes: the dense
+// (2r+1)^2 of any of them, row-major, the rest zero (kernel_taps).
+#define MAX_RADIUS 7
+#define MAX_TAPS 225
 // V, the rows of a thread's patch, and the CTAs per SM __launch_bounds__
 // asks registers for: chosen by timing V in {4, 5, 6, 8} x N in {2..5} on
 // the H100 (8192^2, t = 4, fold_probe.py tapsum2d-times on copies of this
@@ -85,12 +93,17 @@
 #else
 #define DIRECT_MIN_BLOCKS 4
 #endif
+// The wide radii's CTAs per SM: the main tile's buffers at r = 7, t = 1
+// take 50 KB, so shared memory allows 4; the patch's 20 sums and 4 + 2r
+// row cells then fit in registers.  The foil build stays at r <= 3.
+#define DIRECT_MIN_BLOCKS_WIDE 2
 // Floats before the first buffer, between the two and after the second:
 // a patch's reads run up to 3 cells past its buffer's rows.  Must match
 // repro_torch/kernels/common.py::DIRECT_MARGIN.
 #define DIRECT_MARGIN 4
 
-// The (2r+1)^2 taps, row-major, zero where skipped.
+// The host's taps: the (2r+1)^2 taps of radius r, row-major, zero where
+// skipped and past them.
 struct Taps {
     float w[MAX_TAPS];
 };
@@ -98,9 +111,9 @@ struct Taps {
 // One patch of one step: outputs at rows [r0, r0 + V) (those below r_end
 // stored) and columns [c, c + 4) of `out`, from rows [r0 - R, r0 + V + R)
 // of `in` (clamped to its last row, r_last).
-template <int R, int V>
+template <int R, int V, typename TAPS>
 __device__ __forceinline__ void direct_patch(const float* in, float* out, int ld, int r0, int c,
-                                             int r_last, int r_end, const Taps& taps) {
+                                             int r_last, int r_end, const TAPS& taps) {
     constexpr int KW = 2 * R + 1;
     float acc[V][4];
 #pragma unroll
@@ -118,6 +131,43 @@ __device__ __forceinline__ void direct_patch(const float* in, float* out, int ld
 #pragma unroll
             for (int dx = 0; dx < KW; ++dx) {
                 const float wv = taps.w[dy * KW + dx];
+                if (wv != 0.f) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) acc[o][k] = fmaf(wv, v[k + dx], acc[o][k]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int o = 0; o < V; ++o)
+        if (r0 + o < r_end)
+            *reinterpret_cast<float4*>(out + (r0 + o) * ld + c) =
+                make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+}
+
+// direct_patch for the wide radii (R >= 4): for each tap row dy in turn,
+// each output row's input row at dy, its 2R + 1 taps unrolled.  Every
+// output takes its fmaf in the same ascending (dy, dx) order.
+template <int R, int V, typename TAPS>
+__device__ __forceinline__ void direct_patch_wide(const float* in, float* out, int ld, int r0,
+                                                  int c, int r_last, int r_end,
+                                                  const TAPS& taps) {
+    constexpr int KW = 2 * R + 1;
+    float acc[V][4];
+#pragma unroll
+    for (int o = 0; o < V; ++o)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[o][k] = 0.f;
+#pragma unroll 1
+    for (int dy = 0; dy < KW; ++dy) {
+        const float* w = taps.w + dy * KW;
+#pragma unroll
+        for (int o = 0; o < V; ++o) {
+            float v[4 + 2 * R];
+            direct_row<R>(in + min(r0 - R + o + dy, r_last) * ld + c, v);
+#pragma unroll
+            for (int dx = 0; dx < KW; ++dx) {
+                const float wv = w[dx];
                 if (wv != 0.f) {
 #pragma unroll
                     for (int k = 0; k < 4; ++k) acc[o][k] = fmaf(wv, v[k + dx], acc[o][k]);
@@ -164,9 +214,10 @@ __device__ __forceinline__ void store_tile4(T* __restrict__ y, int H, int W, int
 }
 
 template <typename T, int R, bool FILL, int STAGE>
-__global__ void __launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS)
+__global__ void __launch_bounds__(CTA_THREADS, R <= 3 ? DIRECT_MIN_BLOCKS : DIRECT_MIN_BLOCKS_WIDE)
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int TM, int TN,
-                      int t, int ld, int my, int mx, const __grid_constant__ Taps taps,
+                      int t, int ld, int my, int mx,
+                      const __grid_constant__ KernelTaps<tap_slots(R, 2)> taps,
                       size_t grid_elems) {
     constexpr int V = DIRECT_ROWS;
     extern __shared__ __align__(16) float smem[];
@@ -215,8 +266,12 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
         const int nb = (r_end - r_lo + V - 1) / V;
         for (int g = g_first, b = b_first; b < nb;) {
             const int c = (g_lo + g) * 4;
-            if (c + 4 > c_lo && c < c_end)
-                direct_patch<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
+            if (c + 4 > c_lo && c < c_end) {
+                if constexpr (R <= 3)
+                    direct_patch<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
+                else
+                    direct_patch_wide<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
+            }
             g += g_step;
             b += b_step;
             if (g >= G) g -= G, ++b;
@@ -259,11 +314,12 @@ static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, i
     cudaError_t err;
     auto* kernel = direct_kernel<T, R, STAGE>(fill, err);
     if (err != cudaSuccess) return (int)err;
+    const auto kt = kernel_taps<R, 2>(taps->w);
     return for_each_chunk(B, [&](int b0, int nb) {
         dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
         kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
             grid_at(static_cast<const T*>(x), b0, grid_elems),
-            grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, ld, my, mx, *taps,
+            grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, ld, my, mx, kt,
             (size_t)grid_elems);
         return (int)cudaGetLastError();
     });
@@ -277,13 +333,19 @@ static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t,
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
+#ifndef REPRO_FOIL  // the foils stay at radii 1..3
+    if (r == 4) return launch<T, 4, STAGE>(ARGS);
+    if (r == 5) return launch<T, 5, STAGE>(ARGS);
+    if (r == 6) return launch<T, 6, STAGE>(ARGS);
+    if (r == 7) return launch<T, 7, STAGE>(ARGS);
+#endif
 #undef ARGS
     return (int)cudaErrorInvalidValue;
 }
 
 #define ARGS x, y, H, W, TM, TN, t, r, ld, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
 #ifndef REPRO_FOIL
-// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; ld and
+// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..7; ld and
 // smem_bytes: the layout of repro_torch/kernels/common.py::direct_layout;
 // mode_y, mode_x: the rows' and the columns' boundary codes (MODE_*); x
 // and y hold B grids of grid_elems = H * W cells each (the batch, K11).

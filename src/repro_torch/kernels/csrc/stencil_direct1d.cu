@@ -10,7 +10,7 @@
 // runs every step over the copies and stores one row.
 //
 // What bounds it on an H100: bytes.  A step costs 2K flops per point (K <=
-// 7 taps) against the 8 bytes an f32 line moves once in and once out, far
+// 15 taps, r <= 7) against the 8 bytes an f32 line moves once in and once out, far
 // under the 67 TFLOP/s / 3.35 TB/s ridge of the CUDA cores.  So:
 //   * a CTA's tile is one segment of S = DIRECT1D_TILES * L consecutive
 //     outputs (L the lifted tile's width: a segment is 64 of the lift's
@@ -25,7 +25,8 @@
 //     shrinking by R per step, between two buffers (a float32 line's
 //     staging buffer is the second one once step 0 has read it); each
 //     thread computes 4 consecutive outputs from a 12-cell register window
-//     that three 16-byte shared loads bring in (a warp's threads read
+//     that three 16-byte shared loads bring in (20 cells, five loads, at
+//     radii 5..7; a warp's threads read
 //     consecutive 16-byte words: no bank conflict) and stores them with
 //     one 16-byte store;
 //   * the CTAs are persistent (__launch_bounds__ with a minimum of CTAs per
@@ -47,7 +48,7 @@
 #define DIRECT1D_THREADS 256
 #define DIRECT1D_MIN_BLOCKS 4
 #define DIRECT1D_TILES 64  // lifted tiles per segment: common.py LINE_ROWS
-#define MAX_RADIUS 3
+#define MAX_RADIUS 7
 #define MAX_TAPS1D (2 * MAX_RADIUS + 1)
 // Cells a buffer holds past the window: the granule shift and the
 // register window's read past the last group of 4 outputs.
@@ -135,24 +136,26 @@ __device__ __forceinline__ void fill_window(T* win0, const Segment& sg, int o,
 
 // One step: the outputs at buffer cells [lo, hi) from src, into dst, in
 // groups of 4 from lo rounded down to a multiple of 4.  Cell c's output
-// reads src cells [c - R, c + R]; the group's 12-cell window is
-// [c - 4, c + 8).
+// reads src cells [c - R, c + R]; the group's window is [c - P, c + 4 + P),
+// P = 4 for radii up to 4 (12 cells), 8 for radii 5..8 (20 cells: the
+// buffers keep 16 bytes before cell 0, and lo >= R puts c - 8 at cell -4
+// or later).
 template <int R, typename TS>
 __device__ __forceinline__ void direct1d_step(const TS* src, float* dst, int lo, int hi,
                                               const Direct1dArgs& a) {
-    static_assert(R >= 1 && R <= 4, "the register window covers radii 1..4");
+    static_assert(R >= 1 && R <= 8, "the register window covers radii 1..8");
+    constexpr int P = R <= 4 ? 4 : 8;
     for (int c = (lo & ~3) + 4 * (int)threadIdx.x; c < hi; c += 4 * DIRECT1D_THREADS) {
-        float v[12];
-        load4(src + c - 4, v);
-        load4(src + c, v + 4);
-        load4(src + c + 4, v + 8);
+        float v[4 + 2 * P];
+#pragma unroll
+        for (int u = 0; u < 1 + P / 2; ++u) load4(src + c - P + 4 * u, v + 4 * u);
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int dx = 0; dx <= 2 * R; ++dx) {
             const float wv = a.w[dx];
             if (wv != 0.f) {
 #pragma unroll
-                for (int k = 0; k < 4; ++k) acc[k] = fmaf(wv, v[4 + k + dx - R], acc[k]);
+                for (int k = 0; k < 4; ++k) acc[k] = fmaf(wv, v[P + k + dx - R], acc[k]);
             }
         }
         *reinterpret_cast<float4*>(dst + c) = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -275,11 +278,15 @@ static int direct1d_launch_r(const Direct1dArgs& a, int r, int smem_bytes, cudaS
     if (r == 1) return direct1d_launch<TIn, 1>(a, smem_bytes, s);
     if (r == 2) return direct1d_launch<TIn, 2>(a, smem_bytes, s);
     if (r == 3) return direct1d_launch<TIn, 3>(a, smem_bytes, s);
+    if (r == 4) return direct1d_launch<TIn, 4>(a, smem_bytes, s);
+    if (r == 5) return direct1d_launch<TIn, 5>(a, smem_bytes, s);
+    if (r == 6) return direct1d_launch<TIn, 6>(a, smem_bytes, s);
+    if (r == 7) return direct1d_launch<TIn, 7>(a, smem_bytes, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // x and y hold B lines of N = grid_elems cells each; taps the 2r + 1
-// float32 taps (zero where skipped), r in 1..3; L the lifted tile's width
+// float32 taps (zero where skipped), r in 1..7; L the lifted tile's width
 // (a segment is DIRECT1D_TILES of them); lds, ld, stage_bytes, work_bytes
 // and smem_bytes the shared-memory layout of
 // repro_torch/kernels/common.py::direct1d_layout; dtype: 0 = float32,

@@ -38,8 +38,14 @@
 //     streaming the V + 2r rows of each of the 2r + 1 input planes
 //     (direct_row) into V x 4 f32 sums.  Cells a patch computes outside
 //     the step's output window feed no output the last step stores.
-//   * the taps come in as a by-value argument (Taps3, 1,372 bytes at r =
-//     3), read by the FMAs from the parameter bank.
+//   * the taps come in as a by-value argument (1,372 bytes at r <= 3),
+//     read by the FMAs from the parameter bank.  Radii 4..7 take their
+//     (2r+1)^3 taps in an argument of their own size: 13,500 bytes at r =
+//     7, past the 4 KB that kernel parameters held before CUDA 12.1, so
+//     this source needs a CUDA 12.1 toolkit and driver (32,764 bytes of
+//     parameters).  Their patch (direct3d_patch_wide) loops over dz and dy
+//     with dx unrolled, each output row reading its input row at (dz, dy),
+//     so its code stays small; the sums keep the (dz, dy, dx) order.
 //   * __launch_bounds__ bounds the registers so that DIRECT3D_MIN_BLOCKS
 //     CTAs share an SM at r = 1 (shared memory allows 3 at the main tile,
 //     4 at h = 1), DIRECT3D_MIN_BLOCKS_WIDE at r >= 2.
@@ -87,7 +93,10 @@
 
 #include "tap_stage.cuh"
 
-#define MAX_TAPS3D 343  // (2*3+1)^3
+// The radii the kernel takes, and the taps the host passes: the dense
+// (2r+1)^3 of any of them, row-major, the rest zero (kernel_taps).
+#define MAX_RADIUS3D 7
+#define MAX_TAPS3D 3375  // (2*7+1)^3
 // V, the rows of a thread's patch, the CTAs per SM __launch_bounds__ asks
 // registers for (radius 1; radii 2 and 3), and the planes step 0's staging
 // runs ahead of the plane it lands, each in a cp.async group of its own
@@ -114,7 +123,8 @@
 // repro_torch/kernels/common.py::DIRECT3D_MARGIN.
 #define DIRECT3D_MARGIN 4
 
-// The (2r+1)^3 taps, (dz, dy, dx) row-major, zero where skipped.
+// The host's taps: the (2r+1)^3 taps of radius r, (dz, dy, dx) row-major,
+// zero where skipped and past them.
 struct Taps3 {
     float w[MAX_TAPS3D];
 };
@@ -213,10 +223,10 @@ __device__ __forceinline__ int foil_plane(float* pl, int ld, int lead, volatile 
 // columns [c, c + 4) from rows [row0 - R, row0 + V + R) (clamped to the
 // last, r_last) of the 2R + 1 input planes at smem + po[dz]; po[dz] < 0:
 // a plane the zero fill makes all 0, which adds nothing.
-template <int R, int V, bool FILL>
+template <int R, int V, bool FILL, typename TAPS>
 __device__ __forceinline__ void direct3d_patch(const float* smem, const int (&po)[2 * R + 1],
                                                int ld, int row0, int c, int r_last,
-                                               const Taps3& taps, float (&acc)[V][4]) {
+                                               const TAPS& taps, float (&acc)[V][4]) {
     constexpr int KW = 2 * R + 1;
 #pragma unroll
     for (int o = 0; o < V; ++o)
@@ -237,6 +247,43 @@ __device__ __forceinline__ void direct3d_patch(const float* smem, const int (&po
 #pragma unroll
                 for (int dx = 0; dx < KW; ++dx) {
                     const float wv = taps.w[(dz * KW + dy) * KW + dx];
+                    if (wv != 0.f) {
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) acc[o][k] = fmaf(wv, v[k + dx], acc[o][k]);
+                    }
+                }
+            }
+        }
+    }
+}
+
+// direct3d_patch for the wide radii (R >= 4): for each input plane dz and
+// tap row dy in turn, each output row's input row at (dz, dy), its 2R + 1
+// taps unrolled; every output takes its fmaf in ascending (dz, dy, dx).
+template <int R, int V, bool FILL, typename TAPS>
+__device__ __forceinline__ void direct3d_patch_wide(const float* smem,
+                                                    const int (&po)[2 * R + 1], int ld, int row0,
+                                                    int c, int r_last, const TAPS& taps,
+                                                    float (&acc)[V][4]) {
+    constexpr int KW = 2 * R + 1;
+#pragma unroll
+    for (int o = 0; o < V; ++o)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[o][k] = 0.f;
+#pragma unroll 1
+    for (int dz = 0; dz < KW; ++dz) {
+        if (FILL && po[dz] < 0) continue;
+        const float* in = smem + po[dz];
+#pragma unroll 1
+        for (int dy = 0; dy < KW; ++dy) {
+            const float* w = taps.w + (dz * KW + dy) * KW;
+#pragma unroll
+            for (int o = 0; o < V; ++o) {
+                float v[4 + 2 * R];
+                direct_row<R>(in + min(row0 - R + o + dy, r_last) * ld + c, v);
+#pragma unroll
+                for (int dx = 0; dx < KW; ++dx) {
+                    const float wv = w[dx];
                     if (wv != 0.f) {
 #pragma unroll
                         for (int k = 0; k < 4; ++k) acc[o][k] = fmaf(wv, v[k + dx], acc[o][k]);
@@ -278,7 +325,8 @@ __global__ void __launch_bounds__(CTA_THREADS,
                                   R == 1 ? DIRECT3D_MIN_BLOCKS : DIRECT3D_MIN_BLOCKS_WIDE)
 stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H, int W, int TZ,
                         int TM, int TN, int t, int ld, int gx, int gy, int mz, int my, int mx,
-                        const __grid_constant__ Taps3 taps, size_t grid_elems) {
+                        const __grid_constant__ KernelTaps<tap_slots(R, 3)> taps,
+                        size_t grid_elems) {
     static_assert(STAGE != STAGE_NINE, "the 9-tile foil stages 2D grids only");
     constexpr int V = DIRECT3D_ROWS, KW = 2 * R + 1;
     extern __shared__ __align__(16) float smem[];
@@ -410,7 +458,10 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
             const int b = i / sw.G;
             const int row0 = sw.r_lo + b * V, c = (sw.g_lo + i - b * sw.G) * 4;
             float acc[V][4];
-            direct3d_patch<R, V, FILL>(smem, po, ld, row0, c, rows0 - 1, taps, acc);
+            if constexpr (R <= 3)
+                direct3d_patch<R, V, FILL>(smem, po, ld, row0, c, rows0 - 1, taps, acc);
+            else
+                direct3d_patch_wide<R, V, FILL>(smem, po, ld, row0, c, rows0 - 1, taps, acc);
             store_patch(s, sw.q, row0, c, rows0 - sw.r_lo, acc);
         }
     }
@@ -444,11 +495,12 @@ static int launch(const void* x, void* y, const Taps3* taps, int Z, int H, int W
     const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
     if (ctas < 1) return (int)cudaErrorInvalidConfiguration;
     const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
+    const auto kt = kernel_taps<R, 3>(taps->w);
     return for_each_chunk(B, [&](int b0, int nb) {
         kernel<<<dim3((unsigned)ctas, 1, nb), CTA_THREADS, smem_bytes, stream>>>(
             grid_at(static_cast<const T*>(x), b0, grid_elems),
             grid_at(static_cast<T*>(y), b0, grid_elems), Z, H, W, TZ, TM, TN, t, ld, gx, gy,
-            modes[0], modes[1], modes[2], *taps, (size_t)grid_elems);
+            modes[0], modes[1], modes[2], kt, (size_t)grid_elems);
         return (int)cudaGetLastError();
     });
 }
@@ -461,6 +513,12 @@ static int launch_r(const void* x, void* y, const Taps3* taps, int Z, int H, int
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
+#ifndef REPRO_FOIL  // the foil stays at radii 1..3
+    if (r == 4) return launch<T, 4, STAGE>(ARGS);
+    if (r == 5) return launch<T, 5, STAGE>(ARGS);
+    if (r == 6) return launch<T, 6, STAGE>(ARGS);
+    if (r == 7) return launch<T, 7, STAGE>(ARGS);
+#endif
 #undef ARGS
     return (int)cudaErrorInvalidValue;
 }
@@ -469,7 +527,7 @@ static int launch_r(const void* x, void* y, const Taps3* taps, int Z, int H, int
              static_cast<cudaStream_t>(stream)
 #ifndef REPRO_FOIL
 // taps: the dense (2r+1)^3 float32 weights, row-major, the rest zero.
-// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..3; ld and
+// dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..7; ld and
 // smem_bytes: the layout of repro_torch/kernels/common.py::direct3d_layout;
 // mode_z, mode_y, mode_x: each axis's boundary code (MODE_*); x and y hold
 // B grids of grid_elems = Z * H * W cells each (the batch, K11).  Returns

@@ -1,7 +1,8 @@
 // Pieces the tap-sum kernels share (stencil_direct.cu, the 2D kernel, and
 // stencil_direct3d.cu, the 3D one, which stages each plane of its region
 // as the 2D kernel stages its region): the staging of a region's rows in
-// 16-byte granules with cp.async, and the read of one patch row.
+// 16-byte granules with cp.async, the read of one patch row, and the taps
+// argument.
 #pragma once
 
 #include "line_stage.cuh"
@@ -49,18 +50,51 @@ __device__ __forceinline__ int stage_region(float* buf, int ld, const T* __restr
 }
 
 // The 4 + 2R cells [c - R, c + 4 + R) of a buffer row, p at cell c (on
-// 16 bytes): a 16-byte word and the R cells each side, in words of 8
-// bytes where they are on 8.
+// 16 bytes): a 16-byte word and the R cells each side, in words of 16
+// bytes and 8 bytes where they are on them (R <= 7), no cell outside.
 template <int R>
 __device__ __forceinline__ void direct_row(const float* p, float (&v)[4 + 2 * R]) {
+    static_assert(R >= 1 && R <= 7, "a patch row covers radii 1..7");
     const float4 m = *reinterpret_cast<const float4*>(p);
     v[R] = m.x, v[R + 1] = m.y, v[R + 2] = m.z, v[R + 3] = m.w;
     if constexpr (R == 1) {
         v[0] = p[-1], v[5] = p[4];
-    } else {
+    } else if constexpr (R <= 3) {
         const float2 l = *reinterpret_cast<const float2*>(p - 2);
         const float2 r = *reinterpret_cast<const float2*>(p + 4);
         v[R - 2] = l.x, v[R - 1] = l.y, v[R + 4] = r.x, v[R + 5] = r.y;
         if constexpr (R == 3) v[0] = p[-3], v[9] = p[6];
+    } else {
+        const float4 l = *reinterpret_cast<const float4*>(p - 4);
+        const float4 r = *reinterpret_cast<const float4*>(p + 4);
+        v[R - 4] = l.x, v[R - 3] = l.y, v[R - 2] = l.z, v[R - 1] = l.w;
+        v[R + 4] = r.x, v[R + 5] = r.y, v[R + 6] = r.z, v[R + 7] = r.w;
+        if constexpr (R >= 6) {
+            const float2 l2 = *reinterpret_cast<const float2*>(p - 6);
+            const float2 r2 = *reinterpret_cast<const float2*>(p + 8);
+            v[R - 6] = l2.x, v[R - 5] = l2.y, v[R + 8] = r2.x, v[R + 9] = r2.y;
+        }
+        if constexpr (R == 5 || R == 7) v[0] = p[-R], v[2 * R + 3] = p[R + 3];
     }
+}
+
+// The taps a kernel of radius R takes by value, (dz,) dy, dx row-major,
+// zero where skipped: N floats, N = (2R + 1)^D for the wide radii R >= 4,
+// and for R <= 3 the (2*3 + 1)^D slots the kernels have always taken.
+template <int N>
+struct KernelTaps {
+    float w[N];
+};
+__host__ __device__ constexpr int tap_slots(int R, int D) {
+    return D == 2 ? (R <= 3 ? 49 : (2 * R + 1) * (2 * R + 1))
+                  : (R <= 3 ? 343 : (2 * R + 1) * (2 * R + 1) * (2 * R + 1));
+}
+
+// The taps of radius R in D dimensions from the host's dense array of at
+// least tap_slots(R, D) floats.
+template <int R, int D>
+static inline KernelTaps<tap_slots(R, D)> kernel_taps(const float* w) {
+    KernelTaps<tap_slots(R, D)> k;
+    for (int i = 0; i < tap_slots(R, D); ++i) k.w[i] = w[i];
+    return k;
 }

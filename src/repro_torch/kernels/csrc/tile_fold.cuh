@@ -93,7 +93,8 @@ static inline size_t tile_smem_bytes(const SlabArgs& a, int tc_bytes) {
 // One pass of a step: this warp's `mine` (TPW or TPW - 1) tiles tile0,
 // tile0 + CTA_WARPS, ... of the step's chunk-major list (tile i is row
 // tile i % nrt of chunk i / nrt), their sums over every band (each of at
-// most KS k-steps, unrolled), then (after the barrier every warp passes)
+// most KS k-steps, unrolled; KS = FoldKs<TC>::DEEP: any number, in
+// unrolled pieces of MAX_KS), then (after the barrier every warp passes)
 // their store at the tiles' own cells, columns below wo, TF32-rounded
 // where `round`.  Each slot keeps its chunk's kv; the slots but the last
 // load unmasked in a k-step whose columns all lie below every one of their
@@ -110,6 +111,8 @@ __device__ __forceinline__ void tile_pass(float* region, const TC* toe, const in
                                           int ho, int ld, int band_k, int win, int wo, bool round,
                                           int g, int q) {
     using S = SpMma<TC>;
+    constexpr bool kDeep = KS > S::MAX_KS;
+    constexpr int kPiece = kDeep ? S::MAX_KS : KS;  // k-steps unrolled at a time
     float acc[TPW][2][4];
     int off[TPW][2];  // rows g and g + 8 of each slot, at its chunk's column 0
     int kv[TPW];      // each slot's chunk columns that load
@@ -143,9 +146,11 @@ __device__ __forceinline__ void tile_pass(float* region, const TC* toe, const in
             r[u][0] = region + hd.x + hd.y + lq + off[u][0];
             r[u][1] = region + hd.x + hd.y + lq + off[u][1];
         }
+        for (int k0 = 0; k0 < (kDeep ? hd.z : 1); k0 += kPiece)
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-            if (ks < hd.z) {
+            for (int j = 0; j < kPiece; ++j) {
+                const int ks = k0 + j;
+                if (ks >= hd.z) continue;
                 const int k = ks * S::K;  // the k-step's first column past lo
                 uint32_t b[2][2];
                 SlabB<TC>::load(b[0], bt + k, q);
@@ -272,14 +277,35 @@ static auto tile_kernel(bool fill, bool small, cudaError_t& err) {
     return kernel;
 }
 
+// The instantiation of a launch whose deepest band runs past MAX_KS
+// k-steps (FoldKs<TC>::DEEP), its launch attributes set.
 template <typename TIn, typename TC, int STAGE>
+static auto tile_kernel_deep(bool fill, cudaError_t& err) {
+    constexpr int KD = FoldKs<TC>::DEEP;
+    auto* kernel = fill ? tile_fold_kernel<TIn, TC, true, KD, STAGE>
+                        : tile_fold_kernel<TIn, TC, false, KD, STAGE>;
+    static std::atomic<bool> attributes_set[2][MAX_DEVICES];
+    err = prepare_launch(kernel, attributes_set[fill]);
+    return kernel;
+}
+
+// DEEP: the launch may take bands past MAX_KS k-steps (the dense bands of
+// the main build); the compacted bands and the foils stay within MAX_KS.
+template <typename TIn, typename TC, int STAGE, bool DEEP>
 static int tile_launch(const SlabArgs& a, int B, int smem_bytes, cudaStream_t stream) {
     const bool fill = a.my != MODE_PERIODIC || a.mx != MODE_PERIODIC;
     if (STAGE == STAGE_NINE && fill) return (int)cudaErrorInvalidValue;  // periodic only
     const int ks = slab_max_ks<TC>(a);
-    if (ks < 1 || ks > SpMma<TC>::MAX_KS) return (int)cudaErrorInvalidValue;
+    if (ks < 1 || (!DEEP && ks > SpMma<TC>::MAX_KS)) return (int)cudaErrorInvalidValue;
     cudaError_t err;
-    auto* kernel = tile_kernel<TIn, TC, STAGE>(fill, ks <= FoldKs<TC>::SMALL, err);
+    void (*kernel)(const SlabArgs);
+    if constexpr (DEEP) {
+        kernel = ks > SpMma<TC>::MAX_KS
+                     ? tile_kernel_deep<TIn, TC, STAGE>(fill, err)
+                     : tile_kernel<TIn, TC, STAGE>(fill, ks <= FoldKs<TC>::SMALL, err);
+    } else {
+        kernel = tile_kernel<TIn, TC, STAGE>(fill, ks <= FoldKs<TC>::SMALL, err);
+    }
     if (err != cudaSuccess) return (int)err;
     return for_each_chunk(B, [&](int b0, int nb) {
         SlabArgs c = a;
@@ -311,8 +337,8 @@ static inline SlabArgs tile_args(const void* x, void* y, const void* toe, const 
 }
 
 // Checks a launch's arguments against the host's layout and launches it in
-// its types and staging.
-template <int STAGE>
+// its types and staging (DEEP: as tile_launch).
+template <int STAGE, bool DEEP = false>
 static int tile_launch_types(const SlabArgs& a, int B, int dtype, int compute, int smem_bytes,
                              cudaStream_t stream) {
     const int halo = a.t * a.R;
@@ -324,7 +350,7 @@ static int tile_launch_types(const SlabArgs& a, int B, int dtype, int compute, i
     return slab_types(dtype, compute, [&](auto* in, auto* tc) {
         using TIn = std::remove_pointer_t<decltype(in)>;
         using TC = std::remove_pointer_t<decltype(tc)>;
-        return tile_launch<TIn, TC, STAGE>(a, B, smem_bytes, stream);
+        return tile_launch<TIn, TC, STAGE, DEEP>(a, B, smem_bytes, stream);
     });
 }
 

@@ -21,8 +21,9 @@ from repro_torch.core import perfmodel as pm
 from repro_torch.core.selector import Decision
 from repro_torch.stencil.boundary import resolve_boundary
 from . import registry
-from .common import BAND_N, resolve_tile_geom
-from .plan import decide, geom_pricing, spec_from_weights, stencil_plan
+from .common import BAND_N
+from .plan import (auto_decision, decide, geom_pricing, spec_from_weights,
+                   stencil_plan)
 
 
 def __getattr__(name):
@@ -88,9 +89,10 @@ def explain(
     geom_args = dict(strip_m=strip_m, h_block=h_block, w_tile=w_tile,
                      w_block=w_block)
     if grid_shape is not None:
-        geom_args = geom_pricing(resolve_tile_geom(
-            tuple(int(n) for n in grid_shape), t * spec.radius, tile_m,
-            w_tile))
+        geom_args = geom_pricing(auto_decision(
+            spec, grid_shape, {2: torch.bfloat16, 8: torch.float64}.get(
+                dtype_bytes, torch.float32), t, tile_m=tile_m,
+            w_tile=w_tile)[0])
     if boundary is not None:
         boundary = resolve_boundary(boundary, spec.dim)
     return decide(spec, t, dtype_bytes, hw,

@@ -48,7 +48,7 @@ from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import jacobi_weights
 from repro_torch.testing import faults as _faults
 from . import registry
-from .common import BAND_N, fold_batch, resolve_tile_geom, smem_budget_bytes
+from .common import BAND_N, fold_batch, priced_tile_geom, smem_budget_bytes
 
 #: Grid dtypes the port accepts, by numpy/torch name.
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -402,10 +402,16 @@ def auto_decision(spec: StencilSpec, grid_shape: Sequence[int], dtype, t: int,
     ``stencil_plan`` and the guard's ladder alike.  Selection prices the
     tile the fused regimes launch with (halo t*r): its read amplification
     (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in 3D, is the region the kernels
-    really load, and the banded chunk width prices S."""
+    really load, and the banded chunk width prices S.  Past the halos
+    the tile rule's reserves admit, it is the first tile on which the
+    tap-sum's or the reuse fold's own layout fits, and past those the
+    rule's first candidate (``common.priced_tile_geom``): every signature
+    the JAX package prices is priced, and a regime that cannot launch
+    raises when it is built."""
     grid_shape = tuple(int(n) for n in grid_shape)
-    geom = resolve_tile_geom(grid_shape, t * spec.radius, tile_m, w_tile,
-                             z_slab)
+    geom = priced_tile_geom(
+        grid_shape, t * spec.radius, tile_m, w_tile, z_slab,
+        registry.fused_needs(spec, grid_shape, t, as_torch_dtype(dtype)))
     decision = decide(spec, t, dtype_bytes=as_torch_dtype(dtype).itemsize,
                       hw=hw, tile_n=BAND_N, use_sparse_unit=use_sparse_unit,
                       boundary=resolve_boundary(boundary, len(grid_shape)),

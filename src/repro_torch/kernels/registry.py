@@ -36,13 +36,32 @@ from repro_torch.stencil.spec import StencilSpec
 from repro_torch.stencil.weights import fuse_weights
 from . import legacy as _legacy
 from . import ref as _ref
-from .common import (BAND_N, SubstrateGeom, check_grid, check_staging,
-                     launch_geom, mma_k_step, plain_loop, pricing_geom,
-                     resolve_tile_geom, staging_clause)
+from . import stencil_direct as _direct
+from . import stencil_matmul as _matmul
+from . import stencil_sparse as _sparse
+from .common import (BAND_N, SubstrateGeom, TileNeed, check_grid,
+                     check_staging, fold_need, launch_geom, mma_k_step,
+                     plain_loop, priced_tile_geom, pricing_geom,
+                     staging_clause)
 from .stencil_direct import direct2d_layout, stencil_direct_at
 from .stencil_matmul import build_bands_nd, stencil_matmul_at
 from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
                              stencil_sparse_matmul_at)
+
+
+def fused_needs(spec: StencilSpec, grid_shape, t: int,
+                dtype: torch.dtype) -> Tuple[TileNeed, ...]:
+    """The own layouts of the regimes that launch at the fused halo t*r on
+    the decision's tile, for pricing where no reserve fits: the tap-sum
+    and the dense reuse fold, at t steps of the spec's radius (the fold
+    with the spec's bands: a box's (2r+1)^(d-1), a star's 4r+1 in 3D and
+    2r+1 in 2D)."""
+    dim, r = len(grid_shape), spec.radius
+    rows = (1 if dim == 1 else (2 * r + 1) ** (dim - 1) if spec.shape == "box"
+            else (4 * r + 1 if dim == 3 else 2 * r + 1))
+    return (_direct.tile_need(grid_shape, r, t, dtype, "fused_direct"),
+            fold_need(dim, r, t, dtype.itemsize, dtype.itemsize, rows,
+                      "fused_matmul_reuse"))
 
 
 @dataclasses.dataclass
@@ -69,27 +88,49 @@ class PlanContext:
         """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
         return fuse_weights(self.weights, self.t)
 
-    def launch_geom(self, weights: np.ndarray, t_inner: int) -> SubstrateGeom:
+    def tile_need(self, weights: np.ndarray, t_inner: int, engine: str,
+                  regime: str) -> Optional[TileNeed]:
+        """The own layout of ``regime``'s launch of ``weights`` at
+        ``t_inner`` steps on the ``engine``'s kernel ("direct", "matmul",
+        "sparse_matmul"), or None for the traffic foils, which keep
+        the reserves' tiles."""
+        if self.staging != "region":
+            return None
+        if engine == "direct":
+            r = (np.asarray(weights).shape[-1] - 1) // 2
+            return _direct.tile_need(self.grid_shape, r, t_inner, self.dtype,
+                                     regime)
+        mod = _matmul if engine == "matmul" else _sparse
+        return mod.tile_need(self.grid_shape, weights, t_inner, self.dtype,
+                             self.compute_dtype or self.dtype, regime)
+
+    def launch_geom(self, weights: np.ndarray, t_inner: int,
+                    engine: str = "direct",
+                    regime: str = "the launch") -> SubstrateGeom:
         """The CTA tile the kernels launch ``weights`` with at ``t_inner``
         fused steps, halo t_inner * R (1D: the lift's (1, N) tile), after
-        the kernels' argument rule under the plan's boundary.  Builders
-        resolve it here, once, so the tile rule's and the argument rule's
-        errors are raised when the plan is built (the JAX builders'
-        ``validate``)."""
+        the kernels' argument rule under the plan's boundary: the tile
+        rule's, held to ``regime``'s own layout on the ``engine``'s kernel
+        where no reserve fits (:meth:`tile_need`).  Builders resolve it
+        here, once, so the tile rule's and the argument rule's errors are
+        raised when the plan is built (the JAX builders' ``validate``)."""
         r, _ = check_grid(self.grid_shape, np.asarray(weights), t_inner,
                           self.boundary, "the plan")
         geom = launch_geom(self.grid_shape, t_inner * r, self.tile_m,
-                           self.w_tile, self.z_slab)
+                           self.w_tile, self.z_slab,
+                           self.tile_need(weights, t_inner, engine, regime))
         check_staging(self.grid_shape, geom, t_inner * r, self.staging)
         return geom
 
     def priced_geom(self) -> SubstrateGeom:
         """The geometry the plan's decision prices (``plan.auto_decision``):
-        ``pricing_geom`` at the fused halo t*r on the tile the rule
-        resolves there (1D: the lift's, read amplification 1)."""
+        ``pricing_geom`` at the fused halo t*r on the tile
+        ``priced_tile_geom`` resolves there (1D: the lift's, read
+        amplification 1)."""
         halo = self.t * self.spec.radius
-        tile = resolve_tile_geom(self.grid_shape, halo, self.tile_m,
-                                 self.w_tile, self.z_slab)
+        tile = priced_tile_geom(
+            self.grid_shape, halo, self.tile_m, self.w_tile, self.z_slab,
+            fused_needs(self.spec, self.grid_shape, self.t, self.dtype))
         if tile.dim == 1:
             return pricing_geom(1, halo)
         return pricing_geom(tile.dim, halo, tile.strip_m, tile.h_block,
@@ -165,12 +206,12 @@ class AuditSpec:
     exempt: Optional[str] = None
 
 
-def _launch_audit(ctx: PlanContext, w_op, t_inner: int,
-                  engine: str) -> LaunchAudit:
-    """Describe one launch exactly as the backend's ``build`` resolves
-    it."""
+def _launch_audit(ctx: PlanContext, w_op, t_inner: int, engine: str,
+                  regime: str) -> LaunchAudit:
+    """Describe one launch exactly as the backend ``regime``'s ``build``
+    resolves it."""
     w_op = np.asarray(w_op, dtype=np.float32)
-    geom = ctx.launch_geom(w_op, t_inner)
+    geom = ctx.launch_geom(w_op, t_inner, engine, regime)
     dim = len(ctx.grid_shape)
     lifted = w_op[None, :] if dim == 1 else w_op
     radius = (lifted.shape[-1] - 1) // 2
@@ -208,38 +249,41 @@ def _launch_audit(ctx: PlanContext, w_op, t_inner: int,
 
 
 def _audit_direct(ctx: PlanContext) -> AuditSpec:
-    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1, "direct",
                                              "direct"),) * ctx.t)
 
 
 def _audit_fused_direct(ctx: PlanContext) -> AuditSpec:
     return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
-                                             "direct"),))
+                                             "direct", "fused_direct"),))
 
 
 def _audit_matmul(ctx: PlanContext) -> AuditSpec:
-    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+    return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1, "matmul",
                                              "matmul"),) * ctx.t)
 
 
 def _audit_fused_matmul(ctx: PlanContext) -> AuditSpec:
     return AuditSpec(launches=(_launch_audit(ctx, ctx.fused_weights(), 1,
-                                             "matmul"),))
+                                             "matmul", "fused_matmul"),))
 
 
 def _audit_fused_matmul_reuse(ctx: PlanContext) -> AuditSpec:
     return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
-                                             "matmul"),))
+                                             "matmul",
+                                             "fused_matmul_reuse"),))
 
 
 def _audit_sparse_matmul(ctx: PlanContext) -> AuditSpec:
     return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, 1,
+                                             "sparse_matmul",
                                              "sparse_matmul"),) * ctx.t)
 
 
 def _audit_fused_sparse_matmul(ctx: PlanContext) -> AuditSpec:
     return AuditSpec(launches=(_launch_audit(ctx, ctx.weights, ctx.t,
-                                             "sparse_matmul"),))
+                                             "sparse_matmul",
+                                             "fused_sparse_matmul"),))
 
 
 def _wholestrip_audit(audit: Callable) -> Callable:
@@ -382,10 +426,11 @@ def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
     return run
 
 
-def _direct_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
+def _direct_geom(ctx: PlanContext, t_inner: int,
+                 regime: str) -> SubstrateGeom:
     """:meth:`PlanContext.launch_geom` of the tap-sum, with the 2D
     kernel's shared memory on that tile checked."""
-    geom = ctx.launch_geom(ctx.weights, t_inner)
+    geom = ctx.launch_geom(ctx.weights, t_inner, "direct", regime)
     if len(ctx.grid_shape) == 2:
         direct2d_layout(geom, geom.h_block)
     return geom
@@ -395,7 +440,7 @@ def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = _direct_geom(ctx, 1)
+    geom = _direct_geom(ctx, 1, "direct")
 
     def run(x, batched=False):
         for _ in range(t):
@@ -407,7 +452,7 @@ def _build_direct(ctx: PlanContext) -> Callable:
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = _direct_geom(ctx, t)
+    geom = _direct_geom(ctx, t, "fused_direct")
 
     def run(x, batched=False):
         return stencil_direct_at(x, w, t, geom, b, st, batched)
@@ -417,7 +462,7 @@ def _build_fused_direct(ctx: PlanContext) -> Callable:
 def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom, cdt = ctx.launch_geom(w, 1), ctx.compute_dtype
+    geom, cdt = ctx.launch_geom(w, 1, "matmul", "matmul"), ctx.compute_dtype
 
     def run(x, batched=False):
         for _ in range(t):
@@ -438,7 +483,8 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
             "bakes a single boundary extension into all t steps; use "
             "fused_matmul_reuse (per-step fills) or t=1")
     wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
-    geom, cdt = ctx.launch_geom(wf, 1), ctx.compute_dtype
+    geom = ctx.launch_geom(wf, 1, "matmul", "fused_matmul")
+    cdt = ctx.compute_dtype
 
     def run(x, batched=False):
         return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched)
@@ -449,17 +495,19 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     """Intermediate reuse: t radius-r contractions in one launch, f32
     intermediates in shared memory, the boundary filled before each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom, cdt = ctx.launch_geom(w, t), ctx.compute_dtype
+    geom = ctx.launch_geom(w, t, "matmul", "fused_matmul_reuse")
+    cdt = ctx.compute_dtype
 
     def run(x, batched=False):
         return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched)
     return _staged(run, ctx, geom)
 
 
-def _sparse_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
+def _sparse_geom(ctx: PlanContext, t_inner: int,
+                 regime: str) -> SubstrateGeom:
     """:meth:`PlanContext.launch_geom` of the base kernel, with the
     compacted kernel's shared memory on that tile checked."""
-    geom = ctx.launch_geom(ctx.weights, t_inner)
+    geom = ctx.launch_geom(ctx.weights, t_inner, "sparse_matmul", regime)
     sparse_tile_layout(ctx.grid_shape, ctx.weights, t_inner, geom,
                        ctx.compute_dtype or ctx.dtype)
     return geom
@@ -468,7 +516,7 @@ def _sparse_geom(ctx: PlanContext, t_inner: int) -> SubstrateGeom:
 def _build_sparse_matmul(ctx: PlanContext) -> Callable:
     """t launches of the compacted banded kernel at t=1, halo r each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
-    geom, cdt = _sparse_geom(ctx, 1), ctx.compute_dtype
+    geom, cdt = _sparse_geom(ctx, 1, "sparse_matmul"), ctx.compute_dtype
 
     def run(x, batched=False):
         for _ in range(t):
@@ -482,7 +530,8 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     contractions in one launch, f32 intermediates in shared memory, the
     boundary filled before each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
-    geom, cdt = _sparse_geom(ctx, t), ctx.compute_dtype
+    geom = _sparse_geom(ctx, t, "fused_sparse_matmul")
+    cdt = ctx.compute_dtype
 
     def run(x, batched=False):
         return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched)

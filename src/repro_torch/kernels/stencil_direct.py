@@ -47,16 +47,18 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
+from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom, TileNeed,
                      batch_chunks, batch_grid, check_grid, check_staging,
                      check_tile_halo, direct1d_layout, direct3d_layout,
                      direct_layout, kernel_mode_codes, launch_geom,
-                     plain_loop)
+                     plain_loop, tapsum_need)
 
-#: Radii the kernels are specialised on (1..3), and so the most taps the
-#: 2D and 3D kernels take (a dense r=3 box); must match
-#: csrc/stencil_direct.cu and csrc/stencil_direct3d.cu.
-MAX_RADIUS = 3
+#: Radii the kernels are specialised on (1..7), and so the taps the host
+#: passes the 2D and 3D kernels (a dense r=7 box: 225 and 3,375 floats;
+#: each instantiation copies the first (2r+1)^d of them, at least 49 and
+#: 343, into its own argument); must match csrc/stencil_direct.cu,
+#: csrc/stencil_direct3d.cu and csrc/stencil_direct1d.cu.
+MAX_RADIUS = 7
 MAX_TAPS = (2 * MAX_RADIUS + 1) ** 2
 MAX_TAPS3D = (2 * MAX_RADIUS + 1) ** 3
 
@@ -69,13 +71,13 @@ _BATCH_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 class _Taps(ctypes.Structure):
     """``csrc/stencil_direct.cu::Taps``: the (2r+1)^2 taps, row-major,
-    zero where skipped."""
+    zero where skipped and past them."""
     _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
 
 
 class _Taps3(ctypes.Structure):
     """``csrc/stencil_direct3d.cu::Taps3``: the (2r+1)^3 taps, row-major,
-    zero where skipped."""
+    zero where skipped and past them."""
     _fields_ = [("w", ctypes.c_float * MAX_TAPS3D)]
 
 
@@ -183,6 +185,15 @@ def _foil_launcher3d():
     return fn
 
 
+def tile_need(grid_shape, r: int, t: int, dtype: torch.dtype,
+              regime: str = "the tap-sum") -> TileNeed:
+    """The tap-sum's own shared memory on a candidate tile at ``t`` steps
+    of radius ``r`` on a grid of this shape and dtype (``common.
+    tapsum_need``), which the tile rule holds candidates to where no
+    reserve fits."""
+    return tapsum_need(len(grid_shape), r, t, dtype.itemsize, regime)
+
+
 def kernel_source(ndim: int) -> str:
     """The kernel source a launch on a grid of rank ``ndim`` builds from."""
     return {1: "stencil_direct1d", 3: "stencil_direct3d"}.get(
@@ -220,8 +231,9 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
     r, modes = check_grid(x.shape, w, t, boundary, "the tap-sum")
     if x.device.type == "cpu":
         return stencil_direct_plain(x, w, t, modes)
-    return _run(x, w, t, r, launch_geom(x.shape, t * r, tile_m, w_tile),
-                modes)
+    geom = launch_geom(x.shape, t * r, tile_m, w_tile,
+                       need=tile_need(x.shape, r, t, x.dtype))
+    return _run(x, w, t, r, geom, modes)
 
 
 def stencil_direct_at(x: torch.Tensor, weights, t: int,

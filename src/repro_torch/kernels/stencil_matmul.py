@@ -54,13 +54,17 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     batch_chunks, batch_grid, check_grid, check_staging,
-                     check_tile_halo, kernel_mode_codes, launch_geom,
-                     line_layout, mma_k_step, plain_loop, slab_fold_layout,
-                     tile_fold_layout)
+                     TileNeed, batch_chunks, batch_grid, check_grid,
+                     check_staging, check_tile_halo, fold_need,
+                     kernel_mode_codes, launch_geom, line_layout, mma_k_step,
+                     plain_loop, slab_fold_layout, tile_fold_layout)
 
-#: Deepest padded contraction the kernels take (BAND_N + 2R <= 64, so
-#: R <= 24); must match MAX_KPAD in csrc/banded_mma.cuh.
+#: Deepest padded contraction one unrolled piece of the kernels takes
+#: (BAND_N + 2R <= 64, so R <= 24); must match MAX_KPAD in
+#: csrc/banded_mma.cuh.  The 1D and 2D kernels on the dense bands take
+#: deeper bands in pieces of it (``FoldKs::DEEP``, a composed kernel past
+#: radius 24: 128 deep at Box-2D7R, t = 8); the 3D kernels, the compacted
+#: ones and the foils take at most this.
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -260,6 +264,26 @@ def _foil_launcher3d():
     return fn
 
 
+def band_rows(weights) -> int:
+    """The bands ``build_bands_nd`` keeps: the structurally nonzero x-rows
+    of the kernel (1 for a 1D kernel)."""
+    w = np.asarray(weights)
+    return int(np.count_nonzero(np.any(w.reshape(-1, w.shape[-1]) != 0,
+                                       axis=1)))
+
+
+def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
+              compute_dtype: torch.dtype,
+              regime: str = "the banded contraction") -> TileNeed:
+    """The dense fold's own shared memory on a candidate tile at ``t``
+    steps of ``weights`` on a grid of this shape and dtype
+    (``common.fold_need``), which the tile rule holds candidates to where
+    no reserve fits."""
+    radius = (np.asarray(weights).shape[-1] - 1) // 2
+    return fold_need(len(grid_shape), radius, t, dtype.itemsize,
+                     compute_dtype.itemsize, band_rows(weights), regime)
+
+
 def kernel_source(ndim: int) -> str:
     """The kernel source a launch on a grid of rank ``ndim`` builds from."""
     return {1: "stencil_banded1d", 3: "stencil_banded3d"}.get(
@@ -300,8 +324,9 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
         return stencil_matmul_plain(x, w, t, BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt,
-                launch_geom(x.shape, t * radius, tile_m, w_tile), modes)
+    geom = launch_geom(x.shape, t * radius, tile_m, w_tile,
+                       need=tile_need(x.shape, w, t, x.dtype, cdt))
+    return _run(x, w, t, radius, cdt, geom, modes)
 
 
 def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
@@ -366,8 +391,10 @@ def run_kernel(name, launch1d, launch2d, launch3d, x, w, t, radius, cdt,
     return y if batched else y[0]
 
 
-def _checked(layout, what: str):
-    if layout.kpad > MAX_KPAD:
+def _checked(layout, what: str, deep: bool = False):
+    """``layout``, or raise past the 227 KB budget or, unless ``deep``
+    (the 1D and 2D kernels on the dense bands), past MAX_KPAD."""
+    if layout.kpad > MAX_KPAD and not deep:
         raise ValueError(f"{what} needs a contraction depth of "
                          f"{layout.kpad}, over the kernel's {MAX_KPAD} "
                          "(radius <= 24)")
@@ -378,11 +405,13 @@ def _checked(layout, what: str):
 
 
 def line_launch_layout(geom: SubstrateGeom, radius: int, t: int,
-                       in_dtype: torch.dtype, cdt: torch.dtype, what: str):
+                       in_dtype: torch.dtype, cdt: torch.dtype, what: str,
+                       deep: bool = True):
     """The folded 1D kernels' shared-memory layout of a launch, checked
-    against the 227 KB budget and the deepest contraction they take."""
+    against the 227 KB budget and, for the compacted kernel (``deep``
+    False), the deepest contraction it takes."""
     return _checked(line_layout(geom.w_tile, radius, t, in_dtype.itemsize,
-                                cdt.itemsize), what)
+                                cdt.itemsize), what, deep)
 
 
 def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
@@ -412,7 +441,8 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
     the (B, H, W) grids ``x``."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
     layout = _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
-                                       cdt.itemsize, len(rows)), "banded")
+                                       cdt.itemsize, len(rows)), "banded",
+                      deep=staging == "region")
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape

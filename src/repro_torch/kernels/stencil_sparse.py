@@ -43,9 +43,9 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (BAND_N, SubstrateGeom, batch_chunks, batch_grid,
-                     check_grid, check_tile_halo, launch_geom,
-                     mma_k_step, plain_loop, slab_fold_layout,
+from .common import (BAND_N, SubstrateGeom, TileNeed, batch_chunks,
+                     batch_grid, check_grid, check_tile_halo, fold_need,
+                     launch_geom, mma_k_step, plain_loop, slab_fold_layout,
                      tile_fold_layout)
 from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, _checked,
                              build_bands_nd, line_launch_layout, run_kernel,
@@ -237,7 +237,7 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
     cb = compute_dtype.itemsize
     if len(grid_shape) == 1:
         return line_launch_layout(geom, radius, t, in_dtype, compute_dtype,
-                                  "1D compacted banded")
+                                  "1D compacted banded", deep=False)
     meta = band_meta(w, compute_dtype)
     k_rows = max(r[-1] for r in meta.rows) * mma_k_step(cb)
     if len(grid_shape) == 3:
@@ -248,6 +248,22 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
     return _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t, cb,
                                      len(meta.rows), k_rows, meta.a_cols),
                     "compacted banded")
+
+
+def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
+              compute_dtype: torch.dtype,
+              regime: str = "the compacted banded contraction") -> TileNeed:
+    """The compacted fold's own shared memory on a candidate tile at ``t``
+    steps of ``weights`` (:func:`sparse_tile_layout`'s, as
+    ``common.fold_need``), which the tile rule holds candidates to where
+    no reserve fits."""
+    w = np.asarray(weights, dtype=np.float32)
+    radius = (w.shape[-1] - 1) // 2
+    meta = band_meta(w, compute_dtype)
+    k_rows = max(r[-1] for r in meta.rows) * mma_k_step(compute_dtype.itemsize)
+    return fold_need(len(grid_shape), radius, t, dtype.itemsize,
+                     compute_dtype.itemsize, len(meta.rows), regime, k_rows,
+                     meta.a_cols)
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,8 +316,9 @@ def stencil_sparse_matmul(x: torch.Tensor, weights, t: int = 1,
     cdt = x.dtype if compute_dtype is None else compute_dtype
     if x.device.type == "cpu":
         return stencil_sparse_matmul_plain(x, w, t, BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt,
-                launch_geom(x.shape, t * radius, tile_m, w_tile), modes)
+    geom = launch_geom(x.shape, t * radius, tile_m, w_tile,
+                       need=tile_need(x.shape, w, t, x.dtype, cdt))
+    return _run(x, w, t, radius, cdt, geom, modes)
 
 
 def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,

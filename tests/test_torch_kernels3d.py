@@ -3,6 +3,7 @@ tap-sum and banded contraction (through their plain versions, which is
 what a CPU tensor runs) against the JAX ``stencil_direct`` /
 ``stencil_matmul`` in interpret mode, the 3D tile geometry as pure Python,
 the 1D lift, and the argument rule shared by both packages."""
+import functools
 import importlib
 
 import numpy as np
@@ -254,23 +255,62 @@ def test_3d_pins_and_too_deep():
     auto = common.resolve_tile_geom((60, 70, 130), 4)
     assert common.resolve_tile_geom((60, 70, 130), 4, auto.strip_m,
                                     auto.w_tile) == auto
+    # h = 10: no reserve fits, so without a launch's own layout the rule
+    # refuses; with the tap-sum's rings (Box-3D2R, t = 5) it finds a tile
     with pytest.raises(ValueError, match="too deep"):
         common.resolve_tile_geom((512, 512, 512), 10)
+    rings = common.tapsum_need(3, 2, 5, 4, "fused_direct")
+    g10 = common.resolve_tile_geom((512, 512, 512), 10, need=rings)
+    assert rings.smem(g10.z_slab, g10.strip_m, g10.w_tile) <= \
+        common.SMEM_BUDGET_BYTES
     with pytest.raises(ValueError, match="too deep"):
         common.resolve_tile_geom((512, 512, 512), 8, tile_m=64, w_tile=64)
+    # h = 12 at t = 6: the rings fit no tile, and the refusal names them
+    with pytest.raises(ValueError, match="too deep.*fused_direct's own "
+                                         "layout needs at least 237408"):
+        common.resolve_tile_geom((512, 512, 512), 12,
+                                 need=common.tapsum_need(3, 2, 6, 4,
+                                                         "fused_direct"))
+
+
+#: Star-3D3R at t = 4 (h = 12): the step-wise regimes launch at halo 3,
+#: and the tap-sum's rings (33 slots of 40 x 40 at r = 3: 211,728 bytes)
+#: and the reuse fold's slab fit a tile; the composed slab (radius 12)
+#: fits none, and raises naming itself.
+_H12_BUILDS = {"direct": True, "fused_direct": True, "matmul": True,
+               "fused_matmul": False, "fused_matmul_reuse": True}
+
+
+@functools.lru_cache(maxsize=None)
+def _h12_oracle():
+    w = make_weights(StencilSpec("star", 3, 3), seed=0)
+    return np.asarray(j_ref(_grid((20, 24, 30))[2], w, 4))
 
 
 @pytest.mark.parametrize("backend", ["direct", "fused_direct", "matmul",
                                      "fused_matmul", "fused_matmul_reuse",
                                      None])
 def test_too_deep_raises_when_the_plan_is_built(backend):
-    # h = t*r = 12 fits no 3D tile; the plan prices the fused tile for
-    # every backend, so each raises when built, never at launch
+    # h = t*r = 12 past every reserve: a regime whose own layout fits a
+    # tile builds and matches the oracle, one whose layout fits none
+    # raises "too deep" naming itself when built, never at launch
     w = make_weights(StencilSpec("star", 3, 3), seed=0)
-    with pytest.raises(ValueError, match="too deep"):
-        tk.stencil_plan(w, (64, 64, 64), torch.float32, 4, device="cpu",
-                        backend=backend, use_cache=False)
-    # h = 9, the deepest that fits, builds
+    x, xt, _ = _grid((20, 24, 30))
+    build = lambda b: tk.stencil_plan(w, (20, 24, 30), torch.float32, 4,
+                                      device="cpu", backend=b,
+                                      use_cache=False)
+    plan = importlib.import_module("repro_torch.kernels.plan")
+    name = backend or plan.auto_decision(plan.spec_from_weights(w),
+                                         (20, 24, 30), torch.float32,
+                                         4)[1].backend
+    if not _H12_BUILDS[name]:
+        with pytest.raises(ValueError, match=f"too deep.*{name}'s own"):
+            build(backend)
+    else:
+        y = build(backend)(xt)
+        np.testing.assert_allclose(y.numpy(), _h12_oracle(), rtol=0,
+                                   atol=tolerance(x, torch.float32, 4))
+    # h = 9, the deepest the reserves admit, builds on every backend
     tk.stencil_plan(w, (64, 64, 64), torch.float32, 3, device="cpu",
                     backend=backend, use_cache=False)
 

@@ -206,11 +206,28 @@ def test_line_layout_raises_past_the_budget_and_the_depth():
     with pytest.raises(ValueError, match="227 KB"):
         t_matmul.line_launch_layout(wide, 1, 4, torch.float32,
                                     torch.float32, "1D banded")
+    # depth 66 (R = 25, padded to 72): past one unrolled piece, the dense
+    # kernel takes it in pieces, and its dataflow matches JAX; the
+    # compacted kernel stays within MAX_KPAD and refuses it
     deep = common.SubstrateGeom(dim=2, strip_m=16, h_block=25, w_tile=64,
                                 w_block=25)
+    lay = t_matmul.line_launch_layout(deep, 25, 1, torch.float32,
+                                      torch.float32, "1D banded")
+    assert lay.kpad == 72 > t_matmul.MAX_KPAD
     with pytest.raises(ValueError, match="contraction depth"):
         t_matmul.line_launch_layout(deep, 25, 1, torch.float32,
-                                    torch.float32, "1D banded")
+                                    torch.float32, "1D compacted banded",
+                                    deep=False)
+    n = 1100
+    w = make_weights(JSpec("box", 1, 25), seed=1)
+    x = np.random.default_rng(2).normal(size=n).astype(np.float32)
+    geom = common.launch_geom((n,), 25, w_tile=64, need=common.fold_need(
+        1, 25, 1, 4, 4, 1, "fused_matmul"))
+    y = emulate_fold(x, w, 1, geom, "zero")
+    ref = np.asarray(j_matmul(jnp.asarray(x), w, 1, interpret=True,
+                              boundary="zero"))
+    tol = 2.0**-10 * float(np.abs(w).sum()) * float(np.abs(x).max())
+    np.testing.assert_allclose(y, ref, rtol=0, atol=tol)
 
 
 # ---------------------------------------------------------------------------

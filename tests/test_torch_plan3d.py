@@ -124,7 +124,8 @@ def test_1d_plan_matches_the_jax_plan(backend, n, kind, r):
     check_decision(plan, t, 4)
 
 
-#: 3D tiles fit up to h = t*r = 9 (deeper plans raise "too deep").
+#: 3D plans whose tiles the reserves admit, h = t*r <= 9 (the deeper
+#: halos run on the tiles of their own layouts: tests/test_torch_wide.py).
 DECISION_CASES = [(dim, shape, kind, r, t)
                   for dim, shape in ((3, (512, 512, 512)), (3, (60, 70, 130)),
                                      (1, (2**26,)), (1, (67,)))
@@ -196,10 +197,20 @@ def test_z_slab_pin_refusals():
     with pytest.raises(ValueError, match="z_slab must be >= 1"):
         tk.stencil_plan(w3, (20, 24, 40), torch.float32, 1, z_slab=0,
                         device="cpu")
-    # over the shared-memory budget: a 16-deep tile at halo 8
-    with pytest.raises(ValueError, match="z_slab=16: .*over the"):
-        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 8, z_slab=16,
-                        device="cpu")
+    # a 16-deep tile at halo 8 is past every reserve but the regime's own
+    # layout fits it; at halo 12 the reuse fold's slab does not
+    plan = tk.stencil_plan(w3, (20, 24, 40), torch.float32, 8, z_slab=16,
+                           device="cpu", use_cache=False)
+    assert plan.geom.z_slab == 16
+    x3 = _inputs("box", 3, 1, 1, (20, 24, 40))[1]
+    np.testing.assert_allclose(
+        plan(torch.from_numpy(x3)).numpy(),
+        np.asarray(j_ref(jnp.asarray(x3), w3, 8)), rtol=0,
+        atol=8e-5 * np.abs(x3).max())
+    with pytest.raises(ValueError, match="z_slab=16: fused_matmul_reuse's "
+                                         "layout .*over the"):
+        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 12, z_slab=16,
+                        backend="fused_matmul_reuse", device="cpu")
     # shallower than the halo under the whole-slab foil (JAX's message)
     with pytest.raises(ValueError, match="exceeds z_slab 2"):
         tk.stencil_plan(w3, (20, 24, 40), torch.float32, 4, z_slab=2,

@@ -461,7 +461,13 @@ def test_source_constants_match_the_host():
     # the main build's and the foil build's CTAs per SM
     blocks = [int(n) for n in re.findall(r"#define DIRECT_MIN_BLOCKS (\d+)\b", SRC)]
     assert len(blocks) == 2 and all(2 <= n <= 5 for n in blocks)
-    assert "__launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS)" in SRC
+    assert ("__launch_bounds__(CTA_THREADS, R <= 3 ? DIRECT_MIN_BLOCKS : "
+            "DIRECT_MIN_BLOCKS_WIDE)") in SRC
+    assert 1 <= _define("DIRECT_MIN_BLOCKS_WIDE") <= min(blocks)
+    assert _define("MAX_RADIUS") == t_direct.MAX_RADIUS == 7
+    # radii 1..3 keep their 49-slot argument, radii 4..7 take (2r+1)^2
+    assert "const __grid_constant__ KernelTaps<tap_slots(R, 2)> taps" in SRC
+    assert "kernel_taps<R, 2>(taps->w)" in SRC
     # the staging is the tap-sums' shared header's, on line_stage.cuh's copy
     stage = (CSRC / "tap_stage.cuh").read_text()
     assert '#include "tap_stage.cuh"' in SRC

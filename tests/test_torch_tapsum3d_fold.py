@@ -617,13 +617,16 @@ def test_direct3d_rings_raise_past_the_budget():
 def test_source_constants_match_the_host():
     assert _define("DIRECT3D_AHEAD") == common.DIRECT3D_AHEAD
     assert _define("DIRECT3D_MARGIN") == common.DIRECT3D_MARGIN
-    assert _define("MAX_TAPS3D") == t_direct.MAX_TAPS3D == 343
+    assert _define("MAX_TAPS3D") == t_direct.MAX_TAPS3D == 15**3
+    assert _define("MAX_RADIUS3D") == t_direct.MAX_RADIUS == 7
     assert _define("DIRECT3D_ROWS") in (2, 4, 5, 8)
     assert 2 <= _define("DIRECT3D_MIN_BLOCKS_WIDE") <= _define("DIRECT3D_MIN_BLOCKS") <= 4
     assert re.search(r"__launch_bounds__\(CTA_THREADS,\s+R == 1 \? DIRECT3D_MIN_BLOCKS : "
                      r"DIRECT3D_MIN_BLOCKS_WIDE\)", SRC)
     assert '#include "tap_stage.cuh"' in SRC and "stage_region(" in SRC
-    assert "const __grid_constant__ Taps3 taps" in SRC
+    # the kernel's by-value taps: the 343 slots of radii 1..3, (2r+1)^3 past
+    assert "const __grid_constant__ KernelTaps<tap_slots(R, 3)> taps" in SRC
+    assert "kernel_taps<R, 3>(taps->w)" in SRC
     assert 'extern "C" int stencil_direct3d_ctas_per_sm(int dtype, int r, int fill, ' \
            'int smem_bytes)' in SRC
     body = re.search(r"struct Taps3 \{(.*?)\};", SRC, re.S).group(1)
