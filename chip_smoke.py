@@ -458,7 +458,11 @@ def boundary_label(b) -> str:
     return b if isinstance(b, str) else "×".join(b)
 
 
-def phase_build(kernels) -> str:
+def phase_build(kernels, sass: bool = True) -> str:
+    """Build every library (one nvcc each, together) and print the card,
+    the build times and ptxas's register lines; then, where ``sass``, the
+    foils' SASS check (``sass_loads``; the full run starts the counting
+    child first and runs the check beside that child's build)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
@@ -474,7 +478,8 @@ def phase_build(kernels) -> str:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    sass_loads(_build)
+    if sass:
+        sass_loads(_build)
     return card
 
 
@@ -487,13 +492,17 @@ def sass_loads(_build) -> None:
     keeps every load whose value the foil drops.  This counts
     instructions in the binary, not the loads a CTA issues at run time
     (no profiler counter is available)."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import sass
+    t0 = time.perf_counter()
     loads, foils = {}, set()
-    for name in _build.KERNELS:
-        for fn, instrs in sass.functions(_build._target(name)).items():
-            loads[fn] = sum("LDG" in i for i in instrs)
-            if name.endswith("_foil"):
-                foils.add(fn)
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:    # one cuobjdump each
+        dumps = pool.map(lambda n: sass.functions(_build._target(n)), _build.KERNELS)
+        for name, fns in zip(_build.KERNELS, dumps):
+            for fn, instrs in fns.items():
+                loads[fn] = sum("LDG" in i for i in instrs)
+                if name.endswith("_foil"):
+                    foils.add(fn)
     # mangled template arguments end in the staging code, then the void
     # return type: ...Li0EEv... (the tap-sums' argument type names its
     # rank, tap_slots(R, 2), as Li2EE too)
@@ -510,7 +519,8 @@ def sass_loads(_build) -> None:
                                         f"its default twin {loads[base]}")
                 pairs.setdefault(st, set()).add((n, loads[base]))
     print("  sass global loads per instantiation, foil vs default twin: "
-          + "; ".join(f"{st} {sorted(v)}" for st, v in pairs.items()))
+          + "; ".join(f"{st} {sorted(v)}" for st, v in pairs.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def plain_chain(step, x: torch.Tensor, t: int):
@@ -814,7 +824,9 @@ def start_count_loads() -> subprocess.Popen:
 
 
 def finish_count_loads(child: subprocess.Popen) -> None:
+    t0 = time.perf_counter()
     out, _ = child.communicate(timeout=600)
+    print(f"load count: waited {time.perf_counter() - t0:.1f} s for the counting child")
     for line in out.splitlines():
         print(f"  {line}")
     check(child.returncode == 0,
@@ -834,9 +846,13 @@ def phase_count_loads(mods) -> None:
     check(os.environ.get("REPRO_COUNT_LOADS") == "1",
           "load count: REPRO_COUNT_LOADS=1 is not set")
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"load count: the counting builds of all {len(_build.KERNELS)} "
-          f"libraries in {time.perf_counter() - t0:.1f} s")
+    # every library this child launches: all but the cluster forms of the
+    # 3D tap-sum and the compacted slab, which no counted run takes
+    names = tuple(k for k in _build.KERNELS
+                  if k not in ("stencil_direct3d_cluster", "stencil_sparse3d_cluster"))
+    _build.build_all(names)
+    print(f"load count: the counting builds of {len(names)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     def counts(lib):
         fn = _build.library(lib).repro_load_counts
@@ -889,14 +905,18 @@ def phase_count_loads(mods) -> None:
 #: rank (fused_direct under the boundary path's spec), each a box of
 #: radius 1; then phase wide's deep cells: Box-2D7R at t = 8 composed
 #: (the 2D fold 128 deep, h = 56) and Box-3D2R at t = 5 (h = 10) on the
-#: 3D tap-sum's rings.  Rows: (path, backend, boundary, radius, t).
+#: 3D tap-sum's rings, and at t = 6 (h = 12) the composed slab over a
+#: cluster of 8 CTAs split by dz, whose CTAs each stage the planes their
+#: bands read and count as one (csrc/cluster.cuh).  Rows: (path, backend,
+#: boundary, radius, t).
 AUDIT_RUNS = ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul")
 AUDIT_EXTRA = (("3D", "direct", None, 1, MAIN_T),
                ("2D", "fused_direct", BOUNDARY_PATHS["2D"][2], 1, MAIN_T),
                ("3D", "fused_direct", BOUNDARY_PATHS["3D"][2], 1, MAIN_T),
                ("1D", "fused_direct", BOUNDARY_PATHS["1D"][2], 1, MAIN_T),
                ("2D", "fused_matmul", None, 7, 8),
-               ("3D", "fused_direct", None, 2, 5))
+               ("3D", "fused_direct", None, 2, 5),
+               ("3D", "fused_matmul", None, 2, 6))
 
 
 def phase_audit(mods) -> None:
@@ -911,7 +931,8 @@ def phase_audit(mods) -> None:
     import ctypes
     kernels, sm, sd, weights, ss = mods
     wrappers = {"direct": sd, "matmul": sm, "sparse_matmul": ss}
-    from repro_torch.kernels import _build, registry
+    from repro_torch.audit.scratch import launch_layout
+    from repro_torch.kernels import _build, common, registry
     from repro_torch.stencil import StencilSpec
 
     def counts(lib):
@@ -939,6 +960,8 @@ def phase_audit(mods) -> None:
         check(rep.ok, f"audit {tag}: {rep.summary()}")
         launch = registry.get_backend(backend).audit(plan.ctx).launches[0]
         lib = wrappers[launch.engine].kernel_source(dim)
+        if isinstance(launch_layout(launch), common.ClusterLayout):
+            lib += "_cluster"                   # the cluster form's library
         staged = rep.check("blocks/staged-cells").actual
         want = (staged["per_cta_least"], staged["per_cta_most"])
         x = grid(shape, torch.float32, seed=0)
@@ -2072,16 +2095,16 @@ WIDE_KERNELS = {
         (("box", 5, 1), ("box", 7, 1), ("star", 7, 4), ("box", 7, 5), ("box", 7, 8)),
         ("reflect", "periodic")),
     3: (((128, 128, 128), (60, 70, 130)),
-        (("box", 5, 1), ("box", 7, 1), ("box", 2, 5), ("star", 2, 6), ("box", 2, 7)),
+        (("box", 5, 1), ("box", 7, 1), ("box", 2, 5), ("star", 2, 6), ("box", 2, 7),
+         ("box", 2, 8)),
         ("replicate", "reflect", "periodic")),
     1: (((2**20 + 3,),), (("box", 5, 1), ("box", 7, 4), ("box", 7, 8)), "reflect"),
 }
 #: The kernel checks whose launch must refuse, by (rank, kernel, halo,
-#: operands): the 3D tap-sum's rings past h = 10 and the composed slab of
-#: TF32 operands past it (of bf16 ones past h = 12) fit no tile.
-WIDE_REFUSED = {(3, "tap-sum", 12, "f32"), (3, "tap-sum", 14, "f32"),
-                (3, "composed", 12, "tf32"), (3, "composed", 14, "tf32"),
-                (3, "composed", 14, "bf16")}
+#: operands): none.  The 3D tap-sum's rings past h = 10, the composed slab
+#: past it and the reuse slabs at h = 16, which fit no one CTA, launch
+#: over a thread-block cluster (csrc/cluster.cuh).
+WIDE_REFUSED = set()
 #: The main paths: (label, grid, pattern, fusion depths); every regime,
 #: and auto, of each (pattern, t) against ``reference``.
 WIDE_PATHS = (("2D", (8192, 8192), "Box-2D7R", tuple(range(1, 9))),
@@ -2094,7 +2117,15 @@ WIDE_REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
 WIDE_REPORT = (("stencil_direct (r=7)", "2D", "Box-2D7R", 4, "tap-sum"),
                ("stencil_banded (depth 128)", "2D", "Box-2D7R", 8, "composed"),
                ("stencil_direct3d (h=10)", "3D", "Box-3D2R", 5, "tap-sum"),
-               ("stencil_banded3d (h=10)", "3D", "Box-3D2R", 5, "reuse"))
+               ("stencil_banded3d (h=10)", "3D", "Box-3D2R", 5, "reuse"),
+               ("stencil_direct3d (cluster, h=12)", "3D", "Box-3D2R", 6, "tap-sum"),
+               ("stencil_banded3d (cluster, composed h=12)", "3D", "Box-3D2R", 6,
+                "composed"),
+               ("stencil_direct3d (cluster, h=16)", "3D", "Box-3D2R", 8, "tap-sum"),
+               ("stencil_banded3d (cluster, composed h=16)", "3D", "Box-3D2R", 8,
+                "composed"),
+               ("stencil_banded3d (cluster, reuse h=16)", "3D", "Box-3D2R", 8, "reuse"),
+               ("stencil_sparse3d (cluster, h=16)", "3D", "Box-3D2R", 8, "sparse"))
 
 
 #: ``python3 chip_smoke.py --wide`` runs the build and phase ``wide`` alone.
@@ -2245,11 +2276,13 @@ def wide_path(mods, label, shape, pattern, ts, card):
     fusion depth of ``ts`` through ``stencil_plan``, the launch counts set
     to 0 just before the run and read just after it; each plan held
     against ``reference`` (the phase-3 limits; the reference one step at a
-    time) with its exact launches; a plan that cannot launch must raise
-    "too deep" naming its regime when built (only in 3D: the tap-sum's
-    rings and the composed slab past h = 10, the reuse slab past h = 14).
-    Then every plan that ran is timed with CUDA events (a plan slower than
-    0.2 s a call once: the reuse slabs at h = 14 take over a second).
+    time) with its exact launches, a 3D fused plan whose layout fits no
+    one CTA (the tap-sum's rings and the composed slab past h = 10, the
+    reuse slabs at h = 16) as one launch of its kernel's cluster form
+    (``<kernel> (cluster)``); a plan that cannot launch would raise "too
+    deep" naming its regime when built (none does).  Then every plan that
+    ran is timed with CUDA events (a plan slower than 0.2 s a call, or a
+    cluster form's, once: the reuse slabs at h = 14 take over a second).
     Returns the run's counts and the times by (t, regime)."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
@@ -2284,6 +2317,8 @@ def wide_path(mods, label, shape, pattern, ts, card):
             after = kernels.launch_counts()
             kname, n = expected_launches(plan.backend, t, dim)
             delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            if dim == 3 and n == 1 and delta == {f"{kname} (cluster)": 1}:
+                kname += " (cluster)"
             check(delta == {kname: n}, f"{tag}: launches {delta}, expected {n} of {kname}")
             check(tuple(y.shape) == shape and bool(torch.isfinite(y).all()),
                   f"{tag}: shape or non-finite")
@@ -2296,10 +2331,12 @@ def wide_path(mods, label, shape, pattern, ts, card):
     counts = kernels.launch_counts()
     for k in {r[3] for r in ran}:
         check(counts[k] > 0, f"wide: kernel {k} was not launched on the {label} path")
+    check(not refused, f"wide: {label} {pattern} refused {refused}")
     del ref, step
     times = {}
     for t, backend, plan, kname, n, first, err, tol in ran:
-        ms = (cuda_ms(lambda: plan(x), reps=3, warmup=1) if first < 0.2
+        ms = (cuda_ms(lambda: plan(x), reps=3, warmup=1)
+              if first < 0.2 and not kname.endswith("(cluster)")
               else cuda_ms(lambda: plan(x), reps=1, warmup=0))
         times[(t, backend or "auto")] = ms
         print(f"  {pattern} t={t:<2d} {backend or 'auto':20s} {plan.backend:20s} "
@@ -2320,11 +2357,12 @@ def wide_report(mods, counts, card) -> list:
     (TF32), with the bound of the FLOPs the stencil needs (2 per nonzero
     tap, point and step; the composed kernel's taps, one step) at the
     unit's peak, or the bytes of one read and one write at 3.35 TB/s.  The
-    plain version (0.24-0.61 s a call) and the F.conv of a 57^2, 113^2 or
-    21^3 kernel (4-52 s) are timed once each, after the plain version's
-    checked call and with no warm-up for the F.conv, once for the two 3D
-    entries, which share its call."""
-    _, sm, sd, weights, ss = mods
+    plain version (0.24-3.2 s a call) is timed in its checked call, and
+    the F.conv of a 57^2, 113^2 or 21^3 to 33^3 kernel (4-52 s) once, with
+    no warm-up, once for the 3D entries of one (pattern, t), which share
+    its call; the kernels' calls over 5 after one, the cluster forms' over
+    3."""
+    kernels, sm, sd, weights, ss = mods
     from repro_torch.stencil import StencilSpec, make_weights
     report, library = [], {}
     for name, label, pattern, t, what in WIDE_REPORT:
@@ -2347,34 +2385,53 @@ def wide_report(mods, counts, card) -> list:
             from repro_torch.kernels import common
             wk, tk = (wf, 1) if what == "composed" else (w, t)
             rk = (wk.shape[0] - 1) // 2
+            mod, at = ((ss, ss.stencil_sparse_matmul_at) if what == "sparse"
+                       else (sm, sm.stencil_matmul_at))
             geom = common.launch_geom(shape, tk * rk,
-                                      need=sm.tile_need(shape, wk, tk, x.dtype, x.dtype))
-            kern = lambda: sm.stencil_matmul_at(x, wk, tk, geom)  # noqa: E731
+                                      need=mod.tile_need(shape, wk, tk, x.dtype, x.dtype))
+            kern = lambda: at(x, wk, tk, geom)  # noqa: E731
             plain = lambda: sm.stencil_matmul_plain(x, wk, tk)  # noqa: E731
             peak, tol = TF32_FLOPS, t * 2**-10 * float(np.abs(w).sum()) * mx
             ops = (2 * int(np.count_nonzero(wf)) * n if what == "composed"
                    else t * 2 * int(np.count_nonzero(w)) * n)
-            base = "stencil_banded"
+            base = "stencil_sparse" if what == "sparse" else "stencil_banded"
         kname = kernel_name(base, dim)
+        kernels.reset_launch_counts()
         y = kern()
-        err = max_err(y, plain())
-        del y
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(len(moved) == 1 and next(iter(moved)) in (kname, f"{kname} (cluster)")
+              and next(iter(moved.values())) == 1,
+              f"wide report {name}: launches {moved}, expected one of {kname} or its "
+              "cluster form")
+        counter = next(iter(moved))
+        ctas = kernels.cluster_ctas().get(counter, 1)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = plain()
+        b.record()
+        b.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = max_err(y, ref)
+        del y, ref
         check(err <= tol, f"wide report {name}: max|err| vs plain {err:.3e} > tol {tol:.3e}")
         bytes_ms, ops_ms = 2 * n * 4 / HBM_BPS * 1e3, ops / peak * 1e3
         entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[kname][0],
-                 "replaces": KERNEL_SOURCES[kname][1], "launches": counts[label][kname],
-                 "max_abs_err": err, "ms": cuda_ms(kern, reps=5, warmup=1),
-                 "plain_ms": cuda_ms(plain, reps=1, warmup=0),
+                 "replaces": KERNEL_SOURCES[kname][1], "launches": counts[label][counter],
+                 "max_abs_err": err, "ms": cuda_ms(kern, reps=3 if ctas > 1 else 5,
+                                                   warmup=1),
+                 "plain_ms": plain_ms,
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                  "library_ms": library.get((label, pattern, t)),
                  "tile": f"{geom.z_slab}x{geom.strip_m}x{geom.w_tile}" if dim == 3
-                         else f"{geom.strip_m}x{geom.w_tile}"}
+                         else f"{geom.strip_m}x{geom.w_tile}", "cluster_ctas": ctas}
         if entry["library_ms"] is None:
             entry["library_ms"] = library[(label, pattern, t)] = cuda_ms(
                 conv_yardstick(x, wf, True), reps=1, warmup=0)
         report.append(entry)
-        print(f"  kernel {name} ({pattern} t={t}, tile {entry['tile']}): {entry['ms']:.4f} ms "
+        print(f"  kernel {name} ({pattern} t={t}, tile {entry['tile']}, {ctas} CTA"
+              f"{'s' if ctas > 1 else ''} a tile): {entry['ms']:.4f} ms "
               f"(bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}), plain "
               f"{entry['plain_ms']:.4f} ms, F.conv{dim}d of the composed kernel (TF32) "
               f"{entry['library_ms']:.4f} ms, max|err| vs plain {err:.3e}, "
@@ -2384,10 +2441,202 @@ def wide_report(mods, counts, card) -> list:
     return report
 
 
+#: Phase wide's foils (K8-K10) at the wide radii and past contraction
+#: depth 64: (name, rank, radius, t, staging, what), each a Box stencil,
+#: periodic, on the reserves' tile (the 128-deep composed contraction on
+#: its own layout's 64 x 64, whose whole strips cover h = 56): checked and
+#: timed on WIDE_FOIL_GRIDS, whose plain versions and F.conv yardsticks
+#: are short, and held bit for bit to the default kernel on the main
+#: paths' grids (WIDE_PATHS: 8192^2, 512^3), where the guard's ladder
+#: reaches them.
+WIDE_FOILS = (("stencil_direct (wholestrip, r=5)", 2, 5, 1, "wholestrip", "tap-sum"),
+              ("stencil_direct (wholestrip, r=7)", 2, 7, 1, "wholestrip", "tap-sum"),
+              ("stencil_direct (9tile, r=5)", 2, 5, 1, "9tile", "tap-sum"),
+              ("stencil_direct (9tile, r=7)", 2, 7, 1, "9tile", "tap-sum"),
+              ("stencil_direct3d (wholeslab, r=5)", 3, 5, 1, "wholestrip", "tap-sum"),
+              ("stencil_direct3d (wholeslab, r=7)", 3, 7, 1, "wholestrip", "tap-sum"),
+              ("stencil_banded (wholestrip, depth 128)", 2, 7, 8, "wholestrip",
+               "composed"))
+WIDE_FOIL_GRIDS = {2: (1024, 1024), 3: (128, 128, 128)}
+#: The guarded wide plans: auto (matmul) of (pattern, the card's grid, the
+#: CPU's grid) at t=1 under a fault spec that fails auto, auto+degraded,
+#: fused_direct and direct, so the ladder lands on the whole-strip (2D) or
+#: whole-slab (3D) tap-sum foil at r = 7.  The CPU runs the plain rungs on a
+#: grid whose auto decision, and so whose ladder, is the card grid's.
+WIDE_GUARDS = (("Box-2D7R", (8192, 8192), (1024, 1024)),
+               ("Box-3D7R", (512, 512, 512), (32, 32, 32)))
+WIDE_GUARD_SPEC = "compile:4"
+
+
+def wide_foil_call(mods, dim, r, t, staging, what, shape):
+    """One WIDE_FOILS call on ``shape``: ``(x, w, run, plain, tol, counter,
+    kname, ops_ms, wf, geom)``, ``run(staging)`` the launch on the foil's
+    tile with that staging ("region": the default kernel)."""
+    _, sm, sd, weights, _ = mods
+    from repro_torch.kernels import common
+    from repro_torch.stencil import StencilSpec
+    w = weights.make_weights(StencilSpec("box", dim, r), seed=0)
+    x = grid(shape, torch.float32, seed=0)
+    n, mx, sw = x.numel(), float(x.abs().max()), float(np.abs(w).sum())
+    if what == "tap-sum":
+        geom = common.launch_geom(shape, t * r)
+        run = lambda st: sd.stencil_direct_at(x, w, t, geom, staging=st)  # noqa: E731
+        plain = lambda: sd.stencil_direct_plain(x, w, t)  # noqa: E731
+        tol, base, wf = 1e-5 * t * mx, "stencil_direct", w
+        ops = t * 2 * int(np.count_nonzero(w)) * n / FP32_FLOPS
+    else:
+        wf = weights.fuse_weights(w, t)
+        geom = common.launch_geom(shape, t * r, need=sm.tile_need(
+            shape, wf, 1, x.dtype, x.dtype))
+        run = lambda st: sm.stencil_matmul_at(x, wf, 1, geom, staging=st)  # noqa: E731
+        plain = lambda: sm.stencil_matmul_plain(x, wf, 1)  # noqa: E731
+        tol, base = t * 2**-10 * sw * mx, "stencil_banded"
+        ops = 2 * int(np.count_nonzero(wf)) * n / TF32_FLOPS
+    kname = kernel_name(base, dim)
+    counter = f"{kname} ({'wholeslab' if dim == 3 else staging})"
+    return x, w, run, plain, tol, counter, kname, ops * 1e3, wf, geom
+
+
+def wide_foils(mods, card) -> list:
+    """The WIDE_FOILS calls: each foil's launch (``stencil_*_at`` with the
+    foil's staging) against the default kernel of the same call and tile,
+    bit for bit, and against the plain version and the ``reference``
+    backend (phase wide's reference limits: the tap-sum 1e-5 t max|x|, the
+    composed contraction t 2^-10 sum|w| max|x| against t reference steps);
+    then timed beside the default kernel, the plain version and
+    one F.conv of the composed kernel (TF32): the plain version once, the
+    foil's and the default's 5 calls and the F.conv's 3 after one (on these small
+    grids cuDNN's first call is mostly its set-up).  Returns their JSON
+    entries, launches counted over the checked calls."""
+    kernels = mods[0]
+    from repro_torch.kernels import stencil_plan
+    report = []
+    for name, dim, r, t, staging, what in WIDE_FOILS:
+        shape = WIDE_FOIL_GRIDS[dim]
+        x, w, run, plain, tol, counter, kname, ops_ms, wf, geom = wide_foil_call(
+            mods, dim, r, t, staging, what, shape)
+        kernels.reset_launch_counts()
+        y = run(staging)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()[counter]
+        diff = max_err(y, run("region"))
+        err = max_err(y, plain())
+        err_ref = max_err(y, stencil_plan(w, shape, torch.float32, t,
+                                          backend="reference")(x))
+        tag = f"wide foil {name} {shape}, tile {geom.strip_m}x{geom.w_tile}"
+        check(launches == 1, f"{tag}: {launches} launches of {counter}")
+        check(diff == 0.0, f"{tag}: differs from the default kernel by {diff:.3e}")
+        check(err <= tol, f"{tag}: max|err| vs plain {err:.3e} > tol {tol:.3e}")
+        check(err_ref <= tol, f"{tag}: max|err| vs reference {err_ref:.3e} > tol {tol:.3e}")
+        del y
+        bytes_ms = 2 * x.numel() * 4 / HBM_BPS * 1e3
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[kname][0],
+                 "replaces": FOIL_REPLACES["9tile_direct" if staging == "9tile"
+                                           else "wholestrip"],
+                 "launches": launches, "max_abs_err": err,
+                 "ms": cuda_ms(lambda: run(staging), reps=5, warmup=1),
+                 "plain_ms": cuda_ms(plain, reps=1, warmup=0),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": cuda_ms(conv_yardstick(x, wf, True), reps=3, warmup=1),
+                 "default_ms": cuda_ms(lambda: run("region"), reps=5, warmup=1)}
+        report.append(entry)
+        print(f"  {tag}: = the default kernel bit for bit, max|err| vs plain {err:.3e}, "
+              f"vs reference {err_ref:.3e} (tol {tol:.3e}); {entry['ms']:.4f} ms (default "
+              f"{entry['default_ms']:.4f}, "
+              f"bound {entry['bound_ms']:.4f} by {entry['bound_by']}, plain "
+              f"{entry['plain_ms']:.4f}, F.conv{dim}d {entry['library_ms']:.4f}); on {card}")
+        del x
+    return report
+
+
+def wide_foils_full(mods, report, card) -> None:
+    """Each WIDE_FOILS call on its main path's grid (WIDE_PATHS), the
+    launch counts set to 0 just before it: one launch of the foil, equal
+    to the default kernel's call on the same tile bit for bit; the two
+    calls' times (CUDA events, one call each after one) go into the foil's
+    JSON entry of ``report`` as ``full_grid``, ``full_ms`` and
+    ``full_default_ms``."""
+    kernels = mods[0]
+    grids = {len(g): g for _, g, _, _ in WIDE_PATHS}
+    for entry, (name, dim, r, t, staging, what) in zip(report, WIDE_FOILS):
+        shape = grids[dim]
+        x, _, run, _, _, counter, _, _, _, geom = wide_foil_call(
+            mods, dim, r, t, staging, what, shape)
+        kernels.reset_launch_counts()
+        y = run(staging)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        diff = max_err(y, run("region"))
+        del y
+        tile = (f"{geom.z_slab}x" if dim == 3 else "") + f"{geom.strip_m}x{geom.w_tile}"
+        tag = f"wide foil {name} {shape}, tile {tile}"
+        check(launches == {counter: 1}, f"{tag}: launches {launches}")
+        check(diff == 0.0, f"{tag}: differs from the default kernel by {diff:.3e}")
+        entry.update(full_grid="x".join(map(str, shape)),
+                     full_ms=cuda_ms(lambda: run(staging), reps=1, warmup=1),
+                     full_default_ms=cuda_ms(lambda: run("region"), reps=1, warmup=1))
+        print(f"  {tag}: one launch, = the default kernel bit for bit; "
+              f"{entry['full_ms']:.4f} ms (default {entry['full_default_ms']:.4f}); on {card}")
+        del x
+        torch.cuda.empty_cache()
+
+
+def wide_guarded(mods) -> None:
+    """WIDE_GUARDS: each guarded plan on the card, on its main path's grid,
+    under WIDE_GUARD_SPEC must fail the rungs the same guarded plan fails
+    on the CPU (JAX's ladder) and land where it lands, on a whole-strip or
+    whole-slab foil, with one launch of its kernel, the launch counts set
+    to 0 just before its call; and match the reference."""
+    kernels = mods[0]
+    from repro_torch.kernels import (clear_plan_cache, guarded_stencil_plan,
+                                     stencil_plan)
+    from repro_torch.stencil import StencilSpec, make_weights
+    from repro_torch.testing import faults
+    spec = WIDE_GUARD_SPEC
+    for pattern, shape, cpu_shape in WIDE_GUARDS:
+        w = make_weights(StencilSpec.from_name(pattern), seed=0)
+        rungs = {}
+        for device, sh in (("cpu", cpu_shape), ("cuda", shape)):
+            x = grid(sh, torch.float32, seed=0)
+            clear_plan_cache()
+            os.environ["REPRO_FAULTS"] = spec
+            faults.reset_faults()
+            try:
+                g = guarded_stencil_plan(w, sh, torch.float32, 1, device=device)
+                kernels.reset_launch_counts()
+                y = g(x.cpu() if device == "cpu" else x)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            finally:
+                os.environ.pop("REPRO_FAULTS", None)
+                faults.reset_faults()
+                clear_plan_cache()
+            rungs[device] = (g.rung, [h["rung"] for h in g.history], counts)
+        rung, history, counts = rungs["cuda"]
+        check((rung, history) == rungs["cpu"][:2] and rung.endswith("_wholestrip"),
+              f"wide guarded {pattern}: the card fails {history} and lands on "
+              f"{rung!r}, the CPU fails {rungs['cpu'][1]} and lands on {rungs['cpu'][0]!r}")
+        kname, n = expected_launches(rung, 1, len(shape))
+        check(counts == {kname: n}, f"wide guarded {pattern}: launches {counts}")
+        ref = stencil_plan(w, shape, torch.float32, 1, backend="reference")(x)
+        err, tol = max_err(y, ref), 1e-5 * float(x.abs().max())
+        check(err <= tol, f"wide guarded {pattern}: max|err| {err:.3e} > {tol:.3e}")
+        print(f"wide guarded {pattern} t=1 {shape}: REPRO_FAULTS={spec} fails "
+              f"{', '.join(history)}; lands on {rung} as on the CPU ({cpu_shape}) "
+              f"(launches {counts}, max|err| vs reference {err:.3e})")
+        del x, y, ref
+        torch.cuda.empty_cache()
+
+
 def phase_wide(mods, card) -> list:
     """Phase ``wide``: the kernel checks (``wide_kernels``), the main
-    paths (``wide_path``), Figure 16's Box-2D7R row on both paths, and the
-    phase's JSON entries (``wide_report``)."""
+    paths (``wide_path``), Figure 16's Box-2D7R row on both paths, the
+    foils at r = 5 and 7 and 128 deep on small grids (``wide_foils``) and
+    on the main paths' grids (``wide_foils_full``), the guarded plans
+    landing on a foil rung (``wide_guarded``), and the phase's JSON
+    entries (``wide_foils``, ``wide_report``)."""
     from repro_torch.benchmarks import fig16
     t0 = time.perf_counter()
     wide_kernels(mods)
@@ -2405,7 +2654,12 @@ def phase_wide(mods, card) -> list:
     check("refused" not in row, f"wide: fig16 Box-2D7R: {row}")
     print(f"wide: {head}\nwide: {row}")
     t1 = time.perf_counter()
-    report = wide_report(mods, counts, card)
+    report = wide_foils(mods, card)
+    wide_foils_full(mods, report, card)
+    wide_guarded(mods)
+    print(f"wide: foils and the guarded plan in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    report += wide_report(mods, counts, card)
     print(f"wide: report in {time.perf_counter() - t1:.1f} s; phase in "
           f"{time.perf_counter() - t0:.1f} s")
     return report
@@ -3536,8 +3790,10 @@ def main() -> int:
     try:
         # the dry run needs no card: its chains run beside every phase
         dry = start_dryrun()
-        card = phase_build(kernels)
+        card = phase_build(kernels, sass=False)
         child = start_count_loads()
+        from repro_torch.kernels import _build
+        sass_loads(_build)
         phase_kernels_vs_plain(mods)
         phase_foils_vs_plain(mods)
         phase_batch_kernels(mods)

@@ -50,15 +50,20 @@ MATRIX = [
 
 #: The wide stencils and deep halos the reserves admit no tile for (the
 #: tile rule's second half, csrc's radius-7 tap-sums, the 2D and 1D folds
-#: past contraction depth 64), at sizes the sweep walks quickly: Box-2D7R
-#: at t = 4 and 8 (h = 28, 56; fused_matmul 72 and 128 deep), Box-3D2R at
-#: t = 5 and 7 (h = 10, 14), a radius-7 line at t = 8, and a zero boundary
-#: row.
+#: past contraction depth 64; its third rung, the 3D layouts spread over a
+#: thread-block cluster), at sizes the sweep walks quickly: Box-2D7R at t
+#: = 4 and 8 (h = 28, 56; fused_matmul 72 and 128 deep), Box-3D2R at t =
+#: 5, 6 and 8 and Star-3D2R at t = 7 (h = 10, 12, 16, 14: the tap-sum's
+#: rings and the composed slab past one CTA from h = 12, the reuse slabs,
+#: dense and compacted, at h = 16), a radius-7 line at t = 8, and a zero
+#: boundary row.
 WIDE_CELLS = [
     ((256, 320), 4, dict(dim=2, radius=7, shape="box"), {}),
     ((200, 300), 8, dict(dim=2, radius=7, shape="box"), {}),
     ((40, 72, 100), 5, dict(dim=3, radius=2, shape="box"), {}),
     ((40, 72, 100), 7, dict(dim=3, radius=2, shape="star"), {}),
+    ((40, 72, 100), 6, dict(dim=3, radius=2, shape="box"), {}),
+    ((40, 72, 100), 8, dict(dim=3, radius=2, shape="box"), {}),
     ((5000,), 8, dict(dim=1, radius=7, shape="box"), {}),
     ((200, 300), 5, dict(dim=2, radius=7, shape="star"),
      dict(boundary=("zero", "reflect"))),

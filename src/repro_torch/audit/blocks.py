@@ -132,13 +132,41 @@ def direct_staged_row(launch) -> int:
 def staged_per_cta(launch, windows_cells: int) -> int:
     """Cells one CTA of a 2D or 3D launch copies from global memory: the
     tap-sums' region staging copies whole granules (rows x ld per plane),
-    the folds' and every foil's staging its windows' cells."""
+    the folds' and every foil's staging its windows' cells.  A launch
+    spread over a thread-block cluster counts once per cluster, its CTAs'
+    staging added (``csrc/cluster.cuh``, as the counting build counts
+    it): the slab fold split by dz stages the TZ - 1 planes after each
+    CTA's dz range in every CTA, (C - 1)(TZ - 1) planes more than the
+    region."""
+    if launch.family == "slab_fold" and launch.staging == "region":
+        lay = _cluster_of(launch)
+        if lay is not None and lay.kind == "dz":
+            g, h = launch.geom, launch.total_halo
+            planes = g.z_slab + 2 * h
+            return windows_cells // planes * (
+                planes + (lay.ctas - 1) * (g.z_slab - 1))
     if launch.staging != "region" or launch.family not in ("tapsum2d",
                                                            "tapsum3d"):
         return windows_cells
     g, h = launch.geom, launch.total_halo
     planes = g.z_slab + 2 * h if g.dim == 3 else 1
     return planes * (g.strip_m + 2 * h) * direct_staged_row(launch)
+
+
+_CLUSTERS: dict = {}
+
+
+def _cluster_of(launch):
+    """The launch's :class:`common.ClusterLayout`, or None on one CTA
+    (cached per launch: the walks ask once per CTA)."""
+    key = id(launch)
+    if key not in _CLUSTERS or _CLUSTERS[key][0] is not launch:
+        from .scratch import launch_layout
+        lay = launch_layout(launch)
+        _CLUSTERS.clear()
+        _CLUSTERS[key] = (launch, lay if isinstance(
+            lay, common.ClusterLayout) else None)
+    return _CLUSTERS[key][1]
 
 
 def line_staged(launch, cells: int, offset_cells: int = 0) -> int:
@@ -539,8 +567,8 @@ def operand_bytes_per_cta(launch, layout=None) -> int:
     """Bytes of the banded operand one CTA of the launch stages, from the
     layout it launches with: the 2D / 3D folds' Toeplitz rows, every warp
     of a line fold its band fragments."""
-    from .scratch import launch_layout
-    lay = layout if layout is not None else launch_layout(launch)
+    from .scratch import _one, launch_layout
+    lay = _one(layout if layout is not None else launch_layout(launch))
     cb = launch.compute_bytes
     if launch.family == "line_fold":
         k_step = common.mma_k_step(cb)

@@ -291,11 +291,25 @@ def tile_fold_cta(launch) -> Count:
     return c
 
 
+def _planes_split(launch):
+    """The owned region planes ``[(lo, hi), ...]`` of each CTA of a slab
+    fold spread over a cluster by planes (kind ``"planes"``: the reuse
+    folds past one CTA), or None on one CTA."""
+    from .blocks import _cluster_of
+    lay = _cluster_of(launch) if launch.staging == "region" else None
+    if lay is None or lay.kind != "planes":
+        return None
+    return list(zip(lay.split, lay.split[1:]))
+
+
 def slab_fold_cta(launch) -> Count:
-    """One CTA of ``slab_fold.cuh``: per step and 16-column chunk, its
-    (plane, row) tiles in passes of at most SLAB_PASS_TILES, every warp
-    TPW slots, each over every band's k-steps, the second n8 half where
-    the chunk holds outputs."""
+    """One CTA of ``slab_fold.cuh`` (of a cluster, all its CTAs): per step
+    and 16-column chunk, its (plane, row) tiles in passes of at most
+    SLAB_PASS_TILES, every warp TPW slots, each over every band's
+    k-steps, the second n8 half where the chunk holds outputs.  A cluster
+    split by planes runs each CTA's own output pairs in its own passes; one
+    split by dz runs every pair in every CTA over its bands (the sums per
+    slot add up to every band's, the one-CTA count)."""
     g, r, t, h = launch.geom, launch.radius, launch.t_inner, \
         launch.total_halo
     per, zero = _mma_per_slot(launch)
@@ -303,18 +317,30 @@ def slab_fold_cta(launch) -> Count:
     c = Count()
     for s in range(t):
         po, ho, wo = pin - 2 * r, hin - 2 * r, win - 2 * r
-        ntiles = _ceil(po * ho, common.MMA_TILE)
-        for c0 in range(0, wo, common.BAND_N):
-            halves = 1 + (c0 + 8 < wo)
-            for base in range(0, ntiles, common.SLAB_PASS_TILES):
-                n = min(common.SLAB_PASS_TILES, ntiles - base)
-                c["mma_issued"] += 8 * _ceil(n, 8) * per * halves
-                c["zero_k4"] += 8 * _ceil(n, 8) * zero * halves
-                c["mma_tiles"] += n * per * halves
-                c["points"] += n * common.MMA_TILE * 8 * halves
+        for lo, hi in _planes_split(launch) or [(0, po)]:
+            ntiles = _ceil(max(0, min(hi, po) - lo) * ho, common.MMA_TILE)
+            for c0 in range(0, wo, common.BAND_N):
+                halves = 1 + (c0 + 8 < wo)
+                for base in range(0, ntiles, common.SLAB_PASS_TILES):
+                    n = min(common.SLAB_PASS_TILES, ntiles - base)
+                    c["mma_issued"] += 8 * _ceil(n, 8) * per * halves
+                    c["zero_k4"] += 8 * _ceil(n, 8) * zero * halves
+                    c["mma_tiles"] += n * per * halves
+                    c["points"] += n * common.MMA_TILE * 8 * halves
         c["exact"] += po * ho * wo
         pin, hin, win = po, ho, wo
     return c
+
+
+def cluster_adds(launch) -> int:
+    """The f32 adds of a slab fold split by dz over C CTAs: each output
+    cell of the grid takes the C partial sums, C - 1 adds."""
+    from .blocks import _cluster_of
+    lay = (_cluster_of(launch) if launch.family == "slab_fold"
+           and launch.staging == "region" else None)
+    if lay is None or lay.kind != "dz":
+        return 0
+    return (lay.ctas - 1) * math.prod(launch.grid_shape)
 
 
 def line_fold_warp(launch) -> Count:
@@ -361,8 +387,9 @@ def mirror_launch(launch) -> Count:
             c += tapsum3d_cta(launch, k0).scaled(per_z)
         return c
     one = {"tapsum2d": tapsum2d_cta, "tile_fold": tile_fold_cta,
-           "slab_fold": slab_fold_cta}[fam](launch)
-    return one.scaled(ctas)
+           "slab_fold": slab_fold_cta}[fam](launch).scaled(ctas)
+    one["add"] += cluster_adds(launch)
+    return one
 
 
 def independent_count(launch) -> dict:
@@ -408,6 +435,21 @@ def independent_count(launch) -> dict:
     if fam == "tile_fold":
         tiles = common.tile_fold_tiles(g.strip_m, g.w_tile, launch.radius,
                                        launch.t_inner)
+    elif _planes_split(launch) is not None:
+        # a cluster split by planes: each CTA's output pairs in 16-row
+        # tiles of their own, per step and chunk
+        r, t, h = launch.radius, launch.t_inner, launch.total_halo
+        mma = 0
+        for s in range(t):
+            po = g.z_slab + 2 * (h - (s + 1) * r)
+            ho = g.strip_m + 2 * (h - (s + 1) * r)
+            wo = g.w_tile + 2 * (h - (s + 1) * r)
+            halves = sum(1 + (wo - c0 > 8) for c0 in range(0, wo,
+                                                           common.BAND_N))
+            mma += per * halves * sum(
+                _ceil(max(0, min(hi, po) - lo) * ho, common.MMA_TILE)
+                for lo, hi in _planes_split(launch))
+        return {"mma_tiles": mma * math.prod(common.launch_grid(shape, g))}
     else:
         tiles = common.slab_fold_tiles(g.z_slab, g.strip_m, g.w_tile,
                                        launch.radius, launch.t_inner)
@@ -430,7 +472,7 @@ def launch_flops(launch) -> dict:
     (2 m n k per ``S::mma``, every slot) and ``matrix_tiles`` (the real
     tiles'), with the counts and the mma.sync instructions."""
     c = mirror_launch(launch)
-    out = {"vector": 2 * c["fma"], "counts": dict(c)}
+    out = {"vector": 2 * c["fma"] + c["add"], "counts": dict(c)}
     if launch.engine != "direct":
         (m, n, k), instr = mma_shape(launch)
         out.update(matrix=2 * m * n * k * c["mma_issued"],

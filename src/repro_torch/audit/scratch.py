@@ -24,6 +24,13 @@ fixed cell coordinates.  This module verifies, statically and per launch:
   * ``scratch/gather-window``   -- the compacted launches' band metadata,
     as JAX ``scratch.py:57`` proves it, and every band's k-steps covering
     its kept rows inside the copy width ``a_cols``;
+  * ``scratch/cluster-split``   -- a launch whose layout is spread over a
+    thread-block cluster (``common.ClusterLayout``, the tile rule's third
+    rung): 2, 4 or 8 CTAs, the least that fits the budget; every fused
+    step's ring, every band and every region plane owned by exactly one
+    CTA; every plane a CTA's folds read held in its share (its own and
+    the 2R it copies from their owners); each share within the budget
+    (``scratch/slots-partition`` walks every CTA's share);
   * ``scratch/coverage-global`` -- for sampled CTAs and region cells, the
     staged cell at each region coordinate is the global cell the kernel's
     fixed cell coordinates name (the staging origin, the buffer offset --
@@ -35,6 +42,7 @@ fixed cell coordinates.  This module verifies, statically and per launch:
 """
 from __future__ import annotations
 
+import bisect
 import itertools
 import types
 from typing import List
@@ -52,8 +60,16 @@ def _unlifted(launch):
         else launch.weights
 
 
+def _one(lay):
+    """The one-CTA layout of a launch's layout (a cluster's ``base``)."""
+    return lay.base if isinstance(lay, common.ClusterLayout) else lay
+
+
 def launch_layout(launch):
-    """The shared-memory layout the launch's wrapper passes its kernel."""
+    """The shared-memory layout the launch's wrapper passes its kernel (3D:
+    a :class:`common.ClusterLayout` past one CTA, at the budget now)."""
+    from repro_torch.kernels.stencil_direct import direct3d_rings
+    from repro_torch.kernels.stencil_matmul import slab_launch_layout
     from repro_torch.kernels.stencil_sparse import sparse_tile_layout
     g, r, t = launch.geom, launch.radius, launch.t_inner
     h, cb = launch.total_halo, launch.compute_bytes
@@ -61,7 +77,9 @@ def launch_layout(launch):
     if fam == "tapsum2d":
         return common.direct_layout(g.strip_m, g.w_tile, h)
     if fam == "tapsum3d":
-        return common.direct3d_layout(g.strip_m, g.w_tile, r, t)
+        if launch.staging != "region":
+            return common.direct3d_layout(g.strip_m, g.w_tile, r, t)
+        return direct3d_rings(g, r, t)
     if fam == "tapsum1d":
         return common.direct1d_layout(g.w_tile, h, launch.dtype_bytes)
     if launch.engine == "sparse_matmul":
@@ -72,13 +90,57 @@ def launch_layout(launch):
     n_rows = len(launch.band_rows)
     if fam == "tile_fold":
         return common.tile_fold_layout(g.strip_m, g.w_tile, r, t, cb, n_rows)
-    return common.slab_fold_layout(g.z_slab, g.strip_m, g.w_tile, r, t, cb,
-                                   n_rows)
+    if launch.staging != "region":
+        return common.slab_fold_layout(g.z_slab, g.strip_m, g.w_tile, r, t,
+                                       cb, n_rows)
+    return slab_launch_layout(g, r, t, cb, tuple(b[0] for b in
+                                                 launch.band_rows),
+                              "3D banded")
 
 
 # ---------------------------------------------------------------------------
 # scratch/slots-partition: the regions the kernel carves, as it carves them
 # ---------------------------------------------------------------------------
+def cluster_regions(launch, lay) -> list:
+    """Per CTA of a cluster launch, :func:`smem_regions` of its share, at
+    the offsets the cluster kernels compute: the 3D tap-sum's rings of its
+    steps from its first (``stencil_direct3d.cu``, ``slot``); a slab
+    fold's planes, then its bands' Toeplitz rows and headers
+    (``slab_fold.cuh``)."""
+    g, h, base = launch.geom, launch.total_halo, lay.base
+    rows0 = g.strip_m + 2 * h
+    out = []
+    for k, (lo, hi) in enumerate(lay.held):
+        regs = []
+        if launch.family == "tapsum3d":
+            i = 0
+            for s in range(lo, hi):
+                for _ in range(base.ring0 if s == 0 else base.ring):
+                    regs.append((f"CTA {k} step {s} slot {i}",
+                                 (common.DIRECT3D_MARGIN + i * base.plane_ld)
+                                 * 4, rows0 * base.ld * 4, 16))
+                    i += 1
+            regs.append((f"CTA {k} end", (common.DIRECT3D_MARGIN
+                                          + i * base.plane_ld) * 4, 0, 1))
+        else:
+            for p in range(hi - lo):
+                regs.append((f"CTA {k} region plane {lo + p}",
+                             p * base.plane_ld * 4, rows0 * base.ld * 4, 16))
+            bands = (lay.rows[k + 1] - lay.rows[k] if lay.kind == "dz"
+                     else base.n_rows)
+            cb = launch.compute_bytes
+            toe = _align128((hi - lo) * base.plane_ld * 4)
+            hdr = toe + _align128(bands * base.toe_ld * cb)
+            regs += [(f"CTA {k} Toeplitz rows", toe, bands * base.toe_ld * cb,
+                      128),
+                     (f"CTA {k} headers", hdr, bands * common.SLAB_HEADER_BYTES,
+                      16),
+                     (f"CTA {k} end", hdr + bands * common.SLAB_HEADER_BYTES,
+                      0, 1)]
+        out.append(regs)
+    return out
+
+
 def smem_regions(launch, lay) -> list:
     """``(name, byte offset, bytes, alignment)`` of every region the
     launch's kernel addresses, at the offsets the ``.cu`` computes from
@@ -140,25 +202,33 @@ def _align128(n: int) -> int:
 
 
 def _slots_check(launch, lay) -> AuditCheck:
-    regions = smem_regions(launch, lay)
-    body = [r for r in regions if r[0] != "end"]
-    end = max(o + n for _, o, n, _ in regions)
-    problems = []
-    spans = sorted((o, o + n, name) for name, o, n, _ in body)
-    for (a0, a1, an), (b0, b1, bn) in zip(spans, spans[1:]):
-        if b0 < a1:
-            problems.append(f"{an} [{a0}, {a1}) overlaps {bn} [{b0}, {b1})")
+    cluster = isinstance(lay, common.ClusterLayout)
+    shares = (cluster_regions(launch, lay) if cluster
+              else [smem_regions(launch, lay)])
+    problems, body, end = [], [], 0
+    for regions in shares:
+        share = [r for r in regions if not r[0].endswith("end")]
+        body += share
+        last = max(o + n for _, o, n, _ in regions)
+        end = max(end, last)
+        spans = sorted((o, o + n, name) for name, o, n, _ in share)
+        for (a0, a1, an), (b0, b1, bn) in zip(spans, spans[1:]):
+            if b0 < a1:
+                problems.append(f"{an} [{a0}, {a1}) overlaps {bn} "
+                                f"[{b0}, {b1})")
+        if last > lay.smem_bytes:
+            problems.append(f"the kernel addresses {last} bytes, the launch "
+                            f"asks for {lay.smem_bytes}")
     for name, o, _, al in body:
         if o % al:
             problems.append(f"{name} at byte {o} is not {al}-byte aligned")
-    if end > lay.smem_bytes:
-        problems.append(f"the kernel addresses {end} bytes, the launch asks "
-                        f"for {lay.smem_bytes}")
     if lay.smem_bytes > common.SMEM_BUDGET_BYTES:
         problems.append(f"{lay.smem_bytes} bytes over the 227 KB budget")
     g = launch.geom
-    bound = common.SMEM_BUDGET_BYTES
-    if launch.family in ("tapsum2d", "tile_fold", "tapsum3d", "slab_fold"):
+    bound = (common.smem_budget_bytes() if cluster
+             else common.SMEM_BUDGET_BYTES)
+    if not cluster and launch.family in ("tapsum2d", "tile_fold",
+                                         "tapsum3d", "slab_fold"):
         # a tile the reserve admits holds the layout to it; past it the
         # rule's second half holds the candidates to the layout itself
         reserve = common.tile_smem_bound(
@@ -168,7 +238,7 @@ def _slots_check(launch, lay) -> AuditCheck:
             bound = reserve
     if lay.smem_bytes > bound:
         problems.append(f"{lay.smem_bytes} bytes over the tile rule's "
-                        f"reserve {bound}")
+                        f"{'budget' if cluster else 'reserve'} {bound}")
     return AuditCheck(
         "scratch/slots-partition", not problems,
         expected={"disjoint": True, "within_bytes": lay.smem_bytes},
@@ -208,6 +278,7 @@ def ring_conflicts(radius: int, t: int, planes: int) -> list:
 
 
 def _window_check(launch, lay) -> AuditCheck:
+    lay = _one(lay)
     g, h, r, fam = launch.geom, launch.total_halo, launch.radius, \
         launch.family
     expected, actual, problems = {}, {}, []
@@ -306,6 +377,83 @@ def _gather_window_check(launch, lay) -> AuditCheck:
 
 
 # ---------------------------------------------------------------------------
+# scratch/cluster-split
+# ---------------------------------------------------------------------------
+def cluster_share_bytes(launch, lay, lo: int, hi: int) -> int:
+    """The bytes a CTA owning the items [lo, hi) of ``lay.kind`` holds,
+    counted from the one-CTA layout's strides as the cluster kernels carve
+    them (the cluster's ``shares``, recomputed)."""
+    base, cb = lay.base, launch.compute_bytes
+    if lay.kind == "steps":
+        slots = sum(base.ring0 if s == 0 else base.ring for s in range(lo, hi))
+        return (common.DIRECT3D_MARGIN + slots * base.plane_ld) * 4
+    if lay.kind == "dz":
+        planes = launch.geom.z_slab + hi - lo - 1
+        dzs = [b[0] for b in launch.band_rows]
+        bands = bisect.bisect_left(dzs, hi) - bisect.bisect_left(dzs, lo)
+    else:
+        planes = min(hi + 2 * launch.radius, base.planes) - lo
+        bands = base.n_rows
+    return (_align128(planes * base.plane_ld * 4)
+            + _align128(bands * base.toe_ld * cb)
+            + bands * common.SLAB_HEADER_BYTES)
+
+
+def _cluster_check(launch, lay) -> AuditCheck:
+    g, r, t = launch.geom, launch.radius, launch.t_inner
+    budget = common.smem_budget_bytes()
+    n = (t if lay.kind == "steps" else 2 * r + 1 if lay.kind == "dz"
+         else lay.base.planes)
+    problems = []
+    c, split = lay.ctas, lay.split
+    if c not in common.CLUSTER_SIZES or len(split) != c + 1 or \
+            split[0] != 0 or split[-1] != n or \
+            any(b <= a for a, b in zip(split, split[1:])):
+        problems.append(f"split {split} is not {c} non-empty ranges of "
+                        f"[0, {n})")
+    owned = [sum(a <= i < b for a, b in zip(split, split[1:]))
+             for i in range(n)]
+    if owned != [1] * n:
+        problems.append("an item is owned by other than one CTA")
+    if lay.kind == "dz":
+        rows = [sum(1 for b in launch.band_rows if b[0] < d) for d in split]
+        if tuple(rows) != lay.rows:
+            problems.append(f"bands {lay.rows} are not those of each dz "
+                            f"range ({rows})")
+    for k, ((a, b), (lo, hi)) in enumerate(zip(zip(split, split[1:]),
+                                               lay.held)):
+        if lay.kind == "dz":
+            need = (a, b - 1 + g.z_slab)    # planes z + dz its bands read
+        elif lay.kind == "planes":
+            need = (a, min(b + 2 * r, lay.base.planes))
+        else:
+            need = (a, b)
+        if (lo, hi) != need:
+            problems.append(f"CTA {k} holds {(lo, hi)}, reads {need}")
+        share = cluster_share_bytes(launch, lay, a, b)
+        if share != lay.shares[k] or share > budget:
+            problems.append(f"CTA {k}'s share {lay.shares[k]} (recounted "
+                            f"{share}) over the {budget}-byte budget")
+    # the least CTAs any split into contiguous shares takes: grow each
+    # share while the next item still fits (shares only grow with items)
+    least, a = 0, 0
+    while a < n and least <= n:
+        b = a + 1
+        while b < n and cluster_share_bytes(launch, lay, a, b + 1) <= budget:
+            b += 1
+        least, a = least + 1, b
+    if any(least <= s < c for s in common.CLUSTER_SIZES):
+        problems.append(f"{least} CTAs would hold it, fewer than {c}")
+    return AuditCheck(
+        "scratch/cluster-split", not problems,
+        expected={"ctas": "the least of 2, 4, 8 that fits", "budget": budget},
+        actual={"ctas": c, "kind": lay.kind, "split": list(split),
+                "shares": list(lay.shares), "problems": problems or "none"},
+        detail="a layout past one CTA spread over a cluster: every ring, "
+               "band and plane owned once, every read inside a share")
+
+
+# ---------------------------------------------------------------------------
 # scratch/coverage-global
 # ---------------------------------------------------------------------------
 def fixed_coords(launch, lay) -> list:
@@ -316,7 +464,7 @@ def fixed_coords(launch, lay) -> list:
     tile's first, relative to that origin (tap-sums keep every cell in
     place, so the tile's first cell sits at offset + h; the folds write
     each step's output at the region's origin, which moves R a step)."""
-    h, fam = launch.total_halo, launch.family
+    h, fam, lay = launch.total_halo, launch.family, _one(lay)
     dims = len(launch.grid_shape)
     if fam in ("tapsum2d", "tapsum3d"):
         return [(0, -h, h)] * (dims - 1) + [(lay.lead, -h - lay.lead,
@@ -440,18 +588,24 @@ def _coverage_check(launch, lay, walk) -> AuditCheck:
 
 
 def audit_layout(family: str, geom, radius: int, t: int, layout,
-                 dtype_bytes: int = 4,
-                 compute_bytes: int = 4) -> List[AuditCheck]:
+                 dtype_bytes: int = 4, compute_bytes: int = 4,
+                 band_rows=None) -> List[AuditCheck]:
     """``scratch/slots-partition`` and ``scratch/read-window`` of a layout
-    on its own: the kernel ``family`` (``registry.FAMILIES``) at ``t``
-    fused steps of radius ``radius`` on the tile ``geom`` (1D: the lifted
-    tile), whatever plan would launch it."""
+    on its own (and ``scratch/cluster-split`` of a cluster's; a slab's
+    split by dz needs its ``band_rows``, each band's (dz, ...)): the
+    kernel ``family`` (``registry.FAMILIES``) at ``t`` fused steps of
+    radius ``radius`` on the tile ``geom`` (1D: the lifted tile),
+    whatever plan would launch it."""
     launch = types.SimpleNamespace(
         family=family, geom=geom, radius=radius, t_inner=t,
         total_halo=t * radius, dtype_bytes=dtype_bytes,
         compute_bytes=compute_bytes,
-        engine="direct" if family.startswith("tapsum") else "matmul")
-    return [_slots_check(launch, layout), _window_check(launch, layout)]
+        engine="direct" if family.startswith("tapsum") else "matmul",
+        band_rows=band_rows)
+    checks = [_slots_check(launch, layout), _window_check(launch, layout)]
+    if isinstance(layout, common.ClusterLayout):
+        checks.append(_cluster_check(launch, layout))
+    return checks
 
 
 def audit_scratch(launch, walk=None, layout=None) -> List[AuditCheck]:
@@ -461,8 +615,10 @@ def audit_scratch(launch, walk=None, layout=None) -> List[AuditCheck]:
     from .blocks import walk_windows
     lay = layout if layout is not None else launch_layout(launch)
     checks = [_slots_check(launch, lay), _window_check(launch, lay)]
+    if isinstance(lay, common.ClusterLayout):
+        checks.append(_cluster_check(launch, lay))
     if launch.engine == "sparse_matmul":
-        checks.append(_gather_window_check(launch, lay))
+        checks.append(_gather_window_check(launch, _one(lay)))
     walk = walk if walk is not None else walk_windows(launch)
     checks.append(_coverage_check(launch, lay, walk))
     return checks

@@ -9,7 +9,10 @@ banded kernels, ``stencil_{banded,sparse}1d``, share
 on the 3D ones' ``csrc/slab_fold.cuh``); the four main
 kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
 libraries of the traffic foils (``<name>_foil``), so instantiating the
-foils' staging costs the main path's build nothing.  With
+foils' staging costs the main path's build nothing, and the three 3D
+sources a third time with ``-DREPRO_CLUSTER`` into the libraries of their
+cluster forms (``<name>_cluster``, ``csrc/cluster.cuh``), which then
+compile beside them.  With
 ``REPRO_COUNT_LOADS=1`` every library builds with ``-DREPRO_COUNT_LOADS``
 instead (a name of its own, beside the default build): each CTA then
 counts the cells its staging loads -- a foil's windows, a default
@@ -26,7 +29,8 @@ library together.  A missing ``nvcc`` or a failed build raises.
 Every kernel wrapper adds one to its entry of the launch counts for each
 launch of its kernel, and nowhere else (a batch past gridDim.z's limit
 launches in chunks, ``common.batch_chunks``); a foil launch counts under
-``<kernel> (<staging>)``.
+``<kernel> (<staging>)``, a cluster form's launch (a 3D layout past one
+CTA, ``common.ClusterLayout``) under ``<kernel> (cluster)``.
 """
 from __future__ import annotations
 
@@ -51,18 +55,26 @@ _MAIN = ("stencil_direct", "stencil_banded", "stencil_direct3d",
          "stencil_banded3d", "stencil_sparse", "stencil_sparse3d",
          "stencil_banded1d", "stencil_sparse1d", "stencil_direct1d")
 _FOILED = _MAIN[:4]
-#: Every library: the main kernels and the foils' builds of their sources.
-KERNELS = _MAIN + tuple(f"{k}_foil" for k in _FOILED)
-#: Launch counters: one per main kernel, and one per foil kernel and
-#: staging (the 9-tile foil is 2D only).
+#: The 3D kernels whose cluster forms (csrc/cluster.cuh: a layout past
+#: one CTA spread over a thread-block cluster) build apart, from the same
+#: sources with -DREPRO_CLUSTER, and count apart.
+CLUSTERED = ("stencil_direct3d", "stencil_banded3d", "stencil_sparse3d")
+#: Every library: the main kernels, the foils' and the cluster forms'
+#: builds of their sources.
+KERNELS = (_MAIN + tuple(f"{k}_foil" for k in _FOILED)
+           + tuple(f"{k}_cluster" for k in CLUSTERED))
+#: Launch counters: one per main kernel, one per foil kernel and staging
+#: (the 9-tile foil is 2D only), and one per cluster form,
+#: ``<kernel> (cluster)``.
 COUNTERS = _MAIN + tuple(
     f"{k} ({st})" for k in _FOILED
     for st in (("wholestrip", "9tile") if not k.endswith("3d")
-               else ("wholeslab",)))
+               else ("wholeslab",))) + tuple(f"{k} (cluster)" for k in CLUSTERED)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNTS: collections.Counter = collections.Counter()
+_CTAS: Dict[str, int] = {}
 
 #: nvcc's diagnostics (ptxas register and shared-memory report) of the
 #: builds this process ran, by kernel name.
@@ -72,10 +84,13 @@ build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
 
-def count_launch(name: str, n: int = 1) -> None:
+def count_launch(name: str, n: int = 1, ctas: int = None) -> None:
     """Count ``n`` launches of ``name`` (a batch past gridDim.z's limit
-    launches in chunks: ``common.batch_chunks``)."""
+    launches in chunks: ``common.batch_chunks``); a cluster form's launch
+    also gives the CTAs of its cluster, ``ctas``."""
     _COUNTS[name] += n
+    if ctas is not None:
+        _CTAS[name] = ctas
 
 
 def launch_counts() -> Dict[str, int]:
@@ -83,8 +98,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: _COUNTS[name] for name in COUNTERS}
 
 
+def cluster_ctas() -> Dict[str, int]:
+    """The CTAs a tile of each cluster form's last launch since the last
+    :func:`reset_launch_counts`, by counter."""
+    return dict(_CTAS)
+
+
 def reset_launch_counts() -> None:
     _COUNTS.clear()
+    _CTAS.clear()
 
 
 def _nvcc() -> str:
@@ -100,15 +122,23 @@ def _nvcc() -> str:
         "toolkit on PATH (or under /usr/local/cuda)")
 
 
+#: Suffixes of the libraries built a second time from a main source, and
+#: the define each adds.
+_BUILDS = {"_foil": "-DREPRO_FOIL", "_cluster": "-DREPRO_CLUSTER"}
+
+
 def source(name: str) -> str:
     """The source library ``name`` builds from (``csrc/<source>.cu``)."""
-    return name[:-len("_foil")] if name.endswith("_foil") else name
+    for suffix in _BUILDS:
+        if name.endswith(suffix):
+            return name[:-len(suffix)]
+    return name
 
 
 def _flags(name: str) -> tuple:
-    foil = ("-DREPRO_FOIL",) if name.endswith("_foil") else ()
+    extra = tuple(d for suffix, d in _BUILDS.items() if name.endswith(suffix))
     count = env_flag("REPRO_COUNT_LOADS", False)
-    return NVCC_FLAGS + foil + (("-DREPRO_COUNT_LOADS",) if count else ())
+    return NVCC_FLAGS + extra + (("-DREPRO_COUNT_LOADS",) if count else ())
 
 
 def _target(name: str) -> pathlib.Path:
@@ -180,6 +210,12 @@ def library(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _LIBS[name]
     return lib
+
+
+def c_ints(values) -> ctypes.Array:
+    """``values`` as a C ``int`` array, as the C entries take a cluster's
+    split bounds (``common.ClusterLayout.split`` / ``.rows``)."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def check(err: int, name: str) -> None:

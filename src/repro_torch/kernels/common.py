@@ -38,10 +38,18 @@ h_block=1)``), and launch on the lifted (1, N) tile's width: the tap-sum
 gives each CTA one contiguous segment of LINE_ROWS such tiles
 (:func:`line_segments`, :func:`direct1d_layout`), the banded kernels fold
 the line into MMA rows (:func:`line_windows`, :func:`line_layout`).
+
+A 3D layout that fits no one CTA's 227 KB on any candidate tile (the
+deep halos of the JAX package's own 3D stencils: Box/Star-3D2R past t =
+5) launches over a thread-block cluster of 2, 4 or 8 CTAs that share one
+tile through distributed shared memory (:class:`ClusterLayout`,
+:func:`direct3d_cluster`, :func:`slab_cluster`; the tile rule's third
+rung), where the JAX slab substrate stages the region in 8 MB of VMEM.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Callable, Iterator, Optional
@@ -835,27 +843,196 @@ def tile_smem_bound(tm: int, tn: int, halo: int,
                   for t in _divisors(halo) for cb in (4, 2)])
 
 
+#: CTAs of a thread-block cluster the tile rule's third rung tries, least
+#: first; 8 is the portable most (csrc/cluster.cuh).
+CLUSTER_SIZES = (2, 4, 8)
+
+#: Radii the 3D tap-sum's cluster form is built for (MAX_CLUSTER_RADIUS3D
+#: in csrc/stencil_direct3d.cu); past them its rings stay one CTA's.
+CLUSTER_RADIUS3D = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterLayout:
+    """A 3D launch's layout spread over a thread-block cluster of ``ctas``
+    CTAs, whose shared memory the CTAs read and write through distributed
+    shared memory (the tile rule's third rung, :func:`resolve_tile_geom`).
+    Every CTA keeps the strides of ``base``, the one-CTA layout
+    (:class:`Direct3dLayout` or :class:`SlabLayout`), and holds a share of
+    it; rank k owns the items [split[k], split[k + 1]) of ``kind``:
+
+      * ``"steps"``, the 3D tap-sum (``csrc/stencil_direct3d.cu``): the
+        fused steps; rank k runs them and holds their rings (rank 0 step
+        0's, which it stages), and its last step writes into the next
+        rank's first ring;
+      * ``"dz"``, a one-step slab fold (the composed contraction,
+        ``csrc/slab_fold.cuh``): the kernel's planes dz; rank k holds the
+        region planes [split[k], split[k + 1] - 1 + TZ) and the bands
+        [rows[k], rows[k + 1]) of those dz (bands are in dz order), folds
+        every output pair over them, and the partial sums are added
+        through distributed shared memory before the one store;
+      * ``"planes"``, a slab fold of t > 1 steps (the reuse folds): the
+        region's planes; rank k holds its planes and the 2R after them,
+        which it copies from their owners before each step.
+
+    ``held`` is per rank the items its share holds (its steps' rings;
+    region planes), ``shares`` each CTA's bytes, ``smem_bytes`` the most
+    of them, what the launch asks each CTA for."""
+
+    ctas: int
+    kind: str
+    split: tuple
+    held: tuple
+    shares: tuple
+    smem_bytes: int
+    base: object
+    rows: tuple = ()
+
+
+def _cluster_split(n: int, cost: Callable[[int, int], int],
+                   budget: int) -> Optional[tuple]:
+    """``(C, bounds)``: the least C of :data:`CLUSTER_SIZES` (at most
+    ``n``) for which ``n`` items split into C contiguous non-empty groups
+    whose ``cost(lo, hi)`` each fits ``budget``, and the bounds of that
+    split whose largest cost is least (ties to the earlier bound); None
+    where no C fits.  ``cost`` grows with the group, so the greedy count
+    of groups decides whether a C fits."""
+    groups, lo = 0, 0
+    while lo < n:
+        hi = lo + 1
+        if cost(lo, hi) > budget:
+            return None
+        while hi < n and cost(lo, hi + 1) <= budget:
+            hi += 1
+        groups, lo = groups + 1, hi
+    c = next((c for c in CLUSTER_SIZES if groups <= c <= n), None)
+    if c is None:
+        return None
+    # the least largest cost of splitting [0, i) into k groups, and the
+    # last group's start
+    best = {(0, 0): (0, 0)}
+    for k in range(1, c + 1):
+        for i in range(k, n - (c - k) + 1):
+            best[k, i] = min((max(best[k - 1, j][0], cost(j, i)), j)
+                             for j in range(k - 1, i)
+                             if (k - 1, j) in best)
+    bounds, i = [n], n
+    for k in range(c, 0, -1):
+        i = best[k, i][1]
+        bounds.append(i)
+    return c, tuple(reversed(bounds))
+
+
+@functools.lru_cache(maxsize=256)
+def direct3d_cluster(tm: int, tn: int, radius: int, t: int,
+                     budget: int) -> Optional[ClusterLayout]:
+    """The 3D tap-sum's rings (:func:`direct3d_layout`) spread over the
+    least cluster whose CTAs' shares of whole steps each fit ``budget``
+    bytes (kind ``"steps"``), or None: rank k holds DIRECT3D_MARGIN floats
+    and the rings of its steps, ``ring0`` slots for step 0, ``ring`` for
+    every other."""
+    base = direct3d_layout(tm, tn, radius, t)
+
+    def share(lo: int, hi: int) -> int:
+        slots = sum(base.ring0 if s == 0 else base.ring for s in range(lo, hi))
+        return (DIRECT3D_MARGIN + slots * base.plane_ld) * 4
+
+    found = _cluster_split(t, share, budget)
+    if found is None:
+        return None
+    c, split = found
+    own = tuple(zip(split, split[1:]))
+    shares = tuple(share(a, b) for a, b in own)
+    return ClusterLayout(c, "steps", split, own, shares, max(shares), base)
+
+
+#: The k-steps the reuse folds' cluster form unrolls, by compute bytes
+#: (``FoldKs<TC>::SMALL``, csrc/slab_fold.cuh ``slab_cluster_ks``): its
+#: bands take at most these (radius <= 4 in TF32, any radius in bf16).
+CLUSTER_REUSE_KS = {4: 3, 2: 2}
+
+
+@functools.lru_cache(maxsize=256)
+def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
+                 compute_bytes: int, dzs: tuple, k_rows: Optional[int],
+                 a_cols: Optional[int], budget: int
+                 ) -> Optional[ClusterLayout]:
+    """The slab fold's layout (:func:`slab_fold_layout`, bands ``dzs``:
+    each band's dz, in the launch's band order) spread over the least
+    cluster whose CTAs' shares each fit ``budget`` bytes, or None: a
+    one-step launch by the kernel's planes dz (kind ``"dz"``), a launch
+    of t > 1 steps by the region's planes (kind ``"planes"``).  A share
+    holds its planes at ``plane_ld``, then its bands' Toeplitz rows and
+    headers, each part 128-byte aligned as in the one-CTA layout.  The
+    reuse split takes bands of at most :data:`CLUSTER_REUSE_KS` k-steps."""
+    base = slab_fold_layout(tz, tm, tn, radius, t, compute_bytes, len(dzs),
+                            k_rows, a_cols)
+    if t > 1 and (base.toe_ld - BAND_N) // mma_k_step(compute_bytes) > \
+            CLUSTER_REUSE_KS[compute_bytes]:
+        return None
+
+    def size(planes: int, bands: int) -> int:
+        return (_align(planes * base.plane_ld * 4)
+                + _align(bands * base.toe_ld * compute_bytes)
+                + bands * SLAB_HEADER_BYTES)
+
+    if t == 1:
+        first = [sum(1 for d in dzs if d < k) for k in range(2 * radius + 2)]
+
+        def held(lo: int, hi: int) -> tuple:
+            return lo, hi - 1 + tz
+
+        def share(lo: int, hi: int) -> int:
+            return size(tz + hi - lo - 1, first[hi] - first[lo])
+        found = _cluster_split(2 * radius + 1, share, budget)
+    else:
+        def held(lo: int, hi: int) -> tuple:
+            return lo, min(hi + 2 * radius, base.planes)
+
+        def share(lo: int, hi: int) -> int:
+            return size(min(hi + 2 * radius, base.planes) - lo, len(dzs))
+        found = _cluster_split(base.planes, share, budget)
+    if found is None:
+        return None
+    c, split = found
+    pairs = tuple(zip(split, split[1:]))
+    shares = tuple(share(a, b) for a, b in pairs)
+    rows = tuple(first[k] for k in split) if t == 1 else ()
+    return ClusterLayout(c, "dz" if t == 1 else "planes", split,
+                         tuple(held(a, b) for a, b in pairs), shares,
+                         max(shares), base, rows)
+
+
 @dataclasses.dataclass(frozen=True)
 class TileNeed:
     """One launch's own shared memory on a candidate tile: ``smem(tz, tm,
     tn)`` bytes (tz = 1 in 2D; in 1D, tn is the lifted tile's width), the
     layout its kernel really launches with.  ``regime`` names it when no
     candidate fits.  The second half of the tile rule holds the
-    candidates to it where the reserves fit none."""
+    candidates to it where the reserves fit none; ``cluster(tz, tm, tn,
+    budget)`` (3D only) is the same layout spread over a thread-block
+    cluster (:class:`ClusterLayout`, or None where no cluster of at most 8
+    CTAs holds it), the rule's third rung."""
 
     regime: str
     smem: Callable[[int, int, int], int]
+    cluster: Optional[Callable[[int, int, int, int],
+                               Optional[ClusterLayout]]] = None
 
 
 def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
                 regime: str) -> TileNeed:
     """The tap-sums' layouts at ``t`` fused steps of radius ``radius``:
-    :func:`direct_layout` (2D), :func:`direct3d_layout` (3D),
-    :func:`direct1d_layout` (1D, a grid of ``in_bytes`` cells)."""
+    :func:`direct_layout` (2D), :func:`direct3d_layout` (3D, and its
+    cluster form :func:`direct3d_cluster`), :func:`direct1d_layout` (1D,
+    a grid of ``in_bytes`` cells)."""
     h = t * radius
     if dim == 3:
         return TileNeed(regime, lambda tz, tm, tn: direct3d_layout(
-            tm, tn, radius, t).smem_bytes)
+            tm, tn, radius, t).smem_bytes,
+            None if radius > CLUSTER_RADIUS3D else
+            lambda tz, tm, tn, budget: direct3d_cluster(
+                tm, tn, radius, t, budget))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: direct1d_layout(
             tn, h, in_bytes).smem_bytes)
@@ -866,15 +1043,21 @@ def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
 def fold_need(dim: int, radius: int, t: int, in_bytes: int,
               compute_bytes: int, n_rows: int, regime: str,
               k_rows: Optional[int] = None,
-              a_cols: Optional[int] = None) -> TileNeed:
+              a_cols: Optional[int] = None,
+              dzs: Optional[tuple] = None) -> TileNeed:
     """The banded folds' layouts at ``t`` steps of radius ``radius`` with
     ``n_rows`` bands (``k_rows`` / ``a_cols``: the compacted operand's):
-    :func:`tile_fold_layout` (2D), :func:`slab_fold_layout` (3D),
-    :func:`line_layout` (1D)."""
+    :func:`tile_fold_layout` (2D), :func:`slab_fold_layout` (3D, and its
+    cluster form :func:`slab_cluster` where ``dzs``, each band's dz in
+    band order, is given), :func:`line_layout` (1D)."""
     cb = compute_bytes
     if dim == 3:
         return TileNeed(regime, lambda tz, tm, tn: slab_fold_layout(
-            tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes)
+            tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes,
+            None if dzs is None else
+            lambda tz, tm, tn, budget: slab_cluster(
+                tz, tm, tn, radius, t, cb, tuple(dzs), k_rows, a_cols,
+                budget))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: line_layout(
             tn, radius, t, in_bytes, cb).smem_bytes)
@@ -911,7 +1094,10 @@ def _z_pin(z_slab: int, extent: int) -> int:
 def _too_deep(halo: int, budget: int, need: Optional[TileNeed] = None,
               least: int = 0) -> ValueError:
     what = ("" if need is None else
-            f": {need.regime}'s own layout needs at least {least} bytes")
+            f": {need.regime}'s own layout needs at least {least} bytes"
+            + ("" if need.cluster is None else
+               f", and no cluster of up to {CLUSTER_SIZES[-1]} CTAs holds "
+               "it"))
     return ValueError(
         f"halo {halo} is too deep for a {MMA_TILE}-row tile in "
         f"{budget} bytes of shared memory{what}; lower the fusion depth")
@@ -978,10 +1164,16 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     radius 3 and less, so only a wider stencil's, such as a radius-7 3D
     box's 225 bands, moves a tile here) -- the tile every plan has
     launched on.  Where no reserve fits, the first candidate, in the same
-    order, on which ``need`` fits; without ``need``, or where that fits
-    none either, the
-    "too deep" ``ValueError``, naming ``need``'s regime and its least
-    bytes.  1D: the pricing geometry of the lift (the kernels launch
+    order, on which ``need`` fits.  Where that fits none either and
+    ``need`` has a cluster form (3D, :class:`TileNeed`), the third rung:
+    the first candidate, in the same order, on which the layout spread
+    over a thread-block cluster of 2, 4 or 8 CTAs (the least that fits)
+    fits each CTA's share in the budget; the launch carries the cluster in
+    its layout (:class:`ClusterLayout`), so the tile stays a
+    :class:`SubstrateGeom` and every tile the first two rungs pick stays.
+    Without ``need``, or where no rung fits, the "too deep"
+    ``ValueError``, naming ``need``'s regime and its least bytes on one
+    CTA.  1D: the pricing geometry of the lift (the kernels launch
     :func:`lifted_tile_geom`).  ``tile_m`` / ``w_tile`` pin TM / TN
     (multiples of 16; clamped to the grid rounded up to 16), ``z_slab``
     pins TZ (3D only; clamped to the grid's depth, the JAX pin's rule); a
@@ -999,6 +1191,8 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     fit = next((c for c in cands if reserve(c) <= budget and fits(c)), None)
     if fit is None and need is not None:
         fit = next((c for c in cands if fits(c)), None)
+    if fit is None and need is not None and need.cluster is not None:
+        fit = next((c for c in cands if need.cluster(*c, budget)), None)
     if fit is not None:
         return _tile_geom(dim, fit, halo)
     size = reserve if need is None else (lambda c: need.smem(*c))

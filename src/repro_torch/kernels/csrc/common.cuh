@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stddef.h>
 
 #include <atomic>
@@ -382,6 +383,22 @@ __device__ __noinline__ void fill_axis(float* buf, size_t s_ax, size_t s_a, size
         }
         buf[line + (size_t)q * s_ax] = v;
     }
+}
+
+// An axis's map for the fill (the 3D tap-sum's z map and per-plane fill,
+// the clusters' z fill): global cell g of an axis of extent N in
+// `mode`, at depth o.  Returns the in-domain cell it copies (g itself in
+// the domain or on a periodic axis), AXIS_ZERO under `zero` outside the
+// domain, or AXIS_DEEP deeper than o above the domain (left as it is: it
+// feeds only outputs the last step masks).
+#define AXIS_ZERO INT_MIN
+#define AXIS_DEEP (INT_MIN + 1)
+__device__ __forceinline__ int axis_source(int g, int N, int o, int mode) {
+    if (mode == MODE_PERIODIC || (g >= 0 && g < N)) return g;
+    if (g >= N + o) return AXIS_DEEP;
+    if (mode == MODE_ZERO) return AXIS_ZERO;
+    if (mode == MODE_REPLICATE) return g < 0 ? 0 : N - 1;
+    return g < 0 ? -g : 2 * (N - 1) - g;
 }
 
 // Whether a region of n cells from global cell g0 leaves an axis of extent

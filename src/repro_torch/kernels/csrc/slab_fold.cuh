@@ -74,12 +74,26 @@
 // slots lie in the band's slots, which it stages only after a barrier.
 // A launch advances a batch of B grids, grid b on blockIdx.z (K11,
 // common.cuh, grid_at / for_each_chunk).
+//
+// Past one CTA (the composed contraction at h = 12..16: up to 1089 bands
+// of Box-3D2R composed to radius 16 and a 33-plane region; the reuse
+// folds at h = 16: a 48-plane region), the two cluster forms at the end of
+// this file spread the slab over a thread-block cluster (cluster.cuh):
+// the composed contraction split by the kernel's planes dz, each CTA
+// folding every output pair over its bands and the partial sums added
+// through distributed shared memory (slab_fold_dz_kernel); the reuse
+// folds split by the region's planes, each CTA folding its own pairs and
+// copying the 2R planes after its own from their owners before each step
+// (slab_fold_planes_kernel).  The bound is the one-CTA kernel's; what the
+// split adds is the copied planes (reuse) or the TZ - 1 planes each CTA
+// stages twice and one add per output and CTA (composed).
 #pragma once
 
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "cluster.cuh"
 #include "sparse_mma.cuh"
 
 #define SLAB_MIN_BLOCKS 2
@@ -466,5 +480,313 @@ static int slab_ctas_per_sm(int dtype, int compute, int fill, int smem_bytes) {
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, CTA_THREADS,
                                                                 smem_bytes);
         return err == cudaSuccess ? n : -(int)err;
+    });
+}
+
+// ---------------------------------------------------------------------------
+// The cluster forms (cluster.cuh; the tile rule's third rung): a slab whose
+// region and bands fit no one CTA's 227 KB -- the composed contraction at
+// halos 12..16 (up to 1089 bands of Box-3D2R composed to radius 16), the
+// reuse folds at h = 16 -- spread over the C CTAs of a cluster, which
+// compute one tile together.  Both keep the one-CTA layout's strides
+// (common.py::slab_fold_layout) in every CTA's share and run the one-CTA
+// pass (slab_pass) on it.
+// ---------------------------------------------------------------------------
+
+// Stages bands [band0, band0 + n) of the launch (Toeplitz rows, TF32-
+// rounded, and headers), their plane shift counted from plane dz0.
+template <typename TC>
+__device__ __forceinline__ void stage_bands(TC* toe, int4* hdr, const SlabArgs& a, int band0,
+                                            int n, int dz0) {
+    const TC* src = static_cast<const TC*>(a.toe) + (size_t)band0 * a.toe_ld;
+    for (int i = threadIdx.x; i < n * a.toe_ld; i += CTA_THREADS) toe[i] = SlabB<TC>::round(src[i]);
+    for (int p = threadIdx.x; p < n; p += CTA_THREADS) {
+        const int* r = a.rows + 4 * (band0 + p);
+        hdr[p] = make_int4((r[0] - dz0) * a.plane_ld + r[1] * a.ld, r[2], r[3], 0);
+    }
+}
+
+// Stages region planes [q0, q0 + n) of a step-0 region whose plane 0 is
+// global plane gz0 (rows h0 x cols w0 from global (r0, c0), modulo H and
+// W) into dst, each out-of-domain plane of a non-periodic z axis (within
+// depth o) from the in-domain plane the z fill copies (axis_source), or
+// zero: the z fill of step 0, whose region is the grid as loaded.
+// Returns the cells this thread loaded.
+template <typename T>
+__device__ __forceinline__ int stage_planes(float* dst, const SlabArgs& a, const T* x, int gz0,
+                                            int q0, int n, int r0, int c0, int h0, int w0,
+                                            int o, bool zmap) {
+    if (!zmap)
+        return load_rect3d(dst, a.ld, (size_t)a.plane_ld, x, a.Z, a.H, a.W, gz0 + q0, r0, c0, n,
+                           h0, w0);
+    int cells = 0;
+    for (int p = 0; p < n; ++p) {
+        const int g = gz0 + q0 + p, src = axis_source(g, a.Z, o, a.mz);
+        float* pl = dst + (size_t)p * a.plane_ld;
+        if (src == AXIS_ZERO) {
+            for (int i = threadIdx.x; i < h0 * w0; i += CTA_THREADS)
+                pl[(i / w0) * a.ld + i % w0] = 0.f;
+        } else {
+            cells += load_rect3d(pl, a.ld, (size_t)a.plane_ld, x, a.Z, a.H, a.W,
+                                 src == AXIS_DEEP ? g : src, r0, c0, 1, h0, w0);
+        }
+    }
+    return cells;
+}
+
+// One step's passes over the output pairs [0, pairs) of a region (this
+// CTA's share) whose planes hold ho output rows: slab_fold_kernel's chunk
+// and pass loop.
+template <typename TC, int KS>
+__device__ __forceinline__ void slab_step(float* region, const TC* toe, const int4* hdr,
+                                          const SlabArgs& a, int n_rows, int pairs, int ho,
+                                          int win, int wo, bool round) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int band_k = BAND_N + 2 * a.R;
+    const int ntiles = (pairs + MMA_TILE - 1) / MMA_TILE;
+    for (int c0 = 0; c0 < wo; c0 += BAND_N) {
+        const int kv = min(band_k, win - c0);
+        const bool two = c0 + 8 < wo;
+        for (int base = 0; base < ntiles; base += SLAB_PASS_TILES) {
+            const int n = min(SLAB_PASS_TILES, ntiles - base);
+            const int mine = warp < n ? (n - warp + CTA_WARPS - 1) / CTA_WARPS : 0;
+            auto pass = [&](auto slots) {
+                slab_pass<TC, KS, decltype(slots)::value>(
+                    region, toe, hdr, n_rows, a.toe_ld, base + warp, mine, pairs, ho, a.plane_ld,
+                    a.ld, c0, kv, wo, two, round, g, q);
+            };
+            switch ((n + CTA_WARPS - 1) / CTA_WARPS) {
+            case 1: pass(std::integral_constant<int, 1>()); break;
+            case 2: pass(std::integral_constant<int, 2>()); break;
+            case 3: pass(std::integral_constant<int, 3>()); break;
+            default: pass(std::integral_constant<int, SLAB_TILES_PER_WARP>());
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// The composed contraction (t = 1) split by the kernel's planes dz
+// (common.py::slab_cluster, kind "dz"): rank k stages the region planes
+// [lo[k], lo[k + 1] - 1 + TZ) its bands read, and the bands of dz in
+// [lo[k], lo[k + 1)) (rows[k] on), folds every output pair over them into
+// its share in place, as the one-CTA kernel folds all bands; then the
+// ranks' partial sums are added in rank order through distributed shared
+// memory, each rank adding and storing a slice of the tile.  Its sums are
+// thus the one-CTA kernel's taken in C parts, each output within the
+// plain version's limit (kernel_limit) as the one-CTA kernel's.
+template <typename TIn, typename TC, bool FILL, int KS>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+    slab_fold_dz_kernel(const SlabArgs a, const ClusterSplit sp) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int rank = cluster_rank();
+    const int halo = a.R;
+    const int d0 = sp.lo[rank], planes = a.TZ + sp.lo[rank + 1] - d0 - 1;
+    const int band0 = sp.rows[rank], n_rows = sp.rows[rank + 1] - band0;
+    const int h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
+    float* const region = reinterpret_cast<float*>(smem);
+    const size_t toe_off = align128((size_t)planes * a.plane_ld * sizeof(float));
+    TC* const toe = reinterpret_cast<TC*>(smem + toe_off);
+    int4* const hdr = reinterpret_cast<int4*>(
+        smem + toe_off + align128((size_t)n_rows * a.toe_ld * sizeof(TC)));
+    const Tile3 tl = tile3(blockIdx.x / sp.ctas, a.gx, a.gy);
+    const int k0 = tl.bz * a.TZ, i0 = tl.by * a.TM, j0 = tl.bx * a.TN;
+    const TIn* x = static_cast<const TIn*>(a.x);
+    TIn* y = static_cast<TIn*>(a.y);
+    if (blockIdx.z != 0) {
+        x = grid_at(x, blockIdx.z, a.grid_elems);
+        y = grid_at(y, blockIdx.z, a.grid_elems);
+    }
+    const int loaded = stage_planes(region, a, x, k0 - halo, d0, planes, i0 - halo, j0 - halo, h0,
+                                    w0, halo, FILL && a.mz != MODE_PERIODIC);
+    stage_bands(toe, hdr, a, band0, n_rows, d0);
+    __syncthreads();
+    if (FILL)  // y and x on this share's planes; z came with the staging
+        fill_boundary(region, a.plane_ld, a.ld, planes, h0, w0, 0, i0 - halo, j0 - halo, a.Z,
+                      a.H, a.W, halo, MODE_PERIODIC, a.my, a.mx);
+    slab_round<TC>(region, a.plane_ld, a.ld, planes, h0, w0);
+    slab_step<TC, KS>(region, toe, hdr, a, n_rows, a.TZ * a.TM, a.TM, w0, a.TN, false);
+    cluster_sync();  // every rank's partial sums are in place
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int pr = rank * CTA_WARPS + warp; pr < a.TZ * a.TM; pr += sp.ctas * CTA_WARPS) {
+        const int p = pr / a.TM, i = pr - p * a.TM;
+        if (k0 + p >= a.Z || i0 + i >= a.H) continue;
+        TIn* dst = y + ((size_t)(k0 + p) * a.H + (i0 + i)) * (size_t)a.W + j0;
+        const float* s = region + p * a.plane_ld + (size_t)i * a.ld;
+        for (int j = lane; j < a.TN && j0 + j < a.W; j += 32) {
+            float v = *peer(s + j, 0);
+            for (int k = 1; k < sp.ctas; ++k) v += *peer(s + j, k);
+            dst[j] = from_f32<TIn>(v);
+        }
+    }
+    cluster_sync();  // no rank leaves while a peer reads its sums
+    count_cluster_loads(loaded);
+}
+
+// The reuse folds (t > 1 steps) split by the region's planes
+// (common.py::slab_cluster, kind "planes"): rank k owns region planes
+// [lo[k], lo[k + 1]) and holds the 2R after them too, with every band.
+// Before each step the owners fill their planes (z from the in-domain
+// plane the fill copies, read from its owner; y and x in place; step 0's z
+// with the staging), then each rank copies the 2R planes after its own
+// from their owners, and folds the step's output pairs on its own planes
+// in place, reading only its share.  A cluster barrier stands where the
+// one-CTA kernel's CTA barrier does between steps, and around the copies,
+// so no rank overwrites a plane a peer has yet to copy.  Each pair's sums
+// are the one-CTA kernel's, so every output is its bit for bit.
+template <typename TIn, typename TC, bool FILL, int KS>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+    slab_fold_planes_kernel(const SlabArgs a, const ClusterSplit sp) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    const int rank = cluster_rank();
+    const int halo = a.t * a.R;
+    const int p0 = a.TZ + 2 * halo, h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
+    const int own0 = sp.lo[rank], own1 = sp.lo[rank + 1];
+    const int held = min(own1 + 2 * a.R, p0) - own0;
+    float* const region = reinterpret_cast<float*>(smem);
+    const size_t toe_off = align128((size_t)held * a.plane_ld * sizeof(float));
+    TC* const toe = reinterpret_cast<TC*>(smem + toe_off);
+    int4* const hdr = reinterpret_cast<int4*>(
+        smem + toe_off + align128((size_t)a.n_rows * a.toe_ld * sizeof(TC)));
+    const Tile3 tl = tile3(blockIdx.x / sp.ctas, a.gx, a.gy);
+    const int k0 = tl.bz * a.TZ, i0 = tl.by * a.TM, j0 = tl.bx * a.TN;
+    const TIn* x = static_cast<const TIn*>(a.x);
+    TIn* y = static_cast<TIn*>(a.y);
+    if (blockIdx.z != 0) {
+        x = grid_at(x, blockIdx.z, a.grid_elems);
+        y = grid_at(y, blockIdx.z, a.grid_elems);
+    }
+    // Region plane q in the share of its owner.
+    auto plane_at = [&](int q) {
+        const int o = split_owner(sp, q);
+        return (o == rank ? region : peer(region, o)) + (size_t)(q - sp.lo[o]) * a.plane_ld;
+    };
+    const bool zmap = FILL && a.mz != MODE_PERIODIC;
+    const int loaded = stage_planes(region, a, x, k0 - halo, own0, own1 - own0, i0 - halo,
+                                    j0 - halo, h0, w0, halo, zmap);
+    stage_bands(toe, hdr, a, 0, a.n_rows, 0);
+    __syncthreads();
+    const bool fill = FILL && (leaves_domain(a.mz, k0 - halo, p0, a.Z) ||
+                               leaves_domain(a.my, i0 - halo, h0, a.H) ||
+                               leaves_domain(a.mx, j0 - halo, w0, a.W));
+
+    int pin = p0, hin = h0, win = w0;
+    for (int s = 0; s < a.t; ++s) {
+        const int po = pin - 2 * a.R, ho = hin - 2 * a.R, wo = win - 2 * a.R;
+        const int depth = (a.t - s) * a.R, gz = k0 - depth;
+        const int mine = max(0, min(own1, pin) - own0);  // own planes of the step's input
+        if (s > 0) cluster_sync();  // the step before has stored every pair
+        if (fill) {
+            if (s > 0 && leaves_domain(a.mz, gz, pin, a.Z)) {
+                // z: each own plane out of the domain (within the depth)
+                // from the in-domain plane the fill copies, or zero
+                for (int p = own0; p < own0 + mine; ++p) {
+                    const int src = axis_source(gz + p, a.Z, depth, a.mz);
+                    if (src == gz + p || src == AXIS_DEEP) continue;
+                    float* dst = region + (size_t)(p - own0) * a.plane_ld;
+                    const float* from = src == AXIS_ZERO ? nullptr : plane_at(src - gz);
+                    for (int i = threadIdx.x; i < hin * win; i += CTA_THREADS) {
+                        const int off = (i / win) * a.ld + i % win;
+                        dst[off] = from ? from[off] : 0.f;
+                    }
+                }
+                cluster_sync();  // before the owners fill y and x in place
+            }
+            if (mine > 0)
+                fill_boundary(region, a.plane_ld, a.ld, mine, hin, win, 0, i0 - depth,
+                              j0 - depth, a.Z, a.H, a.W, depth, MODE_PERIODIC, a.my, a.mx);
+        }
+        if (s == 0) slab_round<TC>(region, a.plane_ld, a.ld, mine, hin, win);
+        cluster_sync();  // every plane of the step's input is final
+        for (int p = own1; p < min(own1 + 2 * a.R, pin); ++p) {
+            float* dst = region + (size_t)(p - own0) * a.plane_ld;
+            const float* from = plane_at(p);
+            for (int i = threadIdx.x; i < hin * win; i += CTA_THREADS) {
+                const int off = (i / win) * a.ld + i % win;
+                dst[off] = from[off];
+            }
+        }
+        cluster_sync();  // the copies are in before any rank folds in place
+        const bool round = std::is_same<TC, float>::value && s + 1 < a.t;
+        slab_step<TC, KS>(region, toe, hdr, a, a.n_rows, max(0, min(own1, po) - own0) * ho, ho,
+                          win, wo, round);
+        pin = po;
+        hin = ho;
+        win = wo;
+    }
+    store_tile3d(y, a.Z, a.H, a.W, k0 + own0, i0, j0, max(0, min(own1, a.TZ) - own0), a.TM, a.TN,
+                 region, a.plane_ld, a.ld);
+    count_cluster_loads(loaded);
+}
+
+// The k-steps a cluster form unrolls: the composed split MAX_KS (a
+// composed kernel's bands run deep), the reuse split FoldKs<TC>::SMALL
+// (the bands of radius <= 4 in TF32, any in bf16); must match
+// repro_torch/kernels/common.py::slab_cluster.
+template <typename TC, bool DZ>
+__host__ __device__ constexpr int slab_cluster_ks() {
+    return DZ ? SpMma<TC>::MAX_KS : FoldKs<TC>::SMALL;
+}
+
+// The cluster instantiation a launch in these types takes (dz: the
+// composed split; planes: the reuse split), its launch attributes set: one
+// each, the fill compiled in and gated by the modes at run time (a
+// periodic grid skips it), each k-step run only where a band has it.
+template <typename TIn, typename TC, bool DZ>
+static auto slab_cluster_kernel(cudaError_t& err) {
+    constexpr int KS = slab_cluster_ks<TC, DZ>();
+    void (*kernel)(const SlabArgs, const ClusterSplit);
+    if constexpr (DZ) kernel = slab_fold_dz_kernel<TIn, TC, true, KS>;
+    else kernel = slab_fold_planes_kernel<TIn, TC, true, KS>;
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    err = prepare_launch(kernel, attributes_set);
+    return kernel;
+}
+
+// Checks a cluster launch's split against the host's layout (every rank's
+// share within smem_bytes) and launches it in its types: DZ, the composed
+// split (t = 1); else the reuse split (t > 1).
+template <bool DZ>
+static int slab_cluster_launch_types(SlabArgs a, const ClusterSplit& sp, int B, int dtype,
+                                     int compute, int smem_bytes, cudaStream_t stream) {
+    const int halo = a.t * a.R, p0 = a.TZ + 2 * halo;
+    const int tc_bytes = compute == 0 ? 4 : 2;
+    if (a.n_rows < 1 || a.t < 1 || a.R < 1 || a.TZ < 1 || a.TM < 1 || a.TN < 1 ||
+        a.grid_elems != (size_t)a.Z * a.H * a.W || a.ld < a.TN + 2 * halo || a.ld % 2 != 0 ||
+        a.plane_ld < (a.TM + 2 * halo) * a.ld || a.plane_ld % 2 != 0 || a.toe_ld % 8 != 0 ||
+        (DZ ? a.t != 1 || !split_ok(sp, 2 * a.R + 1) || sp.rows[0] != 0 ||
+                  sp.rows[sp.ctas] != a.n_rows
+            : a.t < 2 || !split_ok(sp, p0)))
+        return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < sp.ctas; ++k) {
+        const int planes = DZ ? a.TZ + sp.lo[k + 1] - sp.lo[k] - 1
+                              : min(sp.lo[k + 1] + 2 * a.R, p0) - sp.lo[k];
+        const int bands = DZ ? sp.rows[k + 1] - sp.rows[k] : a.n_rows;
+        if (bands < 0 || align128((size_t)planes * a.plane_ld * 4) +
+                                 align128((size_t)bands * a.toe_ld * tc_bytes) +
+                                 (size_t)bands * sizeof(int4) > (size_t)smem_bytes)
+            return (int)cudaErrorInvalidValue;
+    }
+    a.gx = (a.W + a.TN - 1) / a.TN;
+    a.gy = (a.H + a.TM - 1) / a.TM;
+    return slab_types(dtype, compute, [&](auto* in, auto* tc) {
+        using TIn = std::remove_pointer_t<decltype(in)>;
+        using TC = std::remove_pointer_t<decltype(tc)>;
+        const int ks = slab_max_ks<TC>(a);
+        if (ks < 1 || ks > slab_cluster_ks<TC, DZ>()) return (int)cudaErrorInvalidValue;
+        cudaError_t err;
+        auto* kernel = slab_cluster_kernel<TIn, TC, DZ>(err);
+        if (err != cudaSuccess) return (int)err;
+        const long long ctas = grid3_ctas(a.Z, a.H, a.W, a.TZ, a.TM, a.TN);
+        if (ctas < 1 || ctas * sp.ctas > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+        return for_each_chunk(B, [&](int b0, int nb) {
+            SlabArgs c = a;
+            c.x = grid_at(static_cast<const TIn*>(a.x), b0, a.grid_elems);
+            c.y = grid_at(static_cast<TIn*>(a.y), b0, a.grid_elems);
+            return launch_cluster(kernel, dim3((unsigned)(ctas * sp.ctas), 1, nb), sp.ctas,
+                                  smem_bytes, stream, c, sp);
+        });
     });
 }

@@ -8,8 +8,8 @@
 // row dy, padded with zero rows to kpad, and passes each as its Toeplitz
 // row; every k-step of every band runs (lo = 0, nk = kpad / K).  The main
 // build takes bands past MAX_KPAD (a composed kernel past radius 24: 128
-// deep at Box-2D7R, t = 8) in pieces of MAX_KPAD (FoldKs::DEEP); the
-// foils stay within it.
+// deep at Box-2D7R, t = 8) in pieces of MAX_KPAD (FoldKs::DEEP), and so
+// do the foils.
 //
 // The same source built with -DREPRO_FOIL is the library of the traffic
 // foils (K8 whole-strip, replacing repro/kernels/common.py::_launch kind
@@ -28,7 +28,7 @@ static int banded2d(const void* x, void* y, const void* toe, const void* rows, i
                     int TM, int TN, int t, int R, int ld, int kpad, int toe_ld, int n_rows,
                     int dtype, int compute, int mode_y, int mode_x, int B, long long grid_elems,
                     int smem_bytes, void* stream) {
-    constexpr bool kDeep = STAGE == STAGE_REGION;
+    constexpr bool kDeep = true;
     const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
     if (grid_elems != (long long)H * W || (!kDeep && kpad > MAX_KPAD) || kpad % k != 0 ||
         kpad < BAND_N + 2 * R || toe_ld < kpad + BAND_N - 1)

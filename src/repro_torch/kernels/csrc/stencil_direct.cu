@@ -95,7 +95,8 @@
 #endif
 // The wide radii's CTAs per SM: the main tile's buffers at r = 7, t = 1
 // take 50 KB, so shared memory allows 4; the patch's 20 sums and 4 + 2r
-// row cells then fit in registers.  The foil build stays at r <= 3.
+// row cells then fit in registers.  The foil build takes them too, so a
+// foil plan of a wide stencil launches (bit for bit the default kernel).
 #define DIRECT_MIN_BLOCKS_WIDE 2
 // Floats before the first buffer, between the two and after the second:
 // a patch's reads run up to 3 cells past its buffer's rows.  Must match
@@ -333,12 +334,10 @@ static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t,
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
-#ifndef REPRO_FOIL  // the foils stay at radii 1..3
     if (r == 4) return launch<T, 4, STAGE>(ARGS);
     if (r == 5) return launch<T, 5, STAGE>(ARGS);
     if (r == 6) return launch<T, 6, STAGE>(ARGS);
     if (r == 7) return launch<T, 7, STAGE>(ARGS);
-#endif
 #undef ARGS
     return (int)cudaErrorInvalidValue;
 }

@@ -89,8 +89,21 @@
 // A launch advances a batch of B grids, grid b on blockIdx.z (K11,
 // replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
 // grid_at / for_each_chunk); B = 1 is the unbatched call.
-#include <limits.h>
-
+//
+// Past one CTA (the rings of Box/Star-3D2R at t = 6..8, h = 12..16, need
+// 237,408 to 452,384 bytes on the least tile, where the JAX slab
+// substrate stages them in 8 MB of VMEM): the cluster form,
+// stencil_direct3d_cluster_kernel, spreads the rings over a thread-block
+// cluster of 2, 4 or 8 CTAs (cluster.cuh), each running a contiguous range
+// of the fused steps on its own rings and storing its last step's output
+// planes into the next CTA's first ring through distributed shared memory
+// (radii 1 and 2, the JAX package's 3D stencils; built from this source
+// with -DREPRO_CLUSTER into a library of its own, stencil_direct3d_cluster,
+// so the main build does not grow).  What bounds it is what bounds the
+// one-CTA kernel, the FMAs and the shared reads, now on C SMs a tile, one
+// CTA each; the only new traffic is one plane per step boundary between
+// CTAs, in the interval it is due.
+#include "cluster.cuh"
 #include "tap_stage.cuh"
 
 // The radii the kernel takes, and the taps the host passes: the dense
@@ -147,21 +160,6 @@ struct Rings {
 static inline long long direct3d_smem_bytes(int R, int t, int rows, int ld) {
     const long long slots = (2 * R + 1 + DIRECT3D_AHEAD) + (long long)(t - 1) * (2 * R + 2);
     return (DIRECT3D_MARGIN + slots * ((long long)rows * ld + DIRECT3D_MARGIN)) * 4;
-}
-
-// An axis's map for the fill: global cell g of an axis of extent N in
-// `mode`, at depth o.  Returns the in-domain cell it copies (g itself in
-// the domain or on a periodic axis), AXIS_ZERO under `zero` outside the
-// domain, or AXIS_DEEP deeper than o above the domain (left as it is: it
-// feeds only outputs the last step masks).
-#define AXIS_ZERO INT_MIN
-#define AXIS_DEEP (INT_MIN + 1)
-__device__ __forceinline__ int axis_source(int g, int N, int o, int mode) {
-    if (mode == MODE_PERIODIC || (g >= 0 && g < N)) return g;
-    if (g >= N + o) return AXIS_DEEP;
-    if (mode == MODE_ZERO) return AXIS_ZERO;
-    if (mode == MODE_REPLICATE) return g < 0 ? 0 : N - 1;
-    return g < 0 ? -g : 2 * (N - 1) - g;
 }
 
 // The y and x fill of one plane on a step's window: buffer rows [r_lo,
@@ -468,6 +466,146 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
     count_cta_loads(loaded);  // each plane of the region once
 }
 
+#ifdef REPRO_CLUSTER
+// The cluster form (the tile rule's third rung: rings that fit no one
+// CTA's 227 KB, Box/Star-3D2R past t = 5 on 16 x 16 tiles): the C CTAs of
+// a cluster compute one tile, rank k running the fused steps [lo[k],
+// lo[k + 1]) (common.py::direct3d_cluster) and holding their rings, rank 0
+// step 0's, which it stages, each rank's rings one after another from its
+// first step's.  The interval's patches, the per-plane fill, the z map and
+// the tap order are the one-CTA kernel's; a step whose successor runs on
+// another rank stores its output plane into that rank's ring through
+// distributed shared memory, and a cluster barrier stands where the
+// one-CTA kernel's CTA barrier does at the start of each interval, so a
+// ring's plane lands in the interval before it is read, as there.  Every
+// output is the one-CTA kernel's bit for bit.
+template <typename T, int R, bool FILL>
+__global__ void __launch_bounds__(CTA_THREADS, 1)
+    stencil_direct3d_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H,
+                                    int W, int TZ, int TM, int TN, int t, int ld, int gx, int gy,
+                                    int mz, int my, int mx,
+                                    const __grid_constant__ KernelTaps<tap_slots(R, 3)> taps,
+                                    size_t grid_elems, const ClusterSplit sp) {
+    constexpr int V = DIRECT3D_ROWS, KW = 2 * R + 1;
+    constexpr int RING0 = Rings<R>::RING0, RING = Rings<R>::RING;
+    extern __shared__ __align__(16) float smem[];
+    const int rank = cluster_rank();
+    const int s_lo = sp.lo[rank], s_hi = sp.lo[rank + 1];
+    const int halo = t * R;
+    const int planes0 = TZ + 2 * halo, rows0 = TM + 2 * halo, cols0 = TN + 2 * halo;
+    const int lead = (-halo) & 3;
+    const int plane_ld = rows0 * ld + DIRECT3D_MARGIN;
+    const Tile3 tl = tile3(blockIdx.x / sp.ctas, gx, gy);
+    const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
+    const int z0 = k0 - halo;
+    if (blockIdx.z != 0) {
+        x = grid_at(x, blockIdx.z, grid_elems);
+        y = grid_at(y, blockIdx.z, grid_elems);
+    }
+    const size_t plane_cells = (size_t)H * W;
+    const bool zmap = FILL && mz != MODE_PERIODIC;
+    const bool fill_yx = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
+                                  leaves_domain(mx, j0 - halo, cols0, W));
+    int loaded = 0;
+
+    // The slot of region plane q in step s's ring, in the shared memory of
+    // the rank that runs step s.
+    auto slot = [&](int s, int q) {
+        const int first = sp.lo[split_owner(sp, s)];
+        const int i = first == 0 ? (s == 0 ? q % RING0 : RING0 + (s - 1) * RING + q % RING)
+                                 : (s - first) * RING + q % RING;
+        return DIRECT3D_MARGIN + i * plane_ld;
+    };
+    auto stage = [&](int q) {
+        if (s_lo != 0 || q >= planes0) return;
+        const T* xp = x + (size_t)wrap(z0 + q, Z) * plane_cells;
+        loaded += stage_region(smem + slot(0, q), ld, xp, H, W, i0 - halo, j0 - halo - lead, rows0);
+    };
+    auto step_work = [&](int s, int k) {
+        StepWork w;
+        w.q = k - (s + 1) * R - s;
+        const int d = (t - 1 - s) * R;
+        int glo = k0 - d, ghi = min(k0 + TZ, Z) + d;
+        if (zmap) glo = max(glo, 0), ghi = min(ghi, Z);
+        w.r_lo = (s + 1) * R;
+        const int c_lo = lead + w.r_lo, c_end = lead + cols0 - w.r_lo;
+        w.g_lo = c_lo >> 2;
+        w.G = ((c_end + 3) >> 2) - w.g_lo;
+        const bool live = s < t && w.q >= glo - z0 && w.q < ghi - z0;
+        w.n = live ? w.G * ((rows0 - 2 * w.r_lo + V - 1) / V) : 0;
+        return w;
+    };
+    auto store_patch = [&](int s, int q, int row0, int c, int r_end, const float(&acc)[V][4]) {
+        if (s < t - 1) {
+            const int to = split_owner(sp, s + 1);
+            float* const out = (to == rank ? smem : peer(smem, to)) + slot(s + 1, q);
+#pragma unroll
+            for (int o = 0; o < V; ++o)
+                if (row0 + o < r_end)
+                    *reinterpret_cast<float4*>(out + (row0 + o) * ld + c) =
+                        make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+        } else {
+            T* const yplane = y + (size_t)(z0 + q) * plane_cells;
+#pragma unroll
+            for (int o = 0; o < V; ++o) {
+                const int gi = i0 - halo + row0 + o;
+                if (row0 + o < r_end && gi < H)
+                    store4(yplane + (size_t)gi * W, j0 - halo + c - lead, W, acc[o]);
+            }
+        }
+    };
+#pragma unroll
+    for (int a = 0; a < DIRECT3D_AHEAD; ++a) {
+        stage(a);
+        cp_async_commit();
+    }
+
+    const int K = planes0 + t - 1;
+    for (int k = 0; k < K; ++k) {
+        cp_async_wait<DIRECT3D_AHEAD - 1>();
+        cluster_sync();
+        if (fill_yx) {
+            for (int s = s_lo; s < s_hi; ++s) {
+                const int q = k - s * (R + 1);
+                const int lo = s * R;
+                if (s == 0 ? q < planes0 : step_work(s - 1, k - 1).n > 0)
+                    fill_plane(smem + slot(s, q), ld, lo, rows0 - 2 * lo, lead + lo,
+                               cols0 - 2 * lo, i0 - halo + lo, j0 - halo + lo, H, W,
+                               (t - s) * R, my, mx);
+            }
+            __syncthreads();
+        }
+        stage(k + DIRECT3D_AHEAD);
+        cp_async_commit();
+
+        int total = 0;
+        for (int s = s_lo; s < s_hi; ++s) total += step_work(s, k).n;
+        for (int f = threadIdx.x; f < total; f += CTA_THREADS) {
+            int s = s_lo, i = f;
+            StepWork sw = step_work(s, k);
+            while (i >= sw.n) i -= sw.n, sw = step_work(++s, k);
+            int po[KW];
+#pragma unroll
+            for (int dz = 0; dz < KW; ++dz) {
+                int qi = sw.q - R + dz;
+                if (zmap) {
+                    const int g = axis_source(z0 + qi, Z, (t - s) * R, mz);
+                    qi = g < 0 ? -1 : g - z0;
+                }
+                po[dz] = qi < 0 ? -1 : slot(s, qi);
+            }
+            const int b = i / sw.G;
+            const int row0 = sw.r_lo + b * V, c = (sw.g_lo + i - b * sw.G) * 4;
+            float acc[V][4];
+            direct3d_patch<R, V, FILL>(smem, po, ld, row0, c, rows0 - 1, taps, acc);
+            store_patch(s, sw.q, row0, c, rows0 - sw.r_lo, acc);
+        }
+    }
+    cluster_sync();  // the last interval's stores into the peers' rings have landed
+    count_cluster_loads(loaded);
+}
+#endif
+
 // The instantiation a launch in this type, radius, fill and staging takes,
 // its launch attributes set on the current device (err: the outcome).
 template <typename T, int R, int STAGE>
@@ -513,19 +651,82 @@ static int launch_r(const void* x, void* y, const Taps3* taps, int Z, int H, int
     if (r == 1) return launch<T, 1, STAGE>(ARGS);
     if (r == 2) return launch<T, 2, STAGE>(ARGS);
     if (r == 3) return launch<T, 3, STAGE>(ARGS);
-#ifndef REPRO_FOIL  // the foil stays at radii 1..3
     if (r == 4) return launch<T, 4, STAGE>(ARGS);
     if (r == 5) return launch<T, 5, STAGE>(ARGS);
     if (r == 6) return launch<T, 6, STAGE>(ARGS);
     if (r == 7) return launch<T, 7, STAGE>(ARGS);
-#endif
 #undef ARGS
     return (int)cudaErrorInvalidValue;
 }
 
 #define ARGS x, y, taps, Z, H, W, TZ, TM, TN, t, r, ld, modes, B, grid_elems, smem_bytes, \
              static_cast<cudaStream_t>(stream)
-#ifndef REPRO_FOIL
+#if defined(REPRO_CLUSTER)
+// The cluster form's instantiations (radii 1..MAX_CLUSTER_RADIUS3D, one
+// each per grid dtype: the fill compiled in and gated by the modes at run
+// time, which on a periodic grid skips it, as the periodic instantiation
+// of the one-CTA kernel does) and launch: ctas CTAs a tile, rank k running
+// the steps [lo[k], lo[k + 1]); smem_bytes covers every rank's rings.
+#define MAX_CLUSTER_RADIUS3D 2
+template <typename T, int R>
+static int launch_cluster3d(const void* x, void* y, const Taps3* taps, int Z, int H, int W,
+                            int TZ, int TM, int TN, int t, int ld, const int* modes, int B,
+                            long long grid_elems, int smem_bytes, const ClusterSplit& sp,
+                            cudaStream_t stream) {
+    const bool fill = modes[0] != MODE_PERIODIC || modes[1] != MODE_PERIODIC ||
+                      modes[2] != MODE_PERIODIC;
+    const int halo = t * R, lead = (-halo) & 3;
+    if (TZ < 1 || TM < 1 || TN < 4 || TN % 4 != 0 || t < 1 || ld % 4 != 0 ||
+        ld < lead + TN + 2 * halo || !split_ok(sp, t))
+        return (int)cudaErrorInvalidValue;
+    const long long plane_ld = (long long)(TM + 2 * halo) * ld + DIRECT3D_MARGIN;
+    for (int k = 0; k < sp.ctas; ++k) {
+        long long slots = 0;
+        for (int s = sp.lo[k]; s < sp.lo[k + 1]; ++s) slots += s == 0 ? Rings<R>::RING0 : Rings<R>::RING;
+        if ((DIRECT3D_MARGIN + slots * plane_ld) * 4 > smem_bytes) return (int)cudaErrorInvalidValue;
+    }
+    (void)fill;  // one instantiation, the fill gated by the modes at run time
+    auto* kernel = stencil_direct3d_cluster_kernel<T, R, true>;
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_launch(kernel, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    const long long ctas = grid3_ctas(Z, H, W, TZ, TM, TN);
+    if (ctas < 1 || ctas * sp.ctas > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+    const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
+    const auto kt = kernel_taps<R, 3>(taps->w);
+    return for_each_chunk(B, [&](int b0, int nb) {
+        return launch_cluster(kernel, dim3((unsigned)(ctas * sp.ctas), 1, nb), sp.ctas,
+                              smem_bytes, stream, grid_at(static_cast<const T*>(x), b0, grid_elems),
+                              grid_at(static_cast<T*>(y), b0, grid_elems), Z, H, W, TZ, TM, TN, t,
+                              ld, gx, gy, modes[0], modes[1], modes[2], kt, (size_t)grid_elems,
+                              sp);
+    });
+}
+
+// stencil_direct3d_launch's arguments and the cluster: ctas (2, 4 or 8)
+// and steps[0..ctas], rank k running the fused steps [steps[k], steps[k +
+// 1]) (common.py::direct3d_cluster); r in 1..MAX_CLUSTER_RADIUS3D;
+// smem_bytes the largest share.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int stencil_direct3d_cluster_launch(const void* x, void* y, const Taps3* taps, int Z,
+                                               int H, int W, int TZ, int TM, int TN, int t,
+                                               int r, int ld, int dtype, int mode_z, int mode_y,
+                                               int mode_x, int ctas, const int* steps, int B,
+                                               long long grid_elems, int smem_bytes,
+                                               void* stream) {
+    if (grid_elems != (long long)Z * H * W || ctas < 2 || ctas > MAX_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    const int modes[3] = {mode_z, mode_y, mode_x};
+    const ClusterSplit sp = split_from(ctas, steps, nullptr);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CARGS x, y, taps, Z, H, W, TZ, TM, TN, t, ld, modes, B, grid_elems, smem_bytes, sp, s
+    if (dtype == 0 && r == 1) return launch_cluster3d<float, 1>(CARGS);
+    if (dtype == 0 && r == 2) return launch_cluster3d<float, 2>(CARGS);
+    if (dtype == 1 && r == 1) return launch_cluster3d<__nv_bfloat16, 1>(CARGS);
+    if (dtype == 1 && r == 2) return launch_cluster3d<__nv_bfloat16, 2>(CARGS);
+#undef CARGS
+    return (int)cudaErrorInvalidValue;
+}
+#elif !defined(REPRO_FOIL)
 // taps: the dense (2r+1)^3 float32 weights, row-major, the rest zero.
 // dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..7; ld and
 // smem_bytes: the layout of repro_torch/kernels/common.py::direct3d_layout;

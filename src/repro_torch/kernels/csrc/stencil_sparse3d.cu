@@ -12,6 +12,38 @@
 // or star kernel it equals stencil_banded3d bit for bit.
 #include "slab_fold.cuh"
 
+#ifdef REPRO_CLUSTER
+// stencil_sparse3d_launch's arguments and the cluster of a launch of t > 1
+// steps (the reuse split of slab_fold.cuh): ctas (2, 4 or 8) and
+// split[0..ctas], rank k owning the region planes [split[k], split[k + 1]);
+// smem_bytes the largest share (common.py::slab_cluster).  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int stencil_sparse3d_cluster_launch(const void* x, void* y, const void* toe,
+                                               const void* meta, int Z, int H, int W, int TZ,
+                                               int TM, int TN, int t, int R, int ld, int plane_ld,
+                                               int a_cols, int toe_ld, int n_rows, int dtype,
+                                               int compute, int mode_z, int mode_y, int mode_x,
+                                               int ctas, const int* split, int B,
+                                               long long grid_elems, int smem_bytes,
+                                               void* stream) {
+    const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
+    if (grid_elems != (long long)Z * H * W || a_cols > MAX_KPAD + k || t < 2 || ctas < 2 ||
+        ctas > MAX_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    SlabArgs a{};
+    a.x = x;
+    a.y = y;
+    a.toe = toe;
+    a.rows = static_cast<const int*>(meta);
+    a.grid_elems = (size_t)grid_elems;
+    a.Z = Z, a.H = H, a.W = W, a.TZ = TZ, a.TM = TM, a.TN = TN, a.t = t, a.R = R;
+    a.ld = ld, a.plane_ld = plane_ld, a.toe_ld = toe_ld, a.n_rows = n_rows;
+    a.mz = mode_z, a.my = mode_y, a.mx = mode_x;
+    return slab_cluster_launch_types<false>(a, split_from(ctas, split, nullptr), B, dtype,
+                                            compute, smem_bytes,
+                                            static_cast<cudaStream_t>(stream));
+}
+#else
 // stencil_banded3d_launch's arguments with the compacted operand: toe
 // holds the (n_rows, toe_ld) Toeplitz rows of the compacted bands, meta
 // is (n_rows, 4) int32 (dz, dy, lo, nk), and a_cols = max_p(lo_p + nk_p *
@@ -43,3 +75,4 @@ extern "C" int stencil_sparse3d_launch(const void* x, void* y, const void* toe, 
 extern "C" int stencil_sparse3d_ctas_per_sm(int dtype, int compute, int fill, int smem_bytes) {
     return slab_ctas_per_sm<STAGE_REGION>(dtype, compute, fill, smem_bytes);
 }
+#endif

@@ -290,7 +290,7 @@ static auto tile_kernel_deep(bool fill, cudaError_t& err) {
 }
 
 // DEEP: the launch may take bands past MAX_KS k-steps (the dense bands of
-// the main build); the compacted bands and the foils stay within MAX_KS.
+// the main and the foil builds); the compacted bands stay within MAX_KS.
 template <typename TIn, typename TC, int STAGE, bool DEEP>
 static int tile_launch(const SlabArgs& a, int B, int smem_bytes, cudaStream_t stream) {
     const bool fill = a.my != MODE_PERIODIC || a.mx != MODE_PERIODIC;

@@ -42,7 +42,7 @@ from . import stencil_sparse as _sparse
 from .common import (BAND_N, SubstrateGeom, TileNeed, check_grid,
                      check_staging, fold_need, launch_geom, mma_k_step,
                      plain_loop, priced_tile_geom, pricing_geom,
-                     staging_clause)
+                     smem_budget_bytes, staging_clause)
 from .stencil_direct import direct2d_layout, stencil_direct_at
 from .stencil_matmul import build_bands_nd, stencil_matmul_at
 from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
@@ -440,11 +440,11 @@ def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = _direct_geom(ctx, 1, "direct")
+    geom, budget = _direct_geom(ctx, 1, "direct"), smem_budget_bytes()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom, b, st, batched)
+            x = stencil_direct_at(x, w, 1, geom, b, st, batched, budget)
         return x
     return _staged(run, ctx, geom)
 
@@ -452,10 +452,10 @@ def _build_direct(ctx: PlanContext) -> Callable:
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps in shared memory (halo t*r)."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom = _direct_geom(ctx, t, "fused_direct")
+    geom, budget = _direct_geom(ctx, t, "fused_direct"), smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_direct_at(x, w, t, geom, b, st, batched)
+        return stencil_direct_at(x, w, t, geom, b, st, batched, budget)
     return _staged(run, ctx, geom)
 
 
@@ -463,10 +463,11 @@ def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, 1, "matmul", "matmul"), ctx.compute_dtype
+    budget = smem_budget_bytes()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched, budget)
         return x
     return _staged(run, ctx, geom)
 
@@ -484,10 +485,10 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
             "fused_matmul_reuse (per-step fills) or t=1")
     wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
     geom = ctx.launch_geom(wf, 1, "matmul", "fused_matmul")
-    cdt = ctx.compute_dtype
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched)
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched, budget)
     return _staged(run, ctx, geom)
 
 
@@ -496,10 +497,10 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     intermediates in shared memory, the boundary filled before each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, t, "matmul", "fused_matmul_reuse")
-    cdt = ctx.compute_dtype
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched)
+        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched, budget)
     return _staged(run, ctx, geom)
 
 
@@ -517,10 +518,12 @@ def _build_sparse_matmul(ctx: PlanContext) -> Callable:
     """t launches of the compacted banded kernel at t=1, halo r each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom, cdt = _sparse_geom(ctx, 1, "sparse_matmul"), ctx.compute_dtype
+    budget = smem_budget_bytes()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b, batched)
+            x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b, batched,
+                                         budget)
         return x
     return run
 
@@ -531,10 +534,11 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     boundary filled before each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom = _sparse_geom(ctx, t, "fused_sparse_matmul")
-    cdt = ctx.compute_dtype
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched)
+        return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched,
+                                        budget)
     return run
 
 

@@ -47,11 +47,12 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom, TileNeed,
-                     batch_chunks, batch_grid, check_grid, check_staging,
-                     check_tile_halo, direct1d_layout, direct3d_layout,
+from .common import (CLUSTER_RADIUS3D, SMEM_BUDGET_BYTES, STAGE_CODES,
+                     ClusterLayout, SubstrateGeom, TileNeed, batch_chunks,
+                     batch_grid, check_grid, check_staging, check_tile_halo,
+                     direct1d_layout, direct3d_cluster, direct3d_layout,
                      direct_layout, kernel_mode_codes, launch_geom,
-                     plain_loop, tapsum_need)
+                     plain_loop, smem_budget_bytes, tapsum_need)
 
 #: Radii the kernels are specialised on (1..7), and so the taps the host
 #: passes the 2D and 3D kernels (a dense r=7 box: 225 and 3,375 floats;
@@ -142,6 +143,18 @@ def _launcher3d():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Taps3)] + [
         ctypes.c_int] * 13 + _BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_launcher3d():
+    """The 3D kernel's cluster form's C entry point (the 3D entry's
+    arguments, then the cluster's CTAs and the steps each runs), built on
+    first use."""
+    fn = _build.library("stencil_direct3d_cluster").stencil_direct3d_cluster_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Taps3)] + [
+        ctypes.c_int] * 14 + [ctypes.POINTER(ctypes.c_int)] + _BATCH_ARGS
     return fn
 
 
@@ -239,13 +252,18 @@ def stencil_direct(x: torch.Tensor, weights, t: int = 1,
 def stencil_direct_at(x: torch.Tensor, weights, t: int,
                       geom: SubstrateGeom, boundary=None,
                       staging: str = "region",
-                      batched: bool = False) -> torch.Tensor:
+                      batched: bool = False,
+                      budget: int = None) -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * r, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
     ``(B,) + grid_shape`` and one launch advances every grid (K11).
-    Inside a plan's first call the launch is where the ``compile`` and
-    ``vmem`` fault hooks fire (``repro_torch.testing.faults``)."""
+    ``budget``: the shared memory per CTA the tile was resolved under
+    (``common.smem_budget_bytes()`` when the plan was built; None: now);
+    a 3D launch whose rings exceed it runs the cluster form
+    (:func:`direct3d_rings`).  Inside a plan's first call the launch is
+    where the ``compile`` and ``vmem`` fault hooks fire
+    (``repro_torch.testing.faults``)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights)
@@ -256,12 +274,13 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
     faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
         return plain_loop(stencil_direct_plain, x, batched, w, t, modes)
-    return _run(x, w, t, r, geom, modes, staging, batched)
+    return _run(x, w, t, r, geom, modes, staging, batched, budget)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
          geom: SubstrateGeom, modes: tuple,
-         staging: str = "region", batched: bool = False) -> torch.Tensor:
+         staging: str = "region", batched: bool = False,
+         budget: int = None) -> torch.Tensor:
     """Launch the kernel of the grid's rank on ``geom`` with ``staging``
     (a 1D grid: the folded kernel's one staging) over one grid, or over
     the batch ``x`` holds when ``batched``; or raise."""
@@ -281,7 +300,7 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     codes = kernel_mode_codes(modes)
     xb = x if batched else x.unsqueeze(0)
     if xb.ndim == 4:
-        y = _launch3d(xb, w32, t, r, geom, codes, staging)
+        y = _launch3d(xb, w32, t, r, geom, codes, staging, budget)
     elif xb.ndim == 2:
         y = _launch1d(xb, w32, t, r, geom, codes[-1])
     else:
@@ -341,29 +360,58 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     return y
 
 
-def direct3d_rings(geom: SubstrateGeom, r: int, t: int):
-    """The 3D tap-sum's rings on ``geom`` at ``t`` steps of radius ``r``
-    (``common.direct3d_layout``), or raise past the 227 KB budget."""
+def direct3d_rings(geom: SubstrateGeom, r: int, t: int,
+                   budget: int = None):
+    """The 3D tap-sum's rings on ``geom`` at ``t`` steps of radius ``r``:
+    ``common.direct3d_layout`` where it fits ``budget`` bytes (default:
+    ``common.smem_budget_bytes()``), else its cluster form
+    (``common.direct3d_cluster``, a :class:`ClusterLayout`, radii up to
+    ``CLUSTER_RADIUS3D``); raise where neither fits."""
+    budget = smem_budget_bytes() if budget is None else budget
     layout = direct3d_layout(geom.strip_m, geom.w_tile, r, t)
-    if layout.smem_bytes > SMEM_BUDGET_BYTES:
+    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES):
+        return layout
+    cluster = (direct3d_cluster(geom.strip_m, geom.w_tile, r, t, budget)
+               if r <= CLUSTER_RADIUS3D else None)
+    if cluster is None:
         raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
-                         "of shared memory, over the 227 KB budget")
-    return layout
+                         "of shared memory, over the 227 KB budget, and no "
+                         f"cluster of up to 8 CTAs of {budget} bytes holds "
+                         "it")
+    return cluster
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
-    layout = direct3d_rings(geom, r, t)
+              geom, codes: tuple, staging: str = "region",
+              budget: int = None) -> torch.Tensor:
+    layout = direct3d_rings(geom, r, t, budget)
     arg = _tap_arg(w32.tobytes(), 3)
     y = torch.empty_like(x)
-    lib, fn, stage, counter = _entry(3, staging)
     b, z, h, wd = x.shape
+    if isinstance(layout, ClusterLayout):
+        if staging != "region":
+            raise ValueError("the whole-slab foil runs on one CTA a tile; its "
+                             f"rings need {layout.base.smem_bytes} bytes")
+        lib, counter = "stencil_direct3d_cluster", "stencil_direct3d (cluster)"
+
+        def launch(stream):
+            return _cluster_launcher3d()(
+                x.data_ptr(), y.data_ptr(), ctypes.byref(arg), z, h, wd,
+                geom.z_slab, geom.strip_m, geom.w_tile, t, r, layout.base.ld,
+                _DTYPE_CODES[x.dtype], *codes, layout.ctas,
+                _build.c_ints(layout.split), b, z * h * wd, layout.smem_bytes,
+                stream)
+    else:
+        lib, fn, stage, counter = _entry(3, staging)
+
+        def launch(stream):
+            return fn(x.data_ptr(), y.data_ptr(), ctypes.byref(arg), z, h, wd,
+                      geom.z_slab, geom.strip_m, geom.w_tile, t, r, layout.ld,
+                      _DTYPE_CODES[x.dtype], *stage, *codes, b, z * h * wd,
+                      layout.smem_bytes, stream)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), ctypes.byref(arg), z, h, wd,
-                 geom.z_slab, geom.strip_m, geom.w_tile, t, r, layout.ld,
-                 _DTYPE_CODES[x.dtype], *stage, *codes, b, z * h * wd,
-                 layout.smem_bytes, stream)
+        err = launch(torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, lib)
-    _build.count_launch(counter, len(batch_chunks(b)))
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        layout.ctas if isinstance(layout, ClusterLayout) else None)
     return y

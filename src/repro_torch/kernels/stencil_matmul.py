@@ -43,6 +43,7 @@ advances all B grids (K11).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -53,18 +54,19 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, SubstrateGeom,
-                     TileNeed, batch_chunks, batch_grid, check_grid,
-                     check_staging, check_tile_halo, fold_need,
+from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, ClusterLayout,
+                     SubstrateGeom, TileNeed, batch_chunks, batch_grid,
+                     check_grid, check_staging, check_tile_halo, fold_need,
                      kernel_mode_codes, launch_geom, line_layout, mma_k_step,
-                     plain_loop, slab_fold_layout, tile_fold_layout)
+                     plain_loop, slab_cluster, slab_fold_layout,
+                     smem_budget_bytes, tile_fold_layout)
 
 #: Deepest padded contraction one unrolled piece of the kernels takes
 #: (BAND_N + 2R <= 64, so R <= 24); must match MAX_KPAD in
 #: csrc/banded_mma.cuh.  The 1D and 2D kernels on the dense bands take
 #: deeper bands in pieces of it (``FoldKs::DEEP``, a composed kernel past
-#: radius 24: 128 deep at Box-2D7R, t = 8); the 3D kernels, the compacted
-#: ones and the foils take at most this.
+#: radius 24: 128 deep at Box-2D7R, t = 8), the 2D foils too; the 3D
+#: kernels and the compacted ones take at most this.
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -237,6 +239,18 @@ def _launcher3d():
 
 
 @functools.lru_cache(maxsize=None)
+def _cluster_launcher3d():
+    """The 3D kernel's cluster forms' C entry point (the 3D entry's
+    arguments, then the cluster's CTAs, its split and, for a one-step
+    launch, its bands' split), built on first use."""
+    fn = _build.library("stencil_banded3d_cluster").stencil_banded3d_cluster_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
+        ctypes.POINTER(ctypes.c_int)] * 2 + BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher1d():
     """The folded 1D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_banded1d").stencil_banded1d_launch
@@ -272,16 +286,26 @@ def band_rows(weights) -> int:
                                        axis=1)))
 
 
+def band_dzs(weights) -> tuple:
+    """Each band's dz, in ``build_bands_nd``'s band order, of a 3D kernel:
+    what the slab fold's cluster form splits a one-step launch by."""
+    w = np.asarray(weights)
+    keep = np.any(w.reshape(-1, w.shape[-1]) != 0, axis=1)
+    return tuple(int(i) // w.shape[1] for i in np.flatnonzero(keep))
+
+
 def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
               compute_dtype: torch.dtype,
               regime: str = "the banded contraction") -> TileNeed:
     """The dense fold's own shared memory on a candidate tile at ``t``
     steps of ``weights`` on a grid of this shape and dtype
-    (``common.fold_need``), which the tile rule holds candidates to where
-    no reserve fits."""
+    (``common.fold_need``; 3D with its cluster form), which the tile rule
+    holds candidates to where no reserve fits."""
     radius = (np.asarray(weights).shape[-1] - 1) // 2
+    dzs = band_dzs(weights) if len(grid_shape) == 3 else None
     return fold_need(len(grid_shape), radius, t, dtype.itemsize,
-                     compute_dtype.itemsize, band_rows(weights), regime)
+                     compute_dtype.itemsize, band_rows(weights), regime,
+                     dzs=dzs)
 
 
 def kernel_source(ndim: int) -> str:
@@ -332,11 +356,15 @@ def stencil_matmul(x: torch.Tensor, weights, t: int = 1,
 def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
                       compute_dtype=None, boundary=None,
                       staging: str = "region",
-                      batched: bool = False) -> torch.Tensor:
+                      batched: bool = False,
+                      budget: int = None) -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * R, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
     ``(B,) + grid_shape`` and one launch advances every grid (K11).
+    ``budget``: the shared memory per CTA the tile was resolved under
+    (None: ``common.smem_budget_bytes()`` now); a 3D launch whose layout
+    exceeds it runs the cluster form (:func:`slab_launch_layout`).
     Inside a plan's first call the launch is where the ``compile`` and
     ``vmem`` fault hooks fire."""
     if t < 1:
@@ -352,18 +380,18 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
     if x.device.type == "cpu":
         return plain_loop(stencil_matmul_plain, x, batched, w, t, BAND_N,
                           cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, staging, batched)
+    return _run(x, w, t, radius, cdt, geom, modes, staging, batched, budget)
 
 
 def _run(x, w, t, radius, cdt, geom, modes, staging: str = "region",
-         batched: bool = False) -> torch.Tensor:
+         batched: bool = False, budget: int = None) -> torch.Tensor:
+    launch3d = functools.partial(_launch3d, staging=staging, budget=budget)
     if staging == "region" or w.ndim == 1:        # 1D: one staging
-        return run_kernel("stencil_matmul", _launch1d, _launch2d, _launch3d,
+        return run_kernel("stencil_matmul", _launch1d, _launch2d, launch3d,
                           x, w, t, radius, cdt, geom, modes, batched)
     return run_kernel("stencil_matmul", _launch1d,
                       functools.partial(_launch2d, staging=staging),
-                      functools.partial(_launch3d, staging=staging),
-                      x, w, t, radius, cdt, geom, modes, batched)
+                      launch3d, x, w, t, radius, cdt, geom, modes, batched)
 
 
 def run_kernel(name, launch1d, launch2d, launch3d, x, w, t, radius, cdt,
@@ -404,6 +432,29 @@ def _checked(layout, what: str, deep: bool = False):
     return layout
 
 
+def slab_launch_layout(geom: SubstrateGeom, radius: int, t: int,
+                       compute_bytes: int, dzs: tuple, what: str,
+                       k_rows: int = None, a_cols: int = None,
+                       budget: int = None, cluster: bool = True):
+    """The 3D folds' shared-memory layout of a launch on ``geom`` with the
+    bands ``dzs`` (each band's dz): ``common.slab_fold_layout`` where it
+    fits ``budget`` bytes (default: ``common.smem_budget_bytes()``), else
+    its cluster form (``common.slab_cluster``, a :class:`ClusterLayout`)
+    where ``cluster``; raise past MAX_KPAD, or where neither fits."""
+    budget = smem_budget_bytes() if budget is None else budget
+    layout = slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile,
+                              radius, t, compute_bytes, len(dzs), k_rows,
+                              a_cols)
+    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES) or not cluster:
+        return _checked(layout, what)
+    spread = slab_cluster(geom.z_slab, geom.strip_m, geom.w_tile, radius, t,
+                          compute_bytes, tuple(dzs), k_rows, a_cols, budget)
+    if spread is None:
+        return _checked(layout, what)
+    _checked(dataclasses.replace(layout, smem_bytes=spread.smem_bytes), what)
+    return spread
+
+
 def line_launch_layout(geom: SubstrateGeom, radius: int, t: int,
                        in_dtype: torch.dtype, cdt: torch.dtype, what: str,
                        deep: bool = True):
@@ -442,7 +493,7 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
     layout = _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
                                        cdt.itemsize, len(rows)), "banded",
-                      deep=staging == "region")
+                      deep=True)
     y = torch.empty_like(x)
     lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape
@@ -459,23 +510,33 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes,
-              staging: str = "region") -> torch.Tensor:
+              staging: str = "region", budget: int = None) -> torch.Tensor:
     """The slab fold on the dense bands (``csrc/stencil_banded3d.cu``) on
-    the (B, Z, H, W) grids ``x``."""
+    the (B, Z, H, W) grids ``x``; its cluster form where the layout
+    exceeds ``budget`` (:func:`slab_launch_layout`; not the foil's)."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = _checked(slab_fold_layout(geom.z_slab, geom.strip_m,
-                                       geom.w_tile, radius, t, cdt.itemsize,
-                                       len(rows)), "3D banded")
+    layout = slab_launch_layout(geom, radius, t, cdt.itemsize, band_dzs(w),
+                                "3D banded", budget=budget,
+                                cluster=staging == "region")
     y = torch.empty_like(x)
-    lib, fn, stage, counter = _entry(3, staging)
     b, z, h, wd = x.shape
+    if isinstance(layout, ClusterLayout):
+        lib, counter = "stencil_banded3d_cluster", "stencil_banded3d (cluster)"
+        lay = layout.base
+        tail = (layout.ctas, _build.c_ints(layout.split),
+                _build.c_ints(layout.rows) if layout.rows else None)
+        fn, stage = _cluster_launcher3d(), ()
+    else:
+        lib, fn, stage, counter = _entry(3, staging)
+        lay, tail = layout, ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
                  z, h, wd, geom.z_slab, geom.strip_m, geom.w_tile, t, radius,
-                 layout.ld, layout.plane_ld, layout.kpad, layout.toe_ld,
-                 layout.n_rows, _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt],
-                 *stage, *codes, b, z * h * wd, layout.smem_bytes, stream)
+                 lay.ld, lay.plane_ld, lay.kpad, lay.toe_ld, lay.n_rows,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
+                 *tail, b, z * h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter, len(batch_chunks(b)))
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        layout.ctas if isinstance(layout, ClusterLayout) else None)
     return y

@@ -43,13 +43,13 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (BAND_N, SubstrateGeom, TileNeed, batch_chunks,
-                     batch_grid, check_grid, check_tile_halo, fold_need,
-                     launch_geom, mma_k_step, plain_loop, slab_fold_layout,
+from .common import (BAND_N, ClusterLayout, SubstrateGeom, TileNeed,
+                     batch_chunks, batch_grid, check_grid, check_tile_halo,
+                     fold_need, launch_geom, mma_k_step, plain_loop,
                      tile_fold_layout)
 from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, _checked,
                              build_bands_nd, line_launch_layout, run_kernel,
-                             toeplitz_rows)
+                             slab_launch_layout, toeplitz_rows)
 
 
 def compact_bands(offsets, bands: np.ndarray):
@@ -223,15 +223,18 @@ def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
 
 def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
                        compute_dtype: torch.dtype,
-                       in_dtype: torch.dtype = torch.float32):
+                       in_dtype: torch.dtype = torch.float32,
+                       budget: int = None):
     """The shared-memory layout the compacted kernel of a grid of this
     rank launches ``weights`` with at ``t`` fused steps on ``geom``;
     raises when it passes the 227 KB budget (or the deepest contraction
-    the kernels take).  Plans call it when they are built, the launches
-    at every call (the 2D kernel on the lifted (1, N) view with the
-    lifted (1, N) grid and kernel).  A 1D grid's folded layout depends on
-    the grid's dtype too; ``in_dtype`` is it (default: float32, the larger
-    staging)."""
+    the kernels take).  A 3D launch of t > 1 steps whose layout exceeds
+    ``budget`` (default ``common.smem_budget_bytes()``) takes the slab
+    fold's cluster form (``stencil_matmul.slab_launch_layout``).  Plans
+    call it when they are built, the launches at every call (the 2D
+    kernel on the lifted (1, N) view with the lifted (1, N) grid and
+    kernel).  A 1D grid's folded layout depends on the grid's dtype too;
+    ``in_dtype`` is it (default: float32, the larger staging)."""
     w = np.asarray(weights, dtype=np.float32)
     radius = (w.shape[-1] - 1) // 2
     cb = compute_dtype.itemsize
@@ -241,10 +244,10 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
     meta = band_meta(w, compute_dtype)
     k_rows = max(r[-1] for r in meta.rows) * mma_k_step(cb)
     if len(grid_shape) == 3:
-        return _checked(slab_fold_layout(geom.z_slab, geom.strip_m,
-                                         geom.w_tile, radius, t, cb,
-                                         len(meta.rows), k_rows,
-                                         meta.a_cols), "3D compacted banded")
+        return slab_launch_layout(geom, radius, t, cb,
+                                  tuple(r[0] for r in meta.rows),
+                                  "3D compacted banded", k_rows, meta.a_cols,
+                                  budget, cluster=t > 1)
     return _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t, cb,
                                      len(meta.rows), k_rows, meta.a_cols),
                     "compacted banded")
@@ -261,9 +264,11 @@ def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
     radius = (w.shape[-1] - 1) // 2
     meta = band_meta(w, compute_dtype)
     k_rows = max(r[-1] for r in meta.rows) * mma_k_step(compute_dtype.itemsize)
+    dzs = (tuple(r[0] for r in meta.rows) if len(grid_shape) == 3 and t > 1
+           else None)                   # the reuse fold's cluster form
     return fold_need(len(grid_shape), radius, t, dtype.itemsize,
                      compute_dtype.itemsize, len(meta.rows), regime, k_rows,
-                     meta.a_cols)
+                     meta.a_cols, dzs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,6 +296,18 @@ def _launcher3d():
     fn = _build.library("stencil_sparse3d").stencil_sparse3d_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_launcher3d():
+    """The 3D kernel's cluster form's C entry point (the 3D entry's
+    arguments, then the cluster's CTAs and its split), built on first
+    use."""
+    fn = _build.library("stencil_sparse3d_cluster").stencil_sparse3d_cluster_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
+        ctypes.POINTER(ctypes.c_int)] + BATCH_ARGS
     return fn
 
 
@@ -324,12 +341,15 @@ def stencil_sparse_matmul(x: torch.Tensor, weights, t: int = 1,
 def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                              geom: SubstrateGeom, compute_dtype=None,
                              boundary=None,
-                             batched: bool = False) -> torch.Tensor:
+                             batched: bool = False,
+                             budget: int = None) -> torch.Tensor:
     """:func:`stencil_sparse_matmul` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * R, ...)``, as plans do when built.
     ``batched``: ``x`` is ``(B,) + grid_shape`` and one launch advances
-    every grid (K11).  Inside a plan's first call the launch is where the
-    ``compile`` and ``vmem`` fault hooks fire."""
+    every grid (K11).  ``budget``: the shared memory per CTA the tile was
+    resolved under, as in ``stencil_matmul_at``.  Inside a plan's first
+    call the launch is where the ``compile`` and ``vmem`` fault hooks
+    fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
@@ -342,13 +362,14 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
     if x.device.type == "cpu":
         return plain_loop(stencil_sparse_matmul_plain, x, batched, w, t,
                           BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, batched)
+    return _run(x, w, t, radius, cdt, geom, modes, batched, budget)
 
 
 def _run(x, w, t, radius, cdt, geom, modes,
-         batched: bool = False) -> torch.Tensor:
+         batched: bool = False, budget: int = None) -> torch.Tensor:
     return run_kernel("stencil_sparse_matmul", _launch1d, _launch2d,
-                      _launch3d, x, w, t, radius, cdt, geom, modes, batched)
+                      functools.partial(_launch3d, budget=budget), x, w, t,
+                      radius, cdt, geom, modes, batched)
 
 
 def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
@@ -394,22 +415,31 @@ def _launch2d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
     return y
 
 
-def _launch3d(x, w, t, radius, cdt, geom, codes) -> torch.Tensor:
+def _launch3d(x, w, t, radius, cdt, geom, codes,
+              budget: int = None) -> torch.Tensor:
     """The slab fold on the compacted bands (``csrc/stencil_sparse3d.cu``)
-    on the (B, Z, H, W) grids ``x``."""
+    on the (B, Z, H, W) grids ``x``; its cluster form where the layout of
+    a launch of t > 1 steps exceeds ``budget``."""
     _, _, rows = _device_operand(w.tobytes(), w.shape, cdt, str(x.device))
     toe = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt)
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt, budget=budget)
     y = torch.empty_like(x)
-    fn = _launcher3d()
     b, z, h, wd = x.shape
+    if isinstance(layout, ClusterLayout):
+        lib, counter = "stencil_sparse3d_cluster", "stencil_sparse3d (cluster)"
+        fn, lay = _cluster_launcher3d(), layout.base
+        tail = (layout.ctas, _build.c_ints(layout.split))
+    else:
+        lib = counter = "stencil_sparse3d"
+        fn, lay, tail = _launcher3d(), layout, ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
                  z, h, wd, geom.z_slab, geom.strip_m, geom.w_tile, t, radius,
-                 layout.ld, layout.plane_ld, layout.a_cols, layout.toe_ld,
-                 layout.n_rows, _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt],
-                 *codes, b, z * h * wd, layout.smem_bytes, stream)
-    _build.check(err, "stencil_sparse3d")
-    _build.count_launch("stencil_sparse3d", len(batch_chunks(b)))
+                 lay.ld, lay.plane_ld, lay.a_cols, lay.toe_ld, lay.n_rows,
+                 _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes, *tail,
+                 b, z * h * wd, layout.smem_bytes, stream)
+    _build.check(err, lib)
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        layout.ctas if isinstance(layout, ClusterLayout) else None)
     return y

@@ -267,12 +267,14 @@ class StencilServer:
                     req.future.set_exception(exc)
             return
         done_s = time.perf_counter()
-        # strip padding: slots >= len(requests) are never observable
-        for i, req in enumerate(batch.requests):
-            if not req.future.cancelled():
-                req.future.set_result(yb[i])
+        # the batch is recorded before its futures resolve, so a client
+        # that has every result reads a snapshot that counts them all
         self.metrics.record_responses(
             [done_s - req.submit_s for req in batch.requests])
         self.metrics.record_batch(len(batch.requests), batch.bucket,
                                   degraded=bool(getattr(plan, "degraded",
                                                         False)))
+        # strip padding: slots >= len(requests) are never observable
+        for i, req in enumerate(batch.requests):
+            if not req.future.cancelled():
+                req.future.set_result(yb[i])

@@ -154,26 +154,31 @@ def test_the_least_footprints_of_the_deep_halos():
     (16, "fused_matmul_reuse", False), (10, "fused_matmul", True),
     (12, "fused_matmul", False)])
 def test_deep_3d_tiles_and_refusals(h, regime, fits):
-    # Box-3D2R at t = h / 2 on 512^3: a layout that fits takes the tile
-    # of least read amplification it fits; one that fits none raises
-    # naming its regime and its least bytes
+    # Box-3D2R at t = h / 2 on 512^3: a layout that fits one CTA takes the
+    # tile of least read amplification it fits; one that fits none takes
+    # the first tile, in the same order, on which it spread over the least
+    # cluster of 2, 4 or 8 CTAs fits each CTA's share (the third rung)
     t = h // 2
+    budget = common.SMEM_BUDGET_BYTES
     need = {"fused_direct": common.tapsum_need(3, 2, t, 4, regime),
-            "fused_matmul_reuse": common.fold_need(3, 2, t, 4, 4, 25, regime),
-            "fused_matmul": common.fold_need(3, h, 1, 4, 4, (2 * h + 1) ** 2,
-                                             regime)}[regime]
-    if not fits:
-        with pytest.raises(ValueError, match=rf"halo {h} is too deep.*"
-                                             rf"{regime}'s own layout"):
-            common.resolve_tile_geom((512,) * 3, h, need=need)
-        return
+            "fused_matmul_reuse": common.fold_need(
+                3, 2, t, 4, 4, 25, regime, dzs=tuple(i // 5 for i in range(25))),
+            "fused_matmul": common.fold_need(
+                3, h, 1, 4, 4, (2 * h + 1) ** 2, regime,
+                dzs=tuple(i // (2 * h + 1) for i in range((2 * h + 1) ** 2)))}[regime]
     g = common.resolve_tile_geom((512,) * 3, h, need=need)
-    assert need.smem(g.z_slab, g.strip_m, g.w_tile) <= common.SMEM_BUDGET_BYTES
     assert g.z_block == g.h_block == g.w_block == h
     order = common._candidates((512,) * 3, h, None, None, None)
-    first = next(c for c in order
-                 if need.smem(*c) <= common.SMEM_BUDGET_BYTES)
-    assert (g.z_slab, g.strip_m, g.w_tile) == first
+    tile = (g.z_slab, g.strip_m, g.w_tile)
+    if fits:
+        assert need.smem(*tile) <= budget
+        assert tile == next(c for c in order if need.smem(*c) <= budget)
+        return
+    assert all(need.smem(*c) > budget for c in order)
+    assert tile == next(c for c in order if need.cluster(*c, budget))
+    lay = need.cluster(*tile, budget)
+    assert lay.ctas in common.CLUSTER_SIZES and max(lay.shares) <= budget
+    assert lay.smem_bytes == max(lay.shares)
 
 
 def test_halos_past_one_cta_stay_refused():

@@ -414,7 +414,8 @@ def test_load_counting_builds_only_the_foils(monkeypatch, count):
         assert ("-DREPRO_COUNT_LOADS" in flags) == count
         if not count:
             assert flags == _build.NVCC_FLAGS + (
-                ("-DREPRO_FOIL",) if name.endswith("_foil") else ())
+                ("-DREPRO_FOIL",) if name.endswith("_foil") else ()) + (
+                ("-DREPRO_CLUSTER",) if name.endswith("_cluster") else ())
     src = (pathlib.Path(common.__file__).parent / "csrc" /
            "common.cuh").read_text()
     assert 'extern "C" int repro_load_counts(' in src

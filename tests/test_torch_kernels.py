@@ -190,7 +190,9 @@ def test_cpu_tensors_never_count_a_launch():
             "stencil_direct (wholestrip)", "stencil_direct (9tile)",
             "stencil_banded (wholestrip)", "stencil_banded (9tile)",
             "stencil_direct3d (wholeslab)",
-            "stencil_banded3d (wholeslab)"} == set(counts)
+            "stencil_banded3d (wholeslab)", "stencil_direct3d (cluster)",
+            "stencil_banded3d (cluster)",
+            "stencil_sparse3d (cluster)"} == set(counts)
 
 
 def test_other_devices_raise():

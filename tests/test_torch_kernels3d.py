@@ -265,20 +265,35 @@ def test_3d_pins_and_too_deep():
         common.SMEM_BUDGET_BYTES
     with pytest.raises(ValueError, match="too deep"):
         common.resolve_tile_geom((512, 512, 512), 8, tile_m=64, w_tile=64)
-    # h = 12 at t = 6: the rings fit no tile, and the refusal names them
-    with pytest.raises(ValueError, match="too deep.*fused_direct's own "
-                                         "layout needs at least 237408"):
-        common.resolve_tile_geom((512, 512, 512), 12,
-                                 need=common.tapsum_need(3, 2, 6, 4,
+    # h = 12 at t = 6: the rings fit no tile, so the third rung spreads
+    # them over a cluster; h = 40 at t = 40, r = 1: 40 rings, of which one
+    # CTA holds at most one, fit no cluster of 8 CTAs, and the refusal
+    # names them and their least bytes
+    rings12 = common.tapsum_need(3, 2, 6, 4, "fused_direct")
+    g12 = common.resolve_tile_geom((512, 512, 512), 12, need=rings12)
+    assert rings12.smem(g12.z_slab, g12.strip_m, g12.w_tile) > \
+        common.SMEM_BUDGET_BYTES
+    lay = rings12.cluster(g12.z_slab, g12.strip_m, g12.w_tile,
+                          common.SMEM_BUDGET_BYTES)
+    assert lay.ctas in (2, 4, 8) and lay.smem_bytes <= common.SMEM_BUDGET_BYTES
+    least = common.direct3d_layout(16, 16, 1, 40).smem_bytes
+    with pytest.raises(ValueError, match=f"too deep.*fused_direct's own "
+                                         f"layout needs at least {least} "
+                                         "bytes, and no cluster of up to 8"):
+        common.resolve_tile_geom((512, 512, 512), 40,
+                                 need=common.tapsum_need(3, 1, 40, 4,
                                                          "fused_direct"))
 
 
-#: Star-3D3R at t = 4 (h = 12): the step-wise regimes launch at halo 3,
-#: and the tap-sum's rings (33 slots of 40 x 40 at r = 3: 211,728 bytes)
-#: and the reuse fold's slab fit a tile; the composed slab (radius 12)
-#: fits none, and raises naming itself.
-_H12_BUILDS = {"direct": True, "fused_direct": True, "matmul": True,
-               "fused_matmul": False, "fused_matmul_reuse": True}
+#: Star-3D3R at t = 4 (h = 12): every regime builds -- the step-wise ones
+#: at halo 3, the tap-sum's rings (33 slots of 40 x 40 at r = 3: 211,728
+#: bytes) and the reuse fold's slab on one CTA, the composed slab (radius
+#: 12), which fits no CTA, over a cluster; at t = 10 (h = 30) the fused
+#: regimes' layouts fit no one CTA, and the folds' no cluster of 8 CTAs
+#: either (the tap-sum's cluster form takes radii up to 2), and raise
+#: naming themselves.
+_H30_BUILDS = {"direct": True, "fused_direct": False, "matmul": True,
+               "fused_matmul": False, "fused_matmul_reuse": False}
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,25 +306,27 @@ def _h12_oracle():
                                      "fused_matmul", "fused_matmul_reuse",
                                      None])
 def test_too_deep_raises_when_the_plan_is_built(backend):
-    # h = t*r = 12 past every reserve: a regime whose own layout fits a
-    # tile builds and matches the oracle, one whose layout fits none
-    # raises "too deep" naming itself when built, never at launch
+    # h = t*r = 12 past every reserve builds and matches the oracle, past
+    # one CTA on a cluster; h = 30, past every cluster of 8 CTAs, raises
+    # "too deep" naming the regime when built, never at launch
     w = make_weights(StencilSpec("star", 3, 3), seed=0)
     x, xt, _ = _grid((20, 24, 30))
-    build = lambda b: tk.stencil_plan(w, (20, 24, 30), torch.float32, 4,
-                                      device="cpu", backend=b,
-                                      use_cache=False)
+    build = lambda b, shape, t: tk.stencil_plan(w, shape, torch.float32, t,
+                                                device="cpu", backend=b,
+                                                use_cache=False)
+    y = build(backend, (20, 24, 30), 4)(xt)
+    np.testing.assert_allclose(y.numpy(), _h12_oracle(), rtol=0,
+                               atol=tolerance(x, torch.float32, 4))
     plan = importlib.import_module("repro_torch.kernels.plan")
-    name = backend or plan.auto_decision(plan.spec_from_weights(w),
-                                         (20, 24, 30), torch.float32,
-                                         4)[1].backend
-    if not _H12_BUILDS[name]:
-        with pytest.raises(ValueError, match=f"too deep.*{name}'s own"):
-            build(backend)
+    deep = (32, 40, 48)
+    name = backend or plan.auto_decision(plan.spec_from_weights(w), deep,
+                                         torch.float32, 10)[1].backend
+    if not _H30_BUILDS[name]:
+        with pytest.raises(ValueError, match=f"too deep.*{name}'s own "
+                                             "layout needs at least"):
+            build(backend, deep, 10)
     else:
-        y = build(backend)(xt)
-        np.testing.assert_allclose(y.numpy(), _h12_oracle(), rtol=0,
-                                   atol=tolerance(x, torch.float32, 4))
+        build(backend, deep, 10)
     # h = 9, the deepest the reserves admit, builds on every backend
     tk.stencil_plan(w, (64, 64, 64), torch.float32, 3, device="cpu",
                     backend=backend, use_cache=False)

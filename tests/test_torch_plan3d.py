@@ -198,7 +198,8 @@ def test_z_slab_pin_refusals():
         tk.stencil_plan(w3, (20, 24, 40), torch.float32, 1, z_slab=0,
                         device="cpu")
     # a 16-deep tile at halo 8 is past every reserve but the regime's own
-    # layout fits it; at halo 12 the reuse fold's slab does not
+    # layout fits it; at halo 12 the reuse fold's slab fits it only over a
+    # thread-block cluster, and at halo 40 over no cluster of 8 CTAs
     plan = tk.stencil_plan(w3, (20, 24, 40), torch.float32, 8, z_slab=16,
                            device="cpu", use_cache=False)
     assert plan.geom.z_slab == 16
@@ -207,9 +208,13 @@ def test_z_slab_pin_refusals():
         plan(torch.from_numpy(x3)).numpy(),
         np.asarray(j_ref(jnp.asarray(x3), w3, 8)), rtol=0,
         atol=8e-5 * np.abs(x3).max())
+    p12 = tk.stencil_plan(w3, (20, 24, 40), torch.float32, 12, z_slab=16,
+                          backend="fused_matmul_reuse", device="cpu",
+                          use_cache=False)
+    assert p12.geom.z_slab == 16
     with pytest.raises(ValueError, match="z_slab=16: fused_matmul_reuse's "
                                          "layout .*over the"):
-        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 12, z_slab=16,
+        tk.stencil_plan(w3, (20, 24, 40), torch.float32, 40, z_slab=16,
                         backend="fused_matmul_reuse", device="cpu")
     # shallower than the halo under the whole-slab foil (JAX's message)
     with pytest.raises(ValueError, match="exceeds z_slab 2"):

@@ -149,6 +149,42 @@ def _bf16(a):
         torch.bfloat16).float().numpy()
 
 
+def fold_step(reg, tiles, rows, blocks, cdt, round_out, stats=None, dz0=0):
+    """One step of the fold on the region ``reg`` (planes, rows, ld), in
+    place: per chunk and pass of ``tiles`` (the step's map, in order), every
+    tile's sums over the bands ``rows`` with their rounded ``blocks`` (A
+    rows of the tile's pairs shifted by (dz - dz0, dy), from column lo, zero
+    from chunk column kv on, bf16 operands rounded at the load), accumulated
+    in f64, and only then the pass's stores, f32 (TF32-rounded where
+    ``round_out``), masked at the step's width and last pair."""
+    k_step = common.mma_k_step(cdt.itemsize)
+    tf32 = cdt == torch.float32
+    ld = reg.shape[-1]
+    for _, group in itertools.groupby(tiles, key=lambda f: (f.chunk, f.pass_)):
+        group = list(group)
+        pz = np.array([[z for z, _ in f.pairs] for f in group])
+        py = np.array([[yy for _, yy in f.pairs] for f in group])
+        c0, kv = group[0].cols[0], group[0].kv
+        acc = np.zeros(pz.shape + (16,))
+        for (dz, dy, lo, nk), blk in zip(rows, blocks):
+            cols = c0 + lo + np.arange(nk * k_step)
+            a = reg[(pz + dz - dz0)[..., None], (py + dy)[..., None],
+                    np.minimum(cols, ld - 1)]
+            a = np.where(cols - c0 < kv, a, 0.0)
+            if not tf32:
+                a = _bf16(a)
+            acc += a.astype(np.float64) @ blk.astype(np.float64)
+            if stats is not None:
+                stats["mma"] += len(group) * nk * (
+                    1 + (group[0].cols[1] - c0 > 8))
+        out = acc.astype(np.float32)
+        if round_out:
+            out = _tf32(out)
+        keep = np.array([f.stored for f in group])
+        c1 = group[0].cols[1]
+        reg[pz[keep], py[keep], c0:c1] = out[keep][:, :c1 - c0]
+
+
 def emulate_slab(x, w, t, geom, modes, cdt, sparse=False, stats=None):
     """The 3D banded kernels' dataflow on the CPU, CTA by CTA, on the map
     ``slab_fold_tiles`` alone.  The region is laid out as
@@ -160,19 +196,15 @@ def emulate_slab(x, w, t, geom, modes, cdt, sparse=False, stats=None):
     an A operand of a chunk at the edge holds them at band rows of zero
     weight, where a NaN would reach valid outputs as NaN * 0).  Per step:
     the fill at depth (t-s)r; before step 0, TF32 operands round in place;
-    per chunk and pass, every tile's sums over the bands (A rows of the
-    tile's pairs shifted by (dz, dy), from column lo, zero from chunk
-    column kv on, bf16 operands rounded at the load; the bands' rows
-    rounded as the host and the staging round them), accumulated in f64,
-    and only then the pass's stores, f32 (TF32-rounded for a next step),
-    masked at the step's width and last pair; after the step every cell
+    the step's chunks and passes (``fold_step``; the bands' rows rounded as
+    the host and the staging round them, the stores TF32-rounded for a
+    next step); after the step every cell
     outside its output is set to NaN, as the next step must not read it.
     The last step's tile is stored, clipped to the grid.
     ``stats["mma"]`` counts the products of the tiles' sums: per tile and
     band, each k-step of each n8 half of the chunk that holds an output."""
     r = (w.shape[-1] - 1) // 2
     h = t * r
-    k_step = common.mma_k_step(cdt.itemsize)
     tf32 = cdt == torch.float32
     rows, blocks = _rows(w, cdt, sparse)
     blocks = [_tf32(b) if tf32 else _bf16(b) for b in blocks]
@@ -200,31 +232,8 @@ def emulate_slab(x, w, t, geom, modes, cdt, sparse=False, stats=None):
                     _fill_axis(cur, ax, a - o, n, o, modes[ax])
             if tf32 and s == 0:
                 cur[...] = _tf32(cur)
-            step = [f for f in tiles if f.step == s]
-            for _, group in itertools.groupby(step, key=lambda f: (f.chunk,
-                                                                   f.pass_)):
-                group = list(group)
-                pz = np.array([[z for z, _ in f.pairs] for f in group])
-                py = np.array([[yy for _, yy in f.pairs] for f in group])
-                c0, kv = group[0].cols[0], group[0].kv
-                acc = np.zeros(pz.shape + (16,))
-                for (dz, dy, lo, nk), blk in zip(rows, blocks):
-                    cols = c0 + lo + np.arange(nk * k_step)
-                    a = reg[(pz + dz)[..., None], (py + dy)[..., None],
-                            np.minimum(cols, lay.ld - 1)]
-                    a = np.where(cols - c0 < kv, a, 0.0)
-                    if not tf32:
-                        a = _bf16(a)
-                    acc += a.astype(np.float64) @ blk.astype(np.float64)
-                    if stats is not None:
-                        stats["mma"] += len(group) * nk * (
-                            1 + (group[0].cols[1] - c0 > 8))
-                out = acc.astype(np.float32)
-                if tf32 and s + 1 < t:
-                    out = _tf32(out)
-                keep = np.array([f.stored for f in group])
-                c1 = group[0].cols[1]
-                reg[pz[keep], py[keep], c0:c1] = out[keep][:, :c1 - c0]
+            fold_step(reg, [f for f in tiles if f.step == s], rows, blocks,
+                      cdt, tf32 and s + 1 < t, stats)
             po, ho, wo = pin - 2 * r, hin - 2 * r, win_ - 2 * r
             reg[po:] = np.nan
             reg[:, ho:] = np.nan
