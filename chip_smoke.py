@@ -5,7 +5,7 @@
 
 Phases, any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), then the build of all
-     thirteen CUDA libraries from src/repro_torch/kernels/csrc (the nine
+     CUDA libraries from src/repro_torch/kernels/csrc (the nine
      kernels -- among them the folded 1D kernels stencil_direct1d,
      stencil_banded1d and stencil_sparse1d, and the 3D banded kernels
      stencil_banded3d and stencil_sparse3d, one body, csrc/slab_fold.cuh,
@@ -19,9 +19,10 @@ Phases, any failure exits non-zero:
      keeps every cell in place across its steps, each thread a patch of
      rows x 4 columns, and the 3D tap-sum stencil_direct3d, which streams
      its region plane by plane through a ring of planes per fused step in
-     the same cell coordinates -- and the traffic foils'
-     second build of four of them; one nvcc per
-     library, started together), each one's build time, and the
+     the same cell coordinates -- the traffic foils' second build of four
+     of them, and the cluster and workspace forms' builds of the 3D and
+     2D ones; one nvcc per library, started together), each one's build
+     time, and the
      global load instructions of every foil instantiation in its SASS
      (cuobjdump, which must be there), which must not fall below its
      default twin's; then it starts this script with --count-loads in a
@@ -224,7 +225,21 @@ Phases, any failure exits non-zero:
      Figure 16's Box-2D7R row on both paths; and the phase's JSON entries
      ("stencil_direct (r=7)", "stencil_banded (depth 128)",
      "stencil_direct3d (h=10)", "stencil_banded3d (h=10)"), with the tile
-     each ran on as "tile".
+     each ran on as "tile".  Then the tile rule's fourth rung, the
+     workspace forms (the 2D and 3D tap-sums and folds built with
+     -DREPRO_WORKSPACE: a layout no CTA and no cluster holds, in a device
+     workspace, persistent CTAs walking the tiles): each form at the
+     deepest cell of its kind on 128^3 / 1024^2 against its plain version
+     with phase 2's limit, rejecting the plain version one step short;
+     each forced onto the rung (budget=1) on a cell one CTA holds, bit for
+     bit its one-CTA launch; at 512^3 auto on Box-3D3R t = 5..8,
+     Star-3D3R t = 6..8 and Box-3D7R t = 2, the four fused regimes on
+     Box-3D3R t = 8 and the compacted reuse fold on Box-3D7R t = 2, and
+     on 1024^2 Box-2D7R at t = 16 and 29, each against ``reference`` with
+     its one launch, timed beside its bound and the fastest t-launch
+     regime, with its workspace's MiB; more cells at r = 4..7 on 128^3;
+     and the forms' JSON entries ("stencil_direct3d (workspace, Box-3D3R
+     t=8)", ...), with "workspace_mib" and "grid".
 The line before the last is the JSON kernel report, one entry per kernel
 and path (the folded 1D kernels as "stencil_direct1d", "stencil_banded1d"
 and "stencil_sparse1d", and their boundary and batched forms, with the
@@ -496,9 +511,13 @@ def sass_loads(_build) -> None:
     from repro_torch.kernels import sass
     t0 = time.perf_counter()
     loads, foils = {}, set()
-    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:    # one cuobjdump each
-        dumps = pool.map(lambda n: sass.functions(_build._target(n)), _build.KERNELS)
-        for name, fns in zip(_build.KERNELS, dumps):
+    # the workspace forms' libraries instantiate some templates of the
+    # main ones under the same names (their bodies in device memory): no
+    # twin of a foil's there
+    libs = [n for n in _build.KERNELS if not n.endswith("_workspace")]
+    with ThreadPoolExecutor(len(libs)) as pool:    # one cuobjdump each
+        dumps = pool.map(lambda n: sass.functions(_build._target(n)), libs)
+        for name, fns in zip(libs, dumps):
             for fn, instrs in fns.items():
                 loads[fn] = sum("LDG" in i for i in instrs)
                 if name.endswith("_foil"):
@@ -2630,6 +2649,357 @@ def wide_guarded(mods) -> None:
         torch.cuda.empty_cache()
 
 
+#: Phase wide's fourth rung (the workspace forms, csrc/*.cu built with
+#: -DREPRO_WORKSPACE; common.WorkspaceLayout): each form's kernel check at
+#: the deepest cell of its kind the phase can afford, on WS_GRIDS: (name,
+#: rank, kind, r, t, what).  The composed contraction's deepest cell the
+#: host composes quickly is 72 deep (r = 4, t = 7, past MAX_KPAD; r = 7, t
+#: = 8, 128 deep, composes for minutes); the 2D folds at t = 16 (h = 112):
+#: at t = 29 their TF32 limit, 2^-10 a step, passes a field smoothed 28
+#: times one step short; float32 grids (a bf16 fold 8 to 29 steps deep
+#: moves by less than its limit's bf16 terms in one step).
+WS_GRIDS = {3: (128, 128, 128), 2: (1024, 1024)}
+WS_KERNELS = (("stencil_direct3d (workspace)", 3, "box", 7, 8, "tap-sum"),
+              ("stencil_banded3d (workspace)", 3, "box", 7, 8, "reuse"),
+              ("stencil_sparse3d (workspace)", 3, "star", 7, 8, "sparse"),
+              ("stencil_banded3d (workspace)", 3, "box", 4, 7, "composed"),
+              ("stencil_direct (workspace)", 2, "box", 7, 29, "tap-sum"),
+              ("stencil_banded (workspace)", 2, "box", 7, 16, "reuse"),
+              ("stencil_sparse (workspace)", 2, "star", 7, 16, "sparse"))
+#: The forced workspace launches (``budget=1``) held bit for bit to the
+#: one-CTA launch of the same call: (rank, kind, r, t, what) on a ragged
+#: grid one CTA holds.
+WS_FORCED = ((3, "box", 3, 2, "tap-sum"), (3, "box", 2, 3, "composed"),
+             (3, "box", 1, 4, "reuse"), (3, "star", 2, 3, "sparse"),
+             (2, "box", 7, 2, "tap-sum"), (2, "box", 3, 3, "reuse"),
+             (2, "box", 7, 8, "composed"))
+WS_FORCED_GRIDS = {3: (60, 70, 130), 2: (1000, 1030)}
+#: The main paths' fourth-rung cells at full width (512^3): auto on the
+#: refused cells whose picks are fused_direct and fused_matmul_reuse, the
+#: compacted reuse fold at Box-3D7R t = 2, and the four fused regimes on
+#: Box-3D3R at t = 8 (its reuse folds, dense and compacted, fit a cluster
+#: there): (pattern, t, backends).
+WS_PATHS = (("Box-3D3R", 5, (None,)), ("Box-3D3R", 6, (None,)),
+            ("Box-3D3R", 7, (None,)),
+            ("Box-3D3R", 8, (None, "fused_direct", "fused_matmul",
+                             "fused_matmul_reuse", "fused_sparse_matmul")),
+            ("Star-3D3R", 6, (None,)), ("Star-3D3R", 7, (None,)),
+            ("Star-3D3R", 8, (None,)), ("Box-3D7R", 2, (None, "fused_sparse_matmul")))
+WS_SHAPE = (512, 512, 512)
+#: The other fourth-rung cells, on 128^3: radii 4..7 at the shallowest
+#: depth past any CTA and cluster (r = 4: t = 5; r >= 5: t = 3) and at t =
+#: 8, the reuse regimes and the tap-sum (the composed contraction past them
+#: needs the host to compose for tens of seconds a cell).
+WS_CELLS = tuple((f"{k}-3D{r}R", t, b) for r in (4, 5, 6, 7)
+                 for t in ((5, 8) if r == 4 else (3, 8)) for k in ("Box", "Star")
+                 for b in ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul"))
+WS_CELLS_SHAPE = (128, 128, 128)
+#: The JSON entries of the fourth rung: (name, path, pattern, t, backend:
+#: a cell of WS_PATHS or WS_2D_PATHS, None its auto).
+WS_REPORT = (("stencil_direct3d (workspace, Box-3D3R t=8)", "3D", "Box-3D3R", 8, "fused_direct"),
+             ("stencil_banded3d (workspace, composed Box-3D3R t=8)", "3D", "Box-3D3R", 8,
+              "fused_matmul"),
+             ("stencil_banded3d (workspace, reuse Box-3D7R t=2)", "3D", "Box-3D7R", 2,
+              None),
+             ("stencil_sparse3d (workspace, Box-3D7R t=2)", "3D", "Box-3D7R", 2,
+              "fused_sparse_matmul"),
+             ("stencil_direct (workspace, Box-2D7R t=16)", "2D", "Box-2D7R", 16, "fused_direct"),
+             ("stencil_banded (workspace, reuse Box-2D7R t=16)", "2D", "Box-2D7R", 16,
+              "fused_matmul_reuse"),
+             ("stencil_sparse (workspace, Box-2D7R t=16)", "2D", "Box-2D7R", 16,
+              "fused_sparse_matmul"))
+WS_2D_SHAPE = (1024, 1024)
+#: The 2D cells past one CTA, on WS_2D_SHAPE: (pattern, t, backends).
+WS_2D_PATHS = (("Box-2D7R", 16, ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul")),
+               ("Box-2D7R", 29, ("fused_direct", "fused_matmul_reuse")))
+
+
+def compose_on_card(w: np.ndarray, t: int) -> np.ndarray:
+    """``w`` composed ``t`` times (the full convolution of ``fuse_weights``)
+    in float64 on the card, for the F.conv yardsticks only: the same kernel
+    up to float64 rounding, in a second where the host composes a 113^3
+    kernel in minutes."""
+    nd = w.ndim
+    conv = {2: F.conv2d, 3: F.conv3d}[nd]
+    r = (w.shape[0] - 1) // 2
+    k = torch.from_numpy(np.ascontiguousarray(w, np.float64)).cuda()
+    out = k
+    for _ in range(t - 1):
+        y = F.pad(out[None, None], (2 * r,) * (2 * nd))
+        out = conv(y, torch.flip(k, tuple(range(nd)))[None, None])[0, 0]
+    return out.float().cpu().numpy()
+
+
+def ws_call(mods, x, w, t, what, cdt=None, budget=None):
+    """``(call, plain, step, tk, ops, wk, short)`` of one fourth-rung kernel
+    check: the plan entry on the tile the rule resolves (its fourth rung
+    past any CTA and cluster), ``budget`` as the entries take it."""
+    _, sm, sd, weights, ss = mods
+    from repro_torch.kernels import common
+    shape, dt = tuple(x.shape), x.dtype
+    cdt = dt if cdt is None else cdt
+    r = (w.shape[0] - 1) // 2
+    if what == "tap-sum":
+        geom = common.launch_geom(shape, t * r, need=sd.tile_need(shape, r, t, dt))
+        return (lambda: sd.stencil_direct_at(x, w, t, geom, budget=budget),
+                lambda: sd.stencil_direct_plain(x, w, t),
+                lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None)
+    ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+    if what == "composed":
+        wf = weights.fuse_weights(w, t)
+        geom = common.launch_geom(shape, t * r, need=sm.tile_need(shape, wf, 1, dt, cdt))
+        return (lambda: sm.stencil_matmul_at(x, wf, 1, geom, cdt, budget=budget),
+                lambda: sm.stencil_matmul_plain(x, wf, 1, compute_dtype=cdt),
+                lambda v: sm.stencil_matmul_plain(v, wf, 1, compute_dtype=cdt), 1, ops, wf,
+                lambda: sm.stencil_matmul_plain(x, weights.fuse_weights(w, t - 1), 1,
+                                                compute_dtype=cdt))
+    mod, at, plain = ((ss, ss.stencil_sparse_matmul_at, ss.stencil_sparse_matmul_plain)
+                      if what == "sparse" else
+                      (sm, sm.stencil_matmul_at, sm.stencil_matmul_plain))
+    geom = common.launch_geom(shape, t * r, need=mod.tile_need(shape, w, t, dt, cdt))
+    return (lambda: at(x, w, t, geom, cdt, budget=budget),
+            lambda: plain(x, w, t, compute_dtype=cdt),
+            lambda v: plain(v, w, 1, compute_dtype=cdt), t, ops, w, None)
+
+
+def ws_kernels(mods) -> None:
+    """The fourth rung's kernel checks: each workspace form at WS_KERNELS'
+    cell against its plain version within phase 2's limit, which must
+    reject the plain version one step short, one launch of the form; then
+    each WS_FORCED call forced onto the fourth rung (``budget=1``) bit for
+    bit its one-CTA launch."""
+    kernels, _, _, weights, _ = mods
+    worst, margin = {}, {}
+    for name, dim, kind, r, t, what in WS_KERNELS:
+        shape = WS_GRIDS[dim]
+        w = wide_weights(weights, kind, dim, r)
+        x = grid(shape, torch.float32, seed=2)
+        call, plain, step, tk, ops, wk, short = ws_call(mods, x, w, t, what)
+        kernels.reset_launch_counts()
+        y = call()
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in kernels.launch_counts().items() if v}
+        tag = f"{name} {what} {kind} r={r} t={t} {shape}"
+        check(moved == {name: 1}, f"{tag}: launches {moved}")
+        hold_to_plain(tag, f"{name} {what}", y, x, plain, step, tk, ops, wk, short, worst,
+                      margin)
+        del x, y
+    print("workspace kernels vs plain: worst err/tol "
+          + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
+    print("  and every limit rejects the plain version one step short; worst tol/err(t-1) "
+          + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
+    n = 0
+    for dim, kind, r, t, what in WS_FORCED:
+        shape = WS_FORCED_GRIDS[dim]
+        w = wide_weights(weights, kind, dim, r)
+        for dt in (torch.float32, torch.bfloat16):
+            x = grid(shape, dt, seed=3)
+            one = ws_call(mods, x, w, t, what)[0]
+            forced = ws_call(mods, x, w, t, what, budget=1)[0]
+            kernels.reset_launch_counts()
+            y1 = one()
+            yw = forced()
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in kernels.launch_counts().items() if v}
+            forms = [k for k in moved if k.endswith("(workspace)")]
+            tag = f"forced workspace {dim}D {what} {kind} r={r} t={t} {shape} {str(dt)[6:]}"
+            check(len(moved) == 2 and len(forms) == 1 and set(moved.values()) == {1}
+                  and all("(" not in k for k in moved if k not in forms),
+                  f"{tag}: launches {moved}, expected one CTA's and the workspace form's")
+            diff = max_err(yw, y1)
+            check(diff == 0.0, f"{tag}: differs from the one-CTA kernel by {diff:.3e}")
+            n += 1
+            del x, y1, yw
+    print(f"workspace forms forced onto the fourth rung: {n} calls, each bit for bit its "
+          "one-CTA launch")
+
+
+def ws_bound_ms(x: torch.Tensor, w: np.ndarray, t: int, backend: str) -> tuple:
+    """``(bound_ms, bound_by)`` of ``t`` steps of ``w`` on ``x``: one read
+    and one write of the grid at 3.35 TB/s, or 2 FLOPs per nonzero tap,
+    point and step at the unit's peak (the composed kernel's taps, one
+    step, for the composed contraction)."""
+    from repro_torch.kernels.plan import spec_from_weights
+    from repro_torch.stencil.weights import fused_num_points
+    n = x.numel()
+    if backend == "fused_matmul":
+        ops = 2 * fused_num_points(spec_from_weights(w), t) * n
+    else:
+        ops = t * 2 * int(np.count_nonzero(w)) * n
+    peak = FP32_FLOPS if backend.endswith("direct") else TF32_FLOPS
+    bytes_ms, ops_ms = 2 * n * x.element_size() / HBM_BPS * 1e3, ops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ws_path(mods, shape, cells, card, timed: bool, report=()) -> tuple:
+    """Plans of the fourth rung through ``stencil_plan``: each ``(pattern,
+    t, backends)`` of ``cells`` on ``shape``, the launch counts set to 0
+    just before the run and read just after; every plan one launch of its
+    kernel's workspace form where its layout fits no CTA and no cluster
+    (``plan.fn.workspace``; else of its one-CTA or cluster form), against
+    ``reference`` stepped t times (the wide paths' limits).  ``timed``:
+    each workspace plan's ms beside its bound, the fastest t-launch
+    regime's (direct, matmul, sparse_matmul) ms and its workspace; the
+    ``report`` cells (name, pattern, t, backend) also their JSON entries
+    (``ws_entry``).  Returns the run's counts and the entries."""
+    kernels = mods[0]
+    from repro_torch.kernels import stencil_plan
+    from repro_torch.stencil import StencilSpec, make_weights
+    x = grid(shape, torch.float32, seed=0)
+    mx, dim = float(x.abs().max()), len(shape)
+    plans, entries, fastest, library = {}, [], {}, {}
+    kernels.reset_launch_counts()
+    for pattern in dict.fromkeys(p for p, _, _ in cells):
+        spec = StencilSpec.from_name(pattern)
+        w = make_weights(spec, seed=0)
+        sw = float(np.abs(w).sum())
+        step = stencil_plan(w, shape, torch.float32, 1, backend="reference")
+        ref, done = x, 0
+        for t in sorted({t for p, t, _ in cells if p == pattern}):
+            while done < t:
+                ref, done = step(ref), done + 1
+            for backend in next(b for p, tt, b in cells if p == pattern and tt == t):
+                # uncached: a plan keeps its workspace (up to 4.2 GB here),
+                # so only the plans still to be timed stay alive
+                plan = stencil_plan(w, shape, torch.float32, t, backend=backend,
+                                    use_cache=False)
+                tag = f"workspace {pattern} t={t} {backend or 'auto'} on {shape}"
+                lay = plan.fn.workspace
+                before = kernels.launch_counts()
+                y = plan(x)
+                torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                kname, n = expected_launches(plan.backend, t, dim)
+                delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                want = ([f"{kname} (workspace)"] if lay is not None
+                        else [kname, f"{kname} (cluster)"])
+                check(n == 1 and len(delta) == 1 and next(iter(delta)) in want
+                      and next(iter(delta.values())) == 1,
+                      f"{tag}: launches {delta}, expected one of {want}")
+                kname = next(iter(delta))
+                err = max_err(y, ref)
+                tol = (1e-5 * t * mx if kname.startswith("stencil_direct")
+                       else t * 2**-10 * sw * mx)
+                check(bool(torch.isfinite(y).all()) and err <= tol,
+                      f"{tag}: max|err| vs reference {err:.3e} > tol {tol:.3e}")
+                plans[(pattern, t, backend)] = (plan if timed and lay is not None else None,
+                                                plan.backend, w, kname, lay, err, tol)
+                del y, plan
+        del ref, step
+    counts = kernels.launch_counts()     # the run's; the timings below add
+    for (pattern, t, backend), (plan, picked, w, kname, lay, err, tol) in plans.items():
+        line = (f"  workspace {pattern} t={t} {backend or 'auto'} on {shape}: {picked} "
+                f"x1 {kname}, "
+                + ("no workspace" if lay is None else
+                   f"{lay.total_bytes / 2**20:.1f} MiB ({lay.ctas} x {lay.slice_bytes} B)")
+                + f", max|err| {err:.3e} (tol {tol:.3e})")
+        if plan is not None:
+            ms = cuda_ms(lambda: plan(x), reps=1, warmup=0)
+            bound, by = ws_bound_ms(x, w, t, picked)
+            if (pattern, t) not in fastest:
+                fast = {}
+                for b in ("direct", "matmul", "sparse_matmul"):
+                    p2 = stencil_plan(w, shape, torch.float32, t, backend=b, use_cache=False)
+                    fast[b] = cuda_ms(lambda: p2(x), reps=1, warmup=1)
+                fastest[(pattern, t)] = min(fast.items(), key=lambda kv: kv[1])
+            best, best_ms = fastest[(pattern, t)]
+            line += (f"; {ms:.3f} ms (bound {bound:.3f} by {by}), fastest t-launch "
+                     f"{best} {best_ms:.3f} ms; on {card}")
+            for name, p, tt, b in report:
+                if (p, tt, b) == (pattern, t, backend):
+                    if dim == 2 and (p, tt) not in library:
+                        library[(p, tt)] = cuda_ms(conv_yardstick(
+                            x, compose_on_card(w, t), True), reps=1, warmup=1)
+                    print(line)
+                    line = None
+                    entries.append(ws_entry(mods, name, x, w, t, picked, plan, ms, counts,
+                                            library.get((p, tt))))
+        if line is not None:
+            print(line)
+        plans[(pattern, t, backend)] = None       # its workspace goes
+    del x, plans
+    torch.cuda.empty_cache()
+    return counts, entries
+
+
+def ws_entry(mods, name, x, w, t, backend, plan, ms, counts, library) -> dict:
+    """The JSON entry of a WS_REPORT cell from its timed run in
+    ``ws_path``: the plan's output held to its plain version (timed once,
+    CUDA events), the bound, ``library_ms`` one F.conv of the composed
+    kernel (composed on the card, TF32; ``library``: the time, shared by
+    the cells of one (pattern, t), or None in 3D, where an F.conv3d of a
+    29^3 to 49^3 kernel over 512^3 takes minutes)."""
+    _, sm, sd, weights, ss = mods
+    y = plan(x)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wk, tk = (weights.fuse_weights(w, t), 1) if backend == "fused_matmul" else (w, t)
+    a.record()
+    if backend == "fused_direct":
+        ref = sd.stencil_direct_plain(x, w, t)
+    elif backend == "fused_sparse_matmul":
+        ref = ss.stencil_sparse_matmul_plain(x, w, t)
+    else:
+        ref = sm.stencil_matmul_plain(x, wk, tk)
+    b.record()
+    b.synchronize()
+    err = max_err(y, ref)
+    del y, ref
+    mx = float(x.abs().max())
+    tol = (1e-5 * t * mx if backend == "fused_direct"
+           else t * 2**-10 * float(np.abs(w).sum()) * mx)
+    check(err <= tol, f"workspace report {name}: max|err| vs plain {err:.3e} > {tol:.3e}")
+    bound, by = ws_bound_ms(x, w, t, backend)
+    kname = name.split(" (")[0]
+    entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[kname][0],
+             "replaces": KERNEL_SOURCES[kname][1],
+             "launches": counts[f"{kname} (workspace)"], "max_abs_err": err, "ms": ms,
+             "plain_ms": a.elapsed_time(b), "bound_ms": bound, "bound_by": by,
+             "library_ms": library,
+             "workspace_mib": plan.fn.workspace.total_bytes / 2**20,
+             "grid": "x".join(map(str, x.shape))}
+    if library is None:
+        entry["library_note"] = ("F.conv3d of the composed kernel over 512^3 takes minutes; "
+                                 "not timed")
+    print(f"  kernel {name}: plain {entry['plain_ms']:.3f} ms, library "
+          + ("-" if library is None else f"{library:.3f} ms")
+          + f", launches {entry['launches']}, max|err| vs plain {err:.3e}")
+    return entry
+
+
+def wide_workspace(mods, card) -> list:
+    """Phase wide's fourth rung: the kernel checks and the forced launches
+    (``ws_kernels``), the full-width cells (WS_PATHS on 512^3, timed), the
+    2D cells (WS_2D_PATHS on 1024^2, timed), with the JSON entries of the
+    WS_REPORT cells (``ws_entry``), then the other cells (WS_CELLS on
+    128^3, checked only).  The plan
+    cache is emptied first: its plans, and their workspaces, leave the
+    card's memory to the workspaces here."""
+    from repro_torch.kernels import clear_plan_cache
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ws_kernels(mods)
+    print(f"wide: workspace kernel checks in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    report = []
+    for shape, cells, label in ((WS_SHAPE, WS_PATHS, "3D"), (WS_2D_SHAPE, WS_2D_PATHS, "2D")):
+        report += ws_path(mods, shape, cells, card, timed=True,
+                          report=[(n, p, t, b) for n, lb, p, t, b in WS_REPORT
+                                  if lb == label])[1]
+    print(f"wide: workspace paths on {WS_SHAPE} and {WS_2D_SHAPE} in "
+          f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    cells = {}
+    for p, t, b in WS_CELLS:
+        cells.setdefault((p, t), []).append(b)
+    ws_path(mods, WS_CELLS_SHAPE, tuple((p, t, tuple(b)) for (p, t), b in cells.items()),
+            card, timed=False)
+    print(f"wide: {len(WS_CELLS)} more workspace cells on {WS_CELLS_SHAPE} in "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(f"wide: fourth rung in {time.perf_counter() - t0:.1f} s")
+    return report
+
+
 def phase_wide(mods, card) -> list:
     """Phase ``wide``: the kernel checks (``wide_kernels``), the main
     paths (``wide_path``), Figure 16's Box-2D7R row on both paths, the
@@ -2660,8 +3030,9 @@ def phase_wide(mods, card) -> list:
     print(f"wide: foils and the guarded plan in {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     report += wide_report(mods, counts, card)
-    print(f"wide: report in {time.perf_counter() - t1:.1f} s; phase in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"wide: report in {time.perf_counter() - t1:.1f} s")
+    report += wide_workspace(mods, card)
+    print(f"wide: phase in {time.perf_counter() - t0:.1f} s")
     return report
 
 

@@ -61,21 +61,29 @@ def _unlifted(launch):
 
 
 def _one(lay):
-    """The one-CTA layout of a launch's layout (a cluster's ``base``)."""
-    return lay.base if isinstance(lay, common.ClusterLayout) else lay
+    """The one-CTA layout of a launch's layout (a cluster's or a
+    workspace form's ``base``)."""
+    return (lay.base if isinstance(lay, (common.ClusterLayout,
+                                         common.WorkspaceLayout)) else lay)
 
 
 def launch_layout(launch):
     """The shared-memory layout the launch's wrapper passes its kernel (3D:
-    a :class:`common.ClusterLayout` past one CTA, at the budget now)."""
-    from repro_torch.kernels.stencil_direct import direct3d_rings
-    from repro_torch.kernels.stencil_matmul import slab_launch_layout
+    a :class:`common.ClusterLayout` past one CTA; 2D and 3D: a
+    :class:`common.WorkspaceLayout` past any cluster, at the budget
+    now)."""
+    from repro_torch.kernels.stencil_direct import (direct2d_layout,
+                                                    direct3d_rings)
+    from repro_torch.kernels.stencil_matmul import (slab_launch_layout,
+                                                    tile_launch_layout)
     from repro_torch.kernels.stencil_sparse import sparse_tile_layout
     g, r, t = launch.geom, launch.radius, launch.t_inner
     h, cb = launch.total_halo, launch.compute_bytes
     fam = launch.family
     if fam == "tapsum2d":
-        return common.direct_layout(g.strip_m, g.w_tile, h)
+        if launch.staging != "region":
+            return common.direct_layout(g.strip_m, g.w_tile, h)
+        return direct2d_layout(g, h)
     if fam == "tapsum3d":
         if launch.staging != "region":
             return common.direct3d_layout(g.strip_m, g.w_tile, r, t)
@@ -89,7 +97,10 @@ def launch_layout(launch):
         return common.line_layout(g.w_tile, r, t, launch.dtype_bytes, cb)
     n_rows = len(launch.band_rows)
     if fam == "tile_fold":
-        return common.tile_fold_layout(g.strip_m, g.w_tile, r, t, cb, n_rows)
+        if launch.staging != "region":
+            return common.tile_fold_layout(g.strip_m, g.w_tile, r, t, cb,
+                                           n_rows)
+        return tile_launch_layout(g, r, t, cb, n_rows, "banded", deep=True)
     if launch.staging != "region":
         return common.slab_fold_layout(g.z_slab, g.strip_m, g.w_tile, r, t,
                                        cb, n_rows)
@@ -201,7 +212,60 @@ def _align128(n: int) -> int:
     return -(-n // 128) * 128
 
 
+def workspace_regions(launch, lay) -> list:
+    """:func:`smem_regions` of a workspace form's slice
+    (:class:`common.WorkspaceLayout`): the one-CTA layout's, a fold's band
+    headers where that layout puts its Toeplitz rows, which stay in the
+    device array every CTA reads (``slab_fold.cuh``, ``tile_fold.cuh``
+    under ``REPRO_WORKSPACE``)."""
+    regs = smem_regions(launch, lay.base)
+    if launch.family not in ("tile_fold", "slab_fold"):
+        return regs
+    toe = next(o for name, o, _, _ in regs if name == "Toeplitz rows")
+    hdr = lay.base.n_rows * common.SLAB_HEADER_BYTES
+    return ([x for x in regs if x[0] not in ("Toeplitz rows", "headers",
+                                             "end")]
+            + [("headers", toe, hdr, 16), ("end", toe + hdr, 0, 1)])
+
+
+def _workspace_check(launch, lay) -> AuditCheck:
+    """scratch/slots-partition of a workspace form: its slice's regions
+    disjoint, aligned and within the slice, the workspace one slice per
+    persistent CTA, and no dynamic shared memory asked for."""
+    regions = workspace_regions(launch, lay)
+    body = [x for x in regions if not x[0].endswith("end")]
+    end = max(o + n for _, o, n, _ in regions)
+    problems = []
+    spans = sorted((o, o + n, name) for name, o, n, _ in body)
+    for (a0, a1, an), (b0, b1, bn) in zip(spans, spans[1:]):
+        if b0 < a1:
+            problems.append(f"{an} [{a0}, {a1}) overlaps {bn} [{b0}, {b1})")
+    for name, o, _, al in body:
+        if o % al:
+            problems.append(f"{name} at byte {o} is not {al}-byte aligned")
+    if end > lay.slice_bytes:
+        problems.append(f"the kernel addresses {end} bytes of a "
+                        f"{lay.slice_bytes}-byte slice")
+    if lay.slice_bytes % 128 or lay.total_bytes != lay.ctas * lay.slice_bytes:
+        problems.append(f"{lay.total_bytes} workspace bytes are not "
+                        f"{lay.ctas} slices of {lay.slice_bytes}")
+    if lay.smem_bytes:
+        problems.append(f"asks for {lay.smem_bytes} bytes of shared memory")
+    return AuditCheck(
+        "scratch/slots-partition", not problems,
+        expected={"disjoint": True, "within_bytes": lay.slice_bytes,
+                  "workspace_bytes": lay.ctas * lay.slice_bytes},
+        actual={"regions": len(body), "end": end,
+                "workspace_bytes": lay.total_bytes,
+                "problems": problems or "none"},
+        detail="a layout past one CTA and any cluster lives in a device "
+               "workspace: each persistent CTA's slice holds the regions "
+               "the kernel carves, disjoint, aligned and within it")
+
+
 def _slots_check(launch, lay) -> AuditCheck:
+    if isinstance(lay, common.WorkspaceLayout):
+        return _workspace_check(launch, lay)
     cluster = isinstance(lay, common.ClusterLayout)
     shares = (cluster_regions(launch, lay) if cluster
               else [smem_regions(launch, lay)])

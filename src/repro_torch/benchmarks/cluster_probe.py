@@ -1,11 +1,25 @@
-"""A check of the 3D kernels' cluster forms on one card: build them, hold
-each cluster launch to the one-CTA launch of the same call (bit for bit
-where the arithmetic is the same: the tap-sum's steps and the reuse
-folds' planes split over the cluster) or to the plain version (the
-composed contraction split by dz, whose sums are added in parts), then
-time the formerly refused cells.
+"""A check of the 3D kernels' cluster forms, and of the 2D and 3D
+kernels' workspace forms, on one card: build them, hold each cluster
+launch to the one-CTA launch of the same call (bit for bit where the
+arithmetic is the same: the tap-sum's steps and the reuse folds' planes
+split over the cluster) or to the plain version (the composed
+contraction split by dz, whose sums are added in parts), then time the
+formerly refused cells.
 
-    python src/repro_torch/benchmarks/cluster_probe.py [calls | times | all]
+    python src/repro_torch/benchmarks/cluster_probe.py [calls | times | all | workspace]
+
+``workspace`` builds the main and the workspace libraries only, forces
+the tile rule's fourth rung (``budget=1`` of the wrappers: no CTA or
+cluster holds any layout) on tiles one CTA holds, and holds every
+workspace launch to the one-CTA launch of the same call bit for bit: the
+2D and 3D tap-sums (r = 1..7), the reuse folds dense and compacted, and
+the composed contraction (the 2D one 128 deep), on ragged grids,
+periodic and not, float32 and bfloat16 grids, TF32 and bf16 operands.
+Then the cells no CTA or cluster holds (the 3D tap-sum at r = 3, t = 8
+and r = 7, t = 2, the reuse folds at r = 5 and 6, the composed
+contraction 64 and 72 deep, the 2D tap-sum and reuse fold at h = 112)
+against the plain version within chip_smoke.py's ``kernel_limit``, which
+must reject the plain version one step short.
 
 Every mode first builds every library (``_build.build_all``: the build
 times are printed).  ``calls`` runs every 3D kernel on tiles one CTA
@@ -222,6 +236,131 @@ def probe_deep() -> int:
     return bad
 
 
+#: The workspace probe's bit-for-bit cases: (rank, kind, r, t).
+WS_CASES = {3: (("box", 1, 4), ("star", 3, 2), ("box", 5, 1), ("star", 7, 1), ("box", 2, 3)),
+            2: (("box", 1, 4), ("star", 3, 3), ("box", 7, 2), ("box", 7, 8))}
+WS_SHAPES = {3: ((40, 72, 100), (60, 70, 130)), 2: ((1000, 1030), (256, 256))}
+WS_BOUNDARIES = {3: (None, ("replicate", "reflect", "periodic")), 2: (None, ("reflect", "zero"))}
+
+
+def probe_workspace_calls() -> int:
+    """Each kernel's workspace form, forced with ``budget=1``, against its
+    one-CTA launch on the same tile, bit for bit; returns the calls that
+    differ."""
+    bad = n = 0
+    for dim in (3, 2):
+        for shape, bc, dt in ((s, b, d) for s in WS_SHAPES[dim] for b in WS_BOUNDARIES[dim]
+                              for d in (torch.float32, torch.bfloat16)):
+            x = cs.grid(shape, dt, seed=1)
+            xb = x.unsqueeze(0)
+            cc = codes(bc, dim)
+            for kind, r, t in WS_CASES[dim]:
+                w = cs.wide_weights(weights_mod(), kind, dim, r)
+                calls = []
+                if t * r <= (9 if dim == 3 else 56):     # one CTA holds the tap-sum
+                    geom = common.launch_geom(shape, t * r, need=sd.tile_need(shape, r, t, dt))
+                    launch = sd._launch3d if dim == 3 else sd._launch2d
+                    calls.append(("tap-sum", lambda b, g=geom, f=launch: f(
+                        xb, w, t, r, g, cc, budget=b)))
+                for cdt in (torch.float32, torch.bfloat16):
+                    for mod, name in ((sm, "banded"), (ss, "sparse")):
+                        need = mod.tile_need(shape, w, t, dt, cdt)
+                        geom = common.launch_geom(shape, t * r, need=need)
+                        launch = mod._launch3d if dim == 3 else mod._launch2d
+                        if need.smem(geom.z_slab, geom.strip_m, geom.w_tile) <= \
+                                common.SMEM_BUDGET_BYTES:
+                            calls.append((f"reuse {name} {str(cdt)[6:]}",
+                                          lambda b, g=geom, f=launch, cdt=cdt: f(
+                                              xb, w, t, r, cdt, g, cc, budget=b)))
+                    if bc is None and t > 1:
+                        wf = fuse_weights(w, t)
+                        need = sm.tile_need(shape, wf, 1, dt, cdt)
+                        geom = common.launch_geom(shape, t * r, need=need)
+                        launch = sm._launch3d if dim == 3 else sm._launch2d
+                        if need.smem(geom.z_slab, geom.strip_m, geom.w_tile) <= \
+                                common.SMEM_BUDGET_BYTES:
+                            calls.append((f"composed {str(cdt)[6:]}",
+                                          lambda b, g=geom, f=launch, wf=wf, cdt=cdt: f(
+                                              xb, wf, 1, t * r, cdt, g, cc, budget=b)))
+                for what, call in calls:
+                    kernels.reset_launch_counts()
+                    one = call(None)
+                    ws = call(1)
+                    torch.cuda.synchronize()
+                    moved = {k: v for k, v in kernels.launch_counts().items() if v}
+                    d = cs.max_err(ws, one)
+                    n += 1
+                    form = [k for k in moved if k.endswith("(workspace)")]
+                    if d != 0.0 or len(form) != 1 or len(moved) != 2:
+                        bad += 1
+                        print(f"DIFFERS {dim}D {what} {kind} r={r} t={t} {shape} "
+                              f"{str(dt)[6:]} {bc}: {d:.3e}, launches {moved}")
+            del x, xb
+    print(f"workspace forms vs one CTA: {n} calls, {bad} not bit for bit")
+    return bad
+
+
+#: The workspace probe's cells past any CTA and cluster: (rank, shape,
+#: kind, r, t, what, grid dtypes).  The reuse and composed folds of a box
+#: in bf16 operands fit a cluster here; the bf16 reuse fold 16 steps deep
+#: moves by less than its limit's own bf16 terms in one step, so no limit
+#: tells it from one step short (float32 grids only there).
+F32, BF16 = torch.float32, torch.bfloat16
+WS_DEEP = ((3, (64, 64, 64), "box", 3, 8, "tap-sum", (F32, BF16)),
+           (3, (40, 72, 100), "star", 7, 2, "tap-sum", (F32, BF16)),
+           (3, (64, 64, 64), "box", 5, 3, "reuse", (F32,)),
+           (3, (40, 72, 100), "star", 6, 5, "sparse", (F32, BF16)),
+           (3, (64, 64, 64), "box", 3, 8, "composed", (F32,)),
+           (3, (64, 64, 64), "star", 4, 7, "composed", (F32, BF16)),
+           (2, (1024, 1024), "box", 7, 16, "tap-sum", (F32, BF16)),
+           (2, (1000, 1030), "box", 7, 16, "reuse", (F32,)))
+
+
+def probe_workspace_deep() -> int:
+    """The WS_DEEP cells, each on the tile the rule's fourth rung picks,
+    float32 and bfloat16 grids, against the plain version (``hold``);
+    returns the calls outside their limits."""
+    bad = n = 0
+    for dim, shape, kind, r, t, what, dtypes in WS_DEEP:
+        w = cs.wide_weights(weights_mod(), kind, dim, r)
+        for dt in dtypes:
+            x = cs.grid(shape, dt, seed=2)
+            cdt = dt
+            ops = "bf16" if cdt == torch.bfloat16 else "tf32"
+            if what == "tap-sum":
+                need, call = sd.tile_need(shape, r, t, dt), \
+                    lambda g: sd.stencil_direct_at(x, w, t, g)
+                cdt, ops = torch.float32, "f32"
+            elif what == "composed":
+                wf = fuse_weights(w, t)
+                need, call = sm.tile_need(shape, wf, 1, dt, cdt), \
+                    lambda g: sm.stencil_matmul_at(x, wf, 1, g, cdt)
+            else:
+                mod, at = ((sm, sm.stencil_matmul_at) if what == "reuse"
+                           else (ss, ss.stencil_sparse_matmul_at))
+                need, call = mod.tile_need(shape, w, t, dt, cdt), \
+                    lambda g: at(x, w, t, g, cdt)
+            geom = common.launch_geom(shape, t * r, need=need)
+            kernels.reset_launch_counts()
+            y = call(geom)
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in kernels.launch_counts().items() if v}
+            ok, msg = hold(x, y, w, t, cdt, ops, dt,
+                           "reuse" if what in ("reuse", "sparse") else what)
+            ok = ok and len(moved) == 1 and next(iter(moved)).endswith("(workspace)")
+            n += 1
+            bad += not ok
+            lay = need.workspace(geom.z_slab, geom.strip_m, geom.w_tile)
+            tile = (f"{geom.z_slab}x" if dim == 3 else "") + f"{geom.strip_m}x{geom.w_tile}"
+            print(f"deep workspace {dim}D {what} {kind} r={r} t={t} {shape} {str(dt)[6:]} tile "
+                  f"{tile}, {lay.total_bytes / 2**20:.1f} MiB ({lay.ctas} x "
+                  f"{lay.slice_bytes} B): {msg}; launches {moved}")
+            del x, y
+        torch.cuda.empty_cache()
+    print(f"workspace cells vs plain: {n} calls, {bad} outside their limits")
+    return bad
+
+
 def probe_times() -> None:
     from repro_torch.kernels.plan import auto_decision
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -256,14 +395,20 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(_build.WORKSPACED + tuple(f"{k}_workspace" for k in _build.WORKSPACED)
+                     if mode == "workspace" else _build.KERNELS)
     print(f"build: {time.perf_counter() - t0:.1f} s; "
           + ", ".join(f"{k} {v:.1f} s" for k, v in _build.build_seconds.items()))
     for k, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "cluster" in line and ("registers" in line or "Function properties" in line):
+            if ("cluster" in line or k.endswith("_workspace")) and (
+                    "registers" in line or "Function properties" in line
+                    or "spill" in line):
                 print(f"  {k}: {line.strip()}")
     bad = 0
+    if mode == "workspace":
+        bad += probe_workspace_calls()
+        bad += probe_workspace_deep()
     if mode in ("calls", "all"):
         bad += probe_calls()
         bad += probe_deep()

@@ -4,15 +4,18 @@ one module per paper table or figure, and the halo table.
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--quick] \\
         [--device cpu] [--manifest PATH]
 
-Runs ``table2``, ``table3``, ``table4``, ``fig10``, ``fig16``, ``halo`` and
+Runs ``table2``, ``table3``, ``table4``, ``fig10``, ``fig16``, ``halo``,
 ``scaling`` (the dry run's strong scaling, read from its cached records:
-only its header when there are none) and prints their CSV lines; each module documents its columns in the
+only its header when there are none) and ``traffic`` (the substrate
+traffic sweeps, which also write ``BENCH_torch_kernels[.quick].json``) and
+prints their CSV lines; each module documents its columns in the
 header line it emits.  Every module is imported before any runs, so import
 cost never leaks into a module's time; ``bench.<mod>.total`` is how long
 the module took to produce its lines (host clock, bookkeeping), and
 ``bench.plan_cache`` the plans built and reused across the run.  Device
 times inside the modules come from ``timing.time_us`` (CUDA events).
-``--quick`` times fewer calls per plan in ``fig16``.  It runs on the card
+``--quick`` times fewer calls per plan in ``fig16`` and runs the trimmed
+``traffic`` sweep.  It runs on the card
 unless given ``--device cpu``.
 
 A module that fails is reported (its traceback, a ``bench.<mod>.FAILED``
@@ -31,9 +34,11 @@ import traceback
 import torch
 
 MANIFEST_PATH = "BENCH_torch_run.json"
-MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling")
+MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling",
+           "traffic")
 #: The arguments each module's ``run`` takes from the command line.
-RUN_ARGS = {"table2": ("device",), "fig16": ("device", "quick")}
+RUN_ARGS = {"table2": ("device",), "fig16": ("device", "quick"),
+            "traffic": ("device", "quick")}
 
 
 def main(argv=None) -> int:
@@ -49,11 +54,11 @@ def main(argv=None) -> int:
     # Import everything up front: module import cost must never leak into
     # any timed region.
     from repro_torch.benchmarks import (fig10, fig16, halo, scaling, table2,
-                                        table3, table4)
+                                        table3, table4, traffic)
     from repro_torch.kernels import plan_cache_stats
 
     mods = dict(table2=table2, table3=table3, table4=table4, fig10=fig10,
-                fig16=fig16, halo=halo, scaling=scaling)
+                fig16=fig16, halo=halo, scaling=scaling, traffic=traffic)
     opts = vars(args)
     modules = []
     for name in MODULES:

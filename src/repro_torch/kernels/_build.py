@@ -9,10 +9,13 @@ banded kernels, ``stencil_{banded,sparse}1d``, share
 on the 3D ones' ``csrc/slab_fold.cuh``); the four main
 kernels' sources compile a second time with ``-DREPRO_FOIL`` into the
 libraries of the traffic foils (``<name>_foil``), so instantiating the
-foils' staging costs the main path's build nothing, and the three 3D
+foils' staging costs the main path's build nothing, the three 3D
 sources a third time with ``-DREPRO_CLUSTER`` into the libraries of their
-cluster forms (``<name>_cluster``, ``csrc/cluster.cuh``), which then
-compile beside them.  With
+cluster forms (``<name>_cluster``, ``csrc/cluster.cuh``), and the 2D and
+3D tap-sum and fold sources with ``-DREPRO_WORKSPACE`` into the libraries
+of their workspace forms (``<name>_workspace``: the same bodies with
+their layout in a device workspace, persistent CTAs walking the tiles),
+which all compile beside them.  With
 ``REPRO_COUNT_LOADS=1`` every library builds with ``-DREPRO_COUNT_LOADS``
 instead (a name of its own, beside the default build): each CTA then
 counts the cells its staging loads -- a foil's windows, a default
@@ -30,7 +33,9 @@ Every kernel wrapper adds one to its entry of the launch counts for each
 launch of its kernel, and nowhere else (a batch past gridDim.z's limit
 launches in chunks, ``common.batch_chunks``); a foil launch counts under
 ``<kernel> (<staging>)``, a cluster form's launch (a 3D layout past one
-CTA, ``common.ClusterLayout``) under ``<kernel> (cluster)``.
+CTA, ``common.ClusterLayout``) under ``<kernel> (cluster)``, a workspace
+form's (a layout no CTA or cluster holds, ``common.WorkspaceLayout``)
+under ``<kernel> (workspace)``.
 """
 from __future__ import annotations
 
@@ -59,17 +64,26 @@ _FOILED = _MAIN[:4]
 #: one CTA spread over a thread-block cluster) build apart, from the same
 #: sources with -DREPRO_CLUSTER, and count apart.
 CLUSTERED = ("stencil_direct3d", "stencil_banded3d", "stencil_sparse3d")
-#: Every library: the main kernels, the foils' and the cluster forms'
-#: builds of their sources.
+#: The 2D and 3D kernels whose workspace forms (the tile rule's fourth
+#: rung: a layout no CTA or cluster holds, in a device workspace) build
+#: apart, from the same sources with -DREPRO_WORKSPACE, and count apart.
+WORKSPACED = ("stencil_direct", "stencil_banded", "stencil_sparse",
+              "stencil_direct3d", "stencil_banded3d", "stencil_sparse3d")
+#: Every library: the main kernels, the foils', the cluster forms' and
+#: the workspace forms' builds of their sources.
 KERNELS = (_MAIN + tuple(f"{k}_foil" for k in _FOILED)
-           + tuple(f"{k}_cluster" for k in CLUSTERED))
+           + tuple(f"{k}_cluster" for k in CLUSTERED)
+           + tuple(f"{k}_workspace" for k in WORKSPACED))
 #: Launch counters: one per main kernel, one per foil kernel and staging
-#: (the 9-tile foil is 2D only), and one per cluster form,
-#: ``<kernel> (cluster)``.
+#: (the 9-tile foil is 2D only), one per cluster form,
+#: ``<kernel> (cluster)``, and one per workspace form,
+#: ``<kernel> (workspace)``.
 COUNTERS = _MAIN + tuple(
     f"{k} ({st})" for k in _FOILED
     for st in (("wholestrip", "9tile") if not k.endswith("3d")
-               else ("wholeslab",))) + tuple(f"{k} (cluster)" for k in CLUSTERED)
+               else ("wholeslab",))) + tuple(
+    f"{k} (cluster)" for k in CLUSTERED) + tuple(
+    f"{k} (workspace)" for k in WORKSPACED)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -124,7 +138,8 @@ def _nvcc() -> str:
 
 #: Suffixes of the libraries built a second time from a main source, and
 #: the define each adds.
-_BUILDS = {"_foil": "-DREPRO_FOIL", "_cluster": "-DREPRO_CLUSTER"}
+_BUILDS = {"_foil": "-DREPRO_FOIL", "_cluster": "-DREPRO_CLUSTER",
+           "_workspace": "-DREPRO_WORKSPACE"}
 
 
 def source(name: str) -> str:

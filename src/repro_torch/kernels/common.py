@@ -48,6 +48,7 @@ rung), where the JAX slab substrate stages the region in 8 MB of VMEM.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
 import itertools
@@ -951,6 +952,11 @@ def direct3d_cluster(tm: int, tn: int, radius: int, t: int,
 #: bands take at most these (radius <= 4 in TF32, any radius in bf16).
 CLUSTER_REUSE_KS = {4: 3, 2: 2}
 
+#: The deepest band the composed split takes (``SpMma<TC>::MAX_KS``
+#: k-steps, MAX_KPAD rows: radius <= 24); a deeper composed contraction has
+#: no cluster form, only the workspace form.
+CLUSTER_MAX_KPAD = 64
+
 
 @functools.lru_cache(maxsize=256)
 def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
@@ -964,11 +970,14 @@ def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
     of t > 1 steps by the region's planes (kind ``"planes"``).  A share
     holds its planes at ``plane_ld``, then its bands' Toeplitz rows and
     headers, each part 128-byte aligned as in the one-CTA layout.  The
-    reuse split takes bands of at most :data:`CLUSTER_REUSE_KS` k-steps."""
+    reuse split takes bands of at most :data:`CLUSTER_REUSE_KS` k-steps,
+    the composed split bands of at most :data:`CLUSTER_MAX_KPAD` rows."""
     base = slab_fold_layout(tz, tm, tn, radius, t, compute_bytes, len(dzs),
                             k_rows, a_cols)
     if t > 1 and (base.toe_ld - BAND_N) // mma_k_step(compute_bytes) > \
             CLUSTER_REUSE_KS[compute_bytes]:
+        return None
+    if base.toe_ld - BAND_N > CLUSTER_MAX_KPAD:
         return None
 
     def size(planes: int, bands: int) -> int:
@@ -977,7 +986,8 @@ def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
                 + bands * SLAB_HEADER_BYTES)
 
     if t == 1:
-        first = [sum(1 for d in dzs if d < k) for k in range(2 * radius + 2)]
+        # the bands come in dz order: the first band of each dz
+        first = [bisect.bisect_left(dzs, k) for k in range(2 * radius + 2)]
 
         def held(lo: int, hi: int) -> tuple:
             return lo, hi - 1 + tz
@@ -1003,6 +1013,113 @@ def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
                          max(shares), base, rows)
 
 
+#: Streaming multiprocessors of the card the workspace form is sized for
+#: on the CPU (H100 SXM); a launch on the card takes its device's count.
+H100_SMS = 132
+
+#: CTAs of a workspace form resident on one SM (WORKSPACE_MIN_BLOCKS in
+#: csrc/common.cuh): every kernel's __launch_bounds__ minimum is at least
+#: this, so its registers let that many share an SM with no dynamic shared
+#: memory.
+WORKSPACE_CTAS_PER_SM = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkspaceLayout:
+    """A launch's layout placed in a device workspace instead of dynamic
+    shared memory (the tile rule's fourth rung, :func:`resolve_tile_geom`):
+    the same kernel body runs on ``base``, the one-CTA layout
+    (:class:`DirectLayout`, :class:`Direct3dLayout` or :class:`SlabLayout`)
+    with its strides and offsets unchanged, its storage a slice of a
+    device array.  ``ctas`` persistent CTAs (``sms`` x
+    WORKSPACE_CTAS_PER_SM, the resident ones) each own one slice of
+    ``slice_bytes`` and walk the tiles; ``total_bytes`` = ctas x
+    slice_bytes is the workspace.  A fold's slice holds its region and
+    band headers only: the bands' Toeplitz rows, the same for every CTA,
+    stay in the one device array the wrapper uploads.  ``smem_bytes`` is
+    the dynamic shared memory the launch asks for: none."""
+
+    base: object
+    slice_bytes: int
+    ctas: int
+    total_bytes: int
+    smem_bytes: int = 0
+
+
+def as_workspace(lay, sms: int = H100_SMS) -> WorkspaceLayout:
+    """The one-CTA layout ``lay`` of any 2D or 3D tap-sum or fold in a
+    workspace of ``sms`` x WORKSPACE_CTAS_PER_SM slices, each rounded up to
+    128 bytes: a tap-sum's slice is its whole layout, a fold's its region
+    and then its band headers, at the offset the one-CTA layout gives its
+    Toeplitz rows, which stay in device memory."""
+    size = (_align(lay.planes * lay.plane_ld * 4)
+            + lay.n_rows * SLAB_HEADER_BYTES if isinstance(lay, SlabLayout)
+            else lay.smem_bytes)
+    ctas = sms * WORKSPACE_CTAS_PER_SM
+    return WorkspaceLayout(lay, _align(size), ctas, ctas * _align(size))
+
+
+def for_device(lay, device):
+    """``lay`` as a launch on ``device`` takes it: a workspace form sized
+    to the device's SMs (a CUDA device's own count; H100_SMS for any other,
+    whose launches raise before a kernel), a layout of another rung as it
+    is."""
+    if not isinstance(lay, WorkspaceLayout):
+        return lay
+    import torch
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return as_workspace(lay.base, sms)
+
+
+class Workspace:
+    """The device workspace of a plan's fourth-rung launches
+    (:class:`WorkspaceLayout`): allocated with ``torch.empty`` at the
+    first launch that needs it, on that launch's device, and kept for
+    every later one (a launch needing more replaces it).  A workspace
+    larger than the device's free memory raises, naming its bytes."""
+
+    def __init__(self):
+        self.buffer = None
+
+    def get(self, device, nbytes: int):
+        """A uint8 tensor of at least ``nbytes`` bytes on ``device``."""
+        buf = self.buffer
+        if buf is None or buf.device != device or buf.numel() < nbytes:
+            self.buffer = None
+            buf = self.buffer = allocate_workspace(device, nbytes)
+        return buf
+
+
+def workspace_args(x, layout: WorkspaceLayout,
+                   workspace: Workspace = None) -> tuple:
+    """The workspace arguments of a fourth-rung launch on ``x``'s device:
+    the workspace's address (``workspace``'s, or one for this call), its
+    slice bytes and the persistent CTAs."""
+    ws = (workspace or Workspace()).get(x.device, layout.total_bytes)
+    return ws.data_ptr(), layout.slice_bytes, layout.ctas
+
+
+def allocate_workspace(device, nbytes: int):
+    """``torch.empty`` of ``nbytes`` bytes on ``device``, or a ValueError
+    where that passes the device's free memory (what CUDA reports
+    free, and what PyTorch's allocator holds unused)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the workspace form runs on a CUDA device, got "
+                         f"{device}")
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    if nbytes > free:
+        raise ValueError(
+            f"the launch's workspace needs {nbytes} bytes of device memory, "
+            f"over the {free} bytes free on {device} (out of memory); lower "
+            "the fusion depth")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class TileNeed:
     """One launch's own shared memory on a candidate tile: ``smem(tz, tm,
@@ -1012,12 +1129,15 @@ class TileNeed:
     candidates to it where the reserves fit none; ``cluster(tz, tm, tn,
     budget)`` (3D only) is the same layout spread over a thread-block
     cluster (:class:`ClusterLayout`, or None where no cluster of at most 8
-    CTAs holds it), the rule's third rung."""
+    CTAs holds it), the rule's third rung; ``workspace(tz, tm, tn)`` (2D
+    and 3D) the same layout in a device workspace
+    (:class:`WorkspaceLayout`), the fourth."""
 
     regime: str
     smem: Callable[[int, int, int], int]
     cluster: Optional[Callable[[int, int, int, int],
                                Optional[ClusterLayout]]] = None
+    workspace: Optional[Callable[[int, int, int], WorkspaceLayout]] = None
 
 
 def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
@@ -1032,12 +1152,15 @@ def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
             tm, tn, radius, t).smem_bytes,
             None if radius > CLUSTER_RADIUS3D else
             lambda tz, tm, tn, budget: direct3d_cluster(
-                tm, tn, radius, t, budget))
+                tm, tn, radius, t, budget),
+            lambda tz, tm, tn: as_workspace(
+                direct3d_layout(tm, tn, radius, t)))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: direct1d_layout(
             tn, h, in_bytes).smem_bytes)
     return TileNeed(regime, lambda tz, tm, tn: direct_layout(
-        tm, tn, h).smem_bytes)
+        tm, tn, h).smem_bytes,
+        workspace=lambda tz, tm, tn: as_workspace(direct_layout(tm, tn, h)))
 
 
 def fold_need(dim: int, radius: int, t: int, in_bytes: int,
@@ -1057,12 +1180,16 @@ def fold_need(dim: int, radius: int, t: int, in_bytes: int,
             None if dzs is None else
             lambda tz, tm, tn, budget: slab_cluster(
                 tz, tm, tn, radius, t, cb, tuple(dzs), k_rows, a_cols,
-                budget))
+                budget),
+            lambda tz, tm, tn: as_workspace(slab_fold_layout(
+                tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols)))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: line_layout(
             tn, radius, t, in_bytes, cb).smem_bytes)
     return TileNeed(regime, lambda tz, tm, tn: tile_fold_layout(
-        tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes)
+        tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes,
+        workspace=lambda tz, tm, tn: as_workspace(tile_fold_layout(
+            tm, tn, radius, t, cb, n_rows, k_rows, a_cols)))
 
 
 def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:
@@ -1171,13 +1298,19 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     fits each CTA's share in the budget; the launch carries the cluster in
     its layout (:class:`ClusterLayout`), so the tile stays a
     :class:`SubstrateGeom` and every tile the first two rungs pick stays.
-    Without ``need``, or where no rung fits, the "too deep"
-    ``ValueError``, naming ``need``'s regime and its least bytes on one
-    CTA.  1D: the pricing geometry of the lift (the kernels launch
+    Where no cluster holds it either and ``need`` has a workspace form
+    (the 2D and 3D tap-sums and folds, :class:`TileNeed`), the fourth
+    rung: the rule's first candidate, the least read amplification, since
+    no shared-memory budget binds a layout that lives in a device
+    workspace (:class:`WorkspaceLayout`).  Without ``need``, or where no
+    rung fits (a 1D launch, a foil), the "too deep" ``ValueError``,
+    naming ``need``'s regime and its least bytes on one CTA.  1D: the
+    pricing geometry of the lift (the kernels launch
     :func:`lifted_tile_geom`).  ``tile_m`` / ``w_tile`` pin TM / TN
     (multiples of 16; clamped to the grid rounded up to 16), ``z_slab``
     pins TZ (3D only; clamped to the grid's depth, the JAX pin's rule); a
-    pinned depth none of whose tiles fits raises with its shared memory.
+    pinned depth none of whose tiles fits a launch with no workspace form
+    raises with its shared memory.
     """
     grid_shape = tuple(int(n) for n in grid_shape)
     if len(grid_shape) == 1:
@@ -1193,6 +1326,8 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
         fit = next((c for c in cands if fits(c)), None)
     if fit is None and need is not None and need.cluster is not None:
         fit = next((c for c in cands if need.cluster(*c, budget)), None)
+    if fit is None and need is not None and need.workspace is not None:
+        fit = cands[0]
     if fit is not None:
         return _tile_geom(dim, fit, halo)
     size = reserve if need is None else (lambda c: need.smem(*c))

@@ -560,4 +560,49 @@ static cudaError_t prepare_launch(K* kernel, std::atomic<bool>* done) {
     return err;
 }
 
+#ifdef REPRO_WORKSPACE
+// The workspace forms (the same sources built with -DREPRO_WORKSPACE; the
+// tile rule's fourth rung, repro_torch/kernels/common.py::WorkspaceLayout):
+// a launch whose layout no CTA's 227 KB and no thread-block cluster hold
+// runs the same kernel body with that layout in a device workspace.  The
+// body's storage base is a generic pointer to this CTA's slice of it
+// instead of dynamic shared memory; its arithmetic and its order are the
+// one-CTA kernel's, so every output equals that kernel's bit for bit.
+// Generic loads and stores reach device memory as they reach shared
+// memory, and __syncthreads() orders a CTA's device-memory writes for its
+// own threads as it orders its shared ones.  Staging that lands in shared
+// memory only (cp.async) goes through registers.  The launch runs
+// persistent CTAs, SMs x WORKSPACE_MIN_BLOCKS, all resident at once (every
+// kernel's __launch_bounds__ minimum is at least WORKSPACE_MIN_BLOCKS, so
+// its registers let that many share an SM with no dynamic shared memory),
+// CTA c owning slice c and walking the (tile, grid) items c, c + gridDim.x,
+// ..., a barrier between two items, so the workspace is ctas slices, not
+// tiles.  What bounds the forms is the working set: each CTA's slice (a
+// region past 227 KB, up to megabytes) streams through L1 and L2 instead
+// of staying on chip, so they run with the largest L1 carveout.
+#define WORKSPACE_MIN_BLOCKS 2
+
+// The launch attributes of a workspace kernel on the current device (no
+// dynamic shared memory: the largest L1 carveout), set once per kernel and
+// device as prepare_launch sets its own.
+template <typename K>
+static cudaError_t prepare_workspace_launch(K* kernel, std::atomic<bool>* done) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxL1);
+    if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true, std::memory_order_release);
+    return err;
+}
+
+// The CTAs a workspace launch of `items` (tile, grid) items runs with
+// `ctas` slices: the least of the two, or 0 where the arguments are wrong.
+static inline int workspace_grid(long long items, int ctas) {
+    if (items < 1 || ctas < 1) return 0;
+    return (int)(items < ctas ? items : ctas);
+}
+#endif
+
 extern "C" const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -87,6 +87,18 @@
 // (slab_fold_planes_kernel).  The bound is the one-CTA kernel's; what the
 // split adds is the copied planes (reuse) or the TZ - 1 planes each CTA
 // stages twice and one add per output and CTA (composed).
+//
+// Past any cluster (the composed contraction of up to 12,769 bands past
+// contraction depth 64, Box-3D7R at t = 8, whose region alone is 15.9 MB on
+// the 16 x 64 x 64 tile; the reuse folds whose bands pass the cluster
+// split's k-steps or whose planes pass 8 CTAs): the workspace form, this
+// body built with -DREPRO_WORKSPACE (common.cuh, the libraries
+// <source>_workspace), its region and band headers in a device workspace,
+// persistent CTAs walking the tiles.  The bands' Toeplitz rows, the same
+// for every CTA, stay in the one device array the host uploads, and the
+// body reads them there, TF32-rounded at the load (SlabB) as the one-CTA
+// kernel rounds them at staging; a band's k-steps run in pieces of KS
+// (any depth).  Every output is the one-CTA kernel's bit for bit.
 #pragma once
 
 #include <stdint.h>
@@ -113,6 +125,11 @@ struct SlabArgs {
     int toe_ld, n_rows;
     int gx, gy;         // CTA tiles along x and y
     int mz, my, mx;     // each axis's boundary code (MODE_*)
+#ifdef REPRO_WORKSPACE
+    unsigned char* ws;  // the workspace: slice c at ws + c * ws_bytes
+    size_t ws_bytes;
+    long long items;    // (tile, grid) items: tile i % tiles of grid i / tiles
+#endif
 };
 
 // Byte offsets of the band's Toeplitz rows and of its headers (int4 each)
@@ -132,10 +149,18 @@ static inline size_t slab_smem_bytes(const SlabArgs& a, int tc_bytes) {
 template <typename TC> struct SlabB;
 template <> struct SlabB<float> {
     __device__ static __forceinline__ float round(float v) { return wmma::__float_to_tf32(v); }
+#ifdef REPRO_WORKSPACE
+    // the workspace form reads the host's rows, rounded here
+    __device__ static __forceinline__ void load(uint32_t (&b)[2], const float* t, int q) {
+        b[0] = __float_as_uint(round(t[q]));
+        b[1] = __float_as_uint(round(t[q + 4]));
+    }
+#else
     __device__ static __forceinline__ void load(uint32_t (&b)[2], const float* t, int q) {
         b[0] = __float_as_uint(t[q]);
         b[1] = __float_as_uint(t[q + 4]);
     }
+#endif
 };
 template <> struct SlabB<__nv_bfloat16> {
     __device__ static __forceinline__ __nv_bfloat16 round(__nv_bfloat16 v) { return v; }
@@ -256,8 +281,14 @@ __device__ __forceinline__ void slab_pass(float* region, const TC* toe, const in
             r[u][1] = region + hd.x + hd.y + lq + off[u][1];
         }
         const int lim = kv - hd.y - lq, lim_last = kv_last - hd.y - lq;
+#ifdef REPRO_WORKSPACE
+        for (int k0 = 0; k0 < hd.z; k0 += KS)  // the band in pieces of KS k-steps
+#pragma unroll
+            for (int ks = k0; ks < k0 + KS; ++ks)
+#else
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
+#endif
             if (ks < hd.z) {
                 const int k = ks * S::K;  // the k-step's first column past lo
                 uint32_t b[2][2];
@@ -302,12 +333,15 @@ __device__ __forceinline__ void slab_pass(float* region, const TC* toe, const in
         }
 }
 
-// Stages the band's Toeplitz rows (TF32-rounded) and every band's header.
+// Stages the band's Toeplitz rows (TF32-rounded) and every band's header
+// (the workspace form: the headers only; its toe is the host's rows).
 template <typename TC>
 __device__ __forceinline__ void stage_band(TC* toe, int4* hdr, const SlabArgs& a) {
+#ifndef REPRO_WORKSPACE
     const TC* src = static_cast<const TC*>(a.toe);
     for (int i = threadIdx.x; i < a.n_rows * a.toe_ld; i += CTA_THREADS)
         toe[i] = SlabB<TC>::round(src[i]);
+#endif
     for (int p = threadIdx.x; p < a.n_rows; p += CTA_THREADS) {
         const int* r = a.rows + 4 * p;
         hdr[p] = make_int4(r[0] * a.plane_ld + r[1] * a.ld, r[2], r[3], 0);
@@ -319,6 +353,25 @@ __device__ __forceinline__ void stage_band(TC* toe, int4* hdr, const SlabArgs& a
 template <typename TIn, typename TC, bool FILL, int KS, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS, SLAB_MIN_BLOCKS)
     slab_fold_kernel(const SlabArgs a) {
+#ifdef REPRO_WORKSPACE
+    // this CTA's slice: the region, then the band headers where the
+    // one-CTA layout puts the Toeplitz rows, which stay in device memory
+    unsigned char* const smem = a.ws + (size_t)blockIdx.x * a.ws_bytes;
+    const int halo = a.t * a.R;
+    const int p0 = a.TZ + 2 * halo, h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
+    float* const region = reinterpret_cast<float*>(smem);
+    TC* const toe = const_cast<TC*>(static_cast<const TC*>(a.toe));  // read only
+    int4* const hdr = reinterpret_cast<int4*>(smem + slab_toe_offset(a));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const long long tiles = (long long)a.gx * a.gy * ((a.Z + a.TZ - 1) / a.TZ);
+    for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const Tile3 tl = tile3((int)(item % tiles), a.gx, a.gy);
+    const int k0 = tl.bz * a.TZ, i0 = tl.by * a.TM, j0 = tl.bx * a.TN;
+    const TIn* x = grid_at(static_cast<const TIn*>(a.x), (unsigned long long)(item / tiles),
+                           a.grid_elems);
+    TIn* y = grid_at(static_cast<TIn*>(a.y), (unsigned long long)(item / tiles), a.grid_elems);
+#else
     extern __shared__ __align__(128) unsigned char smem[];
     const int halo = a.t * a.R;
     const int p0 = a.TZ + 2 * halo, h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
@@ -335,6 +388,7 @@ __global__ void __launch_bounds__(CTA_THREADS, SLAB_MIN_BLOCKS)
         x = grid_at(x, blockIdx.z, a.grid_elems);
         y = grid_at(y, blockIdx.z, a.grid_elems);
     }
+#endif
 
     load_region3d<STAGE>(region, a.ld, a.plane_ld,
                          sink_slot<STAGE>(reinterpret_cast<float*>(toe),
@@ -389,6 +443,10 @@ __global__ void __launch_bounds__(CTA_THREADS, SLAB_MIN_BLOCKS)
     }
 
     store_tile3d(y, a.Z, a.H, a.W, k0, i0, j0, a.TZ, a.TM, a.TN, region, a.plane_ld, a.ld);
+#ifdef REPRO_WORKSPACE
+    __syncthreads();  // every thread is done with the slice before the next item
+    }
+#endif
 }
 
 // The instantiation a launch in these types, fill, staging and band depth
@@ -482,6 +540,51 @@ static int slab_ctas_per_sm(int dtype, int compute, int fill, int smem_bytes) {
         return err == cudaSuccess ? n : -(int)err;
     });
 }
+
+#ifdef REPRO_WORKSPACE
+// The workspace form's instantiation a launch in these types takes (KS:
+// SpMma<TC>::MAX_KS, a band's k-steps in pieces of it), its launch
+// attributes set: one per type pair, the fill compiled in and gated by the
+// modes at run time.  The same function serves the slab fold (3D) and the
+// tile fold (2D, tile_fold.cuh), each with its own kernel.
+template <typename K>
+static int workspace_launch(K* kernel, std::atomic<bool>* done, SlabArgs a, int B,
+                            long long tiles, int ctas, cudaStream_t stream) {
+    cudaError_t err = prepare_workspace_launch(kernel, done);
+    if (err != cudaSuccess) return (int)err;
+    const int grid = tiles < 1 || B < 1 ? 0 : workspace_grid(tiles * B, ctas);
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    a.items = tiles * B;
+    kernel<<<grid, CTA_THREADS, 0, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// A 3D workspace launch's arguments checked against the host's layout
+// (its slice holds the region and the headers: common.py::
+// fold_slice_bytes), launched in its types on ctas persistent CTAs.
+static inline int slab_workspace_types(SlabArgs a, int B, int dtype, int compute, void* ws,
+                                       long long slice_bytes, int ctas, cudaStream_t stream) {
+    const int halo = a.t * a.R;
+    if (a.n_rows < 1 || a.t < 1 || a.R < 1 || a.TZ < 1 || a.TM < 1 || a.TN < 1 ||
+        a.grid_elems != (size_t)a.Z * a.H * a.W || a.ld < a.TN + 2 * halo || a.ld % 2 != 0 ||
+        a.plane_ld < (a.TM + 2 * halo) * a.ld || a.plane_ld % 2 != 0 || a.toe_ld % 8 != 0 ||
+        ws == nullptr || slice_bytes % 128 != 0 ||
+        slice_bytes < (long long)(slab_toe_offset(a) + (size_t)a.n_rows * sizeof(int4)))
+        return (int)cudaErrorInvalidValue;
+    a.gx = (a.W + a.TN - 1) / a.TN;
+    a.gy = (a.H + a.TM - 1) / a.TM;
+    a.ws = static_cast<unsigned char*>(ws);
+    a.ws_bytes = (size_t)slice_bytes;
+    const long long tiles = grid3_ctas(a.Z, a.H, a.W, a.TZ, a.TM, a.TN);
+    return slab_types(dtype, compute, [&](auto* in, auto* tc) {
+        using TIn = std::remove_pointer_t<decltype(in)>;
+        using TC = std::remove_pointer_t<decltype(tc)>;
+        static std::atomic<bool> attributes_set[MAX_DEVICES];
+        return workspace_launch(slab_fold_kernel<TIn, TC, true, SpMma<TC>::MAX_KS, STAGE_REGION>,
+                                attributes_set, a, B, tiles, ctas, stream);
+    });
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // The cluster forms (cluster.cuh; the tile rule's third rung): a slab whose

@@ -41,7 +41,29 @@ static int banded2d(const void* x, void* y, const void* toe, const void* rows, i
 
 #define ARGS x, y, toe, rows, H, W, TM, TN, t, R, ld, kpad, toe_ld, n_rows, dtype, compute, \
              mode_y, mode_x, B, grid_elems, smem_bytes, stream
-#ifndef REPRO_FOIL
+#if defined(REPRO_WORKSPACE)
+// stencil_banded_launch's arguments, then the workspace ws of ctas slices
+// of slice_bytes each (common.py::WorkspaceLayout: the region and the band
+// headers; the Toeplitz rows toe stay where they are), the bands of any
+// depth; smem_bytes must be 0.  Returns the cudaError_t of the launch (0
+// on success).
+extern "C" int stencil_banded_workspace_launch(const void* x, void* y, const void* toe,
+                                               const void* rows, int H, int W, int TM, int TN,
+                                               int t, int R, int ld, int kpad, int toe_ld,
+                                               int n_rows, int dtype, int compute, int mode_y,
+                                               int mode_x, void* ws, long long slice_bytes,
+                                               int ctas, int B, long long grid_elems,
+                                               int smem_bytes, void* stream) {
+    const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
+    if (grid_elems != (long long)H * W || kpad % k != 0 || kpad < BAND_N + 2 * R ||
+        toe_ld < kpad + BAND_N - 1 || smem_bytes != 0)
+        return (int)cudaErrorInvalidValue;
+    return tile_workspace_types(tile_args(x, y, toe, rows, H, W, TM, TN, t, R, ld, toe_ld, n_rows,
+                                          mode_y, mode_x, grid_elems),
+                                B, dtype, compute, ws, slice_bytes, ctas,
+                                static_cast<cudaStream_t>(stream));
+}
+#elif !defined(REPRO_FOIL)
 // x and y hold B grids of grid_elems = H * W cells each (the batch, K11);
 // ld, toe_ld and smem_bytes are the layout of
 // repro_torch/kernels/common.py::tile_fold_layout; dtype / compute: 0 =

@@ -72,6 +72,14 @@
 // A launch advances a batch of B grids, grid b on blockIdx.z (K11,
 // replacing repro/kernels/common.py::fold_batch mode vmap; common.cuh,
 // grid_at / for_each_chunk); B = 1 is the unbatched call.
+//
+// Past one CTA (two buffers of (TM+2h)(TN+2h) floats pass 227 KB from h =
+// 56 on the 16 x 16 tile: Box-2D7R at t = 16..29, h = 112..203, where the
+// JAX substrate holds them in VMEM): the workspace form, this kernel built
+// with -DREPRO_WORKSPACE into a library of its own,
+// stencil_direct_workspace (common.cuh): the buffers in a device
+// workspace, persistent CTAs walking the tiles, every output the one-CTA
+// kernel's bit for bit, bound by the buffers' traffic through L1 and L2.
 #include "tap_stage.cuh"
 
 // The radii the kernel takes, and the taps the host passes: the dense
@@ -102,6 +110,14 @@
 // a patch's reads run up to 3 cells past its buffer's rows.  Must match
 // repro_torch/kernels/common.py::DIRECT_MARGIN.
 #define DIRECT_MARGIN 4
+
+// The arguments the workspace form adds: its workspace, the floats of one
+// CTA's slice and the (tile, grid) items.
+#ifdef REPRO_WORKSPACE
+#define DIRECT_WORKSPACE_ARGS , float* ws, size_t ws_floats, long long items
+#else
+#define DIRECT_WORKSPACE_ARGS
+#endif
 
 // The host's taps: the (2r+1)^2 taps of radius r, row-major, zero where
 // skipped and past them.
@@ -219,20 +235,38 @@ __global__ void __launch_bounds__(CTA_THREADS, R <= 3 ? DIRECT_MIN_BLOCKS : DIRE
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int TM, int TN,
                       int t, int ld, int my, int mx,
                       const __grid_constant__ KernelTaps<tap_slots(R, 2)> taps,
-                      size_t grid_elems) {
+                      size_t grid_elems DIRECT_WORKSPACE_ARGS) {
     constexpr int V = DIRECT_ROWS;
+#ifdef REPRO_WORKSPACE
+    // this CTA's slice; item i is tile i % tiles of grid i / tiles
+    float* const smem = ws + (size_t)blockIdx.x * ws_floats;
+    const int gx = (W + TN - 1) / TN;
+    const long long tiles = (long long)gx * ((H + TM - 1) / TM);
+    const T* const x0 = x;
+    T* const y0 = y;
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    x = grid_at(x0, (unsigned long long)(item / tiles), grid_elems);
+    y = grid_at(y0, (unsigned long long)(item / tiles), grid_elems);
+    const int tile = (int)(item % tiles);
+#else
     extern __shared__ __align__(16) float smem[];
+#endif
     const int halo = t * R;
     const int rows0 = TM + 2 * halo, cols0 = TN + 2 * halo;
     const int lead = (-halo) & 3;
     float* const b0 = smem + DIRECT_MARGIN;
     float* const b1 = b0 + rows0 * ld + DIRECT_MARGIN;
+#ifdef REPRO_WORKSPACE
+    const int i0 = (tile / gx) * TM;
+    const int j0 = (tile % gx) * TN;
+#else
     const int i0 = blockIdx.y * TM;
     const int j0 = blockIdx.x * TN;
     if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
         x = grid_at(x, blockIdx.z, grid_elems);
         y = grid_at(y, blockIdx.z, grid_elems);
     }
+#endif
 
     if constexpr (STAGE == STAGE_REGION) {
         count_cta_loads(stage_region(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0));
@@ -280,6 +314,10 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
         __syncthreads();
     }
     store_tile4(y, H, W, i0, j0, TM, TN, ((t & 1) ? b1 : b0) + halo * ld + lead + halo, ld);
+#ifdef REPRO_WORKSPACE
+    __syncthreads();  // every thread is done with the slice before the next item
+    }
+#endif
 }
 
 // The instantiation a launch in this type, radius, fill and staging takes,
@@ -343,7 +381,70 @@ static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t,
 }
 
 #define ARGS x, y, H, W, TM, TN, t, r, ld, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
-#ifndef REPRO_FOIL
+#if defined(REPRO_WORKSPACE)
+// The workspace form's instantiations (radii 1..7, one each per grid
+// dtype, the fill compiled in and gated by the modes at run time) and
+// launch: min(ctas, tiles x B) persistent CTAs, CTA c on the slice_bytes at
+// ws + c * slice_bytes, which hold the two buffers of
+// common.py::direct_layout.
+template <typename T, int R>
+static int launch_workspace(const void* x, void* y, int H, int W, int TM, int TN, int t, int ld,
+                            int my, int mx, const Taps* taps, void* ws, long long slice_bytes,
+                            int ctas, int B, long long grid_elems, cudaStream_t stream) {
+    const int halo = t * R, lead = (-halo) & 3;
+    if (TM < 1 || TN < 4 || TN % 4 != 0 || t < 1 || ld % 4 != 0 || ld < lead + TN + 2 * halo ||
+        ws == nullptr || slice_bytes % 128 != 0 ||
+        slice_bytes < direct_smem_bytes(TM + 2 * halo, ld) || B < 1)
+        return (int)cudaErrorInvalidValue;
+    auto* kernel = stencil_direct_kernel<T, R, true, STAGE_REGION>;
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_workspace_launch(kernel, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = (long long)((W + TN - 1) / TN) * ((H + TM - 1) / TM);
+    const int grid = workspace_grid(tiles * B, ctas);
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    kernel<<<grid, CTA_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), H, W, TM, TN, t, ld, my, mx,
+        kernel_taps<R, 2>(taps->w), (size_t)grid_elems, static_cast<float*>(ws),
+        (size_t)(slice_bytes / 4), tiles * B);
+    return (int)cudaGetLastError();
+}
+
+// stencil_direct_launch's arguments, then the workspace ws of ctas slices
+// of slice_bytes each (common.py::WorkspaceLayout); smem_bytes must be 0.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int stencil_direct_workspace_launch(const void* x, void* y, int H, int W, int TM,
+                                               int TN, int t, int r, int ld, int dtype,
+                                               int mode_y, int mode_x, const Taps* taps,
+                                               void* ws, long long slice_bytes, int ctas, int B,
+                                               long long grid_elems, int smem_bytes,
+                                               void* stream) {
+    if (grid_elems != (long long)H * W || smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WARGS x, y, H, W, TM, TN, t, ld, mode_y, mode_x, taps, ws, slice_bytes, ctas, B, \
+              grid_elems, s
+    if (dtype == 0) {
+        if (r == 1) return launch_workspace<float, 1>(WARGS);
+        if (r == 2) return launch_workspace<float, 2>(WARGS);
+        if (r == 3) return launch_workspace<float, 3>(WARGS);
+        if (r == 4) return launch_workspace<float, 4>(WARGS);
+        if (r == 5) return launch_workspace<float, 5>(WARGS);
+        if (r == 6) return launch_workspace<float, 6>(WARGS);
+        if (r == 7) return launch_workspace<float, 7>(WARGS);
+    } else if (dtype == 1) {
+        using BF = __nv_bfloat16;
+        if (r == 1) return launch_workspace<BF, 1>(WARGS);
+        if (r == 2) return launch_workspace<BF, 2>(WARGS);
+        if (r == 3) return launch_workspace<BF, 3>(WARGS);
+        if (r == 4) return launch_workspace<BF, 4>(WARGS);
+        if (r == 5) return launch_workspace<BF, 5>(WARGS);
+        if (r == 6) return launch_workspace<BF, 6>(WARGS);
+        if (r == 7) return launch_workspace<BF, 7>(WARGS);
+    }
+#undef WARGS
+    return (int)cudaErrorInvalidValue;
+}
+#elif !defined(REPRO_FOIL)
 // dtype: 0 = float32, 1 = bfloat16 (input and output); r in 1..7; ld and
 // smem_bytes: the layout of repro_torch/kernels/common.py::direct_layout;
 // mode_y, mode_x: the rows' and the columns' boundary codes (MODE_*); x

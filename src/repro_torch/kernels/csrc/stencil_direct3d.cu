@@ -103,6 +103,15 @@
 // one-CTA kernel, the FMAs and the shared reads, now on C SMs a tile, one
 // CTA each; the only new traffic is one plane per step boundary between
 // CTAs, in the interval it is due.
+//
+// Past any cluster (radii 3..7, whose cluster form is not built, and the
+// rings of whose steps pass a CTA, up to 17 MB on the 16 x 64 x 64 tile at
+// r = 7, t = 8, where the JAX substrate stages them in VMEM): the
+// workspace form, this kernel built with -DREPRO_WORKSPACE into a library
+// of its own, stencil_direct3d_workspace (common.cuh): the rings in a
+// device workspace, persistent CTAs walking the tiles, every output the
+// one-CTA kernel's bit for bit.  It is bound by its rings' traffic through
+// L1 and L2, which now hold what shared memory held.
 #include "cluster.cuh"
 #include "tap_stage.cuh"
 
@@ -135,6 +144,14 @@
 // 3 cells past its slot's rows.  Must match
 // repro_torch/kernels/common.py::DIRECT3D_MARGIN.
 #define DIRECT3D_MARGIN 4
+
+// The arguments the workspace form adds: its workspace, the floats of one
+// CTA's slice and the (tile, grid) items.
+#ifdef REPRO_WORKSPACE
+#define DIRECT3D_WORKSPACE_ARGS , float* ws, size_t ws_floats, long long items
+#else
+#define DIRECT3D_WORKSPACE_ARGS
+#endif
 
 // The host's taps: the (2r+1)^3 taps of radius r, (dz, dy, dx) row-major,
 // zero where skipped and past them.
@@ -324,21 +341,38 @@ __global__ void __launch_bounds__(CTA_THREADS,
 stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H, int W, int TZ,
                         int TM, int TN, int t, int ld, int gx, int gy, int mz, int my, int mx,
                         const __grid_constant__ KernelTaps<tap_slots(R, 3)> taps,
-                        size_t grid_elems) {
+                        size_t grid_elems DIRECT3D_WORKSPACE_ARGS) {
     static_assert(STAGE != STAGE_NINE, "the 9-tile foil stages 2D grids only");
     constexpr int V = DIRECT3D_ROWS, KW = 2 * R + 1;
+#ifdef REPRO_WORKSPACE
+    // this CTA's slice; item i is tile i % tiles of grid i / tiles
+    float* const smem = ws + (size_t)blockIdx.x * ws_floats;
+    const long long tiles = (long long)gx * gy * ((Z + TZ - 1) / TZ);
+    const T* const x0 = x;
+    T* const y0 = y;
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    x = grid_at(x0, (unsigned long long)(item / tiles), grid_elems);
+    y = grid_at(y0, (unsigned long long)(item / tiles), grid_elems);
+#else
     extern __shared__ __align__(16) float smem[];
+#endif
     const int halo = t * R;
     const int planes0 = TZ + 2 * halo, rows0 = TM + 2 * halo, cols0 = TN + 2 * halo;
     const int lead = (-halo) & 3;
     const Rings<R> rings{rows0 * ld + DIRECT3D_MARGIN};
+#ifdef REPRO_WORKSPACE
+    const Tile3 tl = tile3((int)(item % tiles), gx, gy);
+#else
     const Tile3 tl = tile3(blockIdx.x, gx, gy);
+#endif
     const int k0 = tl.bz * TZ, i0 = tl.by * TM, j0 = tl.bx * TN;
     const int z0 = k0 - halo;  // the global plane of region plane 0
+#ifndef REPRO_WORKSPACE
     if (blockIdx.z != 0) {  // this CTA's grid of the batch (grid 0: x, y)
         x = grid_at(x, blockIdx.z, grid_elems);
         y = grid_at(y, blockIdx.z, grid_elems);
     }
+#endif
     const size_t plane_cells = (size_t)H * W;
     const bool zmap = FILL && mz != MODE_PERIODIC;
     const bool fill_yx = FILL && (leaves_domain(my, i0 - halo, rows0, H) ||
@@ -464,6 +498,10 @@ stencil_direct3d_kernel(const T* __restrict__ x, T* __restrict__ y, int Z, int H
         }
     }
     count_cta_loads(loaded);  // each plane of the region once
+#ifdef REPRO_WORKSPACE
+    __syncthreads();  // every thread is done with the slice before the next item
+    }
+#endif
 }
 
 #ifdef REPRO_CLUSTER
@@ -661,7 +699,72 @@ static int launch_r(const void* x, void* y, const Taps3* taps, int Z, int H, int
 
 #define ARGS x, y, taps, Z, H, W, TZ, TM, TN, t, r, ld, modes, B, grid_elems, smem_bytes, \
              static_cast<cudaStream_t>(stream)
-#if defined(REPRO_CLUSTER)
+#if defined(REPRO_WORKSPACE)
+// The workspace form's instantiations (radii 1..7, one each per grid
+// dtype, the fill compiled in and gated by the modes at run time, which
+// on a periodic grid skips it) and launch: min(ctas, tiles x B) persistent
+// CTAs, CTA c on the slice_bytes at ws + c * slice_bytes, which hold the
+// rings of common.py::direct3d_layout.
+template <typename T, int R>
+static int launch_workspace3d(const void* x, void* y, const Taps3* taps, int Z, int H, int W,
+                              int TZ, int TM, int TN, int t, int ld, const int* modes, void* ws,
+                              long long slice_bytes, int ctas, int B, long long grid_elems,
+                              cudaStream_t stream) {
+    const int halo = t * R, lead = (-halo) & 3;
+    if (TZ < 1 || TM < 1 || TN < 4 || TN % 4 != 0 || t < 1 || ld % 4 != 0 ||
+        ld < lead + TN + 2 * halo || ws == nullptr || slice_bytes % 128 != 0 ||
+        slice_bytes < direct3d_smem_bytes(R, t, TM + 2 * halo, ld) || B < 1)
+        return (int)cudaErrorInvalidValue;
+    auto* kernel = stencil_direct3d_kernel<T, R, true, STAGE_REGION>;
+    static std::atomic<bool> attributes_set[MAX_DEVICES];
+    cudaError_t err = prepare_workspace_launch(kernel, attributes_set);
+    if (err != cudaSuccess) return (int)err;
+    const long long tiles = grid3_ctas(Z, H, W, TZ, TM, TN);
+    const int grid = tiles < 1 ? 0 : workspace_grid(tiles * B, ctas);
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+    const int gx = (W + TN - 1) / TN, gy = (H + TM - 1) / TM;
+    kernel<<<grid, CTA_THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), Z, H, W, TZ, TM, TN, t, ld, gx, gy, modes[0],
+        modes[1], modes[2], kernel_taps<R, 3>(taps->w), (size_t)grid_elems,
+        static_cast<float*>(ws), (size_t)(slice_bytes / 4), tiles * B);
+    return (int)cudaGetLastError();
+}
+
+// stencil_direct3d_launch's arguments, then the workspace ws of ctas
+// slices of slice_bytes each (common.py::WorkspaceLayout); smem_bytes must
+// be 0.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int stencil_direct3d_workspace_launch(const void* x, void* y, const Taps3* taps, int Z,
+                                                 int H, int W, int TZ, int TM, int TN, int t,
+                                                 int r, int ld, int dtype, int mode_z, int mode_y,
+                                                 int mode_x, void* ws, long long slice_bytes,
+                                                 int ctas, int B, long long grid_elems,
+                                                 int smem_bytes, void* stream) {
+    if (grid_elems != (long long)Z * H * W || smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    const int modes[3] = {mode_z, mode_y, mode_x};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WARGS x, y, taps, Z, H, W, TZ, TM, TN, t, ld, modes, ws, slice_bytes, ctas, B, grid_elems, s
+    if (dtype == 0) {
+        if (r == 1) return launch_workspace3d<float, 1>(WARGS);
+        if (r == 2) return launch_workspace3d<float, 2>(WARGS);
+        if (r == 3) return launch_workspace3d<float, 3>(WARGS);
+        if (r == 4) return launch_workspace3d<float, 4>(WARGS);
+        if (r == 5) return launch_workspace3d<float, 5>(WARGS);
+        if (r == 6) return launch_workspace3d<float, 6>(WARGS);
+        if (r == 7) return launch_workspace3d<float, 7>(WARGS);
+    } else if (dtype == 1) {
+        using BF = __nv_bfloat16;
+        if (r == 1) return launch_workspace3d<BF, 1>(WARGS);
+        if (r == 2) return launch_workspace3d<BF, 2>(WARGS);
+        if (r == 3) return launch_workspace3d<BF, 3>(WARGS);
+        if (r == 4) return launch_workspace3d<BF, 4>(WARGS);
+        if (r == 5) return launch_workspace3d<BF, 5>(WARGS);
+        if (r == 6) return launch_workspace3d<BF, 6>(WARGS);
+        if (r == 7) return launch_workspace3d<BF, 7>(WARGS);
+    }
+#undef WARGS
+    return (int)cudaErrorInvalidValue;
+}
+#elif defined(REPRO_CLUSTER)
 // The cluster form's instantiations (radii 1..MAX_CLUSTER_RADIUS3D, one
 // each per grid dtype: the fill compiled in and gated by the modes at run
 // time, which on a periodic grid skips it, as the periodic instantiation

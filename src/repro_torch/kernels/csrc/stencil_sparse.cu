@@ -12,6 +12,27 @@
 // stencil_banded bit for bit.
 #include "tile_fold.cuh"
 
+#if defined(REPRO_WORKSPACE)
+// stencil_sparse_launch's arguments, then the workspace ws of ctas slices
+// of slice_bytes each (common.py::WorkspaceLayout: the region and the band
+// headers); smem_bytes must be 0.  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int stencil_sparse_workspace_launch(const void* x, void* y, const void* toe,
+                                               const void* meta, int H, int W, int TM, int TN,
+                                               int t, int R, int ld, int a_cols, int toe_ld,
+                                               int n_rows, int dtype, int compute, int mode_y,
+                                               int mode_x, void* ws, long long slice_bytes,
+                                               int ctas, int B, long long grid_elems,
+                                               int smem_bytes, void* stream) {
+    const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
+    if (grid_elems != (long long)H * W || a_cols > MAX_KPAD + k || smem_bytes != 0)
+        return (int)cudaErrorInvalidValue;
+    return tile_workspace_types(tile_args(x, y, toe, meta, H, W, TM, TN, t, R, ld, toe_ld, n_rows,
+                                          mode_y, mode_x, grid_elems),
+                                B, dtype, compute, ws, slice_bytes, ctas,
+                                static_cast<cudaStream_t>(stream));
+}
+#else
 // stencil_banded_launch's arguments with the compacted operand: toe holds
 // the (n_rows, toe_ld) Toeplitz rows of the compacted bands, meta is
 // (n_rows, 4) int32 (0, dy, lo, nk), and a_cols = max_p(lo_p + nk_p * K),
@@ -36,3 +57,4 @@ extern "C" int stencil_sparse_launch(const void* x, void* y, const void* toe, co
 extern "C" int stencil_sparse_ctas_per_sm(int dtype, int compute, int fill, int smem_bytes) {
     return tile_ctas_per_sm<STAGE_REGION>(dtype, compute, fill, smem_bytes);
 }
+#endif

@@ -12,7 +12,35 @@
 // or star kernel it equals stencil_banded3d bit for bit.
 #include "slab_fold.cuh"
 
-#ifdef REPRO_CLUSTER
+#if defined(REPRO_WORKSPACE)
+// stencil_sparse3d_launch's arguments, then the workspace ws of ctas
+// slices of slice_bytes each (common.py::WorkspaceLayout: the region and
+// the band headers); smem_bytes must be 0.  Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int stencil_sparse3d_workspace_launch(const void* x, void* y, const void* toe,
+                                                 const void* meta, int Z, int H, int W, int TZ,
+                                                 int TM, int TN, int t, int R, int ld,
+                                                 int plane_ld, int a_cols, int toe_ld, int n_rows,
+                                                 int dtype, int compute, int mode_z, int mode_y,
+                                                 int mode_x, void* ws, long long slice_bytes,
+                                                 int ctas, int B, long long grid_elems,
+                                                 int smem_bytes, void* stream) {
+    const int k = compute == 0 ? SpMma<float>::K : SpMma<__nv_bfloat16>::K;
+    if (grid_elems != (long long)Z * H * W || a_cols > MAX_KPAD + k || smem_bytes != 0)
+        return (int)cudaErrorInvalidValue;
+    SlabArgs a{};
+    a.x = x;
+    a.y = y;
+    a.toe = toe;
+    a.rows = static_cast<const int*>(meta);
+    a.grid_elems = (size_t)grid_elems;
+    a.Z = Z, a.H = H, a.W = W, a.TZ = TZ, a.TM = TM, a.TN = TN, a.t = t, a.R = R;
+    a.ld = ld, a.plane_ld = plane_ld, a.toe_ld = toe_ld, a.n_rows = n_rows;
+    a.mz = mode_z, a.my = mode_y, a.mx = mode_x;
+    return slab_workspace_types(a, B, dtype, compute, ws, slice_bytes, ctas,
+                                static_cast<cudaStream_t>(stream));
+}
+#elif defined(REPRO_CLUSTER)
 // stencil_sparse3d_launch's arguments and the cluster of a launch of t > 1
 // steps (the reuse split of slab_fold.cuh): ctas (2, 4 or 8) and
 // split[0..ctas], rank k owning the region planes [split[k], split[k + 1]);

@@ -12,8 +12,15 @@ __device__ __forceinline__ bool on_bytes(const void* p, int n) {
 }
 
 // One granule: the 4 cells from src (on 4 * sizeof(T) bytes) to dst (on
-// 16 bytes) as f32.
+// 16 bytes) as f32.  A workspace form's dst lies in device memory, where
+// cp.async cannot land: a 16-byte load and store there.
+#ifdef REPRO_WORKSPACE
+__device__ __forceinline__ void granule(float* dst, const float* src) {
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+#else
 __device__ __forceinline__ void granule(float* dst, const float* src) { cp_async16(dst, src); }
+#endif
 __device__ __forceinline__ void granule(float* dst, const __nv_bfloat16* src) {
     const uint2 v = *reinterpret_cast<const uint2*>(src);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));

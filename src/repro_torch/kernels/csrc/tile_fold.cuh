@@ -196,6 +196,25 @@ __device__ __forceinline__ void tile_pass(float* region, const TC* toe, const in
 template <typename TIn, typename TC, bool FILL, int KS, int STAGE>
 __global__ void __launch_bounds__(CTA_THREADS, TILE_MIN_BLOCKS)
     tile_fold_kernel(const SlabArgs a) {
+#ifdef REPRO_WORKSPACE
+    // this CTA's slice (slab_fold.cuh's workspace form): the region, then
+    // the band headers; the Toeplitz rows stay in device memory
+    unsigned char* const smem = a.ws + (size_t)blockIdx.x * a.ws_bytes;
+    const int halo = a.t * a.R;
+    const int h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
+    float* const region = reinterpret_cast<float*>(smem);
+    TC* const toe = const_cast<TC*>(static_cast<const TC*>(a.toe));  // read only
+    int4* const hdr = reinterpret_cast<int4*>(smem + tile_toe_offset(a));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const long long tiles = (long long)a.gx * a.gy;
+    for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int tile = (int)(item % tiles);
+    const int i0 = (tile / a.gx) * a.TM, j0 = (tile % a.gx) * a.TN;
+    const TIn* x = grid_at(static_cast<const TIn*>(a.x), (unsigned long long)(item / tiles),
+                           a.grid_elems);
+    TIn* y = grid_at(static_cast<TIn*>(a.y), (unsigned long long)(item / tiles), a.grid_elems);
+#else
     extern __shared__ __align__(128) unsigned char smem[];
     const int halo = a.t * a.R;
     const int h0 = a.TM + 2 * halo, w0 = a.TN + 2 * halo;
@@ -211,6 +230,7 @@ __global__ void __launch_bounds__(CTA_THREADS, TILE_MIN_BLOCKS)
         x = grid_at(x, blockIdx.z, a.grid_elems);
         y = grid_at(y, blockIdx.z, a.grid_elems);
     }
+#endif
 
     load_region<STAGE>(region, a.ld,
                        sink_slot<STAGE>(reinterpret_cast<float*>(toe),
@@ -258,6 +278,10 @@ __global__ void __launch_bounds__(CTA_THREADS, TILE_MIN_BLOCKS)
     }
 
     store_tile(y, a.H, a.W, i0, j0, a.TM, a.TN, region, a.ld);
+#ifdef REPRO_WORKSPACE
+    __syncthreads();  // every thread is done with the slice before the next item
+    }
+#endif
 }
 
 // The instantiation a launch in these types, fill, staging and band depth
@@ -353,6 +377,35 @@ static int tile_launch_types(const SlabArgs& a, int B, int dtype, int compute, i
         return tile_launch<TIn, TC, STAGE, DEEP>(a, B, smem_bytes, stream);
     });
 }
+
+#ifdef REPRO_WORKSPACE
+// A 2D workspace launch's arguments checked against the host's layout
+// (its slice holds the region and the headers: common.py::
+// fold_slice_bytes), launched in its types on ctas persistent CTAs, the
+// tile fold with FoldKs<TC>::DEEP (any band depth, in pieces of MAX_KS).
+static inline int tile_workspace_types(SlabArgs a, int B, int dtype, int compute, void* ws,
+                                       long long slice_bytes, int ctas, cudaStream_t stream) {
+    const int halo = a.t * a.R;
+    if (a.n_rows < 1 || a.t < 1 || a.R < 1 || a.TM < 1 || a.TN < 1 ||
+        a.grid_elems != (size_t)a.H * a.W || a.ld < a.TN + 2 * halo || a.ld % 2 != 0 ||
+        a.toe_ld % 8 != 0 || ws == nullptr || slice_bytes % 128 != 0 ||
+        slice_bytes < (long long)(tile_toe_offset(a) + (size_t)a.n_rows * sizeof(int4)))
+        return (int)cudaErrorInvalidValue;
+    a.gx = (a.W + a.TN - 1) / a.TN;
+    a.gy = (a.H + a.TM - 1) / a.TM;
+    a.ws = static_cast<unsigned char*>(ws);
+    a.ws_bytes = (size_t)slice_bytes;
+    const long long tiles = (long long)a.gx * a.gy;
+    return slab_types(dtype, compute, [&](auto* in, auto* tc) {
+        using TIn = std::remove_pointer_t<decltype(in)>;
+        using TC = std::remove_pointer_t<decltype(tc)>;
+        static std::atomic<bool> attributes_set[MAX_DEVICES];
+        return workspace_launch(
+            tile_fold_kernel<TIn, TC, true, FoldKs<TC>::DEEP, STAGE_REGION>, attributes_set, a,
+            B, tiles, ctas, stream);
+    });
+}
+#endif
 
 // CTAs of the instantiation (types, fill, STAGE, small band) that fit on
 // one SM at once with smem_bytes of dynamic shared memory, as the runtime

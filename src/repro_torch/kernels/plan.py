@@ -238,6 +238,13 @@ class StencilPlan:
         staging = getattr(self.fn, "staging", None)
         if staging is not None:
             lines.insert(2, f"  staging  : {staging}")
+        ws = getattr(self.fn, "workspace", None)
+        if ws is not None:
+            lines.insert(2, f"  workspace: {ws.total_bytes} bytes of device "
+                            f"memory, {ws.ctas} persistent CTAs x "
+                            f"{ws.slice_bytes}-byte slices (the layout fits "
+                            "no CTA and no cluster: the tile rule's fourth "
+                            "rung)")
         if self.halo_plan is not None:
             hp = self.halo_plan
             line = (f"  halo plan: mode={hp['mode']} depth={hp['halo_depth']} "

@@ -39,12 +39,14 @@ from . import ref as _ref
 from . import stencil_direct as _direct
 from . import stencil_matmul as _matmul
 from . import stencil_sparse as _sparse
-from .common import (BAND_N, SubstrateGeom, TileNeed, check_grid,
-                     check_staging, fold_need, launch_geom, mma_k_step,
-                     plain_loop, priced_tile_geom, pricing_geom,
-                     smem_budget_bytes, staging_clause)
-from .stencil_direct import direct2d_layout, stencil_direct_at
-from .stencil_matmul import build_bands_nd, stencil_matmul_at
+from .common import (BAND_N, SubstrateGeom, TileNeed, Workspace,
+                     WorkspaceLayout, check_grid, check_staging, fold_need,
+                     launch_geom, mma_k_step, plain_loop, priced_tile_geom,
+                     pricing_geom, smem_budget_bytes, staging_clause)
+from .stencil_direct import direct2d_layout, direct3d_rings, stencil_direct_at
+from .stencil_matmul import (band_dzs, band_rows, build_bands_nd,
+                             slab_launch_layout, stencil_matmul_at,
+                             tile_launch_layout)
 from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
                              stencil_sparse_matmul_at)
 
@@ -426,50 +428,83 @@ def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
     return run
 
 
-def _direct_geom(ctx: PlanContext, t_inner: int,
-                 regime: str) -> SubstrateGeom:
-    """:meth:`PlanContext.launch_geom` of the tap-sum, with the 2D
-    kernel's shared memory on that tile checked."""
-    geom = ctx.launch_geom(ctx.weights, t_inner, "direct", regime)
-    if len(ctx.grid_shape) == 2:
-        direct2d_layout(geom, geom.h_block)
-    return geom
+def _workspace_form(ctx: PlanContext, engine: str, w: np.ndarray,
+                    t_inner: int, geom: SubstrateGeom,
+                    budget: int) -> Optional[WorkspaceLayout]:
+    """The workspace layout a 2D or 3D launch of ``weights`` at ``t_inner``
+    steps on ``geom`` runs with (the tile rule's fourth rung,
+    ``common.WorkspaceLayout`` on an H100's SMs), or None where it runs on
+    one CTA or a cluster: what ``explain`` and the auditor report."""
+    dim = len(ctx.grid_shape)
+    if ctx.staging != "region" or dim == 1:
+        return None
+    radius = (np.asarray(w).shape[-1] - 1) // 2
+    cb = (ctx.compute_dtype or ctx.dtype).itemsize
+    if engine == "direct":
+        lay = (direct3d_rings(geom, radius, t_inner, budget) if dim == 3
+               else direct2d_layout(geom, t_inner * radius, budget))
+    elif engine == "matmul" and dim == 3:
+        lay = slab_launch_layout(geom, radius, t_inner, cb, band_dzs(w),
+                                 "3D banded", budget=budget)
+    elif engine == "matmul":
+        lay = tile_launch_layout(geom, radius, t_inner, cb, band_rows(w),
+                                 "banded", budget=budget, deep=True)
+    else:
+        lay = sparse_tile_layout(ctx.grid_shape, w, t_inner, geom,
+                                 ctx.compute_dtype or ctx.dtype,
+                                 budget=budget)
+    return lay if isinstance(lay, WorkspaceLayout) else None
+
+
+def _marked(run: Callable, ctx: PlanContext, engine: str, w: np.ndarray,
+            t_inner: int, geom: SubstrateGeom, budget: int) -> Callable:
+    """``run`` marked with the workspace form its launches take, if any
+    (``run.workspace``, which ``StencilPlan.explain`` reports)."""
+    run.workspace = _workspace_form(ctx, engine, w, t_inner, geom, budget)
+    return run
 
 
 def _build_direct(ctx: PlanContext) -> Callable:
     """t launches of the tap-sum kernel at t=1, halo r each; the grid
     rounds to its dtype between steps, as in the JAX regime."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom, budget = _direct_geom(ctx, 1, "direct"), smem_budget_bytes()
+    geom = ctx.launch_geom(ctx.weights, 1, "direct", "direct")
+    budget = smem_budget_bytes()
+    ws = Workspace()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom, b, st, batched, budget)
+            x = stencil_direct_at(x, w, 1, geom, b, st, batched, budget, ws)
         return x
-    return _staged(run, ctx, geom)
+    return _staged(_marked(run, ctx, "direct", w, 1, geom, budget), ctx, geom)
 
 
 def _build_fused_direct(ctx: PlanContext) -> Callable:
-    """One tap-sum launch, t steps in shared memory (halo t*r)."""
+    """One tap-sum launch, t steps on chip (halo t*r): in shared memory,
+    over a cluster, or in the plan's device workspace (the tile rule's
+    rungs)."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
-    geom, budget = _direct_geom(ctx, t, "fused_direct"), smem_budget_bytes()
+    geom, budget = ctx.launch_geom(ctx.weights, t, "direct",
+                                   "fused_direct"), smem_budget_bytes()
+    ws = Workspace()
 
     def run(x, batched=False):
-        return stencil_direct_at(x, w, t, geom, b, st, batched, budget)
-    return _staged(run, ctx, geom)
+        return stencil_direct_at(x, w, t, geom, b, st, batched, budget, ws)
+    return _staged(_marked(run, ctx, "direct", w, t, geom, budget), ctx, geom)
 
 
 def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, 1, "matmul", "matmul"), ctx.compute_dtype
-    budget = smem_budget_bytes()
+    budget, ws = smem_budget_bytes(), Workspace()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched, budget)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched, budget,
+                                  ws)
         return x
-    return _staged(run, ctx, geom)
+    return _staged(_marked(run, ctx, "matmul", w, 1, geom, budget), ctx, geom)
 
 
 def _build_fused_matmul(ctx: PlanContext) -> Callable:
@@ -485,11 +520,12 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
             "fused_matmul_reuse (per-step fills) or t=1")
     wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
     geom = ctx.launch_geom(wf, 1, "matmul", "fused_matmul")
-    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
+    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched, budget)
-    return _staged(run, ctx, geom)
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched, budget,
+                                 ws)
+    return _staged(_marked(run, ctx, "matmul", wf, 1, geom, budget), ctx, geom)
 
 
 def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
@@ -497,11 +533,12 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     intermediates in shared memory, the boundary filled before each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, t, "matmul", "fused_matmul_reuse")
-    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
+    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched, budget)
-    return _staged(run, ctx, geom)
+        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched, budget,
+                                 ws)
+    return _staged(_marked(run, ctx, "matmul", w, t, geom, budget), ctx, geom)
 
 
 def _sparse_geom(ctx: PlanContext, t_inner: int,
@@ -518,14 +555,14 @@ def _build_sparse_matmul(ctx: PlanContext) -> Callable:
     """t launches of the compacted banded kernel at t=1, halo r each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom, cdt = _sparse_geom(ctx, 1, "sparse_matmul"), ctx.compute_dtype
-    budget = smem_budget_bytes()
+    budget, ws = smem_budget_bytes(), Workspace()
 
     def run(x, batched=False):
         for _ in range(t):
             x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b, batched,
-                                         budget)
+                                         budget, ws)
         return x
-    return run
+    return _marked(run, ctx, "sparse_matmul", w, 1, geom, budget)
 
 
 def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
@@ -534,12 +571,12 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     boundary filled before each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom = _sparse_geom(ctx, t, "fused_sparse_matmul")
-    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
+    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
 
     def run(x, batched=False):
         return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched,
-                                        budget)
-    return run
+                                        budget, ws)
+    return _marked(run, ctx, "sparse_matmul", w, t, geom, budget)
 
 
 def _wholestrip(build: Callable) -> Callable:

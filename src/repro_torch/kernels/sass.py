@@ -16,9 +16,10 @@ instantiation of this checkout whose last template argument is the
 staging code 0 (``STAGE_REGION``, ``csrc/common.cuh``) is matched to the
 other checkout's instantiation without that argument, and instantiations
 are matched by their template arguments whatever their parameters.
-A kernel whose source the other checkout lacks is listed, with its
-instantiations' registers, as new.  Needs ``nvcc`` and ``cuobjdump``, not
-a card.
+A library the other checkout lacks (its source, or for a second build of
+a source the define that build adds, such as ``REPRO_WORKSPACE``) is
+listed, with its instantiations' registers, as new.  Needs ``nvcc``
+and ``cuobjdump``, not a card.
 """
 from __future__ import annotations
 
@@ -116,6 +117,19 @@ def _twin(name: str, others: Dict[str, List[str]]) -> str:
     return name
 
 
+def _builds(root: pathlib.Path, name: str) -> bool:
+    """Whether the checkout whose sources are under ``root`` has library
+    ``name``: its source, and for a second build of it (``_foil``,
+    ``_cluster``, ``_workspace``) the define that build adds."""
+    src = root / f"{_build.source(name)}.cu"
+    if not src.exists():
+        return False
+    extra = [d[2:] for d in _build._flags(name) if d.startswith("-DREPRO_")
+             and d != "-DREPRO_COUNT_LOADS"]
+    text = src.read_text()
+    return all(d in text for d in extra)
+
+
 def main(argv: List[str]) -> int:
     if len(argv) not in (1, 2):
         print(__doc__)
@@ -127,7 +141,7 @@ def main(argv: List[str]) -> int:
     jobs = {(side, k): (root / f"{_build.source(k)}.cu", out / f"{side}-{k}.so",
                         _build._flags(k))
             for side, root in (("this", _build.CSRC), ("other", other))
-            for k in _build.KERNELS if (root / f"{_build.source(k)}.cu").exists()}
+            for k in _build.KERNELS if _builds(root, k)}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: _build_lib(*j),
                                        jobs.values())))

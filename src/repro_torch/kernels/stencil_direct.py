@@ -47,12 +47,14 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
-from .common import (CLUSTER_RADIUS3D, SMEM_BUDGET_BYTES, STAGE_CODES,
-                     ClusterLayout, SubstrateGeom, TileNeed, batch_chunks,
+from .common import (CLUSTER_RADIUS3D, SMEM_BUDGET_BYTES,
+                     STAGE_CODES, ClusterLayout, SubstrateGeom, TileNeed,
+                     Workspace, WorkspaceLayout, as_workspace, batch_chunks,
                      batch_grid, check_grid, check_staging, check_tile_halo,
                      direct1d_layout, direct3d_cluster, direct3d_layout,
-                     direct_layout, kernel_mode_codes, launch_geom,
-                     plain_loop, smem_budget_bytes, tapsum_need)
+                     direct_layout, for_device, kernel_mode_codes,
+                     launch_geom, plain_loop, smem_budget_bytes, tapsum_need,
+                     workspace_args)
 
 #: Radii the kernels are specialised on (1..7), and so the taps the host
 #: passes the 2D and 3D kernels (a dense r=7 box: 225 and 3,375 floats;
@@ -159,6 +161,34 @@ def _cluster_launcher3d():
 
 
 @functools.lru_cache(maxsize=None)
+def _workspace_launcher3d():
+    """The 3D kernel's workspace form's C entry point (the 3D entry's
+    arguments, then the workspace, its slice bytes and the persistent
+    CTAs), built on first use."""
+    lib = _build.library("stencil_direct3d_workspace")
+    fn = lib.stencil_direct3d_workspace_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(_Taps3)] + [ctypes.c_int] * 13 + [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + _BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_launcher():
+    """The 2D kernel's workspace form's C entry point (the 2D entry's
+    arguments, then the workspace, its slice bytes and the persistent
+    CTAs), built on first use."""
+    fn = _build.library(
+        "stencil_direct_workspace").stencil_direct_workspace_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+        ctypes.POINTER(_Taps), ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int] + _BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher1d():
     """The folded 1D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_direct1d").stencil_direct1d_launch
@@ -253,16 +283,20 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
                       geom: SubstrateGeom, boundary=None,
                       staging: str = "region",
                       batched: bool = False,
-                      budget: int = None) -> torch.Tensor:
+                      budget: int = None,
+                      workspace: Workspace = None) -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * r, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
     ``(B,) + grid_shape`` and one launch advances every grid (K11).
     ``budget``: the shared memory per CTA the tile was resolved under
     (``common.smem_budget_bytes()`` when the plan was built; None: now);
-    a 3D launch whose rings exceed it runs the cluster form
-    (:func:`direct3d_rings`).  Inside a plan's first call the launch is
-    where the ``compile`` and ``vmem`` fault hooks fire
+    a 3D launch whose rings exceed it runs the cluster form, and a launch
+    that no cluster holds (or a 2D one past it) the workspace form
+    (:func:`direct3d_rings`, :func:`direct2d_layout`; a budget of 1 byte
+    forces the workspace form), its workspace ``workspace``'s (a plan's,
+    kept across calls; None: one for this call).  Inside a plan's first
+    call the launch is where the ``compile`` and ``vmem`` fault hooks fire
     (``repro_torch.testing.faults``)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
@@ -274,13 +308,13 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
     faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
         return plain_loop(stencil_direct_plain, x, batched, w, t, modes)
-    return _run(x, w, t, r, geom, modes, staging, batched, budget)
+    return _run(x, w, t, r, geom, modes, staging, batched, budget, workspace)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
          geom: SubstrateGeom, modes: tuple,
          staging: str = "region", batched: bool = False,
-         budget: int = None) -> torch.Tensor:
+         budget: int = None, workspace: Workspace = None) -> torch.Tensor:
     """Launch the kernel of the grid's rank on ``geom`` with ``staging``
     (a 1D grid: the folded kernel's one staging) over one grid, or over
     the batch ``x`` holds when ``batched``; or raise."""
@@ -300,11 +334,11 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     codes = kernel_mode_codes(modes)
     xb = x if batched else x.unsqueeze(0)
     if xb.ndim == 4:
-        y = _launch3d(xb, w32, t, r, geom, codes, staging, budget)
+        y = _launch3d(xb, w32, t, r, geom, codes, staging, budget, workspace)
     elif xb.ndim == 2:
         y = _launch1d(xb, w32, t, r, geom, codes[-1])
     else:
-        y = _launch2d(xb, w32, t, r, geom, codes, staging)
+        y = _launch2d(xb, w32, t, r, geom, codes, staging, budget, workspace)
     return y if batched else y[0]
 
 
@@ -331,30 +365,50 @@ def _launch1d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     return y
 
 
-def direct2d_layout(geom: SubstrateGeom, halo: int):
-    """The 2D tap-sum's shared-memory layout on ``geom`` at ``halo``
-    (``common.direct_layout``), or raise past the 227 KB budget; plans
-    check it when they are built."""
+def direct2d_layout(geom: SubstrateGeom, halo: int, budget: int = None):
+    """The 2D tap-sum's layout on ``geom`` at ``halo``
+    (``common.direct_layout``) where it fits ``budget`` bytes of shared
+    memory (default: ``common.smem_budget_bytes()``), else its workspace
+    form (``common.WorkspaceLayout``, the tile rule's fourth rung); plans
+    resolve it when they are built."""
+    budget = smem_budget_bytes() if budget is None else budget
     layout = direct_layout(geom.strip_m, geom.w_tile, halo)
-    if layout.smem_bytes > SMEM_BUDGET_BYTES:
-        raise ValueError(f"tap-sum tile needs {layout.smem_bytes} bytes of "
-                         "shared memory, over the 227 KB budget")
-    return layout
+    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES):
+        return layout
+    return as_workspace(layout)
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
-              geom, codes: tuple, staging: str = "region") -> torch.Tensor:
+              geom, codes: tuple, staging: str = "region",
+              budget: int = None,
+              workspace: Workspace = None) -> torch.Tensor:
     arg = _tap_arg(w32.tobytes())
-    layout = direct2d_layout(geom, t * r)
+    layout = for_device(direct2d_layout(geom, t * r, budget), x.device)
+    if isinstance(layout, WorkspaceLayout) and staging != "region":
+        raise ValueError("a foil runs on one CTA a tile; its buffers need "
+                         f"{layout.base.smem_bytes} bytes of shared memory, "
+                         "over the 227 KB budget")
     y = torch.empty_like(x)
-    lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape
+    if isinstance(layout, WorkspaceLayout):
+        tail = workspace_args(x, layout, workspace)
+        lib, counter = "stencil_direct_workspace", "stencil_direct (workspace)"
+
+        def launch(stream):
+            return _workspace_launcher()(
+                x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m, geom.w_tile,
+                t, r, layout.base.ld, _DTYPE_CODES[x.dtype], *codes,
+                ctypes.byref(arg), *tail, b, h * wd, 0, stream)
+    else:
+        lib, fn, stage, counter = _entry(2, staging)
+
+        def launch(stream):
+            return fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
+                      geom.w_tile, t, r, layout.ld, _DTYPE_CODES[x.dtype],
+                      *stage, *codes, ctypes.byref(arg), b, h * wd,
+                      layout.smem_bytes, stream)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), h, wd, geom.strip_m,
-                 geom.w_tile, t, r, layout.ld, _DTYPE_CODES[x.dtype], *stage,
-                 *codes, ctypes.byref(arg), b, h * wd, layout.smem_bytes,
-                 stream)
+        err = launch(torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, lib)
     _build.count_launch(counter, len(batch_chunks(b)))
     return y
@@ -366,29 +420,41 @@ def direct3d_rings(geom: SubstrateGeom, r: int, t: int,
     ``common.direct3d_layout`` where it fits ``budget`` bytes (default:
     ``common.smem_budget_bytes()``), else its cluster form
     (``common.direct3d_cluster``, a :class:`ClusterLayout`, radii up to
-    ``CLUSTER_RADIUS3D``); raise where neither fits."""
+    ``CLUSTER_RADIUS3D``), else its workspace form
+    (``common.WorkspaceLayout``, the tile rule's fourth rung)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = direct3d_layout(geom.strip_m, geom.w_tile, r, t)
     if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES):
         return layout
     cluster = (direct3d_cluster(geom.strip_m, geom.w_tile, r, t, budget)
                if r <= CLUSTER_RADIUS3D else None)
-    if cluster is None:
-        raise ValueError(f"3D tap-sum tile needs {layout.smem_bytes} bytes "
-                         "of shared memory, over the 227 KB budget, and no "
-                         f"cluster of up to 8 CTAs of {budget} bytes holds "
-                         "it")
-    return cluster
+    return as_workspace(layout) if cluster is None else cluster
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
               geom, codes: tuple, staging: str = "region",
-              budget: int = None) -> torch.Tensor:
-    layout = direct3d_rings(geom, r, t, budget)
+              budget: int = None,
+              workspace: Workspace = None) -> torch.Tensor:
+    layout = for_device(direct3d_rings(geom, r, t, budget), x.device)
     arg = _tap_arg(w32.tobytes(), 3)
     y = torch.empty_like(x)
     b, z, h, wd = x.shape
-    if isinstance(layout, ClusterLayout):
+    if isinstance(layout, WorkspaceLayout):
+        if staging != "region":
+            raise ValueError("the whole-slab foil runs on one CTA a tile; its "
+                             f"rings need {layout.base.smem_bytes} bytes of "
+                             "shared memory, over the 227 KB budget")
+        tail = workspace_args(x, layout, workspace)
+        lib = "stencil_direct3d_workspace"
+        counter = "stencil_direct3d (workspace)"
+
+        def launch(stream):
+            return _workspace_launcher3d()(
+                x.data_ptr(), y.data_ptr(), ctypes.byref(arg), z, h, wd,
+                geom.z_slab, geom.strip_m, geom.w_tile, t, r, layout.base.ld,
+                _DTYPE_CODES[x.dtype], *codes, *tail, b, z * h * wd, 0,
+                stream)
+    elif isinstance(layout, ClusterLayout):
         if staging != "region":
             raise ValueError("the whole-slab foil runs on one CTA a tile; its "
                              f"rings need {layout.base.smem_bytes} bytes")

@@ -43,7 +43,6 @@ advances all B grids (K11).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import numpy as np
@@ -55,18 +54,21 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, ClusterLayout,
-                     SubstrateGeom, TileNeed, batch_chunks, batch_grid,
-                     check_grid, check_staging, check_tile_halo, fold_need,
+                     SubstrateGeom, TileNeed, Workspace, WorkspaceLayout,
+                     as_workspace, batch_chunks, batch_grid, check_grid,
+                     check_staging, check_tile_halo, fold_need, for_device,
                      kernel_mode_codes, launch_geom, line_layout, mma_k_step,
                      plain_loop, slab_cluster, slab_fold_layout,
-                     smem_budget_bytes, tile_fold_layout)
+                     smem_budget_bytes, tile_fold_layout, workspace_args)
 
 #: Deepest padded contraction one unrolled piece of the kernels takes
 #: (BAND_N + 2R <= 64, so R <= 24); must match MAX_KPAD in
 #: csrc/banded_mma.cuh.  The 1D and 2D kernels on the dense bands take
 #: deeper bands in pieces of it (``FoldKs::DEEP``, a composed kernel past
-#: radius 24: 128 deep at Box-2D7R, t = 8), the 2D foils too; the 3D
-#: kernels and the compacted ones take at most this.
+#: radius 24: 128 deep at Box-2D7R, t = 8), the 2D foils too, and so do
+#: the workspace forms of the 2D and 3D folds (the 3D composed
+#: contraction past radius 24 runs on no other); the one-CTA and cluster
+#: 3D kernels and the compacted ones take at most this.
 MAX_KPAD = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -250,6 +252,26 @@ def _cluster_launcher3d():
     return fn
 
 
+def workspace_entry(lib: str, dim: int):
+    """The C entry point of the workspace form (``<source>_workspace``) of
+    a 2D or 3D fold library ``lib``: its main entry's arguments, then the
+    workspace, its slice bytes and the persistent CTAs."""
+    fn = getattr(_build.library(f"{lib}_workspace"),
+                 f"{lib}_workspace_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+        18 if dim == 3 else 14) + [ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_int] + BATCH_ARGS
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_launcher(dim: int):
+    """The dense fold's workspace form's C entry point in 2D or 3D, built
+    on first use."""
+    return workspace_entry(kernel_source(dim), dim)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher1d():
     """The folded 1D kernel's C entry point, built on first use."""
@@ -357,16 +379,20 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
                       compute_dtype=None, boundary=None,
                       staging: str = "region",
                       batched: bool = False,
-                      budget: int = None) -> torch.Tensor:
+                      budget: int = None,
+                      workspace: Workspace = None) -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * R, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
     ``(B,) + grid_shape`` and one launch advances every grid (K11).
     ``budget``: the shared memory per CTA the tile was resolved under
     (None: ``common.smem_budget_bytes()`` now); a 3D launch whose layout
-    exceeds it runs the cluster form (:func:`slab_launch_layout`).
-    Inside a plan's first call the launch is where the ``compile`` and
-    ``vmem`` fault hooks fire."""
+    exceeds it runs the cluster form, and one that no cluster holds (or a
+    2D one past it) the workspace form (:func:`slab_launch_layout`,
+    :func:`tile_launch_layout`; a budget of 1 byte forces the workspace
+    form), in ``workspace`` (a plan's, kept across calls; None: one for
+    this call).  Inside a plan's first call the launch is where the
+    ``compile`` and ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
     w = np.asarray(weights, dtype=np.float32)
@@ -380,18 +406,19 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
     if x.device.type == "cpu":
         return plain_loop(stencil_matmul_plain, x, batched, w, t, BAND_N,
                           cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, staging, batched, budget)
+    return _run(x, w, t, radius, cdt, geom, modes, staging, batched, budget,
+                workspace)
 
 
 def _run(x, w, t, radius, cdt, geom, modes, staging: str = "region",
-         batched: bool = False, budget: int = None) -> torch.Tensor:
-    launch3d = functools.partial(_launch3d, staging=staging, budget=budget)
-    if staging == "region" or w.ndim == 1:        # 1D: one staging
-        return run_kernel("stencil_matmul", _launch1d, _launch2d, launch3d,
-                          x, w, t, radius, cdt, geom, modes, batched)
-    return run_kernel("stencil_matmul", _launch1d,
-                      functools.partial(_launch2d, staging=staging),
-                      launch3d, x, w, t, radius, cdt, geom, modes, batched)
+         batched: bool = False, budget: int = None,
+         workspace: Workspace = None) -> torch.Tensor:
+    launch3d = functools.partial(_launch3d, staging=staging, budget=budget,
+                                 workspace=workspace)
+    launch2d = functools.partial(_launch2d, staging=staging, budget=budget,
+                                 workspace=workspace)
+    return run_kernel("stencil_matmul", _launch1d, launch2d, launch3d,
+                      x, w, t, radius, cdt, geom, modes, batched)
 
 
 def run_kernel(name, launch1d, launch2d, launch3d, x, w, t, radius, cdt,
@@ -435,24 +462,53 @@ def _checked(layout, what: str, deep: bool = False):
 def slab_launch_layout(geom: SubstrateGeom, radius: int, t: int,
                        compute_bytes: int, dzs: tuple, what: str,
                        k_rows: int = None, a_cols: int = None,
-                       budget: int = None, cluster: bool = True):
+                       budget: int = None, cluster: bool = True,
+                       workspace: bool = True):
     """The 3D folds' shared-memory layout of a launch on ``geom`` with the
     bands ``dzs`` (each band's dz): ``common.slab_fold_layout`` where it
-    fits ``budget`` bytes (default: ``common.smem_budget_bytes()``), else
-    its cluster form (``common.slab_cluster``, a :class:`ClusterLayout`)
-    where ``cluster``; raise past MAX_KPAD, or where neither fits."""
+    fits ``budget`` bytes (default: ``common.smem_budget_bytes()``) and
+    MAX_KPAD, else its cluster form (``common.slab_cluster``, a
+    :class:`ClusterLayout`) where ``cluster``, else its workspace form
+    (``common.WorkspaceLayout``, any contraction depth) where
+    ``workspace``; raise where none applies (a foil's)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile,
                               radius, t, compute_bytes, len(dzs), k_rows,
                               a_cols)
-    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES) or not cluster:
-        return _checked(layout, what)
-    spread = slab_cluster(geom.z_slab, geom.strip_m, geom.w_tile, radius, t,
-                          compute_bytes, tuple(dzs), k_rows, a_cols, budget)
-    if spread is None:
-        return _checked(layout, what)
-    _checked(dataclasses.replace(layout, smem_bytes=spread.smem_bytes), what)
-    return spread
+    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES) and \
+            layout.kpad <= MAX_KPAD:
+        return layout
+    spread = (slab_cluster(geom.z_slab, geom.strip_m, geom.w_tile, radius,
+                           t, compute_bytes, tuple(dzs), k_rows, a_cols,
+                           budget)
+              if cluster and layout.kpad <= MAX_KPAD else None)
+    if spread is not None:
+        return spread
+    if workspace:
+        return as_workspace(layout)
+    return _checked(layout, what)
+
+
+def tile_launch_layout(geom: SubstrateGeom, radius: int, t: int,
+                       compute_bytes: int, n_rows: int, what: str,
+                       k_rows: int = None, a_cols: int = None,
+                       budget: int = None, deep: bool = False,
+                       workspace: bool = True):
+    """The 2D folds' layout of a launch on ``geom`` (``common.
+    tile_fold_layout``) where it fits ``budget`` bytes (default:
+    ``common.smem_budget_bytes()``) and, unless ``deep`` (the dense
+    bands), MAX_KPAD; else its workspace form (``common.WorkspaceLayout``,
+    any contraction depth) where ``workspace``; raise where it does not
+    apply (a foil's)."""
+    budget = smem_budget_bytes() if budget is None else budget
+    layout = tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
+                              compute_bytes, n_rows, k_rows, a_cols)
+    if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES) and \
+            (deep or layout.kpad <= MAX_KPAD):
+        return layout
+    if workspace:
+        return as_workspace(layout)
+    return _checked(layout, what, deep)
 
 
 def line_launch_layout(geom: SubstrateGeom, radius: int, t: int,
@@ -487,40 +543,56 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes,
-              staging: str = "region") -> torch.Tensor:
+              staging: str = "region", budget: int = None,
+              workspace: Workspace = None) -> torch.Tensor:
     """The tile fold on the dense bands (``csrc/stencil_banded.cu``) on
-    the (B, H, W) grids ``x``."""
+    the (B, H, W) grids ``x``; its workspace form where the layout exceeds
+    ``budget`` (:func:`tile_launch_layout`; not the foils')."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = _checked(tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
-                                       cdt.itemsize, len(rows)), "banded",
-                      deep=True)
+    layout = for_device(tile_launch_layout(
+        geom, radius, t, cdt.itemsize, len(rows), "banded", budget=budget,
+        deep=True, workspace=staging == "region"), x.device)
     y = torch.empty_like(x)
-    lib, fn, stage, counter = _entry(2, staging)
     b, h, wd = x.shape
+    if isinstance(layout, WorkspaceLayout):
+        lib, counter = "stencil_banded_workspace", "stencil_banded (workspace)"
+        fn, stage, lay = _workspace_launcher(2), (), layout.base
+        tail = workspace_args(x, layout, workspace)
+    else:
+        lib, fn, stage, counter = _entry(2, staging)
+        lay, tail = layout, ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), toe.data_ptr(), rows.data_ptr(),
-                 h, wd, geom.strip_m, geom.w_tile, t, radius, layout.ld,
-                 layout.kpad, layout.toe_ld, layout.n_rows,
+                 h, wd, geom.strip_m, geom.w_tile, t, radius, lay.ld,
+                 lay.kpad, lay.toe_ld, lay.n_rows,
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
-                 b, h * wd, layout.smem_bytes, stream)
+                 *tail, b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
     _build.count_launch(counter, len(batch_chunks(b)))
     return y
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes,
-              staging: str = "region", budget: int = None) -> torch.Tensor:
+              staging: str = "region", budget: int = None,
+              workspace: Workspace = None) -> torch.Tensor:
     """The slab fold on the dense bands (``csrc/stencil_banded3d.cu``) on
     the (B, Z, H, W) grids ``x``; its cluster form where the layout
-    exceeds ``budget`` (:func:`slab_launch_layout`; not the foil's)."""
+    exceeds ``budget``, its workspace form where no cluster holds it
+    (:func:`slab_launch_layout`; not the foil's)."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = slab_launch_layout(geom, radius, t, cdt.itemsize, band_dzs(w),
-                                "3D banded", budget=budget,
-                                cluster=staging == "region")
+    region = staging == "region"
+    layout = for_device(slab_launch_layout(
+        geom, radius, t, cdt.itemsize, band_dzs(w), "3D banded",
+        budget=budget, cluster=region, workspace=region), x.device)
     y = torch.empty_like(x)
     b, z, h, wd = x.shape
-    if isinstance(layout, ClusterLayout):
+    if isinstance(layout, WorkspaceLayout):
+        lib = "stencil_banded3d_workspace"
+        counter = "stencil_banded3d (workspace)"
+        fn, stage, lay = _workspace_launcher(3), (), layout.base
+        tail = workspace_args(x, layout, workspace)
+    elif isinstance(layout, ClusterLayout):
         lib, counter = "stencil_banded3d_cluster", "stencil_banded3d (cluster)"
         lay = layout.base
         tail = (layout.ctas, _build.c_ints(layout.split),

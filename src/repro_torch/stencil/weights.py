@@ -23,6 +23,7 @@ bit for bit.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -80,22 +81,32 @@ def fuse_weights(w: np.ndarray, t: int) -> np.ndarray:
     return out.astype(w.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def fused_num_points(spec: StencilSpec, t: int) -> int:
-    """K^(t): support size of the t-fused kernel (numerically exact).
+    """K^(t): support size of the t-fused kernel (exact).
 
     For box stencils this equals the paper's closed form ``(2rt+1)^d``.
-    For star stencils the fused support is the d-dimensional L1 ball of
-    radius ``r*t`` (computed here by composing the support masks).
+    A star's t-fused support (the support masks composed t times, as the
+    JAX package counts it) is every offset reachable in t star steps: a
+    step moves along one axis by at most r, so offset a needs
+    ceil(|a_i| / r) steps on axis i, and it is in the support when those
+    sum to at most t.  Counted here axis by axis (1 offset of an axis
+    takes no step, 2r take k for each k >= 1), in microseconds where the
+    composed masks took a minute at radius 6, t = 5 (3D).
     """
     if t == 1:
         return spec.num_points
     if spec.shape == "box":
         return (2 * spec.radius * t + 1) ** spec.dim
-    mask = spec.support_mask().astype(np.float64)
-    out = mask
-    for _ in range(t - 1):
-        out = convolve(out, mask, mode="full")
-    return int(np.count_nonzero(out))
+    ways = [1] + [0] * t            # offsets so far by the steps they need
+    for _ in range(spec.dim):
+        nxt = [0] * (t + 1)
+        for s, n in enumerate(ways):
+            nxt[s] += n
+            for k in range(1, t - s + 1):
+                nxt[s + k] += n * 2 * spec.radius
+        ways = nxt
+    return sum(ways)
 
 
 def alpha(spec: StencilSpec, t: int) -> float:

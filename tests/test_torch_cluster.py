@@ -204,12 +204,13 @@ def test_one_cta_layouts_are_kept(shape):
 
 
 def test_past_eight_ctas_the_launch_raises():
-    # 40 rings of radius 1 (h = 40): a CTA holds one, so no cluster of 8
+    # 40 rings of radius 1 (h = 40): a CTA holds one, so no cluster of 8;
+    # the launch takes the workspace form (the tile rule's fourth rung)
     geom = common.SubstrateGeom(3, strip_m=16, h_block=40, z_slab=1,
                                 z_block=40, w_tile=16, w_block=40)
-    with pytest.raises(ValueError, match="227 KB budget, and no cluster of "
-                                         "up to 8 CTAs"):
-        t_direct.direct3d_rings(geom, 1, 40)
+    lay = t_direct.direct3d_rings(geom, 1, 40)
+    assert isinstance(lay, common.WorkspaceLayout)
+    assert lay.base == common.direct3d_layout(16, 16, 1, 40)
     assert common.direct3d_cluster(16, 16, 1, 40, BUDGET) is None
     # the cluster form takes radii up to CLUSTER_RADIUS3D, the reuse
     # split bands of up to CLUSTER_REUSE_KS k-steps

@@ -182,10 +182,19 @@ def test_deep_3d_tiles_and_refusals(h, regime, fits):
 
 
 def test_halos_past_one_cta_stay_refused():
-    # 2D h = 200: no layout of any family fits a 16 x 16 tile
+    # 2D h = 200: no layout of any family fits a 16 x 16 tile, so each
+    # takes the fourth rung, its workspace form on the rule's first
+    # candidate (64 x 64); without a launch's own layout the rule refuses
     for need in _needs((4096, 4096), 200):
-        with pytest.raises(ValueError, match="too deep"):
-            common.resolve_tile_geom((4096, 4096), 200, need=need)
+        assert all(need.smem(1, c, c) > common.SMEM_BUDGET_BYTES
+                   for c in (16, 32, 64))
+        g = common.resolve_tile_geom((4096, 4096), 200, need=need)
+        assert (g.strip_m, g.w_tile) == (64, 64)
+        lay = need.workspace(1, 64, 64)
+        assert lay.base.smem_bytes > common.SMEM_BUDGET_BYTES
+        assert lay.total_bytes == lay.ctas * lay.slice_bytes
+    with pytest.raises(ValueError, match="too deep"):
+        common.resolve_tile_geom((4096, 4096), 200)
 
 
 def test_the_degraded_budget_refuses_earlier(monkeypatch):
@@ -197,8 +206,13 @@ def test_the_degraded_budget_refuses_earlier(monkeypatch):
     monkeypatch.setenv("REPRO_VMEM_BUDGET", str(common.SMEM_BUDGET_BYTES // 2))
     g = common.resolve_tile_geom((8192, 8192), 56, need=reuse)
     assert (g.strip_m, g.w_tile) == (32, 32)
-    with pytest.raises(ValueError, match="fused_matmul's own layout"):
-        common.resolve_tile_geom((8192, 8192), 56, need=composed)
+    # the composed fold fits no tile in half the budget: the fourth rung
+    # takes the first candidate, its layout in a device workspace
+    assert all(composed.smem(1, c, c) > common.SMEM_BUDGET_BYTES // 2
+               for c in (16, 32, 64))
+    g = common.resolve_tile_geom((8192, 8192), 56, need=composed)
+    assert (g.strip_m, g.w_tile) == (64, 64)
+    assert isinstance(composed.workspace(1, 64, 64), common.WorkspaceLayout)
 
 
 @pytest.mark.parametrize("grid,h", [((300, 270), 56), ((128, 128), 35),

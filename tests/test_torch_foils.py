@@ -415,7 +415,8 @@ def test_load_counting_builds_only_the_foils(monkeypatch, count):
         if not count:
             assert flags == _build.NVCC_FLAGS + (
                 ("-DREPRO_FOIL",) if name.endswith("_foil") else ()) + (
-                ("-DREPRO_CLUSTER",) if name.endswith("_cluster") else ())
+                ("-DREPRO_CLUSTER",) if name.endswith("_cluster") else ()) + (
+                ("-DREPRO_WORKSPACE",) if name.endswith("_workspace") else ())
     src = (pathlib.Path(common.__file__).parent / "csrc" /
            "common.cuh").read_text()
     assert 'extern "C" int repro_load_counts(' in src

@@ -257,14 +257,16 @@ def test_build_and_memory_errors_classify(tmp_path):
     oom = torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to "
                                       "allocate 2.00 GiB")
     assert isinstance(tguard.classify_failure(oom), tguard.VmemOverflowError)
-    # the wrappers' own shared-memory refusal and the tile rule's
+    # the wrappers' own shared-memory refusal (a foil's: the default
+    # staging takes the workspace form past the budget) and the tile rule's
     x = torch.zeros(4096, 4096)
     geom = common.SubstrateGeom(2, strip_m=512, h_block=4, w_tile=512,
                                 w_block=4)
     import importlib
     sd = importlib.import_module("repro_torch.kernels.stencil_direct")
     with pytest.raises(ValueError) as e:
-        sd._launch2d(x, np.asarray(W, np.float32), 4, 1, geom, (0, 0))
+        sd._launch2d(x, np.asarray(W, np.float32), 4, 1, geom, (0, 0),
+                     "wholestrip")
     assert isinstance(tguard.classify_failure(e.value),
                       tguard.VmemOverflowError)
     with pytest.raises(ValueError) as e:

@@ -192,7 +192,10 @@ def test_cpu_tensors_never_count_a_launch():
             "stencil_direct3d (wholeslab)",
             "stencil_banded3d (wholeslab)", "stencil_direct3d (cluster)",
             "stencil_banded3d (cluster)",
-            "stencil_sparse3d (cluster)"} == set(counts)
+            "stencil_sparse3d (cluster)", "stencil_direct (workspace)",
+            "stencil_banded (workspace)", "stencil_sparse (workspace)",
+            "stencil_direct3d (workspace)", "stencil_banded3d (workspace)",
+            "stencil_sparse3d (workspace)"} == set(counts)
 
 
 def test_other_devices_raise():

@@ -267,8 +267,8 @@ def test_3d_pins_and_too_deep():
         common.resolve_tile_geom((512, 512, 512), 8, tile_m=64, w_tile=64)
     # h = 12 at t = 6: the rings fit no tile, so the third rung spreads
     # them over a cluster; h = 40 at t = 40, r = 1: 40 rings, of which one
-    # CTA holds at most one, fit no cluster of 8 CTAs, and the refusal
-    # names them and their least bytes
+    # CTA holds at most one, fit no cluster of 8 CTAs, so the fourth rung
+    # puts them in a device workspace on the rule's first candidate
     rings12 = common.tapsum_need(3, 2, 6, 4, "fused_direct")
     g12 = common.resolve_tile_geom((512, 512, 512), 12, need=rings12)
     assert rings12.smem(g12.z_slab, g12.strip_m, g12.w_tile) > \
@@ -276,13 +276,13 @@ def test_3d_pins_and_too_deep():
     lay = rings12.cluster(g12.z_slab, g12.strip_m, g12.w_tile,
                           common.SMEM_BUDGET_BYTES)
     assert lay.ctas in (2, 4, 8) and lay.smem_bytes <= common.SMEM_BUDGET_BYTES
-    least = common.direct3d_layout(16, 16, 1, 40).smem_bytes
-    with pytest.raises(ValueError, match=f"too deep.*fused_direct's own "
-                                         f"layout needs at least {least} "
-                                         "bytes, and no cluster of up to 8"):
-        common.resolve_tile_geom((512, 512, 512), 40,
-                                 need=common.tapsum_need(3, 1, 40, 4,
-                                                         "fused_direct"))
+    need40 = common.tapsum_need(3, 1, 40, 4, "fused_direct")
+    g40 = common.resolve_tile_geom((512, 512, 512), 40, need=need40)
+    assert (g40.z_slab, g40.strip_m, g40.w_tile) == (16, 64, 64)
+    assert need40.smem(1, 16, 16) > common.SMEM_BUDGET_BYTES
+    assert need40.cluster(16, 16, 16, common.SMEM_BUDGET_BYTES) is None
+    lay = need40.workspace(16, 64, 64)
+    assert lay.base == common.direct3d_layout(64, 64, 1, 40)
 
 
 #: Star-3D3R at t = 4 (h = 12): every regime builds -- the step-wise ones
@@ -290,10 +290,10 @@ def test_3d_pins_and_too_deep():
 #: bytes) and the reuse fold's slab on one CTA, the composed slab (radius
 #: 12), which fits no CTA, over a cluster; at t = 10 (h = 30) the fused
 #: regimes' layouts fit no one CTA, and the folds' no cluster of 8 CTAs
-#: either (the tap-sum's cluster form takes radii up to 2), and raise
-#: naming themselves.
-_H30_BUILDS = {"direct": True, "fused_direct": False, "matmul": True,
-               "fused_matmul": False, "fused_matmul_reuse": False}
+#: either (the tap-sum's cluster form takes radii up to 2), so they build
+#: on the fourth rung, their layouts in a device workspace.
+_H30_BUILDS = {"direct": True, "fused_direct": True, "matmul": True,
+               "fused_matmul": True, "fused_matmul_reuse": True}
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,8 +307,9 @@ def _h12_oracle():
                                      None])
 def test_too_deep_raises_when_the_plan_is_built(backend):
     # h = t*r = 12 past every reserve builds and matches the oracle, past
-    # one CTA on a cluster; h = 30, past every cluster of 8 CTAs, raises
-    # "too deep" naming the regime when built, never at launch
+    # one CTA on a cluster; h = 30, past every cluster of 8 CTAs, builds
+    # too, its fused launch in the workspace form, and would raise "too
+    # deep" naming the regime when built (never at launch) where it did not
     w = make_weights(StencilSpec("star", 3, 3), seed=0)
     x, xt, _ = _grid((20, 24, 30))
     build = lambda b, shape, t: tk.stencil_plan(w, shape, torch.float32, t,

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.benchmarks import fig16, run as bench_run, table2
+from repro_torch.benchmarks import fig16, run as bench_run, table2, traffic
 from repro_torch.core import perfmodel as pm
 from repro_torch.core.selector import transition_depth
 from repro_torch.examples import quickstart, sweet_spot_explorer
@@ -32,7 +32,8 @@ from repro_torch.kernels.common import BAND_N
 from repro_torch.stencil import StencilSpec
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling")
+MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling",
+           "traffic")
 
 
 def _jax_file(rel: str):
@@ -82,7 +83,7 @@ def test_harness_runs_every_module(harness):
     assert [ln.split(".")[1] for ln in totals] == list(MODULES)
     assert any(ln.startswith("bench.plan_cache,") for ln in lines["bench"])
     assert lines["scaling"][0].startswith("scaling.arch,cell,dom_single_ms")
-    assert "traffic" not in lines
+    assert lines["traffic"][0].startswith("traffic.case,tile,")
 
 
 def _boom(*args, **kwargs):
@@ -97,6 +98,7 @@ def test_harness_exits_nonzero_on_a_failed_module(broken, monkeypatch, tmp_path,
     the report are under test.)"""
     monkeypatch.setattr(table2, "run", lambda device: ["table2.stub"])
     monkeypatch.setattr(fig16, "run", lambda device, quick: ["fig16.stub"])
+    monkeypatch.setattr(traffic, "run", lambda device, quick: ["traffic.stub"])
     mod = {"table3": "repro_torch.benchmarks.table3",
            "fig16": "repro_torch.benchmarks.fig16"}[broken]
     monkeypatch.setattr(f"{mod}.run", _boom)

@@ -359,11 +359,19 @@ def test_band_meta_of_a_shifted_band():
 
 
 def test_layout_over_budget_raises():
+    # past the 227 KB budget the compacted fold's layout takes the
+    # workspace form (the tile rule's fourth rung); the 1D fold, which has
+    # none, still raises
     w = make_weights(StencilSpec("box", 3, 1), seed=0)
     big = common.SubstrateGeom(3, strip_m=64, h_block=1, z_slab=16,
                                z_block=1, w_tile=64, w_block=1)
+    lay = t_sparse.sparse_tile_layout((64, 64, 64), w, 1, big, torch.float32)
+    assert isinstance(lay, common.WorkspaceLayout)
+    assert lay.base.smem_bytes > common.SMEM_BUDGET_BYTES
+    line = common.SubstrateGeom(1, strip_m=1, h_block=1, w_tile=4096, w_block=1)
     with pytest.raises(ValueError, match="227 KB"):
-        t_sparse.sparse_tile_layout((64, 64, 64), w, 1, big, torch.float32)
+        t_sparse.sparse_tile_layout((2 ** 20,), np.ones(3, np.float32), 8, line,
+                                    torch.float32)
 
 
 def _emulated_chunk(region_row, meta, k_step, nc_valid, radius):

@@ -442,13 +442,21 @@ def test_direct_layout_at_the_main_tile():
 
 
 def test_direct_layout_raises_past_the_budget():
+    # past the 227 KB budget the layout takes the workspace form (the tile
+    # rule's fourth rung), which launches on a card only; a foil, which has
+    # no workspace form, still raises
     wide = common.SubstrateGeom(dim=2, strip_m=128, h_block=8, w_tile=256,
                                 w_block=8)
-    with pytest.raises(ValueError, match="227 KB"):
-        t_direct.direct2d_layout(wide, 8)
+    lay = t_direct.direct2d_layout(wide, 8)
+    assert isinstance(lay, common.WorkspaceLayout)
+    assert lay.base == common.direct_layout(128, 256, 8)
+    assert lay.base.smem_bytes > common.SMEM_BUDGET_BYTES
     x = torch.zeros((1, 300, 300))
-    with pytest.raises(ValueError, match="227 KB"):
+    with pytest.raises(ValueError, match="runs on a CUDA device"):
         t_direct._launch2d(x, np.ones((3, 3), np.float32), 8, 1, wide, (0, 0))
+    with pytest.raises(ValueError, match="227 KB"):
+        t_direct._launch2d(x, np.ones((3, 3), np.float32), 8, 1, wide, (0, 0),
+                           "wholestrip")
 
 
 # ---------------------------------------------------------------------------

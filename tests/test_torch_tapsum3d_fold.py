@@ -602,13 +602,21 @@ def test_direct3d_layout_at_the_main_tile():
 
 
 def test_direct3d_rings_raise_past_the_budget():
+    # past the 227 KB budget, and with no cluster form at r = 3, the rings
+    # take the workspace form (the tile rule's fourth rung), which launches
+    # on a card only; the whole-slab foil, which has none, still raises
     wide = common.SubstrateGeom(dim=3, strip_m=64, h_block=9, z_slab=4, z_block=9,
                                 w_tile=64, w_block=9)
-    with pytest.raises(ValueError, match="227 KB"):
-        t_direct.direct3d_rings(wide, 3, 3)
+    lay = t_direct.direct3d_rings(wide, 3, 3)
+    assert isinstance(lay, common.WorkspaceLayout)
+    assert lay.base == common.direct3d_layout(64, 64, 3, 3)
+    assert lay.base.smem_bytes > common.SMEM_BUDGET_BYTES
     x = torch.zeros((1, 8, 100, 100))
-    with pytest.raises(ValueError, match="227 KB"):
+    with pytest.raises(ValueError, match="runs on a CUDA device"):
         t_direct._launch3d(x, np.ones((7, 7, 7), np.float32), 3, 3, wide, (0, 0, 0))
+    with pytest.raises(ValueError, match="227 KB"):
+        t_direct._launch3d(x, np.ones((7, 7, 7), np.float32), 3, 3, wide, (0, 0, 0),
+                           "wholestrip")
 
 
 # ---------------------------------------------------------------------------
