@@ -866,9 +866,11 @@ def phase_count_loads(mods) -> None:
           "load count: REPRO_COUNT_LOADS=1 is not set")
     t0 = time.perf_counter()
     # every library this child launches: all but the cluster forms of the
-    # 3D tap-sum and the compacted slab, which no counted run takes
+    # 3D tap-sum and the compacted slab and the workspace forms, which no
+    # counted run takes
     names = tuple(k for k in _build.KERNELS
-                  if k not in ("stencil_direct3d_cluster", "stencil_sparse3d_cluster"))
+                  if k not in ("stencil_direct3d_cluster", "stencil_sparse3d_cluster")
+                  and not k.endswith("_workspace"))
     _build.build_all(names)
     print(f"load count: the counting builds of {len(names)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2133,6 +2135,11 @@ WIDE_REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
                 "fused_matmul_reuse", "sparse_matmul", "fused_sparse_matmul", None)
 #: The JSON entries of the phase: (name, path label, pattern, t, kernel);
 #: "composed" is one contraction of the composed kernel.
+#: The F.conv yardstick of a WIDE_REPORT entry runs on the entry's grid,
+#: but for the 2D composed contraction 128 deep: one F.conv2d of its 113^2
+#: kernel over 8192^2 takes 51 s on an H100, so it runs on 4096^2 and the
+#: entry says so (``library_grid``).
+WIDE_LIBRARY_GRID = {("2D", "Box-2D7R", 8): (4096, 4096)}
 WIDE_REPORT = (("stencil_direct (r=7)", "2D", "Box-2D7R", 4, "tap-sum"),
                ("stencil_banded (depth 128)", "2D", "Box-2D7R", 8, "composed"),
                ("stencil_direct3d (h=10)", "3D", "Box-3D2R", 5, "tap-sum"),
@@ -2445,15 +2452,21 @@ def wide_report(mods, counts, card) -> list:
                  "library_ms": library.get((label, pattern, t)),
                  "tile": f"{geom.z_slab}x{geom.strip_m}x{geom.w_tile}" if dim == 3
                          else f"{geom.strip_m}x{geom.w_tile}", "cluster_ctas": ctas}
+        lshape = WIDE_LIBRARY_GRID.get((label, pattern, t), shape)
         if entry["library_ms"] is None:
+            lx = x if lshape == shape else grid(lshape, torch.float32, seed=0)
             entry["library_ms"] = library[(label, pattern, t)] = cuda_ms(
-                conv_yardstick(x, wf, True), reps=1, warmup=0)
+                conv_yardstick(lx, wf, True), reps=1, warmup=0)
+            del lx
+        if lshape != shape:
+            entry["library_grid"] = "x".join(map(str, lshape))
         report.append(entry)
         print(f"  kernel {name} ({pattern} t={t}, tile {entry['tile']}, {ctas} CTA"
               f"{'s' if ctas > 1 else ''} a tile): {entry['ms']:.4f} ms "
               f"(bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}), plain "
               f"{entry['plain_ms']:.4f} ms, F.conv{dim}d of the composed kernel (TF32) "
-              f"{entry['library_ms']:.4f} ms, max|err| vs plain {err:.3e}, "
+              f"{entry['library_ms']:.4f} ms on {'x'.join(map(str, lshape))}, "
+              f"max|err| vs plain {err:.3e}, "
               f"launches {entry['launches']}; on {card}")
         del x
         torch.cuda.empty_cache()
@@ -2652,9 +2665,10 @@ def wide_guarded(mods) -> None:
 #: Phase wide's fourth rung (the workspace forms, csrc/*.cu built with
 #: -DREPRO_WORKSPACE; common.WorkspaceLayout): each form's kernel check at
 #: the deepest cell of its kind the phase can afford, on WS_GRIDS: (name,
-#: rank, kind, r, t, what).  The composed contraction's deepest cell the
-#: host composes quickly is 72 deep (r = 4, t = 7, past MAX_KPAD; r = 7, t
-#: = 8, 128 deep, composes for minutes); the 2D folds at t = 16 (h = 112):
+#: rank, kind, r, t, what).  The composed contraction 72 deep (r = 4, t =
+#: 7, past MAX_KPAD; its kernel composed on the card, ``compose_on_card``),
+#: where the limit still rejects the plain version one step short; at its
+#: deepest see WS_DEEPEST; the 2D folds at t = 16 (h = 112):
 #: at t = 29 their TF32 limit, 2^-10 a step, passes a field smoothed 28
 #: times one step short; float32 grids (a bf16 fold 8 to 29 steps deep
 #: moves by less than its limit's bf16 terms in one step).
@@ -2666,6 +2680,12 @@ WS_KERNELS = (("stencil_direct3d (workspace)", 3, "box", 7, 8, "tap-sum"),
               ("stencil_direct (workspace)", 2, "box", 7, 29, "tap-sum"),
               ("stencil_banded (workspace)", 2, "box", 7, 16, "reuse"),
               ("stencil_sparse (workspace)", 2, "star", 7, 16, "sparse"))
+#: The composed contraction at its deepest, 128 (r = 7, t = 8: a 113^3
+#: kernel, 12,769 bands), on WS_GRIDS: ``kernel_limit``'s accumulation term
+#: (2 n_taps 2^-23 a step, 1.44 M taps) passes the plain version one step
+#: short there, so beside that limit its output must lie nearer the plain
+#: version at t steps than at t - 1.
+WS_DEEPEST = ("stencil_banded3d (workspace)", 3, "box", 7, 8, "composed")
 #: The forced workspace launches (``budget=1``) held bit for bit to the
 #: one-CTA launch of the same call: (rank, kind, r, t, what) on a ragged
 #: grid one CTA holds.
@@ -2708,6 +2728,11 @@ WS_REPORT = (("stencil_direct3d (workspace, Box-3D3R t=8)", "3D", "Box-3D3R", 8,
               "fused_matmul_reuse"),
              ("stencil_sparse (workspace, Box-2D7R t=16)", "2D", "Box-2D7R", 16,
               "fused_sparse_matmul"))
+#: The F.conv yardstick of a WS_REPORT cell runs on the cell's own grid,
+#: but for Box-3D3R t = 8: one F.conv3d of its 49^3 composed kernel over
+#: 512^3 takes 51 s on an H100, so it runs on 256^3 and the entry says so
+#: (``library_grid``).
+WS_LIBRARY_GRID = {("Box-3D3R", 8): (256, 256, 256)}
 WS_2D_SHAPE = (1024, 1024)
 #: The 2D cells past one CTA, on WS_2D_SHAPE: (pattern, t, backends).
 WS_2D_PATHS = (("Box-2D7R", 16, ("fused_direct", "fused_matmul_reuse", "fused_sparse_matmul")),
@@ -2733,7 +2758,8 @@ def compose_on_card(w: np.ndarray, t: int) -> np.ndarray:
 def ws_call(mods, x, w, t, what, cdt=None, budget=None):
     """``(call, plain, step, tk, ops, wk, short)`` of one fourth-rung kernel
     check: the plan entry on the tile the rule resolves (its fourth rung
-    past any CTA and cluster), ``budget`` as the entries take it."""
+    past any CTA and cluster), ``budget`` as the entries take it; the
+    composed contraction's kernel composed on the card."""
     _, sm, sd, weights, ss = mods
     from repro_torch.kernels import common
     shape, dt = tuple(x.shape), x.dtype
@@ -2746,12 +2772,12 @@ def ws_call(mods, x, w, t, what, cdt=None, budget=None):
                 lambda v: sd.stencil_direct_plain(v, w, 1), t, "f32", w, None)
     ops = "bf16" if cdt == torch.bfloat16 else "tf32"
     if what == "composed":
-        wf = weights.fuse_weights(w, t)
+        wf = compose_on_card(w, t)
         geom = common.launch_geom(shape, t * r, need=sm.tile_need(shape, wf, 1, dt, cdt))
         return (lambda: sm.stencil_matmul_at(x, wf, 1, geom, cdt, budget=budget),
                 lambda: sm.stencil_matmul_plain(x, wf, 1, compute_dtype=cdt),
                 lambda v: sm.stencil_matmul_plain(v, wf, 1, compute_dtype=cdt), 1, ops, wf,
-                lambda: sm.stencil_matmul_plain(x, weights.fuse_weights(w, t - 1), 1,
+                lambda: sm.stencil_matmul_plain(x, compose_on_card(w, t - 1), 1,
                                                 compute_dtype=cdt))
     mod, at, plain = ((ss, ss.stencil_sparse_matmul_at, ss.stencil_sparse_matmul_plain)
                       if what == "sparse" else
@@ -2784,6 +2810,25 @@ def ws_kernels(mods) -> None:
         hold_to_plain(tag, f"{name} {what}", y, x, plain, step, tk, ops, wk, short, worst,
                       margin)
         del x, y
+    name, dim, kind, r, t, what = WS_DEEPEST
+    w = wide_weights(weights, kind, dim, r)
+    x = grid(WS_GRIDS[dim], torch.float32, seed=2)
+    call, plain, _, _, ops, wk, short = ws_call(mods, x, w, t, what)
+    kernels.reset_launch_counts()
+    y = call()
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in kernels.launch_counts().items() if v}
+    tag = f"{name} {what} {kind} r={r} t={t} {tuple(x.shape)}"
+    check(moved == {name: 1}, f"{tag}: launches {moved}")
+    p = plain()
+    tol = kernel_limit(ops, float(np.abs(wk).sum()), int(np.count_nonzero(wk)),
+                       [float(x.abs().max()), float(p.abs().max())], False)
+    err, wrong = max_err(y, p), max_err(y, short())
+    check(bool(torch.isfinite(y).all()) and err <= tol and err < wrong,
+          f"{tag}: max|err| {err:.3e} (limit {tol:.3e}), vs t-1 {wrong:.3e}")
+    print(f"workspace {tag} ({wk.shape[0]}^3 kernel, {t * r * 2 + 16} deep): max|err| vs plain "
+          f"{err:.3e} (limit {tol:.3e}), vs the plain version one step short {wrong:.3e}")
+    del x, y, p
     print("workspace kernels vs plain: worst err/tol "
           + ", ".join(f"{k}={v:.3f}" for k, v in worst.items()))
     print("  and every limit rejects the plain version one step short; worst tol/err(t-1) "
@@ -2841,7 +2886,8 @@ def ws_path(mods, shape, cells, card, timed: bool, report=()) -> tuple:
     each workspace plan's ms beside its bound, the fastest t-launch
     regime's (direct, matmul, sparse_matmul) ms and its workspace; the
     ``report`` cells (name, pattern, t, backend) also their JSON entries
-    (``ws_entry``).  Returns the run's counts and the entries."""
+    (``ws_entry``) and, once a (pattern, t), one F.conv of the composed
+    kernel on the same grid.  Returns the run's counts and the entries."""
     kernels = mods[0]
     from repro_torch.kernels import stencil_plan
     from repro_torch.stencil import StencilSpec, make_weights
@@ -2859,10 +2905,7 @@ def ws_path(mods, shape, cells, card, timed: bool, report=()) -> tuple:
             while done < t:
                 ref, done = step(ref), done + 1
             for backend in next(b for p, tt, b in cells if p == pattern and tt == t):
-                # uncached: a plan keeps its workspace (up to 4.2 GB here),
-                # so only the plans still to be timed stay alive
-                plan = stencil_plan(w, shape, torch.float32, t, backend=backend,
-                                    use_cache=False)
+                plan = stencil_plan(w, shape, torch.float32, t, backend=backend)
                 tag = f"workspace {pattern} t={t} {backend or 'auto'} on {shape}"
                 lay = plan.fn.workspace
                 before = kernels.launch_counts()
@@ -2899,7 +2942,7 @@ def ws_path(mods, shape, cells, card, timed: bool, report=()) -> tuple:
             if (pattern, t) not in fastest:
                 fast = {}
                 for b in ("direct", "matmul", "sparse_matmul"):
-                    p2 = stencil_plan(w, shape, torch.float32, t, backend=b, use_cache=False)
+                    p2 = stencil_plan(w, shape, torch.float32, t, backend=b)
                     fast[b] = cuda_ms(lambda: p2(x), reps=1, warmup=1)
                 fastest[(pattern, t)] = min(fast.items(), key=lambda kv: kv[1])
             best, best_ms = fastest[(pattern, t)]
@@ -2907,16 +2950,20 @@ def ws_path(mods, shape, cells, card, timed: bool, report=()) -> tuple:
                      f"{best} {best_ms:.3f} ms; on {card}")
             for name, p, tt, b in report:
                 if (p, tt, b) == (pattern, t, backend):
-                    if dim == 2 and (p, tt) not in library:
-                        library[(p, tt)] = cuda_ms(conv_yardstick(
-                            x, compose_on_card(w, t), True), reps=1, warmup=1)
+                    if (p, tt) not in library:
+                        lx = (grid(WS_LIBRARY_GRID[(p, tt)], torch.float32, seed=0)
+                              if (p, tt) in WS_LIBRARY_GRID else x)
+                        library[(p, tt)] = (cuda_ms(conv_yardstick(
+                            lx, compose_on_card(w, t), True), reps=1, warmup=0),
+                            tuple(lx.shape))
+                        del lx
                     print(line)
                     line = None
                     entries.append(ws_entry(mods, name, x, w, t, picked, plan, ms, counts,
                                             library.get((p, tt))))
         if line is not None:
             print(line)
-        plans[(pattern, t, backend)] = None       # its workspace goes
+        plans[(pattern, t, backend)] = None
     del x, plans
     torch.cuda.empty_cache()
     return counts, entries
@@ -2926,9 +2973,8 @@ def ws_entry(mods, name, x, w, t, backend, plan, ms, counts, library) -> dict:
     """The JSON entry of a WS_REPORT cell from its timed run in
     ``ws_path``: the plan's output held to its plain version (timed once,
     CUDA events), the bound, ``library_ms`` one F.conv of the composed
-    kernel (composed on the card, TF32; ``library``: the time, shared by
-    the cells of one (pattern, t), or None in 3D, where an F.conv3d of a
-    29^3 to 49^3 kernel over 512^3 takes minutes)."""
+    kernel (composed on the card, TF32; ``library``: the time and the grid
+    it ran on, shared by the cells of one (pattern, t), WS_LIBRARY_GRID))."""
     _, sm, sd, weights, ss = mods
     y = plan(x)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2954,40 +3000,25 @@ def ws_entry(mods, name, x, w, t, backend, plan, ms, counts, library) -> dict:
              "replaces": KERNEL_SOURCES[kname][1],
              "launches": counts[f"{kname} (workspace)"], "max_abs_err": err, "ms": ms,
              "plain_ms": a.elapsed_time(b), "bound_ms": bound, "bound_by": by,
-             "library_ms": library,
+             "library_ms": library[0],
              "workspace_mib": plan.fn.workspace.total_bytes / 2**20,
              "grid": "x".join(map(str, x.shape))}
-    if library is None:
-        entry["library_note"] = ("F.conv3d of the composed kernel over 512^3 takes minutes; "
-                                 "not timed")
-    print(f"  kernel {name}: plain {entry['plain_ms']:.3f} ms, library "
-          + ("-" if library is None else f"{library:.3f} ms")
-          + f", launches {entry['launches']}, max|err| vs plain {err:.3e}")
+    if library[1] != tuple(x.shape):
+        entry["library_grid"] = "x".join(map(str, library[1]))
+    print(f"  kernel {name}: plain {entry['plain_ms']:.3f} ms, library {library[0]:.3f} ms "
+          f"on {'x'.join(map(str, library[1]))}, "
+          f"launches {entry['launches']}, max|err| vs plain {err:.3e}, workspace "
+          f"{entry['workspace_mib']:.1f} MiB")
     return entry
 
 
-def wide_workspace(mods, card) -> list:
-    """Phase wide's fourth rung: the kernel checks and the forced launches
-    (``ws_kernels``), the full-width cells (WS_PATHS on 512^3, timed), the
-    2D cells (WS_2D_PATHS on 1024^2, timed), with the JSON entries of the
-    WS_REPORT cells (``ws_entry``), then the other cells (WS_CELLS on
-    128^3, checked only).  The plan
-    cache is emptied first: its plans, and their workspaces, leave the
-    card's memory to the workspaces here."""
-    from repro_torch.kernels import clear_plan_cache
-    clear_plan_cache()
-    torch.cuda.empty_cache()
+def wide_workspace_checks(mods, card) -> None:
+    """The fourth rung's checks that time nothing, which ``main`` runs
+    while the counting child builds: the kernel checks and the forced
+    launches (``ws_kernels``), then the cells WS_CELLS on 128^3."""
     t0 = time.perf_counter()
     ws_kernels(mods)
     print(f"wide: workspace kernel checks in {time.perf_counter() - t0:.1f} s")
-    t1 = time.perf_counter()
-    report = []
-    for shape, cells, label in ((WS_SHAPE, WS_PATHS, "3D"), (WS_2D_SHAPE, WS_2D_PATHS, "2D")):
-        report += ws_path(mods, shape, cells, card, timed=True,
-                          report=[(n, p, t, b) for n, lb, p, t, b in WS_REPORT
-                                  if lb == label])[1]
-    print(f"wide: workspace paths on {WS_SHAPE} and {WS_2D_SHAPE} in "
-          f"{time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     cells = {}
     for p, t, b in WS_CELLS:
@@ -2996,7 +3027,25 @@ def wide_workspace(mods, card) -> list:
             card, timed=False)
     print(f"wide: {len(WS_CELLS)} more workspace cells on {WS_CELLS_SHAPE} in "
           f"{time.perf_counter() - t1:.1f} s")
-    print(f"wide: fourth rung in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def wide_workspace(mods, card) -> list:
+    """Phase wide's fourth rung (its untimed checks run earlier,
+    ``wide_workspace_checks``): the full-width cells (WS_PATHS on 512^3,
+    timed), the 2D cells (WS_2D_PATHS on 1024^2, timed), with the JSON
+    entries of the WS_REPORT cells (``ws_entry``).  Each launch allocates
+    its workspace: no plan holds device memory."""
+    torch.cuda.empty_cache()
+    t0 = t1 = time.perf_counter()
+    report = []
+    for shape, cells, label in ((WS_SHAPE, WS_PATHS, "3D"), (WS_2D_SHAPE, WS_2D_PATHS, "2D")):
+        report += ws_path(mods, shape, cells, card, timed=True,
+                          report=[(n, p, t, b) for n, lb, p, t, b in WS_REPORT
+                                  if lb == label])[1]
+    print(f"wide: workspace paths on {WS_SHAPE} and {WS_2D_SHAPE} in "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(f"wide: fourth rung's timed paths in {time.perf_counter() - t0:.1f} s")
     return report
 
 
@@ -4150,6 +4199,7 @@ def main() -> int:
     if sys.argv[1:] == [WIDE_FLAG]:                # phase wide alone
         try:
             card = phase_build(kernels)
+            wide_workspace_checks(mods, card)
             report = phase_wide(mods, card)
         except (SmokeFailure, RuntimeError, ValueError, TypeError) as e:
             print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
@@ -4169,6 +4219,7 @@ def main() -> int:
         phase_foils_vs_plain(mods)
         phase_batch_kernels(mods)
         phase_batch_limits(mods)
+        wide_workspace_checks(mods, card)
         finish_count_loads(child)
         report, twins = [], {}
         for label, (shape, specs) in PATHS.items():

@@ -70,8 +70,8 @@ def _one(lay):
 def launch_layout(launch):
     """The shared-memory layout the launch's wrapper passes its kernel (3D:
     a :class:`common.ClusterLayout` past one CTA; 2D and 3D: a
-    :class:`common.WorkspaceLayout` past any cluster, at the budget
-    now)."""
+    :class:`common.WorkspaceLayout` past any cluster, at the budget now,
+    on the plan's device)."""
     from repro_torch.kernels.stencil_direct import (direct2d_layout,
                                                     direct3d_rings)
     from repro_torch.kernels.stencil_matmul import (slab_launch_layout,
@@ -79,20 +79,21 @@ def launch_layout(launch):
     from repro_torch.kernels.stencil_sparse import sparse_tile_layout
     g, r, t = launch.geom, launch.radius, launch.t_inner
     h, cb = launch.total_halo, launch.compute_bytes
-    fam = launch.family
+    fam, dev = launch.family, launch.device
     if fam == "tapsum2d":
         if launch.staging != "region":
             return common.direct_layout(g.strip_m, g.w_tile, h)
-        return direct2d_layout(g, h)
+        return direct2d_layout(g, h, device=dev)
     if fam == "tapsum3d":
         if launch.staging != "region":
             return common.direct3d_layout(g.strip_m, g.w_tile, r, t)
-        return direct3d_rings(g, r, t)
+        return direct3d_rings(g, r, t, device=dev)
     if fam == "tapsum1d":
         return common.direct1d_layout(g.w_tile, h, launch.dtype_bytes)
     if launch.engine == "sparse_matmul":
         return sparse_tile_layout(launch.grid_shape, _unlifted(launch), t,
-                                  g, _TORCH[cb], _TORCH[launch.dtype_bytes])
+                                  g, _TORCH[cb], _TORCH[launch.dtype_bytes],
+                                  device=dev)
     if fam == "line_fold":
         return common.line_layout(g.w_tile, r, t, launch.dtype_bytes, cb)
     n_rows = len(launch.band_rows)
@@ -100,13 +101,14 @@ def launch_layout(launch):
         if launch.staging != "region":
             return common.tile_fold_layout(g.strip_m, g.w_tile, r, t, cb,
                                            n_rows)
-        return tile_launch_layout(g, r, t, cb, n_rows, "banded", deep=True)
+        return tile_launch_layout(g, r, t, cb, n_rows, "banded", deep=True,
+                                  device=dev)
     if launch.staging != "region":
         return common.slab_fold_layout(g.z_slab, g.strip_m, g.w_tile, r, t,
                                        cb, n_rows)
     return slab_launch_layout(g, r, t, cb, tuple(b[0] for b in
                                                  launch.band_rows),
-                              "3D banded")
+                              "3D banded", device=dev)
 
 
 # ---------------------------------------------------------------------------

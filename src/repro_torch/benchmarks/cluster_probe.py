@@ -350,7 +350,8 @@ def probe_workspace_deep() -> int:
             ok = ok and len(moved) == 1 and next(iter(moved)).endswith("(workspace)")
             n += 1
             bad += not ok
-            lay = need.workspace(geom.z_slab, geom.strip_m, geom.w_tile)
+            lay = common.as_workspace(
+                need.workspace(geom.z_slab, geom.strip_m, geom.w_tile).base, x.device)
             tile = (f"{geom.z_slab}x" if dim == 3 else "") + f"{geom.strip_m}x{geom.w_tile}"
             print(f"deep workspace {dim}D {what} {kind} r={r} t={t} {shape} {str(dt)[6:]} tile "
                   f"{tile}, {lay.total_bytes / 2**20:.1f} MiB ({lay.ctas} x "

@@ -1013,8 +1013,9 @@ def slab_cluster(tz: int, tm: int, tn: int, radius: int, t: int,
                          max(shares), base, rows)
 
 
-#: Streaming multiprocessors of the card the workspace form is sized for
-#: on the CPU (H100 SXM); a launch on the card takes its device's count.
+#: Streaming multiprocessors of an H100 SXM, the card the port targets: a
+#: workspace form resolved off the card (a plan on the CPU, which runs the
+#: plain versions, or the tile rule's TileNeed) is sized for it.
 H100_SMS = 132
 
 #: CTAs of a workspace form resident on one SM (WORKSPACE_MIN_BLOCKS in
@@ -1031,13 +1032,14 @@ class WorkspaceLayout:
     the same kernel body runs on ``base``, the one-CTA layout
     (:class:`DirectLayout`, :class:`Direct3dLayout` or :class:`SlabLayout`)
     with its strides and offsets unchanged, its storage a slice of a
-    device array.  ``ctas`` persistent CTAs (``sms`` x
+    device array.  ``ctas`` persistent CTAs (the device's SMs x
     WORKSPACE_CTAS_PER_SM, the resident ones) each own one slice of
     ``slice_bytes`` and walk the tiles; ``total_bytes`` = ctas x
-    slice_bytes is the workspace.  A fold's slice holds its region and
-    band headers only: the bands' Toeplitz rows, the same for every CTA,
-    stay in the one device array the wrapper uploads.  ``smem_bytes`` is
-    the dynamic shared memory the launch asks for: none."""
+    slice_bytes is the workspace each launch allocates.  A fold's slice
+    holds its region and band headers only: the bands' Toeplitz rows, the
+    same for every CTA, stay in the one device array the wrapper uploads.
+    ``smem_bytes`` is the dynamic shared memory the launch asks for:
+    none."""
 
     base: object
     slice_bytes: int
@@ -1046,59 +1048,37 @@ class WorkspaceLayout:
     smem_bytes: int = 0
 
 
-def as_workspace(lay, sms: int = H100_SMS) -> WorkspaceLayout:
+def as_workspace(lay, device) -> WorkspaceLayout:
     """The one-CTA layout ``lay`` of any 2D or 3D tap-sum or fold in a
-    workspace of ``sms`` x WORKSPACE_CTAS_PER_SM slices, each rounded up to
-    128 bytes: a tap-sum's slice is its whole layout, a fold's its region
-    and then its band headers, at the offset the one-CTA layout gives its
-    Toeplitz rows, which stay in device memory."""
+    workspace on ``device``: one slice, rounded up to 128 bytes, for each
+    of the device's SMs x WORKSPACE_CTAS_PER_SM (a CUDA device's own SM
+    count; H100_SMS for any other device, or None, whose launches run the
+    plain versions).  A tap-sum's slice is its whole layout, a fold's its
+    region and then its band headers, at the offset the one-CTA layout
+    gives its Toeplitz rows, which stay in device memory."""
     size = (_align(lay.planes * lay.plane_ld * 4)
             + lay.n_rows * SLAB_HEADER_BYTES if isinstance(lay, SlabLayout)
             else lay.smem_bytes)
+    sms = H100_SMS
+    if device is not None:
+        import torch
+        device = torch.device(device)
+        if device.type == "cuda":
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
     ctas = sms * WORKSPACE_CTAS_PER_SM
     return WorkspaceLayout(lay, _align(size), ctas, ctas * _align(size))
 
 
-def for_device(lay, device):
-    """``lay`` as a launch on ``device`` takes it: a workspace form sized
-    to the device's SMs (a CUDA device's own count; H100_SMS for any other,
-    whose launches raise before a kernel), a layout of another rung as it
-    is."""
-    if not isinstance(lay, WorkspaceLayout):
-        return lay
-    import torch
-    device = torch.device(device)
-    sms = (torch.cuda.get_device_properties(device).multi_processor_count
-           if device.type == "cuda" else H100_SMS)
-    return as_workspace(lay.base, sms)
-
-
-class Workspace:
-    """The device workspace of a plan's fourth-rung launches
-    (:class:`WorkspaceLayout`): allocated with ``torch.empty`` at the
-    first launch that needs it, on that launch's device, and kept for
-    every later one (a launch needing more replaces it).  A workspace
-    larger than the device's free memory raises, naming its bytes."""
-
-    def __init__(self):
-        self.buffer = None
-
-    def get(self, device, nbytes: int):
-        """A uint8 tensor of at least ``nbytes`` bytes on ``device``."""
-        buf = self.buffer
-        if buf is None or buf.device != device or buf.numel() < nbytes:
-            self.buffer = None
-            buf = self.buffer = allocate_workspace(device, nbytes)
-        return buf
-
-
-def workspace_args(x, layout: WorkspaceLayout,
-                   workspace: Workspace = None) -> tuple:
-    """The workspace arguments of a fourth-rung launch on ``x``'s device:
-    the workspace's address (``workspace``'s, or one for this call), its
-    slice bytes and the persistent CTAs."""
-    ws = (workspace or Workspace()).get(x.device, layout.total_bytes)
-    return ws.data_ptr(), layout.slice_bytes, layout.ctas
+def workspace_args(x, layout: WorkspaceLayout) -> tuple:
+    """``(workspace, tail)`` of a fourth-rung launch on ``x``'s device: the
+    workspace, allocated for this launch (:func:`allocate_workspace`;
+    PyTorch's caching allocator hands the block to the next launch on the
+    stream at no cost, and gives it back to other work between), and the
+    launch's last arguments, its address, slice bytes and persistent
+    CTAs.  The caller holds the workspace until the launch is queued."""
+    ws = allocate_workspace(x.device, layout.total_bytes)
+    return ws, (ws.data_ptr(), layout.slice_bytes, layout.ctas)
 
 
 def allocate_workspace(device, nbytes: int):
@@ -1131,7 +1111,7 @@ class TileNeed:
     cluster (:class:`ClusterLayout`, or None where no cluster of at most 8
     CTAs holds it), the rule's third rung; ``workspace(tz, tm, tn)`` (2D
     and 3D) the same layout in a device workspace
-    (:class:`WorkspaceLayout`), the fourth."""
+    (:class:`WorkspaceLayout`, sized off the card), the fourth."""
 
     regime: str
     smem: Callable[[int, int, int], int]
@@ -1154,13 +1134,14 @@ def tapsum_need(dim: int, radius: int, t: int, in_bytes: int,
             lambda tz, tm, tn, budget: direct3d_cluster(
                 tm, tn, radius, t, budget),
             lambda tz, tm, tn: as_workspace(
-                direct3d_layout(tm, tn, radius, t)))
+                direct3d_layout(tm, tn, radius, t), None))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: direct1d_layout(
             tn, h, in_bytes).smem_bytes)
     return TileNeed(regime, lambda tz, tm, tn: direct_layout(
         tm, tn, h).smem_bytes,
-        workspace=lambda tz, tm, tn: as_workspace(direct_layout(tm, tn, h)))
+        workspace=lambda tz, tm, tn: as_workspace(direct_layout(tm, tn, h),
+                                                  None))
 
 
 def fold_need(dim: int, radius: int, t: int, in_bytes: int,
@@ -1182,14 +1163,14 @@ def fold_need(dim: int, radius: int, t: int, in_bytes: int,
                 tz, tm, tn, radius, t, cb, tuple(dzs), k_rows, a_cols,
                 budget),
             lambda tz, tm, tn: as_workspace(slab_fold_layout(
-                tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols)))
+                tz, tm, tn, radius, t, cb, n_rows, k_rows, a_cols), None))
     if dim == 1:
         return TileNeed(regime, lambda tz, tm, tn: line_layout(
             tn, radius, t, in_bytes, cb).smem_bytes)
     return TileNeed(regime, lambda tz, tm, tn: tile_fold_layout(
         tm, tn, radius, t, cb, n_rows, k_rows, a_cols).smem_bytes,
         workspace=lambda tz, tm, tn: as_workspace(tile_fold_layout(
-            tm, tn, radius, t, cb, n_rows, k_rows, a_cols)))
+            tm, tn, radius, t, cb, n_rows, k_rows, a_cols), None))
 
 
 def _tile_candidates(extent: int, pin: Optional[int], axis: str) -> list:

@@ -241,10 +241,10 @@ class StencilPlan:
         ws = getattr(self.fn, "workspace", None)
         if ws is not None:
             lines.insert(2, f"  workspace: {ws.total_bytes} bytes of device "
-                            f"memory, {ws.ctas} persistent CTAs x "
-                            f"{ws.slice_bytes}-byte slices (the layout fits "
-                            "no CTA and no cluster: the tile rule's fourth "
-                            "rung)")
+                            f"memory at each launch, {ws.ctas} persistent "
+                            f"CTAs x {ws.slice_bytes}-byte slices (the "
+                            "layout fits no CTA and no cluster: the tile "
+                            "rule's fourth rung)")
         if self.halo_plan is not None:
             hp = self.halo_plan
             line = (f"  halo plan: mode={hp['mode']} depth={hp['halo_depth']} "
@@ -622,7 +622,7 @@ def stencil_plan(
         t=t, tile_m=tile_m, w_tile=w_tile, z_slab=z_slab,
         compute_dtype=None if compute_dtype is None
         else as_torch_dtype(compute_dtype),
-        boundary=modes)
+        boundary=modes, device=dev)
     exec_backend = backend if backend is not None else decision.backend
     mode, halo_plan = None, None
     if mesh is None:

@@ -39,14 +39,12 @@ from . import ref as _ref
 from . import stencil_direct as _direct
 from . import stencil_matmul as _matmul
 from . import stencil_sparse as _sparse
-from .common import (BAND_N, SubstrateGeom, TileNeed, Workspace,
-                     WorkspaceLayout, check_grid, check_staging, fold_need,
-                     launch_geom, mma_k_step, plain_loop, priced_tile_geom,
-                     pricing_geom, smem_budget_bytes, staging_clause)
-from .stencil_direct import direct2d_layout, direct3d_rings, stencil_direct_at
-from .stencil_matmul import (band_dzs, band_rows, build_bands_nd,
-                             slab_launch_layout, stencil_matmul_at,
-                             tile_launch_layout)
+from .common import (BAND_N, SubstrateGeom, TileNeed, WorkspaceLayout,
+                     check_grid, check_staging, fold_need, launch_geom,
+                     mma_k_step, plain_loop, priced_tile_geom, pricing_geom,
+                     smem_budget_bytes, staging_clause)
+from .stencil_direct import stencil_direct_at
+from .stencil_matmul import build_bands_nd, stencil_matmul_at
 from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
                              stencil_sparse_matmul_at)
 
@@ -85,6 +83,9 @@ class PlanContext:
     #: What each CTA reads (``common.STAGE_CODES``): "region", or
     #: "wholestrip" for the whole-strip foils (the JAX ``h_block=0``).
     staging: str = "region"
+    #: The device the plan runs on: a workspace form's persistent CTAs
+    #: and bytes are its (None, or the CPU: sized as on an H100).
+    device: Optional[torch.device] = None
 
     def fused_weights(self) -> np.ndarray:
         """Radius-``t*r`` composed kernel (monolithic fusion operand)."""
@@ -170,6 +171,7 @@ class LaunchAudit:
     ``bands_shape`` the built operand's shape (the compacted one's packed
     shape), ``band_rows`` every band's (dz, dy, lo, nk) as the kernels
     read it, nk MMA k-steps of ``mma_k_step(compute_bytes)``.
+    ``device`` is the plan's, which sizes a workspace form.
     """
 
     geom: SubstrateGeom
@@ -192,6 +194,7 @@ class LaunchAudit:
     band_spans: Optional[Tuple[int, ...]] = None
     band_rows: Optional[Tuple[Tuple[int, ...], ...]] = None
     boundary: Optional[Tuple[str, ...]] = None
+    device: Optional[torch.device] = None
 
     @property
     def total_halo(self) -> int:
@@ -247,7 +250,8 @@ def _launch_audit(ctx: PlanContext, w_op, t_inner: int, engine: str,
         radius=radius, engine=engine, family=family,
         staging=ctx.staging if dim > 1 else "region",
         dtype_bytes=ctx.dtype.itemsize, compute_bytes=cdt.itemsize,
-        boundary=resolve_boundary(ctx.boundary, dim), **extra)
+        boundary=resolve_boundary(ctx.boundary, dim), device=ctx.device,
+        **extra)
 
 
 def _audit_direct(ctx: PlanContext) -> AuditSpec:
@@ -428,39 +432,28 @@ def _staged(run: Callable, ctx: PlanContext, geom: SubstrateGeom):
     return run
 
 
-def _workspace_form(ctx: PlanContext, engine: str, w: np.ndarray,
-                    t_inner: int, geom: SubstrateGeom,
-                    budget: int) -> Optional[WorkspaceLayout]:
-    """The workspace layout a 2D or 3D launch of ``weights`` at ``t_inner``
-    steps on ``geom`` runs with (the tile rule's fourth rung,
-    ``common.WorkspaceLayout`` on an H100's SMs), or None where it runs on
-    one CTA or a cluster: what ``explain`` and the auditor report."""
-    dim = len(ctx.grid_shape)
-    if ctx.staging != "region" or dim == 1:
-        return None
-    radius = (np.asarray(w).shape[-1] - 1) // 2
-    cb = (ctx.compute_dtype or ctx.dtype).itemsize
-    if engine == "direct":
-        lay = (direct3d_rings(geom, radius, t_inner, budget) if dim == 3
-               else direct2d_layout(geom, t_inner * radius, budget))
-    elif engine == "matmul" and dim == 3:
-        lay = slab_launch_layout(geom, radius, t_inner, cb, band_dzs(w),
-                                 "3D banded", budget=budget)
-    elif engine == "matmul":
-        lay = tile_launch_layout(geom, radius, t_inner, cb, band_rows(w),
-                                 "banded", budget=budget, deep=True)
-    else:
-        lay = sparse_tile_layout(ctx.grid_shape, w, t_inner, geom,
-                                 ctx.compute_dtype or ctx.dtype,
-                                 budget=budget)
-    return lay if isinstance(lay, WorkspaceLayout) else None
-
-
 def _marked(run: Callable, ctx: PlanContext, engine: str, w: np.ndarray,
             t_inner: int, geom: SubstrateGeom, budget: int) -> Callable:
-    """``run`` marked with the workspace form its launches take, if any
-    (``run.workspace``, which ``StencilPlan.explain`` reports)."""
-    run.workspace = _workspace_form(ctx, engine, w, t_inner, geom, budget)
+    """``run`` marked with the workspace form its 2D or 3D launches take on
+    the plan's device, or None where they run on one CTA or a cluster
+    (``run.workspace``, which ``explain`` and the auditor report): the
+    layout the wrapper's own ``launch_layout`` resolves, the function
+    every launch resolves it with."""
+    lay = None
+    if ctx.staging == "region" and len(ctx.grid_shape) > 1:
+        radius = (np.asarray(w).shape[-1] - 1) // 2
+        cdt = ctx.compute_dtype or ctx.dtype
+        if engine == "direct":
+            lay = _direct.launch_layout(ctx.grid_shape, radius, t_inner, geom,
+                                        budget, ctx.device)
+        elif engine == "matmul":
+            lay = _matmul.launch_layout(ctx.grid_shape, np.asarray(w),
+                                        t_inner, radius, cdt, geom,
+                                        budget=budget, device=ctx.device)
+        else:
+            lay = sparse_tile_layout(ctx.grid_shape, w, t_inner, geom, cdt,
+                                     budget=budget, device=ctx.device)
+    run.workspace = lay if isinstance(lay, WorkspaceLayout) else None
     return run
 
 
@@ -470,26 +463,23 @@ def _build_direct(ctx: PlanContext) -> Callable:
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(ctx.weights, 1, "direct", "direct")
     budget = smem_budget_bytes()
-    ws = Workspace()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_direct_at(x, w, 1, geom, b, st, batched, budget, ws)
+            x = stencil_direct_at(x, w, 1, geom, b, st, batched, budget)
         return x
     return _staged(_marked(run, ctx, "direct", w, 1, geom, budget), ctx, geom)
 
 
 def _build_fused_direct(ctx: PlanContext) -> Callable:
     """One tap-sum launch, t steps on chip (halo t*r): in shared memory,
-    over a cluster, or in the plan's device workspace (the tile rule's
-    rungs)."""
+    over a cluster, or in a device workspace (the tile rule's rungs)."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, budget = ctx.launch_geom(ctx.weights, t, "direct",
                                    "fused_direct"), smem_budget_bytes()
-    ws = Workspace()
 
     def run(x, batched=False):
-        return stencil_direct_at(x, w, t, geom, b, st, batched, budget, ws)
+        return stencil_direct_at(x, w, t, geom, b, st, batched, budget)
     return _staged(_marked(run, ctx, "direct", w, t, geom, budget), ctx, geom)
 
 
@@ -497,12 +487,11 @@ def _build_matmul(ctx: PlanContext) -> Callable:
     """t launches of the banded kernel at t=1, halo r each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom, cdt = ctx.launch_geom(w, 1, "matmul", "matmul"), ctx.compute_dtype
-    budget, ws = smem_budget_bytes(), Workspace()
+    budget = smem_budget_bytes()
 
     def run(x, batched=False):
         for _ in range(t):
-            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched, budget,
-                                  ws)
+            x = stencil_matmul_at(x, w, 1, geom, cdt, b, st, batched, budget)
         return x
     return _staged(_marked(run, ctx, "matmul", w, 1, geom, budget), ctx, geom)
 
@@ -520,11 +509,10 @@ def _build_fused_matmul(ctx: PlanContext) -> Callable:
             "fused_matmul_reuse (per-step fills) or t=1")
     wf, b, st = ctx.fused_weights(), ctx.boundary, ctx.staging
     geom = ctx.launch_geom(wf, 1, "matmul", "fused_matmul")
-    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched, budget,
-                                 ws)
+        return stencil_matmul_at(x, wf, 1, geom, cdt, b, st, batched, budget)
     return _staged(_marked(run, ctx, "matmul", wf, 1, geom, budget), ctx, geom)
 
 
@@ -533,11 +521,10 @@ def _build_fused_matmul_reuse(ctx: PlanContext) -> Callable:
     intermediates in shared memory, the boundary filled before each."""
     w, t, b, st = ctx.weights, ctx.t, ctx.boundary, ctx.staging
     geom = ctx.launch_geom(w, t, "matmul", "fused_matmul_reuse")
-    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
-        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched, budget,
-                                 ws)
+        return stencil_matmul_at(x, w, t, geom, cdt, b, st, batched, budget)
     return _staged(_marked(run, ctx, "matmul", w, t, geom, budget), ctx, geom)
 
 
@@ -555,12 +542,12 @@ def _build_sparse_matmul(ctx: PlanContext) -> Callable:
     """t launches of the compacted banded kernel at t=1, halo r each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom, cdt = _sparse_geom(ctx, 1, "sparse_matmul"), ctx.compute_dtype
-    budget, ws = smem_budget_bytes(), Workspace()
+    budget = smem_budget_bytes()
 
     def run(x, batched=False):
         for _ in range(t):
             x = stencil_sparse_matmul_at(x, w, 1, geom, cdt, b, batched,
-                                         budget, ws)
+                                         budget)
         return x
     return _marked(run, ctx, "sparse_matmul", w, 1, geom, budget)
 
@@ -571,11 +558,11 @@ def _build_fused_sparse_matmul(ctx: PlanContext) -> Callable:
     boundary filled before each."""
     w, t, b = ctx.weights, ctx.t, ctx.boundary
     geom = _sparse_geom(ctx, t, "fused_sparse_matmul")
-    cdt, budget, ws = ctx.compute_dtype, smem_budget_bytes(), Workspace()
+    cdt, budget = ctx.compute_dtype, smem_budget_bytes()
 
     def run(x, batched=False):
         return stencil_sparse_matmul_at(x, w, t, geom, cdt, b, batched,
-                                        budget, ws)
+                                        budget)
     return _marked(run, ctx, "sparse_matmul", w, t, geom, budget)
 
 

@@ -49,10 +49,10 @@ from repro_torch.testing import faults
 from . import _build
 from .common import (CLUSTER_RADIUS3D, SMEM_BUDGET_BYTES,
                      STAGE_CODES, ClusterLayout, SubstrateGeom, TileNeed,
-                     Workspace, WorkspaceLayout, as_workspace, batch_chunks,
+                     WorkspaceLayout, as_workspace, batch_chunks,
                      batch_grid, check_grid, check_staging, check_tile_halo,
                      direct1d_layout, direct3d_cluster, direct3d_layout,
-                     direct_layout, for_device, kernel_mode_codes,
+                     direct_layout, kernel_mode_codes,
                      launch_geom, plain_loop, smem_budget_bytes, tapsum_need,
                      workspace_args)
 
@@ -283,8 +283,7 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
                       geom: SubstrateGeom, boundary=None,
                       staging: str = "region",
                       batched: bool = False,
-                      budget: int = None,
-                      workspace: Workspace = None) -> torch.Tensor:
+                      budget: int = None) -> torch.Tensor:
     """:func:`stencil_direct` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * r, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
@@ -293,10 +292,9 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
     (``common.smem_budget_bytes()`` when the plan was built; None: now);
     a 3D launch whose rings exceed it runs the cluster form, and a launch
     that no cluster holds (or a 2D one past it) the workspace form
-    (:func:`direct3d_rings`, :func:`direct2d_layout`; a budget of 1 byte
-    forces the workspace form), its workspace ``workspace``'s (a plan's,
-    kept across calls; None: one for this call).  Inside a plan's first
-    call the launch is where the ``compile`` and ``vmem`` fault hooks fire
+    (:func:`launch_layout`; a budget of 1 byte forces the workspace form),
+    its workspace allocated at each launch.  Inside a plan's first call
+    the launch is where the ``compile`` and ``vmem`` fault hooks fire
     (``repro_torch.testing.faults``)."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
@@ -308,13 +306,13 @@ def stencil_direct_at(x: torch.Tensor, weights, t: int,
     faults.on_launch(kernel_source(len(shape)))
     if x.device.type == "cpu":
         return plain_loop(stencil_direct_plain, x, batched, w, t, modes)
-    return _run(x, w, t, r, geom, modes, staging, batched, budget, workspace)
+    return _run(x, w, t, r, geom, modes, staging, batched, budget)
 
 
 def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
          geom: SubstrateGeom, modes: tuple,
          staging: str = "region", batched: bool = False,
-         budget: int = None, workspace: Workspace = None) -> torch.Tensor:
+         budget: int = None) -> torch.Tensor:
     """Launch the kernel of the grid's rank on ``geom`` with ``staging``
     (a 1D grid: the folded kernel's one staging) over one grid, or over
     the batch ``x`` holds when ``batched``; or raise."""
@@ -334,11 +332,11 @@ def _run(x: torch.Tensor, w: np.ndarray, t: int, r: int,
     codes = kernel_mode_codes(modes)
     xb = x if batched else x.unsqueeze(0)
     if xb.ndim == 4:
-        y = _launch3d(xb, w32, t, r, geom, codes, staging, budget, workspace)
+        y = _launch3d(xb, w32, t, r, geom, codes, staging, budget)
     elif xb.ndim == 2:
         y = _launch1d(xb, w32, t, r, geom, codes[-1])
     else:
-        y = _launch2d(xb, w32, t, r, geom, codes, staging, budget, workspace)
+        y = _launch2d(xb, w32, t, r, geom, codes, staging, budget)
     return y if batched else y[0]
 
 
@@ -365,25 +363,37 @@ def _launch1d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     return y
 
 
-def direct2d_layout(geom: SubstrateGeom, halo: int, budget: int = None):
+def launch_layout(shape, r: int, t: int, geom: SubstrateGeom,
+                  budget: int = None, device=None):
+    """The layout a launch of the 2D or 3D tap-sum on grids of ``shape``
+    takes on ``geom`` at ``t`` steps of radius ``r`` and on ``device``
+    (:func:`direct3d_rings`, :func:`direct2d_layout`): what every launch
+    runs with, and what a plan reports (``explain``, the auditor) for its
+    own device."""
+    if len(shape) == 3:
+        return direct3d_rings(geom, r, t, budget, device)
+    return direct2d_layout(geom, t * r, budget, device)
+
+
+def direct2d_layout(geom: SubstrateGeom, halo: int, budget: int = None,
+                    device=None):
     """The 2D tap-sum's layout on ``geom`` at ``halo``
     (``common.direct_layout``) where it fits ``budget`` bytes of shared
     memory (default: ``common.smem_budget_bytes()``), else its workspace
-    form (``common.WorkspaceLayout``, the tile rule's fourth rung); plans
-    resolve it when they are built."""
+    form on ``device`` (``common.as_workspace``, the tile rule's fourth
+    rung)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = direct_layout(geom.strip_m, geom.w_tile, halo)
     if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES):
         return layout
-    return as_workspace(layout)
+    return as_workspace(layout, device)
 
 
 def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
               geom, codes: tuple, staging: str = "region",
-              budget: int = None,
-              workspace: Workspace = None) -> torch.Tensor:
+              budget: int = None) -> torch.Tensor:
     arg = _tap_arg(w32.tobytes())
-    layout = for_device(direct2d_layout(geom, t * r, budget), x.device)
+    layout = launch_layout(x.shape[1:], r, t, geom, budget, x.device)
     if isinstance(layout, WorkspaceLayout) and staging != "region":
         raise ValueError("a foil runs on one CTA a tile; its buffers need "
                          f"{layout.base.smem_bytes} bytes of shared memory, "
@@ -391,7 +401,7 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
     y = torch.empty_like(x)
     b, h, wd = x.shape
     if isinstance(layout, WorkspaceLayout):
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
         lib, counter = "stencil_direct_workspace", "stencil_direct (workspace)"
 
         def launch(stream):
@@ -415,27 +425,26 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
 
 
 def direct3d_rings(geom: SubstrateGeom, r: int, t: int,
-                   budget: int = None):
+                   budget: int = None, device=None):
     """The 3D tap-sum's rings on ``geom`` at ``t`` steps of radius ``r``:
     ``common.direct3d_layout`` where it fits ``budget`` bytes (default:
     ``common.smem_budget_bytes()``), else its cluster form
     (``common.direct3d_cluster``, a :class:`ClusterLayout`, radii up to
-    ``CLUSTER_RADIUS3D``), else its workspace form
-    (``common.WorkspaceLayout``, the tile rule's fourth rung)."""
+    ``CLUSTER_RADIUS3D``), else its workspace form on ``device``
+    (``common.as_workspace``, the tile rule's fourth rung)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = direct3d_layout(geom.strip_m, geom.w_tile, r, t)
     if layout.smem_bytes <= min(budget, SMEM_BUDGET_BYTES):
         return layout
     cluster = (direct3d_cluster(geom.strip_m, geom.w_tile, r, t, budget)
                if r <= CLUSTER_RADIUS3D else None)
-    return as_workspace(layout) if cluster is None else cluster
+    return as_workspace(layout, device) if cluster is None else cluster
 
 
 def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
               geom, codes: tuple, staging: str = "region",
-              budget: int = None,
-              workspace: Workspace = None) -> torch.Tensor:
-    layout = for_device(direct3d_rings(geom, r, t, budget), x.device)
+              budget: int = None) -> torch.Tensor:
+    layout = launch_layout(x.shape[1:], r, t, geom, budget, x.device)
     arg = _tap_arg(w32.tobytes(), 3)
     y = torch.empty_like(x)
     b, z, h, wd = x.shape
@@ -444,7 +453,7 @@ def _launch3d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
             raise ValueError("the whole-slab foil runs on one CTA a tile; its "
                              f"rings need {layout.base.smem_bytes} bytes of "
                              "shared memory, over the 227 KB budget")
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
         lib = "stencil_direct3d_workspace"
         counter = "stencil_direct3d (workspace)"
 

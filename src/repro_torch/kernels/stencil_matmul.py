@@ -54,9 +54,9 @@ from repro_torch.stencil.reference import pad_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, SMEM_BUDGET_BYTES, STAGE_CODES, ClusterLayout,
-                     SubstrateGeom, TileNeed, Workspace, WorkspaceLayout,
+                     SubstrateGeom, TileNeed, WorkspaceLayout,
                      as_workspace, batch_chunks, batch_grid, check_grid,
-                     check_staging, check_tile_halo, fold_need, for_device,
+                     check_staging, check_tile_halo, fold_need,
                      kernel_mode_codes, launch_geom, line_layout, mma_k_step,
                      plain_loop, slab_cluster, slab_fold_layout,
                      smem_budget_bytes, tile_fold_layout, workspace_args)
@@ -379,8 +379,7 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
                       compute_dtype=None, boundary=None,
                       staging: str = "region",
                       batched: bool = False,
-                      budget: int = None,
-                      workspace: Workspace = None) -> torch.Tensor:
+                      budget: int = None) -> torch.Tensor:
     """:func:`stencil_matmul` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * R, ...)``: a plan resolves it once, when
     it is built, and launches every step on it.  ``batched``: ``x`` is
@@ -388,10 +387,9 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
     ``budget``: the shared memory per CTA the tile was resolved under
     (None: ``common.smem_budget_bytes()`` now); a 3D launch whose layout
     exceeds it runs the cluster form, and one that no cluster holds (or a
-    2D one past it) the workspace form (:func:`slab_launch_layout`,
-    :func:`tile_launch_layout`; a budget of 1 byte forces the workspace
-    form), in ``workspace`` (a plan's, kept across calls; None: one for
-    this call).  Inside a plan's first call the launch is where the
+    2D one past it) the workspace form (:func:`launch_layout`; a budget of
+    1 byte forces the workspace form), its workspace allocated at each
+    launch.  Inside a plan's first call the launch is where the
     ``compile`` and ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
@@ -406,17 +404,13 @@ def stencil_matmul_at(x: torch.Tensor, weights, t: int, geom: SubstrateGeom,
     if x.device.type == "cpu":
         return plain_loop(stencil_matmul_plain, x, batched, w, t, BAND_N,
                           cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, staging, batched, budget,
-                workspace)
+    return _run(x, w, t, radius, cdt, geom, modes, staging, batched, budget)
 
 
 def _run(x, w, t, radius, cdt, geom, modes, staging: str = "region",
-         batched: bool = False, budget: int = None,
-         workspace: Workspace = None) -> torch.Tensor:
-    launch3d = functools.partial(_launch3d, staging=staging, budget=budget,
-                                 workspace=workspace)
-    launch2d = functools.partial(_launch2d, staging=staging, budget=budget,
-                                 workspace=workspace)
+         batched: bool = False, budget: int = None) -> torch.Tensor:
+    launch3d = functools.partial(_launch3d, staging=staging, budget=budget)
+    launch2d = functools.partial(_launch2d, staging=staging, budget=budget)
     return run_kernel("stencil_matmul", _launch1d, launch2d, launch3d,
                       x, w, t, radius, cdt, geom, modes, batched)
 
@@ -463,13 +457,13 @@ def slab_launch_layout(geom: SubstrateGeom, radius: int, t: int,
                        compute_bytes: int, dzs: tuple, what: str,
                        k_rows: int = None, a_cols: int = None,
                        budget: int = None, cluster: bool = True,
-                       workspace: bool = True):
+                       workspace: bool = True, device=None):
     """The 3D folds' shared-memory layout of a launch on ``geom`` with the
     bands ``dzs`` (each band's dz): ``common.slab_fold_layout`` where it
     fits ``budget`` bytes (default: ``common.smem_budget_bytes()``) and
     MAX_KPAD, else its cluster form (``common.slab_cluster``, a
     :class:`ClusterLayout`) where ``cluster``, else its workspace form
-    (``common.WorkspaceLayout``, any contraction depth) where
+    on ``device`` (``common.as_workspace``, any contraction depth) where
     ``workspace``; raise where none applies (a foil's)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = slab_fold_layout(geom.z_slab, geom.strip_m, geom.w_tile,
@@ -485,7 +479,7 @@ def slab_launch_layout(geom: SubstrateGeom, radius: int, t: int,
     if spread is not None:
         return spread
     if workspace:
-        return as_workspace(layout)
+        return as_workspace(layout, device)
     return _checked(layout, what)
 
 
@@ -493,13 +487,13 @@ def tile_launch_layout(geom: SubstrateGeom, radius: int, t: int,
                        compute_bytes: int, n_rows: int, what: str,
                        k_rows: int = None, a_cols: int = None,
                        budget: int = None, deep: bool = False,
-                       workspace: bool = True):
+                       workspace: bool = True, device=None):
     """The 2D folds' layout of a launch on ``geom`` (``common.
     tile_fold_layout``) where it fits ``budget`` bytes (default:
     ``common.smem_budget_bytes()``) and, unless ``deep`` (the dense
-    bands), MAX_KPAD; else its workspace form (``common.WorkspaceLayout``,
-    any contraction depth) where ``workspace``; raise where it does not
-    apply (a foil's)."""
+    bands), MAX_KPAD; else its workspace form on ``device``
+    (``common.as_workspace``, any contraction depth) where ``workspace``;
+    raise where it does not apply (a foil's)."""
     budget = smem_budget_bytes() if budget is None else budget
     layout = tile_fold_layout(geom.strip_m, geom.w_tile, radius, t,
                               compute_bytes, n_rows, k_rows, a_cols)
@@ -507,8 +501,26 @@ def tile_launch_layout(geom: SubstrateGeom, radius: int, t: int,
             (deep or layout.kpad <= MAX_KPAD):
         return layout
     if workspace:
-        return as_workspace(layout)
+        return as_workspace(layout, device)
     return _checked(layout, what, deep)
+
+
+def launch_layout(shape, w: np.ndarray, t: int, radius: int,
+                  cdt: torch.dtype, geom: SubstrateGeom,
+                  staging: str = "region", budget: int = None, device=None):
+    """The layout a launch of the dense-band fold on grids of ``shape``
+    takes on ``geom`` and on ``device`` (:func:`slab_launch_layout` in 3D,
+    :func:`tile_launch_layout` in 2D; a foil has no cluster or workspace
+    form): what every launch runs with, and what a plan reports
+    (``explain``, the auditor) for its own device."""
+    region = staging == "region"
+    if len(shape) == 3:
+        return slab_launch_layout(geom, radius, t, cdt.itemsize, band_dzs(w),
+                                  "3D banded", budget=budget, cluster=region,
+                                  workspace=region, device=device)
+    return tile_launch_layout(geom, radius, t, cdt.itemsize, band_rows(w),
+                              "banded", budget=budget, deep=True,
+                              workspace=region, device=device)
 
 
 def line_launch_layout(geom: SubstrateGeom, radius: int, t: int,
@@ -543,21 +555,19 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
 
 
 def _launch2d(x, w, t, radius, cdt, geom, codes,
-              staging: str = "region", budget: int = None,
-              workspace: Workspace = None) -> torch.Tensor:
+              staging: str = "region", budget: int = None) -> torch.Tensor:
     """The tile fold on the dense bands (``csrc/stencil_banded.cu``) on
     the (B, H, W) grids ``x``; its workspace form where the layout exceeds
-    ``budget`` (:func:`tile_launch_layout`; not the foils')."""
+    ``budget`` (:func:`launch_layout`; not the foils')."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = for_device(tile_launch_layout(
-        geom, radius, t, cdt.itemsize, len(rows), "banded", budget=budget,
-        deep=True, workspace=staging == "region"), x.device)
+    layout = launch_layout(x.shape[1:], w, t, radius, cdt, geom, staging,
+                           budget, x.device)
     y = torch.empty_like(x)
     b, h, wd = x.shape
     if isinstance(layout, WorkspaceLayout):
         lib, counter = "stencil_banded_workspace", "stencil_banded (workspace)"
         fn, stage, lay = _workspace_launcher(2), (), layout.base
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
     else:
         lib, fn, stage, counter = _entry(2, staging)
         lay, tail = layout, ()
@@ -574,24 +584,21 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes,
-              staging: str = "region", budget: int = None,
-              workspace: Workspace = None) -> torch.Tensor:
+              staging: str = "region", budget: int = None) -> torch.Tensor:
     """The slab fold on the dense bands (``csrc/stencil_banded3d.cu``) on
     the (B, Z, H, W) grids ``x``; its cluster form where the layout
     exceeds ``budget``, its workspace form where no cluster holds it
-    (:func:`slab_launch_layout`; not the foil's)."""
+    (:func:`launch_layout`; not the foil's)."""
     toe, rows = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    region = staging == "region"
-    layout = for_device(slab_launch_layout(
-        geom, radius, t, cdt.itemsize, band_dzs(w), "3D banded",
-        budget=budget, cluster=region, workspace=region), x.device)
+    layout = launch_layout(x.shape[1:], w, t, radius, cdt, geom, staging,
+                           budget, x.device)
     y = torch.empty_like(x)
     b, z, h, wd = x.shape
     if isinstance(layout, WorkspaceLayout):
         lib = "stencil_banded3d_workspace"
         counter = "stencil_banded3d (workspace)"
         fn, stage, lay = _workspace_launcher(3), (), layout.base
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
     elif isinstance(layout, ClusterLayout):
         lib, counter = "stencil_banded3d_cluster", "stencil_banded3d (cluster)"
         lay = layout.base

@@ -44,8 +44,8 @@ from repro_torch.stencil.boundary import resolve_boundary
 from repro_torch.testing import faults
 from . import _build
 from .common import (BAND_N, ClusterLayout, SubstrateGeom, TileNeed,
-                     Workspace, WorkspaceLayout, batch_chunks, batch_grid,
-                     check_grid, check_tile_halo, fold_need, for_device,
+                     WorkspaceLayout, batch_chunks, batch_grid,
+                     check_grid, check_tile_halo, fold_need,
                      launch_geom, mma_k_step, plain_loop, workspace_args)
 from .stencil_matmul import (_DTYPE_CODES, BATCH_ARGS, build_bands_nd,
                              line_launch_layout, run_kernel,
@@ -225,16 +225,17 @@ def _device_operand(w_bytes: bytes, shape: tuple, cdt: torch.dtype,
 def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
                        compute_dtype: torch.dtype,
                        in_dtype: torch.dtype = torch.float32,
-                       budget: int = None):
+                       budget: int = None, device=None):
     """The shared-memory layout the compacted kernel of a grid of this
     rank launches ``weights`` with at ``t`` fused steps on ``geom``.  A 1D
     launch raises when it passes the 227 KB budget (or the deepest
     contraction the kernels take).  A 3D launch of t > 1 steps whose
     layout exceeds ``budget`` (default ``common.smem_budget_bytes()``)
     takes the slab fold's cluster form, and a 2D or 3D launch that no
-    cluster holds its workspace form (``stencil_matmul.
+    cluster holds its workspace form on ``device`` (``stencil_matmul.
     slab_launch_layout`` / ``tile_launch_layout``).
-    Plans call it when they are built, the launches at every call (the 2D
+    Plans call it when they are built, for their own device (``explain``,
+    the auditor), and the launches at every call, for theirs (the 2D
     kernel on the lifted (1, N) view with the lifted (1, N) grid and
     kernel).  A 1D grid's folded layout depends on the grid's dtype too;
     ``in_dtype`` is it (default: float32, the larger staging)."""
@@ -250,9 +251,10 @@ def sparse_tile_layout(grid_shape, weights, t: int, geom: SubstrateGeom,
         return slab_launch_layout(geom, radius, t, cb,
                                   tuple(r[0] for r in meta.rows),
                                   "3D compacted banded", k_rows, meta.a_cols,
-                                  budget, cluster=t > 1)
+                                  budget, cluster=t > 1, device=device)
     return tile_launch_layout(geom, radius, t, cb, len(meta.rows),
-                              "compacted banded", k_rows, meta.a_cols, budget)
+                              "compacted banded", k_rows, meta.a_cols, budget,
+                              device=device)
 
 
 def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
@@ -351,14 +353,12 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
                              geom: SubstrateGeom, compute_dtype=None,
                              boundary=None,
                              batched: bool = False,
-                             budget: int = None,
-                             workspace: Workspace = None) -> torch.Tensor:
+                             budget: int = None) -> torch.Tensor:
     """:func:`stencil_sparse_matmul` on a tile the caller resolved with
     ``launch_geom(grid_shape, t * R, ...)``, as plans do when built.
     ``batched``: ``x`` is ``(B,) + grid_shape`` and one launch advances
-    every grid (K11).  ``budget`` and ``workspace``: the shared memory per
-    CTA the tile was resolved under and the workspace of a fourth-rung
-    launch, as in ``stencil_matmul_at``.  Inside a plan's first call the
+    every grid (K11).  ``budget``: the shared memory per CTA the tile was
+    resolved under, as in ``stencil_matmul_at``.  Inside a plan's first call the
     launch is where the ``compile`` and ``vmem`` fault hooks fire."""
     if t < 1:
         raise ValueError(f"fusion depth must be >= 1, got {t}")
@@ -372,17 +372,14 @@ def stencil_sparse_matmul_at(x: torch.Tensor, weights, t: int,
     if x.device.type == "cpu":
         return plain_loop(stencil_sparse_matmul_plain, x, batched, w, t,
                           BAND_N, cdt, modes)
-    return _run(x, w, t, radius, cdt, geom, modes, batched, budget, workspace)
+    return _run(x, w, t, radius, cdt, geom, modes, batched, budget)
 
 
 def _run(x, w, t, radius, cdt, geom, modes,
-         batched: bool = False, budget: int = None,
-         workspace: Workspace = None) -> torch.Tensor:
+         batched: bool = False, budget: int = None) -> torch.Tensor:
     return run_kernel("stencil_sparse_matmul", _launch1d,
-                      functools.partial(_launch2d, budget=budget,
-                                        workspace=workspace),
-                      functools.partial(_launch3d, budget=budget,
-                                        workspace=workspace), x, w, t,
+                      functools.partial(_launch2d, budget=budget),
+                      functools.partial(_launch3d, budget=budget), x, w, t,
                       radius, cdt, geom, modes, batched)
 
 
@@ -408,22 +405,22 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
     return y
 
 
-def _launch2d(x, w, t, radius, cdt, geom, codes, budget: int = None,
-              workspace: Workspace = None) -> torch.Tensor:
+def _launch2d(x, w, t, radius, cdt, geom, codes,
+              budget: int = None) -> torch.Tensor:
     """The tile fold on the compacted bands (``csrc/stencil_sparse.cu``)
     on the (B, H, W) grids ``x``; its workspace form where the layout
     exceeds ``budget``."""
     _, _, rows = _device_operand(w.tobytes(), w.shape, cdt, str(x.device))
     toe = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = for_device(sparse_tile_layout(x.shape[1:], w, t, geom, cdt,
-                                           budget=budget), x.device)
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt, budget=budget,
+                                device=x.device)
     y = torch.empty_like(x)
     b, h, wd = x.shape
     if isinstance(layout, WorkspaceLayout):
         lib = "stencil_sparse_workspace"
         counter = "stencil_sparse (workspace)"
         fn, lay = _workspace_launcher(2), layout.base
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
     else:
         lib = counter = "stencil_sparse"
         fn, lay, tail = _launcher(), layout, ()
@@ -440,22 +437,22 @@ def _launch2d(x, w, t, radius, cdt, geom, codes, budget: int = None,
 
 
 def _launch3d(x, w, t, radius, cdt, geom, codes,
-              budget: int = None, workspace: Workspace = None) -> torch.Tensor:
+              budget: int = None) -> torch.Tensor:
     """The slab fold on the compacted bands (``csrc/stencil_sparse3d.cu``)
     on the (B, Z, H, W) grids ``x``; its cluster form where the layout of
     a launch of t > 1 steps exceeds ``budget``, its workspace form where
     no cluster holds it."""
     _, _, rows = _device_operand(w.tobytes(), w.shape, cdt, str(x.device))
     toe = _device_toe(w.tobytes(), w.shape, cdt, str(x.device))
-    layout = for_device(sparse_tile_layout(x.shape[1:], w, t, geom, cdt,
-                                           budget=budget), x.device)
+    layout = sparse_tile_layout(x.shape[1:], w, t, geom, cdt, budget=budget,
+                                device=x.device)
     y = torch.empty_like(x)
     b, z, h, wd = x.shape
     if isinstance(layout, WorkspaceLayout):
         lib = "stencil_sparse3d_workspace"
         counter = "stencil_sparse3d (workspace)"
         fn, lay = _workspace_launcher(3), layout.base
-        tail = workspace_args(x, layout, workspace)
+        ws, tail = workspace_args(x, layout)
     elif isinstance(layout, ClusterLayout):
         lib, counter = "stencil_sparse3d_cluster", "stencil_sparse3d (cluster)"
         fn, lay = _cluster_launcher3d(), layout.base

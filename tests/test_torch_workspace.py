@@ -37,6 +37,7 @@ import test_torch_tapsum3d_fold as tap3  # noqa: E402
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
+registry = importlib.import_module("repro_torch.kernels.registry")
 t_sparse = importlib.import_module("repro_torch.kernels.stencil_sparse")
 
 CSRC = pathlib.Path(common.__file__).parent / "csrc"
@@ -163,9 +164,27 @@ def test_a_budget_of_one_byte_forces_the_workspace_form():
                                     cluster=False, workspace=False)
 
 
-def test_the_card_sizes_the_workspace_by_its_sms():
-    lay = common.as_workspace(common.direct_layout(64, 64, 112), sms=114)
+def test_the_card_sizes_the_workspace_by_its_sms(monkeypatch):
+    # a CUDA device's own SMs (here a 114-SM card); off the card, an H100's
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(multi_processor_count=114))
+    card = torch.device("cuda", 0)
+    lay = common.as_workspace(common.direct_layout(64, 64, 112), card)
     assert lay.ctas == 228 and lay.total_bytes == 228 * lay.slice_bytes
+    off = common.as_workspace(common.direct_layout(64, 64, 112), "cpu")
+    assert (off.ctas, off.slice_bytes) == (CTAS, lay.slice_bytes)
+    # a plan resolves its launches' layout with its own device, the
+    # function each launch resolves it with on the launch's device
+    w = make_weights(StencilSpec.from_name("Box-3D7R"), seed=0)
+    ctx = registry.PlanContext(
+        spec=StencilSpec.from_name("Box-3D7R"), weights=w,
+        grid_shape=(64, 64, 64), dtype=torch.float32, t=2, tile_m=None,
+        w_tile=None, device=card)
+    run = registry.get_backend("fused_direct").build(ctx)
+    geom = ctx.launch_geom(w, 2, "direct", "fused_direct")
+    assert run.workspace == t_direct.launch_layout((64, 64, 64), 7, 2, geom,
+                                                   device=card)
+    assert run.workspace.ctas == 228
 
 
 @pytest.mark.parametrize("key", list(deep.TILES), ids=str)
@@ -228,7 +247,7 @@ def emulate_workspace_tapsum3d(x, w, t, geom, modes, ctas, monkeypatch):
     b_, Z, H, W = x.shape
     r = (w.shape[0] - 1) // 2
     lay = common.as_workspace(common.direct3d_layout(
-        geom.strip_m, geom.w_tile, r, t))
+        geom.strip_m, geom.w_tile, r, t), None)
     floats = lay.slice_bytes // 4
     ws = np.full(ctas * floats, np.nan)
     gx, gy, gz = common.launch_grid((Z, H, W), geom)
@@ -405,18 +424,21 @@ def test_wrapper_passes_the_workspace(fake_card, pattern, t, regime, batch):
 
 
 def test_a_plan_keeps_its_workspace_and_explains_it(fake_card):
-    # one allocation for every call of a plan, named in explain()
+    # a plan keeps its workspace layout, named in explain(); every launch
+    # allocates the workspace anew (the caching allocator reuses the
+    # block), so no plan holds device memory between calls
     w = make_weights(StencilSpec.from_name("Box-3D7R"), seed=0)
     plan = tk.stencil_plan(w, (64, 64, 64), torch.float32, 2,
                            backend="fused_direct", device="cpu", use_cache=False)
     lay = plan.fn.workspace
     assert isinstance(lay, common.WorkspaceLayout)
     assert f"workspace: {lay.total_bytes} bytes" in plan.explain()
-    holder = common.Workspace()
-    holder.get(torch.device("cpu"), 10)
-    holder.get(torch.device("cpu"), 8)
-    holder.get(torch.device("cpu"), 12)
-    assert fake_card.allocated == [10, 12]
+    x = torch.zeros((1, 64, 64, 64))
+    geom = plan.ctx.launch_geom(w, 2, "direct", "fused_direct")
+    for _ in range(2):
+        t_direct._launch3d(x, np.asarray(w, np.float32), 2, 7, geom, (0, 0, 0))
+    assert fake_card.allocated == [lay.total_bytes] * 2
+    assert tk.launch_counts()["stencil_direct3d (workspace)"] == 2
     # a plan one CTA holds has none
     small = tk.stencil_plan(w, (64, 64, 64), torch.float32, 1,
                             backend="fused_direct", device="cpu", use_cache=False)
