@@ -581,7 +581,7 @@ def hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short, worst,
     the step-wise limit (``kernel_limit``; the f32 tap-sum 1e-5·max|x|),
     and show that the limit rejects the plain version one step short
     (``short``, or the plain chain's step t-1); ``worst`` and ``margin``
-    collect err/tol and tol/err(t-1) under ``key``."""
+    collect err/tol and tol/err(t-1) under ``key``.  Returns the limit."""
     torch.cuda.synchronize()
     bf = x.dtype == torch.bfloat16
     err = max_err(y, plain())
@@ -600,6 +600,7 @@ def hold_to_plain(tag, key, y, x, plain, step, tk, ops, wk, short, worst,
                        f"plain version one step short ({wrong:.3e})")
     worst[key] = max(worst.get(key, 0.0), err / tol)
     margin[key] = max(margin.get(key, 0.0), tol / wrong)
+    return tol
 
 
 def kernel_name(base: str, dim: int) -> str:
@@ -2129,6 +2130,7 @@ WIDE_REFUSED = set()
 #: The main paths: (label, grid, pattern, fusion depths); every regime,
 #: and auto, of each (pattern, t) against ``reference``.
 WIDE_PATHS = (("2D", (8192, 8192), "Box-2D7R", tuple(range(1, 9))),
+              ("2D", (8192, 8192), "Box-2D3R", (6, 7, 8)),
               ("3D", (512, 512, 512), "Box-3D2R", (5, 6, 7, 8)),
               ("3D", (512, 512, 512), "Star-3D2R", (5, 6, 7, 8)))
 WIDE_REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
@@ -2141,6 +2143,7 @@ WIDE_REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
 #: entry says so (``library_grid``).
 WIDE_LIBRARY_GRID = {("2D", "Box-2D7R", 8): (4096, 4096)}
 WIDE_REPORT = (("stencil_direct (r=7)", "2D", "Box-2D7R", 4, "tap-sum"),
+               ("stencil_banded (reuse, r=7)", "2D", "Box-2D7R", 4, "reuse"),
                ("stencil_banded (depth 128)", "2D", "Box-2D7R", 8, "composed"),
                ("stencil_direct3d (h=10)", "3D", "Box-3D2R", 5, "tap-sum"),
                ("stencil_banded3d (h=10)", "3D", "Box-3D2R", 5, "reuse"),
@@ -2154,11 +2157,27 @@ WIDE_REPORT = (("stencil_direct (r=7)", "2D", "Box-2D7R", 4, "tap-sum"),
                ("stencil_sparse3d (cluster, h=16)", "3D", "Box-3D2R", 8, "sparse"))
 
 
+def reserve_tile(dim: int, halo: int):
+    """The (tile_m, w_tile) pins of the tile the 2D rule took at ``halo``
+    when it held every candidate to a reserve (the layout of the wmma
+    banded kernel that came before the tile fold) and that the rule's own
+    layouts moved to 64 x 64 (a 1D lift: 16 x 64): 32 x 32 at h = 17-25,
+    16 x 16 at h = 26-32, on a 1D lift w_tile 32 at h = 25-32; None where
+    the tile did not move (past h = 32 the reserve fit no tile, and the
+    launches took their own layouts' tile already).  Phase ``wide`` runs
+    each moved launch on it too, pinned, in the same run."""
+    if dim == 2 and 17 <= halo <= 32:
+        return (32, 32) if halo <= 25 else (16, 16)
+    if dim == 1 and 25 <= halo <= 32:
+        return (None, 32)
+    return None
+
+
 #: ``python3 chip_smoke.py --wide`` runs the build and phase ``wide`` alone.
 WIDE_FLAG = "--wide"
 
 
-def wide_calls(mods, x, w, t, bc, dim):
+def wide_calls(mods, x, w, t, bc, dim, pins=(None, None)):
     """``(kernel, kname, call, plain, step, tk, operands, weights, short)``
     of every kernel check of one case: the tap-sum, the dense and the
     compacted reuse form with either operand dtype, and on a periodic grid
@@ -2166,8 +2185,8 @@ def wide_calls(mods, x, w, t, bc, dim):
     within MAX_KPAD) with the plain version one step short on the
     depth-(t-1) composed kernel.  ``call`` resolves the launch's tile as
     a plan does (``launch_geom`` held to the kernel's own layout, which
-    raises "too deep" where it fits none) and launches the plan entry
-    (``stencil_*_at``) on it."""
+    raises "too deep" where it fits none; ``pins``: tile_m, w_tile) and
+    launches the plan entry (``stencil_*_at``) on it."""
     _, sm, sd, weights, ss = mods
     from repro_torch.kernels import common
     shape, dt = tuple(x.shape), x.dtype
@@ -2176,7 +2195,7 @@ def wide_calls(mods, x, w, t, bc, dim):
     def at(entry, wk, tk, need, cdt=None):
         def call():
             rk = (wk.shape[0] - 1) // 2
-            geom = common.launch_geom(shape, tk * rk, need=need)
+            geom = common.launch_geom(shape, tk * rk, *pins, need=need)
             if entry is sd.stencil_direct_at:
                 return entry(x, wk, tk, geom, bc)
             return entry(x, wk, tk, geom, cdt, bc)
@@ -2238,13 +2257,16 @@ def wide_kernels(mods) -> None:
     the plain version one step short; on each rank's first grid periodic
     and on its ragged grid under the rank's non-periodic spec, each in
     float32 and bfloat16.  A launch in WIDE_REFUSED
-    must raise "too deep", and no other may.  The weights mostly move the
-    grid (``wide_weights``).  Then one batched call at r = 7 against the
-    loop of its unbatched calls, bit for bit."""
-    _, sm, sd, weights, ss = mods
+    must raise "too deep", and no other may.  A launch whose tile the 2D
+    rule moved (``reserve_tile``) runs on the old tile too, pinned: the
+    tap-sum bit for bit, a fold within its limit; both timed and printed
+    with the tile each launch recorded.  The weights mostly move the grid
+    (``wide_weights``).  Then one batched call at r = 7 against the loop
+    of its unbatched calls, bit for bit."""
+    kernels, sm, sd, weights, ss = mods
     from repro_torch.kernels import common
     from repro_torch.stencil import StencilSpec
-    worst, margin, refused, n = {}, {}, set(), 0
+    worst, margin, refused, n, moved = {}, {}, set(), 0, []
     for dim, (shapes, cases, spec) in WIDE_KERNELS.items():
         runs = [(shapes[0], None, torch.float32), (shapes[0], None, torch.bfloat16),
                 (shapes[-1], spec, torch.float32), (shapes[-1], spec, torch.bfloat16)]
@@ -2252,8 +2274,12 @@ def wide_kernels(mods) -> None:
                                                                    cases):
             w = wide_weights(weights, kind, dim, r)
             x = grid(shape, dtype, seed=2)
-            for what, kname, call, plain, step, tk, ops, wk, short in wide_calls(
-                    mods, x, w, t, bc, dim):
+            old = reserve_tile(dim, t * r)
+            calls = wide_calls(mods, x, w, t, bc, dim)
+            twins = ([None] * len(calls) if old is None
+                     else wide_calls(mods, x, w, t, bc, dim, old))
+            for (what, kname, call, plain, step, tk, ops, wk, short), twin in zip(
+                    calls, twins):
                 tag = (f"{kname} {what} {kind} r={r} t={t} {shape} {str(dtype)[6:]}"
                        + ("" if bc is None else f" boundary={boundary_label(bc)}")
                        + " (wide)")
@@ -2265,9 +2291,27 @@ def wide_kernels(mods) -> None:
                     refused.add(key)
                     continue
                 check(key not in WIDE_REFUSED, f"{tag}: did not refuse")
-                hold_to_plain(tag, kname.split("[")[0] + f" {what}", y, x, plain, step, tk,
-                              ops, wk, short, worst, margin)
+                tol = hold_to_plain(tag, kname.split("[")[0] + f" {what}", y, x, plain, step,
+                                    tk, ops, wk, short, worst, margin)
                 n += 1
+                if twin is not None:
+                    # the launch on the tile the reserve took, pinned: the
+                    # tap-sum bit for bit, a fold within its limit of it;
+                    # each timed, on the tile its launch recorded
+                    counter = kname.split("[")[0]
+                    tile = kernels.launch_tiles()[counter]
+                    y0 = twin[2]()
+                    tile0 = kernels.launch_tiles()[counter]
+                    d = max_err(y, y0)
+                    check(d == 0.0 or what != "tap-sum" and d <= tol,
+                          f"{tag}: on the {old} tile it differs by {d:.3e} (limit {tol:.3e})")
+                    del y0
+                    ms, ms0 = (cuda_ms(c, reps=5, warmup=1) for c in (call, twin[2]))
+                    moved.append(f"{kname} {what} r={r} t={t} {str(dtype)[6:]}"
+                                 f"{'' if bc is None else ' ' + boundary_label(bc)}: "
+                                 + ("bit for bit" if d == 0.0 else f"{d:.3e} (limit {tol:.3e})")
+                                 + f", {tile} {ms:.4f} ms / {tile0} {ms0:.4f} ms")
+                    n += 1
                 del y
             del x
     check(refused == WIDE_REFUSED, f"wide: refused {sorted(refused)}, expected "
@@ -2277,6 +2321,9 @@ def wide_kernels(mods) -> None:
     print("  and every limit rejects the plain version one step short; worst "
           "tol/err(t-1) " + ", ".join(f"{k}={v:.3f}" for k, v in margin.items()))
     print(f"  refused as expected (rank, kernel, halo, operands): {sorted(refused)}")
+    print(f"  on the tile the 2D reserve took, pinned ({len(moved)} launches; max|diff| "
+          "from the rule's tile; the rule's tile and ms / the old tile and ms): "
+          + "; ".join(moved))
     # one batched call at r = 7: the tap-sum at t = 4 and the composed
     # contraction 128 deep, three grids in one launch = three launches
     shape = (1000, 1030)
@@ -2302,7 +2349,11 @@ def wide_path(mods, label, shape, pattern, ts, card):
     fusion depth of ``ts`` through ``stencil_plan``, the launch counts set
     to 0 just before the run and read just after it; each plan held
     against ``reference`` (the phase-3 limits; the reference one step at a
-    time) with its exact launches, a 3D fused plan whose layout fits no
+    time) with its exact launches; a 2D fused plan or auto whose tile the
+    2D rule moved (``reserve_tile``) also pinned to the tile the reserve
+    took, the tap-sum bit for bit, each timed and printed with the tile
+    (and the tap-sum's CTA width) its launch recorded
+    (``kernels.launch_tiles``); a 3D fused plan whose layout fits no
     one CTA (the tap-sum's rings and the composed slab past h = 10, the
     reuse slabs at h = 16) as one launch of its kernel's cluster form
     (``<kernel> (cluster)``); a plan that cannot launch would raise "too
@@ -2352,7 +2403,36 @@ def wide_path(mods, label, shape, pattern, ts, card):
             tol = (1e-5 * t * mx if kname.startswith("stencil_direct")
                    else t * 2**-10 * sw * mx)
             check(err <= tol, f"{tag}: max|err| vs reference {err:.3e} > tol {tol:.3e}")
-            ran.append((t, backend, plan, kname, n, first, err, tol))
+            tile = kernels.launch_tiles().get(kname, "-")
+            ran.append((t, backend, plan, kname, n, first, err, tol, tile, ""))
+            old = reserve_tile(dim, t * spec.radius)
+            if old is not None and backend not in ("direct", "matmul", "sparse_matmul"):
+                # the same plan on the tile the 2D reserve took, pinned: the
+                # tap-sum bit for bit, a fold (or auto's old pick) within
+                # the reference's tolerance
+                twin = stencil_plan(w, shape, torch.float32, t, backend=backend,
+                                    tile_m=old[0], w_tile=old[1])
+                before = kernels.launch_counts()
+                t1 = time.perf_counter()
+                y0 = twin(x)
+                torch.cuda.synchronize()
+                first0 = time.perf_counter() - t1
+                after = kernels.launch_counts()
+                kname0, n0 = expected_launches(twin.backend, t, dim)
+                delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                check(delta == {kname0: n0},
+                      f"{tag} on {old}: launches {delta}, expected {n0} of {kname0}")
+                tile0 = kernels.launch_tiles()[kname0]
+                err0, d = max_err(y0, ref), max_err(y, y0)
+                tol0 = (1e-5 * t * mx if kname0.startswith("stencil_direct")
+                        else t * 2**-10 * sw * mx)
+                check(err0 <= tol0, f"{tag} on {old}: max|err| vs reference {err0:.3e} > "
+                                    f"tol {tol0:.3e}")
+                check(d == 0.0 or not plan.backend == twin.backend == "fused_direct",
+                      f"{tag}: the tap-sum on {old} differs by {d:.3e}")
+                ran.append((t, backend, twin, kname0, n0, first0, err0, tol0, tile0,
+                            f"  (the reserve's tile; max|diff| {d:.3e})"))
+                del y0
             del y
     counts = kernels.launch_counts()
     for k in {r[3] for r in ran}:
@@ -2360,14 +2440,15 @@ def wide_path(mods, label, shape, pattern, ts, card):
     check(not refused, f"wide: {label} {pattern} refused {refused}")
     del ref, step
     times = {}
-    for t, backend, plan, kname, n, first, err, tol in ran:
+    for t, backend, plan, kname, n, first, err, tol, tile, note in ran:
         ms = (cuda_ms(lambda: plan(x), reps=3, warmup=1)
               if first < 0.2 and not kname.endswith("(cluster)")
               else cuda_ms(lambda: plan(x), reps=1, warmup=0))
-        times[(t, backend or "auto")] = ms
+        times[(t, backend or "auto") + ((note,) if note else ())] = ms
+        tile = f"  tile {tile:12s}" if dim == 2 else ""
         print(f"  {pattern} t={t:<2d} {backend or 'auto':20s} {plan.backend:20s} "
-              f"{kname:18s} x{n}  read_amp {plan.geom.read_amp:7.4f}  {ms:9.4f} ms  "
-              f"max|err| {err:.3e} (tol {tol:.3e})")
+              f"{kname:18s} x{n}{tile}  read_amp {plan.geom.read_amp:7.4f}  {ms:9.4f} ms  "
+              f"max|err| {err:.3e} (tol {tol:.3e}){note}")
     print(f"wide path {label} {pattern} on {shape} float32, t in {list(ts)}: every "
           f"regime that builds matches the reference; launches "
           f"{ {k: v for k, v in counts.items() if v} }; refused (too deep, naming the "
@@ -2475,8 +2556,9 @@ def wide_report(mods, counts, card) -> list:
 
 #: Phase wide's foils (K8-K10) at the wide radii and past contraction
 #: depth 64: (name, rank, radius, t, staging, what), each a Box stencil,
-#: periodic, on the reserves' tile (the 128-deep composed contraction on
-#: its own layout's 64 x 64, whose whole strips cover h = 56): checked and
+#: periodic, on the rule's tile (2D on the tap-sum's layout's, 3D on the
+#: reserves'; the 128-deep composed contraction on its own layout's 64 x
+#: 64, whose whole strips cover h = 56): checked and
 #: timed on WIDE_FOIL_GRIDS, whose plain versions and F.conv yardsticks
 #: are short, and held bit for bit to the default kernel on the main
 #: paths' grids (WIDE_PATHS: 8192^2, 512^3), where the guard's ladder

@@ -48,8 +48,8 @@ MATRIX = [
      dict(boundary=("reflect", "periodic", "zero"))),
 ]
 
-#: The wide stencils and deep halos the reserves admit no tile for (the
-#: tile rule's second half, csrc's radius-7 tap-sums, the 2D and 1D folds
+#: The wide stencils and deep halos (past the 3D reserves, the tile rule's
+#: second half; csrc's radius-7 tap-sums, the 2D and 1D folds
 #: past contraction depth 64; its third rung, the 3D layouts spread over a
 #: thread-block cluster), at sizes the sweep walks quickly: Box-2D7R at t
 #: = 4 and 8 (h = 28, 56; fused_matmul 72 and 128 deep), Box-3D2R at t =

@@ -12,9 +12,9 @@ fixed cell coordinates.  This module verifies, statically and per launch:
     and headers, per-warp staging buffers), at the offsets the ``.cu``
     computes them, are pairwise disjoint, aligned as the kernel's vector
     accesses need, end within the launch's ``smem_bytes``, which fits the
-    227 KB budget (and, in 2D and 3D, the tile rule's reserve
-    ``tile_smem_bound`` on every tile the reserve admits: the tiles past
-    it are the rule's second half, held to the layout itself);
+    227 KB budget (and, in 3D, the tile rule's reserve ``tile_smem_bound``
+    on every tile the reserve admits: the tiles past it are the rule's
+    second half, held to the layout itself, as every 2D tile is);
   * ``scratch/read-window``     -- the staged region is the tile plus its
     t*r halo on every staged axis (1D: the segment's or row's window from
     its granule), and each ring of the 3D tap-sum holds 2r+1 planes per
@@ -293,18 +293,18 @@ def _slots_check(launch, lay) -> AuditCheck:
     g = launch.geom
     bound = (common.smem_budget_bytes() if cluster
              else common.SMEM_BUDGET_BYTES)
-    if not cluster and launch.family in ("tapsum2d", "tile_fold",
-                                         "tapsum3d", "slab_fold"):
-        # a tile the reserve admits holds the layout to it; past it the
-        # rule's second half holds the candidates to the layout itself
-        reserve = common.tile_smem_bound(
-            g.strip_m, g.w_tile, launch.total_halo,
-            g.z_slab if launch.family in ("tapsum3d", "slab_fold") else None)
+    what = "budget"
+    if not cluster and launch.family in ("tapsum3d", "slab_fold"):
+        # a 3D tile the reserve admits holds the layout to it; past it the
+        # rule's second half holds the candidates to the layout itself, as
+        # the 2D rule holds every 2D candidate, to the budget
+        reserve = common.tile_smem_bound(g.strip_m, g.w_tile,
+                                         launch.total_halo, g.z_slab)
         if reserve <= bound:
-            bound = reserve
+            bound, what = reserve, "reserve"
     if lay.smem_bytes > bound:
         problems.append(f"{lay.smem_bytes} bytes over the tile rule's "
-                        f"{'budget' if cluster else 'reserve'} {bound}")
+                        f"{what} {bound}")
     return AuditCheck(
         "scratch/slots-partition", not problems,
         expected={"disjoint": True, "within_bytes": lay.smem_bytes},

@@ -9,6 +9,9 @@ arithmetic is the same, then time them.
     python src/repro_torch/benchmarks/fold_probe.py tapsum2d [--src CHECKOUT/src]
         [--save HASHES.json | --against HASHES.json]
     python src/repro_torch/benchmarks/fold_probe.py tapsum2d-times [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum2d-wide|tapsum2d-wide-times
+        [--src CHECKOUT/src]
+    python src/repro_torch/benchmarks/fold_probe.py tapsum2d-sweep
     python src/repro_torch/benchmarks/fold_probe.py tapsum3d [--src CHECKOUT/src]
         [--save HASHES.json | --against HASHES.json]
     python src/repro_torch/benchmarks/fold_probe.py tapsum3d-times|tapsum3d-quick [--src CHECKOUT/src]
@@ -86,6 +89,15 @@ version, F.conv2d, the K8 and K9 foil plans and 16 x 2048^2 batches.
 ``tapsum2d-times`` prints the resources and times alone (for variants of
 the kernel source in another checkout).
 
+``tapsum2d-wide`` holds the wide 2D tap-sum (r = 3..7) on the tiles the
+rule gives it (``WIDE2D_CELLS``, 8192^2), at the CTA width its library
+reports, to itself on the 2D reserve's old tile and on 32 x 32 pinned,
+bit for bit, and times each (``probe_tapsum2d_wide``);
+``tapsum2d-wide-times`` the times alone (with ``--src``, a parent's
+checkout's kernels and rule: parent, change, change, parent), and
+``tapsum2d-sweep`` runs that on copies of the package whose wide CTA has
+512 or 1024 threads (``TAPSUM2D_SWEEP``).
+
 ``tapsum3d`` does the same for the 3D tap-sum (``stencil_direct3d`` and
 its foil build ``stencil_direct3d_foil``): their ptxas lines, registers
 and stack frames, the CTAs per SM of the radius-1 instantiations at the
@@ -146,10 +158,11 @@ def main(argv) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     optioned = argv[:1] in (["slab"], ["tile"], ["tile-times"], ["tapsum2d"],
-                            ["tapsum2d-times"], ["tapsum3d"], ["tapsum3d-times"],
-                            ["tapsum3d-quick"])
+                            ["tapsum2d-times"], ["tapsum2d-wide"], ["tapsum2d-wide-times"],
+                            ["tapsum3d"], ["tapsum3d-times"], ["tapsum3d-quick"])
     opts = dict(zip(argv[1::2], argv[2::2])) if optioned else {}
-    if (argv not in ([], ["banded"], ["tapsum"], ["tapsum3d-sweep"]) and not optioned
+    if (argv not in ([], ["banded"], ["tapsum"], ["tapsum2d-sweep"], ["tapsum3d-sweep"])
+            and not optioned
             or len(argv) % 2 == 0 and optioned
             or not set(opts) <= {"--src", "--save", "--against"}):
         print(__doc__, file=sys.stderr)
@@ -172,6 +185,11 @@ def main(argv) -> int:
     if argv[:1] in (["tapsum2d"], ["tapsum2d-times"]):
         return 1 if probe_tapsum2d(torch, os.path.dirname(root), opts,
                                    calls=argv[:1] == ["tapsum2d"]) else 0
+    if argv[:1] in (["tapsum2d-wide"], ["tapsum2d-wide-times"]):
+        return 1 if probe_tapsum2d_wide(torch, os.path.dirname(root), opts,
+                                        calls=argv[:1] == ["tapsum2d-wide"]) else 0
+    if argv == ["tapsum2d-sweep"]:
+        return 1 if tapsum2d_sweep(root) else 0
     if argv[:1] in (["tapsum3d"], ["tapsum3d-times"], ["tapsum3d-quick"]):
         return 1 if probe_tapsum3d(torch, os.path.dirname(root), opts,
                                    calls=argv[:1] == ["tapsum3d"],
@@ -894,6 +912,210 @@ def tapsum2d_times(torch, sd, common, make_weights, StencilSpec, full=True):
         plan = stencil_plan(w, (2048, 2048), torch.float32, 4, backend="fused_direct",
                             boundary=bc, batch=16)
         print(f"  16 x 2048^2 {kind} fused_direct {bc}: {ms(torch, lambda: plan(xb), 5):.4f}")
+
+
+#: The wide 2D tap-sum's cells on 8192^2, f32: (pattern, t, the tile the
+#: 2D reserve took where the rule moved it, else None).  Box-2D7R t = 3 /
+#: 4 and Box-2D3R t = 8 moved to 64 x 64; t = 5 (64 x 64) and t = 8 (32 x
+#: 32) did not move; t = 1 and 2, radii 4-6 at t = 1 (their smallest
+#: halos) and Box-2D4R t = 4 stay on 64 x 64, where the layout leaves
+#: three to five CTAs a SM by shared memory; Box-2D4R t = 6 and Box-2D5R
+#: t = 4 moved from 32 x 32.
+WIDE2D_CELLS = (("Box-2D7R", 3, 32), ("Box-2D7R", 4, 16), ("Box-2D3R", 8, 32),
+                ("Box-2D7R", 5, None), ("Box-2D7R", 8, None), ("Box-2D7R", 1, None),
+                ("Box-2D7R", 2, None), ("Box-2D4R", 1, None), ("Box-2D5R", 1, None),
+                ("Box-2D6R", 1, None), ("Box-2D4R", 4, None), ("Box-2D4R", 6, 32),
+                ("Box-2D5R", 4, 32))
+#: The plans timed on the moved cells on the rule's tile and on the tile
+#: the reserve took, pinned (None: auto).
+WIDE2D_REGIMES = ("fused_direct", "fused_matmul", "fused_matmul_reuse",
+                  "fused_sparse_matmul", None)
+#: The probe's grid, and the grid of its checks against the plain version.
+WIDE2D_GRID = (8192, 8192)
+WIDE2D_CHECK_GRID = (1000, 1030)
+#: The 1D lift the 2D rule moved (16 x 32 to 16 x 64 at h = 25..32): Box-1D7R
+#: at t = 4 on a line of 2^26 points, f32, and the lift's old width.
+WIDE1D_CELL, WIDE1D_LINE, WIDE1D_OLD = (("box", 7, 4), 2**26, 32)
+#: The sweep's copies: the default build's CTA width for radii 4..7
+#: (DIRECT_WIDE_THREADS).
+TAPSUM2D_SWEEP = (512, 1024)
+
+
+def probe_tapsum2d_wide(torch, repo: str, opts, calls: bool = True) -> int:
+    """The wide 2D tap-sum on the tiles the rule gives it: the registers and
+    stack frames of the library's instantiations, then on each
+    WIDE2D_CELLS cell (8192^2, f32) the kernel through the plan entry on
+    the rule's tile, at the CTA width its launch recorded
+    (``kernels.launch_tiles``; a checkout without it launches every
+    radius on 256 threads), and on the reserve's old tile and 32 x 32
+    pinned: every output bit for bit the rule's, each timed.  With
+    ``--src`` the checkout's own rule and kernels, so a parent and a
+    change time the same cells in one call.  With ``calls``, also each
+    cell's output against the plain version, Box-2D7R t = 5 under
+    ``zero`` and in bfloat16 on 1000 x 1030 against the plain version,
+    and every WIDE2D_REGIMES plan of the moved cells on the rule's tile
+    and on the old tile pinned (outputs compared, times).  Then the three
+    folded 1D kernels on WIDE1D_CELL on the rule's lift and on the old
+    width pinned (bit for bit, times).  Returns the calls that differ."""
+    import numpy as np
+    sys.path.insert(1, repo)
+    from repro_torch import kernels
+    from repro_torch.kernels import _build, common, stencil_plan
+    from repro_torch.stencil import StencilSpec, make_weights
+    sd = importlib.import_module("repro_torch.kernels.stencil_direct")
+    names = ("stencil_direct", "stencil_direct1d", "stencil_banded1d", "stencil_sparse1d") + (
+        ("stencil_banded", "stencil_sparse") if calls else ())
+    t0 = time.perf_counter()
+    _build.build_all(names)
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    print_resources(("stencil_direct",))
+    tiles = getattr(kernels, "launch_tiles", dict)
+    shape, bad = WIDE2D_GRID, 0
+
+    def differs(tag, y, ref):
+        d = float((y.float() - ref.float()).abs().max())
+        if d != 0.0:
+            print(f"  {tag}: differs from the rule's launch by {d:.3e}")
+        return d != 0.0
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
+                         .astype(np.float32)).cuda()
+    for pattern, t, old in WIDE2D_CELLS:
+        spec = StencilSpec.from_name(pattern)
+        w = np.asarray(make_weights(spec, seed=0), np.float32)
+        r, h = spec.radius, t * spec.radius
+        need = sd.tile_need(shape, r, t, x.dtype)
+        geom = common.launch_geom(shape, h, need=need)
+        smem = common.direct_layout(geom.strip_m, geom.w_tile, h).smem_bytes
+        runs = {f"rule {geom.strip_m}x{geom.w_tile}": geom}
+        for pin in sorted({32, old} - {None} - {geom.strip_m}, reverse=True):
+            # the reserve's old tile, and 32 x 32 beside the rule's 64 x 64
+            what = "old" if pin == old else "pinned"
+            runs[f"{what} {pin}x{pin}"] = common.launch_geom(shape, h, pin, pin, need=need)
+        ref = sd.stencil_direct_at(x, w, t, geom)
+        width = tiles().get("stencil_direct", "/256").split("/")[-1]
+        print(f"{pattern} t={t} (h = {h}) on {shape} f32: {smem} bytes, {width} threads")
+        if calls:
+            err = float((ref - sd.stencil_direct_plain(x, w, t)).abs().max())
+            tol = 1e-5 * t * float(x.abs().max())
+            bad += not err <= tol
+            print(f"  max|err| vs plain {err:.3e} (limit {tol:.3e})")
+        for tag, g in runs.items():
+            bad += differs(f"{pattern} t={t} {tag}", sd.stencil_direct_at(x, w, t, g), ref)
+            print(f"  {tag:28s} "
+                  f"{ms(torch, lambda: sd.stencil_direct_at(x, w, t, g), 5):9.4f} ms")
+        del ref
+    del x
+    bad += wide1d_times(torch, np, StencilSpec, make_weights)
+    if not calls:
+        return bad
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
+                         .astype(np.float32)).cuda()
+    spec = StencilSpec.from_name("Box-2D7R")
+    w = np.asarray(make_weights(spec, seed=1), np.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        for bc in (None, "zero", ("reflect", "periodic")):
+            xs = torch.from_numpy(np.random.default_rng(2).normal(size=WIDE2D_CHECK_GRID)
+                                  .astype(np.float32)).cuda().to(dt)
+            geom = common.launch_geom(xs.shape, 35, need=sd.tile_need(xs.shape, 7, 5, dt))
+            y = sd.stencil_direct_at(xs, w, 5, geom, bc)
+            err = float((y.float() - sd.stencil_direct_plain(xs, w, 5, bc).float())
+                        .abs().max())
+            tol = (1e-5 if dt == torch.float32 else 2**-6) * 5 * float(xs.float().abs().max())
+            bad += not err <= tol
+            print(f"  {WIDE2D_CHECK_GRID} Box-2D7R t=5 {bc} {str(dt)[6:]}: max|err| vs plain "
+                  f"{err:.3e} (limit {tol:.3e})")
+    for pattern, t, old in WIDE2D_CELLS:
+        if old is None:
+            continue
+        w = np.asarray(make_weights(StencilSpec.from_name(pattern), seed=0), np.float32)
+        print(f"{pattern} t={t} plans on {shape} f32, rule's tile / {old}x{old} pinned, ms")
+        for b in WIDE2D_REGIMES:
+            new = stencil_plan(w, shape, torch.float32, t, backend=b)
+            was = stencil_plan(w, shape, torch.float32, t, backend=b, tile_m=old,
+                               w_tile=old)
+            d = float((new(x) - was(x)).abs().max())
+            print(f"  {str(b or 'auto'):20s} {new.backend:20s} {ms(torch, lambda: new(x), 5):9.4f}"
+                  f" / {was.backend:20s} {ms(torch, lambda: was(x), 5):9.4f}  max|diff| {d:.3e}")
+            bad += d != 0.0 and new.backend == was.backend == "fused_direct"
+    print(f"tapsum2d-wide: {bad} launches differ where they must be equal")
+    return bad
+
+
+def wide1d_times(torch, np, StencilSpec, make_weights) -> int:
+    """The folded 1D tap-sum, banded and compacted reuse kernels (f32
+    operands) on WIDE1D_CELL: on the lift the rule gives, and on
+    WIDE1D_OLD pinned, bit for bit, each timed; the launch's recorded
+    tile where the checkout records it.  Returns the calls that differ."""
+    from repro_torch import kernels
+    from repro_torch.kernels import stencil_matmul, stencil_sparse_matmul
+    sd = importlib.import_module("repro_torch.kernels.stencil_direct")
+    (kind, r, t), n = WIDE1D_CELL, WIDE1D_LINE
+    w = np.asarray(make_weights(StencilSpec(kind, 1, r), seed=0), np.float32)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(n,))
+                         .astype(np.float32)).cuda()
+    tiles = getattr(kernels, "launch_tiles", dict)
+    bad = 0
+    print(f"Box-1D{r}R t={t} (h = {r * t}) on ({n},) f32: rule's lift / w_tile "
+          f"{WIDE1D_OLD} pinned, ms")
+    for name, fn, counter in (
+            ("tap-sum", sd.stencil_direct, "stencil_direct1d"),
+            ("banded reuse", stencil_matmul, "stencil_banded1d"),
+            ("compacted reuse", stencil_sparse_matmul, "stencil_sparse1d")):
+        y = fn(x, w, t)
+        tile = tiles().get(counter, "-")
+        y0 = fn(x, w, t, w_tile=WIDE1D_OLD)
+        tile0 = tiles().get(counter, "-")
+        d = float((y - y0).abs().max())
+        bad += d != 0.0
+        print(f"  {name:16s} {ms(torch, lambda: fn(x, w, t), 10):9.4f} / "
+              f"{ms(torch, lambda: fn(x, w, t, w_tile=WIDE1D_OLD), 10):9.4f}  max|diff| {d:.3e}"
+              f"  tiles {tile} / {tile0}")
+    return bad
+
+
+def tapsum2d_sweep(root: str) -> int:
+    """The sweep of the wide 2D tap-sum's CTA width over TAPSUM2D_SWEEP: a
+    copy of the package per point under build/tapsum2d_sweep/ with
+    DIRECT_WIDE_THREADS edited, all built at once, then
+    ``tapsum2d-wide-times`` on each copy in turn.  Returns the copies that
+    failed."""
+    import re
+    import shutil
+    repo = os.path.dirname(root)
+    base = os.path.join(repo, "build", "tapsum2d_sweep")
+    shutil.rmtree(base, ignore_errors=True)
+    copies = {}
+    for a in TAPSUM2D_SWEEP:
+        dst = os.path.join(base, f"A{a}", "src")
+        shutil.copytree(os.path.join(root, "repro_torch"), os.path.join(dst, "repro_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = os.path.join(dst, "repro_torch", "kernels", "csrc", "stencil_direct.cu")
+        with open(path) as f:
+            text = f.read()
+        text, hits = re.subn(r"#define DIRECT_WIDE_THREADS \d+",
+                             f"#define DIRECT_WIDE_THREADS {a}", text)
+        if hits != 1:
+            raise RuntimeError(f"sweep: DIRECT_WIDE_THREADS matched {hits} times")
+        with open(path, "w") as f:
+            f.write(text)
+        copies[a] = dst
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); from repro_torch.kernels "
+             "import _build; _build.build_all(('stencil_direct',))")
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-c", build, d])
+             for k, d in copies.items()}
+    failed = [k for k, p in procs.items() if p.wait() != 0]
+    print(f"sweep: {len(copies)} builds in {time.perf_counter() - t0:.1f} s, "
+          f"{len(failed)} failed {failed}", flush=True)
+    for k, d in copies.items():
+        if k in failed:
+            continue
+        print(f"sweep point DIRECT_WIDE_THREADS={k}", flush=True)
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "tapsum2d-wide-times", "--src", d]).returncode
+        failed += [k] if rc else []
+    return len(failed)
 
 
 #: The 3D tap-sum probe's grids with an axis shallower than the halo

@@ -24,7 +24,8 @@ from .stencil_sparse import (stencil_sparse_matmul, compact_bands,
 from .common import (SubstrateGeom, choose_hblock, pricing_geom,
                      resolve_tile_geom, smem_budget_bytes,
                      substrate_read_amp)
-from ._build import build_all, cluster_ctas, launch_counts, reset_launch_counts
+from ._build import (build_all, cluster_ctas, launch_counts, launch_tiles,
+                     reset_launch_counts)
 
 
 def __getattr__(name):

@@ -89,6 +89,7 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNTS: collections.Counter = collections.Counter()
 _CTAS: Dict[str, int] = {}
+_TILES: Dict[str, str] = {}
 
 #: nvcc's diagnostics (ptxas register and shared-memory report) of the
 #: builds this process ran, by kernel name.
@@ -98,13 +99,18 @@ build_logs: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
 
-def count_launch(name: str, n: int = 1, ctas: int = None) -> None:
+def count_launch(name: str, n: int = 1, ctas: int = None,
+                 tile: str = None) -> None:
     """Count ``n`` launches of ``name`` (a batch past gridDim.z's limit
     launches in chunks: ``common.batch_chunks``); a cluster form's launch
-    also gives the CTAs of its cluster, ``ctas``."""
+    also gives the CTAs of its cluster, ``ctas``, and a 1D or 2D launch
+    the tile it ran on, ``tile`` (``"TMxTN"``; the 2D tap-sum's
+    ``"TMxTN/threads"``, its CTA width)."""
     _COUNTS[name] += n
     if ctas is not None:
         _CTAS[name] = ctas
+    if tile is not None:
+        _TILES[name] = tile
 
 
 def launch_counts() -> Dict[str, int]:
@@ -118,9 +124,17 @@ def cluster_ctas() -> Dict[str, int]:
     return dict(_CTAS)
 
 
+def launch_tiles() -> Dict[str, str]:
+    """The tile (and, for the 2D tap-sum, the CTA width) of each 1D or 2D
+    kernel's last launch since the last :func:`reset_launch_counts`, by
+    counter."""
+    return dict(_TILES)
+
+
 def reset_launch_counts() -> None:
     _COUNTS.clear()
     _CTAS.clear()
+    _TILES.clear()
 
 
 def _nvcc() -> str:

@@ -814,29 +814,18 @@ def _divisors(n: int) -> list:
     return [d for d in range(1, n + 1) if n % d == 0]
 
 
-def tile_smem_bound(tm: int, tn: int, halo: int,
-                    tz: Optional[int] = None) -> int:
-    """The tile rule's reserve at total halo ``halo``: the first half of
-    the rule (:func:`resolve_tile_geom`) keeps every tile it has always
-    picked by holding the candidates to it.
-
-    2D (``tz=None``): the 2D wmma banded kernel before the tile fold at
-    R = halo (monolithic fusion, the deepest K) with the row rounding of
-    the reuse regime, in f32: no kernel launches with it any more
-    (:func:`tile_fold_layout` and :func:`direct_layout`, which the 2D
-    kernels launch with, need less at every tile and halo it admits).  3D:
-    the reserves of both 3D kernels (:func:`direct3d_reserve`, and the
-    banded kernel before the slab fold at every (R, t) with t*R = halo and
-    either operand dtype) and the tap-sum's rings at every such (R, t).
-    The rings exceed the tap-sum's reserve only on tiles one or two
-    planes deep at h >= 5, and move one tile's fit to the budget: 1 x 48
-    x 32 at h = 5 (t = 5, r = 1)."""
-    if tz is None:
-        rows = tm + 2 * halo + MMA_TILE
-        ld = tn + 2 * halo + MMA_TILE + 8
-        chunks = -(-(tn + 2 * halo) // BAND_N)
-        return (_align(rows * ld * 4)
-                + chunks * rows * _round_up(BAND_N + 2 * halo, 16) * 4)
+def tile_smem_bound(tm: int, tn: int, halo: int, tz: int) -> int:
+    """The 3D tile rule's reserve at total halo ``halo`` on a (tz, tm, tn)
+    candidate: the first half of the 3D rule (:func:`resolve_tile_geom`)
+    keeps every 3D tile it has always picked by holding the candidates to
+    it.  It is the most of the reserves of both 3D kernels
+    (:func:`direct3d_reserve`, and the banded kernel before the slab fold
+    at every (R, t) with t*R = halo and either operand dtype) and the
+    tap-sum's rings at every such (R, t).  The rings exceed the tap-sum's
+    reserve only on tiles one or two planes deep at h >= 5, and move one
+    tile's fit to the budget: 1 x 48 x 32 at h = 5 (t = 5, r = 1).  The 2D
+    rule has no reserve: it holds each candidate to the layout the 2D
+    kernel of the launch really takes (:class:`TileNeed`)."""
     return max([direct3d_reserve(tz, tm, tn, halo)]
                + [direct3d_layout(tm, tn, halo // t, t).smem_bytes
                   for t in _divisors(halo)]
@@ -1105,8 +1094,8 @@ class TileNeed:
     """One launch's own shared memory on a candidate tile: ``smem(tz, tm,
     tn)`` bytes (tz = 1 in 2D; in 1D, tn is the lifted tile's width), the
     layout its kernel really launches with.  ``regime`` names it when no
-    candidate fits.  The second half of the tile rule holds the
-    candidates to it where the reserves fit none; ``cluster(tz, tm, tn,
+    candidate fits.  The 2D tile rule holds the candidates to it, the 3D
+    rule where the reserves fit none; ``cluster(tz, tm, tn,
     budget)`` (3D only) is the same layout spread over a thread-block
     cluster (:class:`ClusterLayout`, or None where no cluster of at most 8
     CTAs holds it), the rule's third rung; ``workspace(tz, tm, tn)`` (2D
@@ -1232,11 +1221,18 @@ def _candidates(grid_shape, halo: int, tile_m, w_tile, z_slab) -> list:
         -c[0] * c[1] * c[2]))
 
 
-def _reserve(halo: int, dim: int) -> Callable:
-    """The reserve of a candidate ``(tz, tm, tn)`` (:func:`tile_smem_bound`)."""
-    if dim == 2:
-        return lambda c: tile_smem_bound(c[1], c[2], halo)
+def _reserve(halo: int) -> Callable:
+    """The 3D reserve of a candidate ``(tz, tm, tn)``
+    (:func:`tile_smem_bound`)."""
     return lambda c: tile_smem_bound(c[1], c[2], halo, c[0])
+
+
+def _tapsum2d_need(halo: int) -> TileNeed:
+    """The 2D tap-sum's layout at total halo ``halo`` (:func:`direct_layout`,
+    which depends on the halo alone), with no workspace form: the layout
+    the 2D rule holds a call without a layout of its own to."""
+    return TileNeed("the 2D tap-sum", lambda tz, tm, tn: direct_layout(
+        tm, tn, halo).smem_bytes)
 
 
 def _tile_geom(dim: int, c: tuple, halo: int) -> SubstrateGeom:
@@ -1263,15 +1259,19 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
                       need: Optional[TileNeed] = None) -> SubstrateGeom:
     """THE port's tile rule, by grid rank.
 
-    The first candidate (:func:`_candidates`: 2D the largest output tile,
-    at most PREFERRED_TILE on each axis and a multiple of 16; 3D the least
-    read amplification) whose reserve (:func:`tile_smem_bound`) fits the
-    budget (:func:`smem_budget_bytes`, 227 KB by default), and the
-    launch's own layout ``need`` too (:class:`TileNeed`: the layout its
-    kernel really launches with; the reserves cover every layout of
-    radius 3 and less, so only a wider stencil's, such as a radius-7 3D
-    box's 225 bands, moves a tile here) -- the tile every plan has
-    launched on.  Where no reserve fits, the first candidate, in the same
+    2D (and the 1D lift, whose (1, N) view is a 2D grid): the first
+    candidate (:func:`_candidates`: 64 x 64, 32 x 32, 16 x 16, at most
+    PREFERRED_TILE on each axis and a multiple of 16, pins kept) on which
+    the launch's own layout ``need`` (:class:`TileNeed`: the layout its
+    kernel really launches with) fits the budget
+    (:func:`smem_budget_bytes`, 227 KB by default).  A 2D call without a
+    layout of its own (``need=None``) is held to the 2D tap-sum's
+    (:func:`direct_layout`, with no workspace form), so it gets a tile on
+    which a 2D kernel launches, or the "too deep" error: never a tile that
+    no 2D kernel fits.  3D: the first candidate
+    (the least read amplification) whose reserve (:func:`tile_smem_bound`)
+    fits the budget, and ``need`` too -- the tile every 3D plan has
+    launched on; where no reserve fits, the first candidate, in the same
     order, on which ``need`` fits.  Where that fits none either and
     ``need`` has a cluster form (3D, :class:`TileNeed`), the third rung:
     the first candidate, in the same order, on which the layout spread
@@ -1283,15 +1283,15 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     (the 2D and 3D tap-sums and folds, :class:`TileNeed`), the fourth
     rung: the rule's first candidate, the least read amplification, since
     no shared-memory budget binds a layout that lives in a device
-    workspace (:class:`WorkspaceLayout`).  Without ``need``, or where no
-    rung fits (a 1D launch, a foil), the "too deep" ``ValueError``,
-    naming ``need``'s regime and its least bytes on one CTA.  1D: the
-    pricing geometry of the lift (the kernels launch
-    :func:`lifted_tile_geom`).  ``tile_m`` / ``w_tile`` pin TM / TN
-    (multiples of 16; clamped to the grid rounded up to 16), ``z_slab``
-    pins TZ (3D only; clamped to the grid's depth, the JAX pin's rule); a
-    pinned depth none of whose tiles fits a launch with no workspace form
-    raises with its shared memory.
+    workspace (:class:`WorkspaceLayout`).  Where no rung fits (a 3D call
+    without ``need``, a 1D launch, a foil, a 2D call without a layout of
+    its own), the "too deep" ``ValueError``, naming the layout's regime
+    and its least bytes on one CTA.  1D: the pricing geometry of the lift
+    (the kernels launch :func:`lifted_tile_geom`).  ``tile_m`` /
+    ``w_tile`` pin TM / TN (multiples of 16; clamped to the grid rounded
+    up to 16), ``z_slab`` pins TZ (3D only; clamped to the grid's depth,
+    the JAX pin's rule); a pinned depth none of whose tiles fits a launch
+    with no workspace form raises with its shared memory.
     """
     grid_shape = tuple(int(n) for n in grid_shape)
     if len(grid_shape) == 1:
@@ -1299,10 +1299,15 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     dim = _check_halo(grid_shape, halo)
     cands = _candidates(grid_shape, halo, tile_m, w_tile, z_slab)
     budget = smem_budget_bytes()
-    reserve = _reserve(halo, dim)
+    if dim == 2 and need is None:
+        need = _tapsum2d_need(halo)
     fits = (lambda c: True) if need is None else (
         lambda c: need.smem(*c) <= budget)
-    fit = next((c for c in cands if reserve(c) <= budget and fits(c)), None)
+    fit = None
+    if dim == 3:
+        reserve = _reserve(halo)
+        fit = next((c for c in cands if reserve(c) <= budget and fits(c)),
+                   None)
     if fit is None and need is not None:
         fit = next((c for c in cands if fits(c)), None)
     if fit is None and need is not None and need.cluster is not None:
@@ -1311,7 +1316,7 @@ def resolve_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
         fit = cands[0]
     if fit is not None:
         return _tile_geom(dim, fit, halo)
-    size = reserve if need is None else (lambda c: need.smem(*c))
+    size = _reserve(halo) if need is None else (lambda c: need.smem(*c))
     least = min(size(c) for c in cands)
     if dim == 3 and z_slab is not None:
         whose = "" if need is None else f"{need.regime}'s layout on "
@@ -1327,12 +1332,16 @@ def priced_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
                      w_tile: Optional[int] = None,
                      z_slab: Optional[int] = None,
                      needs=()) -> SubstrateGeom:
-    """The tile a plan's decision prices at the fused halo ``halo``:
-    :func:`resolve_tile_geom`'s where a reserve fits; else the first
-    candidate on which one of ``needs`` (the fused regimes' own layouts)
-    fits; else the rule's first candidate, unbudgeted.  It never raises
-    for depth: every halo the JAX package prices is priced, and a regime
-    that cannot launch raises when it is built.  1D: the lift's pricing
+    """The tile a plan's decision prices at the fused halo ``halo``: the
+    first candidate on which one of ``needs`` (the fused regimes' own
+    layouts: the tap-sum's and the reuse fold's, ``registry.fused_needs``)
+    fits, so the priced read amplification is the one the tap-sum or the
+    reuse fold launches with (2D without ``needs``: the 2D tap-sum's
+    layout, as :func:`resolve_tile_geom`); in 3D :func:`resolve_tile_geom`'s
+    first rung where a reserve fits, and past the reserves the same first
+    fit; else the rule's first candidate, unbudgeted.  It never raises for
+    depth: every halo the JAX package prices is priced, and a regime that
+    cannot launch raises when it is built.  1D: the lift's pricing
     geometry."""
     grid_shape = tuple(int(n) for n in grid_shape)
     if len(grid_shape) == 1:
@@ -1340,8 +1349,12 @@ def priced_tile_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     dim = _check_halo(grid_shape, halo)
     cands = _candidates(grid_shape, halo, tile_m, w_tile, z_slab)
     budget = smem_budget_bytes()
-    reserve = _reserve(halo, dim)
-    fit = next((c for c in cands if reserve(c) <= budget), None)
+    if dim == 2 and not needs:
+        needs = (_tapsum2d_need(halo),)
+    fit = None
+    if dim == 3:
+        reserve = _reserve(halo)
+        fit = next((c for c in cands if reserve(c) <= budget), None)
     if fit is None:
         fit = next((c for c in cands
                     if any(n.smem(*c) <= budget for n in needs)), cands[0])
@@ -1367,8 +1380,8 @@ def launch_geom(grid_shape, halo: int, tile_m: Optional[int] = None,
     """The tile the kernels launch on a grid of this shape at total halo
     ``halo``: :func:`resolve_tile_geom` in 2D and 3D, the lift's
     :func:`lifted_tile_geom` in 1D (where only ``w_tile`` applies), held
-    to the launch's own layout ``need`` where no reserve fits.  Plans
-    resolve it once when built; the wrappers take it as given."""
+    to the launch's own layout ``need`` (in 3D where no reserve fits).
+    Plans resolve it once when built; the wrappers take it as given."""
     if len(grid_shape) == 1:
         return lifted_tile_geom(int(grid_shape[0]), halo, w_tile, need)
     return resolve_tile_geom(grid_shape, halo, tile_m, w_tile, z_slab, need)

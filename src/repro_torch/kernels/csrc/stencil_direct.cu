@@ -41,17 +41,26 @@
 //   * __launch_bounds__(CTA_THREADS, DIRECT_MIN_BLOCKS) bounds the
 //     registers so that that many CTAs share an SM (the main tile's two
 //     buffers take 41,520 bytes, so shared memory allows 5, and 5 run).
+//   * Where a wide radius's (4..7) two buffers leave an SM's shared
+//     memory at most two CTAs (64 x 64 from h = 17 on: 95,024 bytes at h
+//     = 21, 145,840 at h = 35), the default build launches the same body
+//     on a CTA of DIRECT_WIDE_THREADS threads (the staging code
+//     STAGE_REGION_WIDE; the launch picks it, region_stage), which gives
+//     the SM the warps a patch's shared-memory reads hide behind.
 // Every output starts at 0.f and takes fmaf in ascending (dy, dx) order
 // (dy rises with the streamed row), zero taps skipped, in f32, and rounds
 // to the grid's type once, on store: the JAX kernel's order
 // (stencil_direct.py:88-98), so the 2D kernel on the lifted (1, N) view
 // equals the folded 1D tap-sum bit for bit.  The taps come in as a
 // by-value argument, read by the FMAs from the parameter bank; the kernel
-// is specialised on r <= 7.  Radii 4..7 (the wide patch, direct_patch_wide)
-// stream each output row's 2r+1 input rows in a loop over dy, dx unrolled,
-// so a patch reads V (2r+1) rows where the narrow patch reads V + 2r, and
-// its code stays small; their taps, (2r+1)^2 floats (900 bytes at r = 7),
-// are an argument of their own size.  Non-periodic
+// is specialised on r <= 7.  The narrow radii and the wide CTA take
+// direct_patch, which reads each of a patch's V + 2r input rows once and
+// unrolls every row and tap; every other radius 4..7 instantiation
+// (CTA_THREADS, the foil builds, the workspace form) takes
+// direct_patch_wide, which streams each output row's 2r+1 input rows in a
+// loop over dy, dx unrolled (V (2r+1) rows a patch, the smaller code: the
+// unrolled patch takes minutes of ptxas).  The taps of radii 4..7, (2r+1)^2
+// floats (900 bytes at r = 7), are an argument of their own size.  Non-periodic
 // axes are rebuilt in the input buffer before every step by
 // fill_boundary (common.cuh), on the step's input window, as the JAX
 // kernel's apply_boundary_fills does per step; the fill is compiled only
@@ -105,7 +114,17 @@
 // take 50 KB, so shared memory allows 4; the patch's 20 sums and 4 + 2r
 // row cells then fit in registers.  The foil build takes them too, so a
 // foil plan of a wide stencil launches (bit for bit the default kernel).
+// The wide CTA asks for one.
 #define DIRECT_MIN_BLOCKS_WIDE 2
+// The wide CTA's width, and the staging code of its instantiations: the
+// region staging on a CTA of DIRECT_WIDE_THREADS.  Chosen by timing 256,
+// 512 and 1024 threads on the H100 (8192^2, Box-2D4R..7R at h = 4..56:
+// fold_probe.py tapsum2d-sweep on copies of this source, and
+// tapsum2d-wide-times): 512 ran fastest wherever the layout leaves at most
+// two CTAs a SM, 256 where it leaves more (23-30% at r = 4, h = 4; 1.5-2.2x
+// on 32 x 32 tiles at h <= 14); 1024 spilled.
+#define DIRECT_WIDE_THREADS 512
+#define STAGE_REGION_WIDE 3
 // Floats before the first buffer, between the two and after the second:
 // a patch's reads run up to 3 cells past its buffer's rows.  Must match
 // repro_torch/kernels/common.py::DIRECT_MARGIN.
@@ -127,8 +146,12 @@ struct Taps {
 
 // One patch of one step: outputs at rows [r0, r0 + V) (those below r_end
 // stored) and columns [c, c + 4) of `out`, from rows [r0 - R, r0 + V + R)
-// of `in` (clamped to its last row, r_last).
-template <int R, int V, typename TAPS>
+// of `in` (clamped to its last row, r_last).  Each input row q is read
+// once and feeds each output row o it is tap row dy = q - o of, every row
+// and tap unrolled; BY_OUTPUT walks those pairs by o (the order the wide
+// CTA runs fastest in: fold_probe.py tapsum2d-sweep), else by dy.  Either
+// way every output takes its fmaf in ascending (dy, dx) order.
+template <int R, int V, bool BY_OUTPUT, typename TAPS>
 __device__ __forceinline__ void direct_patch(const float* in, float* out, int ld, int r0, int c,
                                              int r_last, int r_end, const TAPS& taps) {
     constexpr int KW = 2 * R + 1;
@@ -142,9 +165,10 @@ __device__ __forceinline__ void direct_patch(const float* in, float* out, int ld
         float v[4 + 2 * R];
         direct_row<R>(in + min(r0 - R + q, r_last) * ld + c, v);
 #pragma unroll
-        for (int dy = 0; dy < KW; ++dy) {
-            const int o = q - dy;  // the output row this input row is tap row dy of
-            if (o < 0 || o >= V) continue;
+        for (int i = 0; i < (BY_OUTPUT ? V : KW); ++i) {
+            const int o = BY_OUTPUT ? i : q - i;  // the output row
+            const int dy = q - o;                 // the tap row input row q is of it
+            if (o < 0 || o >= V || dy < 0 || dy >= KW) continue;
 #pragma unroll
             for (int dx = 0; dx < KW; ++dx) {
                 const float wv = taps.w[dy * KW + dx];
@@ -201,12 +225,12 @@ __device__ __forceinline__ void direct_patch_wide(const float* in, float* out, i
 
 // Stores the TM x TN tile at src (row stride ld, on 16 bytes) to y at
 // (i0, j0), masked at the grid's ragged edge, 4 cells a store where the
-// destination is on 4 * sizeof(T) bytes.
-template <typename T>
+// destination is on 4 * sizeof(T) bytes, by a CTA of NT threads.
+template <int NT, typename T>
 __device__ __forceinline__ void store_tile4(T* __restrict__ y, int H, int W, int i0, int j0,
                                             int TM, int TN, const float* src, int ld) {
     const int gpr = TN >> 2;
-    for (int f = threadIdx.x; f < TM * gpr; f += CTA_THREADS) {
+    for (int f = threadIdx.x; f < TM * gpr; f += NT) {
         const int i = f / gpr;
         const int j = 4 * (f - i * gpr);
         if (i0 + i >= H || j0 + j >= W) continue;
@@ -230,13 +254,22 @@ __device__ __forceinline__ void store_tile4(T* __restrict__ y, int H, int W, int
     }
 }
 
+// The CTA width of a staging code.
+__host__ __device__ constexpr int stage_threads(int stage) {
+    return stage == STAGE_REGION_WIDE ? DIRECT_WIDE_THREADS : CTA_THREADS;
+}
+
 template <typename T, int R, bool FILL, int STAGE>
-__global__ void __launch_bounds__(CTA_THREADS, R <= 3 ? DIRECT_MIN_BLOCKS : DIRECT_MIN_BLOCKS_WIDE)
+__global__ void __launch_bounds__(stage_threads(STAGE),
+                                  STAGE == STAGE_REGION_WIDE ? 1
+                                  : R <= 3                   ? DIRECT_MIN_BLOCKS
+                                                             : DIRECT_MIN_BLOCKS_WIDE)
 stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int TM, int TN,
                       int t, int ld, int my, int mx,
                       const __grid_constant__ KernelTaps<tap_slots(R, 2)> taps,
                       size_t grid_elems DIRECT_WORKSPACE_ARGS) {
     constexpr int V = DIRECT_ROWS;
+    constexpr int NT = stage_threads(STAGE);
 #ifdef REPRO_WORKSPACE
     // this CTA's slice; item i is tile i % tiles of grid i / tiles
     float* const smem = ws + (size_t)blockIdx.x * ws_floats;
@@ -268,8 +301,8 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
     }
 #endif
 
-    if constexpr (STAGE == STAGE_REGION) {
-        count_cta_loads(stage_region(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0));
+    if constexpr (STAGE == STAGE_REGION || STAGE == STAGE_REGION_WIDE) {
+        count_cta_loads(stage_region<NT>(b0, ld, x, H, W, i0 - halo, j0 - halo - lead, rows0));
         cp_async_commit();
         cp_async_wait<0>();
     } else {
@@ -286,7 +319,7 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
     const int g_lo = (lead + R) >> 2;
     const int G = ((lead + cols0 - R + 3) >> 2) - g_lo;
     const int g_first = threadIdx.x % G, b_first = threadIdx.x / G;
-    const int g_step = CTA_THREADS % G, b_step = CTA_THREADS / G;
+    const int g_step = NT % G, b_step = NT / G;
     for (int s = 0; s < t; ++s) {
         float* in = (s & 1) ? b1 : b0;
         float* out = (s & 1) ? b0 : b1;
@@ -302,8 +335,9 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
         for (int g = g_first, b = b_first; b < nb;) {
             const int c = (g_lo + g) * 4;
             if (c + 4 > c_lo && c < c_end) {
-                if constexpr (R <= 3)
-                    direct_patch<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
+                if constexpr (R <= 3 || STAGE == STAGE_REGION_WIDE)
+                    direct_patch<R, V, STAGE == STAGE_REGION_WIDE>(in, out, ld, r_lo + b * V, c,
+                                                                   rows0 - 1, r_end, taps);
                 else
                     direct_patch_wide<R, V>(in, out, ld, r_lo + b * V, c, rows0 - 1, r_end, taps);
             }
@@ -313,7 +347,7 @@ stencil_direct_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, 
         }
         __syncthreads();
     }
-    store_tile4(y, H, W, i0, j0, TM, TN, ((t & 1) ? b1 : b0) + halo * ld + lead + halo, ld);
+    store_tile4<NT>(y, H, W, i0, j0, TM, TN, ((t & 1) ? b1 : b0) + halo * ld + lead + halo, ld);
 #ifdef REPRO_WORKSPACE
     __syncthreads();  // every thread is done with the slice before the next item
     }
@@ -340,6 +374,40 @@ static inline long long direct_smem_bytes(int rows, int ld) {
     return (2LL * rows * ld + 3 * DIRECT_MARGIN) * (long long)sizeof(float);
 }
 
+// Whether this build has the wide CTA (the default build's).
+#if !defined(REPRO_FOIL) && !defined(REPRO_WORKSPACE)
+#define DIRECT_HAS_WIDE_CTA true
+#else
+#define DIRECT_HAS_WIDE_CTA false
+#endif
+
+// The staging code a region launch of radius r on smem_bytes of dynamic
+// shared memory takes on the current device (err: the outcome of the
+// device queries): the wide CTA where this build has it, r is 4..7 and
+// the SM's shared memory holds at most two CTAs of that size (the
+// runtime's reserve per CTA counted), else STAGE_REGION.
+static int region_stage(int r, int smem_bytes, cudaError_t& err) {
+    err = cudaSuccess;
+    if (!DIRECT_HAS_WIDE_CTA || r <= 3) return STAGE_REGION;
+    int dev = 0, per_sm = 0, reserved = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err != cudaSuccess) return STAGE_REGION;
+    return per_sm / (smem_bytes + reserved) <= 2 ? STAGE_REGION_WIDE : STAGE_REGION;
+}
+
+// The instantiation a launch in this staging code takes (direct_kernel).
+template <typename T, int R, int STAGE>
+static auto stage_kernel(int stage, bool fill, cudaError_t& err) {
+    if constexpr (DIRECT_HAS_WIDE_CTA && R > 3 && STAGE == STAGE_REGION) {
+        if (stage == STAGE_REGION_WIDE) return direct_kernel<T, R, STAGE_REGION_WIDE>(fill, err);
+    }
+    return direct_kernel<T, R, STAGE>(fill, err);
+}
+
 template <typename T, int R, int STAGE>
 static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, int ld, int my,
                   int mx, const Taps* taps, int B, long long grid_elems, int smem_bytes,
@@ -350,13 +418,15 @@ static int launch(const void* x, void* y, int H, int W, int TM, int TN, int t, i
     if (TM < 1 || TN < 4 || TN % 4 != 0 || t < 1 || ld % 4 != 0 ||
         ld < lead + TN + 2 * halo || smem_bytes < direct_smem_bytes(TM + 2 * halo, ld))
         return (int)cudaErrorInvalidValue;
-    cudaError_t err;
-    auto* kernel = direct_kernel<T, R, STAGE>(fill, err);
+    cudaError_t err = cudaSuccess;
+    const int stage = STAGE == STAGE_REGION ? region_stage(R, smem_bytes, err) : STAGE;
+    if (err != cudaSuccess) return (int)err;
+    auto* kernel = stage_kernel<T, R, STAGE>(stage, fill, err);
     if (err != cudaSuccess) return (int)err;
     const auto kt = kernel_taps<R, 2>(taps->w);
     return for_each_chunk(B, [&](int b0, int nb) {
         dim3 grid((W + TN - 1) / TN, (H + TM - 1) / TM, nb);
-        kernel<<<grid, CTA_THREADS, smem_bytes, stream>>>(
+        kernel<<<grid, stage_threads(stage), smem_bytes, stream>>>(
             grid_at(static_cast<const T*>(x), b0, grid_elems),
             grid_at(static_cast<T*>(y), b0, grid_elems), H, W, TM, TN, t, ld, my, mx, kt,
             (size_t)grid_elems);
@@ -381,6 +451,17 @@ static int launch_r(const void* x, void* y, int H, int W, int TM, int TN, int t,
 }
 
 #define ARGS x, y, H, W, TM, TN, t, r, ld, mode_y, mode_x, taps, B, grid_elems, smem_bytes, s
+
+// The CTA width a region launch of radius r (1..7) on smem_bytes of
+// dynamic shared memory takes in this build on the current device
+// (region_stage; the foils' stagings all take CTA_THREADS), or minus the
+// cudaError_t of a failed query.
+extern "C" int stencil_direct_threads(int r, int smem_bytes) {
+    if (r < 1 || r > MAX_RADIUS) return -(int)cudaErrorInvalidValue;
+    cudaError_t err;
+    const int stage = region_stage(r, smem_bytes, err);
+    return err == cudaSuccess ? stage_threads(stage) : -(int)err;
+}
 #if defined(REPRO_WORKSPACE)
 // The workspace form's instantiations (radii 1..7, one each per grid
 // dtype, the fill compiled in and gated by the modes at run time) and

@@ -32,14 +32,14 @@ __device__ __forceinline__ void granule(float* dst, const __nv_bfloat16* src) {
 // global cell (r0 + q, c0 + c) taken modulo (H, W), as f32; granule k of
 // row q holds cells [4k, 4k + 4).  Leaves cp.async copies in flight.
 // Returns the cells this thread copied in the counting build, 0 in every
-// other.
-template <typename T>
+// other.  NT: the CTA's threads.
+template <int NT = CTA_THREADS, typename T>
 __device__ __forceinline__ int stage_region(float* buf, int ld, const T* __restrict__ x, int H,
                                             int W, int r0, int c0, int rows) {
     const int gpr = ld >> 2;
     const int n = rows * gpr;
     int cells = 0;
-    for (int f = threadIdx.x; f < n; f += CTA_THREADS) {
+    for (int f = threadIdx.x; f < n; f += NT) {
         COUNT_CELLS(cells, 4);
         const int q = f / gpr;
         const int k = f - q * gpr;

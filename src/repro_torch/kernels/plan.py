@@ -409,12 +409,13 @@ def auto_decision(spec: StencilSpec, grid_shape: Sequence[int], dtype, t: int,
     ``stencil_plan`` and the guard's ladder alike.  Selection prices the
     tile the fused regimes launch with (halo t*r): its read amplification
     (1+2h/TM)(1+2h/TN), times (1+2h/TZ) in 3D, is the region the kernels
-    really load, and the banded chunk width prices S.  Past the halos
-    the tile rule's reserves admit, it is the first tile on which the
-    tap-sum's or the reuse fold's own layout fits, and past those the
-    rule's first candidate (``common.priced_tile_geom``): every signature
-    the JAX package prices is priced, and a regime that cannot launch
-    raises when it is built."""
+    really load, and the banded chunk width prices S.  In 2D (and in 3D
+    past the halos the 3D reserves admit) it is the first tile on which
+    the tap-sum's or the reuse fold's own layout fits, so the priced read
+    amplification is the one that kernel launches with, and past those
+    the rule's first candidate (``common.priced_tile_geom``): every
+    signature the JAX package prices is priced, and a regime that cannot
+    launch raises when it is built."""
     grid_shape = tuple(int(n) for n in grid_shape)
     geom = priced_tile_geom(
         grid_shape, t * spec.radius, tile_m, w_tile, z_slab,

@@ -52,7 +52,7 @@ from .stencil_sparse import (band_meta, compact_bands, sparse_tile_layout,
 def fused_needs(spec: StencilSpec, grid_shape, t: int,
                 dtype: torch.dtype) -> Tuple[TileNeed, ...]:
     """The own layouts of the regimes that launch at the fused halo t*r on
-    the decision's tile, for pricing where no reserve fits: the tap-sum
+    the decision's tile, for pricing (in 3D where no reserve fits): the tap-sum
     and the dense reuse fold, at t steps of the spec's radius (the fold
     with the spec's bands: a box's (2r+1)^(d-1), a star's 4r+1 in 3D and
     2r+1 in 2D)."""
@@ -95,17 +95,24 @@ class PlanContext:
                   regime: str) -> Optional[TileNeed]:
         """The own layout of ``regime``'s launch of ``weights`` at
         ``t_inner`` steps on the ``engine``'s kernel ("direct", "matmul",
-        "sparse_matmul"), or None for the traffic foils, which keep
-        the reserves' tiles."""
-        if self.staging != "region":
+        "sparse_matmul").  A 1D or 2D traffic foil launches its default
+        kernel's layout, so it takes that layout with no workspace form
+        (a foil runs on one CTA a tile); a 3D foil takes None and keeps
+        the 3D reserves' tiles."""
+        if self.staging != "region" and len(self.grid_shape) == 3:
             return None
         if engine == "direct":
             r = (np.asarray(weights).shape[-1] - 1) // 2
-            return _direct.tile_need(self.grid_shape, r, t_inner, self.dtype,
+            need = _direct.tile_need(self.grid_shape, r, t_inner, self.dtype,
                                      regime)
-        mod = _matmul if engine == "matmul" else _sparse
-        return mod.tile_need(self.grid_shape, weights, t_inner, self.dtype,
-                             self.compute_dtype or self.dtype, regime)
+        else:
+            mod = _matmul if engine == "matmul" else _sparse
+            need = mod.tile_need(self.grid_shape, weights, t_inner,
+                                 self.dtype, self.compute_dtype or self.dtype,
+                                 regime)
+        if self.staging != "region":
+            need = dataclasses.replace(need, workspace=None)
+        return need
 
     def launch_geom(self, weights: np.ndarray, t_inner: int,
                     engine: str = "direct",
@@ -114,7 +121,7 @@ class PlanContext:
         fused steps, halo t_inner * R (1D: the lift's (1, N) tile), after
         the kernels' argument rule under the plan's boundary: the tile
         rule's, held to ``regime``'s own layout on the ``engine``'s kernel
-        where no reserve fits (:meth:`tile_need`).  Builders resolve it
+        (in 3D where no reserve fits; :meth:`tile_need`).  Builders resolve it
         here, once, so the tile rule's and the argument rule's errors are
         raised when the plan is built (the JAX builders' ``validate``)."""
         r, _ = check_grid(self.grid_shape, np.asarray(weights), t_inner,

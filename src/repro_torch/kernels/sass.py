@@ -7,7 +7,7 @@ compares the kernels of this checkout (every library of
 another checkout of the repository, both built here with this
 checkout's ``nvcc`` flags, instantiation by instantiation::
 
-    python -m repro_torch.kernels.sass OTHER_CHECKOUT [DIFF_FILE]
+    python -m repro_torch.kernels.sass OTHER_CHECKOUT [DIFF_FILE] [--only NAME,...]
 
 For each instantiation it prints whether the instructions are identical
 and, where not, how many differ and the registers of each, and writes
@@ -18,8 +18,9 @@ other checkout's instantiation without that argument, and instantiations
 are matched by their template arguments whatever their parameters.
 A library the other checkout lacks (its source, or for a second build of
 a source the define that build adds, such as ``REPRO_WORKSPACE``) is
-listed, with its instantiations' registers, as new.  Needs ``nvcc``
-and ``cuobjdump``, not a card.
+listed, with its instantiations' registers, as new.  ``--only`` limits
+the comparison to the libraries named (of ``_build.KERNELS``).  Needs
+``nvcc`` and ``cuobjdump``, not a card.
 """
 from __future__ import annotations
 
@@ -131,7 +132,11 @@ def _builds(root: pathlib.Path, name: str) -> bool:
 
 
 def main(argv: List[str]) -> int:
-    if len(argv) not in (1, 2):
+    kernels = _build.KERNELS
+    if len(argv) >= 2 and argv[-2] == "--only":
+        kernels = tuple(argv[-1].split(","))
+        argv = argv[:-2]
+    if len(argv) not in (1, 2) or not set(kernels) <= set(_build.KERNELS):
         print(__doc__)
         return 2
     other = pathlib.Path(argv[0]).resolve() / "src/repro_torch/kernels/csrc"
@@ -141,12 +146,12 @@ def main(argv: List[str]) -> int:
     jobs = {(side, k): (root / f"{_build.source(k)}.cu", out / f"{side}-{k}.so",
                         _build._flags(k))
             for side, root in (("this", _build.CSRC), ("other", other))
-            for k in _build.KERNELS if _builds(root, k)}
+            for k in kernels if _builds(root, k)}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: _build_lib(*j),
                                        jobs.values())))
     same = total = 0
-    for k in _build.KERNELS:
+    for k in kernels:
         if ("other", k) not in libs:
             for name, n in sorted(registers(libs["this", k]).items()):
                 print(f"{k}: {name}: new in this checkout, {n} registers")

@@ -139,6 +139,20 @@ def _launcher():
 
 
 @functools.lru_cache(maxsize=None)
+def _threads(lib: str, r: int, smem_bytes: int, device: int) -> int:
+    """The CTA width a 2D tap-sum launch of radius ``r`` on
+    ``smem_bytes`` of shared memory takes in the library ``lib`` on card
+    ``device`` (the current one): its ``stencil_direct_threads``, the
+    launch's own rule (the default build's radii 4..7 run on the wide CTA
+    where the SM's shared memory holds at most two CTAs)."""
+    fn = _build.library(lib).stencil_direct_threads
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 2
+    threads = fn(r, smem_bytes)
+    _build.check(-threads if threads < 0 else 0, lib)
+    return threads
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher3d():
     """The 3D kernel's C entry point, built on first use."""
     fn = _build.library("stencil_direct3d").stencil_direct3d_launch
@@ -232,8 +246,8 @@ def tile_need(grid_shape, r: int, t: int, dtype: torch.dtype,
               regime: str = "the tap-sum") -> TileNeed:
     """The tap-sum's own shared memory on a candidate tile at ``t`` steps
     of radius ``r`` on a grid of this shape and dtype (``common.
-    tapsum_need``), which the tile rule holds candidates to where no
-    reserve fits."""
+    tapsum_need``), which the tile rule holds candidates to (in 3D where
+    no reserve fits)."""
     return tapsum_need(len(grid_shape), r, t, dtype.itemsize, regime)
 
 
@@ -359,7 +373,7 @@ def _launch1d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
                  layout.lds, layout.ld, layout.stage_bytes, layout.work_bytes,
                  _DTYPE_CODES[x.dtype], code, b, n, layout.smem_bytes, stream)
     _build.check(err, "stencil_direct1d")
-    _build.count_launch("stencil_direct1d")
+    _build.count_launch("stencil_direct1d", tile=f"{geom.strip_m}x{geom.w_tile}")
     return y
 
 
@@ -419,8 +433,10 @@ def _launch2d(x: torch.Tensor, w32: np.ndarray, t: int, r: int,
                       layout.smem_bytes, stream)
     with torch.cuda.device(x.device):
         err = launch(torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, lib)
-    _build.count_launch(counter, len(batch_chunks(b)))
+        _build.check(err, lib)
+        threads = _threads(lib, r, layout.smem_bytes, x.device.index or 0)
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        tile=f"{geom.strip_m}x{geom.w_tile}/{threads}")
     return y
 
 

@@ -322,7 +322,7 @@ def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
     """The dense fold's own shared memory on a candidate tile at ``t``
     steps of ``weights`` on a grid of this shape and dtype
     (``common.fold_need``; 3D with its cluster form), which the tile rule
-    holds candidates to where no reserve fits."""
+    holds candidates to (in 3D where no reserve fits)."""
     radius = (np.asarray(weights).shape[-1] - 1) // 2
     dzs = band_dzs(weights) if len(grid_shape) == 3 else None
     return fold_need(len(grid_shape), radius, t, dtype.itemsize,
@@ -550,7 +550,7 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], code, b, n,
                  layout.smem_bytes, stream)
     _build.check(err, "stencil_banded1d")
-    _build.count_launch("stencil_banded1d")
+    _build.count_launch("stencil_banded1d", tile=f"{geom.strip_m}x{geom.w_tile}")
     return y
 
 
@@ -579,7 +579,8 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *stage, *codes,
                  *tail, b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter, len(batch_chunks(b)))
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        tile=f"{geom.strip_m}x{geom.w_tile}")
     return y
 
 

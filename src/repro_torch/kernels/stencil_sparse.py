@@ -262,8 +262,8 @@ def tile_need(grid_shape, weights, t: int, dtype: torch.dtype,
               regime: str = "the compacted banded contraction") -> TileNeed:
     """The compacted fold's own shared memory on a candidate tile at ``t``
     steps of ``weights`` (:func:`sparse_tile_layout`'s, as
-    ``common.fold_need``), which the tile rule holds candidates to where
-    no reserve fits."""
+    ``common.fold_need``), which the tile rule holds candidates to (in 3D
+    where no reserve fits)."""
     w = np.asarray(weights, dtype=np.float32)
     radius = (w.shape[-1] - 1) // 2
     meta = band_meta(w, compute_dtype)
@@ -401,7 +401,7 @@ def _launch1d(x, w, t, radius, cdt, geom, code) -> torch.Tensor:
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], code, b, n,
                  layout.smem_bytes, stream)
     _build.check(err, "stencil_sparse1d")
-    _build.count_launch("stencil_sparse1d")
+    _build.count_launch("stencil_sparse1d", tile=f"{geom.strip_m}x{geom.w_tile}")
     return y
 
 
@@ -432,7 +432,8 @@ def _launch2d(x, w, t, radius, cdt, geom, codes,
                  _DTYPE_CODES[x.dtype], _DTYPE_CODES[cdt], *codes, *tail,
                  b, h * wd, layout.smem_bytes, stream)
     _build.check(err, lib)
-    _build.count_launch(counter, len(batch_chunks(b)))
+    _build.count_launch(counter, len(batch_chunks(b)),
+                        tile=f"{geom.strip_m}x{geom.w_tile}")
     return y
 
 

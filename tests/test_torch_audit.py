@@ -48,6 +48,7 @@ from test_torch_slab_fold import emulate_slab  # noqa: E402
 from test_torch_tapsum2d_fold import emulate_tapsum2d  # noqa: E402
 from test_torch_tapsum3d_fold import emulate_tapsum3d  # noqa: E402
 from test_torch_tile_fold import emulate_tile  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -33,6 +33,7 @@ from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from test_torch_plan import J_H100  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
@@ -501,13 +502,14 @@ def test_wrappers_pass_the_mode_codes_to_the_launchers(monkeypatch, mod,
         + ("3d" if len(shape) == 3 else "")
     fake = _FakeLaunch()
     monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(
-        **{f"{name}_launch": fake}))
+        **{f"{name}_launch": fake, "stencil_direct_threads": lambda r, smem: 256}))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
     launcher = m._launcher3d if len(shape) == 3 else m._launcher
     launcher.cache_clear()
+    t_direct._threads.cache_clear()
     try:
         w = np.asarray(make_weights(JSpec("box", len(shape), 1), seed=0),
                        np.float32)

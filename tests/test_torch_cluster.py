@@ -34,6 +34,7 @@ from repro_torch.stencil.weights import fuse_weights, make_weights  # noqa: E402
 import test_torch_slab_fold as sf  # noqa: E402
 import test_torch_tapsum3d_fold as tap3  # noqa: E402
 from test_torch_boundary import _fill_axis  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")

@@ -1,15 +1,19 @@
-"""The port's tile rule past the halos its reserves admit: every tile
-the rule resolved before it learned the kernels' own layouts stays the
-same, and past the reserves each regime's launch takes the first
-candidate its own layout fits, or raises naming itself.
+"""The port's tile rule: every tile and auto decision of the rule as it
+stands, frozen, and past the halos one CTA holds each regime's launch
+taking the first candidate its own layout fits, or raising naming
+itself.
 
-``TILES`` is the tile rule as it stood before its second half (the
-reserves of ``common.tile_smem_bound`` only), frozen: for each grid and
-pins, the tile at every halo, 2D h = 1..32 and 3D h = 1..9, "-" where it
-refused.  ``AUTO`` is the auto decision at full width (8192^2, 512^3, f32)
-for t = 1..8, each without and with ``use_sparse_unit``, "-" where it
-refused; the JAX ``decide`` asked the same question is checked in
-tests/test_torch_wide.py."""
+``TILES`` is the tile rule, frozen: for each grid and pins, the tile at
+every halo, 2D h = 1..32 and 3D h = 1..9, "-" where it refused.  The 3D
+rows, and every 2D row at h <= 16, are the tiles the rule has picked
+since before it learned the kernels' own layouts (the reserves of
+``common.tile_smem_bound``); the 2D and 1D rows past h = 16 are the 2D
+rule's since it holds each candidate to the launch's own layout alone
+(``OLD_TILES``, the 2D reserves' tiles they replaced, are checked
+against the tiles the old rule gives).  ``AUTO`` is the auto decision at
+full width (8192^2, 512^3, f32) for t = 1..8, each without and with
+``use_sparse_unit``, "-" where it refused; the JAX ``decide`` asked the
+same question is checked in tests/test_torch_wide.py."""
 import numpy as np
 import pytest
 import torch
@@ -17,17 +21,20 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.plan import auto_decision
 from repro_torch.stencil.spec import StencilSpec
+from torch_threads import one_intra_op_thread  # noqa: F401
 
-#: The tile before the rule's second half: (grid, pins) -> tiles by halo.
+_64 = ' '.join(['64x64'] * 32)
+
+#: The tile of the rule: (grid, pins) -> tiles by halo.
 TILES = {
-    ((8192, 8192), ()): '64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 16x16 16x16 16x16 16x16 16x16 16x16 16x16',
-    ((1000, 1030), ()): '64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 16x16 16x16 16x16 16x16 16x16 16x16 16x16',
-    ((128, 128), ()): '64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 16x16 16x16 16x16 16x16 16x16 16x16 16x16',
-    ((100, 130), ()): '64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 64x64 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 32x32 16x16 16x16 16x16 16x16 16x16 16x16 16x16',
-    ((500, 500), (('tile_m', 32), ('w_tile', 128))): '32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 32x128 - - - - - - - - - - - - - - - -',
-    ((4096, 4096), (('tile_m', 16),)): '16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32',
-    ((1, 67108864), ()): '16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x64 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32',
-    ((1, 5000), (('w_tile', 32),)): '16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32 16x32',
+    ((8192, 8192), ()): _64,
+    ((1000, 1030), ()): _64,
+    ((128, 128), ()): _64,
+    ((100, 130), ()): _64,
+    ((500, 500), (('tile_m', 32), ('w_tile', 128))): ' '.join(['32x128'] * 32),
+    ((4096, 4096), (('tile_m', 16),)): ' '.join(['16x64'] * 32),
+    ((1, 67108864), ()): ' '.join(['16x64'] * 32),
+    ((1, 5000), (('w_tile', 32),)): ' '.join(['16x32'] * 32),
     ((512, 512, 512), ()): '16x32x32 16x16x32 16x16x32 16x16x32 16x16x16 8x16x32 8x16x16 8x16x16 2x16x16',
     ((60, 70, 130), ()): '16x32x32 16x16x32 16x16x32 16x16x32 16x16x16 8x16x32 8x16x16 8x16x16 2x16x16',
     ((40, 72, 100), ()): '16x32x32 16x16x32 16x16x32 16x16x32 16x16x16 8x16x32 8x16x16 8x16x16 2x16x16',
@@ -38,13 +45,28 @@ TILES = {
     ((60, 70, 130), (('z_slab', 16),)): '16x32x32 16x16x32 16x16x32 16x16x32 16x16x16 - - - -',
 }
 
-#: The auto decision before the rule's second half, by pattern.
+#: The 2D reserves' tiles at h = 17..32, where the 2D rule held every
+#: candidate to the layout of the wmma banded kernel that came before the
+#: tile fold: (grid, pins) -> tiles by halo.
+_OLD = ' '.join(['32x32'] * 9 + ['16x16'] * 7)
+OLD_TILES = {
+    ((8192, 8192), ()): _OLD,
+    ((1000, 1030), ()): _OLD,
+    ((128, 128), ()): _OLD,
+    ((100, 130), ()): _OLD,
+    ((500, 500), (('tile_m', 32), ('w_tile', 128))): ' '.join(['-'] * 16),
+    ((4096, 4096), (('tile_m', 16),)): ' '.join(['16x64'] * 8 + ['16x32'] * 8),
+    ((1, 67108864), ()): ' '.join(['16x64'] * 8 + ['16x32'] * 8),
+    ((1, 5000), (('w_tile', 32),)): ' '.join(['16x32'] * 16),
+}
+
+#: The auto decision of the rule, by pattern.
 AUTO = {
     'Box-2D1R': 'direct direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct',
-    'Box-2D3R': 'direct direct fused_matmul_reuse fused_matmul_reuse fused_matmul fused_matmul fused_matmul_reuse fused_matmul_reuse fused_matmul_reuse fused_matmul fused_matmul fused_matmul fused_matmul fused_matmul fused_direct fused_matmul',
-    'Box-2D7R': 'matmul matmul fused_matmul_reuse fused_matmul fused_matmul fused_matmul fused_matmul fused_matmul - - - - - - - -',
+    'Box-2D3R': 'direct direct fused_matmul_reuse fused_matmul_reuse fused_matmul fused_matmul fused_matmul_reuse fused_matmul_reuse fused_matmul_reuse fused_matmul fused_matmul_reuse fused_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul',
+    'Box-2D7R': 'matmul matmul fused_matmul_reuse fused_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul fused_matmul_reuse fused_sparse_matmul',
     'Star-2D1R': 'direct sparse_matmul fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_matmul fused_matmul fused_direct fused_direct fused_direct fused_direct',
-    'Star-2D3R': 'direct direct fused_direct fused_direct fused_matmul fused_sparse_matmul fused_direct fused_direct fused_matmul_reuse fused_matmul_reuse fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct',
+    'Star-2D3R': 'direct direct fused_direct fused_direct fused_matmul fused_sparse_matmul fused_direct fused_direct fused_matmul_reuse fused_matmul_reuse fused_direct fused_direct fused_direct fused_direct fused_direct fused_sparse_matmul',
     'Box-3D1R': 'matmul matmul fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_sparse_matmul fused_direct fused_direct fused_direct fused_direct',
     'Box-3D2R': 'matmul matmul fused_matmul_reuse fused_matmul fused_direct fused_sparse_matmul fused_direct fused_direct - - - - - - - -',
     'Star-3D1R': 'direct direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct fused_matmul fused_matmul fused_direct fused_direct fused_direct fused_direct fused_direct fused_direct',
@@ -73,9 +95,9 @@ def _needs(grid, h):
 
 @pytest.mark.parametrize("key", list(TILES), ids=str)
 def test_frozen_tiles_are_kept(key):
-    # every halo the reserves admitted keeps its tile, with or without a
-    # launch's own layout; where they refused, a launch with no layout
-    # of its own still refuses
+    # every halo keeps its tile, with or without a launch's own layout;
+    # where the rule refused, a launch with no layout of its own (in 2D:
+    # held to the 2D tap-sum's) still refuses
     grid, pins = key
     pins = dict(pins)
     for h, want in enumerate(TILES[key].split(), start=1):
@@ -95,8 +117,8 @@ def test_frozen_tiles_are_kept(key):
 
 @pytest.mark.parametrize("name", PATTERNS)
 def test_frozen_auto_decisions_are_kept(name):
-    # every signature auto decided before decides the same; the ones it
-    # refused are priced now, at the tile the fused layouts fit
+    # every signature decides as frozen; the 3D ones the rule refused are
+    # priced now, at the tile the fused layouts fit
     spec = StencilSpec.from_name(name)
     shape = (8192, 8192) if spec.dim == 2 else (512,) * 3
     want = iter(AUTO[name].split())
@@ -108,6 +130,151 @@ def test_frozen_auto_decisions_are_kept(name):
             assert (g.h_block, g.w_block) == (t * spec.radius,) * 2
             if w != "-":
                 assert d.backend == w
+
+
+def _old_2d_reserve(tm, tn, halo):
+    """The 2D reserve the rule held every 2D candidate to before it took
+    the launches' own layouts: the wmma banded kernel that came before the
+    tile fold, at R = halo, with the reuse regime's row rounding, f32."""
+    rows = tm + 2 * halo + common.MMA_TILE
+    ld = tn + 2 * halo + common.MMA_TILE + 8
+    chunks = -(-(tn + 2 * halo) // common.BAND_N)
+    return (-(-(rows * ld * 4) // 128) * 128
+            + chunks * rows * (-(-(common.BAND_N + 2 * halo) // 16) * 16) * 4)
+
+
+@pytest.mark.parametrize("key", list(OLD_TILES), ids=str)
+def test_no_2d_tile_moves_where_the_reserve_fit(key):
+    # the 2D reserve's tile (the first candidate whose reserve fits) is the
+    # rule's at every h <= 16 and OLD_TILES' past it, where the rule's
+    # tile is at least as large on both axes; the reserve fit no candidate
+    # of the pinned 32 x 128 tile past h = 16
+    grid, pins = key
+    pins = dict(pins)
+    budget = common.SMEM_BUDGET_BYTES
+    old = iter(OLD_TILES[key].split())
+    for h in range(1, 33):
+        cands = common._candidates(grid, h, pins.get("tile_m"),
+                                   pins.get("w_tile"), None)
+        fit = next((c for c in cands
+                    if _old_2d_reserve(c[1], c[2], h) <= budget), None)
+        was = "-" if fit is None else f"{fit[1]}x{fit[2]}"
+        g = common.resolve_tile_geom(grid, h, pins.get("tile_m"),
+                                     pins.get("w_tile"))
+        if h <= 16:
+            assert was == _tile(g)
+            continue
+        assert was == next(old)
+        if fit is not None:
+            assert g.strip_m >= fit[1] and g.w_tile >= fit[2]
+
+
+def test_the_smoke_pins_the_reserves_old_tiles():
+    # chip_smoke.py's phase wide runs every launch whose tile the rule
+    # moved on the tile the 2D reserve took too: its pins are that tile at
+    # each moved halo (2D 8192^2, the 1D lift of 2^26) and None elsewhere,
+    # past h = 32 too, where the reserve fit no tile
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_pins", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    budget = common.SMEM_BUDGET_BYTES
+    for dim, grid in ((2, (8192, 8192)), (1, (1, 2**26))):
+        for h in range(1, 35):
+            cands = common._candidates(grid, h, None, None, None)
+            old = next((c for c in cands
+                        if _old_2d_reserve(c[1], c[2], h) <= budget), None)
+            g = common.resolve_tile_geom(grid, h)
+            moved = old is not None and (g.strip_m, g.w_tile) != old[1:]
+            want = (None if not moved else (None, old[2]) if dim == 1
+                    else old[1:])
+            assert smoke.reserve_tile(dim, h) == want
+
+
+#: The cells whose 2D tiles moved at full width (8192^2, f32): (pattern,
+#: t, the tap-sum's tile, the reuse fold's tile, auto without and with
+#: the sparse unit).
+MOVED = [("Box-2D7R", 3, "64x64", "64x64", "fused_matmul_reuse",
+          "fused_sparse_matmul"),
+         ("Box-2D7R", 4, "64x64", "64x64", "fused_matmul_reuse",
+          "fused_sparse_matmul"),
+         ("Box-2D3R", 6, "64x64", "64x64", "fused_matmul_reuse",
+          "fused_matmul"),
+         ("Box-2D3R", 7, "64x64", "64x64", "fused_matmul_reuse",
+          "fused_sparse_matmul"),
+         ("Box-2D3R", 8, "64x64", "64x64", "fused_matmul_reuse",
+          "fused_sparse_matmul"),
+         ("Star-2D3R", 7, "64x64", "64x64", "fused_direct", "fused_direct"),
+         ("Star-2D3R", 8, "64x64", "64x64", "fused_direct",
+          "fused_sparse_matmul")]
+
+
+@pytest.mark.parametrize("pattern,t,tapsum,reuse,auto,auto_sparse", MOVED)
+def test_the_priced_tile_is_the_launched_tile(pattern, t, tapsum, reuse,
+                                              auto, auto_sparse):
+    # the decision prices the tile the tap-sum or the reuse fold launches
+    # with, so its read amplification is the one a fused launch loads
+    from repro_torch.kernels import registry
+    spec = StencilSpec.from_name(pattern)
+    shape, h = (8192, 8192), t * spec.radius
+    tap, fold = registry.fused_needs(spec, shape, t, torch.float32)
+    g_tap = common.resolve_tile_geom(shape, h, need=tap)
+    g_fold = common.resolve_tile_geom(shape, h, need=fold)
+    assert (_tile(g_tap), _tile(g_fold)) == (tapsum, reuse)
+    for sparse, want in ((False, auto), (True, auto_sparse)):
+        g, d = auto_decision(spec, shape, torch.float32, t,
+                             use_sparse_unit=sparse)
+        assert g in (g_tap, g_fold) and d.backend == want
+        assert g.read_amp == pytest.approx((1 + 2 * h / g.strip_m)
+                                           * (1 + 2 * h / g.w_tile))
+
+
+def test_the_degraded_budget_takes_32x32_past_half_the_budget(monkeypatch):
+    # the guard's degraded rung halves the budget (116,224 bytes): at h =
+    # 28 (Box-2D7R t = 4) the tap-sum's 64 x 64 buffers take 115,248 bytes
+    # and still fit; from h = 29 on they do not, and the rule takes 32 x 32
+    # (at h = 35, Box-2D7R t = 5: 145,840 bytes on 64 x 64, 84,912 on
+    # 32 x 32), while the reuse fold's 64 x 64 layout still fits
+    half = common.SMEM_BUDGET_BYTES // 2
+    monkeypatch.setenv("REPRO_VMEM_BUDGET", str(half))
+    assert common.direct_layout(64, 64, 28).smem_bytes == 115248 <= half
+    g = common.resolve_tile_geom(
+        (8192, 8192), 28, need=common.tapsum_need(2, 7, 4, 4, "fused_direct"))
+    assert _tile(g) == "64x64"
+    for h in (29, 30, 35):
+        assert common.direct_layout(64, 64, h).smem_bytes > half
+        tap = common.tapsum_need(2, 1, h, 4, "fused_direct")
+        assert _tile(common.resolve_tile_geom((8192, 8192), h, need=tap)) \
+            == "32x32"
+        reuse = common.fold_need(2, 1, h, 4, 4, 3, "fused_matmul_reuse")
+        assert _tile(common.resolve_tile_geom((8192, 8192), h, need=reuse)) \
+            == "64x64"
+    assert common.direct_layout(64, 64, 35).smem_bytes == 145840
+    assert common.direct_layout(32, 32, 35).smem_bytes == 84912
+
+
+@pytest.mark.parametrize("h,smem,ctas,threads", [
+    (7, 49968, 4, 256), (14, 70704, 3, 256), (16, 73776, 3, 256),
+    (17, 81584, 2, 512), (21, 95024, 2, 512), (24, 100400, 2, 512),
+    (28, 115248, 2, 512), (29, 124976, 1, 512), (35, 145840, 1, 512),
+    (56, 165936, 1, 512)])
+def test_the_wide_tapsum_width_follows_the_ctas_per_sm(h, smem, ctas,
+                                                        threads):
+    # the 2D tap-sum's tile at h on 8192^2 (64 x 64 to h = 52, then 32 x
+    # 32), its bytes, the CTAs an H100 SM's 228 KB hold (1 KB reserved
+    # each) and the CTA width a radius-7 launch takes there
+    # (csrc/stencil_direct.cu::region_stage); radius 3 and less keeps
+    # CTA_THREADS wherever one CTA holds its SM
+    import test_torch_tapsum2d_fold as tap2
+    g = common.resolve_tile_geom((8192, 8192), h)
+    lay = common.direct_layout(g.strip_m, g.w_tile, h)
+    assert (g.strip_m, g.w_tile) == ((64, 64) if h <= 52 else (32, 32))
+    assert lay.smem_bytes == smem
+    assert tap2.SM_SMEM_BYTES // (lay.smem_bytes + tap2.CTA_RESERVED_BYTES) == ctas
+    assert tap2.wide_cta(7, lay.smem_bytes) == threads
+    assert tap2.wide_cta(3, lay.smem_bytes) == tap2.THREADS
 
 
 # ---------------------------------------------------------------------------

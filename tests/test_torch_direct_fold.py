@@ -27,6 +27,7 @@ from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 

@@ -26,6 +26,7 @@ from repro_torch import kernels as tk
 from repro_torch.launch.world import run_world
 from repro_torch.stencil import StencilSpec, jacobi_weights, make_weights
 from repro_torch.stencil import distributed as tdist
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 

@@ -35,6 +35,7 @@ from repro_torch.benchmarks import roofline_report, scaling
 from repro_torch.models import base
 from repro_torch.models.api import get_model
 from repro_torch.parallel import sharding
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

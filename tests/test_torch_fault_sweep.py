@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 from repro_torch.testing import fault_sweep
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")

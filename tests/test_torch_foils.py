@@ -28,6 +28,7 @@ from repro_torch.kernels.common import SubstrateGeom  # noqa: E402
 from repro_torch.stencil.weights import fuse_weights  # noqa: E402
 
 from test_torch_plan import tolerance  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
@@ -353,12 +354,13 @@ def test_foil_wrappers_pass_the_staging_code(monkeypatch, mod, shape,
         + ("3d" if len(shape) == 3 else "")
     fake = _FakeLaunch()
     monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(
-        **{f"{name}_launch": fake}))
+        **{f"{name}_launch": fake, "stencil_direct_threads": lambda r, smem: 256}))
     monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
     launcher = m._foil_launcher3d if len(shape) == 3 else m._foil_launcher
     launcher.cache_clear()
+    t_direct._threads.cache_clear()
     tk.reset_launch_counts()
     try:
         w = np.asarray(make_weights(JSpec("box", len(shape), 1), seed=0),

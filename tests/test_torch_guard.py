@@ -28,6 +28,7 @@ from repro_torch.core import events as tevents  # noqa: E402
 from repro_torch.kernels import _build, common, guard as tguard  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.testing import faults as tfaults  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 W = make_weights(JSpec("box", 2, 1), seed=0)
 X = np.random.default_rng(0).normal(size=(64, 128)).astype(np.float32)
@@ -324,17 +325,29 @@ def test_sticky_errors_are_reraised_not_laddered(monkeypatch):
 # The degraded rung, the fault hooks, the grammar, the event log
 # ---------------------------------------------------------------------------
 def test_degraded_rung_shrinks_the_tile(monkeypatch):
-    # r = 3, t = 4 (h = 12): a 64-row tile under 227 KB, 32 under half
+    # r = 3, t = 10 (h = 30): the tap-sum's buffers take 127,024 bytes on
+    # a 64-row tile, under 227 KB but over half of it, so its launches take
+    # 32 under half; the decision's price stays on 64 x 64, where the
+    # reuse fold's layout (62,832 bytes) fits half the budget too
+    from repro_torch.kernels import registry
+    launched = []
+    entry = registry.stencil_direct_at
+
+    def seen(x, w, t, geom, *args):
+        launched.append(geom.strip_m)
+        return entry(x, w, t, geom, *args)
+    monkeypatch.setattr(registry, "stencil_direct_at", seen)
     w = make_weights(JSpec("box", 2, 3), seed=0)
     x = torch.randn(128, 128, generator=torch.Generator().manual_seed(0))
-    normal = tk.stencil_plan(w, (128, 128), torch.float32, 4,
+    normal = tk.stencil_plan(w, (128, 128), torch.float32, 10,
                              backend="fused_direct", device="cpu")
     with tfaults.inject("vmem"):
-        g = tk.guarded_stencil_plan(w, (128, 128), torch.float32, 4,
+        g = tk.guarded_stencil_plan(w, (128, 128), torch.float32, 10,
                                     backend="fused_direct", device="cpu")
         y = g(x)
     assert g.rung == "fused_direct+degraded"
-    assert (normal.geom.strip_m, g.plan.geom.strip_m) == (64, 32)
+    assert launched == [64, 32]             # the failed launch, the rung's
+    assert (normal.geom.strip_m, g.plan.geom.strip_m) == (64, 64)
     assert g.plan.key != normal.key
     assert "REPRO_VMEM_BUDGET" not in os.environ      # pin restored
     torch.testing.assert_close(y, normal(x), rtol=0, atol=0)
@@ -345,7 +358,11 @@ def test_budget_knob(monkeypatch):
     assert tk.smem_budget_bytes() == common.SMEM_BUDGET_BYTES
     monkeypatch.setenv("REPRO_VMEM_BUDGET", str(8 * 1024 * 1024))
     assert tk.smem_budget_bytes() == common.SMEM_BUDGET_BYTES   # ceiling
+    # h = 12: the 2D tap-sum's buffers take 61,952 bytes on 64 x 64,
+    # 25,136 on 32 x 32 and 12,848 on 16 x 16
     monkeypatch.setenv("REPRO_VMEM_BUDGET", "50000")
+    assert common.resolve_tile_geom((128, 128), 12).strip_m == 32
+    monkeypatch.setenv("REPRO_VMEM_BUDGET", "20000")
     assert common.resolve_tile_geom((128, 128), 12).strip_m == 16
     monkeypatch.setenv("REPRO_VMEM_BUDGET", "garbage")
     with pytest.raises(ValueError, match="REPRO_VMEM_BUDGET must be an "

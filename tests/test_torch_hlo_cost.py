@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.core.hlo_cost import COLLECTIVES, ProgramCost, analyze_program
 from repro_torch.launch.world import run_world
 from repro_torch.stencil import StencilSpec
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

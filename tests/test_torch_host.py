@@ -27,6 +27,7 @@ from repro_torch.kernels.stencil_matmul import (  # noqa: E402
 from repro_torch.stencil import boundary as tboundary  # noqa: E402
 from repro_torch.stencil import spec as tspec  # noqa: E402
 from repro_torch.stencil import weights as tweights  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 SPECS = [(shape, dim, r) for shape in ("box", "star") for dim in (1, 2, 3)

@@ -14,6 +14,7 @@ from repro.stencil import StencilSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.audit import scratch  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
@@ -106,10 +107,16 @@ def test_tiles_cover_grid_once_and_reads_cover_halo(grid_shape, halo):
 
 @pytest.mark.parametrize("grid_shape,halo", GEOM_CASES)
 def test_kernel_layouts_fit_under_the_sizing_bound(grid_shape, halo):
+    # a call without a layout of its own is held to the 2D tap-sum's: the
+    # first candidate on which it fits the budget; every layout a 2D
+    # kernel launches with at this halo fits that tile too
     geom = common.resolve_tile_geom(grid_shape, halo)
     tm, tn = geom.strip_m, geom.w_tile
-    bound = common.tile_smem_bound(tm, tn, halo)
-    assert bound <= common.SMEM_BUDGET_BYTES
+    bound = common.SMEM_BUDGET_BYTES
+    for c in common._candidates(grid_shape, halo, None, None, None):
+        if (c[1], c[2]) == (tm, tn):
+            break
+        assert common.direct_layout(c[1], c[2], halo).smem_bytes > bound
     layouts = [common.direct_layout(tm, tn, halo)]
     checks = scratch.audit_layout("tapsum2d", geom, halo, 1, layouts[0])
     for t in range(1, halo + 1):
@@ -155,8 +162,10 @@ def test_tile_pins_and_limits():
     g3 = common.resolve_tile_geom((8, 8, 8), 1)
     assert (g3.dim, g3.z_slab, g3.strip_m, g3.w_tile) == (3, 8, 16, 16)
     assert (g3.z_block, g3.h_block, g3.w_block) == (1, 1, 1)
-    # deep halos shrink the tile before giving up
-    assert common.resolve_tile_geom((4096, 4096), 24).strip_m == 32
+    # deep halos shrink the tile before giving up: at h = 56 the 2D
+    # tap-sum's buffers take 247,808 bytes on 64 x 64, 165,888 on 32 x 32
+    assert common.resolve_tile_geom((4096, 4096), 24).strip_m == 64
+    assert common.resolve_tile_geom((4096, 4096), 56).strip_m == 32
 
 
 def test_priced_geometry_is_the_launched_tile():

@@ -12,6 +12,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.stencil_matmul import stencil_matmul as j_matmul  # noqa: E402
 from repro.stencil import StencilSpec, fuse_weights, make_weights  # noqa: E402
 from repro_torch.kernels.common import BAND_N  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
 

@@ -20,6 +20,7 @@ from repro.models.api import get_model as jax_get_model
 from repro_torch.configs import registry as reg
 from repro_torch.models import base
 from repro_torch.models.api import get_model
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = sorted(reg.ARCHS)

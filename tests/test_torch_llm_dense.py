@@ -17,6 +17,7 @@ from repro.configs.registry import SMOKE as JAX_SMOKE
 from repro.models import layers as jnn
 from repro_torch.configs import SMOKE
 from repro_torch.models import layers as nn
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["llama3.2-1b", "glm4-9b", "deepseek-7b", "tinyllama-1.1b", "internvl2-2b"]
 CASES = [(a, d) for a in ARCHS for d in lp.DTYPES]

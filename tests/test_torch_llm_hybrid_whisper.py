@@ -17,6 +17,7 @@ import llm_parity as lp
 from repro.models import ssm as jssm
 from repro.models import zamba as jzamba
 from repro_torch.models import ssm, whisper, zamba
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["zamba2-1.2b", "whisper-base"]
 CASES = [(a, d) for a in ARCHS for d in lp.DTYPES]

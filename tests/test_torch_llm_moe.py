@@ -16,6 +16,7 @@ import torch
 import llm_parity as lp
 from repro.models import moe as jmoe
 from repro_torch.models import moe
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCHS = ["olmoe-1b-7b", "qwen3-moe-235b-a22b"]
 CASES = [(a, d) for a in ARCHS for d in lp.DTYPES]

@@ -16,6 +16,7 @@ import llm_parity as lp
 from repro.models import rwkv6 as jrwkv6
 from repro_torch.configs import SMOKE
 from repro_torch.models import rwkv6, rwkv_model
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCH = "rwkv6-1.6b"
 

@@ -30,6 +30,7 @@ from repro_torch.examples import quickstart, sweet_spot_explorer
 from repro_torch.kernels import registered_backends
 from repro_torch.kernels.common import BAND_N
 from repro_torch.stencil import StencilSpec
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ("table2", "table3", "table4", "fig10", "fig16", "halo", "scaling",

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.launch.world import run_world
 from repro_torch.parallel.pipeline import bubble_fraction, make_pipelined_step
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 L, D, B, M = 4, 16, 8, 4
 

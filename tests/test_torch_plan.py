@@ -16,6 +16,7 @@ from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.core import perfmodel as tpm  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.stencil import StencilSpec  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 #: The port's H100 data-sheet spec as a JAX HardwareSpec, so the JAX
 #: decision procedure can be asked the same question.

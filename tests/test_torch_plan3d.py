@@ -18,6 +18,7 @@ from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
 
 from test_torch_plan import J_H100, tolerance  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 BACKENDS = ["direct", "fused_direct", "matmul", "fused_matmul",
             "fused_matmul_reuse", None, "reference"]     # None = auto

@@ -8,6 +8,7 @@ import torch
 pytest.importorskip("jax")
 
 from test_torch_plan import check_decision, run_both, tolerance  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("backend", ["matmul", "fused_matmul",

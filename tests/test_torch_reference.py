@@ -11,6 +11,7 @@ from repro.stencil import reference as jref  # noqa: E402
 from repro.stencil import make_weights, StencilSpec  # noqa: E402
 from repro_torch.stencil import reference as tref  # noqa: E402
 from repro_torch.kernels import ref as tkref  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 def _grid(shape, seed=0):

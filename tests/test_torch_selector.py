@@ -15,6 +15,7 @@ from repro_torch.core import perfmodel as tpm  # noqa: E402
 from repro_torch.core import selector as tsel  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.stencil.spec import StencilSpec as TSpec  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 HW = ["A100_DOUBLE", "A100_FLOAT", "TPU_V5E_BF16", "TPU_V5E_INT8_CEILING"]
 GEOMS = [

@@ -21,6 +21,7 @@ from repro_torch.launch.serve import (build_parser, consistency, main,
                                       parse_args, serve_llm, serve_stencil)
 from repro_torch.models import base
 from repro_torch.models.api import get_model
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class TestServeArgValidation:

@@ -20,6 +20,7 @@ from repro_torch.kernels import common, registry  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.stencil import StencilSpec, make_weights  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 #: Grids of the in-port sweep: the 2D one divides into the 9-tile foils'
 #: clamped tiles (16 x 32), the others are ragged.

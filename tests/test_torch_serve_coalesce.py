@@ -19,6 +19,7 @@ from repro_torch.serve.coalesce import (DEFAULT_BUCKETS,  # noqa: E402
                                         DEFAULT_MAX_BATCH,
                                         DEFAULT_QUEUE_TIMEOUT_MS)
 from repro.serve.coalesce import choose_bucket as jchoose  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 def _req(sig, seq, grid=(4, 4), dtype=torch.float32, fill=None, cls=None):

@@ -29,6 +29,7 @@ from repro_torch.serve import (LatencyHistogram, ServeMetrics,  # noqa: E402
                                StencilServer)
 from repro_torch.stencil import StencilSpec, jacobi_weights  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 GRID = (8, 8)
 W_BOX = jacobi_weights(StencilSpec("box", 2, 1))

@@ -38,6 +38,7 @@ from repro_torch.launch.world import run_world
 from repro_torch.models import base
 from repro_torch.models.api import get_model
 from repro_torch.train import steps
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

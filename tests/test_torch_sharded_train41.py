@@ -4,6 +4,7 @@ world of 4 CPU ranks -- data parallel with the parameters sharded over
 ``tests/test_torch_sharded_train.py`` (the 2x2 case and the others)."""
 import sharded_parity as sp
 from repro_torch.launch.world import run_world
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def test_llama_sharded_step_matches_single_device_4x1(tmp_path):

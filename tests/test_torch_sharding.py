@@ -24,6 +24,7 @@ from repro_torch.configs.registry import ARCHS, SHAPES
 from repro_torch.models import base
 from repro_torch.models.api import get_model
 from repro_torch.parallel import sharding
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 MESHES = {
     "single": types.SimpleNamespace(shape={"data": 16, "model": 16},

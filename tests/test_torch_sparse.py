@@ -30,6 +30,7 @@ from repro_torch.core import perfmodel as tpm  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.stencil import StencilSpec, resolve_boundary  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_sparse = importlib.import_module("repro_torch.kernels.stencil_sparse")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")

@@ -32,6 +32,7 @@ from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.kernels import _build, common  # noqa: E402
 from repro_torch.stencil import resolve_boundary  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 
@@ -43,10 +44,23 @@ def _define(name: str) -> int:
     return int(re.search(rf"#define {name} (\d+)\b", SRC).group(1))
 
 
-#: The kernel's patch rows (V) and threads per CTA.
+#: The kernel's patch rows (V), threads per CTA, and threads of the
+#: default build's wide CTA for radii 4..7.
 V = _define("DIRECT_ROWS")
 THREADS = int(re.search(r"#define CTA_THREADS (\d+)\b",
                         (CSRC / "common.cuh").read_text()).group(1))
+WIDE_THREADS = _define("DIRECT_WIDE_THREADS")
+#: An H100 SM's shared memory and the runtime's reserve per CTA, the
+#: device attributes the launch reads to pick the wide CTA.
+SM_SMEM_BYTES, CTA_RESERVED_BYTES = 233472, 1024
+
+
+def wide_cta(r: int, smem_bytes: int, staging: str = "region") -> int:
+    """The CTA width a launch takes on an H100 (region_stage): the wide
+    CTA for a default-build radius 4..7 whose layout leaves the SM's
+    shared memory at most two CTAs, else THREADS."""
+    ctas = SM_SMEM_BYTES // (smem_bytes + CTA_RESERVED_BYTES)
+    return WIDE_THREADS if staging == "region" and r > 3 and ctas <= 2 else THREADS
 
 
 # ---------------------------------------------------------------------------
@@ -73,16 +87,16 @@ class _Smem:
         self.writes[lo:hi] += 1
 
 
-def work_map(G, nb):
-    """The patches (g, b) every thread of a CTA takes in one step, in the
-    kernel's order: thread k starts at (k mod G, k div G) and steps by
-    (THREADS mod G, THREADS div G), carrying g past G into b."""
+def work_map(G, nb, threads=THREADS):
+    """The patches (g, b) every thread of a CTA of ``threads`` takes in one
+    step, in the kernel's order: thread k starts at (k mod G, k div G) and
+    steps by (threads mod G, threads div G), carrying g past G into b."""
     out = []
-    for k in range(THREADS):
+    for k in range(threads):
         g, b = k % G, k // G
         while b < nb:
             out.append((g, b))
-            g, b = g + THREADS % G, b + THREADS // G
+            g, b = g + threads % G, b + threads // G
             if g >= G:
                 g, b = g - G, b + 1
     return out
@@ -119,7 +133,8 @@ def emulate_tapsum2d(x, w, t, geom, modes, staging="region", in_bytes=4,
     and cell by cell where the source is off its granule or wraps
     mid-granule; a foil staging writes the region's cells alone), then
     per step the fill when the region leaves a non-periodic axis, the
-    patches of the work map, and the tile read at (h, lead + h).
+    patches of the work map (on the CTA the launch takes, ``wide_cta``),
+    and the tile read at (h, lead + h).
     ``stats`` counts granule and element copies, and with an "fma" key the
     FMAs the patches issue (one per nonzero tap and patch cell)."""
     b_, H, W = x.shape
@@ -133,6 +148,9 @@ def emulate_tapsum2d(x, w, t, geom, modes, staging="region", in_bytes=4,
     b0 = common.DIRECT_MARGIN
     b1 = b0 + rows0 * ld + common.DIRECT_MARGIN
     assert b1 + rows0 * ld + common.DIRECT_MARGIN == lay.smem_bytes // 4
+    threads = wide_cta(r, lay.smem_bytes, staging)
+    if stats is not None:
+        stats["threads"] = threads
     y = np.full(x.shape, np.nan)
     for b in range(b_):
         for i0 in range(0, H, tm):
@@ -154,7 +172,7 @@ def emulate_tapsum2d(x, w, t, geom, modes, staging="region", in_bytes=4,
                         if _leaves(modes[1], j0 - o, win_, W):
                             _fill_axis(view, 1, j0 - o, W, o, modes[1])
                     _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead,
-                          stats)
+                          stats, threads)
                 fin = bufs[t % 2] + h * ld + lead + h
                 for i in range(min(tm, H - i0)):
                     n = min(tn, W - j0)
@@ -193,17 +211,22 @@ def _stage(sm, xg, base, r0, c0, rows0, cols0, ld, lead, b0, modes, staging,
         sm.write(dst, [cell(q, 4 * k + u - lead) for u in range(4)])
 
 
-def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead, stats=None):
-    """One step: every patch of the work map from buffer ``src`` into
-    ``dst``; each output of the step's window is written once, and no
-    write lands outside ``dst``'s rows."""
+def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead, stats=None,
+          threads=THREADS):
+    """One step: every patch of the work map of a CTA of ``threads`` from
+    buffer ``src`` into ``dst``, each patch summing its nonzero taps only
+    (the kernel skips the zero ones, so a NaN they would read stays out);
+    each output of the step's window is written once, and no write lands
+    outside ``dst``'s rows."""
     g_lo = (lead + r) >> 2
     G = ((lead + cols0 - r + 3) >> 2) - g_lo
     r_lo, r_end = (s + 1) * r, rows0 - (s + 1) * r
     c_lo, c_end = lead + r_lo, lead + cols0 - (s + 1) * r
     nb = -(-(r_end - r_lo) // V)
-    patches = work_map(G, nb)
+    patches = work_map(G, nb, threads)
     assert len(set(patches)) == len(patches) == G * nb
+    nz = w != 0.0
+    taps = w[nz].astype(np.float64)
     sm.writes[:] = 0
     for g, b in patches:
         c = (g_lo + g) * 4
@@ -213,14 +236,11 @@ def _step(sm, src, dst, w, r, kw, s, rows0, cols0, ld, lead, stats=None):
         rows = [sm.read(src + min(r0 - r + q, rows0 - 1) * ld + c - r,
                         src + min(r0 - r + q, rows0 - 1) * ld + c + 4 + r)
                 for q in range(V + 2 * r)]
-        win = np.stack(rows)
-        acc = np.zeros((V, 4))
-        for dy in range(kw):
-            for dx in range(kw):
-                if w[dy, dx] != 0.0:
-                    acc = acc + float(w[dy, dx]) * win[dy:dy + V, dx:dx + 4]
-                    if stats is not None and "fma" in stats:
-                        stats["fma"] += V * 4
+        win = np.lib.stride_tricks.sliding_window_view(np.stack(rows),
+                                                       (kw, kw))
+        acc = win[:, :, nz] @ taps
+        if stats is not None and "fma" in stats:
+            stats["fma"] += V * 4 * len(taps)
         for o in range(V):
             if r0 + o < r_end:
                 assert 0 <= (r0 + o) * ld + c and (r0 + o) * ld + c + 4 <= rows0 * ld
@@ -314,6 +334,30 @@ def test_emulation_on_the_plan_tile_matches_jax(boundary):
     np.testing.assert_allclose(y[0], ref, rtol=0, atol=_tol(x, w, t))
 
 
+@pytest.mark.parametrize("t,boundary,threads", [(2, "zero", 256), (4, None, 512),
+                                                (5, ("reflect", "periodic"), 512)])
+def test_emulation_on_the_wide_64_tile_matches_jax(t, boundary, threads):
+    # Box-2D7R at h = 14, 28 and 35 on 100 x 90: the tile the rule takes (64
+    # x 64; the reserves took 16 x 16 at h = 28) on the CTA width the
+    # launch takes, CTA_THREADS where three CTAs share an SM (70,704
+    # bytes) and DIRECT_WIDE_THREADS where two or one do (115,248 and
+    # 145,840 bytes)
+    from repro.stencil.reference import apply_stencil_steps
+    shape, r = (100, 90), 7
+    x = _grid(shape, 4)
+    w = _weights("box", 2, r)
+    geom = common.launch_geom(shape, t * r,
+                              need=t_direct.tile_need(shape, r, t, torch.float32))
+    assert (geom.strip_m, geom.w_tile) == (64, 64)
+    stats = {"granule": 0, "element": 0}
+    y = emulate_tapsum2d(x[None].astype(np.float64), w, t, geom,
+                         resolve_boundary(boundary, 2), stats=stats)
+    assert stats["threads"] == threads and np.isfinite(y).all()
+    ref = np.asarray(apply_stencil_steps(jnp.asarray(x), jnp.asarray(w), t,
+                                         boundary or "periodic"))
+    np.testing.assert_allclose(y[0], ref, rtol=0, atol=_tol(x, w, t))
+
+
 @pytest.mark.parametrize("n,boundary,r,t", [(67, None, 1, 4), (67, "reflect", 3, 4),
                                             (1000, "zero", 1, 1), (1000, None, 3, 1),
                                             (101, "replicate", 2, 2)])
@@ -404,16 +448,20 @@ TILES = (16, 32, 64)
 
 @pytest.mark.parametrize("halo", list(range(1, 13)) + [16, 24])
 def test_direct_layout_fits_under_the_tile_rule_bound(halo):
-    # every 2D tile the rule can pick at this halo: the new layout, front
-    # pad and margins included, stays under tile_smem_bound where that
-    # fits the budget, so the rule need not move
+    # every 2D tile the rule can pick at this halo: the layout, front pad
+    # and margins included, is the one the rule holds the candidates to,
+    # and the rule's tile is the first candidate on which it fits the
+    # budget
+    need = common.tapsum_need(2, 1, halo, 4, "fused_direct")
+    g = common.resolve_tile_geom((8192, 8192), halo, need=need)
+    assert common.direct_layout(g.strip_m, g.w_tile, halo).smem_bytes <= \
+        common.SMEM_BUDGET_BYTES
     for tm in TILES:
         for tn in TILES:
-            bound = common.tile_smem_bound(tm, tn, halo)
             lay = common.direct_layout(tm, tn, halo)
-            assert lay.smem_bytes <= bound
-            if bound <= common.SMEM_BUDGET_BYTES:
-                assert lay.smem_bytes <= common.SMEM_BUDGET_BYTES
+            assert need.smem(1, tm, tn) == lay.smem_bytes
+            if tm == tn and tm > g.strip_m:
+                assert lay.smem_bytes > common.SMEM_BUDGET_BYTES
             assert lay.rows == tm + 2 * halo and lay.lead == -halo % 4
             assert lay.ld % 4 == 0 and lay.lead + tn + 2 * halo <= lay.ld
             assert lay.ld < lay.lead + tn + 2 * halo + 4
@@ -469,9 +517,37 @@ def test_source_constants_match_the_host():
     # the main build's and the foil build's CTAs per SM
     blocks = [int(n) for n in re.findall(r"#define DIRECT_MIN_BLOCKS (\d+)\b", SRC)]
     assert len(blocks) == 2 and all(2 <= n <= 5 for n in blocks)
-    assert ("__launch_bounds__(CTA_THREADS, R <= 3 ? DIRECT_MIN_BLOCKS : "
-            "DIRECT_MIN_BLOCKS_WIDE)") in SRC
+    bounds = re.search(r"__global__ void __launch_bounds__\((.*?)\)\nstencil_direct_kernel", SRC,
+                       re.S).group(1)
+    assert " ".join(bounds.split()) == (
+        "stage_threads(STAGE), STAGE == STAGE_REGION_WIDE ? 1 : R <= 3 ? "
+        "DIRECT_MIN_BLOCKS : DIRECT_MIN_BLOCKS_WIDE")
     assert 1 <= _define("DIRECT_MIN_BLOCKS_WIDE") <= min(blocks)
+    # the default build's wide CTA for radii 4..7: a whole number of warps
+    # the registers allow (at least 64 a thread), one CTA a SM by its
+    # registers, its own staging code beside common.cuh's, taken by a
+    # region launch where the SM's shared memory holds at most two CTAs of
+    # its layout (the device's attributes; wide_cta emulates it); the
+    # foil and workspace builds keep CTA_THREADS; the wide CTA's patch
+    # walks each input row's outputs by output row, the narrow radii's by
+    # tap row
+    assert WIDE_THREADS % 32 == 0 and WIDE_THREADS > THREADS
+    assert 65536 // WIDE_THREADS >= 64
+    assert _define("STAGE_REGION_WIDE") not in common.STAGE_CODES.values()
+    rule = re.search(r"static int region_stage\(int r, int smem_bytes, cudaError_t& err\) "
+                     r"\{(.*?)\n\}", SRC, re.S).group(1)
+    assert "if (!DIRECT_HAS_WIDE_CTA || r <= 3) return STAGE_REGION;" in rule
+    assert "cudaDevAttrMaxSharedMemoryPerMultiprocessor" in rule
+    assert "cudaDevAttrReservedSharedMemoryPerBlock" in rule
+    assert "return per_sm / (smem_bytes + reserved) <= 2 ? STAGE_REGION_WIDE : STAGE_REGION;" \
+        in rule
+    assert re.search(r"#if !defined\(REPRO_FOIL\) && !defined\(REPRO_WORKSPACE\)\n"
+                     r"#define DIRECT_HAS_WIDE_CTA true", SRC)
+    assert "STAGE == STAGE_REGION ? region_stage(R, smem_bytes, err) : STAGE" in SRC
+    assert "kernel<<<grid, stage_threads(stage), smem_bytes, stream>>>" in SRC
+    assert "if constexpr (R <= 3 || STAGE == STAGE_REGION_WIDE)" in SRC
+    assert "direct_patch<R, V, STAGE == STAGE_REGION_WIDE>(" in SRC
+    assert 'extern "C" int stencil_direct_threads(int r, int smem_bytes)' in SRC
     assert _define("MAX_RADIUS") == t_direct.MAX_RADIUS == 7
     # radii 1..3 keep their 49-slot argument, radii 4..7 take (2r+1)^2
     assert "const __grid_constant__ KernelTaps<tap_slots(R, 2)> taps" in SRC
@@ -490,7 +566,7 @@ def test_source_constants_match_the_host():
     # plane with it); the tile fold's 2D loads and the 3D banded kernels
     # keep common.cuh's load_rect (both return the cells a thread copied:
     # the counting build's count, 0 in every other)
-    assert "int stage_region(" in stage and "stage_region(" in SRC
+    assert "int stage_region(" in stage and "stage_region<NT>(" in SRC
     assert "load_rect(" not in SRC + stage
     assert "int load_rect(" in (CSRC / "common.cuh").read_text()
 
@@ -520,23 +596,32 @@ class _OnCard(torch.Tensor):
         return torch.device("cuda", 0)
 
 
+def _fake_threads(default_build: bool):
+    """A library's stencil_direct_threads on an H100 (``wide_cta``; the
+    foil and workspace builds: THREADS)."""
+    return lambda r, smem: wide_cta(r, smem, "region" if default_build else "foil")
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """The C entries faked, the CUDA context calls made inert, the launch
     counts from 0."""
     fake = _FakeLaunch()
     monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(
-        **{f"{name}_launch": fake}))
+        **{f"{name}_launch": fake,
+           "stencil_direct_threads": _fake_threads(name == "stencil_direct")}))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
     t_direct._launcher.cache_clear()
     t_direct._foil_launcher.cache_clear()
+    t_direct._threads.cache_clear()
     tk.reset_launch_counts()
     yield fake
     t_direct._launcher.cache_clear()
     t_direct._foil_launcher.cache_clear()
+    t_direct._threads.cache_clear()
     tk.reset_launch_counts()
 
 
@@ -565,9 +650,31 @@ def test_wrapper_passes_the_layout(fake_card, staging, dtype, r, t, batch):
     assert args["dtype"] == (1 if dtype == torch.bfloat16 else 0)
     if staging != "region":
         assert args["stage"] == common.STAGE_CODES[staging]
+    # the launch's tile and the CTA width its library reports
+    assert tk.launch_tiles() == {counter: f"{geom.strip_m}x{geom.w_tile}/{THREADS}"}
     taps = args["taps"]._obj
     assert list(taps.w)[:w.size] == w.ravel().tolist()
     assert list(taps.w)[w.size:] == [0.0] * (t_direct.MAX_TAPS - w.size)
+
+
+@pytest.mark.parametrize("r,t,threads", [(7, 1, 256), (7, 2, 256), (4, 5, 512),
+                                         (7, 4, 512), (7, 5, 512), (5, 6, 512),
+                                         (3, 10, 256)])
+def test_wrapper_passes_the_cta_width(fake_card, r, t, threads):
+    # the launch records its tile and the CTA width its library reports
+    # for its layout (stencil_direct_threads: the wide radii on the wide
+    # CTA where their 64 x 64 layout leaves at most two CTAs a SM, h >=
+    # 17; radius 3 and less always CTA_THREADS); the C entry takes no width
+    w = np.asarray(make_weights(JSpec("box", 2, r), seed=0), np.float32)
+    x = torch.zeros((1, 200, 200))
+    geom = common.launch_geom((200, 200), t * r)
+    assert (geom.strip_m, geom.w_tile) == (64, 64)
+    t_direct._launch2d(x, w, t, r, geom, (0, 0))
+    params = _c_params("stencil_direct_launch")
+    args = dict(zip(params, fake_card.args))
+    assert "threads" not in params and len(params) == len(fake_card.args)
+    assert args["smem_bytes"] == common.direct_layout(64, 64, t * r).smem_bytes
+    assert tk.launch_tiles() == {"stencil_direct": f"64x64/{threads}"}
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -29,6 +29,7 @@ from repro.kernels.stencil_sparse import kept_row_fraction as j_kept  # noqa: E4
 from repro.stencil import StencilSpec as JSpec, make_weights  # noqa: E402
 from repro_torch.benchmarks import traffic  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CASES = [(s, r, t) for s in ("box", "star") for r in (1, 2, 3) for t in (1, 2, 4, 8)]
 

@@ -32,6 +32,7 @@ from repro_torch.models import base
 from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
 from repro_torch.train.loop import LoopConfig, train
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _both(**kw):

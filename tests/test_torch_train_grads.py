@@ -15,6 +15,7 @@ import llm_parity as lp
 import train_parity as tp
 from repro_torch.configs import SMOKE
 from repro_torch.models import base
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCHS = sorted(SMOKE)
 

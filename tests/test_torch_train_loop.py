@@ -32,6 +32,7 @@ from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
 from repro_torch.train.loop import LoopConfig, StragglerWatchdog, train
 from repro_torch.train.steps import make_eval_step, make_serve_step, make_train_step
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 STEPS = 5
 

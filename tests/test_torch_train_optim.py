@@ -22,6 +22,7 @@ from repro.parallel import compress as jcompress
 from repro_torch.models import base
 from repro_torch.optim import adamw
 from repro_torch.parallel import compress
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REL = 1e-6
 

@@ -34,6 +34,7 @@ from repro_torch.stencil.spec import StencilSpec  # noqa: E402
 from repro_torch.stencil.weights import make_weights  # noqa: E402
 import test_torch_deep_tiles as deep  # noqa: E402
 import test_torch_tapsum3d_fold as tap3  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 t_direct = importlib.import_module("repro_torch.kernels.stencil_direct")
 t_matmul = importlib.import_module("repro_torch.kernels.stencil_matmul")
@@ -357,7 +358,8 @@ def fake_card(monkeypatch):
     fake, other = _FakeLaunch(), _FakeLaunch()
     fake.other = other
     monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(
-        **{f"{name}_launch": fake if name.endswith("_workspace") else other}))
+        **{f"{name}_launch": fake if name.endswith("_workspace") else other,
+           "stencil_direct_threads": lambda r, smem: 256}))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: types.SimpleNamespace(cuda_stream=0))
@@ -372,7 +374,7 @@ def fake_card(monkeypatch):
     def clear():
         for mod in (t_direct, t_matmul, t_sparse):
             for name in ("_workspace_launcher", "_workspace_launcher3d",
-                         "_launcher", "_launcher3d", "_cluster_launcher3d"):
+                         "_launcher", "_launcher3d", "_cluster_launcher3d", "_threads"):
                 if hasattr(getattr(mod, name, None), "cache_clear"):
                     getattr(mod, name).cache_clear()
         tk.reset_launch_counts()

@@ -31,6 +31,7 @@ import repro_torch.kernels.registry as tregistry  # noqa: E402
 from repro_torch.kernels.ref import oracle_tolerance  # noqa: E402
 from repro_torch.stencil import weights as tweights  # noqa: E402
 import test_torch_workspace_deep as deep  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 CELLS = [("Box-3D3R", 8), ("Box-3D4R", 7), ("Star-3D4R", 7), ("Star-3D4R", 8)]
 

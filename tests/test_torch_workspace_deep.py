@@ -34,6 +34,7 @@ from repro_torch import kernels as tk  # noqa: E402
 from repro_torch.kernels.ref import oracle_tolerance  # noqa: E402
 from repro_torch.stencil import weights as tweights  # noqa: E402
 from repro_torch.stencil.reference import apply_stencil  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 #: The cells: (pattern, t, regime), the shallowest and the deepest the
 #: parent refused of each regime.

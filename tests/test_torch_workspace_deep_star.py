@@ -10,6 +10,7 @@ import torch
 pytest.importorskip("jax")
 
 import test_torch_workspace_deep as deep  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module", autouse=True)

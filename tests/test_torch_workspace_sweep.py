@@ -39,6 +39,7 @@ from repro_torch import kernels as tk  # noqa: E402
 import repro_torch.kernels.registry as tregistry  # noqa: E402
 from repro_torch.kernels.ref import oracle_tolerance  # noqa: E402
 from repro_torch.stencil import weights as tweights  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 REGIMES = ("direct", "fused_direct", "matmul", "fused_matmul",
            "fused_matmul_reuse", "sparse_matmul", "fused_sparse_matmul",
